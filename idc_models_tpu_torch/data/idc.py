@@ -1,0 +1,119 @@
+"""IDC directory-tree image loader (PIL backend).
+
+The counterpart of ``idc_models_tpu/data/idc.py``: a labeled dataset is
+built from ``<root>/<label>/<file>.png`` where the label is the parent
+directory name ('0'/'1'); images decode to float32 in [0, 1] and are
+resized with the same half-pixel bilinear. The file list is sorted,
+shuffled once with a seed, and the split is materialized, so a seed
+gives the same examples and the same split as the JAX package.
+
+PIL is imported only when a file is decoded: the card's machine has no
+PIL, and the synthetic path never needs it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class ArrayDataset:
+    """An in-memory labeled image dataset (NHWC float32 in [0,1])."""
+
+    images: np.ndarray
+    labels: np.ndarray
+
+    def __post_init__(self):
+        if len(self.images) != len(self.labels):
+            raise ValueError(f"{len(self.images)} images but "
+                             f"{len(self.labels)} labels")
+
+    def __len__(self) -> int:
+        return len(self.images)
+
+    def take(self, n: int) -> "ArrayDataset":
+        return ArrayDataset(self.images[:n], self.labels[:n])
+
+    def skip(self, n: int) -> "ArrayDataset":
+        return ArrayDataset(self.images[n:], self.labels[n:])
+
+    def shuffled(self, seed: int) -> "ArrayDataset":
+        perm = np.random.default_rng(seed).permutation(len(self))
+        return ArrayDataset(self.images[perm], self.labels[perm])
+
+
+def list_labeled_files(root: str | os.PathLike,
+                       pattern: str = "*/*.png") -> list[tuple[str, int]]:
+    """Sorted (path, label) pairs; label = parent directory name == '1'."""
+    files = sorted(Path(root).glob(pattern))
+    return [(str(f), int(f.parent.name == "1")) for f in files
+            if f.parent.name in ("0", "1")]
+
+
+def _decode_one(path: str, size: int) -> np.ndarray:
+    from PIL import Image
+
+    with Image.open(path) as im:
+        arr = np.asarray(im.convert("RGB"), np.float32) / 255.0
+    if arr.shape[:2] != (size, size):
+        arr = _resize_bilinear(arr, size)
+    return arr
+
+
+def _resize_bilinear(arr: np.ndarray, size: int) -> np.ndarray:
+    """Naive bilinear with half-pixel centers (``tf.image.resize``'s
+    default, antialias off), as the JAX package resizes."""
+    h, w = arr.shape[:2]
+    fy = np.maximum((np.arange(size) + 0.5) * (h / size) - 0.5, 0.0)
+    fx = np.maximum((np.arange(size) + 0.5) * (w / size) - 0.5, 0.0)
+    y0 = fy.astype(np.int32)
+    x0 = fx.astype(np.int32)
+    y1 = np.minimum(y0 + 1, h - 1)
+    x1 = np.minimum(x0 + 1, w - 1)
+    wy = (fy - y0).astype(np.float32)[:, None, None]
+    wx = (fx - x0).astype(np.float32)[None, :, None]
+    top = arr[y0][:, x0] * (1 - wx) + arr[y0][:, x1] * wx
+    bot = arr[y1][:, x0] * (1 - wx) + arr[y1][:, x1] * wx
+    return top * (1 - wy) + bot * wy
+
+
+def load_directory(root: str | os.PathLike, *, image_size: int = 50,
+                   limit: int | None = None, seed: int = 0,
+                   workers: int = 16) -> ArrayDataset:
+    """Load the ``<root>/<label>/*.png`` tree into an ArrayDataset.
+
+    The file list is shuffled once with `seed` before the optional
+    `limit` is applied ("first N of a shuffled list")."""
+    pairs = list_labeled_files(root)
+    if not pairs:
+        raise FileNotFoundError(f"no <label>/*.png files under {root}")
+    order = np.random.default_rng(seed).permutation(len(pairs))
+    pairs = [pairs[i] for i in order]
+    if limit is not None:
+        pairs = pairs[:limit]
+    labels = np.asarray([l for _, l in pairs], np.int32)
+    with ThreadPoolExecutor(max_workers=workers) as ex:
+        imgs = list(ex.map(lambda p: _decode_one(p[0], image_size), pairs))
+    return ArrayDataset(np.stack(imgs), labels)
+
+
+def train_val_test_split(ds: ArrayDataset,
+                         fractions: tuple[float, float, float] = (0.8, 0.1, 0.1),
+                         *, seed: int | None = None,
+                         ) -> tuple[ArrayDataset, ArrayDataset, ArrayDataset]:
+    """Deterministic materialized 80/10/10 split (shuffled first when
+    `seed` is given), the JAX package's take/skip scheme."""
+    if seed is not None:
+        ds = ds.shuffled(seed)
+    n = len(ds)
+    n_train = int(fractions[0] * n)
+    n_val = int(fractions[1] * n)
+    train = ds.take(n_train)
+    val = ds.skip(n_train).take(n_val)
+    test = ds.skip(n_train + n_val)
+    return train, val, test

@@ -1,0 +1,25 @@
+"""Synthetic IDC-like data for tests, benchmarks, and smoke runs.
+
+A verbatim copy of ``idc_models_tpu/data/synthetic.py::make_idc_like``
+(numpy only), so the same seed gives the same patches in both packages.
+Positive patches get a brighter center blob (a cartoon of IDC nuclei
+density), so a model can demonstrably learn.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def make_idc_like(n: int, size: int = 50, *, seed: int = 0,
+                  pos_fraction: float = 0.5) -> tuple[np.ndarray, np.ndarray]:
+    """Returns (images [n,size,size,3] float32 in [0,1], labels [n] int32)."""
+    rng = np.random.default_rng(seed)
+    labels = (rng.random(n) < pos_fraction).astype(np.int32)
+    imgs = rng.random((n, size, size, 3), dtype=np.float32) * 0.5
+    yy, xx = np.mgrid[0:size, 0:size]
+    c = (size - 1) / 2
+    blob = np.exp(-(((yy - c) ** 2 + (xx - c) ** 2) / (2 * (size / 4) ** 2)))
+    blob = blob[None, :, :, None].astype(np.float32)
+    imgs = imgs + labels[:, None, None, None] * 0.4 * blob
+    return np.clip(imgs, 0.0, 1.0), labels

@@ -1,0 +1,388 @@
+"""Layer library: the counterparts of ``idc_models_tpu/models/core.py``.
+
+Every layer is an ``nn.Module`` whose parameters keep the JAX package's
+names and shapes, so a state-dict key is the JAX tree path with "/"
+spelled "." (``backbone.block_1_depthwise.kernel``) and ``convert.py``
+carries weights across without reshaping:
+
+- conv kernels are HWIO ``[kh, kw, in, out]``;
+- depthwise kernels are ``[kh, kw, 1, C]``;
+- dense kernels are ``[in, out]``;
+- batchnorm has parameters ``scale``/``bias`` and buffers ``mean``/``var``.
+
+Activations are NHWC at every public function. Convolutions hand cuDNN
+an NCHW *view* of the NHWC tensor (``permute``), which is a
+``channels_last`` tensor with the same bytes, so no copy is made.
+
+Train/eval is the module's ``training`` flag (``model.train()`` /
+``model.eval()``), where the JAX package passes ``train=``. Parameters
+are created empty and filled by ``init_params(module, seed)`` from one
+explicit ``torch.Generator``, on the CPU, so a seed gives the same
+weights on every device. (JAX's random stream cannot be reproduced;
+parity tests carry the JAX init over with ``convert.py``.)
+"""
+
+from __future__ import annotations
+
+import math
+from collections.abc import Callable, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from idc_models_tpu_torch.ops import fused_conv
+from idc_models_tpu_torch.ops.fused_conv import same_pads
+
+# ---------------------------------------------------------------------------
+# initializers (Keras-default parity)
+# ---------------------------------------------------------------------------
+
+
+def glorot_uniform_(t: torch.Tensor, fan_in: int, fan_out: int,
+                    generator: torch.Generator) -> None:
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    with torch.no_grad():
+        t.uniform_(-limit, limit, generator=generator)
+
+
+def init_params(module: nn.Module, seed: int) -> nn.Module:
+    """Fill every layer's parameters and state, in registration order,
+    from one CPU generator seeded with `seed`. Returns `module`."""
+    g = torch.Generator().manual_seed(seed)
+    for m in module.modules():
+        if hasattr(m, "reset_parameters"):
+            m.reset_parameters(g)
+    return module
+
+
+def _conv_padding(h: int, w: int, kh: int, kw: int, sh: int, sw: int,
+                  padding) -> tuple[tuple[int, int], tuple[int, int]]:
+    """((top, bottom), (left, right)) for "SAME" (TF-SAME, asymmetric),
+    "VALID", or explicit ((lo_h, hi_h), (lo_w, hi_w)) pairs."""
+    if padding == "SAME":
+        _, _, ph, pw = same_pads(h, w, kh, kw, sh, sw)
+        return ph, pw
+    if padding == "VALID":
+        return (0, 0), (0, 0)
+    (pt, pb), (pl, pr) = padding
+    return (pt, pb), (pl, pr)
+
+
+def _nhwc_conv(x, k_oihw, stride, pads, groups=1):
+    """Convolve an NHWC tensor through cuDNN/oneDNN on its NCHW
+    (channels_last) view. Symmetric padding goes to the conv itself;
+    asymmetric TF-SAME padding (stride 2 at an even size pads (0, 1),
+    which ``padding=`` cannot express) is an explicit ``F.pad``."""
+    (pt, pb), (pl, pr) = pads
+    if pt == pb and pl == pr:
+        conv_pad = (pt, pl)
+    else:
+        x = F.pad(x, (0, 0, pl, pr, pt, pb))
+        conv_pad = (0, 0)
+    y = F.conv2d(x.permute(0, 3, 1, 2), k_oihw, None, stride, conv_pad,
+                 1, groups)
+    return y.permute(0, 2, 3, 1)
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+
+class Dense(nn.Module):
+    """``y = x @ kernel + bias``; kernel [in, out]."""
+
+    def __init__(self, features_in: int, features_out: int, *,
+                 use_bias: bool = True, name: str = "dense"):
+        super().__init__()
+        self.name = name
+        self.kernel = nn.Parameter(torch.empty(features_in, features_out))
+        self.bias = (nn.Parameter(torch.zeros(features_out)) if use_bias
+                     else None)
+
+    def reset_parameters(self, g: torch.Generator) -> None:
+        glorot_uniform_(self.kernel, *self.kernel.shape, g)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        y = x @ self.kernel
+        return y + self.bias if self.bias is not None else y
+
+
+class Conv2d(nn.Module):
+    """2-D convolution on NHWC with an HWIO kernel. `padding` is
+    "SAME" (TF-SAME), "VALID", or explicit ((lo_h, hi_h), (lo_w, hi_w))."""
+
+    def __init__(self, features_in: int, features_out: int,
+                 kernel_size: int | tuple = 3, *, stride: int | tuple = 1,
+                 padding: str | tuple = "SAME", use_bias: bool = True,
+                 name: str = "conv"):
+        super().__init__()
+        kh, kw = ((kernel_size, kernel_size) if isinstance(kernel_size, int)
+                  else kernel_size)
+        self.name = name
+        self.stride = (stride, stride) if isinstance(stride, int) else stride
+        self.padding = padding
+        self.kernel = nn.Parameter(
+            torch.empty(kh, kw, features_in, features_out))
+        self.bias = (nn.Parameter(torch.zeros(features_out)) if use_bias
+                     else None)
+
+    def reset_parameters(self, g: torch.Generator) -> None:
+        kh, kw, cin, cout = self.kernel.shape
+        glorot_uniform_(self.kernel, kh * kw * cin, kh * kw * cout, g)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        kh, kw = self.kernel.shape[:2]
+        pads = _conv_padding(x.shape[1], x.shape[2], kh, kw, *self.stride,
+                             self.padding)
+        k = self.kernel.to(x.dtype).permute(3, 2, 0, 1)   # HWIO -> OIHW
+        y = _nhwc_conv(x, k, self.stride, pads)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y
+
+
+DEPTHWISE_IMPLS = ("grouped", "taps", "fused")
+
+
+class DepthwiseConv2d(nn.Module):
+    """Depthwise conv (MobileNetV2 building block), kernel [kh, kw, 1, C].
+
+    `impl` picks the lowering, same math either way:
+
+    - "grouped": ``F.conv2d(groups=C)`` -- cuDNN's depthwise path;
+    - "taps": explicit kh*kw shifted multiply-accumulates;
+    - "fused": the hand-written CUDA kernel (ops/fused_conv.py) with an
+      identity affine (its plain version on a CPU tensor). Its point is
+      the cross-layer fusion models/mobilenet.py drives through it.
+    """
+
+    def __init__(self, features: int, kernel_size: int | tuple = 3, *,
+                 stride: int | tuple = 1, padding: str = "SAME",
+                 use_bias: bool = False, impl: str = "grouped",
+                 name: str = "dwconv"):
+        super().__init__()
+        if impl not in DEPTHWISE_IMPLS:
+            raise ValueError(f"impl must be grouped|taps|fused, got {impl!r}")
+        if impl in ("taps", "fused") and padding != "SAME":
+            raise ValueError(f"impl={impl!r} implements SAME padding only")
+        kh, kw = ((kernel_size, kernel_size) if isinstance(kernel_size, int)
+                  else kernel_size)
+        self.name = name
+        self.impl = impl
+        self.features = features
+        self.stride = (stride, stride) if isinstance(stride, int) else stride
+        self.padding = padding
+        self.kernel = nn.Parameter(torch.empty(kh, kw, 1, features))
+        self.bias = (nn.Parameter(torch.zeros(features)) if use_bias
+                     else None)
+
+    def reset_parameters(self, g: torch.Generator) -> None:
+        kh, kw = self.kernel.shape[:2]
+        glorot_uniform_(self.kernel, kh * kw, kh * kw, g)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        w = self.kernel.to(x.dtype)
+        kh, kw = w.shape[:2]
+        if self.impl == "fused":
+            ones = torch.ones(self.features, device=x.device)
+            add = (self.bias.float() if self.bias is not None
+                   else torch.zeros(self.features, device=x.device))
+            return fused_conv.fused_depthwise_affine(
+                x.contiguous(), w, ones, add, stride=self.stride,
+                clamp6=False)
+        if self.impl == "taps":
+            sh, sw = self.stride
+            h_out, w_out, (pt, pb), (pl, pr) = same_pads(
+                x.shape[1], x.shape[2], kh, kw, sh, sw)
+            xp = F.pad(x, (0, 0, pl, pr, pt, pb))
+            y = None
+            for i in range(kh):
+                for j in range(kw):
+                    xs = xp[:, i:i + (h_out - 1) * sh + 1:sh,
+                            j:j + (w_out - 1) * sw + 1:sw, :]
+                    t = xs * w[i, j, 0]
+                    y = t if y is None else y + t
+        else:
+            pads = _conv_padding(x.shape[1], x.shape[2], kh, kw,
+                                 *self.stride, self.padding)
+            y = _nhwc_conv(x, w.permute(3, 2, 0, 1), self.stride, pads,
+                           groups=self.features)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y
+
+
+class BatchNorm(nn.Module):
+    """Keras BatchNormalization, which ``nn.BatchNorm2d`` is not:
+
+    - the batch variance is biased, ``E[x^2] - E[x]^2``;
+    - `momentum` weighs the OLD statistic (Keras: 0.99; MobileNetV2 0.999);
+    - eps defaults to 1e-3;
+    - ``frozen=True`` (Keras ``trainable=False``) always runs in
+      inference mode with the moving statistics and never updates them,
+      whatever the train flag.
+
+    In train mode the moving statistics are updated in place (the JAX
+    layer returns them as new state)."""
+
+    def __init__(self, features: int, *, momentum: float = 0.99,
+                 eps: float = 1e-3, frozen: bool = False, name: str = "bn"):
+        super().__init__()
+        self.name = name
+        self.momentum = momentum
+        self.eps = eps
+        self.frozen = frozen
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def reset_parameters(self, g: torch.Generator) -> None:
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.zero_()
+            self.mean.zero_()
+            self.var.fill_(1.0)
+
+    def forward(self, x):
+        xf = x.float()
+        if self.training and not self.frozen:
+            axes = tuple(range(x.dim() - 1))
+            mean = xf.mean(axes)
+            var = xf.square().mean(axes) - mean ** 2
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        inv = torch.rsqrt(var + self.eps) * self.scale
+        return ((xf - mean) * inv + self.bias).to(x.dtype)
+
+
+def relu6(x):
+    return torch.clamp(x, 0.0, 6.0)
+
+
+# ---------------------------------------------------------------------------
+# composition
+# ---------------------------------------------------------------------------
+
+
+class _LayerView:
+    """``run.params[name]`` / ``run.state[name]``: one layer's parameters
+    or buffers as a dict, read when a unit asks."""
+
+    def __init__(self, layers: nn.Module, kind: str):
+        self._layers, self._kind = layers, kind
+
+    def __getitem__(self, name: str) -> dict[str, torch.Tensor]:
+        layer = self._layers.get_submodule(name)
+        return dict(getattr(layer, f"named_{self._kind}")(recurse=False))
+
+
+class _Run:
+    """The `run(layer_name, h)` handle a unit threads its activation
+    through, with `run.params`, `run.state` and `run.train` views so a
+    unit may lower a chain that spans layers (mobilenet's fused
+    depthwise+BN+relu6)."""
+
+    def __init__(self, layers: nn.Module):
+        self._layers = layers
+        self.params = _LayerView(layers, "parameters")
+        self.state = _LayerView(layers, "buffers")
+        self.train = layers.training
+
+    def __call__(self, name: str, h):
+        return self._layers.get_submodule(name)(h)
+
+
+class UnitBackbone(nn.Module):
+    """A backbone composed of topology *units* over a FLAT namespace of
+    Keras-named layers (the counterpart of ``core.unit_backbone``).
+
+    `units` is a list of (layer_names, unit_fn) where
+    ``unit_fn(run, h) -> h`` applies the unit's layers through
+    ``run(layer_name, h)``. A unit that lowers across layer boundaries
+    must be value-equivalent to the per-layer composition, and may
+    bypass `run` only for layers whose state it provably leaves
+    unchanged (frozen/eval BN)."""
+
+    def __init__(self, units: Sequence[tuple[list[str], Callable]],
+                 layers: dict[str, nn.Module], name: str):
+        super().__init__()
+        self.name = name
+        self._units = list(units)
+        for n, m in layers.items():
+            self.add_module(n, m)
+
+    @property
+    def layer_names(self) -> tuple[str, ...]:
+        return tuple(n for ns, _ in self._units for n in ns)
+
+    def forward(self, x):
+        run = _Run(self)
+        for _, unit_fn in self._units:
+            x = unit_fn(run, x)
+        return x
+
+
+class Classifier(nn.Module):
+    """Backbone + GlobalAveragePooling + Dense head, the model shape every
+    reference workload shares. Parameters: ``backbone.*`` and ``head.*``."""
+
+    def __init__(self, backbone: nn.Module, feature_dim: int,
+                 num_outputs: int, name: str | None = None):
+        super().__init__()
+        self.name = name or f"{backbone.name}_classifier"
+        self.backbone = backbone
+        self.head = Dense(feature_dim, num_outputs, name="head")
+
+    def forward(self, x):
+        h = self.backbone(x)
+        return self.head(h.mean(dim=(1, 2)))   # GlobalAveragePooling2D
+
+
+# ---------------------------------------------------------------------------
+# trainability masks
+# ---------------------------------------------------------------------------
+
+
+def trainability_mask(module: nn.Module,
+                      predicate: Callable[[tuple[str, ...]], bool]
+                      ) -> dict[str, bool]:
+    """{parameter name: trainable}. `predicate` receives the path as a
+    tuple of keys, e.g. ("backbone", "Conv1", "kernel"), as in the JAX
+    package. Feed the result to ``train.state.rmsprop``."""
+    return {n: bool(predicate(tuple(n.split("."))))
+            for n, _ in module.named_parameters()}
+
+
+def count_params(module: nn.Module) -> int:
+    return sum(p.numel() for p in module.parameters())
+
+
+def head_only_mask(module: nn.Module) -> dict[str, bool]:
+    """Phase-1 transfer-learning mask: only the "head" subtree trains."""
+    return trainability_mask(module, lambda p: p[0] == "head")
+
+
+def keras_fine_tune_mask(module: nn.Module, index_map: dict[str, int],
+                         fine_tune_at: int) -> dict[str, bool]:
+    """Phase-2 mask: head + backbone layers whose Keras layer index is
+    >= fine_tune_at (Keras ``layers[:fine_tune_at].trainable = False``)."""
+
+    def pred(path):
+        if path[0] == "head":
+            return True
+        return index_map.get(path[1], -1) >= fine_tune_at
+
+    return trainability_mask(module, pred)

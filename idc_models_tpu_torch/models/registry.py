@@ -1,0 +1,47 @@
+"""Model registry: name -> constructor, masks, fine-tune default.
+
+The counterpart of ``idc_models_tpu/models/registry.py`` for the models
+ported so far (MobileNetV2). One card, world size 1: no partition rules.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections.abc import Callable
+
+from torch import nn
+
+from idc_models_tpu_torch.models import mobilenet
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSpec:
+    build: Callable[..., nn.Module]   # (num_outputs, in_channels, **kw)
+    head_only_mask: Callable          # module -> {name: bool}
+    fine_tune_mask: Callable          # (module, fine_tune_at) -> {name: bool}
+    default_fine_tune_at: int
+
+
+REGISTRY: dict[str, ModelSpec] = {
+    "mobilenet_v2": ModelSpec(mobilenet.mobilenet_v2,
+                              mobilenet.head_only_mask,
+                              mobilenet.fine_tune_mask,
+                              default_fine_tune_at=100),
+}
+
+
+def get_model(name: str) -> ModelSpec:
+    if name not in REGISTRY:
+        raise KeyError(f"unknown model {name!r}; have {sorted(REGISTRY)}")
+    return REGISTRY[name]
+
+
+# What "fused backbone" means per model: for MobileNetV2 the fused
+# depthwise chain (the hand-written CUDA kernel) is opt-in, "grouped"
+# (cuDNN) the default, as in the JAX package.
+FUSED_BUILD_KWARGS: dict[str, dict] = {
+    "mobilenet_v2": {"depthwise_impl": "fused"},
+}
+UNFUSED_BUILD_KWARGS: dict[str, dict] = {
+    "mobilenet_v2": {"depthwise_impl": "grouped"},
+}

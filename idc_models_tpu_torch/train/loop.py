@@ -1,0 +1,232 @@
+"""Training orchestration: epoch loops, evaluation, prediction and the
+two-phase transfer-learning schedule.
+
+The counterpart of ``idc_models_tpu/train/loop.py`` on one card:
+evaluate the untrained floor on a few validation batches -> fit N epochs
+with the backbone frozen (head-only mask at `lr`) -> unfreeze the layers
+at and above ``fine_tune_at`` with a fresh RMSprop at ``lr / 10`` -> fit
+the remaining epochs, continuing the epoch counter with ``seed + 1``.
+
+Phase 1 and phase 2 are two builds of the model (every BN frozen, then
+only the BNs below ``fine_tune_at``), as in the JAX package; phase 2
+starts from phase 1's parameters and BN statistics. A frozen parameter
+does not require grad, so autograd computes nothing for it and the
+optimizer never sees it.
+
+Left out of this port so far: ``central_storage``, ``cache_features``,
+resume checkpoints and ``plot_history``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+from torch import nn
+
+from idc_models_tpu_torch import resolve_device
+from idc_models_tpu_torch.data.idc import ArrayDataset
+from idc_models_tpu_torch.data.pipeline import Loader, eval_batches, to_device
+from idc_models_tpu_torch.models import core, registry
+from idc_models_tpu_torch.observe.timer import Timer
+from idc_models_tpu_torch.train import losses
+from idc_models_tpu_torch.train import metrics as metrics_lib
+from idc_models_tpu_torch.train.state import TrainState, rmsprop
+from idc_models_tpu_torch.train.step import make_eval_step, make_train_step
+
+History = dict[str, list[float]]
+
+
+def _model_device(model: nn.Module) -> torch.device:
+    return next(model.parameters()).device
+
+
+def batched_logits(model: nn.Module, ds: ArrayDataset, batch_size: int,
+                   steps: int | None = None) -> torch.Tensor:
+    """Eval-mode logits of the first `steps` batches of `ds` (all of
+    them when None; the final batch is partial, so every example counts
+    once), concatenated in order on the model's device."""
+    device = _model_device(model)
+    step = make_eval_step(model, losses.binary_cross_entropy)
+    parts = [step(x, y)["logits"] for x, y in
+             to_device(eval_batches(ds, batch_size, steps=steps), device)]
+    return torch.cat(parts)
+
+
+def evaluate(model: nn.Module, ds: ArrayDataset, loss_fn, *,
+             batch_size: int = 32, steps: int | None = None,
+             with_auroc: bool = False) -> dict[str, float]:
+    """Loss and accuracy (and AUROC of the sigmoid scores) over `ds`, or
+    its first `steps` batches, in eval mode on the model's device."""
+    logits = batched_logits(model, ds, batch_size, steps)
+    labels = torch.from_numpy(ds.labels[:len(logits)]).to(logits.device)
+    out = {"loss": float(loss_fn(logits, labels)),
+           "accuracy": float(metrics_lib.auto_accuracy(logits, labels))}
+    if with_auroc:
+        out["auroc"] = float(metrics_lib.auroc(
+            torch.sigmoid(logits.reshape(-1)), labels))
+    return out
+
+
+def predict(model: nn.Module, images, *, batch_size: int = 32) -> np.ndarray:
+    """Eval-mode logits for every image, in order, as a host array (the
+    Keras ``model.predict`` convenience)."""
+    images = np.asarray(images, np.float32)
+    if len(images) == 0:
+        with torch.no_grad():
+            probe = torch.zeros((1,) + images.shape[1:],
+                                device=_model_device(model))
+            model.eval()
+            shape = model(probe).shape
+        return np.zeros((0,) + tuple(shape[1:]), np.float32)
+    ds = ArrayDataset(images, np.zeros((len(images),), np.int32))
+    return batched_logits(model, ds, batch_size).cpu().numpy()
+
+
+def fit(state: TrainState, loss_fn, train_ds: ArrayDataset,
+        val_ds: ArrayDataset | None, *, epochs: int,
+        batch_size: int = 32, initial_epoch: int = 0, seed: int = 0,
+        logger=None, verbose: bool = True) -> History:
+    """Keras-``fit``-shaped epoch loop on the model's device.
+
+    Returns the history ({"loss", "accuracy", "val_loss",
+    "val_accuracy"} per epoch). Batch order is the JAX package's
+    (``Loader``'s (seed, epoch) contract), so the same seed feeds the
+    same batches in the same order. Per-step metrics stay on the device
+    and are read once per epoch. A non-finite epoch loss raises
+    ``FloatingPointError`` naming the first bad step."""
+    model = state.model
+    device = _model_device(model)
+    step = make_train_step(state, loss_fn)
+    loader = Loader(train_ds, batch_size, shuffle=True, seed=seed)
+    history: History = {"loss": [], "accuracy": [],
+                        "val_loss": [], "val_accuracy": []}
+    for epoch in range(initial_epoch, epochs):
+        step_losses, step_accs = [], []
+        for x, y in to_device(loader.epoch(epoch), device):
+            m = step(x, y)
+            step_losses.append(m["loss"])
+            step_accs.append(m["accuracy"])
+        loss_arr = torch.stack(step_losses).cpu()
+        ep = {"loss": float(loss_arr.mean()),
+              "accuracy": float(torch.stack(step_accs).mean())}
+        if not np.isfinite(ep["loss"]):
+            bad = int(np.flatnonzero(~np.isfinite(loss_arr.numpy()))[0])
+            raise FloatingPointError(
+                f"non-finite training loss ({ep['loss']}) at epoch "
+                f"{epoch + 1}, step {bad + 1}/{len(step_losses)}: the "
+                f"parameters and optimizer state are corrupt from that "
+                f"step on -- lower the lr or check the input data for "
+                f"NaN/Inf")
+        if val_ds is not None:
+            vm = evaluate(model, val_ds, loss_fn, batch_size=batch_size)
+            ep["val_loss"] = vm["loss"]
+            ep["val_accuracy"] = vm["accuracy"]
+        for k, v in ep.items():
+            history[k].append(v)
+        if verbose:
+            msg = " ".join(f"{k}={v:.4f}" for k, v in ep.items())
+            print(f"epoch {epoch + 1}/{epochs} {msg}")
+        if logger is not None:
+            logger.log(event="epoch", epoch=epoch, **ep)
+    return history
+
+
+@dataclasses.dataclass(frozen=True)
+class TwoPhaseConfig:
+    """The reference's training hyperparameters in one place."""
+
+    lr: float = 1e-3
+    epochs: int = 10               # phase-1 (frozen backbone) epochs
+    fine_tune_epochs: int = 10     # additional phase-2 epochs
+    batch_size: int = 32
+    fine_tune_at: int | None = None  # None -> registry default
+    eval_steps: int | None = 20    # batches of the untrained-floor sample
+    seed: int = 0
+
+
+@dataclasses.dataclass
+class TwoPhaseResult:
+    model: nn.Module               # the phase-2 model (for inference)
+    history: History
+    history_fine: History
+    baseline: dict[str, float]
+    pretrain_seconds: float
+    fine_tune_seconds: float
+    train_steps: tuple[int, int]   # optimizer steps in phase 1, phase 2
+
+
+_FREEZE_ALL = 10_000  # larger than any Keras layer index
+
+
+def two_phase_fit(model_name: str, num_outputs: int, train_ds: ArrayDataset,
+                  val_ds: ArrayDataset,
+                  config: TwoPhaseConfig = TwoPhaseConfig(), *,
+                  loss_fn=None,
+                  build_kwargs: dict | None = None,
+                  pretrained_weights: str | None = None,
+                  logger=None, device=None) -> TwoPhaseResult:
+    """The reference's two-phase transfer-learning program.
+
+    Phase 1: head-only training at `lr` with every BN frozen. Phase 2:
+    the layers with Keras index >= fine_tune_at unfrozen, a fresh
+    RMSprop at lr/10, the epoch counter continued and the shuffle seeded
+    with seed + 1. `build_kwargs` go to the model constructor
+    (``registry.FUSED_BUILD_KWARGS[name]`` selects the fused depthwise
+    kernel). `device` is CUDA unless "cpu" is asked for."""
+    device = resolve_device(device)
+    if loss_fn is None:
+        loss_fn = (losses.binary_cross_entropy if num_outputs == 1
+                   else losses.sparse_categorical_cross_entropy)
+    spec = registry.get_model(model_name)
+    fine_tune_at = (config.fine_tune_at if config.fine_tune_at is not None
+                    else spec.default_fine_tune_at)
+    kw = dict(build_kwargs or {})
+
+    model1 = spec.build(num_outputs, bn_frozen_below=_FREEZE_ALL, **kw)
+    core.init_params(model1, config.seed)
+    if pretrained_weights is not None:
+        from idc_models_tpu_torch.models.pretrained import (
+            maybe_load_pretrained,
+        )
+
+        maybe_load_pretrained(model1, pretrained_weights)
+    model1.to(device)
+
+    state1 = TrainState(model1, rmsprop(
+        model1, config.lr, trainable_mask=spec.head_only_mask(model1)))
+    baseline = evaluate(model1, val_ds, loss_fn, batch_size=config.batch_size,
+                        steps=config.eval_steps)
+    print(f"initial loss: {baseline['loss']:.2f}")
+    print(f"initial accuracy: {baseline['accuracy']:.2f}")
+
+    with Timer(f"Pre-training for {config.epochs} epochs",
+               logger=logger) as t1:
+        history = fit(state1, loss_fn, train_ds, val_ds,
+                      epochs=config.epochs, batch_size=config.batch_size,
+                      seed=config.seed, logger=logger)
+
+    # Phase 2: "recompile" = a fresh optimizer (and moments) at lr/10 with
+    # the fine-tune mask; BN below fine_tune_at stays in inference mode
+    model2 = spec.build(num_outputs, bn_frozen_below=fine_tune_at,
+                        **kw).to(device)
+    model2.load_state_dict(model1.state_dict())
+    del model1
+    state2 = TrainState(model2, rmsprop(
+        model2, config.lr / 10.0,
+        trainable_mask=spec.fine_tune_mask(model2, fine_tune_at)))
+    total_epochs = config.epochs + config.fine_tune_epochs
+    with Timer(f"Fine tuning for {config.fine_tune_epochs} epochs",
+               logger=logger) as t2:
+        history_fine = fit(state2, loss_fn, train_ds, val_ds,
+                           epochs=total_epochs, batch_size=config.batch_size,
+                           initial_epoch=config.epochs, seed=config.seed + 1,
+                           logger=logger)
+    print(history)
+    print(history_fine)
+    return TwoPhaseResult(
+        model=model2, history=history, history_fine=history_fine,
+        baseline=baseline, pretrain_seconds=t1.seconds,
+        fine_tune_seconds=t2.seconds,
+        train_steps=(state1.step, state2.step))
