@@ -9,20 +9,37 @@ non-zero before the result line:
 1. device -- require CUDA; print the card's name and power limit;
 2. build  -- compile every hand-written kernel from
    idc_models_tpu_torch/ops/csrc/ with nvcc (one process per source, all
-   started together);
-3. parity -- TF32 off; each kernel against its plain PyTorch version on
-   the card, at every shape the main path gives it (f32 and bf16) and on
-   the op-level grid of the tests, plus one backward;
-4. main path -- `idc_models_tpu_torch.cli.main(["mobile",
-   "--depthwise-impl", "fused", ...])`: MobileNetV2 at full width,
-   batch 32, lr 1e-4, fine-tune at 100, one epoch per phase on 512
-   synthetic 50x50 patches, then `predict` over the test split with the
-   trained weights; launch counts held to the count the schedule implies,
-   the predictions held against the cuDNN (grouped) build of the same
-   weights;
+   started together) and print each one's ptxas registers;
+3. parity -- TF32 off; the fused depthwise kernel against its plain
+   PyTorch version at every shape the main path gives it (f32 and bf16)
+   and on the op-level grid of the tests, plus one backward; the secure
+   masking kernel against its plain version bit for bit (sizes 1 to
+   14.7M, 1 to 10 clients, seeds 0 and 0xFFFFFFFF, inputs at and past
+   the clip and at exact half-steps), and its masks cancelling over the
+   8 clients of a round;
+4. main path -- two paths, each with every launch count set to 0 just
+   before it and read just after:
+   (a) `cli.main(["mobile", "--depthwise-impl", "fused", ...])`:
+       MobileNetV2 at full width, batch 32, lr 1e-4, fine-tune at 100,
+       one epoch per phase on 512 synthetic 50x50 patches, then
+       `predict` over the test split with the trained weights; launches
+       held to the count the schedule implies, predictions held against
+       the cuDNN (grouped) build of the same weights;
+   (b) `cli.main(["secure-fed", "--mask-impl", "pallas", ...])`: the
+       secure_fed preset (the small CNN at full width, 8 clients, 5 local
+       epochs, batch 32, percent 0.5) for 3 rounds on 2048 synthetic
+       10x10 patches; launches held to rounds x clients = 24, finite
+       round metrics, no client recovered, nothing clipped;
+   then (c) one `secure_aggregate` of fixed MobileNetV2 client updates
+   through the kernel, through threefry on the card and through the
+   plain version on the CPU, held bit-identical to each other and to
+   dequantize(sum of quantize); (d) one MobileNetV2 secure round
+   through the kernel (50x50, 2 clients x 32 patches);
 5. times -- CUDA-event times of each kernel, its plain version and the
-   nearest library call at the main path's shapes (batch 32) and at the
-   benchmark batch (4096), and host-clock times of the train steps;
+   nearest library call (for the masking kernel: the threefry path) at
+   the main path's shapes and at larger ones, with the least time the
+   card could take; host-clock times of the train steps and of secure
+   rounds (pallas against threefry);
 
 then one JSON line of per-kernel numbers, and the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}`.
@@ -46,6 +63,24 @@ REPO = Path(__file__).resolve().parent
 # cores (a depthwise conv has no contraction for the tensor cores to take)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+# int32 operations: at most 128 lanes per SM per clock -- four warp
+# schedulers, each dispatching one 32-lane instruction a clock; the same
+# rate, an FMA counted twice, gives the data sheet's 67 TFLOP/s f32 --
+# times 132 SMs, times the SM clock read from nvidia-smi at run time. (The
+# 64-lane rate of the int32 ALU pipe alone is no bound for this kernel:
+# its multiplies run on the FMA pipe beside it, and it ran at 14.7M
+# elements in less time than 64 lanes would allow.)
+INT32_LANES_PER_SM, H100_SMS = 128, 132
+# the secure masking kernel's work per element, counted from its source:
+# 8 bytes (f32 in, int32 out); 5 operations (the clip's min and max, the
+# scale, one round-and-convert, the index product) plus 18 per peer with
+# a nonzero sign (the seed xor; two fmix32 of 3 shift/xor pairs = 12;
+# their 4 multiplies; the signed add, one multiply-add)
+MASK_BYTES_PER_ELEM, MASK_OPS_BASE, MASK_OPS_PER_PEER = 8, 5, 18
+SB, CLIP = 20, 64.0
+MASK_SIZES = [1, 127, 1_920, 192_576, 2**20 + 3, 14_714_688]
+MASK_TIME_SIZES = [1_920, 192_576, 262_144, 4_194_304, 14_714_688,
+                   33_554_432]
 
 F32_TOL = dict(rtol=1e-5, atol=1e-6)   # same f32 arithmetic, same order
 BF16_TOL = dict(rtol=1e-2, atol=1e-2)  # one bf16 rounding of equal f32 sums
@@ -63,6 +98,14 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
 def tf32_off(torch) -> None:
@@ -134,6 +177,7 @@ def main_path(torch, fc, mobilenet, card: str) -> dict:
     from idc_models_tpu_torch.data.pipeline import Loader
     from idc_models_tpu_torch.models import registry
     from idc_models_tpu_torch.models.pretrained import load_pretrained_file
+    from idc_models_tpu_torch.ops import secure_masking_kernel as smk
     from idc_models_tpu_torch.train.loop import predict
 
     preset = get_preset("mobile")
@@ -146,7 +190,7 @@ def main_path(torch, fc, mobilenet, card: str) -> dict:
                                                seed=seed)
         train, val, test = train_val_test_split(ArrayDataset(imgs, labels),
                                                 seed=seed)
-        fc.KERNEL.launches = 0
+        fc.KERNEL.launches = smk.KERNEL.launches = 0
         t0 = time.perf_counter()
         rc = cli.main(argv)
         params, state = load_pretrained_file(Path(tmp) / "model.npz")
@@ -157,6 +201,9 @@ def main_path(torch, fc, mobilenet, card: str) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = fc.KERNEL.launches
+        if smk.KERNEL.launches:
+            raise SystemExit(f"the mobile path launched the masking kernel "
+                             f"{smk.KERNEL.launches} times")
         records = [json.loads(line) for line in
                    (Path(tmp) / "logs" / "run.jsonl").read_text().splitlines()]
     if rc != 0:
@@ -291,11 +338,12 @@ def host_ms(torch, fn, n: int = 30, warmup: int = 3) -> float:
     return (time.perf_counter() - t0) / n * 1e3
 
 
-def profiled(torch, fn, n: int = 10) -> str:
+def profiled(torch, fn, n: int = 10,
+             kernel: str = "fused_depthwise_kernel") -> str:
     """Where one call's time goes, from torch.profiler over `n` calls:
     device-busy ms (the kernels' summed device time) against wall ms, the
-    idle share, the fused kernel's device time per launch, and the five
-    kernels with the most device time."""
+    idle share, the device time per launch of the kernel whose name
+    holds `kernel`, and the five kernels with the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -318,12 +366,12 @@ def profiled(torch, fn, n: int = 10) -> str:
     busy = sum(e.self_device_time_total for e in kernels) / n / 1e3
     if busy == 0:
         return f"profiler saw no device time ({wall!r} ms wall per call)"
-    fused = [e for e in kernels if "fused_depthwise_kernel" in e.key]
-    launches = sum(e.count for e in fused)
-    fused_us = sum(e.self_device_time_total for e in fused)
-    per_launch = (f"{fused_us / launches!r} us device time per fused "
+    ours = [e for e in kernels if kernel in e.key]
+    launches = sum(e.count for e in ours)
+    ours_us = sum(e.self_device_time_total for e in ours)
+    per_launch = (f"{ours_us / launches!r} us device time per {kernel} "
                   f"launch over {launches} launches" if launches
-                  else "no fused launches")
+                  else f"no {kernel} launches")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
     return (f"device busy {busy!r} ms of {wall!r} ms wall per call under "
             f"the profiler (idle share {1 - busy / wall!r}); {per_launch}; "
@@ -377,6 +425,320 @@ def step_times(torch, card: str) -> None:
                 f"{profiled(torch, calls[(what, impl)])}; {card}")
 
 
+def masking_input(torch, gen, size: int):
+    """f32 [size]: normal draws, with the clip edges (at, past, far past)
+    and exact half-steps (k + 0.5) * 2^-sb at the front and spread
+    through, where round-half-to-even decides."""
+    x = torch.randn(size, device="cuda", generator=gen) * 40
+    k = torch.randint(-2**20, 2**20, (size,), device="cuda", generator=gen)
+    half = (k.double() + 0.5).float() * 2.0 ** -SB
+    x[::3] = half[::3]
+    edges = torch.tensor([CLIP, -CLIP, 64.5, -64.5, 1e9, -1e9, 0.0,
+                          0.5 * 2**-SB, -0.5 * 2**-SB, 1.5 * 2**-SB,
+                          -2.5 * 2**-SB], device="cuda")
+    n = min(size, len(edges))
+    x[:n] = edges[:n]
+    return x
+
+
+def masking_parity(torch, smk) -> float:
+    """The secure masking kernel against its plain version, bit for bit
+    (torch.equal on int32), then the masks of one round's 8 clients
+    cancelling in the int32 sum. Returns the largest |kernel - plain|."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    worst, cases = 0, 0
+    for size in MASK_SIZES:
+        x = masking_input(torch, gen, size)
+        for n in (1, 2, 8, 10):
+            runs = [smk.pair_seeds_and_signs(base, me, n, device="cuda")
+                    for base in (0, 0xFFFFFFFF) for me in {0, n - 1}]
+            # raw seeds 0 and 0xFFFFFFFF, both signs and a skipped peer
+            raw = torch.tensor([0, 0xFFFFFFFF, 0x9E3779B1, 1][:n] + [7] * (n - 4),
+                               dtype=torch.int64, device="cuda")
+            signs = torch.tensor(([-1, 1, 0, 1] * 3)[:n], dtype=torch.int32,
+                                 device="cuda")
+            runs.append((raw, signs))
+            for seeds, sg in runs:
+                got = smk.fused_masked_quantize(x, seeds, sg, scale_bits=SB,
+                                                clip_abs=CLIP)
+                torch.cuda.synchronize()
+                want = smk.masked_quantize_reference(x, seeds, sg,
+                                                     scale_bits=SB,
+                                                     clip_abs=CLIP)
+                err = int((got.long() - want.long()).abs().max())
+                worst = max(worst, err)
+                cases += 1
+                if not torch.equal(got, want):
+                    raise SystemExit(
+                        f"secure masking kernel differs from its plain "
+                        f"version at size {size}, {n} clients, seeds "
+                        f"{seeds.tolist()}: max |err| {err}")
+        del x
+    log(f"parity: secure masking kernel equals its plain version bit for "
+        f"bit in {cases} cases (sizes {MASK_SIZES}, 1/2/8/10 clients, "
+        f"seeds from bases 0 and 0xFFFFFFFF and raw seeds 0 and "
+        f"0xFFFFFFFF, inputs at +-{CLIP}, past it and at half-steps)")
+
+    n, size = 8, 192_576
+    xs = [masking_input(torch, gen, size) for _ in range(n)]
+    masked = torch.zeros(size, dtype=torch.int64, device="cuda")
+    plain = torch.zeros(size, dtype=torch.int64, device="cuda")
+    for i, x in enumerate(xs):
+        seeds, sg = smk.pair_seeds_and_signs(0xC0FFEE, i, n, device="cuda")
+        masked += smk.fused_masked_quantize(x, seeds, sg, scale_bits=SB,
+                                            clip_abs=CLIP)
+        plain += smk.quantize_f32(x, SB, CLIP)
+    if not torch.equal(smk.wrap_int32(masked), smk.wrap_int32(plain)):
+        raise SystemExit("the kernel's masks do not cancel over 8 clients")
+    log(f"parity: the int32 sum of 8 clients' kernel outputs equals the "
+        f"int32 sum of their quantized values ({size} elements)")
+    return float(worst)
+
+
+def secure_path(torch, fc, smk, card: str) -> dict:
+    """Drive `secure-fed --mask-impl pallas` at the preset and hold its
+    launches and round records to what the schedule implies."""
+    from idc_models_tpu_torch import cli
+    from idc_models_tpu_torch.configs import get_preset
+
+    preset = get_preset("secure_fed")
+    rounds = 3
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["secure-fed", "--mask-impl", "pallas", "--synthetic-examples",
+                "2048", "--rounds", str(rounds), "--seed", "0", "--path", tmp]
+        fc.KERNEL.launches = smk.KERNEL.launches = 0
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {"fused": fc.KERNEL.launches, "masking": smk.KERNEL.launches}
+        records = [json.loads(line) for line in
+                   (Path(tmp) / "logs" / "run.jsonl").read_text().splitlines()]
+    if rc != 0:
+        raise SystemExit(f"cli.main returned {rc}")
+    rounds_rec = [r for r in records if r["event"] == "round"]
+    if len(rounds_rec) != rounds:
+        raise SystemExit(f"expected {rounds} round records, got "
+                         f"{[r['event'] for r in records]}")
+    for r in rounds_rec:
+        for k in ("train_loss", "train_accuracy", "test_loss",
+                  "test_accuracy", "test_auroc"):
+            if not math.isfinite(r[k]):
+                raise SystemExit(f"non-finite {k} in {r}")
+        if r["clients_recovered"] != 0 or r["clip_saturated"] != 0:
+            raise SystemExit(f"round recovered or clipped: {r}")
+    expected = rounds * preset.num_clients
+    log(f"main path: cli.main({' '.join(argv[:-1])} <tmp>) in {seconds!r} s; "
+        f"rounds {[(r['train_loss'], r['test_loss'], r['test_accuracy'], r['test_auroc']) for r in rounds_rec]} "
+        f"(train loss, test loss, accuracy, AUROC); masking kernel launches "
+        f"{launches['masking']} (expected {rounds} rounds x "
+        f"{preset.num_clients} clients = {expected}), fused depthwise "
+        f"launches {launches['fused']}; {card}")
+    if launches["masking"] != expected or launches["fused"] != 0:
+        raise SystemExit(f"kernel launches {launches} != masking {expected}")
+    return {"launches": launches["masking"], "seconds": seconds}
+
+
+def mobilenet_updates(torch, n: int, seed: int):
+    """A fresh MobileNetV2's weights and n clients' updates of them (the
+    weights plus noise; BN moving variances kept positive), on the CPU."""
+    from idc_models_tpu_torch.models import core, registry
+
+    model = core.init_params(registry.get_model("mobilenet_v2").build(1), seed)
+    gen = torch.Generator().manual_seed(seed)
+    params = {k: v.detach().clone() for k, v in model.named_parameters()}
+    state = {k: v.detach().clone() for k, v in model.named_buffers()}
+
+    def noisy(tree, scale):
+        out = {}
+        for k, v in tree.items():
+            d = torch.randn((n,) + v.shape, generator=gen) * scale
+            out[k] = v + (d.abs() if k.endswith(".var") else d)
+        return out
+
+    return model, params, state, noisy(params, 0.05), noisy(state, 0.5)
+
+
+def aggregate_three_ways(torch, smk) -> None:
+    """One `secure_aggregate` of 8 clients' fixed MobileNetV2 updates: the
+    kernel, threefry on the card, the plain version on the CPU; all
+    three bit-identical, the protected part dequantize(sum quantize)."""
+    from idc_models_tpu_torch.secure import masking
+    from idc_models_tpu_torch.secure.fedavg import (
+        _STATE_PRESCALE, secure_aggregate,
+    )
+
+    n = 8
+    model, params, state, cp, cs = mobilenet_updates(torch, n, 5)
+    key = masking.key_from_seed(7)
+    out = {}
+    for name, device, impl in (("kernel", "cuda", "pallas"),
+                               ("threefry", "cuda", "threefry"),
+                               ("plain", "cpu", "pallas")):
+        def on(tree):
+            return {k: v.to(device) for k, v in tree.items()}
+        before = smk.KERNEL.launches
+        p, s, m = secure_aggregate(on(cp), on(cs), on(params), on(state),
+                                   percent=0.5, layer_order=model.layer_names,
+                                   mask_impl=impl, mask_key=key)
+        torch.cuda.synchronize()
+        out[name] = {k: v.cpu() for k, v in {**p, **s}.items()}
+        out[name + "_launches"] = smk.KERNEL.launches - before
+    if (out["kernel_launches"], out["threefry_launches"],
+            out["plain_launches"]) != (n, 0, 0):
+        raise SystemExit(f"aggregate launches: kernel "
+                         f"{out['kernel_launches']}, threefry "
+                         f"{out['threefry_launches']}, plain "
+                         f"{out['plain_launches']}; expected {n}, 0, 0")
+    for k, v in out["plain"].items():
+        for other in ("kernel", "threefry"):
+            if not torch.equal(out[other][k], v):
+                raise SystemExit(f"{other} aggregate differs from the plain "
+                                 f"version's at {k}")
+    # the protected part is exactly dequantize(sum of quantize)
+    pf, sf = masking.first_fraction_selection_weights(
+        params, state, 0.5, model.layer_names)
+    sb = masking.choose_scale_bits(n, CLIP)
+    checked = 0
+    for tree, flags, scale in ((cp, pf, 1.0), (cs, sf, _STATE_PRESCALE)):
+        for k, f in flags.items():
+            if f:
+                q = masking.quantize(tree[k] / scale, sb, clip_abs=CLIP)
+                want = masking.dequantize(smk.wrap_int32(q.long().sum(0)), sb,
+                                          count=n) * scale
+                if not torch.equal(out["kernel"][k], want):
+                    raise SystemExit(f"protected {k} is not dequantize(sum "
+                                     f"quantize)")
+                checked += tree[k][0].numel()
+    log(f"main path: secure_aggregate of 8 clients' MobileNetV2 updates is "
+        f"bit-identical through the kernel ({n} launches), threefry on the "
+        f"card and the plain version on the CPU; the {checked} protected "
+        f"elements equal dequantize(sum quantize)")
+
+
+def mobilenet_round(torch, fc, smk, card: str) -> None:
+    """One secure round of MobileNetV2 through the kernel: 2 clients x 32
+    50x50 patches, 1 local epoch, percent 0.5."""
+    from idc_models_tpu_torch.data import synthetic
+    from idc_models_tpu_torch.federated.fedavg import initialize_server
+    from idc_models_tpu_torch.models import registry
+    from idc_models_tpu_torch.secure.fedavg import make_secure_fedavg_round
+    from idc_models_tpu_torch.train.losses import binary_cross_entropy
+
+    model = registry.get_model("mobilenet_v2").build(1)
+    imgs, labels = synthetic.make_idc_like(64, SIZE, seed=1)
+    rnd = make_secure_fedavg_round(model, 1e-4, binary_cross_entropy,
+                                   percent=0.5, local_epochs=1, batch_size=32,
+                                   mask_impl="pallas")
+    server = initialize_server(model, 0)
+    fc.KERNEL.launches = smk.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    server, m = rnd(server, imgs.reshape(2, 32, SIZE, SIZE, 3),
+                    labels.reshape(2, 32), torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    finite = all(bool(torch.isfinite(v).all())
+                 for v in {**server.params, **server.state}.values())
+    log(f"main path: one MobileNetV2 secure round (2 clients x 32 patches, "
+        f"percent 0.5) in {seconds!r} s: {m}; masking kernel launches "
+        f"{smk.KERNEL.launches}; all aggregate weights finite {finite}; "
+        f"{card}")
+    if smk.KERNEL.launches != 2 or not finite or m["clip_saturated"] != 0:
+        raise SystemExit("the MobileNetV2 secure round failed its checks")
+
+
+def masking_bound_ms(size: int, active_peers: int, clock_hz: float):
+    """(bound ms, 'bytes' or 'operations', bytes, ops) of one kernel call
+    on `size` elements with `active_peers` peers of nonzero sign."""
+    nbytes = size * MASK_BYTES_PER_ELEM
+    ops = size * (MASK_OPS_BASE + MASK_OPS_PER_PEER * active_peers)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = ops / (INT32_LANES_PER_SM * H100_SMS * clock_hz)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
+def masking_times(torch, smk, clock_hz: float, card: str) -> dict:
+    """CUDA-event ms per call of the kernel, its plain version and the
+    threefry path (quantize + pairwise_mask + add, what the round runs
+    for one client under mask_impl="threefry") for client 3 of 8, by
+    size; returns {size: row}."""
+    from idc_models_tpu_torch.secure import masking
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    n, me = 8, 3
+    seeds, signs = smk.pair_seeds_and_signs(0x5EED, me, n, device="cuda")
+    key = masking.key_from_seed(11)
+    rows = {}
+    for size in MASK_TIME_SIZES:
+        x = torch.randn(size, device="cuda", generator=gen)
+        big = size >= 14_000_000
+        t = time_ms(torch, lambda: smk.fused_masked_quantize(
+            x, seeds, signs, scale_bits=SB, clip_abs=CLIP),
+            20 if big else 100)
+        p = time_ms(torch, lambda: smk.masked_quantize_reference(
+            x, seeds, signs, scale_bits=SB, clip_abs=CLIP),
+            2 if big else 10, warmup=1)
+        f = time_ms(torch, lambda: masking.quantize(x, SB, clip_abs=CLIP)
+                    .long() + masking.pairwise_mask(key, me, n, (size,),
+                                                    device="cuda"),
+                    2 if big else 10, warmup=1)
+        bound, by, nbytes, ops = masking_bound_ms(size, n - 1, clock_hz)
+        rows[size] = {"ms": t, "plain_ms": p, "threefry_ms": f,
+                      "bound_ms": bound, "bound_by": by}
+        log(f"time masking {size} elements, 8 clients (7 peers): kernel "
+            f"{t!r} ms, plain {p!r} ms, threefry path {f!r} ms, bound "
+            f"{bound!r} ms by {by} ({nbytes} B, {ops} int32 ops at "
+            f"{clock_hz / 1e9!r} GHz); kernel at {bound / t!r} of the "
+            f"bound; {card}")
+        del x
+        torch.cuda.empty_cache()
+    return rows
+
+
+def secure_round_times(torch, card: str) -> None:
+    """Host-clock ms per secure round at the secure_fed preset (small CNN,
+    8 clients x 204 patches, 5 local epochs), mask_impl pallas against
+    threefry, in turns (p, t, t, p); then where a pallas round's time
+    goes, from the profiler."""
+    from idc_models_tpu_torch.configs import get_preset
+    from idc_models_tpu_torch.data import synthetic
+    from idc_models_tpu_torch.federated.fedavg import initialize_server
+    from idc_models_tpu_torch.models import registry
+    from idc_models_tpu_torch.secure.fedavg import make_secure_fedavg_round
+    from idc_models_tpu_torch.train.losses import binary_cross_entropy
+
+    preset = get_preset("secure_fed")
+    n = preset.num_clients
+    imgs, labels = synthetic.make_idc_like(n * 204, preset.image_size, seed=2)
+    imgs = torch.as_tensor(imgs, dtype=torch.float32, device="cuda").reshape(
+        n, 204, preset.image_size, preset.image_size, 3)
+    labels = torch.as_tensor(labels, device="cuda").reshape(n, 204)
+    calls = {}
+    for impl in ("pallas", "threefry"):
+        model = registry.get_model(preset.model).build(1)
+        rnd = make_secure_fedavg_round(
+            model, preset.lr, binary_cross_entropy, percent=preset.percent,
+            local_epochs=preset.local_epochs, batch_size=preset.batch_size,
+            mask_impl=impl)
+        state = {"server": initialize_server(model, 0),
+                 "gen": torch.Generator().manual_seed(1)}
+
+        def call(rnd=rnd, state=state):
+            state["server"], _ = rnd(state["server"], imgs, labels,
+                                     state["gen"])
+        calls[impl] = call
+    ms = {"pallas": [], "threefry": []}
+    for impl in ("pallas", "threefry", "threefry", "pallas"):
+        ms[impl].append(host_ms(torch, calls[impl], n=3, warmup=1))
+    log(f"time secure round (secure_fed preset, {n} clients x 204 patches, "
+        f"5 local epochs): pallas {ms['pallas']!r} ms, threefry "
+        f"{ms['threefry']!r} ms (in turns p, t, t, p); {card}")
+    log(f"profile secure round pallas: "
+        f"{profiled(torch, calls['pallas'], n=2, kernel='secure_masked')}; "
+        f"{card}")
+
+
 def main() -> int:
     if not (REPO / "idc_models_tpu_torch" / "ops" / "csrc").is_dir():
         raise SystemExit("chip_smoke.py must run from a checkout of the "
@@ -394,8 +756,9 @@ def main() -> int:
     from idc_models_tpu_torch.models import mobilenet
     from idc_models_tpu_torch.ops import build
     from idc_models_tpu_torch.ops import fused_conv as fc
+    from idc_models_tpu_torch.ops import secure_masking_kernel as smk
 
-    kernels = [fc.KERNEL]
+    kernels = [fc.KERNEL, smk.KERNEL]
     t0 = time.perf_counter()
     build.build_all(kernels)
     log(f"build: {[k.source.relative_to(REPO).as_posix() for k in kernels]} "
@@ -404,13 +767,23 @@ def main() -> int:
         regs = [line.strip() for line in k.build_log.splitlines()
                 if "registers" in line]
         log(f"build: {k.name} ptxas {regs}")
+    clock_hz = sm_clock_hz()
 
     worst = parity(torch, fc, mobilenet)
+    mask_worst = masking_parity(torch, smk)
     path = main_path(torch, fc, mobilenet, card)
+    secure = secure_path(torch, fc, smk, card)
+    aggregate_three_ways(torch, smk)
+    mobilenet_round(torch, fc, smk, card)
     t32 = kernel_times(torch, fc, mobilenet, BATCH, card)
     kernel_times(torch, fc, mobilenet, BENCH_BATCH, card)
+    masks = masking_times(torch, smk, clock_hz, card)
     step_times(torch, card)
+    secure_round_times(torch, card)
 
+    # the masking kernel's row is at the main path's buffer: the small
+    # CNN's 1,920 protected elements, 8 clients
+    m = masks[1_920]
     log(json.dumps({"kernels": [{
         "name": "fused_depthwise_bn_relu6",
         "route": "cuda",
@@ -424,6 +797,19 @@ def main() -> int:
         "bound_by": ("bytes" if t32["bytes"] / PEAK_BYTES_PER_S
                      >= t32["flops"] / PEAK_F32_FLOP_PER_S else "operations"),
         "library_ms": t32["library_ms"],
+    }, {
+        "name": "secure_masked_quantize",
+        "route": "cuda",
+        "source": smk.KERNEL.source.relative_to(REPO).as_posix(),
+        "replaces": "idc_models_tpu/ops/secure_masking_kernel.py:92",
+        "launches": secure["launches"],
+        "max_abs_err": mask_worst,
+        "ms": m["ms"],
+        "plain_ms": m["plain_ms"],
+        "bound_ms": m["bound_ms"],
+        "bound_by": m["bound_by"],
+        "library_ms": None,
+        "threefry_ms": m["threefry_ms"],
     }]}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """PyTorch/CUDA port of idc_models_tpu for an NVIDIA H100.
 
 The JAX package `idc_models_tpu` is the reference; this package mirrors
-its module names (data/, models/, ops/, train/, observe/, cli.py) so each
-module's counterpart is easy to find, and never imports it or `jax`.
+its module names (data/, models/, ops/, train/, federated/, secure/,
+observe/, cli.py) so each module's counterpart is easy to find, and never
+imports it or `jax`.
 
 Layouts at the public functions are the JAX package's: NHWC activations,
 HWIO conv kernels, [kh, kw, 1, C] depthwise kernels, [in, out] dense

@@ -1,7 +1,10 @@
-"""Command-line entry point: the ``mobile`` verb of ``idc_models_tpu``.
+"""Command-line entry point: the ``mobile`` and ``secure-fed`` verbs of
+``idc_models_tpu``.
 
     python -m idc_models_tpu_torch mobile --path runs/mobile \\
         --data-dir .../balanced_IDC_30k --depthwise-impl fused
+    python -m idc_models_tpu_torch secure-fed --path runs/secure \\
+        --mask-impl pallas
 
 Two-phase transfer learning of MobileNetV2 on IDC patches with the
 ``mobile`` preset's hyperparameters (batch 32, lr 1e-4, fine-tune at
@@ -18,6 +21,16 @@ With --path the run writes ``<path>/logs/run.jsonl`` (``epoch``,
 ``timer`` and ``test`` records) and the trained model as
 ``<path>/model.npz`` in the JAX package's npz layout
 (``{"params": ..., "state": ...}``).
+
+``secure-fed`` runs secure-aggregation FedAvg with the ``secure_fed``
+preset (the small CNN on 10x10 patches, 8 clients, 5 local epochs, half
+the weight tensors masked). ``--mask-impl pallas`` masks with the fused
+CUDA kernel (``ops/secure_masking_kernel.py``; the choice keeps the JAX
+package's name so commands carry over), ``threefry`` (the default) with
+threefry streams, ``auto`` picks by size. ``--paillier`` runs the
+host-side Paillier parity protocol instead. Each round prints
+``round r: train_loss=... test_loss=... acc=... auroc=...`` and, with
+--path, logs an ``event=round`` record.
 """
 
 from __future__ import annotations
@@ -32,7 +45,7 @@ from idc_models_tpu_torch.models.core import DEPTHWISE_IMPLS
 
 def main(argv: list[str] | None = None) -> int:
     ns = _parse(argv)
-    {"mobile": _run_dist}[ns.preset_key](ns)
+    {"mobile": _run_dist, "secure_fed": _run_secure}[ns.preset_key](ns)
     return 0
 
 
@@ -41,17 +54,22 @@ def _parse(argv):
                                 description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     sub = p.add_subparsers(dest="preset_key", required=True)
+
+    def common(sp):
+        sp.add_argument("--path", default=None,
+                        help="artifact root (<path>/logs/run.jsonl, "
+                             "<path>/model.npz)")
+        sp.add_argument("--data-dir", default=None,
+                        help="directory tree <label>/*.png")
+        sp.add_argument("--synthetic-examples", type=int, default=512,
+                        help="synthetic dataset size when no real data")
+        sp.add_argument("--seed", type=int, default=0)
+        sp.add_argument("--batch-size", type=int, default=None)
+        sp.add_argument("--lr", type=float, default=None)
+        sp.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+
     sp = sub.add_parser("mobile", help="MobileNetV2 two-phase training")
-    sp.add_argument("--path", default=None,
-                    help="artifact root (<path>/logs/run.jsonl, "
-                         "<path>/model.npz)")
-    sp.add_argument("--data-dir", default=None,
-                    help="directory tree <label>/*.png")
-    sp.add_argument("--synthetic-examples", type=int, default=512,
-                    help="synthetic dataset size when no real data")
-    sp.add_argument("--seed", type=int, default=0)
-    sp.add_argument("--batch-size", type=int, default=None)
-    sp.add_argument("--lr", type=float, default=None)
+    common(sp)
     sp.add_argument("--epochs", type=int, default=None)
     sp.add_argument("--fine-tune-epochs", type=int, default=None)
     sp.add_argument("--fine-tune-at", type=int, default=None)
@@ -63,7 +81,28 @@ def _parse(argv):
                     help="MobileNetV2's depthwise lowering: 'fused' runs "
                          "the frozen/eval depthwise+BN+relu6 chains "
                          "through the CUDA kernel")
-    sp.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+
+    sp = sub.add_parser("secure-fed", aliases=["secure_fed"],
+                        help="secure-aggregation FedAvg")
+    common(sp)
+    sp.add_argument("--rounds", type=int, default=None)
+    sp.add_argument("--percent", type=float, default=None)
+    sp.add_argument("--num-clients", type=int, default=None)
+    sp.add_argument("--local-epochs", type=int, default=None)
+    sp.add_argument("--paillier", action="store_true", default=None,
+                    help="host-side Paillier parity mode instead of "
+                         "pairwise masks")
+    sp.add_argument("--mask-impl", default="threefry",
+                    choices=("threefry", "pallas", "auto"),
+                    help="PRG for the pairwise masks: threefry (default; "
+                         "cryptographic), pallas -- in this package the "
+                         "fused CUDA hash-PRG kernel -- or auto (the "
+                         "kernel on CUDA above "
+                         "masking.MASK_PALLAS_MIN_ELEMS protected "
+                         "elements)")
+    sp.add_argument("--async-buffer", type=int, default=0,
+                    help="rejected: buffered-async aggregation cannot "
+                         "compose with the pairwise-mask protocol")
     ns = p.parse_args(argv)
     ns.preset_key = ns.preset_key.replace("-", "_")
     return ns
@@ -150,3 +189,131 @@ def _run_dist(ns):
     finally:
         if logger is not None:
             logger.close()
+
+
+def _run_secure(ns):
+    import numpy as np
+    import torch
+
+    from idc_models_tpu_torch import resolve_device
+    from idc_models_tpu_torch.configs import get_preset
+    from idc_models_tpu_torch.federated.fedavg import (
+        initialize_server, load_server,
+    )
+    from idc_models_tpu_torch.models import registry
+    from idc_models_tpu_torch.observe import JsonlLogger, Timer
+    from idc_models_tpu_torch.secure.fedavg import make_secure_fedavg_round
+    from idc_models_tpu_torch.train import losses
+    from idc_models_tpu_torch.train.loop import evaluate
+
+    device = resolve_device(ns.device)
+    if ns.async_buffer:
+        sys.exit("async buffered FedAvg cannot compose with secure "
+                 "aggregation: pairwise masks cancel only when the FULL "
+                 "cohort sums together in one round, and a buffered K-of-N "
+                 "update leaves unmatched masks in the aggregate — run "
+                 "secure rounds synchronously, or drop --async-buffer")
+    preset = _apply_overrides(
+        get_preset("secure_fed"), ns,
+        ["batch_size", "lr", "rounds", "percent", "num_clients",
+         "local_epochs", "paillier"])
+    print(f"Device: {device}")
+    n_clients = preset.num_clients
+    ds = _load_idc(ns, preset.image_size, None)
+    # take/skip split sized by the preset (24000/6000 in the reference,
+    # secure_fed_model.py:219-220), scaled down when the dataset is smaller
+    n_client_total = min(preset.client_examples, int(len(ds) * 0.8))
+    client_ds = ds.take(n_client_total)
+    test_ds = ds.skip(n_client_total).take(preset.test_examples)
+    loss_fn = (losses.binary_cross_entropy if preset.num_outputs == 1
+               else losses.sparse_categorical_cross_entropy)
+    model = registry.get_model(preset.model).build(preset.num_outputs, 3)
+    logger = (JsonlLogger(Path(ns.path) / "logs" / "run.jsonl")
+              if ns.path is not None else None)
+    try:
+        if preset.paillier:
+            if ns.mask_impl != "threefry":
+                print("[idc_models_tpu_torch] --mask-impl has no effect "
+                      "with --paillier (host-side Paillier path)",
+                      file=sys.stderr)
+            _run_secure_paillier(preset, client_ds, test_ds, model, loss_fn,
+                                 logger, ns, device)
+            return
+        # strided shard per client (secure_fed_model.py:206-210), stacked
+        # and uploaded to the card once
+        shards = [client_ds.shard(n_clients, i) for i in range(n_clients)]
+        size = min(len(s) for s in shards)
+        imgs = torch.as_tensor(np.stack([s.images[:size] for s in shards]),
+                               dtype=torch.float32, device=device)
+        labels = torch.as_tensor(np.stack([s.labels[:size] for s in shards]),
+                                 device=device)
+        server = initialize_server(model, ns.seed)
+        round_fn = make_secure_fedavg_round(
+            model, preset.lr, loss_fn, percent=preset.percent,
+            local_epochs=preset.local_epochs, batch_size=preset.batch_size,
+            mask_impl=ns.mask_impl, device=device)
+        generator = torch.Generator().manual_seed(ns.seed + 1)
+        with Timer("Secure fed model", logger=logger):
+            for r in range(preset.rounds):
+                server, tm = round_fn(server, imgs, labels, generator)
+                em = evaluate(load_server(model, server), test_ds, loss_fn,
+                              batch_size=preset.batch_size, with_auroc=True)
+                print(f"round {r}: train_loss={tm['loss']:.4f} "
+                      f"test_loss={em['loss']:.4f} "
+                      f"acc={em['accuracy']:.4f} auroc={em['auroc']:.4f}")
+                recovered = int(tm["clients_recovered"])
+                if recovered:
+                    print(f"[idc_models_tpu_torch] round {r}: {recovered} "
+                          f"client(s) diverged; their updates were "
+                          f"replaced with the incoming global weights",
+                          file=sys.stderr)
+                if logger is not None:
+                    logger.log(event="round", round=r,
+                               train_loss=tm["loss"],
+                               train_accuracy=tm["accuracy"],
+                               clients_recovered=recovered,
+                               clip_saturated=tm["clip_saturated"],
+                               **{f"test_{k}": v for k, v in em.items()})
+        if ns.path is not None:
+            from idc_models_tpu_torch import convert
+            from idc_models_tpu_torch.models.pretrained import save_npz
+
+            params, state = convert.to_jax(load_server(model, server))
+            save_npz(Path(ns.path) / "model.npz",
+                     {"params": params, "state": state})
+    finally:
+        if logger is not None:
+            logger.close()
+
+
+def _run_secure_paillier(preset, client_ds, test_ds, model, loss_fn, logger,
+                         ns, device):
+    from idc_models_tpu_torch.observe import Timer
+    from idc_models_tpu_torch.secure.fedavg import (
+        PaillierClient, PaillierServer,
+    )
+    from idc_models_tpu_torch.secure.paillier import generate_paillier_keypair
+
+    pub, priv = generate_paillier_keypair(512)
+    clients = []
+    for i in range(preset.num_clients):
+        shard = client_ds.shard(preset.num_clients, i)
+        clients.append(PaillierClient(
+            model, preset.lr, loss_fn, shard.images, shard.labels, i,
+            preset.percent, pub, priv, local_epochs=preset.local_epochs,
+            batch_size=preset.batch_size, seed=ns.seed, device=device))
+    with Timer("Secure fed model", logger=logger):
+        for r in range(preset.rounds):
+            packages = []
+            for c in clients:
+                with Timer(f"Client {c.client_id} training"):
+                    pkg, _ = c.client_fit()
+                packages.append(pkg)
+            agg = PaillierServer.aggregate(packages)
+            for c in clients:
+                c.client_update(agg)
+            m = clients[0].evaluate(test_ds.images, test_ds.labels, loss_fn)
+            print(f"round {r}: " + " ".join(f"{k}={v:.4f}"
+                                            for k, v in m.items()))
+            if logger is not None:
+                logger.log(event="round", round=r, **m)

@@ -1,5 +1,5 @@
 """Workload presets, as ``idc_models_tpu/configs.py`` holds them, for the
-workloads ported so far (the ``mobile`` preset).
+workloads ported so far (the ``mobile`` and ``secure_fed`` presets).
 
 A copy, not an import: the port never imports the JAX package."""
 
@@ -24,6 +24,25 @@ class DistPreset:
     dataset_limit: int | None    # balanced-subset size
 
 
+@dataclasses.dataclass(frozen=True)
+class SecureFedPreset:
+    """Secure-aggregation FedAvg on the small CNN (secure_fed_model.py)."""
+
+    name: str = "secure_fed"
+    model: str = "small_cnn"
+    num_outputs: int = 1
+    image_size: int = 10         # secure_fed_model.py:173-184 decodes 10x10
+    lr: float = 1e-3
+    num_clients: int = 8         # one per device; reference shards by NUM_CLIENTS
+    local_epochs: int = 5        # secure_fed_model.py:131
+    batch_size: int = 32
+    rounds: int = 10
+    percent: float = 0.5         # fraction of tensors encrypted/masked
+    client_examples: int = 24000  # secure_fed_model.py:219
+    test_examples: int = 6000     # secure_fed_model.py:220
+    paillier: bool = False       # host-side parity mode instead of masks
+
+
 PRESETS = {
     # the reference's dist_model_tf_mobile.py:8-16,130,146 -- MobileNetV2,
     # binary IDC, global batch 32, lr 1e-4, fine-tune at Keras index 100
@@ -31,10 +50,11 @@ PRESETS = {
         name="mobile", model="mobilenet_v2", num_outputs=1, image_size=50,
         lr=1e-4, epochs=10, fine_tune_epochs=10, batch_size=32,
         fine_tune_at=100, dataset_limit=24257),
+    "secure_fed": SecureFedPreset(),
 }
 
 
-def get_preset(name: str) -> DistPreset:
+def get_preset(name: str):
     key = name.replace("-", "_")
     if key not in PRESETS:
         raise KeyError(f"unknown preset {name!r}; have {sorted(PRESETS)}")

@@ -42,6 +42,12 @@ class ArrayDataset:
     def skip(self, n: int) -> "ArrayDataset":
         return ArrayDataset(self.images[n:], self.labels[n:])
 
+    def shard(self, num_shards: int, index: int) -> "ArrayDataset":
+        """Strided shard, matching tf.data `Dataset.shard` semantics
+        (used for secure-fed clients, secure_fed_model.py:206-210)."""
+        return ArrayDataset(self.images[index::num_shards],
+                            self.labels[index::num_shards])
+
     def shuffled(self, seed: int) -> "ArrayDataset":
         perm = np.random.default_rng(seed).permutation(len(self))
         return ArrayDataset(self.images[perm], self.labels[perm])

@@ -43,7 +43,11 @@ def glorot_uniform_(t: torch.Tensor, fan_in: int, fan_out: int,
                     generator: torch.Generator) -> None:
     limit = math.sqrt(6.0 / (fan_in + fan_out))
     with torch.no_grad():
-        t.uniform_(-limit, limit, generator=generator)
+        # drawn where the generator lies, then copied: a seed gives the
+        # same weights on whatever device the module already is
+        t.copy_(torch.empty(t.shape, dtype=t.dtype,
+                            device=generator.device).uniform_(
+                                -limit, limit, generator=generator))
 
 
 def init_params(module: nn.Module, seed: int) -> nn.Module:
@@ -272,6 +276,87 @@ def relu6(x):
     return torch.clamp(x, 0.0, 6.0)
 
 
+class ReLU(nn.Module):
+    """A named ReLU layer, for `Sequential`."""
+
+    def __init__(self, name: str = "relu"):
+        super().__init__()
+        self.name = name
+
+    def forward(self, x):
+        return torch.relu(x)
+
+
+class MaxPool(nn.Module):
+    """window x window max pooling on NHWC with stride = window, "VALID"
+    (the ragged edge is dropped), as ``lax.reduce_window(x, -inf, max,
+    ...)``."""
+
+    def __init__(self, window: int = 2, name: str = "maxpool"):
+        super().__init__()
+        self.name = name
+        self.window = window
+
+    def forward(self, x):
+        y = F.max_pool2d(x.permute(0, 3, 1, 2), self.window)
+        return y.permute(0, 2, 3, 1)
+
+
+class Flatten(nn.Module):
+    """[N, ...] -> [N, -1] in the NHWC order, so the rows of a following
+    dense kernel keep the JAX package's order."""
+
+    def __init__(self, name: str = "flatten"):
+        super().__init__()
+        self.name = name
+
+    def forward(self, x):
+        return x.reshape(x.shape[0], -1)
+
+
+class Dropout(nn.Module):
+    """Inverted dropout: in train mode keep each activation with
+    probability 1 - rate and scale it by 1 / keep, else zero it.
+
+    The mask is drawn from ``self.generator``, an explicit
+    ``torch.Generator`` on the activations' device set by
+    `use_generator`; train mode without one raises, as the JAX layer
+    raises without an rng. (JAX's random stream cannot be reproduced:
+    parity checks run in eval mode or without dropout.)"""
+
+    def __init__(self, rate: float, name: str = "dropout"):
+        super().__init__()
+        if not 0.0 <= rate < 1.0:
+            raise ValueError(
+                f"dropout rate must be in [0, 1), got {rate} -- negative "
+                f"rates silently rescale activations and rate >= 1 zeroes "
+                f"the branch entirely")
+        self.name = name
+        self.rate = rate
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.generator is None:
+            raise ValueError(f"dropout({self.name}) needs a generator in "
+                             f"train mode (core.use_generator)")
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def use_generator(module: nn.Module,
+                  generator: torch.Generator | None) -> nn.Module:
+    """Point every `Dropout` of `module` at `generator`. Returns
+    `module`."""
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+    return module
+
+
 # ---------------------------------------------------------------------------
 # composition
 # ---------------------------------------------------------------------------
@@ -335,6 +420,35 @@ class UnitBackbone(nn.Module):
         return x
 
 
+class Sequential(nn.Module):
+    """Layers applied in order (the counterpart of ``core.sequential``).
+
+    Each layer is registered under a unique key derived from its name as
+    the JAX package derives it (a repeated ``relu`` becomes ``relu_0``,
+    then ``relu_1``), so parameter names are the JAX tree paths
+    (``fc1.kernel``). ``layer_names`` is the key order, the model's layer
+    order that the secure `percent` selection ranks by."""
+
+    def __init__(self, layers: Sequence[nn.Module],
+                 name: str = "sequential"):
+        super().__init__()
+        self.name = name
+        keys: list[str] = []
+        for m in layers:
+            key, i = m.name, 0
+            while key in keys:
+                key = f"{m.name}_{i}"
+                i += 1
+            keys.append(key)
+            self.add_module(key, m)
+        self.layer_names = tuple(keys)
+
+    def forward(self, x):
+        for key in self.layer_names:
+            x = getattr(self, key)(x)
+        return x
+
+
 class Classifier(nn.Module):
     """Backbone + GlobalAveragePooling + Dense head, the model shape every
     reference workload shares. Parameters: ``backbone.*`` and ``head.*``."""
@@ -345,6 +459,15 @@ class Classifier(nn.Module):
         self.name = name or f"{backbone.name}_classifier"
         self.backbone = backbone
         self.head = Dense(feature_dim, num_outputs, name="head")
+
+    @property
+    def layer_names(self) -> tuple[str, ...]:
+        """The backbone's layer order as dotted paths, then the head, so
+        ordered-tensor consumers (the secure `percent` selection) see the
+        Keras get_weights() enumeration."""
+        bb = getattr(self.backbone, "layer_names", ())
+        names = tuple(f"backbone.{n}" for n in bb) if bb else ("backbone",)
+        return names + ("head",)
 
     def forward(self, x):
         h = self.backbone(x)

@@ -1,7 +1,8 @@
 """Model registry: name -> constructor, masks, fine-tune default.
 
 The counterpart of ``idc_models_tpu/models/registry.py`` for the models
-ported so far (MobileNetV2). One card, world size 1: no partition rules.
+ported so far (MobileNetV2, the small CNN). One card, world size 1: no
+partition rules.
 """
 
 from __future__ import annotations
@@ -11,7 +12,8 @@ from collections.abc import Callable
 
 from torch import nn
 
-from idc_models_tpu_torch.models import mobilenet
+from idc_models_tpu_torch.models import core, mobilenet
+from idc_models_tpu_torch.models import small_cnn as small_cnn_mod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,6 +29,14 @@ REGISTRY: dict[str, ModelSpec] = {
                               mobilenet.head_only_mask,
                               mobilenet.fine_tune_mask,
                               default_fine_tune_at=100),
+    # no transfer learning: every parameter trains, as in the JAX package
+    "small_cnn": ModelSpec(
+        lambda num_outputs=1, in_channels=3: small_cnn_mod.small_cnn(
+            10, in_channels, num_outputs),
+        lambda module: core.trainability_mask(module, lambda p: True),
+        lambda module, fine_tune_at=0: core.trainability_mask(
+            module, lambda p: True),
+        default_fine_tune_at=0),
 }
 
 

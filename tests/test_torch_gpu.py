@@ -1,4 +1,5 @@
-"""The port's CUDA kernel on the card, against its plain PyTorch version.
+"""The port's CUDA kernels on the card, against their plain PyTorch
+versions.
 
 Every test here is marked `gpu` and skips without a CUDA card. The file
 imports neither JAX nor the JAX package, so it runs on a machine with
@@ -15,8 +16,12 @@ from __future__ import annotations
 import pytest
 import torch
 
-from idc_models_tpu_torch.models import core, mobilenet
+from idc_models_tpu_torch.federated.fedavg import ServerState
+from idc_models_tpu_torch.models import core, mobilenet, small_cnn
 from idc_models_tpu_torch.ops import fused_conv as fc
+from idc_models_tpu_torch.ops import secure_masking_kernel as smk
+from idc_models_tpu_torch.secure.fedavg import make_secure_fedavg_round
+from idc_models_tpu_torch.train.losses import binary_cross_entropy
 
 pytestmark = pytest.mark.gpu
 
@@ -81,6 +86,16 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         fc.fused_depthwise_affine(x, w.cpu(), mul, add)
 
 
+def test_init_params_gives_the_same_weights_on_the_card(cuda):
+    """A module already on the card is initialized from the CPU generator
+    to the weights a CPU module gets from the same seed."""
+    on_card = core.init_params(small_cnn.small_cnn(10, 3, 1).cuda(), 3)
+    on_cpu = core.init_params(small_cnn.small_cnn(10, 3, 1), 3)
+    for (k, a), (_, b) in zip(on_card.state_dict().items(),
+                              on_cpu.state_dict().items()):
+        assert a.is_cuda and torch.equal(a.cpu(), b), k
+
+
 def test_fused_model_matches_grouped_model_on_the_card(cuda):
     """MobileNetV2 eval forward: the fused build (17 kernel launches)
     against the grouped (cuDNN) build of the same weights."""
@@ -98,3 +113,76 @@ def test_fused_model_matches_grouped_model_on_the_card(cuda):
     assert fc.KERNEL.launches - before == mobilenet.fused_chain_count(
         0, train=False) == 17
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# the secure masking kernel: integer arithmetic, held bit for bit
+
+
+def _masking_input(gen, size):
+    x = torch.randn(size, device="cuda", generator=gen) * 40
+    edges = torch.tensor([64.0, -64.0, 70.0, -1e9, 3.5 * 2**-20,
+                          -2.5 * 2**-20, 0.5 * 2**-20], device="cuda")
+    k = min(size, len(edges))
+    x[:k] = edges[:k]
+    return x
+
+
+@pytest.mark.parametrize("size", [1, 127, 1920, 192_576, 2**20 + 3])
+@pytest.mark.parametrize("n_clients", [1, 8])
+def test_masking_kernel_bit_exact_at_main_path_sizes(cuda, size, n_clients):
+    x = _masking_input(cuda, size)
+    for me in range(n_clients):
+        seeds, signs = smk.pair_seeds_and_signs(0xFFFFFFFF, me, n_clients,
+                                                device="cuda")
+        before = smk.KERNEL.launches
+        got = smk.fused_masked_quantize(x, seeds, signs, scale_bits=20,
+                                        clip_abs=64.0)
+        torch.cuda.synchronize()
+        assert smk.KERNEL.launches == before + 1
+        assert got.dtype == torch.int32 and got.is_cuda
+        want = smk.masked_quantize_reference(x, seeds, signs, scale_bits=20,
+                                             clip_abs=64.0)
+        assert torch.equal(got, want)
+
+
+def test_masking_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    x = torch.randn(8, 6, device="cuda", generator=cuda)
+    seeds, signs = smk.pair_seeds_and_signs(1, 0, 3, device="cuda")
+    before = smk.KERNEL.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        smk.fused_masked_quantize(x[:, ::2], seeds, signs, scale_bits=20,
+                                  clip_abs=64.0)
+    with pytest.raises(TypeError, match="float32"):
+        smk.fused_masked_quantize(x.double(), seeds, signs, scale_bits=20,
+                                  clip_abs=64.0)
+    with pytest.raises(ValueError, match=r"\[n\] vectors"):
+        smk.fused_masked_quantize(x, seeds, signs[:2], scale_bits=20,
+                                  clip_abs=64.0)
+    assert smk.KERNEL.launches == before
+
+
+def test_secure_round_through_the_kernel_matches_threefry(cuda):
+    """A small-CNN secure round on the card: `pallas` launches the kernel
+    once per client and aggregates bit-identically to `threefry`. cuDNN
+    runs deterministic algorithms, so both rounds train the same clients
+    bit for bit."""
+    imgs = torch.rand(4, 32, 10, 10, 3, device="cuda", generator=cuda)
+    labels = (torch.rand(4, 32, device="cuda", generator=cuda) > 0.5).int()
+    out = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    for impl in ("pallas", "threefry"):
+        model = core.init_params(small_cnn.small_cnn(10, 3, 1), 0)
+        server = ServerState.of(model)   # on the CPU: the round moves it
+        rnd = make_secure_fedavg_round(model, 1e-3, binary_cross_entropy,
+                                       percent=0.5, local_epochs=1,
+                                       batch_size=16, mask_impl=impl)
+        before = smk.KERNEL.launches
+        server, m = rnd(server, imgs, labels,
+                        torch.Generator().manual_seed(0))
+        assert smk.KERNEL.launches - before == (4 if impl == "pallas" else 0)
+        assert m["clip_saturated"] == 0.0
+        out[impl] = {**server.params, **server.state}
+    torch.backends.cudnn.deterministic = deterministic
+    for k, t in out["threefry"].items():
+        assert torch.equal(out["pallas"][k], t), k

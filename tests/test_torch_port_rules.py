@@ -13,8 +13,12 @@ import torch
 
 from idc_models_tpu_torch import cli, resolve_device
 from idc_models_tpu_torch.data import idc as tidc
+from idc_models_tpu_torch.models import small_cnn as tsmall
+from idc_models_tpu_torch.secure import fedavg as tsecure
+from idc_models_tpu_torch.train import losses as tlosses
 from idc_models_tpu_torch.ops import build
 from idc_models_tpu_torch.ops import fused_conv as tfc
+from idc_models_tpu_torch.ops import secure_masking_kernel as tsmk
 from idc_models_tpu_torch.train import loop as tloop
 
 REPO = Path(__file__).resolve().parent.parent
@@ -77,6 +81,19 @@ def test_entry_points_raise_without_cuda_unless_given_cpu(no_cuda):
     # the same call with the CPU asked for runs
     tloop.two_phase_fit("mobilenet_v2", 1, ds, ds, cfg, device="cpu")
 
+    # the secure-aggregation entry points, likewise
+    model = tsmall.small_cnn(10, 3, 1)
+    bce = tlosses.binary_cross_entropy
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tsecure.make_secure_fedavg_round(model, 1e-3, bce, percent=0.5)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["secure-fed", "--synthetic-examples", "40"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tsecure.PaillierClient(model, 1e-3, bce, imgs, ds.labels, 0, 0.5,
+                               None, None)
+    tsecure.make_secure_fedavg_round(model, 1e-3, bce, percent=0.5,
+                                     device="cpu")
+
 
 def test_kernel_path_refuses_to_build_or_launch_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="needs a CUDA card"):
@@ -93,6 +110,19 @@ def test_kernel_path_refuses_to_build_or_launch_without_cuda(no_cuda):
     tfc.fused_depthwise_affine(x, w, one, one)
     assert tfc.KERNEL.launches == before
 
+    # the secure masking kernel, likewise
+    with pytest.raises(RuntimeError, match="needs a CUDA card"):
+        tsmk.KERNEL.lib()
+    with pytest.raises(RuntimeError, match="needs a CUDA card"):
+        build.build_all([tfc.KERNEL, tsmk.KERNEL])
+    seeds, signs = tsmk.pair_seeds_and_signs(1, 0, 3)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tsmk._launch(torch.zeros(5), seeds, signs, 20, 64.0)
+    before = tsmk.KERNEL.launches
+    tsmk.fused_masked_quantize(torch.zeros(5), seeds, signs, scale_bits=20,
+                               clip_abs=64.0)
+    assert tsmk.KERNEL.launches == before
+
 
 def test_kernel_build_names_sm90a_and_a_source_hash():
     flags = " ".join(build.NVCC_FLAGS)
@@ -100,5 +130,6 @@ def test_kernel_build_names_sm90a_and_a_source_hash():
     lib = tfc.KERNEL.library_path()
     assert lib.parent == build.BUILD_DIR and lib.name.startswith(
         "libfused_depthwise-")
+    assert tsmk.KERNEL.library_path().name.startswith("libsecure_masking-")
     assert "idc_models_tpu_torch/_build/" in (
         REPO / ".gitignore").read_text().splitlines()
