@@ -40,6 +40,22 @@ non-zero before the result line:
    the main path's shapes and at larger ones, with the least time the
    card could take; host-clock times of the train steps and of secure
    rounds (pallas against threefry);
+6. flash -- the three flash kernels of the causal LM
+   (ops/flash_block_kernel.py): parity against their plain versions over
+   a grid (causal or not; offsets [0,0], [128,0] and a fully masked first
+   block folded before a visible one; Tq 256 against Tk 512; D 16 to 128;
+   f32 and bf16; a mid-stream carry; the main path's 1x16384x8x64), the
+   pallas ring's values and gradients against full attention at T=2048,
+   the backward's memory rise at T=16384 (under 1 GB), then two paths,
+   each with every launch count set to 0 just before it and read just
+   after: (e) `cli.main(["lm", ...])` at the repo's serving width (vocab
+   1024, embed 512, 8 heads, MLP 2048, 2 blocks), T=16384, batch 1,
+   `--block-impl pallas`, 4 steps (8 launches of each kernel); (f) a
+   bf16-cache pallas `Generator` at t_max 32768 answering prompts of
+   16384, 4096 and 1000 tokens (6 forward launches), its prefill logits
+   and caches held against the plain (jnp) Generator; then times of each
+   kernel, its plain version and SDPA at T=4096 and 16384 (f32, bf16)
+   beside the bound, and the `lm` train step, pallas against jnp;
 
 then one JSON line of per-kernel numbers, and the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}`.
@@ -739,6 +755,573 @@ def secure_round_times(torch, card: str) -> None:
         f"{card}")
 
 
+# ---------------------------------------------------------------------------
+# the causal LM's flash kernels (ops/flash_block_kernel.py)
+# ---------------------------------------------------------------------------
+
+# the repo's full-width serving LM (bench.py's vocab 1024, embed 512,
+# 8 heads of 64, MLP 2048, 2 blocks) and its long-context block
+LM = dict(vocab=1024, embed_dim=512, num_heads=8, mlp_dim=2048,
+          num_blocks=2)
+LM_T, LM_STEPS, SERVE_T_MAX = 16384, 4, 32768
+SERVE_REQUESTS = [(16384, 256), (4096, 64), (1000, 64)]   # prompt, decode
+# the kernels and their plain versions do the same f32 arithmetic in
+# another order (64-key chunks against one whole-block product), so they
+# are held normwise: max |kernel - plain| <= FLASH_TOL * (1 + max |plain|)
+FLASH_TOL = 5e-5
+# bf16 caches of the pallas and plain Generators, near zero (see serving)
+CACHE_ATOL = 1e-4
+PEAK_BF16_FLOP_PER_S = 989e12
+FLASH_NAMES = {"fwd": "flash_block_update", "dq": "flash_block_dq",
+               "dkv": "flash_block_dkv"}
+KERNEL_SYMBOLS = {"fwd": "flash_block_fwd_kernel<",
+                  "dq": "flash_block_dq_kernel<",
+                  "dkv": "flash_block_dkv_kernel<"}
+FLASH_REPLACES = {"fwd": "idc_models_tpu/ops/flash_block_kernel.py:87",
+                  "dq": "idc_models_tpu/ops/flash_block_kernel.py:182",
+                  "dkv": "idc_models_tpu/ops/flash_block_kernel.py:216"}
+
+
+def flash_err(got, want, elementwise=False) -> float:
+    """max |got - want|, raising past the tolerance: normwise,
+    max |got - want| / (1 + max |want|) <= FLASH_TOL, or elementwise,
+    |got - want| / (1 + |want|) <= FLASH_TOL (for m, whose fully masked
+    rows hold the -1e30 sentinel)."""
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    rel = ((diff / (1.0 + want.float().abs())).max().item() if elementwise
+           else err / (1.0 + want.float().abs().max().item()))
+    if not rel <= FLASH_TOL:
+        raise SystemExit(f"flash kernel differs from its plain version: "
+                         f"max |err| {err!r}, relative {rel!r} > {FLASH_TOL}")
+    return err
+
+
+def flash_inputs(torch, gen, b, t_q, t_k, h, d, dtype, fresh=False):
+    """q, k, v in `dtype`; a mid-stream f32 carry (or a fresh one);
+    dout in `dtype`; an L and D for the backward (L large enough that
+    exp(s - L) stays in range, as a real logsumexp keeps it)."""
+    def mk(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+    q, dout = mk(b, t_q, h, d).to(dtype), mk(b, t_q, h, d).to(dtype)
+    k, v = mk(b, t_k, h, d).to(dtype), mk(b, t_k, h, d).to(dtype)
+    if fresh:
+        m = torch.full((b, h, t_q), -1e30, device="cuda")
+        l = torch.zeros(b, h, t_q, device="cuda")
+        acc = torch.zeros(b, t_q, h, d, device="cuda")
+    else:
+        m, acc = mk(b, h, t_q), mk(b, t_q, h, d)
+        l = torch.rand(b, h, t_q, device="cuda", generator=gen) * 1.5 + 0.5
+    lse = mk(b, h, t_q) + 3.0 + math.log(t_k)
+    delta = mk(b, h, t_q)
+    return q, k, v, m, l, acc, dout, lse, delta
+
+
+def flash_case(torch, fbk, ins, offs, causal, heads_per_plain=None):
+    """One update and one backward through the kernels against the plain
+    versions; the plain side may run a few heads at a time (heads are
+    independent) to bound its [B, H, Tq, Tk] temporaries. Returns the
+    worst |err| of the update and of dq, dk, dv."""
+    q, k, v, m, l, acc, dout, lse, delta = ins
+    d = q.shape[-1]
+    kw = dict(scale=d ** -0.5, causal=causal)
+    o = torch.tensor(offs, dtype=torch.int32, device="cuda")
+    got = fbk.flash_block_fold(q, k, v, m, l, acc, o, **kw)
+    grads = fbk.flash_block_grads(q, k, v, dout, lse, delta, o, **kw)
+    torch.cuda.synchronize()
+    h = q.shape[2]
+    step = heads_per_plain or h
+    errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    for h0 in range(0, h, step):
+        sl = slice(h0, h0 + step)
+        row = lambda t: t[:, :, sl]      # noqa: E731 -- [B, T, H, D]
+        col = lambda t: t[:, sl]         # noqa: E731 -- [B, H, T]
+        want = fbk.reference_impl(row(q), row(k), row(v), col(m), col(l),
+                                  row(acc), o, **kw)
+        for i, (g, w) in enumerate(zip(
+                (col(got[0]), col(got[1]), row(got[2])), want)):
+            errs["fwd"] = max(errs["fwd"], flash_err(g, w, i == 0))
+        del want
+        want = fbk.block_grads_reference(row(q), row(k), row(v), row(dout),
+                                         col(lse), col(delta), o, **kw)
+        errs["dq"] = max(errs["dq"], flash_err(row(grads[0]), want[0]))
+        for g, w in zip(grads[1:], want[1:]):
+            errs["dkv"] = max(errs["dkv"], flash_err(row(g), w))
+        errs["scale"] = max(errs.get("scale", 0.0),
+                            *(w.abs().max().item() for w in want))
+        del want
+        torch.cuda.empty_cache()
+    return errs
+
+
+def flash_parity(torch, fbk) -> dict:
+    """The three flash kernels against their plain versions over the
+    grid; returns the worst |err| per kernel at the main path's shape
+    (f32, causal)."""
+    tf32_off(torch)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    n = 0
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    for d in (16, 32, 64, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            for t_q, t_k in ((256, 256), (256, 512)):
+                for causal in (False, True):
+                    for offs in ([0, 0], [128, 0], [0, 128]):
+                        ins = flash_inputs(torch, gen, 2, t_q, t_k, 2, d,
+                                           dtype)
+                        errs = flash_case(torch, fbk, ins, offs, causal)
+                        for key in worst:
+                            worst[key] = max(worst[key], errs[key])
+                        n += 1
+                # a fully masked first block (every key after every
+                # query) folded into a fresh carry, then a visible one:
+                # compared after both, where the garbage has healed
+                q, k, v, m, l, acc, *_ = flash_inputs(
+                    torch, gen, 2, 128, 128, 2, d, dtype, fresh=True)
+                kw = dict(scale=d ** -0.5, causal=True)
+                got, want = (m, l, acc), (m, l, acc)
+                for offs in ([0, 128], [128, 0]):
+                    o = torch.tensor(offs, dtype=torch.int32, device="cuda")
+                    got = fbk.flash_block_fold(q, k, v, *got, o, **kw)
+                    want = fbk.reference_impl(q, k, v, *want, o, **kw)
+                for i, (g, w) in enumerate(zip(got, want)):
+                    worst["fwd"] = max(worst["fwd"], flash_err(g, w, i == 0))
+                n += 1
+    log(f"flash parity: {n} cases (D 16/32/64/128 x f32/bf16 x Tq,Tk "
+        f"256,256 / 256,512 x causal or not x offsets [0,0] [128,0] "
+        f"[0,128], mid-stream carry; plus a fully masked first block then "
+        f"a visible one) match the plain versions, normwise tolerance "
+        f"{FLASH_TOL}; worst |err| update {worst['fwd']!r}, dq "
+        f"{worst['dq']!r}, dk/dv {worst['dkv']!r}")
+    main = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        ins = flash_inputs(torch, gen, 1, LM_T, LM_T, 8, 64, dtype,
+                           fresh=True)
+        errs = flash_case(torch, fbk, ins, [0, 0], True, heads_per_plain=2)
+        del ins
+        torch.cuda.empty_cache()
+        log(f"flash parity at the main path's shape 1x{LM_T}x8x64 "
+            f"{str(dtype)[6:]}, causal, fresh carry: max |err| update "
+            f"{errs['fwd']!r}, dq {errs['dq']!r}, dk/dv {errs['dkv']!r} "
+            f"(normwise tolerance {FLASH_TOL}; largest |plain| gradient "
+            f"{errs['scale']!r})")
+        if dtype == torch.float32:
+            main = errs
+    return main
+
+
+def ring_on_card(torch, tring) -> None:
+    """The pallas ring's values and gradients against full attention
+    under autograd, f32, T=2048."""
+    tf32_off(torch)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v = (torch.randn(1, 2048, 8, 64, device="cuda", generator=gen)
+               for _ in range(3))
+    outs, grads = [], []
+    for fn in (tring.make_ring_attention(causal=True, block_impl="pallas"),
+               lambda a, b, c: tring.full_attention(a, b, c, causal=True)):
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*ins)
+        out.square().sum().backward()
+        outs.append(out.detach())
+        grads.append([t.grad for t in ins])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-5, atol=1e-5)
+    errs = []
+    for a, b, name in zip(grads[0], grads[1], ("dq", "dk", "dv")):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-5,
+                                   msg=f"pallas ring {name}")
+        errs.append((a - b).abs().max().item())
+    log(f"ring: make_ring_attention(block_impl='pallas') at 1x2048x8x64 "
+        f"f32 matches full attention (values rtol/atol 1e-5, max |err| "
+        f"{(outs[0] - outs[1]).abs().max().item()!r}; gradients rtol 2e-4 "
+        f"atol 2e-5, max |err| dq/dk/dv {errs!r})")
+
+
+def backward_memory(torch, tring) -> float:
+    """The pallas ring's forward + backward at B=1, T=16384, H=8, D=64
+    must raise the peak allocation by under 1 GB -- one [1, 8, T, T] f32
+    score tensor would be 8.6 GB. Returns the rise in bytes."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    q, k, v, g = (torch.randn(1, LM_T, 8, 64, device="cuda", generator=gen)
+                  for _ in range(4))
+    for t in (q, k, v):
+        t.requires_grad_()
+    ring = tring.make_ring_attention(causal=True, block_impl="pallas")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ring(q, k, v).backward(g)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    scores = 8 * LM_T * LM_T * 4
+    log(f"memory: pallas ring forward + backward at 1x{LM_T}x8x64 f32 "
+        f"raised the peak allocation by {rise} B ({rise / 1e9!r} GB; one "
+        f"[1, 8, {LM_T}, {LM_T}] f32 score tensor is {scores / 1e9!r} GB; "
+        f"limit 1 GB)")
+    if not rise < 1e9:
+        raise SystemExit(f"the pallas backward raised memory by {rise} B")
+    return float(rise)
+
+
+def flash_counts(fbk) -> tuple[int, int, int]:
+    return tuple(k.launches for k in fbk.KERNELS)
+
+
+def zero_counts(fc, smk, fbk) -> None:
+    fc.KERNEL.launches = smk.KERNEL.launches = 0
+    for k in fbk.KERNELS:
+        k.launches = 0
+
+
+def lm_path(torch, fc, smk, fbk, card: str) -> dict:
+    """Drive `cli.main(["lm", ...])` at full width through the pallas
+    ring and hold its launches, losses and generate line."""
+    import contextlib
+    import io
+
+    from idc_models_tpu_torch import cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["lm", "--vocab", str(LM["vocab"]), "--embed-dim",
+                str(LM["embed_dim"]), "--num-heads", str(LM["num_heads"]),
+                "--mlp-dim", str(LM["mlp_dim"]), "--num-blocks",
+                str(LM["num_blocks"]), "--seq-len", str(LM_T),
+                "--batch-size", "1", "--block-impl", "pallas", "--steps",
+                str(LM_STEPS), "--generate", "12", "--path", tmp]
+        out = io.StringIO()
+        zero_counts(fc, smk, fbk)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = flash_counts(fbk)
+        others = (fc.KERNEL.launches, smk.KERNEL.launches)
+        records = [json.loads(line) for line in
+                   (Path(tmp) / "logs" / "run.jsonl").read_text().splitlines()]
+    for line in out.getvalue().splitlines():
+        log(f"  lm | {line}")
+    if rc != 0:
+        raise SystemExit(f"cli.main returned {rc}")
+    steps = [r for r in records if r["event"] == "step"]
+    if not steps or not all(math.isfinite(r["loss"]) for r in steps):
+        raise SystemExit(f"lm step records missing or not finite: {steps}")
+    if not any(line.startswith("generate: ") for line in
+               out.getvalue().splitlines()):
+        raise SystemExit("the lm path printed no generate line")
+    want = LM_STEPS * LM["num_blocks"]
+    log(f"main path: cli.main({' '.join(argv[:-1])} <tmp>) in {seconds!r} "
+        f"s; losses {[r['loss'] for r in steps]}; flash launches "
+        f"update/dq/dkv {launches} (expected {LM_STEPS} steps x "
+        f"{LM['num_blocks']} blocks x a ring of 1 = {want} each); other "
+        f"kernels {others}; {card}")
+    if launches != (want, want, want) or others != (0, 0):
+        raise SystemExit(f"lm launches {launches} / {others}")
+    return {"launches": want, "seconds": seconds}
+
+
+def cache_diff(torch, a, b) -> tuple[int, int, int, float]:
+    """Two bf16 caches: (elements that differ, elements more than one
+    bf16 ulp of their own magnitude apart, of those the ones also more
+    than CACHE_ATOL of b's scale apart, max |a - b|)."""
+    af, bf = a.float(), b.float()
+    diff = (af - bf).abs()
+    _, exp = torch.frexp(torch.maximum(af.abs(), bf.abs()))
+    beyond = diff > torch.ldexp(torch.ones_like(diff), exp - 8)
+    far = beyond & (diff > CACHE_ATOL * bf.abs().max())
+    return (int((diff > 0).sum()), int(beyond.sum()), int(far.sum()),
+            diff.max().item())
+
+
+def serving(torch, fc, smk, fbk, card: str) -> dict:
+    """A bf16-cache pallas Generator at the repo's serving width, t_max
+    32768, answering three requests; prefill logits and caches held
+    against the plain (jnp) Generator on the card."""
+    from idc_models_tpu_torch.models import core
+    from idc_models_tpu_torch.models.lm import (
+        AttentionLM, Generator, prefill_bucket,
+    )
+
+    tf32_off(torch)
+    model = core.init_params(AttentionLM(
+        LM["vocab"], SERVE_T_MAX, embed_dim=LM["embed_dim"],
+        num_heads=LM["num_heads"], mlp_dim=LM["mlp_dim"],
+        num_blocks=LM["num_blocks"]), 0)
+    kw = dict(embed_dim=LM["embed_dim"], num_heads=LM["num_heads"],
+              num_blocks=LM["num_blocks"], t_max=SERVE_T_MAX,
+              cache_dtype=torch.bfloat16, device="cuda")
+    gen = Generator(model, block_impl="pallas", **kw)
+    plain = Generator(model, block_impl="jnp", **kw)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, LM["vocab"], (1, p)) for p, _ in SERVE_REQUESTS]
+    rows = []
+    zero_counts(fc, smk, fbk)
+    for prompt, (p_len, n_dec) in zip(prompts, SERVE_REQUESTS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = gen.prefill(prompt)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        before = flash_counts(fbk)
+        want_logits, want_caches = plain.prefill(prompt)
+        torch.cuda.synchronize()
+        if flash_counts(fbk) != before:
+            raise SystemExit("the plain Generator launched a flash kernel")
+        err = (logits - want_logits).abs().max().item()
+        scale = 1.0 + want_logits.abs().max().item()
+        if not err <= 1e-4 * scale:
+            raise SystemExit(f"pallas prefill logits differ from plain by "
+                             f"{err} at {p_len} tokens")
+        # block 0's K/V come before any attention: equal bit for bit.
+        # Later blocks' K/V are bf16 casts of f32 values that differ by
+        # the attention's rounding (about 1e-6 of the scale), so each
+        # element is held to one bf16 ulp of its own magnitude, or to
+        # CACHE_ATOL of the cache's scale where it lies near zero
+        diffs = []
+        for i, (pair, want) in enumerate(zip(caches, want_caches)):
+            for a, b in zip(pair, want):
+                n_diff, n_ulp, n_far, worst = cache_diff(torch, a, b)
+                if (i == 0 and n_diff) or n_far:
+                    raise SystemExit(
+                        f"pallas prefill cache of block {i} differs from "
+                        f"plain at {p_len} tokens: {n_diff} elements "
+                        f"differ, {n_ulp} by more than one bf16 ulp, "
+                        f"{n_far} of them by more than {CACHE_ATOL} of the "
+                        f"scale; max |diff| {worst!r}")
+                diffs.append((n_diff, n_ulp, worst))
+        del want_logits, want_caches
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        toks, _, _ = gen.decode(caches, logits, p_len, n_dec)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / n_dec
+        if toks.shape != (1, n_dec) or not (
+                (toks >= 0) & (toks < LM["vocab"])).all():
+            raise SystemExit(f"decode gave {toks.shape} tokens out of range")
+        rows.append((p_len, n_dec, prefill_ms, decode_ms, err))
+        log(f"serving: prompt {p_len} (bucket "
+            f"{prefill_bucket(p_len, SERVE_T_MAX, 1)}) -> "
+            f"prefill {prefill_ms!r} ms (host clock, ends in a "
+            f"synchronize), decode {n_dec} tokens at {decode_ms!r} ms a "
+            f"token; prefill logits vs plain max |err| {err!r} (tolerance "
+            f"1e-4 x (1 + max |logit|)); bf16 caches (k, v per block): "
+            f"(elements differing, beyond one ulp of their magnitude, max "
+            f"|diff|) {diffs}, none beyond both one ulp and {CACHE_ATOL} "
+            f"of the cache's scale, of "
+            f"{caches[0][0].numel()} each; {card}")
+    launches = flash_counts(fbk)
+    log(f"serving: flash launches update/dq/dkv {launches} over the three "
+        f"requests (expected 6, 0, 0: one per block per prefill)")
+    if launches != (6, 0, 0) or fc.KERNEL.launches or smk.KERNEL.launches:
+        raise SystemExit(f"serving launches {launches}")
+    return {"rows": rows}
+
+
+def flash_bytes_flops(t: int, d: int, h: int, itemsize: int):
+    """Bytes each kernel must move (inputs read once, outputs written
+    once) and the flops it needs, counting only causally visible
+    (query, key) pairs, for B=1, Tq=Tk=t, causal, offsets [0, 0]."""
+    pairs = h * t * (t + 1) // 2
+    qkv = t * h * d * itemsize
+    f32_rows, f32_vec = t * h * d * 4, h * t * 4
+    return {
+        # q, k, v; m, l, acc in and m, l, acc out
+        "fwd": (3 * qkv + 2 * (2 * f32_vec + f32_rows), 4 * d * pairs),
+        # q, k, v, dout; L, D; dq out -- s, dout.v, ds.k
+        "dq": (4 * qkv + 2 * f32_vec + f32_rows, 6 * d * pairs),
+        # q, k, v, dout; L, D; dk, dv out -- s, dout.v, p.dout, ds.q
+        "dkv": (4 * qkv + 2 * f32_vec + 2 * f32_rows, 8 * d * pairs),
+    }
+
+
+def device_ms(torch, fn, n: int) -> float:
+    """Device ms per call of `fn`: CUDA events around `n` back-to-back
+    calls queued behind a sleep kernel, so the card never waits on the
+    host between them (a standalone kernel's device time, where the
+    profiler drops its records)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)     # ~50 ms of SM clock cycles
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def profile_kernels(torch, fn, names, n: int = 2) -> dict:
+    """Device us per launch of each kernel whose name holds one of
+    `names`, from torch.profiler over `n` calls of `fn`; NaN for a
+    kernel the profiler did not see."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    seen = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    out = {}
+    for name in names:
+        evs = [e for e in seen if name in e.key]
+        count = sum(e.count for e in evs)
+        out[name] = (sum(e.self_device_time_total for e in evs) / count
+                     if count else float("nan"))
+    return out
+
+
+def flash_times(torch, fbk, card: str) -> dict:
+    """CUDA-event ms of each flash kernel through its wrapper and on the
+    device (`device_ms`), its plain version, and SDPA (forward from
+    a fresh carry for the update; backward for dq and dk/dv, which it
+    computes together) at B=1, H=8, D=64, causal, T=4096 and 16384, f32
+    and bf16, beside the bound. Returns the rows of T=16384 f32, the
+    main path's."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows = {}
+    for t in (4096, LM_T):
+        for dtype in (torch.float32, torch.bfloat16):
+            torch.cuda.empty_cache()
+            q, k, v, m, l, acc, dout, lse, delta = flash_inputs(
+                torch, gen, 1, t, t, 8, 64, dtype, fresh=True)
+            o = torch.tensor([0, 0], dtype=torch.int32, device="cuda")
+            kw = dict(scale=0.125, causal=True)
+            grads_in = (q, k, v, dout, lse, delta, o)
+            big = t == LM_T
+            iters = 5 if big else 20
+            kernels = {
+                "fwd": lambda: fbk.flash_block_fold(q, k, v, m, l, acc, o,
+                                                    **kw),
+                "dq": lambda: fbk.flash_block_dq(*grads_in, **kw),
+                "dkv": lambda: fbk.flash_block_dkv(*grads_in, **kw),
+            }
+            ms = {key: time_ms(torch, fn, iters)
+                  for key, fn in kernels.items()}
+            dev = {key: device_ms(torch, fn, iters)
+                   for key, fn in kernels.items()}
+            torch.cuda.empty_cache()
+            plain = {"fwd": time_ms(torch, lambda: fbk.reference_impl(
+                q, k, v, m, l, acc, o, **kw), 2 if big else 5, warmup=1)}
+            torch.cuda.empty_cache()
+            plain["dq"] = plain["dkv"] = time_ms(
+                torch, lambda: fbk.block_grads_reference(*grads_in, **kw),
+                2 if big else 5, warmup=1)
+            torch.cuda.empty_cache()
+            qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_()
+                          for x in (q, k, v))
+            lib = {"fwd": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True), iters)}
+            out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+            g = dout.transpose(1, 2)
+            lib["dq"] = lib["dkv"] = time_ms(torch, lambda: torch.autograd.grad(
+                out, (qs, ks, vs), g, retain_graph=True), iters)
+            del out, qs, ks, vs, g
+            itemsize = 4 if dtype == torch.float32 else 2
+            peak = (PEAK_F32_FLOP_PER_S if dtype == torch.float32
+                    else PEAK_BF16_FLOP_PER_S)
+            work = flash_bytes_flops(t, 64, 8, itemsize)
+            for key in ("fwd", "dq", "dkv"):
+                nbytes, flops = work[key]
+                t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+                t_ops = flops / peak * 1e3
+                bound = max(t_bytes, t_ops)
+                row = {"ms": ms[key], "device_ms": dev[key],
+                       "plain_ms": plain[key], "library_ms": lib[key],
+                       "bound_ms": bound,
+                       "bound_by": "bytes" if t_bytes >= t_ops
+                       else "operations"}
+                rows[(t, str(dtype)[6:], key)] = row
+                what = ("SDPA forward" if key == "fwd"
+                        else "SDPA backward (dq, dk, dv together)")
+                log(f"time flash {FLASH_NAMES[key]} T={t} {str(dtype)[6:]} "
+                    f"causal: kernel {ms[key]!r} ms through the wrapper, "
+                    f"{dev[key]!r} ms on the device (events behind a sleep "
+                    f"kernel), plain {plain[key]!r} ms"
+                    + ("" if key == "fwd" else " (dq, dk, dv together)")
+                    + f", {what} {lib[key]!r} ms, bound {bound!r} ms by "
+                    f"{row['bound_by']} ({nbytes} B at 3.35 TB/s: "
+                    f"{t_bytes!r} ms; {flops} flops of the visible pairs "
+                    f"at {peak / 1e12!r} TFLOP/s: {t_ops!r} ms); kernel at "
+                    f"{bound / ms[key]!r} of the bound; {card}")
+            bwd_bound = 10 * 64 * 8 * t * (t + 1) // 2 / peak * 1e3
+            log(f"time flash backward T={t} {str(dtype)[6:]}: dq + dk/dv "
+                f"kernels {ms['dq'] + ms['dkv']!r} ms, SDPA backward "
+                f"{lib['dq']!r} ms, bound at 10*D flops a visible pair "
+                f"{bwd_bound!r} ms; {card}")
+            del q, k, v, m, l, acc, dout, lse, delta
+    return {key: rows[(LM_T, "float32", key)] for key in FLASH_NAMES}
+
+
+def lm_step_times(torch, card: str) -> None:
+    """Host-clock ms per `lm` train step (forward, backward, RMSprop) at
+    the main path's width, T=16384, batch 1, pallas against jnp, in
+    turns (p, j, j, p); then where each step's time goes, from the
+    profiler."""
+    from idc_models_tpu_torch.models import core
+    from idc_models_tpu_torch.models.lm import AttentionLM, next_token_loss
+    from idc_models_tpu_torch.train.state import TrainState, rmsprop
+    from idc_models_tpu_torch.train.step import make_train_step
+
+    rng = np.random.default_rng(1)
+    seqs = torch.as_tensor((rng.integers(0, LM["vocab"], (1, 1))
+                            + np.arange(LM_T)) % LM["vocab"]).cuda()
+    calls = {}
+    for impl in ("pallas", "jnp"):
+        model = core.init_params(AttentionLM(
+            LM["vocab"], LM_T, block_impl=impl, **{
+                k: LM[k] for k in ("embed_dim", "num_heads", "mlp_dim",
+                                   "num_blocks")}), 0).cuda()
+        step = make_train_step(TrainState(model, rmsprop(model, 3e-3)),
+                               next_token_loss)
+        calls[impl] = lambda step=step: step(seqs, seqs)
+    ms = {"pallas": [], "jnp": []}
+    # cudaMalloc calls and allocator retries (a failed cudaMalloc that
+    # frees the cache and tries again) while timed
+    allocs = {"pallas": [0, 0], "jnp": [0, 0]}
+    stats = ("num_device_alloc", "num_alloc_retries")
+    for impl in ("pallas", "jnp", "jnp", "pallas"):
+        torch.cuda.empty_cache()
+        before = [torch.cuda.memory_stats().get(k, 0) for k in stats]
+        ms[impl].append(host_ms(torch, calls[impl], n=3, warmup=1))
+        for i, k in enumerate(stats):
+            allocs[impl][i] += torch.cuda.memory_stats().get(k, 0) - before[i]
+    peak = {}
+    for impl in ("pallas", "jnp"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        calls[impl]()
+        torch.cuda.synchronize()
+        peak[impl] = torch.cuda.max_memory_allocated()
+    log(f"time lm train step (vocab 1024, embed 512, 8 heads, MLP 2048, 2 "
+        f"blocks, T={LM_T}, batch 1, f32): pallas {ms['pallas']!r} ms, jnp "
+        f"{ms['jnp']!r} ms (in turns p, j, j, p); peak allocation pallas "
+        f"{peak['pallas']} B, jnp {peak['jnp']} B; (cudaMalloc calls, "
+        f"allocator retries) over each one's 8 steps (warm-ups included): "
+        f"pallas {allocs['pallas']}, jnp {allocs['jnp']}; {card}")
+    for impl in ("pallas", "jnp"):
+        torch.cuda.empty_cache()
+        log(f"profile lm train step {impl}: "
+            f"{profiled(torch, calls[impl], n=2, kernel='flash_block')}; "
+            f"{card}")
+    torch.cuda.empty_cache()
+    us = profile_kernels(torch, calls["pallas"], KERNEL_SYMBOLS.values())
+    log(f"profile lm train step pallas: device us per launch (profiler) "
+        + ", ".join(f"{FLASH_NAMES[key]} {us[sym]!r}"
+                    for key, sym in KERNEL_SYMBOLS.items())
+        + f"; {card}")
+
+
 def main() -> int:
     if not (REPO / "idc_models_tpu_torch" / "ops" / "csrc").is_dir():
         raise SystemExit("chip_smoke.py must run from a checkout of the "
@@ -753,21 +1336,29 @@ def main() -> int:
     log(f"device: {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}; {torch.cuda.device_count()} card(s)")
 
+    from idc_models_tpu_torch import ring_attention as tring
     from idc_models_tpu_torch.models import mobilenet
     from idc_models_tpu_torch.ops import build
+    from idc_models_tpu_torch.ops import flash_block_kernel as fbk
     from idc_models_tpu_torch.ops import fused_conv as fc
     from idc_models_tpu_torch.ops import secure_masking_kernel as smk
 
-    kernels = [fc.KERNEL, smk.KERNEL]
+    kernels = [fc.KERNEL, smk.KERNEL, *fbk.KERNELS]
     t0 = time.perf_counter()
     build.build_all(kernels)
     log(f"build: {[k.source.relative_to(REPO).as_posix() for k in kernels]} "
         f"for sm_90a in {time.perf_counter() - t0!r} s")
     for k in kernels:
         regs = [line.strip() for line in k.build_log.splitlines()
-                if "registers" in line]
+                if "registers" in line or "spill" in line]
         log(f"build: {k.name} ptxas {regs}")
     clock_hz = sm_clock_hz()
+
+    flash_worst = flash_parity(torch, fbk)
+    ring_on_card(torch, tring)
+    backward_memory(torch, tring)
+    lm = lm_path(torch, fc, smk, fbk, card)
+    serving(torch, fc, smk, fbk, card)
 
     worst = parity(torch, fc, mobilenet)
     mask_worst = masking_parity(torch, smk)
@@ -780,6 +1371,8 @@ def main() -> int:
     masks = masking_times(torch, smk, clock_hz, card)
     step_times(torch, card)
     secure_round_times(torch, card)
+    flash = flash_times(torch, fbk, card)
+    lm_step_times(torch, card)
 
     # the masking kernel's row is at the main path's buffer: the small
     # CNN's 1,920 protected elements, 8 clients
@@ -810,7 +1403,19 @@ def main() -> int:
         "bound_by": m["bound_by"],
         "library_ms": None,
         "threefry_ms": m["threefry_ms"],
-    }]}))
+    }] + [{
+        "name": FLASH_NAMES[key],
+        "route": "cuda",
+        "source": kern.source.relative_to(REPO).as_posix(),
+        "replaces": FLASH_REPLACES[key],
+        "launches": lm["launches"],
+        "max_abs_err": flash_worst[key],
+        "ms": flash[key]["ms"],
+        "plain_ms": flash[key]["plain_ms"],
+        "bound_ms": flash[key]["bound_ms"],
+        "bound_by": flash[key]["bound_by"],
+        "library_ms": flash[key]["library_ms"],
+    } for key, kern in zip(("fwd", "dq", "dkv"), fbk.KERNELS)]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

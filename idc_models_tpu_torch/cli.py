@@ -1,5 +1,5 @@
-"""Command-line entry point: the ``mobile`` and ``secure-fed`` verbs of
-``idc_models_tpu``.
+"""Command-line entry point: the ``mobile``, ``secure-fed`` and ``lm``
+verbs of ``idc_models_tpu``.
 
     python -m idc_models_tpu_torch mobile --path runs/mobile \\
         --data-dir .../balanced_IDC_30k --depthwise-impl fused
@@ -45,7 +45,8 @@ from idc_models_tpu_torch.models.core import DEPTHWISE_IMPLS
 
 def main(argv: list[str] | None = None) -> int:
     ns = _parse(argv)
-    {"mobile": _run_dist, "secure_fed": _run_secure}[ns.preset_key](ns)
+    {"mobile": _run_dist, "secure_fed": _run_secure,
+     "lm": _run_lm}[ns.preset_key](ns)
     return 0
 
 
@@ -103,6 +104,44 @@ def _parse(argv):
     sp.add_argument("--async-buffer", type=int, default=0,
                     help="rejected: buffered-async aggregation cannot "
                          "compose with the pairwise-mask protocol")
+    sp = sub.add_parser("lm",
+                        help="causal LM through the ring: train next-token "
+                             "on the counting task, then generate through "
+                             "the KV-cache decoder")
+    common(sp)
+    sp.add_argument("--vocab", type=int, default=16)
+    sp.add_argument("--seq-len", type=int, default=64)
+    sp.add_argument("--embed-dim", type=int, default=64)
+    sp.add_argument("--num-heads", type=int, default=4)
+    sp.add_argument("--mlp-dim", type=int, default=128)
+    sp.add_argument("--num-blocks", type=int, default=2)
+    sp.add_argument("--steps", type=int, default=200)
+    sp.add_argument("--fsdp", type=int, default=0,
+                    help="rejected above 1: FSDP is not ported yet")
+    sp.add_argument("--tp", type=int, default=0,
+                    help="rejected above 1: tensor parallelism is not "
+                         "ported yet")
+    sp.add_argument("--seq-parallel", type=int, default=0,
+                    help="ring size over the 'seq' axis; only 1 (one "
+                         "card) is ported (0 = 1)")
+    sp.add_argument("--layout", choices=("contiguous", "zigzag"),
+                    default="contiguous")
+    sp.add_argument("--block-impl", choices=("jnp", "pallas"),
+                    default="jnp",
+                    help="ring block fold: jnp (plain PyTorch) or pallas "
+                         "-- in this package the hand-written CUDA flash "
+                         "kernels, forward and backward")
+    sp.add_argument("--remat", action="store_true")
+    sp.add_argument("--dropout", type=float, default=0.0)
+    sp.add_argument("--generate", type=int, default=12,
+                    help="tokens to generate after training, through the "
+                         "KV-cache decoder (0 = skip)")
+    sp.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature for --generate (0 = greedy "
+                         "argmax, the default)")
+    sp.add_argument("--top-k", type=int, default=0,
+                    help="restrict sampling to the k most likely tokens "
+                         "(0 = no restriction; needs --temperature > 0)")
     ns = p.parse_args(argv)
     ns.preset_key = ns.preset_key.replace("-", "_")
     return ns
@@ -317,3 +356,112 @@ def _run_secure_paillier(preset, client_ds, test_ds, model, loss_fn, logger,
                                             for k, v in m.items()))
             if logger is not None:
                 logger.log(event="round", round=r, **m)
+
+
+def _run_lm(ns):
+    """The decoder-only LM trained through the ring on the counting task
+    (next = (tok + 1) % vocab), then served through the KV-cache
+    decoder: train and generate from one set of weights."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from idc_models_tpu_torch import resolve_device
+    from idc_models_tpu_torch.models.core import init_params, use_generator
+    from idc_models_tpu_torch.models.lm import (
+        AttentionLM, Generator, next_token_loss,
+    )
+    from idc_models_tpu_torch.observe import JsonlLogger, Timer
+    from idc_models_tpu_torch.train.state import TrainState, rmsprop
+    from idc_models_tpu_torch.train.step import make_train_step
+
+    device = resolve_device(ns.device)
+    if not 0.0 <= ns.dropout < 1.0:
+        sys.exit(f"--dropout {ns.dropout} must be in [0, 1)")
+    if ns.fsdp > 1 or ns.tp > 1:
+        sys.exit(f"--fsdp {ns.fsdp} / --tp {ns.tp}: parameter sharding is "
+                 f"not ported yet (ROADMAP A4); the port trains on one "
+                 f"card")
+    if ns.seq_parallel > 1:
+        sys.exit(f"--seq-parallel {ns.seq_parallel}: the ring runs on one "
+                 f"card so far (ROADMAP A4)")
+    if ns.layout == "zigzag":
+        sys.exit("--layout zigzag is not ported yet (ROADMAP A8)")
+    if ns.remat:
+        sys.exit("--remat is not ported yet (ROADMAP A8)")
+    print(f"Device: {device} (ring size 1)")
+    model = init_params(AttentionLM(
+        ns.vocab, ns.seq_len, embed_dim=ns.embed_dim,
+        num_heads=ns.num_heads, mlp_dim=ns.mlp_dim,
+        num_blocks=ns.num_blocks, block_impl=ns.block_impl,
+        dropout_rate=ns.dropout), ns.seed).to(device)
+    if ns.dropout:
+        use_generator(model, torch.Generator(device=device).manual_seed(
+            ns.seed + 2))
+    batch = ns.batch_size or 32
+    lr = ns.lr if ns.lr is not None else 3e-3
+    step = make_train_step(TrainState(model, rmsprop(model, lr)),
+                           next_token_loss)
+    logger = (JsonlLogger(Path(ns.path) / "logs" / "run.jsonl")
+              if ns.path is not None else None)
+    rng = np.random.default_rng(ns.seed + 1)
+    try:
+        with Timer("LM training", logger=logger):
+            for i in range(ns.steps):
+                starts = rng.integers(0, ns.vocab, (batch, 1))
+                seqs = torch.as_tensor(
+                    (starts + np.arange(ns.seq_len)) % ns.vocab).to(device)
+                m = step(seqs, seqs)
+                if i % 50 == 0 or i == ns.steps - 1:
+                    loss, acc = float(m["loss"]), float(m["accuracy"])
+                    print(f"step {i}, loss={loss:.4f}, "
+                          f"next-token accuracy={acc:.4f}")
+                    if logger is not None:
+                        logger.log(event="step", step=i, loss=loss,
+                                   accuracy=acc)
+        n_gen = min(ns.generate, ns.seq_len - 3)
+        if ns.generate > 0 and n_gen >= 1:
+            if ns.temperature < 0.0:
+                sys.exit(f"--temperature {ns.temperature} must be >= 0")
+            if ns.top_k < 0:
+                sys.exit(f"--top-k {ns.top_k} must be >= 0 (0 = no "
+                         f"restriction)")
+            if ns.top_k > 0 and ns.temperature == 0.0:
+                print("[idc_models_tpu_torch] --top-k has no effect at "
+                      "--temperature 0 (greedy argmax already picks the "
+                      "top-1 token)", file=sys.stderr)
+            gen = Generator(model, embed_dim=ns.embed_dim,
+                            num_heads=ns.num_heads,
+                            num_blocks=ns.num_blocks, t_max=ns.seq_len,
+                            cache_dtype=torch.float32,
+                            temperature=ns.temperature,
+                            top_k=ns.top_k or None, device=device)
+            prompt = [[i % ns.vocab for i in range(3)]]
+
+            def sampler():
+                # a fresh stream per call, so both runs draw alike
+                return (torch.Generator(device=device).manual_seed(
+                    ns.seed + 3) if ns.temperature > 0.0 else None)
+
+            gen(prompt, n_gen, rng=sampler())             # warm-up
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            toks = gen(prompt, n_gen, rng=sampler()).tolist()[0]
+            dt = time.perf_counter() - t0
+            want = [i % ns.vocab for i in range(3 + n_gen)]
+            ok = toks == want
+            verdict = (("matches" if ok else "does NOT match")
+                       if ns.temperature == 0.0 else "sampled against")
+            print(f"generate: {toks[:3]} -> {toks[3:]} ({verdict} the "
+                  f"counting pattern; {n_gen} tokens end-to-end in "
+                  f"{dt * 1e3:.1f} ms, one prefill + {n_gen} decode "
+                  f"steps)")
+            if logger is not None:
+                # end to end (prefill + decode + host fetch) / tokens
+                logger.log(event="generate", tokens=toks, matches=ok,
+                           generate_ms_per_token=dt * 1e3 / n_gen)
+    finally:
+        if logger is not None:
+            logger.close()

@@ -276,6 +276,43 @@ def relu6(x):
     return torch.clamp(x, 0.0, 6.0)
 
 
+def gelu(x):
+    """GELU in the tanh approximation, ``jax.nn.gelu``'s default (torch's
+    default is the exact erf form)."""
+    return F.gelu(x, approximate="tanh")
+
+
+def layer_norm(x, scale, bias, eps: float = 1e-6):
+    """LayerNorm over the trailing axis with f32 statistics and the
+    biased variance, cast back to x's dtype."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf - mean).square().mean(-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * scale + bias).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """Keras LayerNormalization over the trailing feature axis: params
+    `scale` (ones) and `bias` (zeros), eps 1e-6."""
+
+    def __init__(self, features: int, *, eps: float = 1e-6,
+                 name: str = "ln"):
+        super().__init__()
+        self.name = name
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def reset_parameters(self, g: torch.Generator) -> None:
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x):
+        return layer_norm(x, self.scale, self.bias, self.eps)
+
+
 class ReLU(nn.Module):
     """A named ReLU layer, for `Sequential`."""
 

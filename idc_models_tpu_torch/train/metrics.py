@@ -1,7 +1,8 @@
 """Metrics on device: accuracy, binary accuracy, AUROC.
 
-The counterparts of ``idc_models_tpu/train/metrics.py`` for classifier
-logits ([B, C>1] multiclass, [B, 1] or [B] binary).
+The counterparts of ``idc_models_tpu/train/metrics.py``: classifier
+logits ([B, C>1] multiclass, [B, 1] or [B] binary) and LM logits
+([B, T, V]).
 """
 
 from __future__ import annotations
@@ -23,7 +24,15 @@ def binary_accuracy(logits: torch.Tensor, labels: torch.Tensor,
 
 def auto_accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Keras ``metrics=['accuracy']``: multiclass for [B, C>1] logits,
-    binary otherwise."""
+    binary otherwise. Sequence logits [B, T, V] with token labels [B, T]
+    (the LM) score shifted next-token accuracy, as ``next_token_loss``
+    trains; soft labels [B, T, V] (teacher logits) score unshifted
+    greedy agreement, since both sides' position t predict token t+1."""
+    if logits.dim() == 3 and logits.shape[-1] > 1:
+        if labels.dim() == 3:
+            return (logits.argmax(-1) == labels.argmax(-1)).float().mean()
+        pred = logits[:, :-1].argmax(-1)
+        return (pred == labels[:, 1:].to(pred.dtype)).float().mean()
     if logits.dim() == 2 and logits.shape[-1] > 1:
         return accuracy(logits, labels)
     return binary_accuracy(logits, labels)

@@ -1,0 +1,270 @@
+"""The port's flash block update, blockwise backward and ring attention
+(idc_models_tpu_torch/ops/flash_block_kernel.py, ring_attention.py)
+against the JAX package's, on the CPU: the same numpy inputs through the
+JAX function (its Pallas kernels in interpret mode, its ring on a
+one-device mesh) and through the port (the kernels' plain versions, as
+a CPU tensor takes them)."""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from idc_models_tpu import mesh as meshlib
+from idc_models_tpu import ring_attention as jring
+from idc_models_tpu.ops import flash_block_kernel as jfbk
+from idc_models_tpu_torch import ring_attention as tring
+from idc_models_tpu_torch.ops import build
+from idc_models_tpu_torch.ops import flash_block_kernel as tfbk
+
+B, T, H, D = 2, 256, 2, 32
+SCALE = D ** -0.5
+
+
+def _inputs(seed=0, t_q=T, t_k=T):
+    """q/k/v and a mid-stream carry (as if one block was already folded
+    in), so the corr-rescale path is covered, not just a fresh start."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(0, 1, (B, t_q, H, D)).astype(np.float32)
+    k = rng.normal(0, 1, (B, t_k, H, D)).astype(np.float32)
+    v = rng.normal(0, 1, (B, t_k, H, D)).astype(np.float32)
+    m = rng.normal(0, 1, (B, H, t_q)).astype(np.float32)
+    l = rng.uniform(0.5, 2.0, (B, H, t_q)).astype(np.float32)
+    acc = rng.normal(0, 1, (B, t_q, H, D)).astype(np.float32)
+    return q, k, v, m, l, acc
+
+
+def _t(*xs):
+    return [torch.from_numpy(np.array(x)) for x in xs]
+
+
+def _j(*xs):
+    return [jnp.asarray(x) for x in xs]
+
+
+def _close(got, want, rtol, atol, names):
+    for g, w, name in zip(got, want, names):
+        np.testing.assert_allclose(np.asarray(g), np.asarray(w), rtol=rtol,
+                                   atol=atol, err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_fold_matches_jax_reference_and_interpret_kernel(causal):
+    """`reference_impl` and `flash_block_update` (the plain fold on a CPU
+    tensor) against the JAX reference and its interpret-mode kernel,
+    offsets [128, 0], mid-stream carry; 1e-5 as tests/test_flash_block.py."""
+    ins = _inputs()
+    offs = np.array([128, 0], np.int32)
+    want_ref = jfbk.reference_impl(*_j(*ins), jnp.asarray(offs),
+                                   scale=SCALE, causal=causal)
+    want_kernel = jfbk.make_flash_block_update(
+        scale=SCALE, causal=causal, interpret=True)(*_j(*ins),
+                                                    jnp.asarray(offs))
+    got_ref = tfbk.reference_impl(*_t(*ins), torch.from_numpy(offs),
+                                  scale=SCALE, causal=causal)
+    got_upd = tfbk.flash_block_update(*_t(*ins), torch.from_numpy(offs),
+                                      scale=SCALE, causal=causal)
+    names = ("m", "l", "acc")
+    for got in (got_ref, got_upd):
+        _close(got, want_ref, 1e-5, 1e-5, names)
+        _close(got, want_kernel, 1e-5, 1e-5, names)
+
+
+def test_first_block_fully_masked_heals_as_in_jax():
+    """A fresh carry folded with a fully masked block (offsets [0, 256]:
+    every key after every query) then a visible one equals the JAX
+    reference after both folds: the p = exp(0) garbage cancels."""
+    q, k, v, *_ = _inputs(seed=3)
+    m0 = np.full((B, H, T), -1e30, np.float32)
+    l0 = np.zeros((B, H, T), np.float32)
+    acc0 = np.zeros((B, T, H, D), np.float32)
+    carry_t, carry_j = _t(m0, l0, acc0), _j(m0, l0, acc0)
+    for offs in ([0, 256], [256, 0]):
+        carry_t = tfbk.flash_block_update(*_t(q, k, v), *carry_t, offs,
+                                          scale=SCALE, causal=True)
+        carry_j = jfbk.reference_impl(*_j(q, k, v), *carry_j,
+                                      jnp.asarray(offs, jnp.int32),
+                                      scale=SCALE, causal=True)
+    _close(carry_t, carry_j, 1e-5, 1e-5, ("m", "l", "acc"))
+    out = tring.finalize(carry_t[1], carry_t[2], torch.float32)
+    assert torch.isfinite(out).all()
+
+
+def test_update_gradients_match_jax_custom_vjp():
+    """Gradients through `flash_block_update` (autograd of the plain
+    fold) against jax.grad through the interpret-mode kernel's
+    custom_vjp; rtol 5e-4, atol 1e-4 as tests/test_flash_block.py."""
+    q, k, v, m, l, acc = _inputs(seed=2)
+    offs = np.array([0, 0], np.int32)
+    upd = jfbk.make_flash_block_update(scale=SCALE, causal=True,
+                                       interpret=True)
+
+    def jloss(q_, k_, v_):
+        m2, l2, a2 = upd(q_, k_, v_, *_j(m, l, acc), jnp.asarray(offs))
+        return jnp.sum(a2 ** 2) + jnp.sum(l2 ** 2) + jnp.sum(m2)
+
+    want = jax.grad(jloss, (0, 1, 2))(*_j(q, k, v))
+    qt, kt, vt = (t.requires_grad_() for t in _t(q, k, v))
+    m2, l2, a2 = tfbk.flash_block_update(qt, kt, vt, *_t(m, l, acc), offs,
+                                         scale=SCALE, causal=True)
+    (a2.square().sum() + l2.square().sum() + m2.sum()).backward()
+    _close((qt.grad, kt.grad, vt.grad), want, 5e-4, 1e-4, ("dq", "dk", "dv"))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_block_grads_match_jax_reference_and_interpret_kernels(causal):
+    """`block_grads_reference` and `flash_block_grads` (the dense formula
+    on a CPU tensor) against the JAX mirror and its interpret-mode dq and
+    dk/dv kernels; 1e-4 as tests/test_flash_block.py."""
+    rng = np.random.default_rng(4)
+    q, k, v, do = (rng.normal(0, 1, (B, T, H, D)).astype(np.float32)
+                   for _ in range(4))
+    L = (rng.normal(0, 1, (B, H, T)) + 3.0).astype(np.float32)
+    Dr = rng.normal(0, 1, (B, H, T)).astype(np.float32)
+    offs = np.array([128, 0], np.int32)
+    args = (q, k, v, do, L, Dr)
+    want_ref = jfbk.block_grads_reference(*_j(*args), jnp.asarray(offs),
+                                          scale=SCALE, causal=causal)
+    want_kernel = jfbk.make_flash_block_grads(
+        scale=SCALE, causal=causal, interpret=True)(*_j(*args),
+                                                    jnp.asarray(offs))
+    names = ("dq", "dk", "dv")
+    for fn in (tfbk.block_grads_reference, tfbk.flash_block_grads):
+        got = fn(*_t(*args), torch.from_numpy(offs), scale=SCALE,
+                 causal=causal)
+        assert all(g.dtype == torch.float32 for g in got)
+        _close(got, want_ref, 1e-4, 1e-4, names)
+        _close(got, want_kernel, 1e-4, 1e-4, names)
+
+
+@pytest.mark.parametrize("block_impl", ["jnp", "pallas"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_matches_jax_ring_and_full_attention(block_impl, causal):
+    """The port's ring against the JAX ring on a one-device "seq" mesh
+    (same block impl; pallas interprets on the CPU) and against full
+    attention; 1e-5."""
+    rng = np.random.default_rng(5)
+    q, k, v = (rng.normal(0, 1, (1, T, H, D)).astype(np.float32)
+               for _ in range(3))
+    jring_fn = jring.make_ring_attention(meshlib.seq_mesh(1), causal=causal,
+                                         block_impl=block_impl)
+    want = np.asarray(jring_fn(*_j(q, k, v)))
+    want_full = np.asarray(jring.full_attention(*_j(q, k, v), causal=causal))
+    ring = tring.make_ring_attention(causal=causal, block_impl=block_impl)
+    got = ring(*_t(q, k, v))
+    got_full = tring.full_attention(*_t(q, k, v), causal=causal)
+    _close((got, got, got_full), (want, want_full, want_full), 1e-5, 1e-5,
+           ("ring vs jax ring", "ring vs full", "full vs jax full"))
+
+
+def test_pallas_ring_gradients_match_full_attention():
+    """Gradients through the pallas ring's autograd.Function (the
+    blockwise backward ring) against autograd of full attention, and
+    against jax.grad of the JAX full attention; rtol 2e-4, atol 2e-5 as
+    tests/test_flash_block.py."""
+    rng = np.random.default_rng(7)
+    q, k, v = (rng.normal(0, 1, (1, 512, H, D)).astype(np.float32)
+               for _ in range(3))
+    ring = tring.make_ring_attention(causal=True, block_impl="pallas")
+    grads = []
+    for fn in (ring, lambda a, b, c: tring.full_attention(a, b, c,
+                                                          causal=True)):
+        ins = [t.requires_grad_() for t in _t(q, k, v)]
+        fn(*ins).square().sum().backward()
+        grads.append([t.grad for t in ins])
+    want_j = jax.grad(lambda a, b, c: jnp.sum(jring.full_attention(
+        a, b, c, causal=True) ** 2), (0, 1, 2))(*_j(q, k, v))
+    for g in grads[0]:
+        assert torch.isfinite(g).all()
+    _close(grads[0], grads[1], 2e-4, 2e-5, ("dq", "dk", "dv"))
+    _close(grads[0], want_j, 2e-4, 2e-5, ("dq", "dk", "dv"))
+
+
+def test_pallas_ring_saves_no_quadratic_tensor():
+    """What the pallas ring keeps for its backward: no saved tensor has
+    two axes of length T -- the port's form of the JAX package's
+    test_pallas_backward_is_blockwise. The jnp ring is the positive
+    control: autograd of its fold saves the [B, H, T, T] scores."""
+    t = 512
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, (1, t, H, D))
+                                .astype(np.float32)).requires_grad_()
+               for _ in range(3))
+
+    def saved_shapes(block_impl):
+        shapes = []
+
+        def pack(x):
+            shapes.append(tuple(x.shape))
+            return x
+
+        ring = tring.make_ring_attention(causal=True, block_impl=block_impl)
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda x: x):
+            out = ring(q, k, v)
+        out.sum().backward()
+        return [s for s in shapes if sum(d == t for d in s) >= 2]
+
+    assert saved_shapes("pallas") == []
+    assert saved_shapes("jnp"), "the detector failed its positive control"
+
+
+def test_non_tile_multiple_rejected_as_in_jax():
+    """T = 192 is refused with the JAX package's ValueError, by the block
+    update, the backward, and the pallas ring -- on the CPU too."""
+    q, k, v, m, l, acc = _inputs(t_q=192, t_k=192)
+    offs = np.array([0, 0], np.int32)
+    with pytest.raises(ValueError, match="multiples of 128") as want:
+        jfbk.make_flash_block_update(scale=SCALE, causal=False,
+                                     interpret=True)(*_j(q, k, v, m, l, acc),
+                                                     jnp.asarray(offs))
+    with pytest.raises(ValueError, match="multiples of 128") as got:
+        tfbk.flash_block_update(*_t(q, k, v, m, l, acc), offs, scale=SCALE,
+                                causal=False)
+    assert str(got.value) == str(want.value)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        tfbk.flash_block_grads(*_t(q, k, v, q, m, l), offs, scale=SCALE,
+                               causal=False)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        tring.make_ring_attention(causal=True, block_impl="pallas")(
+            *_t(q, k, v))
+
+
+def test_zigzag_helpers_match_jax_and_the_layout_is_not_ported():
+    x = np.arange(2 * 64 * 3, dtype=np.float32).reshape(2, 64, 3)
+    for n in (1, 2, 4):
+        assert np.array_equal(tring.zigzag_indices(64, n),
+                              jring.zigzag_indices(64, n))
+        zz = tring.to_zigzag(torch.from_numpy(x), n)
+        np.testing.assert_array_equal(zz, jring.to_zigzag(jnp.asarray(x), n))
+        np.testing.assert_array_equal(tring.from_zigzag(zz, n), x)
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        tring.make_ring_attention(causal=True, layout="zigzag")
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+        tring.make_ring_attention(causal=True, world_size=2)
+    with pytest.raises(ValueError, match="unknown block_impl"):
+        tring.make_ring_attention(block_impl="triton")
+
+
+def test_kernels_refuse_cpu_tensors_and_count_no_cpu_calls():
+    """A CPU tensor never reaches a kernel; a launch refuses one. The
+    three kernels build as their own libraries, named by source hash."""
+    q, k, v, m, l, acc = _t(*_inputs())
+    offs = torch.tensor([0, 0], dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tfbk._launch_update(q, k, v, m, l, acc, offs, SCALE, True)
+    for launch in (tfbk.flash_block_dq, tfbk.flash_block_dkv):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            launch(q, k, v, q, m, l, offs, scale=SCALE, causal=True)
+    before = [kern.launches for kern in tfbk.KERNELS]
+    tfbk.flash_block_update(q, k, v, m, l, acc, offs, scale=SCALE,
+                            causal=True)
+    tfbk.flash_block_grads(q, k, v, q, m, l, offs, scale=SCALE, causal=True)
+    assert [kern.launches for kern in tfbk.KERNELS] == before
+    for kern, stem in zip(tfbk.KERNELS, ("flash_block_fwd", "flash_block_dq",
+                                         "flash_block_dkv")):
+        path = kern.library_path()
+        assert path.parent == build.BUILD_DIR
+        assert path.name.startswith(f"lib{stem}-")

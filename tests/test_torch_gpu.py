@@ -16,8 +16,10 @@ from __future__ import annotations
 import pytest
 import torch
 
+from idc_models_tpu_torch import ring_attention as tring
 from idc_models_tpu_torch.federated.fedavg import ServerState
 from idc_models_tpu_torch.models import core, mobilenet, small_cnn
+from idc_models_tpu_torch.ops import flash_block_kernel as fbk
 from idc_models_tpu_torch.ops import fused_conv as fc
 from idc_models_tpu_torch.ops import secure_masking_kernel as smk
 from idc_models_tpu_torch.secure.fedavg import make_secure_fedavg_round
@@ -186,3 +188,135 @@ def test_secure_round_through_the_kernel_matches_threefry(cuda):
     torch.backends.cudnn.deterministic = deterministic
     for k, t in out["threefry"].items():
         assert torch.equal(out["pallas"][k], t), k
+
+
+# the causal LM's flash kernels: f32 arithmetic in another order than the
+# plain versions (64-key chunks against whole-block products), so they are
+# held normwise, max |kernel - plain| <= FLASH_TOL * (1 + max |plain|)
+
+FLASH_TOL = 5e-5
+
+
+def _flash_close(got, want):
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= FLASH_TOL * (1.0 + want.float().abs().max().item()), err
+
+
+def _flash_inputs(gen, t_q, t_k, d, dtype, fresh=False):
+    def mk(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+    q, dout = mk(2, t_q, 2, d).to(dtype), mk(2, t_q, 2, d).to(dtype)
+    k, v = mk(2, t_k, 2, d).to(dtype), mk(2, t_k, 2, d).to(dtype)
+    if fresh:
+        m = torch.full((2, 2, t_q), -1e30, device="cuda")
+        l = torch.zeros(2, 2, t_q, device="cuda")
+        acc = torch.zeros(2, t_q, 2, d, device="cuda")
+    else:
+        m, acc = mk(2, 2, t_q), mk(2, t_q, 2, d)
+        l = torch.rand(2, 2, t_q, device="cuda", generator=gen) + 0.5
+    return q, k, v, m, l, acc, dout, mk(2, 2, t_q) + 8.0, mk(2, 2, t_q)
+
+
+@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernels_match_plain(cuda, d, dtype, causal):
+    """The update, dq and dk/dv kernels against their plain versions,
+    Tq 256 against Tk 512, offsets [128, 0], a mid-stream carry; one
+    launch each."""
+    q, k, v, m, l, acc, dout, lse, delta = _flash_inputs(
+        cuda, 256, 512, d, getattr(torch, dtype))
+    offs = torch.tensor([128, 0], dtype=torch.int32, device="cuda")
+    kw = dict(scale=d ** -0.5, causal=causal)
+    before = [kern.launches for kern in fbk.KERNELS]
+    got = fbk.flash_block_update(q, k, v, m, l, acc, offs, **kw)
+    grads = fbk.flash_block_grads(q, k, v, dout, lse, delta, offs, **kw)
+    torch.cuda.synchronize()
+    assert [kern.launches - b for kern, b in
+            zip(fbk.KERNELS, before)] == [1, 1, 1]
+    for g, w in zip(got, fbk.reference_impl(q, k, v, m, l, acc, offs,
+                                            **kw)):
+        assert g.dtype == torch.float32 and g.is_cuda
+        _flash_close(g, w)
+    for g, w in zip(grads, fbk.block_grads_reference(
+            q, k, v, dout, lse, delta, offs, **kw)):
+        assert g.dtype == torch.float32 and g.is_cuda
+        _flash_close(g, w)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_fully_masked_first_block_heals(cuda, dtype):
+    """A fresh carry folded with a fully masked block, then a visible
+    one, equals the plain version's two folds."""
+    q, k, v, m, l, acc, *_ = _flash_inputs(cuda, 128, 128, 64,
+                                           getattr(torch, dtype), fresh=True)
+    got, want = (m, l, acc), (m, l, acc)
+    for offs in ([0, 128], [128, 0]):
+        got = fbk.flash_block_update(q, k, v, *got, offs, scale=0.125,
+                                     causal=True)
+        want = fbk.reference_impl(q, k, v, *want, offs, scale=0.125,
+                                  causal=True)
+    for g, w in zip(got, want):
+        _flash_close(g, w)
+    assert torch.isfinite(got[1]).all() and (got[1] > 0).all()
+
+
+def test_flash_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    q, k, v, m, l, acc, dout, lse, delta = _flash_inputs(cuda, 128, 128, 64,
+                                                         torch.float32)
+    kw = dict(scale=0.125, causal=True)
+    offs = [0, 0]
+    before = [kern.launches for kern in fbk.KERNELS]
+    with pytest.raises(ValueError, match="D in"):
+        fbk.flash_block_update(q[..., :48].contiguous(), k[..., :48]
+                               .contiguous(), v[..., :48].contiguous(), m, l,
+                               acc[..., :48].contiguous(), offs, **kw)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fbk.flash_block_update(q.half(), k.half(), v.half(), m, l, acc, offs,
+                               **kw)
+    with pytest.raises(TypeError, match="must be torch.float32"):
+        fbk.flash_block_update(q, k, v, m.double(), l, acc, offs, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        fbk.flash_block_grads(q, k.transpose(1, 2).contiguous().transpose(
+            1, 2), v, dout, lse, delta, offs, **kw)
+    with pytest.raises(ValueError, match="must lie on"):
+        fbk.flash_block_grads(q, k, v, dout, lse.cpu(), delta, offs, **kw)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        fbk.flash_block_update(q[:, :64], k, v, m[..., :64], l[..., :64],
+                               acc[:, :64], offs, **kw)
+    assert [kern.launches for kern in fbk.KERNELS] == before
+
+
+def test_pallas_ring_gradients_on_the_card(cuda):
+    """Values and gradients of the pallas ring (the forward and backward
+    kernels) against autograd of full attention, T=1024."""
+    q, k, v = (torch.randn(1, 1024, 4, 64, device="cuda", generator=cuda)
+               for _ in range(3))
+    outs, grads = [], []
+    for fn in (tring.make_ring_attention(causal=True, block_impl="pallas"),
+               lambda a, b, c: tring.full_attention(a, b, c, causal=True)):
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*ins)
+        out.square().sum().backward()
+        outs.append(out.detach())
+        grads.append([t.grad for t in ins])
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-5, atol=1e-5)
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-5)
+
+
+def test_pallas_ring_backward_memory_is_blockwise(cuda):
+    """Forward + backward of the pallas ring at B=1, T=16384, H=8, D=64
+    raises the peak allocation by under 1 GB: no [T, T] tensor (8.6 GB
+    in f32) is ever built."""
+    q, k, v, g = (torch.randn(1, 16384, 8, 64, device="cuda", generator=cuda)
+                  for _ in range(4))
+    for t in (q, k, v):
+        t.requires_grad_()
+    ring = tring.make_ring_attention(causal=True, block_impl="pallas")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ring(q, k, v).backward(g)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < 1e9
