@@ -41,10 +41,13 @@ non-zero before the result line:
    card could take; host-clock times of the train steps and of secure
    rounds (pallas against threefry);
 6. flash -- the three flash kernels of the causal LM
-   (ops/flash_block_kernel.py): parity against their plain versions over
-   a grid (causal or not; offsets [0,0], [128,0] and a fully masked first
-   block folded before a visible one; Tq 256 against Tk 512; D 16 to 128;
-   f32 and bf16; a mid-stream carry; the main path's 1x16384x8x64), the
+   (ops/flash_block_kernel.py; the two backward kernels' ptxas lines must
+   show no register spills): parity against their plain versions over a
+   grid (causal or not; offsets [0,0], [128,0], [0,128], [32,96] (which
+   cuts a tile's causal span inside a chunk), a fully masked first block
+   folded before a visible one, and a fully masked backward block that
+   must give exact zeros; Tq 256 against Tk 512; D 16 to 128; f32 and
+   bf16; a mid-stream carry; the main path's 1x16384x8x64), the
    pallas ring's values and gradients against full attention at T=2048,
    the backward's memory rise at T=16384 (under 1 GB), then two paths,
    each with every launch count set to 0 just before it and read just
@@ -55,7 +58,9 @@ non-zero before the result line:
    16384, 4096 and 1000 tokens (6 forward launches), its prefill logits
    and caches held against the plain (jnp) Generator; then times of each
    kernel, its plain version and SDPA at T=4096 and 16384 (f32, bf16)
-   beside the bound, and the `lm` train step, pallas against jnp;
+   beside the bound (f32 inputs at the TF32 tensor-core peak, with the
+   f32 FMA peak beside it; the backward kernels' computed tiles beside
+   the visible pairs), and the `lm` train step, pallas against jnp;
 
 then one JSON line of per-kernel numbers, and the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}`.
@@ -772,6 +777,11 @@ FLASH_TOL = 5e-5
 # bf16 caches of the pallas and plain Generators, near zero (see serving)
 CACHE_ATOL = 1e-4
 PEAK_BF16_FLOP_PER_S = 989e12
+# f32 inputs are bounded at the TF32 tensor-core peak, which the backward
+# kernels' 3xTF32 products run on; the f32 FMA peak (PEAK_F32_FLOP_PER_S),
+# the bound of the earlier CUDA-core kernels, is printed beside it so
+# their shares stay comparable
+PEAK_TF32_FLOP_PER_S = 495e12
 FLASH_NAMES = {"fwd": "flash_block_update", "dq": "flash_block_dq",
                "dkv": "flash_block_dkv"}
 KERNEL_SYMBOLS = {"fwd": "flash_block_fwd_kernel<",
@@ -860,13 +870,13 @@ def flash_parity(torch, fbk) -> dict:
     (f32, causal)."""
     tf32_off(torch)
     gen = torch.Generator(device="cuda").manual_seed(10)
-    n = 0
+    n = n_masked = 0
     worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
     for d in (16, 32, 64, 128):
         for dtype in (torch.float32, torch.bfloat16):
             for t_q, t_k in ((256, 256), (256, 512)):
                 for causal in (False, True):
-                    for offs in ([0, 0], [128, 0], [0, 128]):
+                    for offs in ([0, 0], [128, 0], [0, 128], [32, 96]):
                         ins = flash_inputs(torch, gen, 2, t_q, t_k, 2, d,
                                            dtype)
                         errs = flash_case(torch, fbk, ins, offs, causal)
@@ -887,12 +897,29 @@ def flash_parity(torch, fbk) -> dict:
                 for i, (g, w) in enumerate(zip(got, want)):
                     worst["fwd"] = max(worst["fwd"], flash_err(g, w, i == 0))
                 n += 1
+                # a fully masked block in the backward: every key after
+                # every query, so the kernels skip every tile and the
+                # plain version's p and ds are exactly 0
+                q, k, v, _, _, _, dout, lse, delta = flash_inputs(
+                    torch, gen, 2, 256, 256, 2, d, dtype)
+                o = torch.tensor([0, 256], dtype=torch.int32, device="cuda")
+                args = (q, k, v, dout, lse, delta, o)
+                grads = fbk.flash_block_grads(*args, **kw)
+                want = fbk.block_grads_reference(*args, **kw)
+                torch.cuda.synchronize()
+                if any(g.any() or w.any() for g, w in zip(grads, want)):
+                    raise SystemExit(f"a fully masked block's backward is "
+                                     f"not exactly 0 (D {d}, {dtype})")
+                n_masked += 1
     log(f"flash parity: {n} cases (D 16/32/64/128 x f32/bf16 x Tq,Tk "
         f"256,256 / 256,512 x causal or not x offsets [0,0] [128,0] "
-        f"[0,128], mid-stream carry; plus a fully masked first block then "
-        f"a visible one) match the plain versions, normwise tolerance "
-        f"{FLASH_TOL}; worst |err| update {worst['fwd']!r}, dq "
-        f"{worst['dq']!r}, dk/dv {worst['dkv']!r}")
+        f"[0,128] [32,96] (the last cuts a tile's span inside a chunk), "
+        f"mid-stream carry; plus a fully masked first block then a visible "
+        f"one) match the plain versions, normwise tolerance {FLASH_TOL}; "
+        f"worst |err| update {worst['fwd']!r}, dq {worst['dq']!r}, dk/dv "
+        f"{worst['dkv']!r}; {n_masked} fully masked backward blocks "
+        f"(offsets [0,256], T 256) give exact zeros, as the plain version "
+        f"does")
     main = {}
     for dtype in (torch.float32, torch.bfloat16):
         ins = flash_inputs(torch, gen, 1, LM_T, LM_T, 8, 64, dtype,
@@ -1179,6 +1206,23 @@ def profile_kernels(torch, fn, names, n: int = 2) -> dict:
     return out
 
 
+def log_backward_tiles(fbk, t: int) -> None:
+    """The (tile, chunk) steps the dq and dk/dv kernels compute at B=1,
+    H=8, D=64, T=t, causal, offsets [0, 0] (`causal_chunk_span` at their
+    own tile sizes), beside the visible pairs and the steps without
+    skipping."""
+    visible = 8 * t * (t + 1) // 2
+    for key, (rows, cols) in fbk.backward_tiles(64).items():
+        n_chunks, first_tile = fbk.causal_chunk_span(t, t, rows, cols, 0, 0)
+        steps = 8 * (sum(n_chunks) if key == "dq"
+                     else sum(t // rows - f for f in first_tile))
+        log(f"tiles flash {FLASH_NAMES[key]} T={t}: {steps} steps of "
+            f"{rows} queries x {cols} keys computed over 8 heads "
+            f"({steps * rows * cols} pairs) for {visible} visible pairs "
+            f"(x{steps * rows * cols / visible!r}); without skipping "
+            f"{8 * (t // rows) * (t // cols)} steps")
+
+
 def flash_times(torch, fbk, card: str) -> dict:
     """CUDA-event ms of each flash kernel through its wrapper and on the
     device (`device_ms`), its plain version, and SDPA (forward from
@@ -1191,6 +1235,7 @@ def flash_times(torch, fbk, card: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(13)
     rows = {}
     for t in (4096, LM_T):
+        log_backward_tiles(fbk, t)
         for dtype in (torch.float32, torch.bfloat16):
             torch.cuda.empty_cache()
             q, k, v, m, l, acc, dout, lse, delta = flash_inputs(
@@ -1227,9 +1272,9 @@ def flash_times(torch, fbk, card: str) -> dict:
             lib["dq"] = lib["dkv"] = time_ms(torch, lambda: torch.autograd.grad(
                 out, (qs, ks, vs), g, retain_graph=True), iters)
             del out, qs, ks, vs, g
-            itemsize = 4 if dtype == torch.float32 else 2
-            peak = (PEAK_F32_FLOP_PER_S if dtype == torch.float32
-                    else PEAK_BF16_FLOP_PER_S)
+            f32 = dtype == torch.float32
+            itemsize = 4 if f32 else 2
+            peak = PEAK_TF32_FLOP_PER_S if f32 else PEAK_BF16_FLOP_PER_S
             work = flash_bytes_flops(t, 64, 8, itemsize)
             for key in ("fwd", "dq", "dkv"):
                 nbytes, flops = work[key]
@@ -1244,6 +1289,10 @@ def flash_times(torch, fbk, card: str) -> dict:
                 rows[(t, str(dtype)[6:], key)] = row
                 what = ("SDPA forward" if key == "fwd"
                         else "SDPA backward (dq, dk, dv together)")
+                fma_ms = flops / PEAK_F32_FLOP_PER_S * 1e3
+                fma = (f"; at the f32 FMA peak (67 TFLOP/s, the earlier bound) "
+                       f"{fma_ms!r} ms, kernel at {fma_ms / ms[key]!r} of "
+                       f"it" if f32 else "")
                 log(f"time flash {FLASH_NAMES[key]} T={t} {str(dtype)[6:]} "
                     f"causal: kernel {ms[key]!r} ms through the wrapper, "
                     f"{dev[key]!r} ms on the device (events behind a sleep "
@@ -1253,12 +1302,17 @@ def flash_times(torch, fbk, card: str) -> dict:
                     f"{row['bound_by']} ({nbytes} B at 3.35 TB/s: "
                     f"{t_bytes!r} ms; {flops} flops of the visible pairs "
                     f"at {peak / 1e12!r} TFLOP/s: {t_ops!r} ms); kernel at "
-                    f"{bound / ms[key]!r} of the bound; {card}")
-            bwd_bound = 10 * 64 * 8 * t * (t + 1) // 2 / peak * 1e3
+                    f"{bound / ms[key]!r} of the bound{fma}; {card}")
+            bwd_flops = 10 * 64 * 8 * t * (t + 1) // 2
+            bwd_bound = bwd_flops / peak * 1e3
+            fma = (f", at the f32 FMA peak "
+                   f"{bwd_flops / PEAK_F32_FLOP_PER_S * 1e3!r} ms" if f32
+                   else "")
             log(f"time flash backward T={t} {str(dtype)[6:]}: dq + dk/dv "
                 f"kernels {ms['dq'] + ms['dkv']!r} ms, SDPA backward "
-                f"{lib['dq']!r} ms, bound at 10*D flops a visible pair "
-                f"{bwd_bound!r} ms; {card}")
+                f"{lib['dq']!r} ms, bound of the backward's 10*D flops a "
+                f"visible pair at {peak / 1e12!r} TFLOP/s {bwd_bound!r} ms"
+                f"{fma}; {card}")
             del q, k, v, m, l, acc, dout, lse, delta
     return {key: rows[(LM_T, "float32", key)] for key in FLASH_NAMES}
 
@@ -1352,6 +1406,15 @@ def main() -> int:
         regs = [line.strip() for line in k.build_log.splitlines()
                 if "registers" in line or "spill" in line]
         log(f"build: {k.name} ptxas {regs}")
+    # the tensor-core backward kernels hold their tiles in registers: a
+    # spill would put them in local memory
+    for k in (fbk.DQ_KERNEL, fbk.DKV_KERNEL):
+        spills = [line.strip() for line in k.build_log.splitlines()
+                  if "spill" in line
+                  and "0 bytes spill stores, 0 bytes spill loads" not in line]
+        if spills:
+            raise SystemExit(f"ptxas spills registers in {k.name}: {spills}")
+    log("build: no register spills in flash_block_dq and flash_block_dkv")
     clock_hz = sm_clock_hz()
 
     flash_worst = flash_parity(torch, fbk)

@@ -3,8 +3,9 @@
 Each kernel is one ``csrc/*.cu`` file with a plain C entry point. It is
 compiled for Hopper (``sm_90a``) at first use into
 ``idc_models_tpu_torch/_build/`` (listed in ``.gitignore``), under a
-name that carries a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is. Nothing is
+name that carries a hash of the source, the shared ``csrc/*.cuh``
+headers and the flags, so an edited source or header is rebuilt and an
+unchanged one is loaded as it is. Nothing is
 built or loaded when a module is imported: the CPU tests import every
 module on a machine with no ``nvcc`` and no card.
 
@@ -63,6 +64,8 @@ class CudaKernel:
 
     def library_path(self) -> Path:
         digest = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):  # what a source includes
+            digest.update(header.read_bytes())
         digest.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"lib{self.name}-{digest.hexdigest()[:16]}.so"
 

@@ -12,152 +12,71 @@
 //   ds_r = p_r * (dout_r . v_c - D_r) * scale
 //   dv_c = sum_r p_r dout_r,  dk_c = sum_r ds_r q_r   (f32, written once)
 //
-// q/k/v/dout are f32 or bf16 in memory and f32 in all arithmetic. Each
-// block owns its key rows outright, so the sums need no atomics and the
-// result does not depend on scheduling.
+// q/k/v/dout are f32 or bf16; p and ds are f32, as in the TPU kernel.
+// Each block owns its key rows outright, so the sums need no atomics and
+// the result does not depend on scheduling.
 //
-// Bound on an H100: operations. The pass does four products per
-// (query, key) pair -- s, dout.v, p.dout and ds.q -- 8*D flops each, so
-// at the main path's shape (B=1, T=16384, H=8, D=64) 1.1e12 flops on
-// f32 FMA units (67 TFLOP/s: ~16 ms, half that counting only causally
-// visible pairs) against ~48 MB of q/k/v/dout/dk/dv.
+// Bound on an H100: operations. Four products per visible (query, key)
+// pair -- s, dout.v, p.dout and ds.q -- 8*D flops, so at the main path's
+// shape (B=1, T=16384, H=8, D=64, causal) 5.50e11 flops against ~48 MB
+// of q/k/v/dout/L/D/dk/dv: 1.11 ms at the TF32 tensor-core peak (495
+// TFLOP/s) for f32 inputs, 0.56 ms at the bf16 peak (989) for bf16. The
+// design's own ceiling is higher: 3xTF32 runs 3 passes of every product
+// (3.33 ms), bf16 runs s and dout.v once and p.dout and ds.q twice, hi
+// and lo (0.83 ms); and `mma.sync` reaches only part of the peak that
+// `wgmma` can.
 //
-// Design: one 256-thread block per (64-key chunk, head, batch). The
-// chunk's K and V stay in shared memory as f32 rows padded to D+4
-// floats; a loop inside the block walks the queries in tiles of 64 (the
-// TPU kernel's innermost grid axis), staging q, dout, L and D. Each
-// thread owns a 4x4 piece of the transposed 64x64 score tile (keys
-// ty*4+i, queries tx+16j), computes s and dout.v in one pass over D,
-// forms p and ds in registers, and writes both to shared memory so the
-// p.dout and ds.q products read 16-byte vectors. dk and dv stay in
-// registers across all query tiles and are written once.
+// Design (flash_mma.cuh has the products):
+// - Causal tile skipping. The block of key chunk [k0, k0+64) starts at
+//   the first query tile that holds a visible pair: the rule of
+//   ops/flash_block_kernel.py `causal_chunk_span` (flash_mma.cuh
+//   `first_visible_tile`), from the offsets read on the device, so one
+//   launch serves every ring step. Each warp walks a tile in steps of 32
+//   queries (16 at D=128), skips a step wholly before its 16 keys, and
+//   applies the element mask only to steps that start before its last
+//   key. The first chunks see the most queries, and the grid runs them
+//   first.
+// - Tensor cores through mma.sync: one 128-thread block per (64-key
+//   chunk, head, batch), a warp per 16 keys. The score tile is computed
+//   transposed, s^T = k.q^T with keys as rows, so p^T and ds^T come out
+//   as accumulator fragments and feed p^T.dout and ds^T.q as their A
+//   fragments straight from registers. f32 runs 3xTF32, bf16 runs
+//   m16n8k16 with p and ds split into bf16 hi + lo.
+// - cp.async double buffering: the K and V chunk is staged once; q and
+//   dout tiles (64 queries, 32 at D=128) with their L and D alternate
+//   between two buffers, the next tile in flight while this one is
+//   computed. bf16 stays bf16 in shared memory.
+// - dk and dv stay in registers across all query tiles and are written
+//   once.
+// - Accuracy: each product's mma steps sum into zeroed fragments that f32
+//   adds carry into s, dk and dv (flash_mma.cuh says why); the error
+//   against the plain version is about 1e-6 of the largest gradient.
+// - Registers: 128-thread blocks launched with a bound of two an SM, so
+//   ptxas may use up to 255 a thread, and the tile is walked in steps
+//   that keep the score fragments small: no spills at any D (at D=128 the
+//   two 16x128 accumulators alone take 128 registers a thread).
 //
-// What this simple design leaves on the table, for a later PR: f32 FMA
-// on the CUDA cores (no wgmma), synchronous tile loads (no TMA or
-// cp.async), no skipping of fully masked causal tiles, and s/p
-// recomputed here and again in the dq pass.
+// What it leaves, for a later PR: wgmma with TMA and warp specialisation,
+// and dq fused into this pass (s/p are computed here and again there).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_mma.cuh"
 
 namespace {
 
-constexpr int kRows = 64;      // query rows per tile
-constexpr int kCols = 64;      // keys per block
-constexpr int kThreads = 256;  // 16 x 16 threads, 4x4 scores each
-constexpr int kLdP = kCols + 4;
-constexpr float kMasked = -1e30f;
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-// 64 rows of D elements (global row r at src + r * stride) into
-// dst[r * (D + 4) + d] as f32
-template <typename T, int D>
-__device__ __forceinline__ void load_rows(float* dst, const T* src,
-                                          int64_t stride) {
-  constexpr int kVec = D / 4;
-  for (int i = threadIdx.x; i < 64 * kVec; i += kThreads) {
-    const int r = i / kVec, d = (i % kVec) * 4;
-    *reinterpret_cast<float4*>(dst + r * (D + 4) + d) =
-        load4(src + r * stride + d);
-  }
-}
-
-// the output column of a thread's c-th accumulator entry: 16-byte groups
-// for D >= 64, else D/16 consecutive columns
-template <int D>
-__device__ __forceinline__ int out_col(int tx, int c) {
-  if constexpr (D >= 64) return (c / 4) * 64 + tx * 4 + (c % 4);
-  else return tx * (D / 16) + c;
-}
-
-// s[i][j] = sum_d a[(ty*4+i)][d] * b[(tx+16j)][d]
-template <int D>
-__device__ __forceinline__ void dot_tile(float s[4][4], const float* a,
-                                         const float* b, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float4 x[4], y[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = load4(a + (ty * 4 + i) * (D + 4) + d);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) y[j] = load4(b + (tx + 16 * j) * (D + 4) + d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float t = s[i][j];
-        t = fmaf(x[i].x, y[j].x, t);
-        t = fmaf(x[i].y, y[j].y, t);
-        t = fmaf(x[i].z, y[j].z, t);
-        t = fmaf(x[i].w, y[j].w, t);
-        s[i][j] = t;
-      }
-  }
-}
-
-// out[i][c] += sum_r pt[r][ty*4+i] * v[r][out_col(c)], r over 64 rows
-template <int D>
-__device__ __forceinline__ void outer_acc(float out[4][D / 16],
-                                          const float* pt, const float* v,
-                                          int ty, int tx) {
-  constexpr int kNc = D / 16;
-#pragma unroll 4
-  for (int r = 0; r < 64; ++r) {
-    const float4 p = load4(pt + r * kLdP + ty * 4);
-    float w[kNc];
-    if constexpr (D >= 64) {
-#pragma unroll
-      for (int g = 0; g < kNc / 4; ++g) {
-        const float4 t = load4(v + r * (D + 4) + g * 64 + tx * 4);
-        w[g * 4] = t.x; w[g * 4 + 1] = t.y; w[g * 4 + 2] = t.z; w[g * 4 + 3] = t.w;
-      }
-    } else {
-#pragma unroll
-      for (int c = 0; c < kNc; ++c) w[c] = v[r * (D + 4) + out_col<D>(tx, c)];
-    }
-    const float pv[4] = {p.x, p.y, p.z, p.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < kNc; ++c) out[i][c] = fmaf(pv[i], w[c], out[i][c]);
-  }
-}
-
-__device__ __forceinline__ float max16(float x) {
-#pragma unroll
-  for (int o = 8; o; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float sum16(float x) {
-#pragma unroll
-  for (int o = 8; o; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         ((2 * kRows + 2 * kCols) * (D + 4) + 2 * kRows * kLdP + 2 * kRows);
-}
+using namespace flash_mma;
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+struct Tiles {
+  static constexpr int kCols = 16 * kWarps;          // keys a block
+  static constexpr int kRows = D <= 64 ? 64 : 32;    // queries a tile
+  static constexpr int kStep = D <= 64 ? 32 : 16;    // queries a warp's step
+  static constexpr int kLd = ld<T, D>();
+  static constexpr size_t kSmem =
+      sizeof(T) * kLd * (2 * kCols + 4 * kRows) + sizeof(float) * 4 * kRows;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 flash_block_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const T* __restrict__ dout,
                        const float* __restrict__ lse,
@@ -165,78 +84,112 @@ flash_block_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const int* __restrict__ offsets,
                        float* __restrict__ dk, float* __restrict__ dv,
                        int t_q, int t_k, int heads, float scale, int causal) {
-  extern __shared__ float4 smem4[];
-  float* ks = reinterpret_cast<float*>(smem4);
-  float* vs = ks + kCols * (D + 4);
-  float* qs = vs + kCols * (D + 4);
-  float* dos = qs + kRows * (D + 4);
-  float* ps = dos + kRows * (D + 4);
-  float* dss = ps + kRows * kLdP;
-  float* ls = dss + kRows * kLdP;
-  float* ds_row = ls + kRows;
-  constexpr int kNc = D / 16;
+  constexpr int R = Tiles<T, D>::kRows, C = Tiles<T, D>::kCols;
+  constexpr int W = Tiles<T, D>::kStep, LD = Tiles<T, D>::kLd, NT = W / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ks = reinterpret_cast<T*>(smem);
+  T* vs = ks + C * LD;
+  T* qs = vs + C * LD;          // two buffers of R rows
+  T* dos = qs + 2 * R * LD;     // two buffers of R rows
+  float* ls = reinterpret_cast<float*>(dos + 2 * R * LD);  // two of R
+  float* ds_row = ls + 2 * R;                              // two of R
 
-  const int c0 = blockIdx.x * kCols, h = blockIdx.y, b = blockIdx.z;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
+  const int k0 = blockIdx.y * C;  // chunk 0, which sees the most, first
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int64_t stride = (int64_t)heads * D;
-  const int64_t k_base = ((int64_t)b * t_k + c0) * stride + (int64_t)h * D;
+  const int64_t k_base = ((int64_t)b * t_k + k0) * stride + (int64_t)h * D;
   const int64_t q_base = (int64_t)b * t_q * stride + (int64_t)h * D;
   const int64_t row_base = ((int64_t)b * heads + h) * t_q;
-  const int k_pos0 = offsets[1] + c0 + ty * 4;
-  const int q_off = offsets[0];
+  const int q_pos = offsets[0], k_pos = offsets[1] + k0;
+  const int n_tiles = t_q / R;
+  const int first =
+      causal ? first_visible_tile(q_pos, R, k_pos, n_tiles) : 0;
+  const int c0 = warp * 16 + g;  // this lane's keys: c0 and c0 + 8
 
-  load_rows<T, D>(ks, k + k_base, stride);
-  load_rows<T, D>(vs, v + k_base, stride);
-  float acc_k[4][kNc], acc_v[4][kNc];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < kNc; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
+  float acc_k[D / 8][4] = {}, acc_v[D / 8][4] = {};
+  // this (batch, head)'s query rows and per-row L and D
+  const T* q_bh = q + q_base;
+  const T* dout_bh = dout + q_base;
+  const float* lse_bh = lse + row_base;
+  const float* delta_bh = delta + row_base;
+  auto load_tile = [=](int i, int buf) {
+    const int64_t at = (int64_t)i * R * stride;
+    load_rows_async<T, D>(qs + buf * R * LD, q_bh + at, stride, R);
+    load_rows_async<T, D>(dos + buf * R * LD, dout_bh + at, stride, R);
+    load_vec_async(ls + buf * R, lse_bh + i * R, R);
+    load_vec_async(ds_row + buf * R, delta_bh + i * R, R);
+  };
+  if (first < n_tiles) {
+    load_rows_async<T, D>(ks, k + k_base, stride, C);
+    load_rows_async<T, D>(vs, v + k_base, stride, C);
+    load_tile(first, 0);
+    cp_async_commit();
+    const float scale2 = scale * kLog2e;
+    const T* kw = ks + warp * 16 * LD;
+    const T* vw = vs + warp * 16 * LD;
 
-  for (int q0 = 0; q0 < t_q; q0 += kRows) {
-    __syncthreads();  // the previous tile's readers are done
-    load_rows<T, D>(qs, q + q_base + q0 * stride, stride);
-    load_rows<T, D>(dos, dout + q_base + q0 * stride, stride);
-    if (threadIdx.x < kRows) {
-      ls[threadIdx.x] = lse[row_base + q0 + threadIdx.x];
-      ds_row[threadIdx.x] = delta[row_base + q0 + threadIdx.x];
-    }
-    __syncthreads();
+    for (int i = first; i < n_tiles; ++i) {
+      const int buf = (i - first) & 1;
+      if (i + 1 < n_tiles) load_tile(i + 1, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();  // this tile's group has landed
+      __syncthreads();
 
-    // transposed tiles: entry [i][j] is key ty*4+i against query tx+16j
-    float s[4][4], dp[4][4];
-    dot_tile<D>(s, ks, qs, ty, tx);
-    dot_tile<D>(dp, vs, dos, ty, tx);
+      // the tile in steps of W queries, a loop (not unrolled) that bounds
+      // the score registers
+#pragma unroll 1
+      for (int w0 = 0; w0 < R; w0 += W) {
+        const int q_first = q_pos + i * R + w0;
+        // every query of the step lies before this warp's first key
+        if (causal && q_first + W - 1 < k_pos + warp * 16) continue;
+        const T* qb = qs + (buf * R + w0) * LD;
+        const T* dob = dos + (buf * R + w0) * LD;
+        const float* lb = ls + buf * R + w0;
+        const float* db = ds_row + buf * R + w0;
+        // transposed tiles: rows are this warp's keys, columns the queries
+        float s[NT][4] = {}, dp[NT][4] = {};
+        mma_abt<D, NT>(s, kw, qb);
+        mma_abt<D, NT>(dp, vw, dob);
+        const bool diag = causal && k_pos + warp * 16 + 15 > q_first;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = tx + 16 * j;
-      const float lr = ls[r], dr = ds_row[r];
+        for (int j = 0; j < NT; ++j) {
+          const int col = 8 * j + 2 * t;
+          const float2 lv = *reinterpret_cast<const float2*>(lb + col);
+          const float2 dv2 = *reinterpret_cast<const float2*>(db + col);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float x = s[i][j] * scale;
-        if (causal && q_off + q0 + r < k_pos0 + i) x = kMasked;
-        const float p = expf(x - lr);
-        s[i][j] = p;
-        dp[i][j] = p * (dp[i][j] - dr) * scale;
+          for (int e = 0; e < 4; ++e) {
+            const int key = c0 + (e >> 1) * 8;
+            const float lr = (e & 1) ? lv.y : lv.x;
+            const float dr = (e & 1) ? dv2.y : dv2.x;
+            const float x = diag && q_first + col + (e & 1) < k_pos + key
+                                ? kMasked
+                                : s[j][e] * scale2 - lr * kLog2e;
+            const float p = exp2f(x);  // exactly 0 where masked
+            dp[j][e] = p * (dp[j][e] - dr) * scale;
+            s[j][e] = p;
+          }
+        }
+        mma_pm<D, NT>(acc_v, s, dob);
+        mma_pm<D, NT>(acc_k, dp, qb);
       }
-      *reinterpret_cast<float4*>(ps + r * kLdP + ty * 4) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-      *reinterpret_cast<float4*>(dss + r * kLdP + ty * 4) =
-          make_float4(dp[0][j], dp[1][j], dp[2][j], dp[3][j]);
+      __syncthreads();  // every warp is done with this buffer
     }
-    __syncthreads();
-    outer_acc<D>(acc_v, ps, dos, ty, tx);
-    outer_acc<D>(acc_k, dss, qs, ty, tx);
   }
 
+  const int64_t at = k_base + (int64_t)c0 * stride + 2 * t;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < kNc; ++c) {
-      const int64_t at = k_base + (ty * 4 + i) * stride + out_col<D>(tx, c);
-      dk[at] = acc_k[i][c];
-      dv[at] = acc_v[i][c];
-    }
+  for (int n = 0; n < D / 8; ++n) {
+    *reinterpret_cast<float2*>(dk + at + 8 * n) =
+        make_float2(acc_k[n][0], acc_k[n][1]);
+    *reinterpret_cast<float2*>(dk + at + 8 * stride + 8 * n) =
+        make_float2(acc_k[n][2], acc_k[n][3]);
+    *reinterpret_cast<float2*>(dv + at + 8 * n) =
+        make_float2(acc_v[n][0], acc_v[n][1]);
+    *reinterpret_cast<float2*>(dv + at + 8 * stride + 8 * n) =
+        make_float2(acc_v[n][2], acc_v[n][3]);
+  }
 }
 
 template <typename T, int D>
@@ -246,11 +199,11 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    int t_q, int t_k, int heads, float scale, int causal,
                    cudaStream_t stream) {
   auto kernel = flash_block_dkv_kernel<T, D>;
-  const size_t smem = smem_bytes<D>();
+  const size_t smem = Tiles<T, D>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(t_k / kCols, heads, batch);
+  const dim3 grid(batch * heads, t_k / Tiles<T, D>::kCols);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
@@ -286,7 +239,7 @@ int flash_block_dkv(const void* q, const void* k, const void* v,
                     const int* offsets, float* dk, float* dv, int dtype,
                     int batch, int t_q, int t_k, int heads, int d,
                     float scale, int causal, void* stream) {
-  if (t_q % kRows || t_k % kCols) return (int)cudaErrorInvalidValue;
+  if (t_q % 64 || t_k % 64) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)dispatch<float>(d, q, k, v, dout, lse, delta, offsets, dk, dv, batch, t_q, t_k, heads, scale, causal, s);

@@ -12,214 +12,154 @@
 //   ds_c = p_c * (dout_r . v_c - D_r) * scale
 //   dq_r = sum_c ds_c k_c           (f32, written once)
 //
-// q/k/v/dout are f32 or bf16 in memory and f32 in all arithmetic.
+// q/k/v/dout are f32 or bf16; p and ds are f32, as in the TPU kernel.
 //
-// Bound on an H100: operations. The pass does three products per
-// (query, key) pair -- s, dout.v and ds.k -- 6*D flops each, so at the
-// main path's shape (B=1, T=16384, H=8, D=64) 8.2e11 flops on f32 FMA
-// units (67 TFLOP/s: ~12 ms, half that counting only causally visible
-// pairs) against ~40 MB of q/k/v/dout/dq.
+// Bound on an H100: operations. Three products per visible (query, key)
+// pair -- s, dout.v and ds.k -- 6*D flops, so at the main path's shape
+// (B=1, T=16384, H=8, D=64, causal) 4.12e11 flops against ~40 MB of
+// q/k/v/dout/L/D/dq: 0.83 ms at the TF32 tensor-core peak (495 TFLOP/s)
+// for f32 inputs, 0.42 ms at the bf16 peak (989) for bf16. The design's
+// own ceiling is higher: 3xTF32 runs 3 passes of every product (2.50 ms),
+// bf16 runs s and dout.v once and ds.k twice, hi and lo (0.56 ms); and
+// `mma.sync` reaches only part of the peak that `wgmma` can.
 //
-// Design: one 256-thread block per (64-row query tile, head, batch).
-// The q and dout tiles and the rows' L and D stay in shared memory and
-// registers; a loop inside the block walks the keys in chunks of 64
-// (the TPU kernel's innermost grid axis), staging K and V as f32 rows
-// padded to D+4 floats. Each thread owns a 4x4 piece of the 64x64
-// score tile, computes s and dout.v in one pass over D, forms ds in
-// registers, and writes it transposed to shared memory so ds.k reads
-// 16-byte vectors. dq stays in registers across all chunks and is
-// written once. Nothing [Tq, Tk]-shaped reaches device memory.
+// Design (flash_mma.cuh has the products):
+// - Causal tile skipping. The block of query tile [q0, q0+64) walks only
+//   the key chunks that hold a visible pair: the rule of
+//   ops/flash_block_kernel.py `causal_chunk_span` (flash_mma.cuh
+//   `visible_chunks`), from the offsets read on the device, so one launch
+//   serves every ring step. Each warp walks a chunk in steps of 32 keys
+//   (16 at D=128), stops at the first step wholly after its 16 queries,
+//   and applies the element mask only to steps that reach past its first
+//   query. Work per block is uneven, so the grid runs the tiles heaviest
+//   first (the last query tile first).
+// - Tensor cores through mma.sync: one 128-thread block per (64-row
+//   query tile, head, batch), a warp per 16 rows. s and dout.v come out
+//   as accumulator fragments; ds is formed in those registers and feeds
+//   ds.k as its A fragment without a trip through shared memory. f32
+//   runs 3xTF32, bf16 runs m16n8k16 with ds split into bf16 hi + lo.
+// - cp.async double buffering: the q and dout tiles are staged once;
+//   K and V chunks (64 keys, 32 at D=128) alternate between two buffers,
+//   the next chunk in flight while this one is computed. bf16 stays bf16
+//   in shared memory.
+// - dq stays in registers across all chunks and is written once, no
+//   atomics. Nothing [Tq, Tk]-shaped reaches device memory.
+// - Accuracy: each product's mma steps sum into zeroed fragments that f32
+//   adds carry into s and dq (flash_mma.cuh says why); the error against
+//   the plain version is about 1e-6 of the largest gradient at every T.
+// - Registers: 128-thread blocks launched with a bound of two an SM, so
+//   ptxas may use up to 255 a thread, and the chunk is walked in steps
+//   that keep the score fragments small: no spills at any D.
 //
-// What this simple design leaves on the table, for a later PR: f32 FMA
-// on the CUDA cores (no wgmma), synchronous chunk loads (no TMA or
-// cp.async), no skipping of fully masked causal tiles, and s/p
-// recomputed here and again in the dk/dv pass.
+// What it leaves, for a later PR: wgmma with TMA and warp specialisation,
+// and s/p recomputed here and again in the dk/dv pass.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_mma.cuh"
 
 namespace {
 
-constexpr int kRows = 64;      // query rows per block
-constexpr int kCols = 64;      // keys per chunk
-constexpr int kThreads = 256;  // 16 x 16 threads, 4x4 scores each
-constexpr int kLdP = kRows + 4;
-constexpr float kMasked = -1e30f;
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-// 64 rows of D elements (global row r at src + r * stride) into
-// dst[r * (D + 4) + d] as f32
-template <typename T, int D>
-__device__ __forceinline__ void load_rows(float* dst, const T* src,
-                                          int64_t stride) {
-  constexpr int kVec = D / 4;
-  for (int i = threadIdx.x; i < 64 * kVec; i += kThreads) {
-    const int r = i / kVec, d = (i % kVec) * 4;
-    *reinterpret_cast<float4*>(dst + r * (D + 4) + d) =
-        load4(src + r * stride + d);
-  }
-}
-
-// the output column of a thread's c-th accumulator entry: 16-byte groups
-// for D >= 64, else D/16 consecutive columns
-template <int D>
-__device__ __forceinline__ int out_col(int tx, int c) {
-  if constexpr (D >= 64) return (c / 4) * 64 + tx * 4 + (c % 4);
-  else return tx * (D / 16) + c;
-}
-
-// s[i][j] = sum_d a[(ty*4+i)][d] * b[(tx+16j)][d]
-template <int D>
-__device__ __forceinline__ void dot_tile(float s[4][4], const float* a,
-                                         const float* b, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float4 x[4], y[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = load4(a + (ty * 4 + i) * (D + 4) + d);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) y[j] = load4(b + (tx + 16 * j) * (D + 4) + d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float t = s[i][j];
-        t = fmaf(x[i].x, y[j].x, t);
-        t = fmaf(x[i].y, y[j].y, t);
-        t = fmaf(x[i].z, y[j].z, t);
-        t = fmaf(x[i].w, y[j].w, t);
-        s[i][j] = t;
-      }
-  }
-}
-
-// out[i][c] += sum_r pt[r][ty*4+i] * v[r][out_col(c)], r over 64 rows
-template <int D>
-__device__ __forceinline__ void outer_acc(float out[4][D / 16],
-                                          const float* pt, const float* v,
-                                          int ty, int tx) {
-  constexpr int kNc = D / 16;
-#pragma unroll 4
-  for (int r = 0; r < 64; ++r) {
-    const float4 p = load4(pt + r * kLdP + ty * 4);
-    float w[kNc];
-    if constexpr (D >= 64) {
-#pragma unroll
-      for (int g = 0; g < kNc / 4; ++g) {
-        const float4 t = load4(v + r * (D + 4) + g * 64 + tx * 4);
-        w[g * 4] = t.x; w[g * 4 + 1] = t.y; w[g * 4 + 2] = t.z; w[g * 4 + 3] = t.w;
-      }
-    } else {
-#pragma unroll
-      for (int c = 0; c < kNc; ++c) w[c] = v[r * (D + 4) + out_col<D>(tx, c)];
-    }
-    const float pv[4] = {p.x, p.y, p.z, p.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < kNc; ++c) out[i][c] = fmaf(pv[i], w[c], out[i][c]);
-  }
-}
-
-__device__ __forceinline__ float max16(float x) {
-#pragma unroll
-  for (int o = 8; o; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float sum16(float x) {
-#pragma unroll
-  for (int o = 8; o; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * ((2 * kRows + 2 * kCols) * (D + 4) + kCols * kLdP);
-}
+using namespace flash_mma;
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+struct Tiles {
+  static constexpr int kRows = 16 * kWarps;          // query rows a block
+  static constexpr int kCols = D <= 64 ? 64 : 32;    // keys a chunk
+  static constexpr int kStep = D <= 64 ? 32 : 16;    // keys a warp's step
+  static constexpr int kLd = ld<T, D>();
+  static constexpr size_t kSmem = sizeof(T) * kLd * (2 * kRows + 4 * kCols);
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 flash_block_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta,
                       const int* __restrict__ offsets, float* __restrict__ dq,
                       int t_q, int t_k, int heads, float scale, int causal) {
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);
-  float* dos = qs + kRows * (D + 4);
-  float* ks = dos + kRows * (D + 4);
-  float* vs = ks + kCols * (D + 4);
-  float* dst = vs + kCols * (D + 4);
-  constexpr int kNc = D / 16;
+  constexpr int R = Tiles<T, D>::kRows, C = Tiles<T, D>::kCols;
+  constexpr int W = Tiles<T, D>::kStep, LD = Tiles<T, D>::kLd, NT = W / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* qs = reinterpret_cast<T*>(smem);
+  T* dos = qs + R * LD;
+  T* ks = dos + R * LD;        // two buffers of C rows
+  T* vs = ks + 2 * C * LD;     // two buffers of C rows
 
-  const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * R;  // heaviest tiles first
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int64_t stride = (int64_t)heads * D;
   const int64_t q_base = ((int64_t)b * t_q + q0) * stride + (int64_t)h * D;
   const int64_t kv_base = (int64_t)b * t_k * stride + (int64_t)h * D;
   const int64_t row_base = ((int64_t)b * heads + h) * t_q + q0;
-  const int q_pos0 = offsets[0] + q0 + ty * 4;
-  const int k_off = offsets[1];
+  const int q_pos = offsets[0] + q0, k_pos = offsets[1];
+  const int n_chunks =
+      causal ? visible_chunks(q_pos, R, k_pos, C, t_k / C) : t_k / C;
+  const int r0 = warp * 16 + g;  // this lane's rows: r0 and r0 + 8
 
-  load_rows<T, D>(qs, q + q_base, stride);
-  load_rows<T, D>(dos, dout + q_base, stride);
-  float row_l[4], row_d[4], acc[4][kNc];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    row_l[i] = lse[row_base + ty * 4 + i];
-    row_d[i] = delta[row_base + ty * 4 + i];
-#pragma unroll
-    for (int c = 0; c < kNc; ++c) acc[i][c] = 0.f;
-  }
+  float acc[D / 8][4] = {};
+  if (n_chunks > 0) {
+    load_rows_async<T, D>(qs, q + q_base, stride, R);
+    load_rows_async<T, D>(dos, dout + q_base, stride, R);
+    load_rows_async<T, D>(ks, k + kv_base, stride, C);
+    load_rows_async<T, D>(vs, v + kv_base, stride, C);
+    cp_async_commit();
+    const float l0 = lse[row_base + r0] * kLog2e;
+    const float l1 = lse[row_base + r0 + 8] * kLog2e;
+    const float d0 = delta[row_base + r0], d1 = delta[row_base + r0 + 8];
+    const float scale2 = scale * kLog2e;
+    const T* qw = qs + warp * 16 * LD;
+    const T* dow = dos + warp * 16 * LD;
 
-  for (int k0 = 0; k0 < t_k; k0 += kCols) {
-    __syncthreads();  // the previous chunk's readers are done
-    load_rows<T, D>(ks, k + kv_base + k0 * stride, stride);
-    load_rows<T, D>(vs, v + kv_base + k0 * stride, stride);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-    dot_tile<D>(s, qs, ks, ty, tx);
-    dot_tile<D>(dp, dos, vs, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float x = s[i][j] * scale;
-        if (causal && q_pos0 + i < k_off + k0 + tx + 16 * j) x = kMasked;
-        const float p = expf(x - row_l[i]);
-        s[i][j] = p * (dp[i][j] - row_d[i]) * scale;
+    for (int c = 0; c < n_chunks; ++c) {
+      const int buf = c & 1;
+      if (c + 1 < n_chunks) {  // the next chunk, into the other buffer
+        const int64_t at = kv_base + (int64_t)(c + 1) * C * stride;
+        load_rows_async<T, D>(ks + (buf ^ 1) * C * LD, k + at, stride, C);
+        load_rows_async<T, D>(vs + (buf ^ 1) * C * LD, v + at, stride, C);
       }
+      cp_async_commit();
+      cp_async_wait<1>();  // this chunk's group has landed
+      __syncthreads();
+
+      // the chunk in steps of W keys, a loop (not unrolled) that bounds
+      // the score registers
+#pragma unroll 1
+      for (int w0 = 0; w0 < C; w0 += W) {
+        const int k_first = k_pos + c * C + w0;
+        // every key from here on lies after this warp's last query
+        if (causal && k_first > q_pos + warp * 16 + 15) break;
+        const T* kb = ks + (buf * C + w0) * LD;
+        float s[NT][4] = {}, dp[NT][4] = {};
+        mma_abt<D, NT>(s, qw, kb);
+        mma_abt<D, NT>(dp, dow, vs + (buf * C + w0) * LD);
+        const bool diag = causal && k_first + W - 1 > q_pos + warp * 16;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(dst + (tx + 16 * j) * kLdP + ty * 4) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();
-    outer_acc<D>(acc, dst, ks, ty, tx);
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = r0 + (e >> 1) * 8;
+            const float x =
+                diag && q_pos + row < k_first + 8 * j + 2 * t + (e & 1)
+                    ? kMasked
+                    : s[j][e] * scale2 - (e < 2 ? l0 : l1);
+            const float p = exp2f(x);  // exactly 0 where masked
+            s[j][e] = p * (dp[j][e] - (e < 2 ? d0 : d1)) * scale;
+          }
+        mma_pm<D, NT>(acc, s, kb);
+      }
+      __syncthreads();  // every warp is done with this buffer
+    }
   }
 
+  float* out = dq + q_base + (int64_t)r0 * stride + 2 * t;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < kNc; ++c)
-      dq[q_base + (ty * 4 + i) * stride + out_col<D>(tx, c)] = acc[i][c];
+  for (int n = 0; n < D / 8; ++n) {
+    *reinterpret_cast<float2*>(out + 8 * n) = make_float2(acc[n][0], acc[n][1]);
+    *reinterpret_cast<float2*>(out + 8 * stride + 8 * n) =
+        make_float2(acc[n][2], acc[n][3]);
+  }
 }
 
 template <typename T, int D>
@@ -229,11 +169,11 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    int t_k, int heads, float scale, int causal,
                    cudaStream_t stream) {
   auto kernel = flash_block_dq_kernel<T, D>;
-  const size_t smem = smem_bytes<D>();
+  const size_t smem = Tiles<T, D>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(t_q / kRows, heads, batch);
+  const dim3 grid(batch * heads, t_q / Tiles<T, D>::kRows);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
@@ -269,7 +209,7 @@ int flash_block_dq(const void* q, const void* k, const void* v,
                    const int* offsets, float* dq, int dtype, int batch,
                    int t_q, int t_k, int heads, int d, float scale,
                    int causal, void* stream) {
-  if (t_q % kRows || t_k % kCols) return (int)cudaErrorInvalidValue;
+  if (t_q % 64 || t_k % 64) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)dispatch<float>(d, q, k, v, dout, lse, delta, offsets, dq, batch, t_q, t_k, heads, scale, causal, s);

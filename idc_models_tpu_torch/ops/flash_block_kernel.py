@@ -80,6 +80,39 @@ def causal_block_mask(t_q: int, t_k: int, q_offset, k_offset, *,
     return (q_pos[:, None] >= k_pos[None, :])[None, None]
 
 
+def causal_chunk_span(t_q: int, t_k: int, rows: int, cols: int,
+                      q_offset: int, k_offset: int):
+    """The causal tile-skipping rule of the dq and dk/dv kernels, in the
+    integer formulas they compute from the offsets on the device
+    (``csrc/flash_mma.cuh``): a tile of `rows` queries and a chunk of
+    `cols` keys share a visible pair iff the chunk's first key is at or
+    before the tile's last query. Every other pair is fully masked.
+
+    Returns (n_chunks, first_tile): the dq block of query tile i walks
+    key chunks [0, n_chunks[i]); the dk/dv block of key chunk j walks
+    query tiles [first_tile[j], t_q // rows)."""
+    n_tiles, n_cols = t_q // rows, t_k // cols
+    n_chunks = []
+    for i in range(n_tiles):
+        last = q_offset + (i + 1) * rows - 1 - k_offset
+        n_chunks.append(0 if last < 0 else min(last // cols + 1, n_cols))
+    first_tile = []
+    for j in range(n_cols):
+        need = k_offset + j * cols - q_offset - rows + 1
+        first_tile.append(0 if need <= 0
+                          else min((need + rows - 1) // rows, n_tiles))
+    return n_chunks, first_tile
+
+
+def backward_tiles(d: int) -> dict:
+    """(query rows, keys) of one block's step in each backward kernel, as
+    ``csrc/flash_block_dq.cu`` and ``csrc/flash_block_dkv.cu`` fix them:
+    dq holds 64 query rows and walks key chunks; dk/dv holds 64 keys and
+    walks query tiles; the walked side is 32 at D=128, else 64."""
+    walked = 64 if d <= 64 else 32
+    return {"dq": (64, walked), "dkv": (walked, 64)}
+
+
 def block_attend(q, k, v, m, l, acc, *, scale, mask=None):
     """One online-softmax update of (m, l, acc) with a visiting K/V
     block, in f32: q [B,Tq,H,D]; k, v [B,Tk,H,D]; m, l [B,H,Tq];

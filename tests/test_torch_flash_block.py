@@ -268,3 +268,143 @@ def test_kernels_refuse_cpu_tensors_and_count_no_cpu_calls():
         path = kern.library_path()
         assert path.parent == build.BUILD_DIR
         assert path.name.startswith(f"lib{stem}-")
+
+
+# ---------------------------------------------------------------------------
+# causal tile skipping in the backward kernels: the span rule, and why
+# leaving the pairs outside it out changes no bit
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_causal_chunk_span_covers_exactly_the_visible_chunks(seed):
+    """Over random offsets, tile sizes and T: the dq view (chunks
+    [0, n_chunks[i]) of tile i) and the dk/dv view (tiles from
+    first_tile[j] of chunk j) both hold a (tile, chunk) pair iff
+    `causal_block_mask` shows a visible pair in it."""
+    rng = np.random.default_rng(seed)
+    for _ in range(60):
+        rows, cols = (int(x) for x in rng.choice([16, 32, 64, 128], 2))
+        t_q = rows * int(rng.integers(1, 7))
+        t_k = cols * int(rng.integers(1, 7))
+        q_off, k_off = (int(x) for x in rng.integers(0, 700, 2))
+        n_chunks, first_tile = tfbk.causal_chunk_span(t_q, t_k, rows, cols,
+                                                      q_off, k_off)
+        mask = tfbk.causal_block_mask(t_q, t_k, q_off, k_off)[0, 0]
+        for i in range(t_q // rows):
+            for j in range(t_k // cols):
+                visible = bool(mask[i * rows:(i + 1) * rows,
+                                    j * cols:(j + 1) * cols].any())
+                assert (j < n_chunks[i]) == visible, (rows, cols, i, j)
+                assert (i >= first_tile[j]) == visible, (rows, cols, i, j)
+
+
+def _span_inputs(seed, t_q, t_k, q_off, k_off, true_lse):
+    """q/k/v/dout blocks cut from one sequence of q_off + t_q queries and
+    k_off + t_k keys, with L either drawn as chip_smoke.py draws it
+    (N(0, 1) + 3 + log T_k) or the true causal logsumexp of each query
+    over the whole sequence's keys; D = N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    n = max(q_off + t_q, k_off + t_k)
+    q_all, k_all, v, do = (rng.normal(0, 1, (B, n, H, D)).astype(np.float32)
+                           for _ in range(4))
+    q = q_all[:, q_off:q_off + t_q]
+    k, v = k_all[:, k_off:k_off + t_k], v[:, k_off:k_off + t_k]
+    do = do[:, q_off:q_off + t_q]
+    if true_lse:
+        s = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64),
+                      k_all.astype(np.float64)) * SCALE
+        pos = np.arange(n)
+        s = np.where(q_off + np.arange(t_q)[:, None] >= pos[None, :], s,
+                     -np.inf)
+        top = s.max(-1, keepdims=True)
+        L = (top + np.log(np.exp(s - top).sum(-1, keepdims=True)))[..., 0]
+    else:
+        L = rng.normal(0, 1, (B, H, t_q)) + 3.0 + np.log(t_k)
+    Dr = rng.normal(0, 1, (B, H, t_q))
+    return q, k, v, do, L.astype(np.float32), Dr.astype(np.float32)
+
+
+@pytest.mark.parametrize("true_lse", [False, True])
+def test_pairs_outside_the_span_add_exact_zeros(true_lse):
+    """Every (tile, chunk) pair the span leaves out gives dq, dk and dv
+    exactly 0 through `block_grads_reference` (at the kernels' tile sizes
+    and at 128), and -- at the JAX kernels' 128 tile -- through the JAX
+    mirror and its interpret-mode dq and dk/dv kernels too."""
+    t_q, t_k, q_off, k_off = 256, 512, 128, 0
+    q, k, v, do, L, Dr = _span_inputs(8, t_q, t_k, q_off, k_off, true_lse)
+    kw = dict(scale=SCALE, causal=True)
+    jgrads = jfbk.make_flash_block_grads(interpret=True, **kw)
+    for rows, cols in ((64, 64), (64, 32), (32, 64), (128, 128)):
+        n_chunks, _ = tfbk.causal_chunk_span(t_q, t_k, rows, cols, q_off,
+                                             k_off)
+        skipped = [(i, j) for i, n in enumerate(n_chunks)
+                   for j in range(n, t_k // cols)]
+        assert skipped
+        for i, j in skipped:
+            qs, ks = slice(i * rows, (i + 1) * rows), slice(j * cols,
+                                                            (j + 1) * cols)
+            args = (q[:, qs], k[:, ks], v[:, ks], do[:, qs], L[..., qs],
+                    Dr[..., qs])
+            offs = np.array([q_off + i * rows, k_off + j * cols], np.int32)
+            got = tfbk.block_grads_reference(*_t(*args),
+                                             torch.from_numpy(offs), **kw)
+            outs = [got]
+            if rows == cols == 128:
+                outs.append(jfbk.block_grads_reference(
+                    *_j(*args), jnp.asarray(offs), **kw))
+                outs.append(jgrads(*_j(*args), jnp.asarray(offs)))
+            for out in outs:
+                for g, name in zip(out, ("dq", "dk", "dv")):
+                    assert not np.asarray(g).any(), (rows, cols, i, j, name)
+
+
+@pytest.mark.parametrize("offsets", [(0, 0), (128, 0), (96, 160)])
+@pytest.mark.parametrize("d", [32, 128])
+def test_plain_backward_summed_over_the_span_equals_the_full_one(d,
+                                                                 offsets):
+    """dq summed over each query tile's span of key chunks, and dk/dv
+    summed over each key chunk's span of query tiles, at the kernels' own
+    tile sizes for this D (`backward_tiles`), equal the full plain
+    backward within f32 rounding (the sums run in another order)."""
+    t_q, t_k = 256, 384
+    q_off, k_off = offsets
+    rng = np.random.default_rng(9)
+    q, do = (rng.normal(0, 1, (1, t_q, 2, d)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.normal(0, 1, (1, t_k, 2, d)).astype(np.float32)
+            for _ in range(2))
+    L = (rng.normal(0, 1, (1, 2, t_q)) + 3.0 + np.log(t_k)).astype(
+        np.float32)
+    Dr = rng.normal(0, 1, (1, 2, t_q)).astype(np.float32)
+    kw = dict(scale=d ** -0.5, causal=True)
+    full = tfbk.block_grads_reference(*_t(q, k, v, do, L, Dr),
+                                      torch.tensor(offsets), **kw)
+    tiles = tfbk.backward_tiles(d)
+
+    def part(i, rows, j, cols):
+        qs, ks = slice(i * rows, (i + 1) * rows), slice(j * cols,
+                                                        (j + 1) * cols)
+        return tfbk.block_grads_reference(
+            *_t(q[:, qs], k[:, ks], v[:, ks], do[:, qs], L[..., qs],
+                Dr[..., qs]),
+            torch.tensor([q_off + i * rows, k_off + j * cols]), **kw)
+
+    rows, cols = tiles["dq"]
+    n_chunks, _ = tfbk.causal_chunk_span(t_q, t_k, rows, cols, q_off, k_off)
+    dq = torch.zeros_like(full[0])
+    for i, n in enumerate(n_chunks):
+        for j in range(n):
+            dq[:, i * rows:(i + 1) * rows] += part(i, rows, j, cols)[0]
+    rows, cols = tiles["dkv"]
+    _, first_tile = tfbk.causal_chunk_span(t_q, t_k, rows, cols, q_off,
+                                           k_off)
+    dk, dv = torch.zeros_like(full[1]), torch.zeros_like(full[2])
+    for j, first in enumerate(first_tile):
+        for i in range(first, t_q // rows):
+            _, dkp, dvp = part(i, rows, j, cols)
+            dk[:, j * cols:(j + 1) * cols] += dkp
+            dv[:, j * cols:(j + 1) * cols] += dvp
+    for got, want, name in zip((dq, dk, dv), full, ("dq", "dk", "dv")):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5,
+                                   msg=name)

@@ -217,16 +217,20 @@ def _flash_inputs(gen, t_q, t_k, d, dtype, fresh=False):
     return q, k, v, m, l, acc, dout, mk(2, 2, t_q) + 8.0, mk(2, 2, t_q)
 
 
-@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("offsets", [[128, 0], [32, 96], [0, 256]])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [False, True])
-def test_flash_kernels_match_plain(cuda, d, dtype, causal):
+def test_flash_kernels_match_plain(cuda, d, dtype, causal, offsets):
     """The update, dq and dk/dv kernels against their plain versions,
-    Tq 256 against Tk 512, offsets [128, 0], a mid-stream carry; one
-    launch each."""
+    Tq 256 against Tk 512, a mid-stream carry; one launch each. Offsets
+    [128, 0] give partial diagonal tiles, [32, 96] cut a tile's span
+    inside a chunk, and [0, 256] put every key after every query: there
+    the causal backward kernels skip every tile and return exact
+    zeros."""
     q, k, v, m, l, acc, dout, lse, delta = _flash_inputs(
         cuda, 256, 512, d, getattr(torch, dtype))
-    offs = torch.tensor([128, 0], dtype=torch.int32, device="cuda")
+    offs = torch.tensor(offsets, dtype=torch.int32, device="cuda")
     kw = dict(scale=d ** -0.5, causal=causal)
     before = [kern.launches for kern in fbk.KERNELS]
     got = fbk.flash_block_update(q, k, v, m, l, acc, offs, **kw)
@@ -242,6 +246,23 @@ def test_flash_kernels_match_plain(cuda, d, dtype, causal):
             q, k, v, dout, lse, delta, offs, **kw)):
         assert g.dtype == torch.float32 and g.is_cuda
         _flash_close(g, w)
+        if causal and offsets == [0, 256]:
+            assert not w.any() and not g.any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_backward_kernels_are_deterministic(cuda, dtype):
+    """Two launches of dq and of dk/dv on the same inputs are bit-equal:
+    each output is written once, by the one block that owns it."""
+    q, k, v, _, _, _, dout, lse, delta = _flash_inputs(
+        cuda, 512, 512, 64, getattr(torch, dtype))
+    offs = torch.tensor([0, 0], dtype=torch.int32, device="cuda")
+    kw = dict(scale=0.125, causal=True)
+    first = fbk.flash_block_grads(q, k, v, dout, lse, delta, offs, **kw)
+    second = fbk.flash_block_grads(q, k, v, dout, lse, delta, offs, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
