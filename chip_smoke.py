@@ -41,13 +41,16 @@ non-zero before the result line:
    card could take; host-clock times of the train steps and of secure
    rounds (pallas against threefry);
 6. flash -- the three flash kernels of the causal LM
-   (ops/flash_block_kernel.py; the two backward kernels' ptxas lines must
-   show no register spills): parity against their plain versions over a
-   grid (causal or not; offsets [0,0], [128,0], [0,128], [32,96] (which
-   cuts a tile's causal span inside a chunk), a fully masked first block
-   folded before a visible one, and a fully masked backward block that
-   must give exact zeros; Tq 256 against Tk 512; D 16 to 128; f32 and
-   bf16; a mid-stream carry; the main path's 1x16384x8x64), the
+   (ops/flash_block_kernel.py; their ptxas lines must show no register
+   spills): parity against their plain versions over a grid (causal or
+   not; offsets [0,0], [128,0], [0,128], [32,96] (which cuts a tile's
+   causal span inside a chunk) with a mid-stream carry, and [0,32] with a
+   fresh one (rows 0-31 see no key, so the update kernel's vote fails
+   and it walks every chunk); a single fully masked fold into a fresh
+   carry, compared raw, and the same block folded before a visible one;
+   a fully masked backward block that must give exact zeros; Tq 256
+   against Tk 512; D 16 to 128; f32 and bf16; the main path's
+   1x16384x8x64), the
    pallas ring's values and gradients against full attention at T=2048,
    the backward's memory rise at T=16384 (under 1 GB), then two paths,
    each with every launch count set to 0 just before it and read just
@@ -59,8 +62,8 @@ non-zero before the result line:
    and caches held against the plain (jnp) Generator; then times of each
    kernel, its plain version and SDPA at T=4096 and 16384 (f32, bf16)
    beside the bound (f32 inputs at the TF32 tensor-core peak, with the
-   f32 FMA peak beside it; the backward kernels' computed tiles beside
-   the visible pairs), and the `lm` train step, pallas against jnp;
+   f32 FMA peak beside it; each kernel's computed steps beside the
+   visible pairs), and the `lm` train step, pallas against jnp;
 
 then one JSON line of per-kernel numbers, and the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}`.
@@ -777,7 +780,7 @@ FLASH_TOL = 5e-5
 # bf16 caches of the pallas and plain Generators, near zero (see serving)
 CACHE_ATOL = 1e-4
 PEAK_BF16_FLOP_PER_S = 989e12
-# f32 inputs are bounded at the TF32 tensor-core peak, which the backward
+# f32 inputs are bounded at the TF32 tensor-core peak, which the flash
 # kernels' 3xTF32 products run on; the f32 FMA peak (PEAK_F32_FLOP_PER_S),
 # the bound of the earlier CUDA-core kernels, is printed beside it so
 # their shares stay comparable
@@ -876,16 +879,21 @@ def flash_parity(torch, fbk) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             for t_q, t_k in ((256, 256), (256, 512)):
                 for causal in (False, True):
-                    for offs in ([0, 0], [128, 0], [0, 128], [32, 96]):
+                    # mid-stream carries, then a fresh one at [0, 32]
+                    for offs, fresh in (([0, 0], False), ([128, 0], False),
+                                        ([0, 128], False), ([32, 96], False),
+                                        ([0, 32], True)):
                         ins = flash_inputs(torch, gen, 2, t_q, t_k, 2, d,
-                                           dtype)
+                                           dtype, fresh=fresh)
                         errs = flash_case(torch, fbk, ins, offs, causal)
                         for key in worst:
                             worst[key] = max(worst[key], errs[key])
                         n += 1
                 # a fully masked first block (every key after every
-                # query) folded into a fresh carry, then a visible one:
-                # compared after both, where the garbage has healed
+                # query) folded into a fresh carry: compared raw (the
+                # update kernel's vote fails, so it computes the plain
+                # version's p = 1 garbage), then after a visible block,
+                # where the garbage has healed
                 q, k, v, m, l, acc, *_ = flash_inputs(
                     torch, gen, 2, 128, 128, 2, d, dtype, fresh=True)
                 kw = dict(scale=d ** -0.5, causal=True)
@@ -894,9 +902,10 @@ def flash_parity(torch, fbk) -> dict:
                     o = torch.tensor(offs, dtype=torch.int32, device="cuda")
                     got = fbk.flash_block_fold(q, k, v, *got, o, **kw)
                     want = fbk.reference_impl(q, k, v, *want, o, **kw)
-                for i, (g, w) in enumerate(zip(got, want)):
-                    worst["fwd"] = max(worst["fwd"], flash_err(g, w, i == 0))
-                n += 1
+                    for i, (g, w) in enumerate(zip(got, want)):
+                        worst["fwd"] = max(worst["fwd"],
+                                           flash_err(g, w, i == 0))
+                    n += 1
                 # a fully masked block in the backward: every key after
                 # every query, so the kernels skip every tile and the
                 # plain version's p and ds are exactly 0
@@ -913,13 +922,14 @@ def flash_parity(torch, fbk) -> dict:
                 n_masked += 1
     log(f"flash parity: {n} cases (D 16/32/64/128 x f32/bf16 x Tq,Tk "
         f"256,256 / 256,512 x causal or not x offsets [0,0] [128,0] "
-        f"[0,128] [32,96] (the last cuts a tile's span inside a chunk), "
-        f"mid-stream carry; plus a fully masked first block then a visible "
-        f"one) match the plain versions, normwise tolerance {FLASH_TOL}; "
-        f"worst |err| update {worst['fwd']!r}, dq {worst['dq']!r}, dk/dv "
-        f"{worst['dkv']!r}; {n_masked} fully masked backward blocks "
-        f"(offsets [0,256], T 256) give exact zeros, as the plain version "
-        f"does")
+        f"[0,128] [32,96] (the last cuts a tile's span inside a chunk) "
+        f"with a mid-stream carry and [0,32] with a fresh one; plus a fully "
+        f"masked first block folded into a fresh carry, compared raw and "
+        f"after a visible block) match the plain versions, normwise "
+        f"tolerance {FLASH_TOL}, m elementwise; worst |err| update "
+        f"{worst['fwd']!r}, dq {worst['dq']!r}, dk/dv {worst['dkv']!r}; "
+        f"{n_masked} fully masked backward blocks (offsets [0,256], T 256) "
+        f"give exact zeros, as the plain version does")
     main = {}
     for dtype in (torch.float32, torch.bfloat16):
         ins = flash_inputs(torch, gen, 1, LM_T, LM_T, 8, 64, dtype,
@@ -1206,16 +1216,22 @@ def profile_kernels(torch, fn, names, n: int = 2) -> dict:
     return out
 
 
-def log_backward_tiles(fbk, t: int) -> None:
-    """The (tile, chunk) steps the dq and dk/dv kernels compute at B=1,
-    H=8, D=64, T=t, causal, offsets [0, 0] (`causal_chunk_span` at their
-    own tile sizes), beside the visible pairs and the steps without
-    skipping."""
+def log_flash_tiles(fbk, t: int) -> None:
+    """The (tile, chunk) steps each flash kernel computes at B=1, H=8,
+    D=64, T=t, causal, offsets [0, 0], from a fresh carry
+    (`update_chunk_span` and `causal_chunk_span` at the kernels' own tile
+    sizes), beside the visible pairs and the steps without skipping."""
     visible = 8 * t * (t + 1) // 2
-    for key, (rows, cols) in fbk.backward_tiles(64).items():
-        n_chunks, first_tile = fbk.causal_chunk_span(t, t, rows, cols, 0, 0)
-        steps = 8 * (sum(n_chunks) if key == "dq"
-                     else sum(t // rows - f for f in first_tile))
+    tiles = {"fwd": fbk.forward_tiles(64), **fbk.backward_tiles(64)}
+    for key, (rows, cols) in tiles.items():
+        if key == "fwd":
+            per_head = sum(fbk.update_chunk_span(t, t, rows, cols, 0, 0)[1])
+        else:
+            n_chunks, first_tile = fbk.causal_chunk_span(t, t, rows, cols,
+                                                         0, 0)
+            per_head = (sum(n_chunks) if key == "dq"
+                        else sum(t // rows - f for f in first_tile))
+        steps = 8 * per_head
         log(f"tiles flash {FLASH_NAMES[key]} T={t}: {steps} steps of "
             f"{rows} queries x {cols} keys computed over 8 heads "
             f"({steps * rows * cols} pairs) for {visible} visible pairs "
@@ -1235,7 +1251,7 @@ def flash_times(torch, fbk, card: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(13)
     rows = {}
     for t in (4096, LM_T):
-        log_backward_tiles(fbk, t)
+        log_flash_tiles(fbk, t)
         for dtype in (torch.float32, torch.bfloat16):
             torch.cuda.empty_cache()
             q, k, v, m, l, acc, dout, lse, delta = flash_inputs(
@@ -1406,15 +1422,16 @@ def main() -> int:
         regs = [line.strip() for line in k.build_log.splitlines()
                 if "registers" in line or "spill" in line]
         log(f"build: {k.name} ptxas {regs}")
-    # the tensor-core backward kernels hold their tiles in registers: a
-    # spill would put them in local memory
-    for k in (fbk.DQ_KERNEL, fbk.DKV_KERNEL):
+    # the tensor-core flash kernels hold their tiles and carries in
+    # registers: a spill would put them in local memory
+    for k in fbk.KERNELS:
         spills = [line.strip() for line in k.build_log.splitlines()
                   if "spill" in line
                   and "0 bytes spill stores, 0 bytes spill loads" not in line]
         if spills:
             raise SystemExit(f"ptxas spills registers in {k.name}: {spills}")
-    log("build: no register spills in flash_block_dq and flash_block_dkv")
+    log("build: no register spills in flash_block_fwd, flash_block_dq and "
+        "flash_block_dkv")
     clock_hz = sm_clock_hz()
 
     flash_worst = flash_parity(torch, fbk)

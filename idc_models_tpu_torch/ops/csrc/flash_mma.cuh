@@ -1,13 +1,13 @@
 // Warp-level tensor-core products, asynchronous staging and the causal
-// span rule shared by the flash backward kernels (flash_block_dq.cu,
-// flash_block_dkv.cu).
+// span rule shared by the flash kernels: the update (flash_block_fwd.cu)
+// and the two backward kernels (flash_block_dq.cu, flash_block_dkv.cu).
 //
 // Every product is `mma.sync` (inline PTX, sm_90a) with f32 accumulators
 // in registers, for a warp that owns 16 rows:
 //
 //   mma_abt  c[16 x 8NT] += A[16 x D] . B[8NT x D]^T   (s = q.k^T, dout.v^T;
 //            A and B rows staged in shared memory)
-//   mma_pm   acc[16 x D] += P[16 x 8KT] . M[8KT x D]   (ds.k, p^T.dout,
+//   mma_pm   acc[16 x D] += P[16 x 8KT] . M[8KT x D]   (p.v, ds.k, p^T.dout,
 //            ds^T.q; P straight from the registers of an mma_abt result)
 //
 // f32 inputs go through 3xTF32 (m16n8k8): x = big + small, both tf32,
@@ -51,8 +51,11 @@ __host__ __device__ constexpr int ld() {
 // ops/flash_block_kernel.py `causal_chunk_span`: a tile of `rows` queries
 // and a chunk of `cols` keys share a visible pair iff the chunk's first
 // key is at or before the tile's last query (global positions); every
-// other (tile, chunk) pair is fully masked, and its p = exp(-1e30 - L)
-// and ds are exactly 0, so leaving it out changes no bit.
+// other (tile, chunk) pair is fully masked. In the backward its
+// p = exp(-1e30 - L) and ds are exactly 0, so leaving it out changes no
+// bit. In the update it is a no-op, bit for bit, only for a row whose
+// running max m is already above -1e30 (flash_block_fwd.cu says why and
+// how the update kernel decides).
 // ---------------------------------------------------------------------------
 
 // how many chunks, counted from the key block's start k_block, the query

@@ -19,6 +19,13 @@ and key blocks, from which the causal mask is rebuilt. T_q and T_k must
 be multiples of 128, on every device, so the port accepts exactly the
 shapes the JAX package does.
 
+All three kernels skip causal (tile, chunk) pairs that hold no visible
+pair (`causal_chunk_span`). In the backward that is exact because such a
+pair's p and ds are exactly 0. In the update it is exact only for rows
+whose running max m is already above MASKED, so the update kernel walks
+a tile's span, then votes, and walks on only where some row still holds
+the sentinel (`update_chunk_span`).
+
 Dispatch is by where the tensors lie. CPU tensors run the plain
 versions (``reference_impl``, ``block_grads_reference``); CUDA tensors
 launch the kernels or raise -- no fallback. Each kernel keeps its own
@@ -38,7 +45,11 @@ HEAD_DIMS = (16, 32, 64, 128)
 # Masked scores use a large finite negative instead of -inf: exp() of it
 # is exactly 0 in f32, and a row whose first folded block is fully
 # masked (p = exp(0) = 1 garbage) heals at the next visible block,
-# whose correction factor exp(MASKED - m') is 0.
+# whose correction factor exp(MASKED - m') is 0. So folding a fully
+# masked chunk is a no-op, bit for bit, for a row whose m > MASKED
+# (m' = m, corr = 1, every p = 0) but not for a row still at MASKED (l
+# grows by the chunk width): the update kernel skips such chunks only
+# when every row of its tile is past MASKED (`update_chunk_span`).
 MASKED = -1e30
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -111,6 +122,40 @@ def backward_tiles(d: int) -> dict:
     walks query tiles; the walked side is 32 at D=128, else 64."""
     walked = 64 if d <= 64 else 32
     return {"dq": (64, walked), "dkv": (walked, 64)}
+
+
+def forward_tiles(d: int) -> tuple[int, int]:
+    """(query rows, keys) of one step of the update kernel, as
+    ``csrc/flash_block_fwd.cu`` fixes them: 64 query rows a block, key
+    chunks of 64, 32 at D=128."""
+    return 64, (64 if d <= 64 else 32)
+
+
+def update_chunk_span(t_q: int, t_k: int, rows: int, cols: int,
+                      q_offset: int, k_offset: int, carried=None):
+    """The update kernel's causal chunk skipping, in the integer formulas
+    it computes from the offsets on the device: query tile i first walks
+    its span, key chunks [0, span[i]) (`causal_chunk_span`). Every chunk
+    past the span is fully masked, which is a no-op for a row whose
+    m > MASKED and not for a row still at MASKED, so the tile's block then
+    votes: it stops when every row's m is past MASKED, else it walks
+    every chunk. A row's m is past MASKED after the span iff it was in
+    the carry or the row sees a key of this block (its global position
+    is at or after k_offset; the scores of visible keys are finite).
+
+    `carried`: a bool per query row, m > MASKED in the carry passed in
+    (None: a fresh carry, no row). Returns (span, walked): per tile, the
+    chunks walked before the vote and in all. (Without the causal mask
+    every tile walks every chunk.)"""
+    n_tiles, n_cols = t_q // rows, t_k // cols
+    span, _ = causal_chunk_span(t_q, t_k, rows, cols, q_offset, k_offset)
+    walked = []
+    for i in range(n_tiles):
+        seen = all(q_offset + r >= k_offset
+                   or (carried is not None and bool(carried[r]))
+                   for r in range(i * rows, (i + 1) * rows))
+        walked.append(span[i] if seen else n_cols)
+    return span, walked
 
 
 def block_attend(q, k, v, m, l, acc, *, scale, mask=None):

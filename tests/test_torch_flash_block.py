@@ -408,3 +408,142 @@ def test_plain_backward_summed_over_the_span_equals_the_full_one(d,
     for got, want, name in zip((dq, dk, dv), full, ("dq", "dk", "dv")):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5,
                                    msg=name)
+
+
+# ---------------------------------------------------------------------------
+# causal chunk skipping in the update kernel: the span, the vote after it,
+# and why a fully masked chunk may be left out only for rows past MASKED
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_update_chunk_span_covers_exactly_the_visible_chunks(seed):
+    """Over random offsets, tile sizes, T and carries: a tile's span holds
+    chunk j iff `causal_block_mask` shows a visible pair in it, and the
+    tile walks past its span (every chunk) iff some row of it sees no key
+    of the block and was not past MASKED in the carry."""
+    rng = np.random.default_rng(seed)
+    for _ in range(60):
+        rows, cols = (int(x) for x in rng.choice([16, 32, 64, 128], 2))
+        t_q = rows * int(rng.integers(1, 7))
+        t_k = cols * int(rng.integers(1, 7))
+        q_off, k_off = (int(x) for x in rng.integers(0, 700, 2))
+        carried = (None if rng.random() < 0.5
+                   else rng.random(t_q) < rng.choice([0.5, 0.99, 1.0]))
+        span, walked = tfbk.update_chunk_span(t_q, t_k, rows, cols, q_off,
+                                              k_off, carried=carried)
+        mask = tfbk.causal_block_mask(t_q, t_k, q_off, k_off)[0, 0]
+        for i in range(t_q // rows):
+            tile = mask[i * rows:(i + 1) * rows]
+            for j in range(t_k // cols):
+                visible = bool(tile[:, j * cols:(j + 1) * cols].any())
+                assert (j < span[i]) == visible, (rows, cols, i, j)
+            seen = tile.any(1).numpy()
+            if carried is not None:
+                seen |= carried[i * rows:(i + 1) * rows]
+            assert walked[i] == (span[i] if seen.all() else t_k // cols)
+
+
+@pytest.mark.parametrize("d", tfbk.HEAD_DIMS)
+def test_fully_masked_chunk_is_a_no_op_only_past_the_sentinel(d):
+    """A chunk of `forward_tiles(d)` keys that every query precedes,
+    folded through `block_attend`: rows whose m > MASKED get their carry
+    back bit for bit; rows at MASKED do not -- m stays MASKED, l grows by
+    the chunk width and acc by the column sum of v (the garbage that heals
+    at the next visible block), which is why the kernel must not skip
+    them."""
+    rows, cols = tfbk.forward_tiles(d)
+    rng = np.random.default_rng(d)
+    q = torch.from_numpy(rng.normal(0, 1, (1, rows, 2, d)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.normal(0, 1, (1, cols, 2, d))
+                             .astype(np.float32)) for _ in range(2))
+    m = torch.from_numpy(rng.normal(0, 3, (1, 2, rows)).astype(np.float32))
+    at_sentinel = torch.zeros(rows, dtype=torch.bool)
+    at_sentinel[::3] = True
+    m[..., at_sentinel] = tfbk.MASKED
+    l = torch.from_numpy(rng.uniform(0.5, 2.0, (1, 2, rows))
+                         .astype(np.float32))
+    acc = torch.from_numpy(rng.normal(0, 1, (1, rows, 2, d))
+                           .astype(np.float32))
+    mask = tfbk.causal_block_mask(rows, cols, 0, rows)
+    assert not mask.any()
+    m2, l2, acc2 = tfbk.block_attend(q, k, v, m, l, acc, scale=d ** -0.5,
+                                     mask=mask)
+    past = ~at_sentinel
+    assert torch.equal(m2[..., past], m[..., past])
+    assert torch.equal(l2[..., past], l[..., past])
+    assert torch.equal(acc2[:, past], acc[:, past])
+    assert (m2[..., at_sentinel] == tfbk.MASKED).all()
+    torch.testing.assert_close(l2[..., at_sentinel],
+                               l[..., at_sentinel] + cols)
+    colsum = v.sum(1)[:, None]                      # [1, 1, H, D]
+    torch.testing.assert_close(acc2[:, at_sentinel],
+                               (acc[:, at_sentinel] + colsum).expand(
+                                   -1, int(at_sentinel.sum()), -1, -1))
+
+
+def _skipping_fold(q, k, v, m, l, acc, offsets):
+    """The update kernel's walk in plain PyTorch: each query tile of
+    `forward_tiles(D)` folds its span chunk by chunk through
+    `block_attend`, then votes on its rows' m and folds the chunks past
+    the span only if some row is still at MASKED. Returns the carry and
+    the chunks each tile walked."""
+    rows, cols = tfbk.forward_tiles(q.shape[-1])
+    t_q, t_k = q.shape[1], k.shape[1]
+    span, _ = tfbk.update_chunk_span(t_q, t_k, rows, cols, *offsets)
+    m, l, acc = m.clone(), l.clone(), acc.clone()
+    walked = []
+
+    def fold(i, j):
+        qs, ks = slice(i * rows, (i + 1) * rows), slice(j * cols,
+                                                        (j + 1) * cols)
+        mask = tfbk.causal_block_mask(rows, cols, offsets[0] + i * rows,
+                                      offsets[1] + j * cols)
+        m[..., qs], l[..., qs], acc[:, qs] = tfbk.block_attend(
+            q[:, qs], k[:, ks], v[:, ks], m[..., qs], l[..., qs],
+            acc[:, qs], scale=SCALE, mask=mask)
+
+    for i in range(t_q // rows):
+        for j in range(span[i]):
+            fold(i, j)
+        n = span[i]
+        if not (m[..., i * rows:(i + 1) * rows] > tfbk.MASKED).all():
+            for j in range(span[i], t_k // cols):
+                fold(i, j)
+            n = t_k // cols
+        walked.append(n)
+    return (m, l, acc), walked
+
+
+@pytest.mark.parametrize("fresh", [True, False])
+@pytest.mark.parametrize("offsets", [(0, 0), (128, 0), (0, 32)])
+def test_skipping_fold_matches_jax_block_attend_and_interpret_kernel(
+        offsets, fresh):
+    """The chunk-by-chunk fold that skips by the span and the vote equals
+    the JAX package's `_block_attend` and its interpret-mode kernel on
+    the whole block, fresh or mid-stream carry; 1e-5 as the file's other
+    f32 folds. It walks what `update_chunk_span` says: at (0, 32) with a
+    fresh carry rows 0-31 never see a key, so tile 0's vote fails and it
+    walks every chunk, keeping the plain version's garbage in those
+    rows."""
+    q, k, v, m, l, acc = _inputs(seed=11)
+    if fresh:
+        m = np.full_like(m, tfbk.MASKED)
+        l, acc = np.zeros_like(l), np.zeros_like(acc)
+    offs = np.array(offsets, np.int32)
+    got, walked = _skipping_fold(*_t(q, k, v, m, l, acc), offsets)
+    mask = jring.causal_block_mask(T, T, *offsets)
+    want_ref = jring._block_attend(*_j(q, k, v, m, l, acc), scale=SCALE,
+                                   mask=mask)
+    want_kernel = jfbk.make_flash_block_update(
+        scale=SCALE, causal=True, interpret=True)(*_j(q, k, v, m, l, acc),
+                                                  jnp.asarray(offs))
+    names = ("m", "l", "acc")
+    _close(got, want_ref, 1e-5, 1e-5, names)
+    _close(got, want_kernel, 1e-5, 1e-5, names)
+    rows, cols = tfbk.forward_tiles(D)
+    span, want_walked = tfbk.update_chunk_span(
+        T, T, rows, cols, *offsets,
+        carried=None if fresh else m[0, 0] > tfbk.MASKED)
+    assert walked == want_walked
+    assert (walked != span) == (fresh and offsets == (0, 32))

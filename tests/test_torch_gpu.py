@@ -197,9 +197,16 @@ def test_secure_round_through_the_kernel_matches_threefry(cuda):
 FLASH_TOL = 5e-5
 
 
-def _flash_close(got, want):
-    err = (got.float() - want.float()).abs().max().item()
-    assert err <= FLASH_TOL * (1.0 + want.float().abs().max().item()), err
+def _flash_close(got, want, elementwise=False):
+    """Normwise, or elementwise |got - want| <= FLASH_TOL * (1 + |want|)
+    (for m, whose rows that never saw a key hold the -1e30 sentinel)."""
+    diff = (got.float() - want.float()).abs()
+    if elementwise:
+        bad = diff > FLASH_TOL * (1.0 + want.float().abs())
+        assert not bad.any(), diff.max().item()
+    else:
+        err = diff.max().item()
+        assert err <= FLASH_TOL * (1.0 + want.float().abs().max().item()), err
 
 
 def _flash_inputs(gen, t_q, t_k, d, dtype, fresh=False):
@@ -217,19 +224,25 @@ def _flash_inputs(gen, t_q, t_k, d, dtype, fresh=False):
     return q, k, v, m, l, acc, dout, mk(2, 2, t_q) + 8.0, mk(2, 2, t_q)
 
 
-@pytest.mark.parametrize("offsets", [[128, 0], [32, 96], [0, 256]])
+@pytest.mark.parametrize("offsets, fresh", [
+    ([128, 0], False), ([32, 96], False), ([0, 256], False),
+    ([0, 32], True), ([0, 256], True)])
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [False, True])
-def test_flash_kernels_match_plain(cuda, d, dtype, causal, offsets):
+def test_flash_kernels_match_plain(cuda, d, dtype, causal, offsets, fresh):
     """The update, dq and dk/dv kernels against their plain versions,
-    Tq 256 against Tk 512, a mid-stream carry; one launch each. Offsets
-    [128, 0] give partial diagonal tiles, [32, 96] cut a tile's span
-    inside a chunk, and [0, 256] put every key after every query: there
-    the causal backward kernels skip every tile and return exact
-    zeros."""
+    Tq 256 against Tk 512, a mid-stream or a fresh carry; one launch
+    each; m elementwise. Offsets [128, 0] give partial diagonal tiles,
+    [32, 96] cut a tile's span inside a chunk, and [0, 256] put every key
+    after every query: there the causal backward kernels skip every tile
+    and return exact zeros, and the update kernel returns a mid-stream
+    carry bit for bit (its vote passes) but folds the plain version's
+    p = 1 garbage into a fresh one (its vote fails). At [0, 32] with a
+    fresh carry rows 0-31 see no key, so the first tile's vote fails and
+    it walks every chunk."""
     q, k, v, m, l, acc, dout, lse, delta = _flash_inputs(
-        cuda, 256, 512, d, getattr(torch, dtype))
+        cuda, 256, 512, d, getattr(torch, dtype), fresh=fresh)
     offs = torch.tensor(offsets, dtype=torch.int32, device="cuda")
     kw = dict(scale=d ** -0.5, causal=causal)
     before = [kern.launches for kern in fbk.KERNELS]
@@ -238,10 +251,13 @@ def test_flash_kernels_match_plain(cuda, d, dtype, causal, offsets):
     torch.cuda.synchronize()
     assert [kern.launches - b for kern, b in
             zip(fbk.KERNELS, before)] == [1, 1, 1]
-    for g, w in zip(got, fbk.reference_impl(q, k, v, m, l, acc, offs,
-                                            **kw)):
+    for i, (g, w) in enumerate(zip(got, fbk.reference_impl(
+            q, k, v, m, l, acc, offs, **kw))):
         assert g.dtype == torch.float32 and g.is_cuda
-        _flash_close(g, w)
+        _flash_close(g, w, elementwise=i == 0)
+    if causal and offsets == [0, 256] and not fresh:
+        for g, c in zip(got, (m, l, acc)):
+            assert torch.equal(g, c)
     for g, w in zip(grads, fbk.block_grads_reference(
             q, k, v, dout, lse, delta, offs, **kw)):
         assert g.dtype == torch.float32 and g.is_cuda
@@ -260,6 +276,23 @@ def test_flash_backward_kernels_are_deterministic(cuda, dtype):
     kw = dict(scale=0.125, causal=True)
     first = fbk.flash_block_grads(q, k, v, dout, lse, delta, offs, **kw)
     second = fbk.flash_block_grads(q, k, v, dout, lse, delta, offs, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fresh", [True, False])
+def test_flash_update_kernel_is_deterministic(cuda, dtype, fresh):
+    """Two launches of the update kernel on the same inputs are
+    bit-equal: each row's carry is written once, by the one warp that
+    owns it."""
+    q, k, v, m, l, acc, *_ = _flash_inputs(cuda, 512, 512, 64,
+                                           getattr(torch, dtype), fresh=fresh)
+    offs = torch.tensor([0, 0], dtype=torch.int32, device="cuda")
+    kw = dict(scale=0.125, causal=True)
+    first = fbk.flash_block_update(q, k, v, m, l, acc, offs, **kw)
+    second = fbk.flash_block_update(q, k, v, m, l, acc, offs, **kw)
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
