@@ -9,10 +9,16 @@ non-zero before the result line:
 1. device -- require CUDA; print the card's name and power limit;
 2. build  -- compile every hand-written kernel from
    idc_models_tpu_torch/ops/csrc/ with nvcc (one process per source, all
-   started together) and print each one's ptxas registers;
+   started together), print each one's ptxas registers and fail on a
+   register spill in the depthwise or the flash kernels;
 3. parity -- TF32 off; the fused depthwise kernel against its plain
-   PyTorch version at every shape the main path gives it (f32 and bf16)
-   and on the op-level grid of the tests, plus one backward; the secure
+   PyTorch version at every shape the main path gives it (f32 bit for
+   bit, and bf16), on the op grid of the card tests (C 1/6/8/960, H = W
+   1/2/4/25/50, stride 1 and 2, 1x1/3x3/5x5/3x1, f32 and bf16: every
+   path), on misaligned and strided x, with an inf weight on a padding
+   tap (NaN as the plain version) and a NaN in x (through the clamp),
+   with its in-launch BN fold against fold_bn + the affine kernel, plus
+   one backward; the secure
    masking kernel against its plain version bit for bit (sizes 1 to
    14.7M, 1 to 10 clients, seeds 0 and 0xFFFFFFFF, inputs at and past
    the clip and at exact half-steps), and its masks cancelling over the
@@ -23,8 +29,9 @@ non-zero before the result line:
        MobileNetV2 at full width, batch 32, lr 1e-4, fine-tune at 100,
        one epoch per phase on 512 synthetic 50x50 patches, then
        `predict` over the test split with the trained weights; launches
-       held to the count the schedule implies, predictions held against
-       the cuDNN (grouped) build of the same weights;
+       held to the count the schedule implies, every one on the kernel's
+       3x3 vector path, predictions held against the cuDNN (grouped)
+       build of the same weights;
    (b) `cli.main(["secure-fed", "--mask-impl", "pallas", ...])`: the
        secure_fed preset (the small CNN at full width, 8 clients, 5 local
        epochs, batch 32, percent 0.5) for 3 rounds on 2048 synthetic
@@ -38,7 +45,12 @@ non-zero before the result line:
 5. times -- CUDA-event times of each kernel, its plain version and the
    nearest library call (for the masking kernel: the threefry path) at
    the main path's shapes and at larger ones, with the least time the
-   card could take; host-clock times of the train steps and of secure
+   card could take (the depthwise kernel: device time behind a sleep
+   kernel, through the wrapper, the profiler's device us a launch and
+   the wrapper's host us a call, at batch 32 and 4096, f32, and bf16 at
+   4096; the host us of the wrapper's pieces beside the grouped chain
+   it replaces); host-clock times of the train steps (with kernels a call and
+   device busy of the fused and the grouped build) and of secure
    rounds (pallas against threefry);
 6. flash -- the three flash kernels of the causal LM
    (ops/flash_block_kernel.py; their ptxas lines must show no register
@@ -147,7 +159,7 @@ def fused_inputs(torch, gen, n, h, c, dtype):
 
 def parity(torch, fc, mobilenet) -> float:
     """Kernel vs plain version on the card; returns the largest f32
-    |kernel - plain| at the main path's shapes."""
+    |kernel - plain| at the main path's shapes (0.0: bit for bit)."""
     tf32_off(torch)
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = [(BATCH, c["h_in"], c["c"], c["stride"], True)
@@ -171,6 +183,96 @@ def parity(torch, fc, mobilenet) -> float:
     log(f"parity: {len(cases)} shapes x f32/bf16 match the plain version "
         f"(f32 rtol 1e-5 atol 1e-6, bf16 rtol 1e-2 atol 1e-2); "
         f"max f32 |err| at the main path's shapes {worst!r}")
+    if worst != 0.0:
+        raise SystemExit(f"the f32 depthwise kernel differs from its plain "
+                         f"version by {worst!r} at the main path's shapes")
+
+    # the op grid of the card tests, each case on the path the predicate
+    # names; then misaligned (a 1-element storage offset) and strided x
+    paths = dict.fromkeys(fc.PATHS, 0)
+    n_grid = 0
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        for (kh, kw), c, h, s in [(k, c, h, s)
+                                  for k in ((1, 1), (3, 3), (5, 5), (3, 1))
+                                  for c in (1, 6, 8, 960)
+                                  for h in (1, 2, 4, 25, 50)
+                                  for s in (1, 2)]:
+            x = torch.randn(2, h, h, c, device="cuda",
+                            generator=gen).to(dtype)
+            w = torch.randn(kh, kw, 1, c, device="cuda", generator=gen) * 0.3
+            mul = torch.randn(c, device="cuda", generator=gen) + 1.0
+            add = torch.randn(c, device="cuda", generator=gen)
+            clamp = (h + c + s) % 2 == 0
+            path = fc.depthwise_path(c, kh, kw, s, s, x.element_size(),
+                                     vector_ok=fc.vector_ok(x, w))
+            before = fc.PATH_LAUNCHES[path]
+            got = fc.fused_depthwise_affine(x, w, mul, add, stride=s,
+                                            clamp6=clamp)
+            torch.cuda.synchronize()
+            if fc.PATH_LAUNCHES[path] != before + 1:
+                raise SystemExit(f"{(c, h, s, kh, kw)} did not take the "
+                                 f"{path} path")
+            paths[path] += 1
+            torch.testing.assert_close(
+                got.float(), fc.reference_impl(
+                    x, w, mul, add, stride=s, clamp6=clamp).float(), **tol,
+                msg=lambda m: f"{dtype} {(c, h, s, kh, kw)}: {m}")
+            n_grid += 1
+        _, w, mul, add = fused_inputs(torch, gen, 2, 13, 64, dtype)
+        base = torch.randn(2 * 13 * 13 * 64 + 1, device="cuda",
+                           generator=gen).to(dtype)
+        for x in (base[1:].view(2, 13, 13, 64),
+                  base[:-1].view(2, 13, 13, 64).transpose(1, 2),
+                  base[:-1].view(2, 64, 13, 13).permute(0, 2, 3, 1)):
+            for s in (1, 2):
+                torch.testing.assert_close(
+                    fc.fused_depthwise_affine(x, w, mul, add,
+                                              stride=s).float(),
+                    fc.reference_impl(x, w, mul, add, stride=s).float(),
+                    **tol)
+                n_grid += 1
+    log(f"parity: the op grid (C 1/6/8/960, H 1/2/4/25/50, stride 1/2, "
+        f"1x1/3x3/5x5/3x1, f32/bf16) and misaligned or strided x, "
+        f"{n_grid} cases, match the plain version; the grid's launches by "
+        f"path {paths}")
+
+    # TF-SAME padding contributes 0 * w: an inf weight on a padding tap
+    # gives the references' NaNs; a NaN in x passes through the clamp
+    x, w, mul, add = fused_inputs(torch, gen, 1, 5, 8, torch.float32)
+    w[0, 0, 0, 0] = float("inf")
+    got = fc.fused_depthwise_affine(x, w, mul, add, clamp6=False)
+    want = fc.reference_impl(x, w, mul, add, clamp6=False)
+    x2, w2, mul2, add2 = fused_inputs(torch, gen, 1, 6, 8, torch.float32)
+    x2[0, 2, 2, 3] = float("nan")
+    got2 = fc.fused_depthwise_affine(x2, w2, mul2, add2)
+    nans = (int(got.isnan().sum()), int(want.isnan().sum()),
+            int(got2.isnan().sum()))
+    log(f"parity: an inf weight on a padding tap gives {nans[0]} NaNs "
+        f"(plain {nans[1]}); a NaN in x gives {nans[2]} NaN outputs through "
+        f"the clamp (expected 9)")
+    if (not nans[0] or nans[2] != 9
+            or not torch.equal(got.isnan(), want.isnan())):
+        raise SystemExit(f"NaN handling differs from the plain version: "
+                         f"{nans}")
+
+    # the BN fold inside the launch against fold_bn + the affine kernel
+    folds = []
+    for call in mobilenet.fused_call_shapes(BATCH, SIZE):
+        c, s = call["c"], call["stride"]
+        x, w, _, _ = fused_inputs(torch, gen, BATCH, call["h_in"], c,
+                                  torch.float32)
+        bn = (torch.randn(c, device="cuda", generator=gen),
+              torch.randn(c, device="cuda", generator=gen),
+              torch.randn(c, device="cuda", generator=gen),
+              torch.rand(c, device="cuda", generator=gen) + 0.1)
+        got = fc.fused_depthwise_bn_relu6(x, w, *bn, eps=1e-3, stride=s)
+        want = fc.fused_depthwise_affine(x, w, *fc.fold_bn(*bn, 1e-3),
+                                         stride=s)
+        folds.append(torch.equal(got, want))
+    log(f"parity: the in-launch BN fold equals fold_bn + the affine kernel "
+        f"bit for bit at {sum(folds)} of {len(folds)} main-path shapes")
+    if not all(folds):
+        raise SystemExit("the in-launch BN fold differs from fold_bn")
 
     # one backward through the autograd.Function vs autograd of the plain
     x, w, mul, add = fused_inputs(torch, gen, BATCH, 13, 144, torch.float32)
@@ -215,6 +317,7 @@ def main_path(torch, fc, mobilenet, card: str) -> dict:
         train, val, test = train_val_test_split(ArrayDataset(imgs, labels),
                                                 seed=seed)
         fc.KERNEL.launches = smk.KERNEL.launches = 0
+        fc.PATH_LAUNCHES.update(dict.fromkeys(fc.PATHS, 0))
         t0 = time.perf_counter()
         rc = cli.main(argv)
         params, state = load_pretrained_file(Path(tmp) / "model.npz")
@@ -225,6 +328,7 @@ def main_path(torch, fc, mobilenet, card: str) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = fc.KERNEL.launches
+        paths = dict(fc.PATH_LAUNCHES)
         if smk.KERNEL.launches:
             raise SystemExit(f"the mobile path launched the masking kernel "
                              f"{smk.KERNEL.launches} times")
@@ -272,6 +376,10 @@ def main_path(torch, fc, mobilenet, card: str) -> dict:
         f"{card}")
     if launches != expected:
         raise SystemExit(f"kernel launches {launches} != {expected}")
+    log(f"main path: fused launches by kernel path {paths}")
+    if paths["3x3"] != launches:
+        raise SystemExit(f"main-path launches off the 3x3 vector path: "
+                         f"{paths}")
 
     # the trained model's predictions through the kernel vs the grouped
     # (cuDNN) build of the same weights, TF32 off
@@ -302,51 +410,161 @@ def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_times(torch, fc, mobilenet, batch: int, card: str) -> dict:
-    """Per-call times of the kernel, its plain version and cuDNN's grouped
-    conv at the 17 main-path shapes of `batch`, f32, summed over one
-    forward; `bound` is the least time the card could take."""
+def kernel_times(torch, fc, mobilenet, batch: int, card: str,
+                 dtype=None) -> dict:
+    """Times of the kernel at the 17 main-path shapes of `batch`, summed
+    over one forward: device ms (CUDA events behind a sleep kernel, so
+    the host never binds), ms through the wrapper (CUDA events), the
+    plain version, cuDNN's grouped conv (device ms; conv only), the
+    least time the card could take, the profiler's device us a launch,
+    and the wrapper's host us a call (the BN wrapper the model calls,
+    under no_grad, host clock over a loop of calls)."""
     import torch.nn.functional as F
 
+    dtype = dtype or torch.float32
     gen = torch.Generator(device="cuda").manual_seed(1)
     iters = 50 if batch <= BATCH else 10
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-           "bytes": 0.0, "flops": 0.0}
+    keys = ("ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms",
+            "bytes", "flops", "host_us")
+    tot = dict.fromkeys(keys, 0.0)
+    calls = []
     for call in mobilenet.fused_call_shapes(batch, SIZE):
         c, s = call["c"], call["stride"]
         x, w, mul, add = fused_inputs(torch, gen, batch, call["h_in"], c,
-                                      torch.float32)
+                                      dtype)
         y = fc.fused_depthwise_affine(x, w, mul, add, stride=s)
         # bytes: x read once, y written once, w/mul/add read once
-        nbytes = (x.numel() + y.numel()) * 4 + (w.numel() + 2 * c) * 4
+        nbytes = (x.numel() + y.numel()) * x.element_size() + (
+            w.numel() + 2 * c) * 4
         flops = y.numel() * (2 * 9 + 3)
         bound = max(nbytes / PEAK_BYTES_PER_S,
                     flops / PEAK_F32_FLOP_PER_S) * 1e3
-        xc = x.permute(0, 3, 1, 2)               # channels_last NCHW view
-        wc = w.permute(3, 2, 0, 1).contiguous()  # [C, 1, 3, 3]
+        xc = x.permute(0, 3, 1, 2)                       # channels_last
+        wc = w.permute(3, 2, 0, 1).contiguous().to(dtype)  # [C, 1, 3, 3]
         del y
-        t = time_ms(torch, lambda: fc.fused_depthwise_affine(
-            x, w, mul, add, stride=s), iters)
+        fn = (lambda x=x, w=w, mul=mul, add=add, s=s:
+              fc.fused_depthwise_affine(x, w, mul, add, stride=s))
+        calls.append(fn)
+        dev = device_ms(torch, fn, iters)
+        t = time_ms(torch, fn, iters)
         p = time_ms(torch, lambda: fc.reference_impl(
             x, w, mul, add, stride=s), max(iters // 5, 2))
-        lib = time_ms(torch, lambda: F.conv2d(xc, wc, None, s, 1, 1, c),
-                      iters)
-        log(f"time b{batch} {call['h_in']}x{call['h_in']}x{c} s{s}: kernel "
-            f"{t!r} ms, plain {p!r} ms, cudnn {lib!r} ms, bound {bound!r} ms "
-            f"({nbytes} B); {card}")
-        for k, v in (("ms", t), ("plain_ms", p), ("library_ms", lib),
-                     ("bound_ms", bound), ("bytes", nbytes),
-                     ("flops", flops)):
+        lib = device_ms(torch, lambda: F.conv2d(xc, wc, None, s, 1, 1, c),
+                        iters)
+        bn = (mul, add, add, mul.abs())
+        with torch.no_grad():
+            host = host_us(torch, lambda: fc.fused_depthwise_bn_relu6(
+                x, w, *bn, eps=1e-3, stride=s))
+        plan = fc.depthwise_tiles(batch, call["h_in"], call["h_in"], c, 3, 3,
+                                  s, s, x.element_size())
+        log(f"time b{batch} {str(dtype)[6:]} {call['h_in']}x{call['h_in']}x"
+            f"{c} s{s}: kernel {dev!r} ms on the device, {t!r} ms through "
+            f"the wrapper, wrapper host {host!r} us a call, plain {p!r} ms, "
+            f"cudnn {lib!r} ms, bound {bound!r} ms ({nbytes} B); tiles "
+            f"{plan.rows}x{plan.cols} rows x cols, {plan.cvec} vectors a "
+            f"slab, walk {plan.walk}, {plan.blocks} blocks of "
+            f"{plan.threads}, {plan.smem} B shared; {card}")
+        for k, v in (("ms", dev), ("wrapper_ms", t), ("plain_ms", p),
+                     ("library_ms", lib), ("bound_ms", bound),
+                     ("bytes", nbytes), ("flops", flops), ("host_us", host)):
             tot[k] += v
-        del x, w, mul, add, xc, wc
-        torch.cuda.empty_cache()
-    log(f"time b{batch} sum of the 17 calls of one forward: kernel "
-        f"{tot['ms']!r} ms, plain {tot['plain_ms']!r} ms, cuDNN "
-        f"F.conv2d(groups=C) channels_last (conv only, no affine/clamp: "
-        f"the nearest library yardstick) {tot['library_ms']!r} ms, bound "
-        f"{tot['bound_ms']!r} ms ({tot['bytes']!r} B at 3.35 TB/s); "
-        f"{card}")
+    us = profile_kernels(torch, lambda: [fn() for fn in calls],
+                         ["fused_depthwise"], n=2)["fused_depthwise"]
+    tot["device_us_per_launch"] = us
+    tot["host_us"] /= len(calls)
+    del calls
+    torch.cuda.empty_cache()
+    log(f"time b{batch} {str(dtype)[6:]} sum of the 17 calls of one forward: "
+        f"kernel {tot['ms']!r} ms on the device ({us!r} us a launch under the "
+        f"profiler), {tot['wrapper_ms']!r} ms through the wrapper (the "
+        f"wrapper's host time {tot['host_us']!r} us a call), plain "
+        f"{tot['plain_ms']!r} ms, cuDNN F.conv2d(groups=C) channels_last "
+        f"(conv only, no affine/clamp: the nearest library yardstick) "
+        f"{tot['library_ms']!r} ms, bound {tot['bound_ms']!r} ms "
+        f"({tot['bytes']!r} B at 3.35 TB/s; kernel at "
+        f"{tot['bound_ms'] / tot['ms']!r} of it); {card}")
     return tot
+
+
+def host_us(torch, fn, n: int = 300, warmup: int = 20) -> float:
+    """Host-clock us a call of `fn` over a loop of `n` calls, before the
+    synchronize: where the card finishes a call faster than the host
+    issues it, the host's cost of one call."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / n * 1e6
+
+
+def wrapper_pieces(torch, fc, card: str) -> None:
+    """Host us of the pieces of one fused chain's call at batch 32
+    (13x13x144, stride 1), under no_grad, beside the grouped chain it
+    replaces (cuDNN's depthwise conv, the BN layer, ReLU6): the pieces
+    the wrapper keeps, and those it dropped (the fold's five ops, the
+    .to(float32) generator, the device context on every call,
+    current_stream)."""
+    from idc_models_tpu_torch.models import core
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x, w, scale, bias = fused_inputs(torch, gen, BATCH, 13, 144,
+                                     torch.float32)
+    mean = torch.randn(144, device="cuda", generator=gen)
+    var = torch.rand(144, device="cuda", generator=gen) + 0.1
+    bn = (scale, bias, mean, var)
+    dw = core.DepthwiseConv2d(144, 3, impl="grouped").cuda()
+    norm = core.BatchNorm(144, frozen=True).cuda().eval()
+    with torch.no_grad():
+        dw.kernel.copy_(w)
+        for name, t in zip(("scale", "bias", "mean", "var"), bn):
+            getattr(norm, name).copy_(t)
+    path, g, y_shape = fc._plan(x.shape, x.stride(), x.dtype, 3, 3, (1, 1),
+                                True, True, 1e-3, True)
+    y = torch.empty(y_shape, device="cuda")
+    lib = fc.KERNEL.lib()
+    import ctypes
+    args = (ctypes.byref(g), x.data_ptr(), w.data_ptr(),
+            *(t.data_ptr() for t in bn), y.data_ptr(),
+            torch._C._cuda_getCurrentRawStream(0))
+    req = [t.detach().clone().requires_grad_() for t in (x, w, *bn)]
+
+    def device_context():
+        with torch.cuda.device(x.device):
+            pass
+
+    pieces = {
+        "grouped chain (conv, BN, ReLU6)":
+            lambda: core.relu6(norm(dw(x))),
+        "fused chain (the BN wrapper)":
+            lambda: fc.fused_depthwise_bn_relu6(x, w, *bn, eps=1e-3),
+        "_launch (checks, plan, empty, launch)":
+            lambda: fc._launch(x, w, scale, bias, (1, 1), True, mean, var,
+                               1e-3),
+        "the ctypes launch alone": lambda: lib.fused_depthwise_forward(*args),
+        "torch.empty for y": lambda: torch.empty(y_shape, device="cuda"),
+        "the cached plan lookup": lambda: fc._plan(
+            x.shape, x.stride(), x.dtype, 3, 3, (1, 1), True, True, 1e-3,
+            True),
+        "the raw current stream":
+            lambda: torch._C._cuda_getCurrentRawStream(0),
+        "dropped: fold_bn's five ops": lambda: fc.fold_bn(*bn, 1e-3),
+        "dropped: .to(float32) generator":
+            lambda: [t.to(torch.float32) for t in (w, scale, bias)],
+        "dropped: torch.cuda.device context": device_context,
+        "dropped: current_stream().cuda_stream":
+            lambda: torch.cuda.current_stream(x.device).cuda_stream,
+    }
+    with torch.no_grad():
+        us = {k: host_us(torch, fn) for k, fn in pieces.items()}
+    # Function.apply, taken when an input needs a gradient
+    us["with grad: Function.apply + save"] = host_us(
+        torch, lambda: fc.fused_depthwise_bn_relu6(*req, eps=1e-3))
+    log("host us a call at b32 13x13x144 s1: " + "; ".join(
+        f"{k} {v!r}" for k, v in us.items()) + f"; {card}")
 
 
 def host_ms(torch, fn, n: int = 30, warmup: int = 3) -> float:
@@ -363,7 +581,7 @@ def host_ms(torch, fn, n: int = 30, warmup: int = 3) -> float:
 
 
 def profiled(torch, fn, n: int = 10,
-             kernel: str = "fused_depthwise_kernel") -> str:
+             kernel: str = "fused_depthwise") -> str:
     """Where one call's time goes, from torch.profiler over `n` calls:
     device-busy ms (the kernels' summed device time) against wall ms, the
     idle share, the device time per launch of the kernel whose name
@@ -382,11 +600,12 @@ def profiled(torch, fn, n: int = 10,
         wall = (time.perf_counter() - t0) / n * 1e3
     # device kernels only: a user annotation on the device timeline (the
     # optimizer's "Optimizer.step#RMSprop.step") spans kernels already
-    # counted
+    # counted. A kernel's name has an argument list, an annotation's
+    # none; kernel names may hold "#" too ("{lambda()#2}").
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)
-               and "#" not in e.key]
+               and ("#" not in e.key or "(" in e.key)]
     busy = sum(e.self_device_time_total for e in kernels) / n / 1e3
     if busy == 0:
         return f"profiler saw no device time ({wall!r} ms wall per call)"
@@ -402,6 +621,28 @@ def profiled(torch, fn, n: int = 10,
             f"{sum(e.count for e in kernels) / n!r} kernels per call; top: "
             + "; ".join(f"{e.key[:60]} {e.self_device_time_total / n!r} us"
                         for e in top))
+
+
+def kernel_counts(torch, fn, n: int = 5) -> dict:
+    """Kernels a call of `fn` by name (the first 90 characters), from
+    torch.profiler over `n` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if (e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)
+                and ("#" not in e.key or "(" in e.key)):
+            out[e.key[:90]] = out.get(e.key[:90], 0.0) + e.count / n
+    return out
 
 
 def step_times(torch, card: str) -> None:
@@ -447,6 +688,17 @@ def step_times(torch, card: str) -> None:
         for impl in ("fused", "grouped"):
             log(f"profile {what} b{BATCH} {impl}: "
                 f"{profiled(torch, calls[(what, impl)])}; {card}")
+    # the account: which kernels an eval forward of each build launches,
+    # by name, where the two builds differ
+    counts = {impl: kernel_counts(torch, calls[("eval forward", impl)])
+              for impl in ("fused", "grouped")}
+    diff = {k: (counts["fused"].get(k, 0.0), counts["grouped"].get(k, 0.0))
+            for k in set(counts["fused"]) | set(counts["grouped"])
+            if counts["fused"].get(k) != counts["grouped"].get(k)}
+    log(f"profile eval forward b{BATCH}, kernels a call where the builds "
+        f"differ (fused, grouped): " + "; ".join(
+            f"{k} {v}" for k, v in sorted(diff.items(), key=lambda i: i[0]))
+        + f"; {card}")
 
 
 def masking_input(torch, gen, size: int):
@@ -531,6 +783,7 @@ def secure_path(torch, fc, smk, card: str) -> dict:
         argv = ["secure-fed", "--mask-impl", "pallas", "--synthetic-examples",
                 "2048", "--rounds", str(rounds), "--seed", "0", "--path", tmp]
         fc.KERNEL.launches = smk.KERNEL.launches = 0
+        fc.PATH_LAUNCHES.update(dict.fromkeys(fc.PATHS, 0))
         t0 = time.perf_counter()
         rc = cli.main(argv)
         torch.cuda.synchronize()
@@ -1008,6 +1261,7 @@ def flash_counts(fbk) -> tuple[int, int, int]:
 
 def zero_counts(fc, smk, fbk) -> None:
     fc.KERNEL.launches = smk.KERNEL.launches = 0
+    fc.PATH_LAUNCHES.update(dict.fromkeys(fc.PATHS, 0))
     for k in fbk.KERNELS:
         k.launches = 0
 
@@ -1422,16 +1676,17 @@ def main() -> int:
         regs = [line.strip() for line in k.build_log.splitlines()
                 if "registers" in line or "spill" in line]
         log(f"build: {k.name} ptxas {regs}")
-    # the tensor-core flash kernels hold their tiles and carries in
-    # registers: a spill would put them in local memory
-    for k in fbk.KERNELS:
+    # the depthwise kernel holds its weights and window, and the
+    # tensor-core flash kernels their tiles and carries, in registers: a
+    # spill would put them in local memory
+    for k in (fc.KERNEL, *fbk.KERNELS):
         spills = [line.strip() for line in k.build_log.splitlines()
                   if "spill" in line
                   and "0 bytes spill stores, 0 bytes spill loads" not in line]
         if spills:
             raise SystemExit(f"ptxas spills registers in {k.name}: {spills}")
-    log("build: no register spills in flash_block_fwd, flash_block_dq and "
-        "flash_block_dkv")
+    log("build: no register spills in fused_depthwise, flash_block_fwd, "
+        "flash_block_dq and flash_block_dkv")
     clock_hz = sm_clock_hz()
 
     flash_worst = flash_parity(torch, fbk)
@@ -1447,7 +1702,12 @@ def main() -> int:
     aggregate_three_ways(torch, smk)
     mobilenet_round(torch, fc, smk, card)
     t32 = kernel_times(torch, fc, mobilenet, BATCH, card)
-    kernel_times(torch, fc, mobilenet, BENCH_BATCH, card)
+    wrapper_pieces(torch, fc, card)
+    t4096 = kernel_times(torch, fc, mobilenet, BENCH_BATCH, card)
+    kernel_times(torch, fc, mobilenet, BENCH_BATCH, card, torch.bfloat16)
+    log(f"time b{BENCH_BATCH} f32: the 17 calls take {t4096['ms']!r} ms on "
+        f"the device against cuDNN's conv-only {t4096['library_ms']!r} ms "
+        f"and the byte bound {t4096['bound_ms']!r} ms; {card}")
     masks = masking_times(torch, smk, clock_hz, card)
     step_times(torch, card)
     secure_round_times(torch, card)
@@ -1470,6 +1730,8 @@ def main() -> int:
         "bound_by": ("bytes" if t32["bytes"] / PEAK_BYTES_PER_S
                      >= t32["flops"] / PEAK_F32_FLOP_PER_S else "operations"),
         "library_ms": t32["library_ms"],
+        "device_us_per_launch": t32["device_us_per_launch"],
+        "host_us_per_call": t32["host_us"],
     }, {
         "name": "secure_masked_quantize",
         "route": "cuda",

@@ -200,7 +200,7 @@ class DepthwiseConv2d(nn.Module):
             add = (self.bias.float() if self.bias is not None
                    else torch.zeros(self.features, device=x.device))
             return fused_conv.fused_depthwise_affine(
-                x.contiguous(), w, ones, add, stride=self.stride,
+                x, w, ones, add, stride=self.stride,
                 clamp6=False)
         if self.impl == "taps":
             sh, sw = self.stride

@@ -109,15 +109,16 @@ def _units(in_channels: int, bn_frozen_below: int,
     def dw_chain(run, h, dw_name, bn_name, *, stride):
         """depthwise conv -> BN -> relu6. With depthwise_impl="fused" and
         the BN in inference mode (frozen -- fixed when the model is
-        built -- or eval), the chain is one kernel on the BN-folded
-        affine; both layers' states are untouched there, so bypassing
-        `run` leaves them as they were. Unfrozen train mode needs batch
-        statistics, so it keeps the per-layer composition."""
+        built -- or eval), the chain is one kernel launch, which folds
+        the BN itself and takes h at the strides it has; both layers'
+        states are untouched there, so bypassing `run` leaves them as
+        they were. Unfrozen train mode needs batch statistics, so it
+        keeps the per-layer composition."""
         if depthwise_impl == "fused" and (frozen(bn_name) or not run.train):
             p_bn = run.params[bn_name]
             s_bn = run.state[bn_name]
             return fused_conv.fused_depthwise_bn_relu6(
-                h.contiguous(), run.params[dw_name]["kernel"].to(h.dtype),
+                h, run.params[dw_name]["kernel"].to(h.dtype),
                 p_bn["scale"], p_bn["bias"], s_bn["mean"], s_bn["var"],
                 eps=_BN["eps"], stride=stride)
         return relu6(run(bn_name, run(dw_name, h)))

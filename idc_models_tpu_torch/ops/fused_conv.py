@@ -1,37 +1,53 @@
-"""Fused depthwise conv + folded batchnorm + ReLU6: a hand-written CUDA
-kernel (``csrc/fused_depthwise.cu``) and its plain PyTorch version.
+"""Fused depthwise conv + batchnorm + ReLU6: a hand-written CUDA kernel
+(``csrc/fused_depthwise.cu``) and its plain PyTorch version.
 
 The counterpart of ``idc_models_tpu/ops/fused_conv.py``. MobileNetV2's
 frozen and eval depthwise chains (depthwise conv -> inference-mode BN ->
-ReLU6) run as one kernel on the BN folded to one affine pair:
+ReLU6) run as one kernel launch:
 
     mul = scale * rsqrt(var + eps)
     add = bias - mean * mul
     y   = clamp6(dwconv(x) * mul + add)
 
-Folding happens outside the kernel and outside its autograd.Function,
-in plain tensor code, so the BN parameters get their gradients from
-ordinary autograd.
+``fused_depthwise_bn_relu6`` hands the kernel the four BN tensors and it
+folds them itself, in ``fold_bn``'s order of operations;
+``fused_depthwise_affine`` hands it a folded (mul, add) pair.
 
 Dispatch is by where the tensor lies. A CPU tensor runs the plain
-version, ``reference_impl`` (the taps formulation of the JAX package's
-reference); a CUDA tensor launches the kernel or raises. There is no
-fallback from one to the other. Each launch adds one to
-``KERNEL.launches``; a CPU call never touches it.
+version (``reference_impl``, ``reference_bn_impl``: the taps formulation
+of the JAX package's reference); a CUDA tensor launches the kernel or
+raises. There is no fallback from one to the other. Each launch adds one
+to ``KERNEL.launches`` and to its path's entry in ``PATH_LAUNCHES``; a
+CPU call touches neither.
 
-Gradients: ``_FusedDepthwise`` is an autograd.Function whose forward is
-the kernel and whose backward is autograd through ``reference_impl`` at
-the saved inputs, as the JAX package's custom_vjp differentiates its
-jnp reference. The JAX package has no backward kernel for this chain.
+The kernel has three paths, chosen before the launch by
+``depthwise_path`` from shapes, strides and pointers: "3x3" (kh = kw = 3
+at stride 1 or 2, 16-byte channel vectors, a sliding register window),
+"general" (any kh x kw and stride, 16-byte channel vectors) and "scalar"
+(one channel a thread, for channel counts that are not a multiple of the
+vector width and for misaligned or channel-strided x). x may have any
+strides; y is contiguous. ``depthwise_tiles`` plans each call's tiles.
+
+Gradients: the autograd.Functions' forward is the kernel and their
+backward is autograd through the plain version at the saved inputs, as
+the JAX package's custom_vjp differentiates its jnp reference; the BN
+version differentiates ``fold_bn`` too, so scale, bias, mean and var get
+the gradients the JAX package's fold outside its custom_vjp gives them.
+The JAX package has no backward kernel for this chain. Without autograd
+(no grad mode, or no input that requires grad) the wrappers launch
+directly.
 
 Layouts are the JAX package's: x [N, H, W, C], w [kh, kw, 1, C],
-mul/add [C]. ``depthwise_call_cost`` / ``depthwise_chain_cost`` are the
-JAX package's analytic count, kept verbatim so the two agree.
+per-channel vectors [C]. ``depthwise_call_cost`` /
+``depthwise_chain_cost`` are the JAX package's analytic count, kept
+verbatim so the two agree.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -40,17 +56,47 @@ from idc_models_tpu_torch.ops.build import CudaKernel
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.fused_depthwise_forward.argtypes = (
-        [ptr] * 5 + [i32, i64] + [i32] * 12 + [ptr])
-    lib.fused_depthwise_forward.restype = i32
-    lib.fused_depthwise_error_string.argtypes = [i32]
+    lib.fused_depthwise_forward.argtypes = [ctypes.c_void_p] * 9
+    lib.fused_depthwise_forward.restype = ctypes.c_int
+    lib.fused_depthwise_error_string.argtypes = [ctypes.c_int]
     lib.fused_depthwise_error_string.restype = ctypes.c_char_p
 
 
 KERNEL = CudaKernel("fused_depthwise.cu", _declare)
 
+PATHS = ("3x3", "general", "scalar")
+PATH_LAUNCHES = dict.fromkeys(PATHS, 0)
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# the kernel's limits (csrc/fused_depthwise.cu: kMaxThreads, kMaxStrip;
+# blockDim.z at most 64)
+MAX_THREADS, MAX_STRIP, MAX_ROWS = 128, 8, 64
+# The tile plan's choices, tuned on an H100 at the MobileNetV2 shapes
+# (PERF.md, section 6): shared memory a block may ask for (above 48 KB the
+# launch opts in); the blocks that fill the card (two a streaming
+# multiprocessor on its 132); how many tiles a block walks with its
+# window double-buffered, at stride 1 only, and only while WALK_BLOCKS
+# blocks (eight a multiprocessor) remain.
+SMEM_BUDGET = 64 * 1024
+FILL_BLOCKS = 2 * 132
+MAX_WALK, WALK_BLOCKS = 2, 8 * 132
+
+
+class _Geometry(ctypes.Structure):
+    """The kernel's per-shape arguments (``Geometry`` in the source)."""
+
+    _fields_ = [(f, ctypes.c_int) for f in ("dtype", "path", "bn", "clamp6")]
+    _fields_ += [("eps", ctypes.c_float)]
+    _fields_ += [(f, ctypes.c_int) for f in (
+        "H", "W", "C", "Ho", "Wo", "kh", "kw", "sh", "sw", "pad_top",
+        "pad_left")]
+    _fields_ += [(f, ctypes.c_longlong) for f in ("xs_n", "xs_h", "xs_w",
+                                                  "xs_c")]
+    _fields_ += [(f, ctypes.c_int) for f in (
+        "rows", "cols", "strip", "cvec", "row_tiles", "col_tiles", "slabs",
+        "walk")]
+    _fields_ += [("n", ctypes.c_longlong)]
 
 
 def _pair(v) -> tuple[int, int]:
@@ -98,44 +144,238 @@ def reference_impl(x, w, mul, add, *, stride=1, clamp6=True):
     return y.to(x.dtype)
 
 
-def _launch(x, w, mul, add, stride, clamp6):
-    """Run the kernel on CUDA tensors. Checks what the kernel takes and
-    raises on anything else; the output comes from torch.empty and the
-    launch goes on the current stream."""
+def reference_bn_impl(x, w, scale, bias, mean, var, *, eps, stride=1):
+    """The plain version of the batchnorm chain: ``fold_bn`` then
+    ``reference_impl`` with the clamp."""
+    mul, add = fold_bn(scale, bias, mean, var, eps)
+    return reference_impl(x, w, mul, add, stride=stride, clamp6=True)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's path and tile plan, decided in Python before the launch
+# ---------------------------------------------------------------------------
+
+
+def depthwise_path(c: int, kh: int, kw: int, sh: int, sw: int,
+                   itemsize: int, *, vector_ok: bool) -> str:
+    """Which instantiation of the kernel takes a call. `vector_ok` says
+    whether x's pointer and strides and w's pointer allow 16-byte
+    channel vectors (see ``vector_ok``); the vector paths also need C to
+    be a multiple of the vector width (4 f32, 8 bf16)."""
+    if not vector_ok or c % (16 // itemsize):
+        return "scalar"
+    if kh == kw == 3 and sh == sw and sh in (1, 2):
+        return "3x3"
+    return "general"
+
+
+def vector_ok(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """x's channels are contiguous, every stride that is walked is a
+    multiple of the vector width, and x and w start on 16 bytes."""
+    return (not (x.data_ptr() | w.data_ptr()) % 16
+            and _strides_ok(x.shape, x.stride(), x.element_size()))
+
+
+def _strides_ok(shape, strides, itemsize) -> bool:
+    width = 16 // itemsize
+    return strides[3] == 1 and all(
+        s % width == 0 for d, s in zip(shape[:3], strides[:3]) if d > 1)
+
+
+class Tiles(NamedTuple):
+    """One call's tile plan: a block owns `rows` x `cols` outputs of one
+    image and `cvec` channel vectors of `width` channels; a thread owns
+    one vector and a strip of `strip` outputs along one output row."""
+
+    rows: int
+    cols: int
+    strip: int
+    cvec: int
+    width: int
+    row_tiles: int
+    col_tiles: int
+    slabs: int
+    walk: int        # tiles a block walks (two window buffers if > 1)
+    rows_in: int     # the window a block stages, halo included
+    cols_in: int
+    smem: int        # bytes of shared memory a block asks for
+    threads: tuple   # blockDim: (cvec, strips, rows)
+    blocks: int      # gridDim: ceil(tiles / walk) x slabs
+
+
+def _divisors(m: int) -> list[int]:
+    return [d for d in range(1, m + 1) if m % d == 0]
+
+
+@functools.lru_cache(maxsize=None)
+def depthwise_tiles(n: int, h: int, w: int, c: int, kh: int, kw: int,
+                    sh: int, sw: int, itemsize: int,
+                    path: str = "3x3") -> Tiles:
+    """The tile plan of one call, a pure function of its shape.
+
+    A tile is `rows` x `cols` outputs of one image; there are
+    n x row_tiles x col_tiles of them for each of `slabs` channel slabs.
+    At stride 1 a block walks `walk` consecutive tiles of one slab, as
+    long as WALK_BLOCKS blocks remain, with two window buffers when it
+    walks more than one. (On the H100 a walk made stride-2 calls slower,
+    and batch-32 calls need every block they have.)
+
+    Among the plans that fit (at most MAX_THREADS threads and
+    SMEM_BUDGET bytes of shared memory a block), it prefers, in order:
+    enough blocks to fill the card (FILL_BLOCKS); 128 contiguous bytes of
+    a pixel's slab, so each staged pixel is a whole 128-byte line; the
+    least window staged per output (the halo's share); a slab of whole
+    groups of 8 vectors (conflict-free 16-byte shared loads); more
+    threads."""
+    ho, wo, _, _ = same_pads(h, w, kh, kw, sh, sw)
+    width = 1 if path == "scalar" else 16 // itemsize
+    vectors = c // width
+    best = None
+
+    def strips(cols):                # (count, outputs each), even lengths
+        strip = -(-cols // -(-cols // MAX_STRIP))
+        return -(-cols // strip), strip
+
+    for cvec in _divisors(vectors):
+        px = cvec * width * itemsize          # a pixel's slab, bytes
+        w_bytes = 0 if path == "3x3" else kh * kw * cvec * width * 4
+
+        def smem(rows, cols, buffers=1, px=px, w_bytes=w_bytes):
+            win = ((rows - 1) * sh + kh) * ((cols - 1) * sw + kw) * px
+            return buffers * (-(-win // 16) * 16) + w_bytes
+
+        col_tiles, cols = 1, wo
+        while cols > 1 and (smem(1, cols) > SMEM_BUDGET
+                            or cvec * strips(cols)[0] > MAX_THREADS):
+            col_tiles += 1
+            cols = -(-wo // col_tiles)
+        col_tiles = -(-wo // cols)
+        ns, strip = strips(cols)
+        if smem(1, cols) > SMEM_BUDGET or cvec * ns > MAX_THREADS:
+            continue
+        for rows in range(1, min(ho, MAX_ROWS) + 1):
+            threads = cvec * ns * rows
+            if threads > MAX_THREADS or smem(rows, cols) > SMEM_BUDGET:
+                break
+            row_tiles = -(-ho // rows)
+            if -(-ho // row_tiles) != rows:
+                continue            # a shorter tile covers as many rows
+            tiles = n * row_tiles * col_tiles
+            slabs = vectors // cvec
+            walk = (max(1, min(MAX_WALK, tiles * slabs // WALK_BLOCKS))
+                    if sh == 1 else 1)
+            buffers = 1 if path == "scalar" or walk == 1 else 2
+            if smem(rows, cols, buffers) > SMEM_BUDGET:
+                walk, buffers = 1, 1
+            blocks = -(-tiles // walk) * slabs
+            rows_in, cols_in = (rows - 1) * sh + kh, (cols - 1) * sw + kw
+            halo = rows_in * cols_in / (rows * sh * cols * sw)
+            key = (min(blocks, FILL_BLOCKS), min(px, 128),
+                   -round(halo, 1), cvec % 8 == 0, threads)
+            if best is None or key > best[0]:
+                best = (key, Tiles(rows, cols, strip, cvec, width, row_tiles,
+                                   col_tiles, slabs, walk, rows_in, cols_in,
+                                   smem(rows, cols, buffers),
+                                   (cvec, ns, rows), blocks))
+    if best is None:
+        raise ValueError(f"no tile of a {kh}x{kw} depthwise call on "
+                         f"[{n}, {h}, {w}, {c}] fits {SMEM_BUDGET} bytes of "
+                         f"shared memory")
+    return best[1]
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan(shape, strides, dtype, kh, kw, stride, clamp6, bn, eps, aligned):
+    """The path, the kernel's Geometry and y's shape for one call shape;
+    `aligned`: x and w start on 16 bytes."""
+    n, h, wd, c = shape
+    sh, sw = stride
+    itemsize = 4 if dtype == torch.float32 else 2
+    path = depthwise_path(c, kh, kw, sh, sw, itemsize, vector_ok=(
+        aligned and _strides_ok(shape, strides, itemsize)))
+    h_out, w_out, (pt, _), (pl, _) = same_pads(h, wd, kh, kw, sh, sw)
+    t = depthwise_tiles(n, h, wd, c, kh, kw, sh, sw, itemsize, path)
+    g = _Geometry(_DTYPE_CODE[dtype], PATHS.index(path), int(bn),
+                  int(clamp6), eps, h, wd, c, h_out, w_out, kh, kw, sh, sw,
+                  pt, pl, *strides, t.rows, t.cols, t.strip, t.cvec,
+                  t.row_tiles, t.col_tiles, t.slabs, t.walk, n)
+    return path, g, (n, h_out, w_out, c)
+
+
+_NAMES = ("w", "a", "b", "mean", "var")
+
+
+def _launch(x, w, a, b, stride, clamp6, mean=None, var=None, eps=0.0):
+    """Run the kernel on CUDA tensors: (a, b) = (mul, add), or with
+    `mean` and `var` given, (scale, bias) of a batchnorm the kernel
+    folds. Checks what the kernel takes and raises on anything else; the
+    output comes from torch.empty and the launch goes on the current
+    stream."""
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"fused depthwise kernel takes float32 or bfloat16 "
                         f"x, got {x.dtype}")
     if x.dim() != 4 or w.dim() != 4 or w.shape[2] != 1:
         raise ValueError(f"expected x [N,H,W,C] and w [kh,kw,1,C], got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
-    n, h, wd, c = x.shape
-    kh, kw = int(w.shape[0]), int(w.shape[1])
-    if w.shape[3] != c or mul.shape != (c,) or add.shape != (c,):
-        raise ValueError(f"w {tuple(w.shape)}, mul {tuple(mul.shape)} and "
-                         f"add {tuple(add.shape)} must carry C={c} channels")
-    # the kernel reads w/mul/add as f32, as the TPU kernel casts them
-    w, mul, add = (t.to(torch.float32) for t in (w, mul, add))
-    for name, t in (("x", x), ("w", w), ("mul", mul), ("add", add)):
-        if t.device != x.device or t.device.type != "cuda":
+    c = x.shape[3]
+    vecs = (a, b) if mean is None else (a, b, mean, var)
+    if w.shape[3] != c or any(t.shape != (c,) for t in vecs):
+        raise ValueError(f"w {tuple(w.shape)} and the per-channel vectors "
+                         f"{[tuple(t.shape) for t in vecs]} must carry "
+                         f"C={c} channels")
+    # the kernel reads w and the vectors as f32, as the TPU kernel casts
+    # them
+    params = [t if t.dtype == torch.float32 else t.float()
+              for t in (w, *vecs)]
+    device = x.get_device()
+    if device < 0:
+        raise ValueError(f"x must lie on a CUDA device, got {x.device}")
+    for name, t in zip(_NAMES, params):
+        if t.get_device() != device:
             raise ValueError(f"{name} must lie on x's CUDA device "
                              f"{x.device}, got {t.device}")
         if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous (x in NHWC)")
-    sh, sw = stride
-    h_out, w_out, (pt, _), (pl, _) = same_pads(h, wd, kh, kw, sh, sw)
-    y = torch.empty((n, h_out, w_out, c), dtype=x.dtype, device=x.device)
+            raise ValueError(f"{name} must be contiguous")
+    path, g, y_shape = _plan(
+        x.shape, x.stride(), x.dtype, w.shape[0], w.shape[1], stride,
+        clamp6, mean is not None, eps,
+        not (x.data_ptr() | params[0].data_ptr()) % 16)
+    y = torch.empty(y_shape, dtype=x.dtype, device=x.device)
+    if mean is None:
+        params += params[1:]          # the kernel reads mean/var only in BN
     lib = KERNEL.lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    args = (ctypes.byref(g), x.data_ptr(), *(t.data_ptr() for t in params),
+            y.data_ptr())
+    if device == torch.cuda.current_device():
         err = lib.fused_depthwise_forward(
-            x.data_ptr(), w.data_ptr(), mul.data_ptr(), add.data_ptr(),
-            y.data_ptr(), _DTYPE_CODE[x.dtype], n, h, wd, c, h_out, w_out,
-            kh, kw, sh, sw, pt, pl, int(clamp6), stream)
+            *args, torch._C._cuda_getCurrentRawStream(device))
+    else:
+        with torch.cuda.device(device):
+            err = lib.fused_depthwise_forward(
+                *args, torch._C._cuda_getCurrentRawStream(device))
     if err != 0:
         msg = lib.fused_depthwise_error_string(err).decode()
         raise RuntimeError(f"fused depthwise kernel launch failed: {msg}")
     KERNEL.launches += 1
+    PATH_LAUNCHES[path] += 1
     return y
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _input_grads(ctx, g, fn):
+    """Autograd through `fn` (a plain version) at the saved inputs."""
+    saved = ctx.saved_tensors
+    needs = ctx.needs_input_grad[:len(saved)]
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_(nd)
+                  for t, nd in zip(saved, needs)]
+        y = fn(*inputs)
+        wanted = [t for t, nd in zip(inputs, needs) if nd]
+        grads = iter(torch.autograd.grad(y, wanted, g))
+    return [next(grads) if nd else None for nd in needs]
 
 
 class _FusedDepthwise(torch.autograd.Function):
@@ -153,16 +393,36 @@ class _FusedDepthwise(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        saved = ctx.saved_tensors
-        needs = ctx.needs_input_grad[:4]
-        with torch.enable_grad():
-            inputs = [t.detach().requires_grad_(nd)
-                      for t, nd in zip(saved, needs)]
-            y = reference_impl(*inputs, stride=ctx.stride,
-                               clamp6=ctx.clamp6)
-            wanted = [t for t, nd in zip(inputs, needs) if nd]
-            grads = iter(torch.autograd.grad(y, wanted, g))
-        return (*(next(grads) if nd else None for nd in needs), None, None)
+        grads = _input_grads(ctx, g, lambda *t: reference_impl(
+            *t, stride=ctx.stride, clamp6=ctx.clamp6))
+        return (*grads, None, None)
+
+
+class _FusedDepthwiseBN(torch.autograd.Function):
+    """The batchnorm chain. Forward: the kernel, which folds the BN
+    itself (CUDA), or ``reference_bn_impl`` (CPU). Backward: autograd
+    through ``reference_bn_impl`` at the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, w, scale, bias, mean, var, eps, stride):
+        ctx.save_for_backward(x, w, scale, bias, mean, var)
+        ctx.eps, ctx.stride = eps, stride
+        if x.device.type == "cpu":
+            return reference_bn_impl(x, w, scale, bias, mean, var, eps=eps,
+                                     stride=stride)
+        return _launch(x, w, scale, bias, stride, True, mean, var, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = _input_grads(ctx, g, lambda *t: reference_bn_impl(
+            *t, eps=ctx.eps, stride=ctx.stride))
+        return (*grads, None, None)
+
+
+def _check_channel_tile(c, channel_tile):
+    if channel_tile is not None and c % channel_tile:
+        raise ValueError(f"channel_tile {channel_tile} must divide channel "
+                         f"count {c}")
 
 
 def fused_depthwise_affine(x, w, mul, add, *, stride=1, clamp6=True,
@@ -172,23 +432,31 @@ def fused_depthwise_affine(x, w, mul, add, *, stride=1, clamp6=True,
     x: [N, H, W, C]; w: [kh, kw, 1, C]; mul/add: [C] (identity: ones and
     zeros). Differentiable in all four tensors. ``channel_tile`` keeps
     the JAX signature's contract (it must divide C, else ValueError); the
-    CUDA kernel needs no channel tiling, so it does not change the
+    kernel plans its own channel slabs, so it does not change the
     launch."""
-    c = x.shape[-1]
-    if channel_tile is not None and c % channel_tile:
-        raise ValueError(f"channel_tile {channel_tile} must divide channel "
-                         f"count {c}")
-    return _FusedDepthwise.apply(x, w, mul, add, _pair(stride), bool(clamp6))
+    _check_channel_tile(x.shape[-1], channel_tile)
+    stride, clamp6 = _pair(stride), bool(clamp6)
+    if _needs_grad(x, w, mul, add):
+        return _FusedDepthwise.apply(x, w, mul, add, stride, clamp6)
+    if x.device.type == "cpu":
+        return reference_impl(x, w, mul, add, stride=stride, clamp6=clamp6)
+    return _launch(x, w, mul, add, stride, clamp6)
 
 
 def fused_depthwise_bn_relu6(x, w, scale, bias, mean, var, *, eps, stride=1,
                              channel_tile=None):
     """The MobileNetV2 chain: depthwise conv -> inference-mode BN ->
-    ReLU6 as one kernel. Folding happens here, outside the
-    autograd.Function, so scale/bias gradients flow through autograd."""
-    mul, add = fold_bn(scale, bias, mean, var, eps)
-    return fused_depthwise_affine(x, w, mul, add, stride=stride,
-                                  clamp6=True, channel_tile=channel_tile)
+    ReLU6 as one kernel launch, which folds the BN itself. Differentiable
+    in x, w and all four BN tensors."""
+    _check_channel_tile(x.shape[-1], channel_tile)
+    stride, eps = _pair(stride), float(eps)
+    if _needs_grad(x, w, scale, bias, mean, var):
+        return _FusedDepthwiseBN.apply(x, w, scale, bias, mean, var, eps,
+                                       stride)
+    if x.device.type == "cpu":
+        return reference_bn_impl(x, w, scale, bias, mean, var, eps=eps,
+                                 stride=stride)
+    return _launch(x, w, scale, bias, stride, True, mean, var, eps)
 
 
 # ---------------------------------------------------------------------------

@@ -50,18 +50,193 @@ def _inputs(gen, n, h, c, dtype=torch.float32):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_matches_plain_at_every_main_path_shape(cuda, dtype):
+    """f32 equals the plain version bit for bit (the same roundings in
+    the same order); bf16 within one bf16 rounding."""
     dt = getattr(torch, dtype)
-    tol = F32_TOL if dt == torch.float32 else BF16_TOL
     for call in mobilenet.fused_call_shapes(2, 50):
         x, w, mul, add = _inputs(cuda, 2, call["h_in"], call["c"], dt)
-        before = fc.KERNEL.launches
+        before = fc.KERNEL.launches, fc.PATH_LAUNCHES["3x3"]
         got = fc.fused_depthwise_affine(x, w, mul, add,
                                         stride=call["stride"])
         torch.cuda.synchronize()
-        assert fc.KERNEL.launches == before + 1
+        assert (fc.KERNEL.launches, fc.PATH_LAUNCHES["3x3"]) == (
+            before[0] + 1, before[1] + 1)
         assert got.dtype == dt and got.is_cuda
         want = fc.reference_impl(x, w, mul, add, stride=call["stride"])
-        torch.testing.assert_close(got.float(), want.float(), **tol)
+        if dt == torch.float32:
+            assert torch.equal(got, want), call
+        else:
+            torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+
+
+def test_walking_plans_equal_plain(cuda):
+    """At a batch large enough that stride-1 plans walk two tiles a
+    block (double-buffered windows), f32 still equals the plain version
+    bit for bit."""
+    walked = 0
+    for call in mobilenet.fused_call_shapes(512, 50):
+        x, w, mul, add = _inputs(cuda, 512, call["h_in"], call["c"])
+        s = call["stride"]
+        walked += fc.depthwise_tiles(512, call["h_in"], call["h_in"],
+                                     call["c"], 3, 3, s, s, 4).walk > 1
+        got = fc.fused_depthwise_affine(x, w, mul, add, stride=s)
+        assert torch.equal(got, fc.reference_impl(x, w, mul, add, stride=s))
+    assert walked > 0
+
+
+# the op grid: C, H = W, kh x kw; both strides and dtypes below
+OP_C, OP_H = (1, 6, 8, 960), (1, 2, 4, 25, 50)
+
+
+@pytest.mark.parametrize("k", [(1, 1), (3, 3), (5, 5), (3, 1)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_matches_plain_on_the_op_grid(cuda, k, dtype):
+    """Every C in OP_C, H = W in OP_H (odd and even sizes at stride 2),
+    stride 1 and 2, clamp on and off: the path the predicate names is the
+    one whose count moves, by one a call."""
+    dt = getattr(torch, dtype)
+    kh, kw = k
+    for c in OP_C:
+        for h in OP_H:
+            for s in (1, 2):
+                x = torch.randn(2, h, h, c, device="cuda",
+                                generator=cuda).to(dt)
+                w = torch.randn(kh, kw, 1, c, device="cuda",
+                                generator=cuda) * 0.3
+                mul = torch.randn(c, device="cuda", generator=cuda) + 1.0
+                add = torch.randn(c, device="cuda", generator=cuda) * 0.5
+                clamp = (h + c + s) % 2 == 0
+                path = fc.depthwise_path(c, kh, kw, s, s, x.element_size(),
+                                         vector_ok=fc.vector_ok(x, w))
+                before = dict(fc.PATH_LAUNCHES)
+                got = fc.fused_depthwise_affine(x, w, mul, add, stride=s,
+                                                clamp6=clamp)
+                torch.cuda.synchronize()
+                assert {p: fc.PATH_LAUNCHES[p] - before[p]
+                        for p in fc.PATHS} == {
+                    p: int(p == path) for p in fc.PATHS}
+                want = fc.reference_impl(x, w, mul, add, stride=s,
+                                         clamp6=clamp)
+                if dt == torch.float32:
+                    assert torch.equal(got, want), (c, h, s, k, path)
+                else:
+                    torch.testing.assert_close(
+                        got.float(), want.float(), **BF16_TOL,
+                        msg=lambda m: f"{(c, h, s, k, path)}: {m}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_misaligned_and_strided_x(cuda, dtype):
+    """x as a view at a 1-element storage offset (scalar path), as an
+    NHWC view of NCHW memory (scalar path, channel stride H*W) and as a
+    W-H transpose (the 3x3 vector path at the strides given)."""
+    dt = getattr(torch, dtype)
+    _, w, mul, add = _inputs(cuda, 2, 13, 64)
+    base = torch.randn(2 * 13 * 13 * 64 + 1, device="cuda",
+                       generator=cuda).to(dt)
+    views = [
+        ("scalar", base[1:].view(2, 13, 13, 64)),
+        ("scalar", torch.randn(2, 64, 13, 13, device="cuda",
+                               generator=cuda).to(dt).permute(0, 2, 3, 1)),
+        ("3x3", base[:-1].view(2, 13, 13, 64).transpose(1, 2)),
+    ]
+    for path, x in views:
+        before = fc.PATH_LAUNCHES[path]
+        for s in (1, 2):
+            got = fc.fused_depthwise_affine(x, w, mul, add, stride=s)
+            want = fc.reference_impl(x, w, mul, add, stride=s)
+            if dt == torch.float32:
+                assert torch.equal(got, want), (path, s)
+            else:
+                torch.testing.assert_close(got.float(), want.float(),
+                                           **BF16_TOL)
+        assert fc.PATH_LAUNCHES[path] == before + 2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c", [8, 6])
+def test_padding_taps_multiply_zero_by_the_weight(cuda, dtype, c):
+    """An inf weight on the tap that falls in the TF-SAME padding gives
+    0 * inf = NaN along the top row and the left column, as both
+    references compute; a kernel that skipped padding taps would hide
+    it."""
+    dt = getattr(torch, dtype)
+    x, w, mul, add = _inputs(cuda, 1, 5, c, dt)   # pads (1, 1) at both
+    w[0, 0, 0, 0] = float("inf")
+    for s in (1, 2):
+        got = fc.fused_depthwise_affine(x, w, mul, add, stride=s,
+                                        clamp6=False)
+        want = fc.reference_impl(x, w, mul, add, stride=s, clamp6=False)
+        assert got[..., 0].isnan().any()
+        assert torch.equal(got.isnan(), want.isnan())
+        torch.testing.assert_close(got.float(), want.float(), equal_nan=True,
+                                   **(F32_TOL if dt == torch.float32
+                                      else BF16_TOL))
+
+
+def test_nan_in_x_passes_through_the_clamp(cuda):
+    for c in (8, 6):
+        x, w, mul, add = _inputs(cuda, 1, 6, c)
+        x[0, 2, 2, c - 1] = float("nan")
+        got = fc.fused_depthwise_affine(x, w, mul, add)
+        want = fc.reference_impl(x, w, mul, add)
+        assert got.isnan().sum() == 9
+        assert torch.equal(got.isnan(), want.isnan())
+
+
+def _bn(gen, c):
+    scale = torch.randn(c, device="cuda", generator=gen)
+    bias = torch.randn(c, device="cuda", generator=gen)
+    mean = torch.randn(c, device="cuda", generator=gen)
+    var = torch.rand(c, device="cuda", generator=gen) + 0.1
+    return scale, bias, mean, var
+
+
+def test_in_kernel_bn_fold_equals_fold_bn(cuda):
+    """The kernel folds the BN itself in fold_bn's order of operations
+    (rsqrtf, as torch.rsqrt on the card): bit for bit the same as
+    fold_bn + the affine kernel, and as the plain BN version, at every
+    main-path shape and on the scalar path."""
+    for call in mobilenet.fused_call_shapes(8, 50) + [
+            dict(h_in=9, c=6, stride=2)]:
+        c, s = call["c"], call["stride"]
+        x, w, _, _ = _inputs(cuda, 8, call["h_in"], c)
+        bn = _bn(cuda, c)
+        before = fc.KERNEL.launches
+        got = fc.fused_depthwise_bn_relu6(x, w, *bn, eps=1e-3, stride=s)
+        assert fc.KERNEL.launches == before + 1
+        folded = fc.fused_depthwise_affine(x, w, *fc.fold_bn(*bn, 1e-3),
+                                           stride=s)
+        assert torch.equal(got, folded), call
+        assert torch.equal(got, fc.reference_bn_impl(x, w, *bn, eps=1e-3,
+                                                      stride=s)), call
+
+
+def test_bn_backward_matches_autograd_of_plain(cuda):
+    x, w, _, _ = _inputs(cuda, 4, 9, 40)
+    bn = _bn(cuda, 40)
+    g = torch.randn(4, 5, 5, 40, device="cuda", generator=cuda)
+    grads = []
+    for fn in (fc.fused_depthwise_bn_relu6, fc.reference_bn_impl):
+        ins = [t.clone().requires_grad_() for t in (x, w, *bn)]
+        fn(*ins, eps=1e-3, stride=2).backward(g)
+        grads.append([t.grad for t in ins])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, **F32_TOL)
+
+
+def test_each_path_counts_its_launches(cuda):
+    cases = {"3x3": (8, 3), "general": (8, 5), "scalar": (6, 3)}
+    for path, (c, k) in cases.items():
+        x = torch.randn(1, 7, 7, c, device="cuda", generator=cuda)
+        w = torch.randn(k, k, 1, c, device="cuda", generator=cuda)
+        one = torch.ones(c, device="cuda")
+        before = fc.KERNEL.launches, dict(fc.PATH_LAUNCHES)
+        fc.fused_depthwise_affine(x, w, one, one)
+        fc.fused_depthwise_bn_relu6(x, w, one, one, one, one, eps=1e-3)
+        assert fc.KERNEL.launches == before[0] + 2
+        assert {p: fc.PATH_LAUNCHES[p] - before[1][p] for p in fc.PATHS} \
+            == {p: 2 * (p == path) for p in fc.PATHS}
 
 
 @pytest.mark.parametrize("stride", [1, 2])
@@ -79,13 +254,23 @@ def test_backward_matches_autograd_of_plain(cuda, stride):
 
 
 def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    """x may have any strides (the kernel takes them); w and the
+    per-channel vectors must be contiguous, on x's card, and carry C."""
     x, w, mul, add = _inputs(cuda, 1, 5, 8)
+    before = fc.KERNEL.launches
     with pytest.raises(ValueError, match="contiguous"):
-        fc.fused_depthwise_affine(x.transpose(1, 2), w, mul, add)
+        fc.fused_depthwise_affine(x, w.transpose(0, 1), mul, add)
+    with pytest.raises(ValueError, match="contiguous"):
+        fc.fused_depthwise_bn_relu6(x, w, mul, add, mul,
+                                    torch.ones(16, device="cuda")[::2],
+                                    eps=1e-3)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fc.fused_depthwise_affine(x.half(), w, mul, add)
     with pytest.raises(ValueError, match="CUDA device"):
         fc.fused_depthwise_affine(x, w.cpu(), mul, add)
+    with pytest.raises(ValueError, match="channels"):
+        fc.fused_depthwise_bn_relu6(x, w, mul, add, mul[:4], add, eps=1e-3)
+    assert fc.KERNEL.launches == before
 
 
 def test_init_params_gives_the_same_weights_on_the_card(cuda):
