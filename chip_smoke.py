@@ -37,6 +37,22 @@ non-zero before the result line:
        epochs, batch 32, percent 0.5) for 3 rounds on 2048 synthetic
        10x10 patches; launches held to rounds x clients = 24, finite
        round metrics, no client recovered, nothing clipped;
+   (a2) the same `mobile` argv with `--cache-features`: the fused
+       kernel's launches held to the cached schedule (11 chains a batch
+       of the frozen prefix's features, 6 a suffix eval forward, none a
+       suffix train step) and its phase-2 history to (a)'s (rtol 1e-4);
+   (a3) `vgg` and `vgg --cache-features` at full width (VGG16, 50x50,
+       batch 32, lr 1e-3, fine-tune at 15): no hand kernel launched,
+       finite metrics, cached against uncached history, the card's eval
+       logits against the CPU's on the trained weights (TF32 off,
+       1e-4 (1 + max |logit|));
+   (a4) `dense` and `dense --cache-features` at full width
+       (DenseNet201 with packed blocks, CIFAR-10 stand-in at 32x32,
+       batch 256, 10 classes, two passes an epoch, fine-tune at 150, so
+       phase 2 runs a backward through packed blocks): the same checks,
+       plus packed against concat on the card -- eval logits bit for
+       bit, phase-2 gradients within 1e-4 of each tensor's largest
+       |gradient|;
    then (c) one `secure_aggregate` of fixed MobileNetV2 client updates
    through the kernel, through threefry on the card and through the
    plain version on the CPU, held bit-identical to each other and to
@@ -50,7 +66,10 @@ non-zero before the result line:
    the wrapper's host us a call, at batch 32 and 4096, f32, and bf16 at
    4096; the host us of the wrapper's pieces beside the grouped chain
    it replaces); host-clock times of the train steps (with kernels a call and
-   device busy of the fused and the grouped build) and of secure
+   device busy of the fused and the grouped build), of the VGG16 and
+   DenseNet201 steps (phase 1, phase 2, cached phase 2, eval: host ms,
+   device busy, idle share, kernels a call, peak memory), of the
+   DenseNet201 eval forward packed against concat, and of secure
    rounds (pallas against threefry);
 6. flash -- the three flash kernels of the causal LM
    (ops/flash_block_kernel.py; their ptxas lines must show no register
@@ -393,7 +412,7 @@ def main_path(torch, fc, mobilenet, card: str) -> dict:
         f"max |diff| {err!r} (tolerance 1e-3)")
     if not err <= 1e-3:
         raise SystemExit(f"fused and grouped predictions differ by {err}")
-    return {"launches": launches, "steps": steps}
+    return {"launches": launches, "steps": steps, "epochs": epochs}
 
 
 def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
@@ -1646,6 +1665,364 @@ def lm_step_times(torch, card: str) -> None:
         + f"; {card}")
 
 
+# ---------------------------------------------------------------------------
+# the rest of the classifier main path: vgg, dense, --cache-features
+# ---------------------------------------------------------------------------
+
+CLS_EXAMPLES = 512
+DENSE_GRAD_REL = 1e-4   # packed vs concat phase-2 gradients, of max |g|
+
+
+def logit_tol(ref) -> float:
+    """The card-against-CPU bar: 1e-4 (1 + max |logit|)."""
+    return 1e-4 * (1.0 + float(np.abs(ref).max()))
+
+
+def classifier_run(torch, fc, smk, fbk, argv: list[str]) -> dict:
+    """`cli.main(argv + ["--path", <tmp>])` with every launch count set
+    to 0 just before it and read just after: its epoch and test records
+    (held finite), the trained trees from model.npz, its seconds and the
+    kernels' launches."""
+    from idc_models_tpu_torch import cli
+    from idc_models_tpu_torch.models.pretrained import load_pretrained_file
+
+    with tempfile.TemporaryDirectory() as tmp:
+        zero_counts(fc, smk, fbk)
+        t0 = time.perf_counter()
+        rc = cli.main(argv + ["--path", tmp])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {"fused": fc.KERNEL.launches,
+                    "fused_3x3": fc.PATH_LAUNCHES["3x3"],
+                    "masking": smk.KERNEL.launches,
+                    "flash": sum(flash_counts(fbk))}
+        records = [json.loads(line) for line in
+                   (Path(tmp) / "logs" / "run.jsonl").read_text().splitlines()]
+        params, state = load_pretrained_file(Path(tmp) / "model.npz")
+    if rc != 0:
+        raise SystemExit(f"cli.main({argv}) returned {rc}")
+    epochs = [r for r in records if r["event"] == "epoch"]
+    tests = [r for r in records if r["event"] == "test"]
+    if len(epochs) != 2 or len(tests) != 1:
+        raise SystemExit(f"{argv[0]}: expected 2 epoch records and 1 test "
+                         f"record, got {[r['event'] for r in records]}")
+    for r in epochs + tests:
+        for k in ("loss", "accuracy", "val_loss", "val_accuracy", "auroc"):
+            if k in r and not math.isfinite(r[k]):
+                raise SystemExit(f"{argv[0]}: non-finite {k} in {r}")
+    return {"epochs": epochs, "test": tests[0], "params": params,
+            "state": state, "seconds": seconds, "launches": launches}
+
+
+def same_history(name: str, got: list[dict], want: list[dict]) -> float:
+    """Cached against uncached epoch records: loss and val_loss within
+    rtol 1e-4 (the JAX package's tests/test_feature_cache.py bar);
+    returns the largest relative difference."""
+    worst = 0.0
+    for g, w in zip(got, want, strict=True):
+        for k in ("loss", "val_loss"):
+            rel = abs(g[k] - w[k]) / abs(w[k])
+            worst = max(worst, rel)
+            if not rel <= 1e-4:
+                raise SystemExit(f"{name}: cached {k} {g[k]!r} against "
+                                 f"uncached {w[k]!r} (rel {rel!r} > 1e-4)")
+    return worst
+
+
+def card_vs_cpu(torch, model_fn, params, state, images, batch: int) -> tuple:
+    """Eval logits of the same trained trees on the card and on the CPU
+    (TF32 off): (card logits, max |diff|, tolerance)."""
+    from idc_models_tpu_torch import convert
+    from idc_models_tpu_torch.train.loop import predict
+
+    tf32_off(torch)
+    card = predict(convert.load_jax(model_fn(), params, state).cuda(),
+                   images, batch_size=batch)
+    cpu = predict(convert.load_jax(model_fn(), params, state), images,
+                  batch_size=batch)
+    err = float(np.abs(card - cpu).max())
+    return card, err, logit_tol(cpu)
+
+
+def vgg_path(torch, fc, smk, fbk, card: str) -> None:
+    """`vgg` at full width (VGG16, 50x50, batch 32, lr 1e-3, fine-tune at
+    15), then `vgg --cache-features`: no hand kernel runs on this path;
+    finite metrics; the card's logits against the CPU's on the same
+    weights; the cached phase 2 against the uncached one."""
+    from idc_models_tpu_torch.data import synthetic
+    from idc_models_tpu_torch.data.idc import (
+        ArrayDataset, train_val_test_split,
+    )
+    from idc_models_tpu_torch.models import vgg
+
+    argv = ["vgg", "--synthetic-examples", str(CLS_EXAMPLES), "--epochs",
+            "1", "--fine-tune-epochs", "1", "--seed", "0"]
+    plain = classifier_run(torch, fc, smk, fbk, argv)
+    cached = classifier_run(torch, fc, smk, fbk, argv + ["--cache-features"])
+    for r in (plain, cached):
+        if any(r["launches"].values()):
+            raise SystemExit(f"vgg launched hand kernels: {r['launches']}")
+    if not {"accuracy", "auroc"} <= set(plain["test"]):
+        raise SystemExit(f"vgg test metrics lack accuracy/AUROC: "
+                         f"{plain['test']}")
+    rel = same_history("vgg", cached["epochs"], plain["epochs"])
+    imgs, labels = synthetic.make_idc_like(CLS_EXAMPLES, 50, seed=0)
+    _, _, test = train_val_test_split(ArrayDataset(imgs, labels), seed=0)
+    logits, err, tol = card_vs_cpu(torch, lambda: vgg.vgg16(1),
+                                   plain["params"], plain["state"],
+                                   test.images, 32)
+    log(f"classifier path: cli.main({' '.join(argv)}) in "
+        f"{plain['seconds']!r} s, with --cache-features in "
+        f"{cached['seconds']!r} s; epochs (loss, val_loss) "
+        f"{[(r['loss'], r['val_loss']) for r in plain['epochs']]}, cached "
+        f"{[(r['loss'], r['val_loss']) for r in cached['epochs']]} (largest "
+        f"relative difference {rel!r}, bar 1e-4); test {plain['test']}; hand "
+        f"kernel launches {plain['launches']} (none on this path); card vs "
+        f"CPU eval logits over {len(test)} test patches, TF32 off: max "
+        f"|diff| {err!r} (tolerance {tol!r}); {card}")
+    if logits.shape != (len(test), 1) or not err <= tol:
+        raise SystemExit(f"vgg card logits {logits.shape} differ from the "
+                         f"CPU's by {err} > {tol}")
+
+
+def dense_path(torch, fc, smk, fbk, card: str) -> None:
+    """`dense` at full width (DenseNet201 packed, CIFAR-10 stand-in at
+    32x32, batch 256, 10 classes, sparse CE, two passes an epoch,
+    fine-tune at 150: phase 2 runs a backward through packed blocks),
+    then `dense --cache-features`; packed against concat on the card
+    (eval logits bit for bit, phase-2 gradients within DENSE_GRAD_REL
+    of each tensor's largest |gradient|); card against CPU logits."""
+    from idc_models_tpu_torch import convert
+    from idc_models_tpu_torch.data import synthetic
+    from idc_models_tpu_torch.models import densenet
+    from idc_models_tpu_torch.train.loop import predict
+
+    argv = ["dense", "--synthetic-examples", str(CLS_EXAMPLES), "--epochs",
+            "1", "--fine-tune-epochs", "1", "--seed", "0"]
+    plain = classifier_run(torch, fc, smk, fbk, argv)
+    cached = classifier_run(torch, fc, smk, fbk, argv + ["--cache-features"])
+    for r in (plain, cached):
+        if any(r["launches"].values()):
+            raise SystemExit(f"dense launched hand kernels: {r['launches']}")
+    rel = same_history("dense", cached["epochs"], plain["epochs"])
+    params, state = plain["params"], plain["state"]
+    # the verb's test split: the synthetic stand-in at seed 2*0 + 1
+    test, _ = synthetic.make_cifar_like(max(CLS_EXAMPLES // 5, 64), seed=1)
+    logits, err, tol = card_vs_cpu(
+        torch, lambda: densenet.densenet201(10), params, state, test, 256)
+
+    def build(impl, frozen_below=0):
+        return convert.load_jax(densenet.densenet201(
+            10, bn_frozen_below=frozen_below, block_impl=impl),
+            params, state).cuda()
+
+    x, y = synthetic.make_cifar_like(256, seed=5)
+    concat = predict(build("concat"), x, batch_size=256)
+    packed = predict(build("packed"), x, batch_size=256)
+    same = bool(np.array_equal(packed, concat))
+    xt = torch.as_tensor(x, device="cuda")
+    r = torch.randn(256, 10, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(3))
+    grads, stats = {}, {}
+    for impl in ("packed", "concat"):
+        m = build(impl, 150).train()
+        mask = densenet.fine_tune_mask(m, 150)
+        for k, p in m.named_parameters():
+            p.requires_grad_(mask[k])
+        (m(xt) * r).sum().backward()
+        grads[impl] = {k: p.grad for k, p in m.named_parameters() if mask[k]}
+        stats[impl] = dict(m.named_buffers())
+    worst = max(float((grads["packed"][k] - g).abs().max())
+                / max(float(g.abs().max()), 1e-30)
+                for k, g in grads["concat"].items())
+    stat_err = max(float((stats["packed"][k] - v).abs().max())
+                   / max(float(v.abs().max()), 1.0)
+                   for k, v in stats["concat"].items())
+    log(f"classifier path: cli.main({' '.join(argv)}) in "
+        f"{plain['seconds']!r} s, with --cache-features in "
+        f"{cached['seconds']!r} s; epochs (loss, val_loss) "
+        f"{[(r['loss'], r['val_loss']) for r in plain['epochs']]}, cached "
+        f"{[(r['loss'], r['val_loss']) for r in cached['epochs']]} (largest "
+        f"relative difference {rel!r}, bar 1e-4); test {plain['test']}; hand "
+        f"kernel launches {plain['launches']} (none on this path); card vs "
+        f"CPU eval logits over {len(test)} test images, TF32 off: max "
+        f"|diff| {err!r} (tolerance {tol!r}); packed vs concat eval logits "
+        f"at batch 256 bit for bit: {same}; phase-2 gradients (fine-tune "
+        f"at 150, train mode, batch 256) over {len(grads['concat'])} "
+        f"tensors: largest max|diff| / max|g| {worst!r} (bar "
+        f"{DENSE_GRAD_REL!r}), BN statistics max|diff| / max(1, max|v|) "
+        f"{stat_err!r} (bar 1e-5); "
+        f"{card}")
+    if logits.shape != (len(test), 10) or not err <= tol:
+        raise SystemExit(f"dense card logits {logits.shape} differ from "
+                         f"the CPU's by {err} > {tol}")
+    if not same:
+        raise SystemExit(f"packed and concat eval logits differ on the "
+                         f"card by {float(np.abs(packed - concat).max())}")
+    if not worst <= DENSE_GRAD_REL or not stat_err <= 1e-5:
+        raise SystemExit(f"packed and concat phase-2 gradients differ "
+                         f"({worst}) or statistics ({stat_err})")
+
+
+def mobile_cache_path(torch, fc, smk, fbk, uncached: dict,
+                      card: str) -> int:
+    """`mobile --cache-features --depthwise-impl fused` (the main path's
+    argv plus the cache): the fused kernel's launches held to the
+    schedule -- 17 chains a phase-1 train and eval forward, 11 (the
+    prefix's) a batch of compute_features, none a suffix train step (its
+    6 chains train their BNs), 6 a suffix eval forward -- and the
+    phase-2 history to the uncached main path's. Returns the launches."""
+    from idc_models_tpu_torch.configs import get_preset
+    from idc_models_tpu_torch.data import synthetic
+    from idc_models_tpu_torch.data.idc import (
+        ArrayDataset, train_val_test_split,
+    )
+    from idc_models_tpu_torch.data.pipeline import Loader
+    from idc_models_tpu_torch.models import mobilenet, registry
+    from idc_models_tpu_torch.train import feature_cache
+
+    preset = get_preset("mobile")
+    argv = ["mobile", "--depthwise-impl", "fused", "--synthetic-examples",
+            "512", "--epochs", "1", "--fine-tune-epochs", "1", "--seed", "0",
+            "--cache-features"]
+    run = classifier_run(torch, fc, smk, fbk, argv)
+    rel = same_history("mobile", run["epochs"], uncached["epochs"])
+    imgs, labels = synthetic.make_idc_like(512, preset.image_size, seed=0)
+    train, val, test = train_val_test_split(ArrayDataset(imgs, labels),
+                                            seed=0)
+    spec = registry.get_model(preset.model)
+    plan = feature_cache.plan_feature_cache(
+        spec.build(1, bn_frozen_below=preset.fine_tune_at,
+                   depthwise_impl="fused"),
+        spec.layer_index, preset.fine_tune_at)
+    suffix = sum(n.endswith("depthwise_BN") for n in plan.suffix_keys)
+    prefix = mobilenet.fused_chain_count(preset.fine_tune_at, train=False) \
+        - suffix
+    if (prefix, suffix) != (11, 6):
+        raise SystemExit(f"mobile cache split {prefix}/{suffix} chains, "
+                         f"expected 11/6")
+    bs = preset.batch_size
+    steps = len(Loader(train, bs))
+    val_fwd, train_fwd = -(-len(val) // bs), -(-len(train) // bs)
+    test_fwd = -(-len(test) // bs)
+    # phase 1: train steps, the untrained floor and epoch 1's validation;
+    # the cache over train and val; epoch 2's validation on the suffix;
+    # the test evaluation on the full model
+    expected = (17 * steps + 17 * (min(val_fwd, 20) + val_fwd)
+                + prefix * (train_fwd + val_fwd) + suffix * val_fwd
+                + 17 * test_fwd)
+    got = run["launches"]
+    log(f"classifier path: cli.main({' '.join(argv)}) in "
+        f"{run['seconds']!r} s; epochs (loss, val_loss) "
+        f"{[(r['loss'], r['val_loss']) for r in run['epochs']]} against the "
+        f"uncached main path's "
+        f"{[(r['loss'], r['val_loss']) for r in uncached['epochs']]} "
+        f"(largest relative difference {rel!r}, bar 1e-4); fused kernel "
+        f"launches {got['fused']} (expected 17 x ({steps} phase-1 steps + "
+        f"{min(val_fwd, 20) + val_fwd} eval forwards + {test_fwd} test) + "
+        f"{prefix} x {train_fwd + val_fwd} cached batches + {suffix} x "
+        f"{val_fwd} suffix eval forwards = {expected}), all on the 3x3 "
+        f"path: {got['fused_3x3'] == got['fused']}; {card}")
+    if got["fused"] != expected or got["fused_3x3"] != got["fused"] \
+            or got["masking"] or got["flash"]:
+        raise SystemExit(f"mobile --cache-features launches {got} != "
+                         f"{expected}")
+    return got["fused"]
+
+
+def peak_mb(torch, fn) -> float:
+    """Peak device memory (MB) of one call of `fn`, above what was
+    allocated before it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 1e6
+
+
+def classifier_step_times(torch, card: str) -> None:
+    """Where a `vgg` and a `dense` step's time goes, TF32 off: for the
+    phase-1 step, the phase-2 step, the cached phase-2 step (the suffix
+    on cached features) and the eval forward, host ms a call (in turns
+    with the next), then the profiler's device busy, idle share and
+    kernels a call, and peak memory; then DenseNet201's eval forward,
+    packed against concat at batch 256: device busy, kernels a call (cat
+    kernels among them) and peak memory. (CUDA events would time the
+    host here: at about 2,600 kernels a forward, the card outruns the
+    launches.)"""
+    from idc_models_tpu_torch.models import core, densenet, registry
+    from idc_models_tpu_torch.train import feature_cache, losses
+    from idc_models_tpu_torch.train.state import TrainState, rmsprop
+    from idc_models_tpu_torch.train.step import (
+        make_eval_step, make_train_step,
+    )
+
+    tf32_off(torch)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for name, size, batch, n_out, at in (("vgg16", 50, 32, 1, 15),
+                                         ("densenet201", 32, 256, 10, 150)):
+        spec = registry.get_model(name)
+        x = torch.rand(batch, size, size, 3, device="cuda", generator=gen)
+        y = torch.randint(0, max(n_out, 2), (batch,), device="cuda",
+                          generator=gen)
+        loss = (losses.binary_cross_entropy if n_out == 1
+                else losses.sparse_categorical_cross_entropy)
+        calls = {}
+        for phase, frozen_below in (("phase-1", densenet.FREEZE_ALL),
+                                    ("phase-2", at)):
+            kw = ({} if name == "vgg16"
+                  else {"bn_frozen_below": frozen_below})
+            model = core.init_params(spec.build(n_out, **kw), 0).cuda()
+            mask = (spec.head_only_mask(model) if phase == "phase-1"
+                    else spec.fine_tune_mask(model, at))
+            step = make_train_step(TrainState(model, rmsprop(
+                model, 1e-4, trainable_mask=mask)), loss)
+            calls[f"{phase} train step"] = lambda step=step: step(x, y)
+        plan = feature_cache.plan_feature_cache(model, spec.layer_index, at)
+        with torch.no_grad():
+            feats = plan.prefix.eval()(x).clone()
+        suffix = plan.suffix_model
+        sstep = make_train_step(TrainState(suffix, rmsprop(
+            suffix, 1e-4, trainable_mask=spec.fine_tune_mask(suffix, at))),
+            loss)
+        calls["cached phase-2 train step"] = lambda: sstep(feats, y)
+        ev = make_eval_step(model, loss)
+        calls["eval forward"] = lambda: ev(x, y)
+        names = list(calls)
+        ms = {k: [] for k in names}
+        for k in names + names[::-1]:
+            ms[k].append(host_ms(torch, calls[k], n=5, warmup=2))
+        for k in names:
+            peak = peak_mb(torch, calls[k])
+            # two calls: a DenseNet201 step launches about 10k kernels
+            log(f"time {name} {k} b{batch} {size}x{size}: host {ms[k]!r} ms "
+                f"a call (in turns); peak memory {peak!r} MB above the "
+                f"weights; TF32 off; "
+                f"{profiled(torch, calls[k], n=2)}; {card}")
+        del calls, model, suffix, plan, feats
+        torch.cuda.empty_cache()
+
+    x = torch.rand(256, 32, 32, 3, device="cuda", generator=gen)
+    fwd = {}
+    for impl in ("packed", "concat"):
+        m = core.init_params(densenet.densenet201(10, block_impl=impl),
+                             0).cuda().eval()
+
+        def forward(m=m):
+            with torch.no_grad():
+                return m(x)
+
+        fwd[impl] = forward
+    for impl in ("packed", "concat", "concat", "packed"):
+        counts = kernel_counts(torch, fwd[impl], n=3)
+        cats = sum(v for k, v in counts.items() if "Cat" in k)
+        log(f"time densenet201 eval forward b256 32x32 {impl} (in turns "
+            f"p, c, c, p): {profiled(torch, fwd[impl], n=3)}; {cats!r} cat "
+            f"kernels a call; peak memory {peak_mb(torch, fwd[impl])!r} MB "
+            f"above the weights; TF32 off; {card}")
+
+
 def main() -> int:
     if not (REPO / "idc_models_tpu_torch" / "ops" / "csrc").is_dir():
         raise SystemExit("chip_smoke.py must run from a checkout of the "
@@ -1698,6 +2075,9 @@ def main() -> int:
     worst = parity(torch, fc, mobilenet)
     mask_worst = masking_parity(torch, smk)
     path = main_path(torch, fc, mobilenet, card)
+    mobile_cache_path(torch, fc, smk, fbk, path, card)
+    vgg_path(torch, fc, smk, fbk, card)
+    dense_path(torch, fc, smk, fbk, card)
     secure = secure_path(torch, fc, smk, card)
     aggregate_three_ways(torch, smk)
     mobilenet_round(torch, fc, smk, card)
@@ -1710,6 +2090,7 @@ def main() -> int:
         f"and the byte bound {t4096['bound_ms']!r} ms; {card}")
     masks = masking_times(torch, smk, clock_hz, card)
     step_times(torch, card)
+    classifier_step_times(torch, card)
     secure_round_times(torch, card)
     flash = flash_times(torch, fbk, card)
     lm_step_times(torch, card)

@@ -1,16 +1,26 @@
-"""Command-line entry point: the ``mobile``, ``secure-fed`` and ``lm``
-verbs of ``idc_models_tpu``.
+"""Command-line entry point: the ``vgg``, ``mobile``, ``dense``,
+``secure-fed`` and ``lm`` verbs of ``idc_models_tpu``.
 
+    python -m idc_models_tpu_torch vgg --path runs/vgg \\
+        --data-dir .../balanced_IDC_30k --cache-features
     python -m idc_models_tpu_torch mobile --path runs/mobile \\
         --data-dir .../balanced_IDC_30k --depthwise-impl fused
+    python -m idc_models_tpu_torch dense --path runs/dense
     python -m idc_models_tpu_torch secure-fed --path runs/secure \\
         --mask-impl pallas
 
-Two-phase transfer learning of MobileNetV2 on IDC patches with the
-``mobile`` preset's hyperparameters (batch 32, lr 1e-4, fine-tune at
-Keras index 100), every one overridable. Data: --data-dir (a
-``<label>/*.png`` tree) if given, else ``<path>/data/balanced_IDC_30k``
-if present, else --synthetic-examples synthetic patches.
+``vgg``, ``mobile`` and ``dense`` run two-phase transfer learning with
+their preset's hyperparameters, every one overridable: VGG16 (batch 32,
+lr 1e-3, fine-tune at Keras index 15) and MobileNetV2 (batch 32, lr
+1e-4, at 100) on IDC patches, DenseNet201 (batch 256, lr 1e-4, at 150,
+sparse CE, the train set twice an epoch) on CIFAR-10. IDC data:
+--data-dir (a ``<label>/*.png`` tree) if given, else
+``<path>/data/balanced_IDC_30k`` if present, else --synthetic-examples
+synthetic patches. CIFAR-10: ``cifar10.npz`` or
+``cifar-10-batches-py/`` under --path, else a synthetic stand-in.
+``--cache-features`` fine-tunes on the frozen prefix's activations,
+computed once (``train/feature_cache.py``). ``--pretrained-weights``
+takes the JAX package's npz or a Keras ``.h5``.
 
 ``--depthwise-impl fused`` runs MobileNetV2's frozen and eval depthwise
 chains through the hand-written CUDA kernel (``ops/fused_conv.py``);
@@ -45,8 +55,8 @@ from idc_models_tpu_torch.models.core import DEPTHWISE_IMPLS
 
 def main(argv: list[str] | None = None) -> int:
     ns = _parse(argv)
-    {"mobile": _run_dist, "secure_fed": _run_secure,
-     "lm": _run_lm}[ns.preset_key](ns)
+    {"vgg": _run_dist, "mobile": _run_dist, "dense": _run_dist,
+     "secure_fed": _run_secure, "lm": _run_lm}[ns.preset_key](ns)
     return 0
 
 
@@ -69,19 +79,37 @@ def _parse(argv):
         sp.add_argument("--lr", type=float, default=None)
         sp.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
 
-    sp = sub.add_parser("mobile", help="MobileNetV2 two-phase training")
-    common(sp)
-    sp.add_argument("--epochs", type=int, default=None)
-    sp.add_argument("--fine-tune-epochs", type=int, default=None)
-    sp.add_argument("--fine-tune-at", type=int, default=None)
-    sp.add_argument("--pretrained-weights", default=None,
-                    help="backbone weight artifact (.npz in the JAX "
-                         "package's layout)")
-    sp.add_argument("--depthwise-impl", default="grouped",
-                    choices=DEPTHWISE_IMPLS,
-                    help="MobileNetV2's depthwise lowering: 'fused' runs "
-                         "the frozen/eval depthwise+BN+relu6 chains "
-                         "through the CUDA kernel")
+    for key, model in (("vgg", "VGG16"), ("mobile", "MobileNetV2"),
+                       ("dense", "DenseNet201")):
+        sp = sub.add_parser(key, help=f"{model} two-phase training")
+        common(sp)
+        sp.add_argument("--epochs", type=int, default=None)
+        sp.add_argument("--fine-tune-epochs", type=int, default=None)
+        sp.add_argument("--fine-tune-at", type=int, default=None)
+        sp.add_argument("--pretrained-weights", default=None,
+                        help="backbone weight artifact: .npz in the JAX "
+                             "package's layout, or a Keras .h5")
+        sp.add_argument("--repeats", type=int, default=None,
+                        help="train-set passes per epoch (the dense "
+                             "preset's 2)")
+        sp.add_argument("--cache-features", action="store_true",
+                        help="fine-tune on cached frozen-backbone "
+                             "activations (the prefix runs once instead "
+                             "of every step; the same function)")
+        for flag in _UNPORTED_DIST_FLAGS:
+            sp.add_argument(flag, action="store_true",
+                            help="rejected: not ported yet (ROADMAP "
+                                 "A1-rest)")
+        sp.add_argument("--model-parallel", type=int, default=1,
+                        help="rejected above 1: tensor parallelism is not "
+                             "ported yet (ROADMAP A4)")
+        if key == "mobile":
+            sp.add_argument("--depthwise-impl", default="grouped",
+                            choices=DEPTHWISE_IMPLS,
+                            help="MobileNetV2's depthwise lowering: "
+                                 "'fused' runs the frozen/eval "
+                                 "depthwise+BN+relu6 chains through the "
+                                 "CUDA kernel")
 
     sp = sub.add_parser("secure-fed", aliases=["secure_fed"],
                         help="secure-aggregation FedAvg")
@@ -147,6 +175,11 @@ def _parse(argv):
     return ns
 
 
+# flags of the JAX package's classifier verbs that the port refuses so
+# far (ROADMAP A1-rest)
+_UNPORTED_DIST_FLAGS = ("--central-storage", "--resumable", "--stream")
+
+
 def _apply_overrides(preset, ns, fields):
     kw = {f: getattr(ns, f) for f in fields if getattr(ns, f) is not None}
     return dataclasses.replace(preset, **kw) if kw else preset
@@ -181,6 +214,7 @@ def _load_idc(ns, image_size, limit):
 def _run_dist(ns):
     from idc_models_tpu_torch import convert, resolve_device
     from idc_models_tpu_torch.configs import get_preset
+    from idc_models_tpu_torch.data.cifar10 import load_cifar10
     from idc_models_tpu_torch.data.idc import train_val_test_split
     from idc_models_tpu_torch.models.pretrained import save_npz
     from idc_models_tpu_torch.observe import JsonlLogger
@@ -190,17 +224,38 @@ def _run_dist(ns):
     )
 
     device = resolve_device(ns.device)
+    for flag in _UNPORTED_DIST_FLAGS:
+        if getattr(ns, flag[2:].replace("-", "_")):
+            sys.exit(f"{flag}: not ported yet (ROADMAP A1-rest); the port "
+                     f"trains from a materialized dataset, mirrored")
+    if ns.model_parallel > 1:
+        sys.exit(f"--model-parallel {ns.model_parallel}: tensor "
+                 f"parallelism is not ported yet (ROADMAP A4); the port "
+                 f"trains on one card")
+    # one card: a per-replica batch (dense) is the global batch
     preset = _apply_overrides(
         get_preset(ns.preset_key), ns,
-        ["batch_size", "lr", "epochs", "fine_tune_epochs", "fine_tune_at"])
+        ["batch_size", "lr", "epochs", "fine_tune_epochs", "fine_tune_at",
+         "repeats"])
     print(f"Device: {device}")
     # the synthetic fallback must yield at least one full batch after the
     # train split, or the Loader rightly refuses to run
     ns.synthetic_examples = max(ns.synthetic_examples, 2 * preset.batch_size)
-    ds = _load_idc(ns, preset.image_size, preset.dataset_limit)
-    train, val, test = train_val_test_split(ds, seed=ns.seed)
+    if preset.dataset == "cifar10":
+        ds = load_cifar10(ns.path, split="train",
+                          synthetic_size=ns.synthetic_examples, seed=ns.seed)
+        test = load_cifar10(ns.path, split="test",
+                            synthetic_size=max(ns.synthetic_examples // 5, 64),
+                            seed=ns.seed)
+        train, val, _ = train_val_test_split(ds, (0.9, 0.1, 0.0),
+                                             seed=ns.seed)
+    else:
+        ds = _load_idc(ns, preset.image_size, preset.dataset_limit)
+        train, val, test = train_val_test_split(ds, seed=ns.seed)
     loss_fn = (losses.binary_cross_entropy if preset.num_outputs == 1
                else losses.sparse_categorical_cross_entropy)
+    build_kwargs = ({"depthwise_impl": ns.depthwise_impl}
+                    if preset.model == "mobilenet_v2" else {})
 
     logger = (JsonlLogger(Path(ns.path) / "logs" / "run.jsonl")
               if ns.path is not None else None)
@@ -210,9 +265,10 @@ def _run_dist(ns):
             TwoPhaseConfig(lr=preset.lr, epochs=preset.epochs,
                            fine_tune_epochs=preset.fine_tune_epochs,
                            batch_size=preset.batch_size,
-                           fine_tune_at=preset.fine_tune_at, seed=ns.seed),
-            loss_fn=loss_fn,
-            build_kwargs={"depthwise_impl": ns.depthwise_impl},
+                           fine_tune_at=preset.fine_tune_at,
+                           repeats=preset.repeats,
+                           cache_features=ns.cache_features, seed=ns.seed),
+            loss_fn=loss_fn, build_kwargs=build_kwargs,
             pretrained_weights=ns.pretrained_weights,
             logger=logger, device=device)
         test_metrics = evaluate(result.model, test, loss_fn,

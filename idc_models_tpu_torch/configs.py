@@ -1,5 +1,6 @@
 """Workload presets, as ``idc_models_tpu/configs.py`` holds them, for the
-workloads ported so far (the ``mobile`` and ``secure_fed`` presets).
+workloads ported so far (the ``vgg``, ``mobile``, ``dense`` and
+``secure_fed`` presets).
 
 A copy, not an import: the port never imports the JAX package."""
 
@@ -14,14 +15,18 @@ class DistPreset:
 
     name: str
     model: str                   # registry key
+    dataset: str                 # "idc" | "cifar10"
     num_outputs: int
     image_size: int
     lr: float
     epochs: int                  # phase-1 epochs
     fine_tune_epochs: int
-    batch_size: int              # global batch
+    batch_size: int              # global (vgg/mobile) or per-replica (dense)
+    per_replica_batch: bool      # dense scales the batch by the replicas
+    #                              (one card here: global = batch_size)
     fine_tune_at: int
     dataset_limit: int | None    # balanced-subset size
+    repeats: int = 1             # train-set passes per epoch (dense: 2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,12 +49,28 @@ class SecureFedPreset:
 
 
 PRESETS = {
+    # the reference's dist_model_tf_vgg.py:8-17,130 -- VGG16, binary IDC,
+    # global batch 32, lr 1e-3, fine-tune at Keras index 15
+    "vgg": DistPreset(
+        name="vgg", model="vgg16", dataset="idc", num_outputs=1,
+        image_size=50, lr=1e-3, epochs=10, fine_tune_epochs=10,
+        batch_size=32, per_replica_batch=False, fine_tune_at=15,
+        dataset_limit=30000),
     # the reference's dist_model_tf_mobile.py:8-16,130,146 -- MobileNetV2,
     # binary IDC, global batch 32, lr 1e-4, fine-tune at Keras index 100
     "mobile": DistPreset(
-        name="mobile", model="mobilenet_v2", num_outputs=1, image_size=50,
-        lr=1e-4, epochs=10, fine_tune_epochs=10, batch_size=32,
-        fine_tune_at=100, dataset_limit=24257),
+        name="mobile", model="mobilenet_v2", dataset="idc", num_outputs=1,
+        image_size=50, lr=1e-4, epochs=10, fine_tune_epochs=10,
+        batch_size=32, per_replica_batch=False, fine_tune_at=100,
+        dataset_limit=24257),
+    # the reference's dist_model_tf_dense.py:26-28,122-123,131-158 --
+    # DenseNet201 on CIFAR-10, batch 256 a replica, lr 1e-4, fine-tune at
+    # 150, sparse CE, the train set passed twice an epoch
+    "dense": DistPreset(
+        name="dense", model="densenet201", dataset="cifar10",
+        num_outputs=10, image_size=32, lr=1e-4, epochs=10,
+        fine_tune_epochs=10, batch_size=256, per_replica_batch=True,
+        fine_tune_at=150, dataset_limit=None, repeats=2),
     "secure_fed": SecureFedPreset(),
 }
 

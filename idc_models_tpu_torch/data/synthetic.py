@@ -1,9 +1,11 @@
-"""Synthetic IDC-like data for tests, benchmarks, and smoke runs.
+"""Synthetic IDC-like and CIFAR-like data for tests, benchmarks, and
+smoke runs.
 
-A verbatim copy of ``idc_models_tpu/data/synthetic.py::make_idc_like``
-(numpy only), so the same seed gives the same patches in both packages.
-Positive patches get a brighter center blob (a cartoon of IDC nuclei
-density), so a model can demonstrably learn.
+Verbatim copies of ``idc_models_tpu/data/synthetic.py``'s
+``make_idc_like`` and ``make_cifar_like`` (numpy only), so the same seed
+gives the same images in both packages. Positive IDC patches get a
+brighter center blob (a cartoon of IDC nuclei density), CIFAR-like
+images a class-dependent mean shift, so a model can demonstrably learn.
 """
 
 from __future__ import annotations
@@ -23,3 +25,14 @@ def make_idc_like(n: int, size: int = 50, *, seed: int = 0,
     blob = blob[None, :, :, None].astype(np.float32)
     imgs = imgs + labels[:, None, None, None] * 0.4 * blob
     return np.clip(imgs, 0.0, 1.0), labels
+
+
+def make_cifar_like(n: int, *, seed: int = 0,
+                    num_classes: int = 10) -> tuple[np.ndarray, np.ndarray]:
+    """32x32x3 images with class-dependent mean shift, labels in [0, C)."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, num_classes, n).astype(np.int32)
+    imgs = rng.random((n, 32, 32, 3), dtype=np.float32) * 0.6
+    shift = (labels[:, None, None, None] / num_classes).astype(np.float32)
+    imgs = np.clip(imgs + 0.4 * shift, 0.0, 1.0)
+    return imgs, labels

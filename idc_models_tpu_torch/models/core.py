@@ -224,6 +224,26 @@ class DepthwiseConv2d(nn.Module):
         return y
 
 
+class _MeanSquare(torch.autograd.Function):
+    """``mean(x^2)`` over `axes`, the one-pass second moment, whose
+    backward takes x back as ``centered + mean`` and so saves no alias of
+    x. A packed DenseNet block (models/densenet.py) feeds its BNs slices
+    of a buffer that later layers write into; ``x.square()`` would save
+    the slice, and the write would fail the backward's version check.
+    The forward is the same arithmetic as ``x.square().mean(axes)``."""
+
+    @staticmethod
+    def forward(ctx, x, centered, mean, axes):
+        ctx.save_for_backward(centered, mean)
+        return x.square().mean(axes)
+
+    @staticmethod
+    def backward(ctx, grad):
+        centered, mean = ctx.saved_tensors
+        n = centered.numel() // mean.numel()
+        return (grad * (2.0 / n)) * (centered + mean), None, None, None
+
+
 class BatchNorm(nn.Module):
     """Keras BatchNormalization, which ``nn.BatchNorm2d`` is not:
 
@@ -261,7 +281,7 @@ class BatchNorm(nn.Module):
         if self.training and not self.frozen:
             axes = tuple(range(x.dim() - 1))
             mean = xf.mean(axes)
-            var = xf.square().mean(axes) - mean ** 2
+            var = _MeanSquare.apply(xf, xf - mean, mean, axes) - mean ** 2
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean)
@@ -325,17 +345,56 @@ class ReLU(nn.Module):
 
 
 class MaxPool(nn.Module):
-    """window x window max pooling on NHWC with stride = window, "VALID"
-    (the ragged edge is dropped), as ``lax.reduce_window(x, -inf, max,
-    ...)``."""
+    """window x window max pooling on NHWC, ``lax.reduce_window(x, -inf,
+    max, ...)``: padding ("VALID", TF-"SAME" or explicit ((lo_h, hi_h),
+    (lo_w, hi_w)) pairs) holds -inf, so it never wins; "VALID" drops the
+    ragged edge. `stride` defaults to `window`."""
 
-    def __init__(self, window: int = 2, name: str = "maxpool"):
+    def __init__(self, window: int = 2, stride: int | None = None, *,
+                 padding: str | tuple = "VALID", name: str = "maxpool"):
         super().__init__()
         self.name = name
         self.window = window
+        self.stride = window if stride is None else stride
+        self.padding = padding
 
     def forward(self, x):
-        y = F.max_pool2d(x.permute(0, 3, 1, 2), self.window)
+        k, s = self.window, self.stride
+        (pt, pb), (pl, pr) = _conv_padding(x.shape[1], x.shape[2], k, k, s,
+                                           s, self.padding)
+        if pt or pb or pl or pr:
+            x = F.pad(x, (0, 0, pl, pr, pt, pb), value=-math.inf)
+        y = F.max_pool2d(x.permute(0, 3, 1, 2), k, s)
+        return y.permute(0, 2, 3, 1)
+
+
+class AvgPool(nn.Module):
+    """window x window average pooling on NHWC, as the JAX package's
+    ``avg_pool``: "VALID" divides each window's sum by window^2, "SAME"
+    by the count of real (unpadded) elements in it (Keras
+    AveragePooling2D). The window sum may add in another order than
+    ``lax.reduce_window``'s."""
+
+    def __init__(self, window: int = 2, stride: int | None = None, *,
+                 padding: str = "VALID", name: str = "avgpool"):
+        super().__init__()
+        self.name = name
+        self.window = window
+        self.stride = window if stride is None else stride
+        self.padding = padding
+
+    def forward(self, x):
+        k, s = self.window, self.stride
+        (pt, pb), (pl, pr) = _conv_padding(x.shape[1], x.shape[2], k, k, s,
+                                           s, self.padding)
+        xc = F.pad(x, (0, 0, pl, pr, pt, pb)).permute(0, 3, 1, 2)
+        total = F.avg_pool2d(xc, k, s, divisor_override=1)
+        if self.padding == "VALID":
+            y = total / (k * k)
+        else:
+            ones = F.pad(torch.ones_like(x[:1, :, :, :1]),
+                         (0, 0, pl, pr, pt, pb)).permute(0, 3, 1, 2)
+            y = total / F.avg_pool2d(ones, k, s, divisor_override=1)
         return y.permute(0, 2, 3, 1)
 
 
@@ -415,13 +474,17 @@ class _Run:
     """The `run(layer_name, h)` handle a unit threads its activation
     through, with `run.params`, `run.state` and `run.train` views so a
     unit may lower a chain that spans layers (mobilenet's fused
-    depthwise+BN+relu6)."""
+    depthwise+BN+relu6). `run.entry` is True while the first unit of a
+    forward runs: its input is the caller's tensor, which a unit must
+    not write into (densenet's packed layers write into the buffer the
+    unit before them returned)."""
 
     def __init__(self, layers: nn.Module):
         self._layers = layers
         self.params = _LayerView(layers, "parameters")
         self.state = _LayerView(layers, "buffers")
         self.train = layers.training
+        self.entry = True
 
     def __call__(self, name: str, h):
         return self._layers.get_submodule(name)(h)
@@ -433,16 +496,25 @@ class UnitBackbone(nn.Module):
 
     `units` is a list of (layer_names, unit_fn) where
     ``unit_fn(run, h) -> h`` applies the unit's layers through
-    ``run(layer_name, h)``. A unit that lowers across layer boundaries
-    must be value-equivalent to the per-layer composition, and may
-    bypass `run` only for layers whose state it provably leaves
-    unchanged (frozen/eval BN)."""
+    ``run(layer_name, h)``. A unit must be a pure function of its input
+    (residual adds and dense concats live inside one unit), so every
+    unit edge is a valid frozen-prefix cache point. A unit that lowers
+    across layer boundaries must be value-equivalent to the per-layer
+    composition, and may bypass `run` only for layers whose state it
+    provably leaves unchanged (frozen/eval BN).
+
+    With `layer_index` (Keras index per layer name), ``splitter(
+    fine_tune_at)`` cuts at the first unit that holds a layer with index
+    >= fine_tune_at and returns (prefix, suffix) sections that share this
+    backbone's layers, so their parameters are this backbone's own."""
 
     def __init__(self, units: Sequence[tuple[list[str], Callable]],
-                 layers: dict[str, nn.Module], name: str):
+                 layers: dict[str, nn.Module], name: str,
+                 layer_index: dict[str, int] | None = None):
         super().__init__()
         self.name = name
         self._units = list(units)
+        self._layer_index = layer_index
         for n, m in layers.items():
             self.add_module(n, m)
 
@@ -454,7 +526,33 @@ class UnitBackbone(nn.Module):
         run = _Run(self)
         for _, unit_fn in self._units:
             x = unit_fn(run, x)
+            run.entry = False
         return x
+
+    def section(self, lo: int, hi: int, name: str) -> "UnitBackbone":
+        """Units [lo, hi) as a backbone of their own, over the same
+        layer modules."""
+        units = self._units[lo:hi]
+        layers = {n: self.get_submodule(n) for ns, _ in units for n in ns}
+        sec = UnitBackbone(units, layers, name)
+        sec.training = self.training
+        return sec
+
+    def splitter(self, fine_tune_at: int):
+        """(prefix, suffix) at the first unit holding a live layer (Keras
+        index >= fine_tune_at); the prefix takes every unit when none is
+        live. None when the first unit is live: nothing frozen to cache."""
+        if self._layer_index is None:
+            raise ValueError(f"{self.name} has no Keras layer index to "
+                             f"split at")
+        k = next((i for i, (names, _) in enumerate(self._units)
+                  if any(self._layer_index[n] >= fine_tune_at
+                         for n in names)), len(self._units))
+        if k == 0:
+            return None
+        return (self.section(0, k, f"{self.name}[:{k}]"),
+                self.section(k, len(self._units),
+                             f"{self.name}[{k}:]"))
 
 
 class Sequential(nn.Module):
@@ -464,19 +562,23 @@ class Sequential(nn.Module):
     the JAX package derives it (a repeated ``relu`` becomes ``relu_0``,
     then ``relu_1``), so parameter names are the JAX tree paths
     (``fc1.kernel``). ``layer_names`` is the key order, the model's layer
-    order that the secure `percent` selection ranks by."""
+    order that the secure `percent` selection ranks by. `keys` gives the
+    keys instead (`subsequence` keeps a parent's)."""
 
     def __init__(self, layers: Sequence[nn.Module],
-                 name: str = "sequential"):
+                 name: str = "sequential", *,
+                 keys: Sequence[str] | None = None):
         super().__init__()
         self.name = name
-        keys: list[str] = []
-        for m in layers:
-            key, i = m.name, 0
-            while key in keys:
-                key = f"{m.name}_{i}"
-                i += 1
-            keys.append(key)
+        if keys is None:
+            keys = []
+            for m in layers:
+                key, i = m.name, 0
+                while key in keys:
+                    key = f"{m.name}_{i}"
+                    i += 1
+                keys.append(key)
+        for key, m in zip(keys, layers, strict=True):
             self.add_module(key, m)
         self.layer_names = tuple(keys)
 
@@ -486,16 +588,57 @@ class Sequential(nn.Module):
         return x
 
 
+def subsequence(seq: Sequential, keys_subset: Sequence[str],
+                name: str | None = None) -> Sequential:
+    """A Sequential over a contiguous in-order run of `seq`'s layers (an
+    empty run is the identity), KEEPING the parent's keys and sharing its
+    layer modules, so its parameters are the parent's own. Any other
+    subset would compute a different function than the parent."""
+    parent_keys = list(seq.layer_names)
+    if not parent_keys:
+        raise ValueError(f"{seq.name} has no layers to slice")
+    keys = list(keys_subset)
+    if keys:
+        if keys[0] not in parent_keys:
+            raise KeyError(f"{seq.name} has no layer {keys[0]!r}")
+        start = parent_keys.index(keys[0])
+        if parent_keys[start:start + len(keys)] != keys:
+            raise ValueError(
+                f"keys_subset must be a contiguous in-order run of "
+                f"{seq.name}'s layers; got {keys}")
+    default = (f"{seq.name}[{keys[0]}:{keys[-1]}]" if keys
+               else f"{seq.name}[empty]")
+    sub = Sequential([seq.get_submodule(k) for k in keys], name or default,
+                     keys=keys)
+    sub.training = seq.training
+    return sub
+
+
+def split_sequential(seq: Sequential, at_key: str
+                     ) -> tuple[Sequential, Sequential]:
+    """(prefix, suffix) of `seq` at `at_key` (the suffix starts with it);
+    ``suffix(prefix(x)) == seq(x)``, on the parent's parameters."""
+    keys = list(seq.layer_names)
+    if at_key not in keys:
+        raise KeyError(f"{seq.name} has no layer {at_key!r}; have {keys}")
+    i = keys.index(at_key)
+    return (subsequence(seq, keys[:i], name=f"{seq.name}[:{at_key}]"),
+            subsequence(seq, keys[i:], name=f"{seq.name}[{at_key}:]"))
+
+
 class Classifier(nn.Module):
     """Backbone + GlobalAveragePooling + Dense head, the model shape every
-    reference workload shares. Parameters: ``backbone.*`` and ``head.*``."""
+    reference workload shares. Parameters: ``backbone.*`` and ``head.*``.
+    `head` shares another classifier's head (the feature cache's suffix
+    model trains the full model's own)."""
 
     def __init__(self, backbone: nn.Module, feature_dim: int,
-                 num_outputs: int, name: str | None = None):
+                 num_outputs: int, name: str | None = None, *,
+                 head: Dense | None = None):
         super().__init__()
         self.name = name or f"{backbone.name}_classifier"
         self.backbone = backbone
-        self.head = Dense(feature_dim, num_outputs, name="head")
+        self.head = head or Dense(feature_dim, num_outputs, name="head")
 
     @property
     def layer_names(self) -> tuple[str, ...]:

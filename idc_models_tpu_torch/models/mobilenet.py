@@ -214,9 +214,11 @@ def mobilenet_v2_backbone(in_channels: int = 3, *, bn_frozen_below: int = 0,
 
     `bn_frozen_below`: BN layers with Keras index < this run in permanent
     inference mode (Keras ``trainable=False``) -- FREEZE_ALL for the
-    head-only phase, the phase-2 `fine_tune_at` for fine-tuning."""
+    head-only phase, the phase-2 `fine_tune_at` for fine-tuning. Its
+    `splitter` cuts at unit edges (stem, 16 blocks, top), so a fused
+    chain never straddles the feature cache's boundary."""
     units, layers = _units(in_channels, bn_frozen_below, depthwise_impl)
-    bb = core.UnitBackbone(units, layers, "mobilenet_v2")
+    bb = core.UnitBackbone(units, layers, "mobilenet_v2", KERAS_LAYER_INDEX)
     if bb.layer_names != tuple(KERAS_LAYER_INDEX):
         raise AssertionError("layer order drifted from Keras' numbering")
     return bb

@@ -1,10 +1,16 @@
-"""Pretrained-weight import from the JAX package's npz artifacts.
+"""Pretrained-weight import: Keras h5 files and the JAX package's npz
+artifacts.
 
-The counterpart of ``idc_models_tpu/models/pretrained.py`` for npz
-files: the flat "path/to/leaf" layout ``save_npz`` writes, either
-params-only or the ``{"params": ..., "state": ...}`` wrapper. Keras
-``.h5`` files are not read yet; the JAX package's ``convert-weights``
-verb turns one into an npz this module reads.
+The counterpart of ``idc_models_tpu/models/pretrained.py``:
+
+- ``load_npz`` / ``save_npz``: the flat "path/to/leaf" npz layout
+  ``save_npz`` writes, either params-only or the ``{"params": ...,
+  "state": ...}`` wrapper;
+- ``load_keras_h5``: a Keras ``save_weights`` h5 file, keyed by the
+  Keras layer names the port's backbones use. Conv kernels are HWIO in
+  Keras as here; depthwise kernels are swapped from (kh, kw, C, 1) to
+  (kh, kw, 1, C); BN moving statistics go to the state tree. h5py is
+  imported only when an h5 file is read (the card's machine has none).
 """
 
 from __future__ import annotations
@@ -50,14 +56,50 @@ def merge_pretrained(params, loaded):
     return convert.unflatten(merged), n, mismatches
 
 
+_KERAS_SUFFIX = {
+    "kernel:0": "kernel",
+    # Keras DepthwiseConv2D's variable, stored (kh, kw, C, 1)
+    "depthwise_kernel:0": "kernel",
+    "bias:0": "bias",
+    "gamma:0": "scale", "beta:0": "bias",
+    "moving_mean:0": "mean", "moving_variance:0": "var",
+}
+
+
+def load_keras_h5(path: str | Path):
+    """Read a Keras `save_weights` h5 into (params, state) trees keyed by
+    Keras layer name (the names the port's backbones use)."""
+    import h5py
+
+    params: dict = {}
+    state: dict = {}
+    with h5py.File(path, "r") as f:
+        root = f["model_weights"] if "model_weights" in f else f
+        for layer in root:
+            g = root[layer]
+            for w in g.attrs.get("weight_names", []):
+                name = w.decode() if isinstance(w, bytes) else w
+                suffix = name.split("/")[-1]
+                key = _KERAS_SUFFIX.get(suffix)
+                if key is None:
+                    continue
+                arr = np.asarray(g[name])
+                layer_name = name.split("/")[-2]
+                if key == "kernel" and (suffix == "depthwise_kernel:0"
+                                        or "depthwise" in layer_name):
+                    arr = np.transpose(arr, (0, 1, 3, 2))
+                dest = state if suffix.startswith("moving") else params
+                dest.setdefault(layer_name, {})[key] = arr
+    return params, state
+
+
 def load_pretrained_file(path: str | Path):
-    """Load an npz weight artifact -> (params_tree, state_tree)."""
+    """Load a weight artifact -> (params_tree, state_tree): ``.h5`` /
+    ``.hdf5`` as a Keras `save_weights` file, anything else as the JAX
+    package's npz (params only, or the {"params", "state"} wrapper)."""
     p = Path(path)
     if p.suffix.lower() in (".h5", ".hdf5"):
-        raise NotImplementedError(
-            f"{p}: Keras .h5 weights are not read by the port yet; "
-            f"convert them to .npz with `python -m idc_models_tpu "
-            f"convert-weights`")
+        return load_keras_h5(p)
     loaded = load_npz(p)
     if loaded and set(loaded) <= {"params", "state"}:
         return loaded.get("params", {}), loaded.get("state", {})

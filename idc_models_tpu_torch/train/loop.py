@@ -11,15 +11,18 @@ Phase 1 and phase 2 are two builds of the model (every BN frozen, then
 only the BNs below ``fine_tune_at``), as in the JAX package; phase 2
 starts from phase 1's parameters and BN statistics. A frozen parameter
 does not require grad, so autograd computes nothing for it and the
-optimizer never sees it.
+optimizer never sees it. ``cache_features`` runs phase 2 on the frozen
+prefix's cached activations (``train/feature_cache.py``); ``repeats``
+passes over the train set per epoch (the ``dense`` preset's 2).
 
-Left out of this port so far: ``central_storage``, ``cache_features``,
-resume checkpoints and ``plot_history``.
+Left out of this port so far: ``central_storage``, resume checkpoints
+and ``plot_history``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 
 import numpy as np
 import torch
@@ -33,7 +36,7 @@ from idc_models_tpu_torch.observe.timer import Timer
 from idc_models_tpu_torch.train import losses
 from idc_models_tpu_torch.train import metrics as metrics_lib
 from idc_models_tpu_torch.train.state import TrainState, rmsprop
-from idc_models_tpu_torch.train.step import make_eval_step, make_train_step
+from idc_models_tpu_torch.train.step import make_train_step
 
 History = dict[str, list[float]]
 
@@ -48,9 +51,10 @@ def batched_logits(model: nn.Module, ds: ArrayDataset, batch_size: int,
     them when None; the final batch is partial, so every example counts
     once), concatenated in order on the model's device."""
     device = _model_device(model)
-    step = make_eval_step(model, losses.binary_cross_entropy)
-    parts = [step(x, y)["logits"] for x, y in
-             to_device(eval_batches(ds, batch_size, steps=steps), device)]
+    model.eval()
+    with torch.no_grad():
+        parts = [model(x).float() for x, _ in
+                 to_device(eval_batches(ds, batch_size, steps=steps), device)]
     return torch.cat(parts)
 
 
@@ -87,19 +91,21 @@ def predict(model: nn.Module, images, *, batch_size: int = 32) -> np.ndarray:
 def fit(state: TrainState, loss_fn, train_ds: ArrayDataset,
         val_ds: ArrayDataset | None, *, epochs: int,
         batch_size: int = 32, initial_epoch: int = 0, seed: int = 0,
-        logger=None, verbose: bool = True) -> History:
+        repeats: int = 1, logger=None, verbose: bool = True) -> History:
     """Keras-``fit``-shaped epoch loop on the model's device.
 
     Returns the history ({"loss", "accuracy", "val_loss",
     "val_accuracy"} per epoch). Batch order is the JAX package's
     (``Loader``'s (seed, epoch) contract), so the same seed feeds the
-    same batches in the same order. Per-step metrics stay on the device
+    same batches in the same order; each epoch passes over `train_ds`
+    `repeats` times, freshly shuffled each pass. Per-step metrics stay on the device
     and are read once per epoch. A non-finite epoch loss raises
     ``FloatingPointError`` naming the first bad step."""
     model = state.model
     device = _model_device(model)
     step = make_train_step(state, loss_fn)
-    loader = Loader(train_ds, batch_size, shuffle=True, seed=seed)
+    loader = Loader(train_ds, batch_size, shuffle=True, seed=seed,
+                    repeat=repeats)
     history: History = {"loss": [], "accuracy": [],
                         "val_loss": [], "val_accuracy": []}
     for epoch in range(initial_epoch, epochs):
@@ -143,6 +149,9 @@ class TwoPhaseConfig:
     batch_size: int = 32
     fine_tune_at: int | None = None  # None -> registry default
     eval_steps: int | None = 20    # batches of the untrained-floor sample
+    repeats: int = 1               # train-set passes per epoch (dense: 2)
+    cache_features: bool = False   # phase 2 on cached frozen-prefix
+    #                                activations (train/feature_cache.py)
     seed: int = 0
 
 
@@ -160,6 +169,15 @@ class TwoPhaseResult:
 _FREEZE_ALL = 10_000  # larger than any Keras layer index
 
 
+def _build_model(spec: registry.ModelSpec, num_outputs: int,
+                 bn_frozen_below: int, build_kwargs: dict) -> nn.Module:
+    """Build with the BN-freeze setting where the model has BNs (VGG16
+    has none)."""
+    if "bn_frozen_below" in inspect.signature(spec.build).parameters:
+        build_kwargs = {**build_kwargs, "bn_frozen_below": bn_frozen_below}
+    return spec.build(num_outputs, **build_kwargs)
+
+
 def two_phase_fit(model_name: str, num_outputs: int, train_ds: ArrayDataset,
                   val_ds: ArrayDataset,
                   config: TwoPhaseConfig = TwoPhaseConfig(), *,
@@ -172,9 +190,11 @@ def two_phase_fit(model_name: str, num_outputs: int, train_ds: ArrayDataset,
     Phase 1: head-only training at `lr` with every BN frozen. Phase 2:
     the layers with Keras index >= fine_tune_at unfrozen, a fresh
     RMSprop at lr/10, the epoch counter continued and the shuffle seeded
-    with seed + 1. `build_kwargs` go to the model constructor
-    (``registry.FUSED_BUILD_KWARGS[name]`` selects the fused depthwise
-    kernel). `device` is CUDA unless "cpu" is asked for."""
+    with seed + 1 -- on cached frozen-prefix features with
+    ``config.cache_features`` where the model splits. `build_kwargs` go
+    to the model constructor (``registry.FUSED_BUILD_KWARGS[name]``
+    selects the fused depthwise kernel). `device` is CUDA unless "cpu"
+    is asked for."""
     device = resolve_device(device)
     if loss_fn is None:
         loss_fn = (losses.binary_cross_entropy if num_outputs == 1
@@ -184,7 +204,7 @@ def two_phase_fit(model_name: str, num_outputs: int, train_ds: ArrayDataset,
                     else spec.default_fine_tune_at)
     kw = dict(build_kwargs or {})
 
-    model1 = spec.build(num_outputs, bn_frozen_below=_FREEZE_ALL, **kw)
+    model1 = _build_model(spec, num_outputs, _FREEZE_ALL, kw)
     core.init_params(model1, config.seed)
     if pretrained_weights is not None:
         from idc_models_tpu_torch.models.pretrained import (
@@ -205,24 +225,40 @@ def two_phase_fit(model_name: str, num_outputs: int, train_ds: ArrayDataset,
                logger=logger) as t1:
         history = fit(state1, loss_fn, train_ds, val_ds,
                       epochs=config.epochs, batch_size=config.batch_size,
-                      seed=config.seed, logger=logger)
+                      seed=config.seed, repeats=config.repeats,
+                      logger=logger)
 
     # Phase 2: "recompile" = a fresh optimizer (and moments) at lr/10 with
     # the fine-tune mask; BN below fine_tune_at stays in inference mode
-    model2 = spec.build(num_outputs, bn_frozen_below=fine_tune_at,
-                        **kw).to(device)
+    model2 = _build_model(spec, num_outputs, fine_tune_at, kw).to(device)
     model2.load_state_dict(model1.state_dict())
     del model1
-    state2 = TrainState(model2, rmsprop(
-        model2, config.lr / 10.0,
-        trainable_mask=spec.fine_tune_mask(model2, fine_tune_at)))
+    plan = None
+    if config.cache_features:
+        from idc_models_tpu_torch.train import feature_cache as fc
+
+        plan = fc.plan_feature_cache(model2, spec.layer_index or {},
+                                     fine_tune_at)
+        if plan is None:
+            print(f"[idc_models_tpu_torch] {model_name} is not splittable "
+                  f"at fine_tune_at={fine_tune_at}; feature cache disabled")
     total_epochs = config.epochs + config.fine_tune_epochs
     with Timer(f"Fine tuning for {config.fine_tune_epochs} epochs",
                logger=logger) as t2:
-        history_fine = fit(state2, loss_fn, train_ds, val_ds,
-                           epochs=total_epochs, batch_size=config.batch_size,
-                           initial_epoch=config.epochs, seed=config.seed + 1,
-                           logger=logger)
+        if plan is not None:
+            state2, history_fine = _fit_cached_phase2(
+                plan, spec, model2, train_ds, val_ds, config, fine_tune_at,
+                loss_fn, total_epochs, logger)
+        else:
+            state2 = TrainState(model2, rmsprop(
+                model2, config.lr / 10.0,
+                trainable_mask=spec.fine_tune_mask(model2, fine_tune_at)))
+            history_fine = fit(state2, loss_fn, train_ds, val_ds,
+                               epochs=total_epochs,
+                               batch_size=config.batch_size,
+                               initial_epoch=config.epochs,
+                               seed=config.seed + 1,
+                               repeats=config.repeats, logger=logger)
     print(history)
     print(history_fine)
     return TwoPhaseResult(
@@ -230,3 +266,37 @@ def two_phase_fit(model_name: str, num_outputs: int, train_ds: ArrayDataset,
         baseline=baseline, pretrain_seconds=t1.seconds,
         fine_tune_seconds=t2.seconds,
         train_steps=(state1.step, state2.step))
+
+
+def _fit_cached_phase2(plan, spec: registry.ModelSpec, model: nn.Module,
+                       train_ds: ArrayDataset, val_ds: ArrayDataset | None,
+                       config: TwoPhaseConfig, fine_tune_at: int, loss_fn,
+                       total_epochs: int, logger
+                       ) -> tuple[TrainState, History]:
+    """Phase 2 on cached frozen-prefix features: run the prefix once over
+    train and val, then fit the suffix model (which trains `model`'s own
+    layers) with the mask, optimizer and seed schedule of the uncached
+    path. Returns a TrainState for the full `model` with a fresh
+    optimizer (the suffix's moments live only inside this phase), as
+    the JAX package's does."""
+    from idc_models_tpu_torch.train import feature_cache as fc
+
+    with Timer("Caching frozen-backbone features", logger=logger):
+        feat_train = fc.compute_features(plan, train_ds,
+                                         batch_size=config.batch_size)
+        feat_val = (fc.compute_features(plan, val_ds,
+                                        batch_size=config.batch_size)
+                    if val_ds is not None else None)
+    suffix = plan.suffix_model
+    sstate = TrainState(suffix, rmsprop(
+        suffix, config.lr / 10.0,
+        trainable_mask=spec.fine_tune_mask(suffix, fine_tune_at)))
+    history_fine = fit(sstate, loss_fn, feat_train, feat_val,
+                       epochs=total_epochs, batch_size=config.batch_size,
+                       initial_epoch=config.epochs, seed=config.seed + 1,
+                       repeats=config.repeats, logger=logger)
+    full = TrainState(model, rmsprop(
+        model, config.lr / 10.0,
+        trainable_mask=spec.fine_tune_mask(model, fine_tune_at)),
+        step=sstate.step)
+    return full, history_fine

@@ -155,3 +155,87 @@ def test_masks_follow_the_jax_predicates():
     got = tcore.head_only_mask(tm)
     assert {k.replace(".", "/"): bool(x) for k, x in got.items()} == {
         k: bool(x) for k, x in want.items()}
+
+
+@pytest.mark.parametrize("window,stride,padding,size", [
+    (2, None, "VALID", 7), (3, 2, "VALID", 9), (3, 2, "SAME", 8),
+    (3, 1, "SAME", 5),
+])
+def test_max_pool_matches_jax(window, stride, padding, size):
+    """-inf padding: a padded position never wins, even where every real
+    input is negative."""
+    x = _x(10, (2, size, size, 3)) - 5.0
+    want, _ = jcore.max_pool(window, stride, padding=padding).apply(
+        {}, {}, jnp.asarray(x))
+    got = tcore.MaxPool(window, stride, padding=padding)(torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_max_pool_explicit_padding_matches_the_densenet_stem():
+    """The DenseNet stem's 3x3/2 pool with explicit padding 1, as the JAX
+    unit writes it with lax.reduce_window."""
+    x = _x(11, (2, 16, 16, 4)) - 5.0
+    want = jax.lax.reduce_window(jnp.asarray(x), -jnp.inf, jax.lax.max,
+                                 (1, 3, 3, 1), (1, 2, 2, 1),
+                                 [(0, 0), (1, 1), (1, 1), (0, 0)])
+    got = tcore.MaxPool(3, 2, padding=((1, 1), (1, 1)))(torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("window,stride,padding,size", [
+    (2, None, "VALID", 8), (2, None, "VALID", 7), (3, 2, "SAME", 8),
+    (3, 1, "SAME", 5), (2, 2, "SAME", 5),
+])
+def test_avg_pool_matches_jax(window, stride, padding, size):
+    """VALID divides by window^2; SAME by the count of real elements.
+    The window sums may add in another order: rtol 1e-6."""
+    x = _x(12, (2, size, size, 3))
+    want, _ = jcore.avg_pool(window, stride, padding=padding).apply(
+        {}, {}, jnp.asarray(x))
+    got = tcore.AvgPool(window, stride, padding=padding)(torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-7)
+
+
+def test_subsequence_and_split_share_the_parent_layers():
+    seq = tcore.init_params(tcore.Sequential([
+        tcore.Conv2d(3, 4, 3, name="c1"), tcore.ReLU(),
+        tcore.Conv2d(4, 4, 3, name="c2"), tcore.ReLU(),
+        tcore.Dense(4, 2, name="d")], name="s"), 0)
+    assert seq.layer_names == ("c1", "relu", "c2", "relu_0", "d")
+    prefix, suffix = tcore.split_sequential(seq, "c2")
+    assert prefix.layer_names == ("c1", "relu")
+    assert suffix.layer_names == ("c2", "relu_0", "d")
+    assert suffix.c2.kernel is seq.c2.kernel
+    x = torch.from_numpy(_x(13, (2, 6, 6, 3)))
+    assert torch.equal(suffix(prefix(x)), seq(x))
+    with pytest.raises(KeyError, match="nope"):
+        tcore.split_sequential(seq, "nope")
+    with pytest.raises(ValueError, match="contiguous"):
+        tcore.subsequence(seq, ["c2", "c1"])
+    with pytest.raises(ValueError, match="contiguous"):
+        tcore.subsequence(seq, ["c1", "c2"])
+    assert torch.equal(tcore.subsequence(seq, [])(x), x)
+
+
+def test_batch_norm_backward_matches_jax():
+    """Train-mode BN saves the centred input, not the input, for its
+    second moment's backward (core._MeanSquare); its gradients stay the
+    JAX layer's."""
+    jm, tm, params, state = _bn_pair(False)
+    x = _x(14, (4, 5, 5, 6), 2.0) + 0.7
+    r = _x(15, (4, 5, 5, 6))
+
+    def loss(p, x):
+        y, _ = jm.apply(p, state, x, train=True)
+        return jnp.sum(y * r)
+
+    gp, gx = jax.grad(loss, argnums=(0, 1))(params, jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_()
+    (tm.train()(xt) * torch.from_numpy(r)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gx), rtol=1e-4,
+                               atol=1e-5)
+    for k in ("scale", "bias"):
+        np.testing.assert_allclose(getattr(tm, k).grad.numpy(),
+                                   np.asarray(gp[k]), rtol=1e-4, atol=1e-5,
+                                   err_msg=k)

@@ -18,11 +18,16 @@ import torch
 
 from idc_models_tpu_torch import ring_attention as tring
 from idc_models_tpu_torch.federated.fedavg import ServerState
-from idc_models_tpu_torch.models import core, mobilenet, small_cnn
+from idc_models_tpu_torch.data.idc import ArrayDataset
+from idc_models_tpu_torch.models import (
+    core, densenet, mobilenet, registry, small_cnn,
+)
 from idc_models_tpu_torch.ops import flash_block_kernel as fbk
 from idc_models_tpu_torch.ops import fused_conv as fc
 from idc_models_tpu_torch.ops import secure_masking_kernel as smk
 from idc_models_tpu_torch.secure.fedavg import make_secure_fedavg_round
+from idc_models_tpu_torch.train import feature_cache
+from idc_models_tpu_torch.train.loop import predict
 from idc_models_tpu_torch.train.losses import binary_cross_entropy
 
 pytestmark = pytest.mark.gpu
@@ -559,3 +564,84 @@ def test_pallas_ring_backward_memory_is_blockwise(cuda):
     ring(q, k, v).backward(g)
     torch.cuda.synchronize()
     assert torch.cuda.max_memory_allocated() - base < 1e9
+
+
+# ---------------------------------------------------------------------------
+# the classifier zoo: VGG16, DenseNet201 packed/concat, the feature cache
+# ---------------------------------------------------------------------------
+
+
+def _densenet_pair(bn_frozen_below=0):
+    """Packed and concat DenseNet201 on the card, the same seeded
+    weights."""
+    packed = core.init_params(densenet.densenet201(
+        10, bn_frozen_below=bn_frozen_below, block_impl="packed"), 0)
+    concat = densenet.densenet201(10, bn_frozen_below=bn_frozen_below,
+                                  block_impl="concat")
+    concat.load_state_dict(packed.state_dict())
+    return packed.cuda(), concat.cuda()
+
+
+@pytest.mark.parametrize("n,size", [(8, 32), (2, 64)])
+def test_densenet_packed_equals_concat_on_the_card(cuda, n, size):
+    packed, concat = _densenet_pair()
+    x = torch.rand(n, size, size, 3, device="cuda", generator=cuda)
+    with torch.no_grad():
+        assert torch.equal(packed.eval()(x), concat.eval()(x))
+
+
+def test_densenet_phase2_backward_through_packed_blocks_on_the_card(cuda):
+    """fine_tune_at=150: the backward runs through packed blocks, and
+    every gradient is concat's within 1e-4 of the tensor's largest
+    |gradient|."""
+    x = torch.rand(16, 32, 32, 3, device="cuda", generator=cuda)
+    r = torch.randn(16, 10, device="cuda", generator=cuda)
+    grads = []
+    for m in _densenet_pair(150):
+        mask = densenet.fine_tune_mask(m, 150)
+        for k, p in m.named_parameters():
+            p.requires_grad_(mask[k])
+        (m.train()(x) * r).sum().backward()
+        grads.append({k: p.grad for k, p in m.named_parameters() if mask[k]})
+    for k, g in grads[1].items():
+        err = float((grads[0][k] - g).abs().max())
+        assert err <= 1e-4 * float(g.abs().max()), k
+
+
+@pytest.mark.parametrize("name,n_out,size", [("vgg16", 1, 50),
+                                             ("densenet201", 10, 32)])
+def test_card_logits_match_the_cpu(cuda, name, n_out, size):
+    """The same weights on the card and on the CPU: eval logits within
+    1e-4 (1 + max |logit|), TF32 off."""
+    cpu = core.init_params(registry.get_model(name).build(n_out), 0).eval()
+    card = registry.get_model(name).build(n_out)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.rand(4, size, size, 3, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = cpu(x)
+        got = card.cuda().eval()(x.cuda()).cpu()
+    assert (got - want).abs().max() <= 1e-4 * (1 + want.abs().max())
+
+
+@pytest.mark.parametrize("name,n_out,at,kw", [
+    ("vgg16", 1, 15, {}),
+    ("mobilenet_v2", 1, 100, {"depthwise_impl": "fused",
+                              "bn_frozen_below": 100}),
+    ("densenet201", 10, 150, {"bn_frozen_below": 150}),
+])
+def test_cached_features_give_the_uncached_logits_on_the_card(cuda, name,
+                                                              n_out, at, kw):
+    """The suffix on cached prefix features (a partial last batch padded
+    to the batch) gives the full model's eval logits, within 1e-6."""
+    spec = registry.get_model(name)
+    model = core.init_params(spec.build(n_out, **kw), 0).cuda()
+    plan = feature_cache.plan_feature_cache(model, spec.layer_index, at)
+    size = 32 if name != "vgg16" else 50
+    imgs = torch.rand(12, size, size, 3,
+                      generator=torch.Generator().manual_seed(2)).numpy()
+    ds = ArrayDataset(imgs, torch.zeros(12, dtype=torch.int32).numpy())
+    feats = feature_cache.compute_features(plan, ds, batch_size=8)
+    want = predict(model, imgs, batch_size=8)
+    got = predict(plan.suffix_model, feats.images, batch_size=8)
+    torch.testing.assert_close(torch.from_numpy(got), torch.from_numpy(want),
+                               rtol=1e-6, atol=1e-6)

@@ -247,3 +247,42 @@ def test_cli_mobile_runs_two_phases_on_the_cpu(tmp_path, capsys):
     params, state = tpretrained.load_pretrained_file(tmp_path / "model.npz")
     model = tmobile.mobilenet_v2(1)
     convert.load_jax(model, params, state)
+
+
+def test_evaluate_and_predict_take_multiclass_logits():
+    """Ten-class logits through `evaluate` and `predict`. The eval loop
+    used to run the binary CE on every batch whatever the loss asked
+    for, which refused [B, 10] logits; the loss and accuracy are now
+    the asked-for loss's, as the JAX package's Evaluator computes them."""
+    model = tcore.init_params(tcore.Classifier(
+        tcore.Conv2d(3, 4, 3, name="stem"), 4, 10), 0)
+    rng = np.random.default_rng(0)
+    imgs = rng.random((10, 8, 8, 3), dtype=np.float32)
+    labels = (np.arange(10) % 10).astype(np.int32)
+    m = tloop.evaluate(model, tidc.ArrayDataset(imgs, labels),
+                       tlosses.sparse_categorical_cross_entropy,
+                       batch_size=4)
+    logits = tloop.predict(model, imgs, batch_size=4)
+    assert logits.shape == (10, 10)
+    want_loss = jlosses.sparse_categorical_cross_entropy(
+        jnp.asarray(logits), jnp.asarray(labels))
+    np.testing.assert_allclose(m["loss"], float(want_loss), rtol=1e-6)
+    assert m["accuracy"] == float(jmetrics.auto_accuracy(
+        jnp.asarray(logits), jnp.asarray(labels)))
+
+
+def test_two_phase_fit_passes_the_train_set_repeats_times():
+    """repeats=2 (the dense preset's): every epoch of both phases takes
+    twice the steps of one pass, in the Loader's (seed, epoch, rep)
+    order."""
+    imgs, labels = tsynthetic.make_idc_like(20, size=32, seed=0)
+    train = tidc.ArrayDataset(imgs[:16], labels[:16])
+    val = tidc.ArrayDataset(imgs[16:], labels[16:])
+    cfg = dict(epochs=1, fine_tune_epochs=1, batch_size=8, eval_steps=1)
+    once = tloop.two_phase_fit("vgg16", 1, train, val,
+                               tloop.TwoPhaseConfig(**cfg), device="cpu")
+    twice = tloop.two_phase_fit("vgg16", 1, train, val,
+                                tloop.TwoPhaseConfig(repeats=2, **cfg),
+                                device="cpu")
+    assert once.train_steps == (2, 2)
+    assert twice.train_steps == (4, 4)
