@@ -96,6 +96,24 @@ non-zero before the result line:
    f32 FMA peak beside it; each kernel's computed steps beside the
    visible pairs), and the `lm` train step, pallas against jnp;
 
+7. fed -- (g) `cli.main(["fed", ...])` at the fed preset's width (VGG16,
+   50x50, batch 32, lr 1e-3 to pretrain and 1e-4 for the clients,
+   fine-tune at 15, 10 clients: 8 train and 2 test, 1 local epoch), cut
+   to 2048 synthetic patches, one pretraining epoch and 3 rounds (each cut
+   printed): no hand kernel launched (every count set to 0 just before
+   and read just after), finite round metrics, no client dropped, both
+   checkpoints (pretrained/cp.ckpt, fed_server) complete; the same argv
+   at 4 rounds restores the pretrained weights, resumes from round 3 and
+   appends one round record; a fault drill (nan:1 drops one client;
+   sign_flip:0-1:x1000 under trimmed_mean --trim 2 stays finite and
+   flags both attackers in clients_trimmed); one make_fedavg_round from
+   the carried server on the card against the CPU in float64 (VGG16, 4
+   clients x 32 patches, full-shard steps, 1e-4 (1 + max |w|) a tensor),
+   and the same in f32 (TF32 off) over 6 data draws, measured and not
+   held (RMSprop's first step amplifies f32 rounding 1000x); host ms of
+   a round (mean and trimmed mean, in turns), its device busy, idle
+   share, kernels and peak memory, and the pretraining epoch's seconds;
+
 then one JSON line of per-kernel numbers, and the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}`.
 """
@@ -2023,6 +2041,279 @@ def classifier_step_times(torch, card: str) -> None:
             f"above the weights; TF32 off; {card}")
 
 
+# ---------------------------------------------------------------------------
+# the federated path: the `fed` verb (FedAvg over a pretrained VGG16)
+# ---------------------------------------------------------------------------
+
+# the fed preset at full width (VGG16, 50x50, batch 32, lr 1e-3 to
+# pretrain and 1e-4 for the clients, fine-tune at 15, 10 clients: 8 train
+# and 2 test, 1 local epoch), cut in data, pretraining and rounds
+FED_EXAMPLES, FED_ROUNDS = 2048, 3
+FED_CUTS = (
+    f"{FED_EXAMPLES} synthetic 50x50 patches (the repo holds no IDC data; "
+    f"the preset takes up to 30,000)",
+    "--pretrain-epochs 1 (the preset's 10)",
+    f"--rounds {FED_ROUNDS} (the preset's 10), then a resume to "
+    f"{FED_ROUNDS + 1}",
+)
+
+
+def fed_records(path: Path) -> list[dict]:
+    return [json.loads(line) for line in
+            (path / "logs" / "run.jsonl").read_text().splitlines()]
+
+
+def fed_run(torch, fc, smk, fbk, argv: list[str]) -> tuple[str, float]:
+    """`cli.main(argv)` with every launch count set to 0 just before it and
+    read just after (none may launch on this path); returns its standard
+    output, echoed here, and its seconds."""
+    import contextlib
+    import io
+
+    from idc_models_tpu_torch import cli
+
+    buf = io.StringIO()
+    zero_counts(fc, smk, fbk)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"fused": fc.KERNEL.launches, "masking": smk.KERNEL.launches,
+                "flash": sum(flash_counts(fbk))}
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"fed| {line}")
+    if rc != 0:
+        raise SystemExit(f"cli.main({argv}) returned {rc}")
+    if any(launches.values()):
+        raise SystemExit(f"fed launched hand kernels: {launches}")
+    return out, seconds
+
+
+def fed_path(torch, fc, smk, fbk, card: str) -> None:
+    """(g) `cli.main(["fed", ...])` at the fed preset's width for
+    FED_ROUNDS rounds; its resume; a fault drill; one round on the card
+    against the CPU; round times."""
+    import shutil
+
+    from idc_models_tpu_torch.data.partition import train_test_client_split
+    from idc_models_tpu_torch.federated import ServerState
+    from idc_models_tpu_torch.models import vgg
+    from idc_models_tpu_torch.train.checkpoint import (
+        checkpoint_exists, restore_checkpoint,
+    )
+
+    tf32_off(torch)
+    for cut in FED_CUTS:
+        log(f"fed cut: {cut}")
+    with tempfile.TemporaryDirectory() as tmp:
+        run = Path(tmp) / "run"
+        argv = ["fed", "--synthetic-examples", str(FED_EXAMPLES),
+                "--pretrain-epochs", "1", "--seed", "0", "--path", str(run)]
+        _, seconds = fed_run(torch, fc, smk, fbk,
+                             argv + ["--rounds", str(FED_ROUNDS)])
+        recs = fed_records(run)
+        rounds = [r for r in recs if r["event"] == "round"]
+        health = [r for r in recs if r["event"] == "round_health"]
+        if [r["round"] for r in rounds] != list(range(FED_ROUNDS)):
+            raise SystemExit(f"fed: round records {rounds}")
+        for r in rounds:
+            if not all(math.isfinite(r[k]) for k in (
+                    "train_loss", "train_acc", "test_loss", "test_acc")):
+                raise SystemExit(f"fed: non-finite round metrics {r}")
+            if r["clients_dropped"] != 0:
+                raise SystemExit(f"fed: clients dropped in {r}")
+        if any(h["status"] != "ok" or h["participants"] != 8
+               for h in health):
+            raise SystemExit(f"fed: round_health {health}")
+        for d in (run / "pretrained" / "cp.ckpt", run / "fed_server"):
+            if not (checkpoint_exists(d) and (d / "_IDC_COMPLETE").is_file()):
+                raise SystemExit(f"fed: no complete checkpoint at {d}")
+        (pretrain,) = [r["seconds"] for r in recs if r["event"] == "timer"
+                       and r["name"].startswith("Pre-training")]
+        log(f"fed path: cli.main({' '.join(argv[:-2])} --rounds "
+            f"{FED_ROUNDS}) in {seconds!r} s; rounds (train_loss, "
+            f"train_acc, test_loss, test_acc) "
+            f"{[(r['train_loss'], r['train_acc'], r['test_loss'], r['test_acc']) for r in rounds]}; "
+            f"no client dropped; pretrained/cp.ckpt and fed_server complete; "
+            f"hand kernel launches 0 (none on this path)")
+        log(f"time fed: the pretraining epoch (VGG16 head, 50x50, batch 32, "
+            f"{int(FED_EXAMPLES * 0.8)} patches, with its validation) took "
+            f"{pretrain!r} s of host time; the driver's round seconds (a "
+            f"synchronize ends each) {[h['seconds'] for h in health]!r}; "
+            f"TF32 off; {card}")
+
+        out, seconds = fed_run(torch, fc, smk, fbk,
+                               argv + ["--rounds", str(FED_ROUNDS + 1)])
+        new = [r for r in fed_records(run) if r["event"] == "round"][
+            len(rounds):]
+        if ("restored pretrained weights from" not in out
+                or f"resuming federated training from round {FED_ROUNDS}"
+                not in out or "Pre-training" in out
+                or [r["round"] for r in new] != [FED_ROUNDS]):
+            raise SystemExit(f"fed resume: new round records {new}")
+        log(f"fed resume: --rounds {FED_ROUNDS + 1} restored the pretrained "
+            f"weights without retraining, resumed from round {FED_ROUNDS}, "
+            f"ran it alone and appended one round record in {seconds!r} s")
+
+        train_ids, _ = train_test_client_split(10, 0.2, seed=0)
+        if not {0, 1} <= set(train_ids.tolist()):
+            raise SystemExit(f"fed drill: clients 0 and 1 must train, "
+                             f"train clients are {train_ids}")
+        drills = {"nan": ["--rounds", "1", "--faults", "nan:1"],
+                  "sign_flip": ["--rounds", "2", "--faults",
+                                "sign_flip:0-1:x1000", "--aggregator",
+                                "trimmed_mean", "--trim", "2"]}
+        for name, extra in drills.items():
+            d = Path(tmp) / name
+            shutil.copytree(run / "pretrained", d / "pretrained")
+            fed_run(torch, fc, smk, fbk, argv[:-1] + [str(d)] + extra)
+            h = [r for r in fed_records(d) if r["event"] == "round_health"]
+            if name == "nan" and [r["clients_dropped"] for r in h] != [1.0]:
+                raise SystemExit(f"fed drill nan:1: round_health {h}")
+            # both attackers out of the kept band on (nearly) every
+            # coordinate: clients_trimmed flags them
+            if name == "sign_flip" and not all(
+                    r["status"] == "ok" and math.isfinite(r["loss"])
+                    and r.get("clients_trimmed", 0) >= 2 for r in h):
+                raise SystemExit(f"fed drill sign_flip: round_health {h}")
+            log(f"fed drill {' '.join(extra)}: round_health "
+                + "; ".join(f"round {r['round']} {r['status']} loss "
+                            f"{r['loss']!r} clients_dropped "
+                            f"{r['clients_dropped']!r}"
+                            + (f" clients_trimmed {r['clients_trimmed']!r}"
+                               if "clients_trimmed" in r else "")
+                            for r in h))
+
+        server = ServerState.from_tree(restore_checkpoint(
+            run / "fed_server", ServerState.of(vgg.vgg16(1)).tree()))
+    fed_card_vs_cpu(torch, server, card)
+    fed_round_times(torch, card)
+
+
+# f32 data draws of the card-against-CPU round, measured and not held
+FED_F32_DRAWS = 6
+
+
+def fed_round_pair(torch, server, dtype, seed: int) -> tuple[float, dict]:
+    """One `make_fedavg_round` from `server` on the card and on the CPU in
+    `dtype`: VGG16 under the fine-tune mask at 15, lr 1e-4, 4 clients of
+    32 patches at 50x50 (one full-shard step each), TF32 off. Returns the
+    largest |card - CPU| over the 1e-4 (1 + max |w|) tolerance of its
+    tensor, and both rounds' metrics and seconds."""
+    from idc_models_tpu_torch.data import synthetic
+    from idc_models_tpu_torch.federated.fedavg import make_fedavg_round
+    from idc_models_tpu_torch.models import vgg
+    from idc_models_tpu_torch.train.losses import binary_cross_entropy
+
+    tf32_off(torch)
+    imgs, labels = synthetic.make_idc_like(4 * 32, 50, seed=seed)
+    imgs = imgs.reshape(4, 32, 50, 50, 3)
+    labels = labels.reshape(4, 32)
+    weights = np.full(4, 32.0, np.float32)
+    server = server.replace(
+        params={k: v.to(dtype) for k, v in server.params.items()},
+        state={k: v.to(dtype) for k, v in server.state.items()})
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = vgg.vgg16(1).to(dtype)
+        rnd = make_fedavg_round(model, 1e-4, binary_cross_entropy,
+                                batch_size=32,
+                                trainable_mask=vgg.fine_tune_mask(model, 15),
+                                device=device)
+        t0 = time.perf_counter()
+        got, m = rnd(server.to(device), imgs, labels, weights, (1, 0, 0))
+        out[device] = (got, m, time.perf_counter() - t0)
+    worst = 0.0
+    for k, w in out["cpu"][0].params.items():
+        err = float((out["cuda"][0].params[k].cpu() - w).abs().max())
+        worst = max(worst, err / (1e-4 * (1 + float(w.abs().max()))))
+    return worst, {d: (m, sec) for d, (_, m, sec) in out.items()}
+
+
+def fed_card_vs_cpu(torch, server, card: str) -> None:
+    """One `make_fedavg_round` from the same carried server weights on the
+    card and on the CPU, held to 1e-4 (1 + max |w|) a tensor, in float64.
+    In f32 the comparison is ill-conditioned, and is measured over
+    FED_F32_DRAWS data draws, not held: a client's first Keras RMSprop
+    step is lr g / (sqrt(0.1 g^2) + 1e-7), whose slope at g = 0 is lr /
+    1e-7 = 1000, so the card's and the CPU's f32 summation orders, which
+    give a near-zero gradient coordinate values about 1e-7 apart, move
+    that weight up to about 1e-4 apart. Float64 leaves the slope and
+    removes the rounding it amplifies; a wrong gradient sign still moves
+    a weight 2 sqrt(10) lr = 6.3e-4, past the tolerance."""
+    worst, m = fed_round_pair(torch, server, torch.float64, seed=5)
+    log(f"fed card vs CPU: one make_fedavg_round from the carried server, "
+        f"float64, VGG16 fine-tune mask at 15, lr 1e-4, 4 clients x 32 "
+        f"patches at 50x50, full-shard steps: the largest |card - CPU| is "
+        f"{worst!r} of the tolerance 1e-4 (1 + max |w|) a tensor; loss "
+        f"{m['cuda'][0]['loss']!r} (card) against {m['cpu'][0]['loss']!r} "
+        f"(CPU); {m['cuda'][1]!r} s on the card, {m['cpu'][1]!r} s on the "
+        f"CPU; {card}")
+    if not worst <= 1.0 or not abs(
+            m["cuda"][0]["loss"] - m["cpu"][0]["loss"]) <= 1e-4 * (
+            1 + abs(m["cpu"][0]["loss"])):
+        raise SystemExit(f"fed round on the card differs from the CPU's: "
+                         f"{worst} of the tolerance")
+    f32 = [fed_round_pair(torch, server, torch.float32, seed=5 + i)[0]
+           for i in range(FED_F32_DRAWS)]
+    log(f"fed card vs CPU in f32 (TF32 off), measured, not held: the same "
+        f"round on {FED_F32_DRAWS} data draws gives the largest |card - "
+        f"CPU| as {f32!r} of the same tolerance ({sum(r > 1 for r in f32)} "
+        f"above it): RMSprop's first step amplifies f32 summation-order "
+        f"differences of near-zero gradients 1000x; {card}")
+
+
+def fed_round_times(torch, card: str) -> None:
+    """A fed round at the phase's size (10 clients of FED_EXAMPLES / 10
+    patches, 8 of them training in steps of 32, VGG16 fine-tune mask at
+    15), with
+    the mean and with the trimmed mean (trim 1): host ms a round ending
+    in a synchronize, in turns; then the profiler's device busy, idle
+    share and kernels a round, and peak memory."""
+    from idc_models_tpu_torch.data import synthetic
+    from idc_models_tpu_torch.data.idc import ArrayDataset
+    from idc_models_tpu_torch.data.partition import (
+        partition_clients, train_test_client_split,
+    )
+    from idc_models_tpu_torch.federated.fedavg import (
+        ServerState, make_fedavg_round,
+    )
+    from idc_models_tpu_torch.models import core, vgg
+    from idc_models_tpu_torch.train.losses import binary_cross_entropy
+
+    tf32_off(torch)
+    imgs, labels = synthetic.make_idc_like(FED_EXAMPLES, 50, seed=0)
+    ci, cl = partition_clients(ArrayDataset(imgs, labels), 10, iid=True)
+    imgs = torch.as_tensor(ci.astype(np.float32), device="cuda")
+    labels = torch.as_tensor(cl, device="cuda")
+    train_ids, _ = train_test_client_split(10, 0.2, seed=0)
+    w = np.zeros(10, np.float32)
+    w[train_ids] = ci.shape[1]
+    model = core.init_params(vgg.vgg16(1), 0).cuda()
+    server = ServerState.of(model)
+    calls = {}
+    for agg in ("mean", "trimmed_mean"):
+        rnd = make_fedavg_round(model, 1e-4, binary_cross_entropy,
+                                batch_size=32, aggregator=agg,
+                                trainable_mask=vgg.fine_tune_mask(model, 15),
+                                device="cuda")
+        calls[agg] = lambda rnd=rnd: rnd(server, imgs, labels, w, (0, 0, 0))
+    names = list(calls)
+    ms = {k: [] for k in names}
+    for k in names + names[::-1]:
+        ms[k].append(host_ms(torch, calls[k], n=2, warmup=1))
+    steps = max(ci.shape[1] // 32, 1)
+    for k in names:
+        log(f"time fed round ({k}, 10 clients x {ci.shape[1]} patches, 8 "
+            f"training, {steps} steps of 32 each, VGG16 50x50): host "
+            f"{ms[k]!r} ms "
+            f"a round (in turns); peak memory {peak_mb(torch, calls[k])!r} "
+            f"MB above the weights and shards; TF32 off; "
+            f"{profiled(torch, calls[k], n=2)}; {card}")
+
+
 def main() -> int:
     if not (REPO / "idc_models_tpu_torch" / "ops" / "csrc").is_dir():
         raise SystemExit("chip_smoke.py must run from a checkout of the "
@@ -2078,6 +2369,7 @@ def main() -> int:
     mobile_cache_path(torch, fc, smk, fbk, path, card)
     vgg_path(torch, fc, smk, fbk, card)
     dense_path(torch, fc, smk, fbk, card)
+    fed_path(torch, fc, smk, fbk, card)
     secure = secure_path(torch, fc, smk, card)
     aggregate_three_ways(torch, smk)
     mobilenet_round(torch, fc, smk, card)

@@ -1,4 +1,4 @@
-"""Command-line entry point: the ``vgg``, ``mobile``, ``dense``,
+"""Command-line entry point: the ``vgg``, ``mobile``, ``dense``, ``fed``,
 ``secure-fed`` and ``lm`` verbs of ``idc_models_tpu``.
 
     python -m idc_models_tpu_torch vgg --path runs/vgg \\
@@ -6,6 +6,7 @@
     python -m idc_models_tpu_torch mobile --path runs/mobile \\
         --data-dir .../balanced_IDC_30k --depthwise-impl fused
     python -m idc_models_tpu_torch dense --path runs/dense
+    python -m idc_models_tpu_torch fed --path runs/fed
     python -m idc_models_tpu_torch secure-fed --path runs/secure \\
         --mask-impl pallas
 
@@ -30,7 +31,18 @@ convolution. ``--device`` is ``cuda`` unless ``cpu`` is asked for.
 With --path the run writes ``<path>/logs/run.jsonl`` (``epoch``,
 ``timer`` and ``test`` records) and the trained model as
 ``<path>/model.npz`` in the JAX package's npz layout
-(``{"params": ..., "state": ...}``).
+(``{"params": ..., "state": ...}``). ``--resumable`` (needs --path)
+checkpoints both phases every ``--checkpoint-every`` epochs under
+``<path>/dist_ckpt`` and resumes from there on a restart.
+
+``fed`` runs FedAvg with the ``fed`` preset: VGG16 pretrained on the
+pooled data (gated on the checkpoint ``<path>/pretrained/cp.ckpt``), then
+10 clients (8 train, 2 test) fine-tuning above Keras index 15 at lr/10
+under the self-healing round driver (``federated/driver.py``), with
+``--faults`` injection and a robust ``--aggregator``; the server state is
+checkpointed to ``<path>/fed_server`` and resumed from it. Each round
+prints ``round, train_loss, train_acc, test_loss, test_acc`` and, with
+--path, logs ``round`` and ``round_health`` records.
 
 ``secure-fed`` runs secure-aggregation FedAvg with the ``secure_fed``
 preset (the small CNN on 10x10 patches, 8 clients, 5 local epochs, half
@@ -56,7 +68,8 @@ from idc_models_tpu_torch.models.core import DEPTHWISE_IMPLS
 def main(argv: list[str] | None = None) -> int:
     ns = _parse(argv)
     {"vgg": _run_dist, "mobile": _run_dist, "dense": _run_dist,
-     "secure_fed": _run_secure, "lm": _run_lm}[ns.preset_key](ns)
+     "fed": _run_fed, "secure_fed": _run_secure,
+     "lm": _run_lm}[ns.preset_key](ns)
     return 0
 
 
@@ -96,10 +109,20 @@ def _parse(argv):
                         help="fine-tune on cached frozen-backbone "
                              "activations (the prefix runs once instead "
                              "of every step; the same function)")
+        sp.add_argument("--resumable", action="store_true",
+                        help="checkpoint the training loop under "
+                             "<path>/dist_ckpt and resume from there on "
+                             "a restart (requires --path)")
+        sp.add_argument("--checkpoint-every", type=int, default=1,
+                        help="with --resumable: epochs between loop "
+                             "checkpoints (the final epoch always saves)")
         for flag in _UNPORTED_DIST_FLAGS:
             sp.add_argument(flag, action="store_true",
                             help="rejected: not ported yet (ROADMAP "
                                  "A1-rest)")
+        sp.add_argument("--decode-workers", type=int, default=0,
+                        help="rejected above 0: --stream's decode workers "
+                             "are not ported yet (ROADMAP A1-rest)")
         sp.add_argument("--model-parallel", type=int, default=1,
                         help="rejected above 1: tensor parallelism is not "
                              "ported yet (ROADMAP A4)")
@@ -110,6 +133,58 @@ def _parse(argv):
                                  "'fused' runs the frozen/eval "
                                  "depthwise+BN+relu6 chains through the "
                                  "CUDA kernel")
+
+    sp = sub.add_parser("fed", help="federated averaging (FedAvg)")
+    common(sp)
+    sp.add_argument("--pretrained-weights", default=None,
+                    help="backbone weight artifact for the pretrain "
+                         "phase: .npz in the JAX package's layout, or a "
+                         "Keras .h5")
+    sp.add_argument("--rounds", type=int, default=None)
+    sp.add_argument("--iid", dest="iid", action="store_true", default=None)
+    sp.add_argument("--noniid", dest="iid", action="store_false")
+    sp.add_argument("--num-clients", type=int, default=None)
+    sp.add_argument("--local-epochs", type=int, default=None)
+    sp.add_argument("--pretrain-epochs", type=int, default=None)
+    sp.add_argument("--checkpoint-every", type=int, default=10,
+                    help="save the federated server state every N rounds "
+                         "(plus once at the end)")
+    sp.add_argument("--aggregator", default="mean",
+                    choices=("mean", "trimmed_mean", "median",
+                             "norm_clip"),
+                    help="round-boundary aggregation "
+                         "(federated/robust.py): mean = example-weighted "
+                         "FedAvg; trimmed_mean/median bound Byzantine "
+                         "influence coordinate-wise; norm_clip L2-clips "
+                         "each client's update")
+    sp.add_argument("--trim", type=int, default=1,
+                    help="clients trimmed per side with --aggregator "
+                         "trimmed_mean (needs > 2*trim participants)")
+    sp.add_argument("--clip-norm", type=float, default=10.0,
+                    help="per-client update L2 bound with --aggregator "
+                         "norm_clip")
+    sp.add_argument("--faults", default=None,
+                    help="fault-injection plan (faults.py), e.g. "
+                         "'sign_flip:0-2:x1000,crash:5': deterministic "
+                         "per-round client faults applied before "
+                         "aggregation")
+    sp.add_argument("--round-timeout", type=float, default=None,
+                    help="per-round wall budget in seconds; a slower "
+                         "round is discarded and retried with a "
+                         "reseeded client subset (federated/driver.py)")
+    sp.add_argument("--max-round-retries", type=int, default=2,
+                    help="retries per failed round before the run "
+                         "aborts with RoundFailure")
+    sp.add_argument("--loss-spike-ratio", type=float, default=10.0,
+                    help="divergence detector: a round whose train loss "
+                         "exceeds this multiple of the last good round's "
+                         "is rolled back (0 disables)")
+    sp.add_argument("--population", type=int, default=0,
+                    help="rejected above 0: population mode is not "
+                         "ported yet (ROADMAP A5-rest)")
+    sp.add_argument("--async-buffer", type=int, default=0,
+                    help="rejected above 0: buffered-async FedAvg is not "
+                         "ported yet (ROADMAP A5-rest)")
 
     sp = sub.add_parser("secure-fed", aliases=["secure_fed"],
                         help="secure-aggregation FedAvg")
@@ -177,7 +252,7 @@ def _parse(argv):
 
 # flags of the JAX package's classifier verbs that the port refuses so
 # far (ROADMAP A1-rest)
-_UNPORTED_DIST_FLAGS = ("--central-storage", "--resumable", "--stream")
+_UNPORTED_DIST_FLAGS = ("--central-storage", "--stream")
 
 
 def _apply_overrides(preset, ns, fields):
@@ -228,10 +303,24 @@ def _run_dist(ns):
         if getattr(ns, flag[2:].replace("-", "_")):
             sys.exit(f"{flag}: not ported yet (ROADMAP A1-rest); the port "
                      f"trains from a materialized dataset, mirrored")
+    if ns.decode_workers:
+        sys.exit(f"--decode-workers {ns.decode_workers}: not ported yet "
+                 f"(ROADMAP A1-rest); the port trains from a materialized "
+                 f"dataset")
     if ns.model_parallel > 1:
         sys.exit(f"--model-parallel {ns.model_parallel}: tensor "
                  f"parallelism is not ported yet (ROADMAP A4); the port "
                  f"trains on one card")
+    if ns.resumable and ns.path is None:
+        sys.exit("--resumable requires --path (checkpoints live under it)")
+    if ns.checkpoint_every < 1:
+        sys.exit(f"--checkpoint-every {ns.checkpoint_every} must be "
+                 f">= 1: saving every 0 epochs is never, and never "
+                 f"checkpointing is what --resumable exists to fix")
+    if ns.checkpoint_every != 1 and not ns.resumable:
+        sys.exit("--checkpoint-every needs --resumable: it paces the "
+                 "resume checkpoints, and without --resumable none "
+                 "are written")
     # one card: a per-replica batch (dense) is the global batch
     preset = _apply_overrides(
         get_preset(ns.preset_key), ns,
@@ -270,6 +359,9 @@ def _run_dist(ns):
                            cache_features=ns.cache_features, seed=ns.seed),
             loss_fn=loss_fn, build_kwargs=build_kwargs,
             pretrained_weights=ns.pretrained_weights,
+            checkpoint_dir=(Path(ns.path) / "dist_ckpt" if ns.resumable
+                            else None),
+            checkpoint_every=ns.checkpoint_every,
             logger=logger, device=device)
         test_metrics = evaluate(result.model, test, loss_fn,
                                 batch_size=preset.batch_size,
@@ -281,6 +373,214 @@ def _run_dist(ns):
             params, state = convert.to_jax(result.model)
             save_npz(Path(ns.path) / "model.npz",
                      {"params": params, "state": state})
+    finally:
+        if logger is not None:
+            logger.close()
+
+
+def _run_fed(ns):
+    """FedAvg over a pretrained VGG16 (fed_model.py), classic mode:
+    pretrain on the pooled data (or restore the pretrained checkpoint),
+    partition the data into train and test clients, and run the rounds
+    under the self-healing driver, checkpointing and resuming the server
+    state."""
+    import json
+
+    import numpy as np
+    import torch
+
+    from idc_models_tpu_torch import convert, resolve_device
+    from idc_models_tpu_torch import faults as faults_lib
+    from idc_models_tpu_torch.configs import get_preset
+    from idc_models_tpu_torch.data.idc import train_val_test_split
+    from idc_models_tpu_torch.data.partition import (
+        partition_clients, train_test_client_split,
+    )
+    from idc_models_tpu_torch.federated import (
+        DriverConfig, RoundFailure, ServerState, get_aggregator,
+        initialize_server, make_fedavg_round, make_federated_eval,
+        run_rounds, seed_server_with,
+    )
+    from idc_models_tpu_torch.models import registry
+    from idc_models_tpu_torch.observe import JsonlLogger, Timer
+    from idc_models_tpu_torch.train import losses
+    from idc_models_tpu_torch.train.checkpoint import (
+        checkpoint_exists, restore_checkpoint, save_checkpoint,
+    )
+    from idc_models_tpu_torch.train.loop import TwoPhaseConfig, two_phase_fit
+
+    device = resolve_device(ns.device)
+    if ns.checkpoint_every < 1:
+        sys.exit(f"--checkpoint-every {ns.checkpoint_every} must be "
+                 f">= 1: saving every 0 rounds is never, and a crash "
+                 f"then replays the whole run")
+    if ns.population or ns.async_buffer:
+        sys.exit("--population / --async-buffer: population and "
+                 "buffered-async FedAvg are not ported yet (ROADMAP "
+                 "A5-rest); the port runs the classic materialized rounds")
+    spike = ns.loss_spike_ratio
+    if spike != 0 and spike <= 1:
+        # only the documented 0 disables; negatives and (0, 1] are
+        # configuration mistakes that must not silently turn the
+        # divergence detector off
+        sys.exit(f"--loss-spike-ratio {spike} must be > 1 (a round is "
+                 f"rolled back when its loss exceeds ratio x the last "
+                 f"good loss; 0 disables the detector)")
+    preset = _apply_overrides(
+        get_preset("fed"), ns,
+        ["batch_size", "lr", "rounds", "iid", "num_clients", "local_epochs",
+         "pretrain_epochs"])
+    print(f"Device: {device}")
+    n_clients = preset.num_clients
+    ds = _load_idc(ns, preset.image_size, preset.dataset_limit)
+    loss_fn = (losses.binary_cross_entropy if preset.num_outputs == 1
+               else losses.sparse_categorical_cross_entropy)
+    logger = (JsonlLogger(Path(ns.path) / "logs" / "run.jsonl")
+              if ns.path is not None else None)
+    try:
+        # Pretrain (C8): checkpoint-gated VGG16 on the pooled data
+        spec = registry.get_model(preset.model)
+        train, val, _ = train_val_test_split(ds, seed=ns.seed)
+        ckpt = (Path(ns.path) / "pretrained" / "cp.ckpt" if ns.path
+                else None)
+        if ckpt is not None and checkpoint_exists(ckpt):
+            model = spec.build(preset.num_outputs)
+            params, state = convert.to_jax(model)
+            restored = restore_checkpoint(ckpt, {"params": params,
+                                                 "state": state})
+            convert.load_jax(model, restored["params"], restored["state"])
+            print(f"restored pretrained weights from {ckpt}")
+            if ns.pretrained_weights:
+                print(f"[idc_models_tpu_torch] --pretrained-weights "
+                      f"ignored: checkpoint {ckpt} takes precedence "
+                      f"(delete it to re-pretrain from the artifact)",
+                      file=sys.stderr)
+        else:
+            model = two_phase_fit(
+                preset.model, preset.num_outputs, train, val,
+                TwoPhaseConfig(lr=preset.lr, epochs=preset.pretrain_epochs,
+                               fine_tune_epochs=0,
+                               batch_size=preset.batch_size,
+                               fine_tune_at=preset.fine_tune_at,
+                               seed=ns.seed),
+                loss_fn=loss_fn, pretrained_weights=ns.pretrained_weights,
+                logger=logger, device=device).model
+            if ckpt is not None:
+                params, state = convert.to_jax(model)
+                save_checkpoint(ckpt, {"params": params, "state": state})
+        model.to(device)
+
+        # Federate: clients fine-tune above fine_tune_at at lr/10
+        # (fed_model.py:140-147,208)
+        imgs, labels = partition_clients(ds, n_clients,
+                                         iid=bool(preset.iid), seed=ns.seed)
+        n_per_client = imgs.shape[1]
+        train_ids, test_ids = train_test_client_split(
+            n_clients, preset.test_client_fraction, seed=ns.seed)
+        # train clients carry weight = examples, test clients weight 0
+        # (one card holds every client: no padding to a mesh)
+        w_train = np.zeros((n_clients,), np.float32)
+        w_train[train_ids] = n_per_client
+        w_test = np.zeros((n_clients,), np.float32)
+        w_test[test_ids] = n_per_client
+        # the stacked client shards go to the card once, not once a round
+        imgs = torch.as_tensor(np.asarray(imgs, np.float32), device=device)
+        labels = torch.as_tensor(labels, device=device)
+        mask = spec.fine_tune_mask(model, preset.fine_tune_at)
+        pretrained = ServerState.of(model)
+        server = seed_server_with(initialize_server(model, ns.seed),
+                                  pretrained.params, pretrained.state)
+        # round-loop checkpoint/resume: the reference checkpoints only
+        # the pretrainer; here the federated loop resumes too
+        server_ckpt = Path(ns.path) / "fed_server" if ns.path else None
+        resumed = False
+        if server_ckpt is not None and checkpoint_exists(server_ckpt):
+            server = ServerState.from_tree(
+                restore_checkpoint(server_ckpt, server.tree()))
+            print(f"resuming federated training from round {server.round}")
+            resumed = server.round > 0
+        plan = None
+        if ns.faults:
+            plan = faults_lib.parse_fault_spec(ns.faults, n_clients)
+            print(f"[idc_models_tpu_torch] injecting faults: {plan}",
+                  file=sys.stderr)
+        agg_kw = ({"trim": ns.trim} if ns.aggregator == "trimmed_mean" else
+                  {"max_norm": ns.clip_norm}
+                  if ns.aggregator == "norm_clip" else {})
+        round_fn = make_fedavg_round(
+            model, preset.lr / 10.0, loss_fn,
+            local_epochs=preset.local_epochs, batch_size=preset.batch_size,
+            trainable_mask=mask,
+            aggregator=get_aggregator(ns.aggregator, **agg_kw),
+            faults=plan, device=device)
+        eval_fn = make_federated_eval(model, loss_fn, device=device)
+        print("round, train_loss, train_acc, test_loss, test_acc")
+        # A resume from an every-N checkpoint replays the rounds after
+        # the last save (same keys). Replayed rounds print again but must
+        # not append duplicate records to the append-only run.jsonl; a
+        # fresh run pointed at a reused --path logs every round.
+        logged_through = -1
+        if resumed and logger is not None and logger.path.exists():
+            for line in logger.path.read_text().splitlines():
+                try:
+                    rec = json.loads(line)
+                except ValueError:
+                    continue
+                if rec.get("event") == "round":
+                    logged_through = max(logged_through, int(rec["round"]))
+
+        def eval_round(sv):
+            em = eval_fn(sv, imgs, labels, w_test)
+            return {"test_loss": em["loss"], "test_acc": em["accuracy"]}
+
+        def print_round(entry):
+            print(f"{entry['round']}, {entry['loss']:.4f}, "
+                  f"{entry['accuracy']:.4f}, {entry['test_loss']:.4f}, "
+                  f"{entry['test_acc']:.4f}")
+            if entry.get("trim_degenerate"):
+                print(f"[idc_models_tpu_torch] round {entry['round']}: "
+                      f"trimmed mean had NO kept band (live clients <= "
+                      f"2*trim) -- the server state was left UNCHANGED "
+                      f"this round; lower --trim or enroll more clients",
+                      file=sys.stderr)
+            # the verb owns the `round` records (the driver logs only
+            # round_health), under their historical field names
+            if logger is not None and entry["round"] > logged_through:
+                logger.log(event="round", round=entry["round"],
+                           train_loss=entry["loss"],
+                           train_acc=entry["accuracy"],
+                           test_loss=entry["test_loss"],
+                           test_acc=entry["test_acc"],
+                           clients_dropped=int(
+                               entry.get("clients_dropped", 0)))
+
+        config = DriverConfig(
+            rounds=preset.rounds, timeout_s=ns.round_timeout,
+            max_attempts=1 + max(ns.max_round_retries, 0),
+            loss_spike_ratio=spike if spike > 1 else None,
+            checkpoint_path=server_ckpt,
+            checkpoint_every=ns.checkpoint_every)
+        try:
+            with Timer("Federated training", logger=logger):
+                result = run_rounds(
+                    round_fn, server, imgs, labels, w_train, config=config,
+                    seed=ns.seed + 1, eval_fn=eval_round,
+                    on_round=print_round, logger=logger, verbose=True,
+                    log_from_round=logged_through, log_round_records=False)
+        except RoundFailure as e:
+            sys.exit(f"[idc_models_tpu_torch] federated training aborted: "
+                     f"{e}")
+        for entry in result.history:
+            dropped = int(entry.get("clients_dropped", 0))
+            if dropped:
+                print(f"[idc_models_tpu_torch] round {entry['round']}: "
+                      f"dropped {dropped} client(s) with non-finite "
+                      f"updates from the aggregate", file=sys.stderr)
+        retried = [e for e in result.events if e["status"] != "ok"]
+        if retried:
+            print(f"[idc_models_tpu_torch] {len(retried)} round attempt(s) "
+                  f"failed and were healed (rollback/reseed); see "
+                  f"round_health events", file=sys.stderr)
     finally:
         if logger is not None:
             logger.close()

@@ -1,5 +1,5 @@
 """Workload presets, as ``idc_models_tpu/configs.py`` holds them, for the
-workloads ported so far (the ``vgg``, ``mobile``, ``dense`` and
+workloads ported so far (the ``vgg``, ``mobile``, ``dense``, ``fed`` and
 ``secure_fed`` presets).
 
 A copy, not an import: the port never imports the JAX package."""
@@ -27,6 +27,26 @@ class DistPreset:
     fine_tune_at: int
     dataset_limit: int | None    # balanced-subset size
     repeats: int = 1             # train-set passes per epoch (dense: 2)
+
+
+@dataclasses.dataclass(frozen=True)
+class FedPreset:
+    """FedAvg with a pretrained backbone (fed_model.py)."""
+
+    name: str = "fed"
+    model: str = "vgg16"
+    num_outputs: int = 1
+    image_size: int = 50
+    lr: float = 1e-3             # pretrain lr; clients use lr/10 (fed_model.py:208)
+    pretrain_epochs: int = 10
+    fine_tune_at: int = 15       # fed_model.py:63
+    num_clients: int = 10        # fed_model.py:47
+    test_client_fraction: float = 0.2   # 8 train / 2 test (fed_model.py:47-49)
+    local_epochs: int = 1
+    batch_size: int = 32
+    rounds: int = 10
+    iid: bool = True
+    dataset_limit: int | None = 30000
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,6 +91,7 @@ PRESETS = {
         num_outputs=10, image_size=32, lr=1e-4, epochs=10,
         fine_tune_epochs=10, batch_size=256, per_replica_batch=True,
         fine_tune_at=150, dataset_limit=None, repeats=2),
+    "fed": FedPreset(),
     "secure_fed": SecureFedPreset(),
 }
 

@@ -1,12 +1,12 @@
-"""FedAvg's building blocks on one card: the server state, the per-client
-local trainer, and the divergence test.
+"""FedAvg on one card: the server state, the per-client local trainer,
+the divergence test, the plain FedAvg round and the federated eval.
 
-The counterpart of ``idc_models_tpu/federated/fedavg.py`` for what the
-secure-aggregation round needs. The JAX package vmaps the k clients of a
-device inside one program; on one H100 (world size 1) every client is
-local, and the port trains them in turn on one working module, each from
-the incoming global weights with its own generator. Batching the clients
-as one workload (``torch.func.vmap``) comes with the distribution layer.
+The counterpart of ``idc_models_tpu/federated/fedavg.py``. The JAX
+package vmaps the k clients of a device inside one program; on one H100
+(world size 1) every client is local, and the port trains them in turn
+on one working module, each from the incoming global weights with its
+own generator. Batching the clients as one workload
+(``torch.func.vmap``) comes with the distribution layer.
 
 Weights cross the round boundary as flat ``{dotted name: tensor}`` dicts
 -- the module's named parameters (``params``) and buffers (``state``, the
@@ -19,15 +19,23 @@ from __future__ import annotations
 import dataclasses
 from collections.abc import Callable, Mapping
 
+import numpy as np
 import torch
 from torch import nn
 
+from idc_models_tpu_torch import convert, resolve_device
+from idc_models_tpu_torch import faults as faults_lib
+from idc_models_tpu_torch.federated import robust
 from idc_models_tpu_torch.models import core
+from idc_models_tpu_torch.train import metrics as metrics_lib
 from idc_models_tpu_torch.train.state import TrainState, rmsprop
 from idc_models_tpu_torch.train.step import make_train_step
 
 LossFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 Tree = dict[str, torch.Tensor]
+# a round's random key: (seed, round, attempt) from the driver, as the
+# JAX package's fold_in(fold_in(key(seed), round), attempt)
+Key = tuple[int, ...]
 
 
 @dataclasses.dataclass
@@ -51,11 +59,44 @@ class ServerState:
                     for n, p in module.named_parameters()},
                    {n: b.detach().clone() for n, b in module.named_buffers()})
 
+    def to(self, device) -> "ServerState":
+        return self.replace(
+            params={k: v.to(device) for k, v in self.params.items()},
+            state={k: v.to(device) for k, v in self.state.items()})
+
+    def tree(self) -> dict:
+        """The JAX package's ServerState as a checkpoint tree: ``round``,
+        and ``params`` / ``model_state`` nested by layer name."""
+        def nest(flat):
+            return convert.unflatten({k.replace(".", "/"): v
+                                      for k, v in flat.items()})
+
+        return {"round": np.int32(self.round), "params": nest(self.params),
+                "model_state": nest(self.state)}
+
+    @classmethod
+    def from_tree(cls, tree: dict) -> "ServerState":
+        """The inverse of `tree` (e.g. a restored checkpoint)."""
+        def flat(nested):
+            return {k.replace("/", "."): v
+                    for k, v in convert.flatten(nested).items()}
+
+        return cls(int(tree["round"]), flat(tree["params"]),
+                   flat(tree["model_state"]))
+
 
 def initialize_server(model: nn.Module, seed: int) -> ServerState:
     """Fresh server state (`fed_avg.initialize()`, fed_model.py:216): the
     model initialized from `seed`, round 0."""
     return ServerState.of(core.init_params(model, seed))
+
+
+def seed_server_with(server: ServerState, params: Tree,
+                     state: Tree) -> ServerState:
+    """Replace the server model wholesale: TFF's
+    ``state_with_new_model_weights`` seeding from a pretrained model
+    (fed_model.py:219-223)."""
+    return server.replace(params=params, state=state)
 
 
 def load_server(module: nn.Module, server: ServerState) -> nn.Module:
@@ -64,18 +105,42 @@ def load_server(module: nn.Module, server: ServerState) -> nn.Module:
     return module
 
 
+def copy_tree(tree):
+    """Fresh copies of a ServerState's tensors, or of a {name: tensor}
+    dict's: snapshots that survive later in-place changes of the
+    originals (the driver's rollback anchor, the straggler history)."""
+    if isinstance(tree, ServerState):
+        return tree.replace(params=copy_tree(tree.params),
+                            state=copy_tree(tree.state))
+    return {k: v.detach().clone() for k, v in tree.items()}
+
+
+def client_generator(key: Key, client: int, device) -> torch.Generator:
+    """Client `client`'s generator for the round keyed by `key`: a pure
+    function of (key, global client id), so a client's draws do not
+    depend on the order the clients train in (the JAX package's
+    ``fold_in(rng, client id)``; its streams themselves cannot be
+    reproduced)."""
+    seed = np.random.SeedSequence([*key, client]).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(seed >> 1))
+
+
 def make_local_trainer(model: nn.Module, lr: float, loss_fn: LossFn, *,
-                       local_epochs: int, batch_size: int):
+                       local_epochs: int, batch_size: int,
+                       trainable_mask: dict[str, bool] | None = None):
     """The per-client E-local-epochs program.
 
     Returns ``local_train(imgs [S, ...], labels [S], generator) ->
     (losses, accs)``, each [local_epochs, steps] on the model's device,
     which trains `model` in place from its current weights with a fresh
-    Keras RMSprop at `lr` (the client optimizer is built per round, TFF
-    semantics). As in the JAX package, an epoch is ``steps = max(S // B,
-    1)`` steps of ``take // steps`` examples, ``take = min(steps * B, S)``,
-    in the order of a permutation drawn per epoch. `generator` (on the
-    model's device) draws the permutations and every dropout mask.
+    Keras RMSprop at `lr` over the parameters `trainable_mask` marks
+    trainable (None: all of them; the client optimizer is built per
+    round, TFF semantics). As in the JAX package, an epoch is ``steps =
+    max(S // B, 1)`` steps of ``take // steps`` examples, ``take =
+    min(steps * B, S)``, in the order of a permutation drawn per epoch.
+    `generator` (on the model's device) draws the permutations and every
+    dropout mask.
     """
 
     def local_train(imgs, labels, generator: torch.Generator):
@@ -83,8 +148,8 @@ def make_local_trainer(model: nn.Module, lr: float, loss_fn: LossFn, *,
         steps = max(shard_size // batch_size, 1)
         take = min(steps * batch_size, shard_size)
         bsz = take // steps
-        step = make_train_step(TrainState(model, rmsprop(model, lr)),
-                               loss_fn)
+        step = make_train_step(TrainState(model, rmsprop(
+            model, lr, trainable_mask=trainable_mask)), loss_fn)
         core.use_generator(model, generator)
         losses, accs = [], []
         try:
@@ -113,3 +178,162 @@ def finite_clients(losses: torch.Tensor, *trees: Mapping[str, torch.Tensor]
         if leaf.is_floating_point():
             ok &= torch.isfinite(leaf.reshape(leaf.shape[0], -1)).all(1)
     return ok
+
+
+def make_fedavg_round(model: nn.Module, lr: float, loss_fn: LossFn, *,
+                      local_epochs: int = 1, batch_size: int = 32,
+                      trainable_mask: dict[str, bool] | None = None,
+                      aggregator=None, faults=None, device=None):
+    """Build the one-round FedAvg program on one card.
+
+    Returns ``round_fn(server, images [C, S, ...], labels [C, S],
+    weights [C], key, *, round_idx=None) -> (server, metrics)``. `model`
+    is the working module: it moves to `device` (CUDA unless "cpu" is
+    asked for), and each client of weight > 0 trains on it in turn from
+    the incoming global weights, with a fresh RMSprop at `lr` over
+    `trainable_mask` and its own generator (`client_generator(key, c)`).
+    A client of weight 0 does not train: nothing of it reaches the
+    aggregate or the metrics. Images enter in the model's dtype; pass the
+    stacked shards as tensors already on the device (and in that dtype)
+    to keep the upload out of the round.
+
+    - ``weights`` are the per-client aggregation weights (example counts
+      for TFF parity); 0 leaves a client out.
+    - ``faults`` (`faults.FaultPlan`): the plan's codes for the round
+      (``round_idx``, default ``server.round``) are applied to the client
+      updates after local training; stragglers replay a cloned server
+      from an internal per-round history (depth: the plan's staleness).
+    - A client whose update holds a non-finite value gets weight 0 and
+      is counted in ``clients_dropped`` (the JAX round's
+      ``drop_nonfinite``, always on here).
+    - ``aggregator`` (`federated/robust.py`): None or "mean" is the
+      example-weighted mean; "trimmed_mean", "median" and "norm_clip"
+      bound finite-but-malicious updates and add their own metrics.
+    - When no client survives, the incoming server weights are kept and
+      ``loss`` and ``accuracy`` are NaN.
+
+    The metrics are floats: the example-weighted ``loss`` and
+    ``accuracy`` of the clients' local steps, ``clients_dropped``, and
+    the aggregator's."""
+    device = resolve_device(device)
+    model.to(device)
+    agg_fn = robust.get_aggregator(aggregator)
+    local_train = make_local_trainer(
+        model, lr, loss_fn, local_epochs=local_epochs,
+        batch_size=batch_size, trainable_mask=trainable_mask)
+    history: dict[int, ServerState] = {}
+
+    def stale_server(server: ServerState, r: int) -> ServerState:
+        # the server ENTERING each round, keyed by round index; round r
+        # at staleness k replays history[r - k] (the oldest retained
+        # entry on early rounds)
+        history[r] = copy_tree(server)
+        for old in [x for x in history
+                    if x < r - max(faults.max_staleness, 1)]:
+            del history[old]
+        return history.get(r - faults.staleness(r), history[min(history)])
+
+    def round_fn(server: ServerState, images, labels, weights, key: Key, *,
+                 round_idx: int | None = None):
+        images = torch.as_tensor(images, device=device,
+                                 dtype=next(model.parameters()).dtype)
+        labels = torch.as_tensor(labels, device=device)
+        w_host = torch.as_tensor(weights, dtype=torch.float32).cpu()
+        n = images.shape[0]
+        if w_host.shape != (n,):
+            raise ValueError(f"{tuple(w_host.shape)} client weights for "
+                             f"{n} client shards")
+        if faults is not None and faults.n_clients > n:
+            raise ValueError(
+                f"fault plan covers {faults.n_clients} clients but only "
+                f"{n} client shards were passed")
+        weight = w_host.to(device)
+        server = server.to(device)
+        glob = {**server.params, **server.state}
+        stacked = {k: v.unsqueeze(0).repeat((n,) + (1,) * v.dim())
+                   for k, v in glob.items()}
+        losses = torch.zeros(n, device=device)
+        accs = torch.zeros(n, device=device)
+        for c in np.flatnonzero(w_host.numpy() > 0).tolist():
+            load_server(model, server)
+            loss, acc = local_train(images[c], labels[c],
+                                    client_generator(key, c, device))
+            losses[c], accs[c] = loss.mean(), acc.mean()
+            with torch.no_grad():
+                for k, v in model.state_dict().items():
+                    stacked[k][c].copy_(v)
+        client_p = {k: stacked[k] for k in server.params}
+        client_s = {k: stacked[k] for k in server.state}
+        if faults is not None:
+            r = server.round if round_idx is None else int(round_idx)
+            codes, scales = faults.codes(r)
+            pad = n - faults.n_clients
+            codes = torch.as_tensor(np.concatenate(
+                [codes, np.zeros((pad,), np.int32)]), device=device)
+            scales = torch.as_tensor(np.concatenate(
+                [scales, np.ones((pad,), np.float32)]), device=device)
+            stale = stale_server(server, r)
+            client_p, client_s, weight = faults_lib.apply_faults(
+                codes, scales, client_p, client_s, weight, server.params,
+                server.state, stale.params, stale.state)
+
+        ok = finite_clients(losses, client_p, client_s)
+        dropped = ((weight > 0) & ~ok).sum().float()
+        weight = torch.where(ok, weight, 0.0)
+
+        agg, agg_m = agg_fn({**client_p, **client_s}, weight, glob)
+        m = {"loss": robust.weighted_mean(losses, weight),
+             "accuracy": robust.weighted_mean(accs, weight),
+             "clients_dropped": dropped, **agg_m}
+        m = dict(zip(m, torch.stack([v.float() for v in m.values()])
+                     .tolist()))
+        if not float(torch.clamp(weight, min=0.0).sum()) > 0:
+            # every client dropped: keep the incoming server and report
+            # NaN metrics -- an all-zero-weight mean would read as a
+            # perfect 0.0 loss while training silently stalls
+            agg = glob
+            m["loss"] = m["accuracy"] = float("nan")
+        return ServerState(server.round + 1,
+                           {k: agg[k] for k in server.params},
+                           {k: agg[k] for k in server.state}), m
+
+    return round_fn
+
+
+# examples a forward of the federated eval takes at a time (a whole
+# shard is up to 3,000 patches at the fed preset)
+_EVAL_CHUNK = 512
+
+
+def make_federated_eval(model: nn.Module, loss_fn: LossFn, *, device=None):
+    """Build the federated evaluation (fed_model.py:210).
+
+    Returns ``eval_fn(server, images [C, S, ...], labels [C, S], weights
+    [C]) -> {"loss", "accuracy"}``: the global model in eval mode on every
+    client shard of weight > 0, each client's loss and accuracy over its
+    whole shard, example-weighted across clients (floats)."""
+    device = resolve_device(device)
+    model.to(device)
+
+    def eval_fn(server: ServerState, images, labels, weights):
+        images = torch.as_tensor(images, dtype=torch.float32, device=device)
+        labels = torch.as_tensor(labels, device=device)
+        w_host = torch.as_tensor(weights, dtype=torch.float32).cpu()
+        n = images.shape[0]
+        losses = torch.zeros(n, device=device)
+        accs = torch.zeros(n, device=device)
+        load_server(model, server.to(device)).eval()
+        with torch.no_grad():
+            for c in np.flatnonzero(w_host.numpy() > 0).tolist():
+                logits = torch.cat([
+                    model(x).float()
+                    for x in images[c].split(_EVAL_CHUNK)])
+                losses[c] = loss_fn(logits, labels[c])
+                accs[c] = metrics_lib.auto_accuracy(logits, labels[c])
+        weight = w_host.to(device)
+        m = torch.stack([robust.weighted_mean(losses, weight),
+                         robust.weighted_mean(accs, weight)]).tolist()
+        return {"loss": m[0], "accuracy": m[1]}
+
+    return eval_fn
+

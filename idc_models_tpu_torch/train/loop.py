@@ -15,25 +15,35 @@ optimizer never sees it. ``cache_features`` runs phase 2 on the frozen
 prefix's cached activations (``train/feature_cache.py``); ``repeats``
 passes over the train set per epoch (the ``dense`` preset's 2).
 
-Left out of this port so far: ``central_storage``, resume checkpoints
-and ``plot_history``.
+``checkpoint_dir`` makes `fit` resumable at epoch granularity, and
+`two_phase_fit` keeps one such directory per phase (``phase1/``,
+``phase2/``): the JAX package's commit protocol and fingerprint, with
+the model's parameters and buffers, the RMSprop moments, the step count
+and the history as the state (`train/checkpoint.py`'s format).
+
+Left out of this port so far: ``central_storage`` and ``plot_history``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import inspect
+import json
+import shutil
+import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
 from torch import nn
 
-from idc_models_tpu_torch import resolve_device
+from idc_models_tpu_torch import convert, resolve_device
 from idc_models_tpu_torch.data.idc import ArrayDataset
 from idc_models_tpu_torch.data.pipeline import Loader, eval_batches, to_device
 from idc_models_tpu_torch.models import core, registry
 from idc_models_tpu_torch.observe.timer import Timer
-from idc_models_tpu_torch.train import losses
+from idc_models_tpu_torch.train import checkpoint, losses
 from idc_models_tpu_torch.train import metrics as metrics_lib
 from idc_models_tpu_torch.train.state import TrainState, rmsprop
 from idc_models_tpu_torch.train.step import make_train_step
@@ -91,7 +101,9 @@ def predict(model: nn.Module, images, *, batch_size: int = 32) -> np.ndarray:
 def fit(state: TrainState, loss_fn, train_ds: ArrayDataset,
         val_ds: ArrayDataset | None, *, epochs: int,
         batch_size: int = 32, initial_epoch: int = 0, seed: int = 0,
-        repeats: int = 1, logger=None, verbose: bool = True) -> History:
+        repeats: int = 1, logger=None, verbose: bool = True,
+        checkpoint_dir: str | Path | None = None,
+        checkpoint_every: int = 1) -> History:
     """Keras-``fit``-shaped epoch loop on the model's device.
 
     Returns the history ({"loss", "accuracy", "val_loss",
@@ -100,7 +112,15 @@ def fit(state: TrainState, loss_fn, train_ds: ArrayDataset,
     same batches in the same order; each epoch passes over `train_ds`
     `repeats` times, freshly shuffled each pass. Per-step metrics stay on the device
     and are read once per epoch. A non-finite epoch loss raises
-    ``FloatingPointError`` naming the first bad step."""
+    ``FloatingPointError`` naming the first bad step.
+
+    `checkpoint_dir` makes the loop resumable: the state is saved every
+    `checkpoint_every` epochs and after the last, and a restart with the
+    same arguments and starting parameters resumes after the last saved
+    epoch. Nothing else in the loop draws from a random stream (the
+    classifier models have no dropout, and a dropout layer without a
+    generator refuses to train), so a resumed run equals a
+    straight-through one bit for bit."""
     model = state.model
     device = _model_device(model)
     step = make_train_step(state, loss_fn)
@@ -108,7 +128,19 @@ def fit(state: TrainState, loss_fn, train_ds: ArrayDataset,
                     repeat=repeats)
     history: History = {"loss": [], "accuracy": [],
                         "val_loss": [], "val_accuracy": []}
-    for epoch in range(initial_epoch, epochs):
+    start_epoch = initial_epoch
+    fingerprint = None
+    if checkpoint_dir is not None:
+        fingerprint = _fit_fingerprint(model, seed, batch_size, repeats,
+                                       initial_epoch)
+        restored = _restore_fit_checkpoint(checkpoint_dir, state, epochs,
+                                           fingerprint)
+        if restored is not None:
+            history, start_epoch = restored
+            start_epoch = max(start_epoch, initial_epoch)
+            if verbose and start_epoch > initial_epoch:
+                print(f"resuming fit from epoch {start_epoch + 1}")
+    for epoch in range(start_epoch, epochs):
         step_losses, step_accs = [], []
         for x, y in to_device(loader.epoch(epoch), device):
             m = step(x, y)
@@ -136,7 +168,114 @@ def fit(state: TrainState, loss_fn, train_ds: ArrayDataset,
             print(f"epoch {epoch + 1}/{epochs} {msg}")
         if logger is not None:
             logger.log(event="epoch", epoch=epoch, **ep)
+        if checkpoint_dir is not None and (
+                (epoch + 1) % max(checkpoint_every, 1) == 0
+                or epoch + 1 == epochs):
+            _save_fit_checkpoint(checkpoint_dir, state, history, epoch + 1,
+                                 fingerprint)
     return history
+
+
+def _fit_fingerprint(model: nn.Module, seed: int, batch_size: int,
+                     repeats: int, initial_epoch: int) -> str:
+    """Identifies the run a checkpoint belongs to, as the JAX package
+    does: the data-schedule knobs plus each starting parameter's shape
+    and float64 sum, in JAX's leaf order (so a retrained upstream phase
+    invalidates a downstream phase's checkpoint). The optimizer is not
+    captured: a changed lr between runs is not detected."""
+    h = hashlib.sha1(
+        f"{seed}/{batch_size}/{repeats}/{initial_epoch}".encode())
+    params, _ = convert.to_jax(model)
+    for a in checkpoint._leaves(params):
+        h.update(str(a.shape).encode())
+        h.update(np.float64(a.astype(np.float64).sum()).tobytes())
+    return h.hexdigest()
+
+
+def _fit_state_tree(state: TrainState) -> dict:
+    """The resumable state as one JAX-layout tree: parameters, buffers,
+    each trained parameter's optimizer state under its own path, and
+    the step count."""
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    params, buffers = convert.to_jax(state.model)
+    opt = {f"{names[id(p)].replace('.', '/')}/{k}": v
+           for p, s in state.optimizer.state.items() for k, v in s.items()}
+    return {"params": params, "state": buffers,
+            "opt": convert.unflatten(opt), "step": np.int64(state.step)}
+
+
+def _load_fit_state(state: TrainState, tree: dict) -> None:
+    """Load `_fit_state_tree`'s tree into `state` in place, onto the
+    model's device (the optimizer's own load_state_dict places its
+    moments)."""
+    state.model.load_state_dict(convert.from_jax(tree["params"],
+                                                 tree.get("state")))
+    named = dict(state.model.named_parameters())
+    order = {id(p): i for i, p in enumerate(
+        p for g in state.optimizer.param_groups for p in g["params"])}
+    per_param: dict[int, dict] = {}
+    for path, v in convert.flatten(tree.get("opt", {})).items():
+        name, key = path.rsplit("/", 1)
+        p = named.get(name.replace("/", "."))
+        if p is None or id(p) not in order:
+            raise ValueError(f"checkpoint holds optimizer state for "
+                             f"{name!r}, which this optimizer does not "
+                             f"train")
+        per_param.setdefault(order[id(p)], {})[key] = torch.from_numpy(
+            np.array(v))
+    sd = state.optimizer.state_dict()
+    sd["state"] = per_param
+    state.optimizer.load_state_dict(sd)
+    state.step = int(tree["step"])
+
+
+def _save_fit_checkpoint(ckpt_dir, state: TrainState, history: History,
+                         next_epoch: int, fingerprint: str) -> None:
+    """Commit protocol: the epoch-versioned state lands first, then
+    meta.json is atomically renamed to point at it, then older states are
+    pruned. A crash between the two leaves meta pointing at the previous
+    consistent (state, epoch) pair, so a resume retrains at most the one
+    interrupted epoch."""
+    d = Path(ckpt_dir)
+    name = f"state_e{next_epoch}"
+    checkpoint.save_checkpoint(d / name, _fit_state_tree(state))
+    tmp = d / "meta.json.tmp"
+    tmp.write_text(json.dumps({"epoch": next_epoch, "state": name,
+                               "fingerprint": fingerprint,
+                               "history": history}))
+    tmp.replace(d / "meta.json")
+    for old in d.glob("state_e*"):
+        if old.name != name:
+            shutil.rmtree(old, ignore_errors=True)
+
+
+def _restore_fit_checkpoint(ckpt_dir, state: TrainState, epochs: int,
+                            fingerprint: str
+                            ) -> tuple[History, int] | None:
+    """Load the committed state into `state` and return (history,
+    epoch), or None when there is nothing of this run to resume."""
+    d = Path(ckpt_dir)
+    meta = d / "meta.json"
+    if not meta.exists():
+        return None
+    info = json.loads(meta.read_text())
+    if info.get("fingerprint") != fingerprint:
+        warnings.warn(
+            f"checkpoint {d} belongs to a different run (seed/batch/"
+            f"repeats or starting parameters changed); ignoring it and "
+            f"training from scratch", stacklevel=3)
+        return None
+    epoch = int(info["epoch"])
+    if epoch > epochs:
+        raise ValueError(
+            f"checkpoint {d} was trained for {epoch} epochs but this run "
+            f"asks for {epochs}; refusing to silently return the longer "
+            f"run -- delete the checkpoint dir or raise --epochs")
+    state_dir = d / info.get("state", "state")
+    if not checkpoint.checkpoint_exists(state_dir):
+        return None
+    _load_fit_state(state, checkpoint.restore_checkpoint(state_dir))
+    return dict(info["history"]), epoch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,6 +308,11 @@ class TwoPhaseResult:
 _FREEZE_ALL = 10_000  # larger than any Keras layer index
 
 
+def _phase_dir(checkpoint_dir, phase: int) -> Path | None:
+    return (None if checkpoint_dir is None
+            else Path(checkpoint_dir) / f"phase{phase}")
+
+
 def _build_model(spec: registry.ModelSpec, num_outputs: int,
                  bn_frozen_below: int, build_kwargs: dict) -> nn.Module:
     """Build with the BN-freeze setting where the model has BNs (VGG16
@@ -184,6 +328,8 @@ def two_phase_fit(model_name: str, num_outputs: int, train_ds: ArrayDataset,
                   loss_fn=None,
                   build_kwargs: dict | None = None,
                   pretrained_weights: str | None = None,
+                  checkpoint_dir: str | Path | None = None,
+                  checkpoint_every: int = 1,
                   logger=None, device=None) -> TwoPhaseResult:
     """The reference's two-phase transfer-learning program.
 
@@ -193,8 +339,9 @@ def two_phase_fit(model_name: str, num_outputs: int, train_ds: ArrayDataset,
     with seed + 1 -- on cached frozen-prefix features with
     ``config.cache_features`` where the model splits. `build_kwargs` go
     to the model constructor (``registry.FUSED_BUILD_KWARGS[name]``
-    selects the fused depthwise kernel). `device` is CUDA unless "cpu"
-    is asked for."""
+    selects the fused depthwise kernel). `checkpoint_dir` makes both
+    phases resumable at epoch granularity (``phase1/`` and ``phase2/``
+    under it; `fit`). `device` is CUDA unless "cpu" is asked for."""
     device = resolve_device(device)
     if loss_fn is None:
         loss_fn = (losses.binary_cross_entropy if num_outputs == 1
@@ -226,7 +373,9 @@ def two_phase_fit(model_name: str, num_outputs: int, train_ds: ArrayDataset,
         history = fit(state1, loss_fn, train_ds, val_ds,
                       epochs=config.epochs, batch_size=config.batch_size,
                       seed=config.seed, repeats=config.repeats,
-                      logger=logger)
+                      logger=logger,
+                      checkpoint_dir=_phase_dir(checkpoint_dir, 1),
+                      checkpoint_every=checkpoint_every)
 
     # Phase 2: "recompile" = a fresh optimizer (and moments) at lr/10 with
     # the fine-tune mask; BN below fine_tune_at stays in inference mode
@@ -248,7 +397,9 @@ def two_phase_fit(model_name: str, num_outputs: int, train_ds: ArrayDataset,
         if plan is not None:
             state2, history_fine = _fit_cached_phase2(
                 plan, spec, model2, train_ds, val_ds, config, fine_tune_at,
-                loss_fn, total_epochs, logger)
+                loss_fn, total_epochs, logger,
+                checkpoint_dir=_phase_dir(checkpoint_dir, 2),
+                checkpoint_every=checkpoint_every)
         else:
             state2 = TrainState(model2, rmsprop(
                 model2, config.lr / 10.0,
@@ -258,7 +409,9 @@ def two_phase_fit(model_name: str, num_outputs: int, train_ds: ArrayDataset,
                                batch_size=config.batch_size,
                                initial_epoch=config.epochs,
                                seed=config.seed + 1,
-                               repeats=config.repeats, logger=logger)
+                               repeats=config.repeats, logger=logger,
+                               checkpoint_dir=_phase_dir(checkpoint_dir, 2),
+                               checkpoint_every=checkpoint_every)
     print(history)
     print(history_fine)
     return TwoPhaseResult(
@@ -271,7 +424,9 @@ def two_phase_fit(model_name: str, num_outputs: int, train_ds: ArrayDataset,
 def _fit_cached_phase2(plan, spec: registry.ModelSpec, model: nn.Module,
                        train_ds: ArrayDataset, val_ds: ArrayDataset | None,
                        config: TwoPhaseConfig, fine_tune_at: int, loss_fn,
-                       total_epochs: int, logger
+                       total_epochs: int, logger,
+                       checkpoint_dir: Path | None = None,
+                       checkpoint_every: int = 1
                        ) -> tuple[TrainState, History]:
     """Phase 2 on cached frozen-prefix features: run the prefix once over
     train and val, then fit the suffix model (which trains `model`'s own
@@ -294,7 +449,9 @@ def _fit_cached_phase2(plan, spec: registry.ModelSpec, model: nn.Module,
     history_fine = fit(sstate, loss_fn, feat_train, feat_val,
                        epochs=total_epochs, batch_size=config.batch_size,
                        initial_epoch=config.epochs, seed=config.seed + 1,
-                       repeats=config.repeats, logger=logger)
+                       repeats=config.repeats, logger=logger,
+                       checkpoint_dir=checkpoint_dir,
+                       checkpoint_every=checkpoint_every)
     full = TrainState(model, rmsprop(
         model, config.lr / 10.0,
         trainable_mask=spec.fine_tune_mask(model, fine_tune_at)),

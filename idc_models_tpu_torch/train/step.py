@@ -18,13 +18,16 @@ LossFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 def make_train_step(state: TrainState, loss_fn: LossFn):
     """Returns train_step(images, labels) -> metrics (device scalars),
     updating the model's parameters and BN statistics and the optimizer's
-    moments in place, and counting the step in ``state.step``."""
+    moments in place, and counting the step in ``state.step``. The loss
+    runs in the logits' precision, at least f32 (a float64 model keeps
+    float64 through the loss and its gradient)."""
     model, optimizer = state.model, state.optimizer
 
     def train_step(images, labels):
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        logits = model(images).float()
+        logits = model(images)
+        logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
         loss = loss_fn(logits, labels)
         loss.backward()
         optimizer.step()

@@ -645,3 +645,137 @@ def test_cached_features_give_the_uncached_logits_on_the_card(cuda, name,
     got = predict(plan.suffix_model, feats.images, batch_size=8)
     torch.testing.assert_close(torch.from_numpy(got), torch.from_numpy(want),
                                rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the federated path (fed): checkpoints, the FedAvg round, the driver
+# ---------------------------------------------------------------------------
+
+def _fed_model():
+    """Dropout-free, as the CPU parity tests hold the round."""
+    return core.init_params(core.Sequential(
+        [core.Conv2d(3, 4, 3, name="c1"), core.ReLU(),
+         core.MaxPool(2, name="pool"), core.Flatten(),
+         core.Dense(100, 1, name="head")], name="seq"), 0)
+
+
+def _fed_data(gen, n_clients=4, shard=16):
+    imgs = torch.rand(n_clients, shard, 10, 10, 3, generator=gen)
+    labels = (torch.rand(n_clients, shard, generator=gen) > 0.5).int()
+    return imgs, labels
+
+
+def test_checkpoint_moves_between_card_and_cpu(cuda, tmp_path):
+    """A checkpoint saved from the card restores onto the CPU and one
+    saved from the CPU onto the card, bit for bit, on the target's
+    device."""
+    from idc_models_tpu_torch.train.checkpoint import (
+        restore_checkpoint, save_checkpoint,
+    )
+
+    model = _fed_model()
+    server = ServerState.of(model.cuda(), round=4)
+    save_checkpoint(tmp_path / "card", server.tree())
+    on_cpu = ServerState.from_tree(restore_checkpoint(
+        tmp_path / "card", server.to("cpu").tree()))
+    assert on_cpu.round == 4
+    for k, v in server.params.items():
+        assert on_cpu.params[k].device.type == "cpu"
+        assert torch.equal(on_cpu.params[k], v.cpu()), k
+    save_checkpoint(tmp_path / "cpu", on_cpu.tree())
+    back = ServerState.from_tree(restore_checkpoint(tmp_path / "cpu",
+                                                    server.tree()))
+    for k, v in server.params.items():
+        assert back.params[k].is_cuda and torch.equal(back.params[k], v), k
+
+
+@pytest.mark.parametrize("aggregator,spec", [("mean", None),
+                                             ("trimmed_mean", "nan:1"),
+                                             ("median", "sign_flip:2:x5")])
+def test_fedavg_round_on_the_card_matches_the_cpu(cuda, aggregator, spec):
+    """One round from the same weights, full-shard local steps, on the
+    card and on the CPU: each aggregate tensor within 1e-4 (1 + max |w|)
+    and the same metrics. In float64: a client's first RMSprop step has
+    slope lr / 1e-7 at a zero gradient, which would amplify the two
+    devices' f32 summation-order differences past any such bar."""
+    from idc_models_tpu_torch import faults as tfaults
+    from idc_models_tpu_torch.federated.fedavg import make_fedavg_round
+
+    imgs, labels = _fed_data(torch.Generator().manual_seed(3))
+    imgs = imgs.double()
+    weights = torch.tensor([16.0, 12.0, 16.0, 8.0])
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = _fed_model().double()
+        plan = tfaults.parse_fault_spec(spec, 4) if spec else None
+        rnd = make_fedavg_round(model, 1e-3, binary_cross_entropy,
+                                batch_size=16, aggregator=aggregator,
+                                faults=plan, device=device)
+        server = ServerState.of(model)
+        out[device] = rnd(server, imgs.to(device), labels.to(device),
+                          weights, (0, 0, 0))
+    (card, cm), (cpu, pm) = out["cuda"], out["cpu"]
+    for k, want in cpu.params.items():
+        err = float((card.params[k].cpu() - want).abs().max())
+        assert err <= 1e-4 * (1 + float(want.abs().max())), k
+    assert cm.keys() == pm.keys()
+    for k in cm:
+        assert abs(cm[k] - pm[k]) <= 1e-4 * (1 + abs(pm[k])), k
+
+
+def test_run_rounds_on_the_card_retries_a_round_over_its_timeout(cuda):
+    """Round 1's first attempt leaves a kernel that sleeps on the card
+    after the round returns: the driver's synchronize puts it inside the
+    round's wall time, past the budget, and the round retries on a
+    reseeded subset; the driver's first attempt is exempt."""
+    from idc_models_tpu_torch.federated import (
+        DriverConfig, make_fedavg_round, run_rounds,
+    )
+
+    imgs, labels = _fed_data(torch.Generator().manual_seed(4))
+    imgs, labels = imgs.cuda(), labels.cuda()
+    model = _fed_model()
+    rnd = make_fedavg_round(model, 1e-3, binary_cross_entropy,
+                            batch_size=16, device="cuda")
+    calls = []
+
+    def slow_once(server, images, labels, weights, key):
+        new, m = rnd(server, images, labels, weights, key)
+        calls.append(key)
+        if key[1:] == (1, 0):
+            torch.cuda._sleep(2_000_000_000)     # about a second
+        return new, m
+
+    res = run_rounds(slow_once, ServerState.of(model.cuda()), imgs, labels,
+                     torch.full((4,), 16.0),
+                     config=DriverConfig(rounds=3, timeout_s=0.5), seed=1)
+    assert [(e["round"], e["attempt"], e["status"]) for e in res.events] == [
+        (0, 0, "ok"), (1, 0, "timeout"), (1, 1, "ok"), (2, 0, "ok")]
+    assert res.events[1]["seconds"] > 0.5
+    assert res.events[2]["participants"] < 4
+    assert res.server.round == 3
+
+
+def test_trimmed_mean_ranks_ties_by_client_on_the_card(cuda):
+    """A frozen leaf (every client the server's value) beside a trained
+    one with two attackers, at a size where the card sorts in parallel:
+    the card's trimmed mean and clients_trimmed equal the CPU's (ties
+    rank by client index, as JAX's stable argsort ranks them)."""
+    from idc_models_tpu_torch.federated import robust
+
+    gen = torch.Generator().manual_seed(5)
+    server = {"frozen": torch.randn(300_000, generator=gen),
+              "w": torch.randn(50_000, generator=gen)}
+    upd = {"frozen": server["frozen"].repeat(10, 1),
+           "w": server["w"] + 0.1 * torch.randn(10, 50_000, generator=gen)}
+    upd["w"][:2] += 1000.0
+    weight = torch.ones(10)
+    agg = robust.TrimmedMean(2)
+    want, wm = agg(upd, weight, server)
+    got, gm = agg({k: v.cuda() for k, v in upd.items()}, weight.cuda(),
+                  {k: v.cuda() for k, v in server.items()})
+    assert {k: float(v) for k, v in gm.items()} == {
+        k: float(v) for k, v in wm.items()}
+    for k in server:
+        torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-6,
+                                   atol=1e-6)

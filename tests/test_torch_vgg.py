@@ -168,7 +168,8 @@ def test_cli_vgg_runs_two_phases_and_saves_the_jax_layout(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--central-storage"], "A1-rest"), (["--resumable"], "A1-rest"),
+    (["--central-storage"], "A1-rest"), (["--decode-workers", "2"],
+                                          "A1-rest"),
     (["--stream"], "A1-rest"), (["--model-parallel", "2"], "A4"),
 ])
 def test_cli_refuses_unported_flags_naming_the_item(argv, match):
