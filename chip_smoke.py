@@ -113,6 +113,23 @@ non-zero before the result line:
    held (RMSprop's first step amplifies f32 rounding 1000x); host ms of
    a round (mean and trimmed mean, in turns), its device busy, idle
    share, kernels and peak memory, and the pretraining epoch's seconds;
+8. population -- (h) `fed --population` at the fed preset's width
+   (VGG16, 50x50, batch 32, clients at lr 1e-4 with every layer
+   training): 10,000 virtual clients, cohort 32, 16 examples a client,
+   each path with every launch count set to 0 just before it and read
+   just after (none may launch): (h1) sync in 4 waves of 8 for 3 rounds
+   (finite metrics, 4 waves a round, three fed_cohort records with the
+   frozen keys), then a restart at 4 rounds that runs round 3 alone;
+   (h2) the same argv with `--async-buffer 8` (at least one buffered
+   update a round, the mean staleness printed); (h4) a small-CNN
+   straggler drill, `--fault-delay-ms 250`, sync against async (the
+   sync round holding the straggler lasts at least its 0.5 s barrier);
+   then (h3) one wave against `make_fedavg_round` on the materialized
+   cohort, bit for bit (cuDNN deterministic, TF32 off), and 4 waves
+   within rtol 2e-5, atol 2e-6 of 1 wave; (h5) a round's peak memory at
+   population 10,000 and 1,000,000, which must not grow; host ms of a
+   round (1 wave, 4 waves, async; in turns), device busy, idle share,
+   kernels and peak memory;
 
 then one JSON line of per-kernel numbers, and the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}`.
@@ -2314,6 +2331,247 @@ def fed_round_times(torch, card: str) -> None:
             f"{profiled(torch, calls[k], n=2)}; {card}")
 
 
+# ---------------------------------------------------------------------------
+# the population path: `fed --population` (virtual clients, streamed
+# waves, the buffered async server)
+# ---------------------------------------------------------------------------
+
+# the fed preset's width (VGG16, 50x50, batch 32, clients at lr 1e-4, 1
+# local epoch) over virtual clients, every layer training, cut in
+# population and rounds
+POP, POP_BIG, COHORT, WAVE, POP_EXAMPLES, POP_ROUNDS = (
+    10_000, 1_000_000, 32, 8, 16, 3)
+POP_CUTS = (
+    f"--population {POP} (and {POP_BIG} for the memory check), --cohort "
+    f"{COHORT}, --client-examples {POP_EXAMPLES}: one step of "
+    f"{POP_EXAMPLES} a client at batch 32",
+    f"--rounds {POP_ROUNDS} (the preset's 10), then a restart at "
+    f"{POP_ROUNDS + 1}",
+)
+FED_COHORT_KEYS = {
+    "sync": {"ts", "event", "round", "mode", "population", "cohort",
+             "participants", "waves", "wave_size"},
+    "async": {"ts", "event", "round", "mode", "population", "cohort",
+              "participants", "buffer", "updates", "staleness_mean",
+              "staleness_max", "staleness_hist"},
+}
+
+
+def population_checks(recs: list[dict], mode: str, rounds: list[int]):
+    """The run's round, round_health and fed_cohort records: one each a
+    round, finite metrics, every cohort member healthy, the frozen
+    fed_cohort keys."""
+    got = {e: [r for r in recs if r["event"] == e]
+           for e in ("round", "round_health", "fed_cohort")}
+    for e, rs in got.items():
+        if [r["round"] for r in rs] != rounds:
+            raise SystemExit(f"population {mode}: {e} records {rs}")
+    for r in got["round"]:
+        if not all(math.isfinite(r[k]) for k in (
+                "train_loss", "train_acc", "test_loss", "test_acc")):
+            raise SystemExit(f"population {mode}: non-finite {r}")
+    if any(h["status"] != "ok" or h["participants"] != COHORT
+           for h in got["round_health"]):
+        raise SystemExit(f"population {mode}: {got['round_health']}")
+    for c in got["fed_cohort"]:
+        if set(c) != FED_COHORT_KEYS[mode] or c["mode"] != mode:
+            raise SystemExit(f"population {mode}: fed_cohort {c}")
+    return got
+
+
+def population_path(torch, fc, smk, fbk, card: str) -> None:
+    """(h1) sync and its restart, (h2) async, (h4) the straggler drill,
+    each through `cli.main(["fed", "--population", ...])` with every
+    launch count held at 0; then (h3), (h5) and the round times."""
+    from idc_models_tpu_torch.federated import ClientPopulation, CohortSampler
+
+    tf32_off(torch)
+    for cut in POP_CUTS:
+        log(f"population cut: {cut}")
+    base = ["fed", "--population", str(POP), "--cohort", str(COHORT),
+            "--client-examples", str(POP_EXAMPLES), "--seed", "0"]
+    with tempfile.TemporaryDirectory() as tmp:
+        run = Path(tmp) / "sync"
+        argv = base + ["--cohort-wave", str(WAVE), "--path", str(run)]
+        out, seconds = fed_run(torch, fc, smk, fbk,
+                               argv + ["--rounds", str(POP_ROUNDS)])
+        got = population_checks(fed_records(run), "sync",
+                                list(range(POP_ROUNDS)))
+        want = (f"population: {POP} virtual clients, cohort {COHORT} "
+                f"(uniform) in {COHORT // WAVE} wave(s) of {WAVE}")
+        if want not in out or any(c["waves"] != COHORT // WAVE
+                                  for c in got["fed_cohort"]):
+            raise SystemExit(f"population sync: {got['fed_cohort']}")
+        log(f"population sync: cli.main({' '.join(argv[:-2])} --rounds "
+            f"{POP_ROUNDS}) in {seconds!r} s; rounds (train_loss, "
+            f"train_acc, test_loss, test_acc) "
+            f"{[(r['train_loss'], r['train_acc'], r['test_loss'], r['test_acc']) for r in got['round']]}; "
+            f"{COHORT // WAVE} waves a round, fed_cohort keys frozen; the "
+            f"driver's round seconds (a synchronize ends each) "
+            f"{[h['seconds'] for h in got['round_health']]!r}; hand "
+            f"kernel launches 0; TF32 off; {card}")
+        out, seconds = fed_run(torch, fc, smk, fbk,
+                               argv + ["--rounds", str(POP_ROUNDS + 1)])
+        population_checks(fed_records(run), "sync",
+                          list(range(POP_ROUNDS + 1)))
+        printed = [x.split(",")[0] for x in out.splitlines()
+                   if x[:1].isdigit() and x.count(",") == 4]
+        if (f"resuming federated training from round {POP_ROUNDS}"
+                not in out or printed != [str(POP_ROUNDS)]):
+            raise SystemExit(f"population restart ran rounds {printed}")
+        log(f"population restart: --rounds {POP_ROUNDS + 1} resumed from "
+            f"round {POP_ROUNDS}, drew its cohort again and ran it alone "
+            f"in {seconds!r} s (one round and one fed_cohort record "
+            f"appended)")
+
+        run = Path(tmp) / "async"
+        argv = base + ["--async-buffer", str(WAVE), "--rounds",
+                       str(POP_ROUNDS), "--path", str(run)]
+        out, seconds = fed_run(torch, fc, smk, fbk, argv)
+        got = population_checks(fed_records(run), "async",
+                                list(range(POP_ROUNDS)))
+        line = [x for x in out.splitlines() if x.startswith("async buffer")]
+        if not line or any(c["updates"] < 1 for c in got["fed_cohort"]):
+            raise SystemExit(f"population async: {got['fed_cohort']}")
+        log(f"population async: cli.main({' '.join(argv[:-2])}) in "
+            f"{seconds!r} s; rounds "
+            f"{[(r['train_loss'], r['test_loss'], r['test_acc']) for r in got['round']]}; "
+            f"updates a round {[c['updates'] for c in got['fed_cohort']]}, "
+            f"staleness histograms "
+            f"{[c['staleness_hist'] for c in got['fed_cohort']]}; "
+            f"'{line[0]}'; the driver's round seconds "
+            f"{[h['seconds'] for h in got['round_health']]!r}; {card}")
+
+        # (h4) one straggler of lag 2 in the sync run's round-0 cohort and
+        # one at the head of the async dispatch stream
+        small = ClientPopulation(POP, examples_per_client=POP_EXAMPLES,
+                                 seed=0)
+        lag = [int(CohortSampler(small, COHORT).cohort(0)[0]),
+               CohortSampler(small, COHORT).client_at(0)]
+        drill = base + ["--model", "small_cnn", "--rounds", "2",
+                        "--fault-delay-ms", "250", "--faults",
+                        f"straggler:*:2@c{lag[0]},c{lag[1]}"]
+        walls = {}
+        for mode, extra in (("sync", ["--cohort-wave", str(WAVE)]),
+                            ("async", ["--async-buffer", str(WAVE)])):
+            d = Path(tmp) / f"drill_{mode}"
+            fed_run(torch, fc, smk, fbk, drill + extra + ["--path", str(d)])
+            walls[mode] = [h["seconds"] for h in population_checks(
+                fed_records(d), mode, [0, 1])["round_health"]]
+        if not walls["sync"][0] >= 0.5:
+            raise SystemExit(f"population drill: the sync round holding "
+                             f"the straggler took {walls['sync'][0]} s, "
+                             f"under its 0.5 s barrier")
+        log(f"population drill (small CNN, straggler:*:2@c{lag[0]},"
+            f"c{lag[1]}, --fault-delay-ms 250): round seconds sync "
+            f"{walls['sync']!r} (round 0 waits its 0.5 s barrier) against "
+            f"async {walls['async']!r} (a late arrival reorders the "
+            f"buffer, nothing waits); {card}")
+    population_rounds(torch, card)
+
+
+def population_round_fns(torch, population: int = POP):
+    """VGG16 at the fed preset's width (all layers, lr 1e-4, batch 32)
+    over `population` virtual clients: the server and the sync round in 1
+    and in 4 waves, the async round (K = 8) and the one-shot round, all
+    on the card."""
+    from idc_models_tpu_torch.federated import (
+        ClientPopulation, CohortSampler, ServerState, make_async_round,
+        make_fedavg_round, make_population_round,
+    )
+    from idc_models_tpu_torch.models import core, vgg
+    from idc_models_tpu_torch.train.losses import binary_cross_entropy
+
+    pop = ClientPopulation(population, examples_per_client=POP_EXAMPLES,
+                           image_size=50)
+    sampler = CohortSampler(pop, COHORT)
+    model = core.init_params(vgg.vgg16(1), 0).cuda()
+    kw = dict(batch_size=32, device="cuda")
+    fns = {"1 wave": make_population_round(
+               model, 1e-4, binary_cross_entropy, pop, sampler,
+               wave_size=COHORT, **kw),
+           "4 waves": make_population_round(
+               model, 1e-4, binary_cross_entropy, pop, sampler,
+               wave_size=WAVE, **kw),
+           "async": make_async_round(
+               model, 1e-4, binary_cross_entropy, pop, sampler,
+               buffer_size=WAVE, **kw),
+           "one-shot": make_fedavg_round(model, 1e-4, binary_cross_entropy,
+                                         **kw)}
+    return pop, sampler, ServerState.of(model), fns
+
+
+def population_rounds(torch, card: str) -> None:
+    """(h3) one wave against the one-shot round and 4 waves against 1;
+    (h5) peak memory at two population sizes; round times."""
+    # no atomics in cuDNN's weight gradients: two programs on the same
+    # inputs agree bit for bit
+    torch.backends.cudnn.deterministic = True
+    pop, sampler, server, fns = population_round_fns(torch)
+    imgs, labels, w = pop.materialize(sampler.cohort(0))
+    imgs = torch.as_tensor(imgs, device="cuda")
+    labels = torch.as_tensor(labels, device="cuda")
+    key = (1, 0, 0)
+    one, m1 = fns["one-shot"](server, imgs, labels, w, key)
+    wave, mw = fns["1 wave"](server, None, None, None, key, round_idx=0)
+    four, m4 = fns["4 waves"](server, None, None, None, key, round_idx=0)
+    same = all(torch.equal(one.params[k], wave.params[k])
+               for k in one.params) and m1["loss"] == mw["loss"]
+    worst = max(float(((four.params[k] - wave.params[k]).abs()
+                       / (2e-6 + 2e-5 * wave.params[k].abs())).max())
+                for k in wave.params)
+    log(f"population on the card (VGG16, {COHORT} clients x "
+        f"{POP_EXAMPLES} patches, cuDNN deterministic, TF32 off): one wave "
+        f"equals make_fedavg_round on the materialized cohort bit for bit: "
+        f"{same} (loss {mw['loss']!r} against {m1['loss']!r}); 4 waves "
+        f"against 1: the largest |diff| / (2e-6 + 2e-5 |w|) is {worst!r} "
+        f"(must be <= 1); {card}")
+    if not same or not worst <= 1.0:
+        raise SystemExit("population round on the card: one wave differs "
+                         "from the one-shot round, or 4 waves from 1")
+    torch.backends.cudnn.deterministic = False
+    del one, wave, four, imgs, labels
+
+    peaks = {}
+    for size in (POP, POP_BIG):
+        _, _, srv, big = population_round_fns(torch, size)
+        call = big["4 waves"]
+        call(srv, None, None, None, key, round_idx=0)        # warm-up
+        peaks[size] = peak_mb(torch, lambda: call(
+            srv, None, None, None, key, round_idx=1))
+        del srv, big
+    grown = peaks[POP_BIG] - peaks[POP]
+    log(f"population memory: one 4-wave round's peak above the server "
+        f"weights, {peaks[POP]!r} MB at population {POP} and "
+        f"{peaks[POP_BIG]!r} MB at {POP_BIG} (same cohort {COHORT}); "
+        f"{card}")
+    if grown > max(0.01 * peaks[POP], 16.0):
+        raise SystemExit(f"population memory grew {grown} MB with the "
+                         f"population")
+
+    _, _, server, fns = population_round_fns(torch)
+    r = {"i": 0}
+
+    def call(name):
+        def go():
+            r["i"] += 1
+            fns[name](server, None, None, None, (1, r["i"], 0),
+                      round_idx=r["i"])
+        return go
+
+    names = ["1 wave", "4 waves", "async"]
+    ms = {k: [] for k in names}
+    for k in names + names[::-1]:
+        ms[k].append(host_ms(torch, call(k), n=2, warmup=1))
+    for k in names:
+        log(f"time population round ({k}, VGG16 50x50, {COHORT} clients x "
+            f"1 step of {POP_EXAMPLES}, every layer training, population "
+            f"{POP}): host {ms[k]!r} ms a round (in turns, a synchronize "
+            f"ends each); peak memory {peak_mb(torch, call(k))!r} MB above "
+            f"the server weights; TF32 off; {profiled(torch, call(k), n=2)};"
+            f" {card}")
+
+
 def main() -> int:
     if not (REPO / "idc_models_tpu_torch" / "ops" / "csrc").is_dir():
         raise SystemExit("chip_smoke.py must run from a checkout of the "
@@ -2370,6 +2628,7 @@ def main() -> int:
     vgg_path(torch, fc, smk, fbk, card)
     dense_path(torch, fc, smk, fbk, card)
     fed_path(torch, fc, smk, fbk, card)
+    population_path(torch, fc, smk, fbk, card)
     secure = secure_path(torch, fc, smk, card)
     aggregate_three_ways(torch, smk)
     mobilenet_round(torch, fc, smk, card)

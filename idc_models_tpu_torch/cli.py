@@ -42,7 +42,15 @@ under the self-healing round driver (``federated/driver.py``), with
 ``--faults`` injection and a robust ``--aggregator``; the server state is
 checkpointed to ``<path>/fed_server`` and resumed from it. Each round
 prints ``round, train_loss, train_acc, test_loss, test_acc`` and, with
---path, logs ``round`` and ``round_health`` records.
+--path, logs ``round`` and ``round_health`` records. ``--population N``
+trains N virtual clients instead (``federated/population.py``): no
+pretraining, every layer at lr/10, a ``--cohort`` sampled each round and
+streamed in ``--cohort-wave`` waves, or the buffered async server with
+``--async-buffer K`` (``federated/async_fedavg.py``); each round also
+logs a ``fed_cohort`` record.
+
+    python -m idc_models_tpu_torch fed --population 10000 --cohort 32 \\
+        --cohort-wave 8 --client-examples 16 --path runs/pop
 
 ``secure-fed`` runs secure-aggregation FedAvg with the ``secure_fed``
 preset (the small CNN on 10x10 patches, 8 clients, 5 local epochs, half
@@ -180,11 +188,53 @@ def _parse(argv):
                          "exceeds this multiple of the last good round's "
                          "is rolled back (0 disables)")
     sp.add_argument("--population", type=int, default=0,
-                    help="rejected above 0: population mode is not "
-                         "ported yet (ROADMAP A5-rest)")
+                    help="population mode: train over N VIRTUAL clients "
+                         "(federated/population.py) whose shards derive "
+                         "lazily from (seed, id); memory is bounded by "
+                         "the wave, not N. 0 = classic materialized "
+                         "mode. Skips the pretrain phase; --faults then "
+                         "takes the population grammar "
+                         "(kind:rounds[:param][@c<id>,...], fractions "
+                         "like crash:2:0.1%%)")
+    sp.add_argument("--cohort", type=int, default=32,
+                    help="clients sampled per round in population mode "
+                         "(deterministic per (seed, round))")
+    sp.add_argument("--cohort-wave", type=int, default=0,
+                    help="streamed-aggregation wave size (must divide "
+                         "the cohort; 0 = one wave per cohort). Server "
+                         "memory is O(wave), constant in population "
+                         "and cohort size")
+    sp.add_argument("--weighted-sampling", action="store_true",
+                    help="sample cohorts in proportion to each virtual "
+                         "client's (seeded) dataset-size weight instead "
+                         "of uniformly")
+    sp.add_argument("--client-examples", type=int, default=16,
+                    help="examples per virtual client shard in "
+                         "population mode")
     sp.add_argument("--async-buffer", type=int, default=0,
-                    help="rejected above 0: buffered-async FedAvg is not "
-                         "ported yet (ROADMAP A5-rest)")
+                    help="population mode: buffered-async FedAvg "
+                         "(FedBuff): client completions fill a buffer "
+                         "of this size, and each full buffer makes one "
+                         "staleness-weighted server update instead of "
+                         "a round barrier. 0 = synchronous streamed "
+                         "rounds")
+    sp.add_argument("--staleness-decay", type=float, default=0.9,
+                    help="async mode: per-version weight discount for "
+                         "stale updates (weight x decay^staleness), in "
+                         "(0, 1]; 1 = no discount")
+    sp.add_argument("--model", default=None,
+                    choices=("vgg16", "mobilenet_v2", "densenet201",
+                             "small_cnn"),
+                    help="population mode: override the preset model "
+                         "(small_cnn = 10x10 population drills; classic "
+                         "mode keeps the preset's backbone)")
+    sp.add_argument("--fault-delay-ms", type=float, default=0.0,
+                    help="population mode: wall-clock delay per "
+                         "straggler staleness unit (lag k completes k x "
+                         "this late): arms the sync round's BARRIER "
+                         "sleep and the async arrival lag; 0 = "
+                         "stale-params-only stragglers (sync) / inert "
+                         "stragglers (async)")
 
     sp = sub.add_parser("secure-fed", aliases=["secure_fed"],
                         help="secure-aggregation FedAvg")
@@ -384,8 +434,6 @@ def _run_fed(ns):
     partition the data into train and test clients, and run the rounds
     under the self-healing driver, checkpointing and resuming the server
     state."""
-    import json
-
     import numpy as np
     import torch
 
@@ -397,12 +445,11 @@ def _run_fed(ns):
         partition_clients, train_test_client_split,
     )
     from idc_models_tpu_torch.federated import (
-        DriverConfig, RoundFailure, ServerState, get_aggregator,
-        initialize_server, make_fedavg_round, make_federated_eval,
-        run_rounds, seed_server_with,
+        ServerState, initialize_server, make_fedavg_round,
+        make_federated_eval, seed_server_with,
     )
     from idc_models_tpu_torch.models import registry
-    from idc_models_tpu_torch.observe import JsonlLogger, Timer
+    from idc_models_tpu_torch.observe import JsonlLogger
     from idc_models_tpu_torch.train import losses
     from idc_models_tpu_torch.train.checkpoint import (
         checkpoint_exists, restore_checkpoint, save_checkpoint,
@@ -414,10 +461,6 @@ def _run_fed(ns):
         sys.exit(f"--checkpoint-every {ns.checkpoint_every} must be "
                  f">= 1: saving every 0 rounds is never, and a crash "
                  f"then replays the whole run")
-    if ns.population or ns.async_buffer:
-        sys.exit("--population / --async-buffer: population and "
-                 "buffered-async FedAvg are not ported yet (ROADMAP "
-                 "A5-rest); the port runs the classic materialized rounds")
     spike = ns.loss_spike_ratio
     if spike != 0 and spike <= 1:
         # only the documented 0 disables; negatives and (0, 1] are
@@ -426,6 +469,8 @@ def _run_fed(ns):
         sys.exit(f"--loss-spike-ratio {spike} must be > 1 (a round is "
                  f"rolled back when its loss exceeds ratio x the last "
                  f"good loss; 0 disables the detector)")
+    if ns.population:
+        return _run_fed_population(ns, device)
     preset = _apply_overrides(
         get_preset("fed"), ns,
         ["batch_size", "lr", "rounds", "iid", "num_clients", "local_epochs",
@@ -492,95 +537,300 @@ def _run_fed(ns):
                                   pretrained.params, pretrained.state)
         # round-loop checkpoint/resume: the reference checkpoints only
         # the pretrainer; here the federated loop resumes too
-        server_ckpt = Path(ns.path) / "fed_server" if ns.path else None
-        resumed = False
-        if server_ckpt is not None and checkpoint_exists(server_ckpt):
-            server = ServerState.from_tree(
-                restore_checkpoint(server_ckpt, server.tree()))
-            print(f"resuming federated training from round {server.round}")
-            resumed = server.round > 0
+        server, server_ckpt, resumed = _restore_fed_server(server, ns)
         plan = None
         if ns.faults:
             plan = faults_lib.parse_fault_spec(ns.faults, n_clients)
             print(f"[idc_models_tpu_torch] injecting faults: {plan}",
                   file=sys.stderr)
-        agg_kw = ({"trim": ns.trim} if ns.aggregator == "trimmed_mean" else
-                  {"max_norm": ns.clip_norm}
-                  if ns.aggregator == "norm_clip" else {})
         round_fn = make_fedavg_round(
             model, preset.lr / 10.0, loss_fn,
             local_epochs=preset.local_epochs, batch_size=preset.batch_size,
-            trainable_mask=mask,
-            aggregator=get_aggregator(ns.aggregator, **agg_kw),
+            trainable_mask=mask, aggregator=_fed_aggregator(ns),
             faults=plan, device=device)
         eval_fn = make_federated_eval(model, loss_fn, device=device)
-        print("round, train_loss, train_acc, test_loss, test_acc")
         # A resume from an every-N checkpoint replays the rounds after
         # the last save (same keys). Replayed rounds print again but must
         # not append duplicate records to the append-only run.jsonl; a
         # fresh run pointed at a reused --path logs every round.
-        logged_through = -1
-        if resumed and logger is not None and logger.path.exists():
-            for line in logger.path.read_text().splitlines():
-                try:
-                    rec = json.loads(line)
-                except ValueError:
-                    continue
-                if rec.get("event") == "round":
-                    logged_through = max(logged_through, int(rec["round"]))
+        logged_through = _resume_marks(logger)[0] if resumed else -1
 
         def eval_round(sv):
             em = eval_fn(sv, imgs, labels, w_test)
             return {"test_loss": em["loss"], "test_acc": em["accuracy"]}
 
-        def print_round(entry):
-            print(f"{entry['round']}, {entry['loss']:.4f}, "
-                  f"{entry['accuracy']:.4f}, {entry['test_loss']:.4f}, "
-                  f"{entry['test_acc']:.4f}")
+        def warn_degenerate(entry):
             if entry.get("trim_degenerate"):
                 print(f"[idc_models_tpu_torch] round {entry['round']}: "
                       f"trimmed mean had NO kept band (live clients <= "
                       f"2*trim) -- the server state was left UNCHANGED "
                       f"this round; lower --trim or enroll more clients",
                       file=sys.stderr)
-            # the verb owns the `round` records (the driver logs only
-            # round_health), under their historical field names
-            if logger is not None and entry["round"] > logged_through:
-                logger.log(event="round", round=entry["round"],
-                           train_loss=entry["loss"],
-                           train_acc=entry["accuracy"],
-                           test_loss=entry["test_loss"],
-                           test_acc=entry["test_acc"],
-                           clients_dropped=int(
-                               entry.get("clients_dropped", 0)))
 
-        config = DriverConfig(
-            rounds=preset.rounds, timeout_s=ns.round_timeout,
-            max_attempts=1 + max(ns.max_round_retries, 0),
-            loss_spike_ratio=spike if spike > 1 else None,
-            checkpoint_path=server_ckpt,
-            checkpoint_every=ns.checkpoint_every)
-        try:
-            with Timer("Federated training", logger=logger):
-                result = run_rounds(
-                    round_fn, server, imgs, labels, w_train, config=config,
-                    seed=ns.seed + 1, eval_fn=eval_round,
-                    on_round=print_round, logger=logger, verbose=True,
-                    log_from_round=logged_through, log_round_records=False)
-        except RoundFailure as e:
-            sys.exit(f"[idc_models_tpu_torch] federated training aborted: "
-                     f"{e}")
+        result = _drive_fed(
+            ns, round_fn, server, imgs, labels, w_train,
+            rounds=preset.rounds, eval_round=eval_round, logger=logger,
+            server_ckpt=server_ckpt, logged_through=logged_through,
+            on_round=warn_degenerate)
         for entry in result.history:
             dropped = int(entry.get("clients_dropped", 0))
             if dropped:
                 print(f"[idc_models_tpu_torch] round {entry['round']}: "
                       f"dropped {dropped} client(s) with non-finite "
                       f"updates from the aggregate", file=sys.stderr)
-        retried = [e for e in result.events if e["status"] != "ok"]
-        if retried:
-            print(f"[idc_models_tpu_torch] {len(retried)} round attempt(s) "
-                  f"failed and were healed (rollback/reseed); see "
-                  f"round_health events", file=sys.stderr)
+    finally:
+        if logger is not None:
+            logger.close()
+
+
+def _fed_aggregator(ns):
+    """The --aggregator the fed verbs train with, built with its flag."""
+    from idc_models_tpu_torch.federated import get_aggregator
+
+    agg_kw = ({"trim": ns.trim} if ns.aggregator == "trimmed_mean" else
+              {"max_norm": ns.clip_norm}
+              if ns.aggregator == "norm_clip" else {})
+    return get_aggregator(ns.aggregator, **agg_kw)
+
+
+def _restore_fed_server(server, ns):
+    """(server, checkpoint path, resumed): the server state restored from
+    ``<path>/fed_server`` when a checkpoint is there, else `server`."""
+    from idc_models_tpu_torch.federated import ServerState
+    from idc_models_tpu_torch.train.checkpoint import (
+        checkpoint_exists, restore_checkpoint,
+    )
+
+    server_ckpt = Path(ns.path) / "fed_server" if ns.path else None
+    if server_ckpt is None or not checkpoint_exists(server_ckpt):
+        return server, server_ckpt, False
+    server = ServerState.from_tree(
+        restore_checkpoint(server_ckpt, server.tree()))
+    print(f"resuming federated training from round {server.round}")
+    return server, server_ckpt, server.round > 0
+
+
+def _drive_fed(ns, round_fn, server, images, labels, weights, *, rounds,
+               eval_round, logger, server_ckpt, logged_through, on_round):
+    """Run the fed verbs' rounds under the self-healing driver: print
+    each round and append its ``round`` record past `logged_through`,
+    call `on_round(entry)`, checkpoint the server, exit on a round that
+    could not be healed and report the healed attempts. Returns the
+    driver's result."""
+    from idc_models_tpu_torch.federated import (
+        DriverConfig, RoundFailure, run_rounds,
+    )
+    from idc_models_tpu_torch.observe import Timer
+
+    print("round, train_loss, train_acc, test_loss, test_acc")
+
+    def print_round(entry):
+        print(f"{entry['round']}, {entry['loss']:.4f}, "
+              f"{entry['accuracy']:.4f}, {entry['test_loss']:.4f}, "
+              f"{entry['test_acc']:.4f}")
+        on_round(entry)
+        # the verb owns the `round` records (the driver logs only
+        # round_health), under their historical field names
+        if logger is not None and entry["round"] > logged_through:
+            logger.log(event="round", round=entry["round"],
+                       train_loss=entry["loss"],
+                       train_acc=entry["accuracy"],
+                       test_loss=entry["test_loss"],
+                       test_acc=entry["test_acc"],
+                       clients_dropped=int(entry.get("clients_dropped", 0)))
+
+    spike = ns.loss_spike_ratio
+    config = DriverConfig(
+        rounds=rounds, timeout_s=ns.round_timeout,
+        max_attempts=1 + max(ns.max_round_retries, 0),
+        loss_spike_ratio=spike if spike > 1 else None,
+        checkpoint_path=server_ckpt,
+        checkpoint_every=ns.checkpoint_every)
+    try:
+        with Timer("Federated training", logger=logger):
+            result = run_rounds(
+                round_fn, server, images, labels, weights, config=config,
+                seed=ns.seed + 1, eval_fn=eval_round, on_round=print_round,
+                logger=logger, verbose=True, log_from_round=logged_through,
+                log_round_records=False)
+    except RoundFailure as e:
+        sys.exit(f"[idc_models_tpu_torch] federated training aborted: {e}")
+    retried = [e for e in result.events if e["status"] != "ok"]
+    if retried:
+        print(f"[idc_models_tpu_torch] {len(retried)} round attempt(s) "
+              f"failed and were healed (rollback/reseed); see "
+              f"round_health events", file=sys.stderr)
+    return result
+
+
+def _resume_marks(logger) -> tuple[int, int]:
+    """The last round of the run's ``round`` and ``fed_cohort`` records in
+    its jsonl, each -1 when none, so a resumed run appends neither twice.
+    Kept apart: fed_cohort is written inside the round and ``round``
+    after its evaluation, so a crash between them leaves them unequal."""
+    import json
+
+    marks = {"round": -1, "fed_cohort": -1}
+    if logger is None or not logger.path.exists():
+        return marks["round"], marks["fed_cohort"]
+    for line in logger.path.read_text().splitlines():
+        try:
+            rec = json.loads(line)
+        except ValueError:
+            continue
+        if rec.get("event") in marks:
+            marks[rec["event"]] = max(marks[rec["event"]], int(rec["round"]))
+    return marks["round"], marks["fed_cohort"]
+
+
+def _run_fed_population(ns, device):
+    """Population-scale FedAvg: virtual clients, a sampled cohort a
+    round, streamed waves (or the buffered async server), under the
+    self-healing driver with the server checkpointed to
+    ``<path>/fed_server``."""
+    import numpy as np
+    import torch
+
+    from idc_models_tpu_torch import faults as faults_lib
+    from idc_models_tpu_torch.configs import get_preset
+    from idc_models_tpu_torch.federated import (
+        ClientPopulation, CohortSampler, initialize_server, make_async_round,
+        make_federated_eval, make_population_round,
+    )
+    from idc_models_tpu_torch.models import registry
+    from idc_models_tpu_torch.observe import JsonlLogger
+    from idc_models_tpu_torch.train import losses
+
+    preset = _apply_overrides(
+        get_preset("fed"), ns, ["batch_size", "lr", "rounds", "local_epochs"])
+    n_pop = int(ns.population)
+    cohort = int(ns.cohort)
+    if cohort < 1:
+        sys.exit(f"--cohort must be >= 1, got {cohort}")
+    if cohort > n_pop:
+        sys.exit(f"--cohort {cohort} exceeds --population {n_pop}: a "
+                 f"round cannot sample more clients than the "
+                 f"population holds")
+    wave = int(ns.cohort_wave) or cohort
+    use_async = int(ns.async_buffer) != 0
+    if use_async and ns.async_buffer < 0:
+        sys.exit(f"--async-buffer must be >= 1 (0 disables async "
+                 f"mode), got {ns.async_buffer}")
+    if use_async and int(ns.cohort_wave):
+        sys.exit("--cohort-wave only applies to synchronous streamed "
+                 "rounds; the async server buffers by --async-buffer "
+                 "instead (drop one of the two flags)")
+    decay = float(ns.staleness_decay)
+    if not 0.0 < decay <= 1.0:
+        sys.exit(f"--staleness-decay must be in (0, 1], got {decay} "
+                 f"(1 = no discount; smaller discounts staler "
+                 f"updates harder)")
+    model_name = ns.model or preset.model
+    image_size = 10 if model_name == "small_cnn" else preset.image_size
+    s = int(ns.client_examples)
+    if s < 1:
+        sys.exit(f"--client-examples must be >= 1, got {s} (each "
+                 f"virtual client's shard size)")
+    weight_range = ((0.5 * s, 1.5 * s) if ns.weighted_sampling
+                    else (float(s), float(s)))
+    population = ClientPopulation(
+        n_pop, examples_per_client=s, image_size=image_size, seed=ns.seed,
+        weight_range=weight_range)
+    sampler = CohortSampler(population, cohort, seed=ns.seed,
+                            weighted=ns.weighted_sampling)
+    delay_ms = float(ns.fault_delay_ms)
+    if delay_ms < 0:
+        sys.exit(f"--fault-delay-ms must be >= 0, got {delay_ms}")
+    plan = None
+    if ns.faults:
+        try:
+            plan = faults_lib.parse_population_fault_spec(
+                ns.faults, n_pop, seed=ns.seed,
+                delay_unit_s=delay_ms / 1000.0)
+        except ValueError as e:
+            sys.exit(str(e))
+        print(f"[idc_models_tpu_torch] injecting faults: {plan}",
+              file=sys.stderr)
+        if use_async and delay_ms == 0.0 and plan.max_staleness > 0:
+            # async staleness IS lateness: without a delay a straggler
+            # arrives on time, so say so instead of running fault-free
+            print("[idc_models_tpu_torch] straggler faults are INERT in "
+                  "async mode without --fault-delay-ms: buffered "
+                  "staleness comes from late arrival, and the plan's "
+                  "stragglers arrive on time", file=sys.stderr)
+    print(f"Device: {device}")
+    # every layer trains, from a seeded init: population mode has no
+    # pretraining phase (the JAX package's spec.build(num_outputs, 3))
+    model = registry.get_model(model_name).build(preset.num_outputs, 3)
+    loss_fn = (losses.binary_cross_entropy if preset.num_outputs == 1
+               else losses.sparse_categorical_cross_entropy)
+    server, server_ckpt, resumed = _restore_fed_server(
+        initialize_server(model, ns.seed), ns)
+    logger = (JsonlLogger(Path(ns.path) / "logs" / "run.jsonl")
+              if ns.path is not None else None)
+    try:
+        logged_through, cohort_through = (
+            _resume_marks(logger) if resumed else (-1, -1))
+        kw = dict(local_epochs=preset.local_epochs,
+                  batch_size=preset.batch_size, faults=plan, logger=logger,
+                  log_from_round=cohort_through, device=device)
+        try:
+            agg = _fed_aggregator(ns)
+            if use_async:
+                round_fn = make_async_round(
+                    model, preset.lr / 10.0, loss_fn, population, sampler,
+                    buffer_size=int(ns.async_buffer),
+                    staleness_decay=decay, aggregator=agg, seed=ns.seed,
+                    **kw)
+            else:
+                round_fn = make_population_round(
+                    model, preset.lr / 10.0, loss_fn, population, sampler,
+                    wave_size=wave, aggregator=agg,
+                    barrier_sleep=delay_ms > 0, **kw)
+        except ValueError as e:
+            sys.exit(str(e))
+
+        # the held-out eval cohort: a fixed seeded draw of one wave,
+        # made and uploaded once
+        eval_ids = CohortSampler(population, wave,
+                                 seed=ns.seed + 4242).cohort(0)
+        eval_imgs, eval_labels, eval_w = population.materialize(eval_ids)
+        eval_imgs = torch.as_tensor(eval_imgs, dtype=torch.float32,
+                                    device=device)
+        eval_labels = torch.as_tensor(eval_labels, device=device)
+        eval_fn = make_federated_eval(model, loss_fn, device=device)
+
+        def eval_round(sv):
+            em = eval_fn(sv, eval_imgs, eval_labels, eval_w)
+            return {"test_loss": em["loss"], "test_acc": em["accuracy"]}
+
+        totals = {"updates": 0, "staleness_sum": 0.0, "participants": 0}
+
+        def add_totals(entry):
+            n = int(entry.get("participants", 0))
+            totals["updates"] += int(entry.get("updates", 0))
+            totals["staleness_sum"] += float(
+                entry.get("staleness_mean", 0.0)) * n
+            totals["participants"] += n
+
+        _drive_fed(ns, round_fn, server, None, None,
+                   np.ones((cohort,), np.float32), rounds=preset.rounds,
+                   eval_round=eval_round, logger=logger,
+                   server_ckpt=server_ckpt, logged_through=logged_through,
+                   on_round=add_totals)
+        mode = "weighted" if ns.weighted_sampling else "uniform"
+        decomp = (f" in {cohort // wave} wave(s) of {wave}; memory "
+                  f"bounded by the wave, not the population"
+                  if not use_async else "; memory bounded by the "
+                  "in-flight pool, not the population")
+        print(f"population: {n_pop} virtual clients, cohort {cohort} "
+              f"({mode}){decomp}")
+        if use_async:
+            mean_st = (totals["staleness_sum"] / totals["participants"]
+                       if totals["participants"] else 0.0)
+            print(f"async buffer: K={int(ns.async_buffer)}, staleness "
+                  f"decay {decay}, {totals['updates']} buffered "
+                  f"update(s), mean staleness {mean_st:.2f}")
     finally:
         if logger is not None:
             logger.close()
@@ -603,11 +853,12 @@ def _run_secure(ns):
 
     device = resolve_device(ns.device)
     if ns.async_buffer:
-        sys.exit("async buffered FedAvg cannot compose with secure "
-                 "aggregation: pairwise masks cancel only when the FULL "
-                 "cohort sums together in one round, and a buffered K-of-N "
-                 "update leaves unmatched masks in the aggregate — run "
-                 "secure rounds synchronously, or drop --async-buffer")
+        from idc_models_tpu_torch.federated import ensure_async_compatible
+
+        try:
+            ensure_async_compatible(secure=True)
+        except ValueError as e:
+            sys.exit(str(e))
     preset = _apply_overrides(
         get_preset("secure_fed"), ns,
         ["batch_size", "lr", "rounds", "percent", "num_clients",

@@ -1,5 +1,6 @@
 """Federated averaging: server state, local training, the FedAvg round,
-aggregators and the self-healing round driver."""
+aggregators, the self-healing round driver, and population-scale rounds
+(virtual clients, cohort sampling, streamed waves, buffered async)."""
 
 from idc_models_tpu_torch.federated.robust import (  # noqa: F401
     Aggregator,
@@ -23,4 +24,13 @@ from idc_models_tpu_torch.federated.driver import (  # noqa: F401
     DriverResult,
     RoundFailure,
     run_rounds,
+)
+from idc_models_tpu_torch.federated.population import (  # noqa: F401
+    ClientPopulation,
+    CohortSampler,
+    make_population_round,
+)
+from idc_models_tpu_torch.federated.async_fedavg import (  # noqa: F401
+    ensure_async_compatible,
+    make_async_round,
 )

@@ -180,6 +180,86 @@ def finite_clients(losses: torch.Tensor, *trees: Mapping[str, torch.Tensor]
     return ok
 
 
+def train_clients(model: nn.Module, local_train, server: ServerState,
+                  images: torch.Tensor, labels: torch.Tensor, live, key: Key,
+                  first: int = 0):
+    """Train each client ``c`` with ``live[c]`` in turn on `model`, from
+    the server's weights, with the generator ``client_generator(key,
+    first + c)`` (a streamed wave passes its first client's cohort
+    position as `first`).
+
+    Returns ``(params, state, losses, accs)``: the clients' weights
+    stacked on a leading [C] axis (a client that did not train holds the
+    server's) and their mean local loss and accuracy, [C] f32 (0 where
+    it did not train). The round shared by `make_fedavg_round` and the
+    waves of `federated/population.py`."""
+    device = images.device
+    glob = {**server.params, **server.state}
+    n = images.shape[0]
+    stacked = {k: v.unsqueeze(0).repeat((n,) + (1,) * v.dim())
+               for k, v in glob.items()}
+    losses = torch.zeros(n, device=device)
+    accs = torch.zeros(n, device=device)
+    for c in np.flatnonzero(np.asarray(live)).tolist():
+        load_server(model, server)
+        loss, acc = local_train(images[c], labels[c],
+                                client_generator(key, first + c, device))
+        losses[c], accs[c] = loss.mean(), acc.mean()
+        with torch.no_grad():
+            for k, v in model.state_dict().items():
+                stacked[k][c].copy_(v)
+    return ({k: stacked[k] for k in server.params},
+            {k: stacked[k] for k in server.state}, losses, accs)
+
+
+def screen_clients(params: Tree, state: Tree, losses: torch.Tensor,
+                   weight: torch.Tensor, server: ServerState, faulted=None):
+    """The round's fault application and divergence test, after local
+    training: `faulted` is None or ``(codes [C], scales [C], stale
+    server)`` for `faults.apply_faults`; then a client whose update or
+    loss holds a non-finite value gets weight 0. Returns ``(params,
+    state, weight, dropped)``, `dropped` counting the clients of weight >
+    0 that the test removed (the JAX round's ``drop_nonfinite``)."""
+    if faulted is not None:
+        codes, scales, stale = faulted
+        params, state, weight = faults_lib.apply_faults(
+            codes, scales, params, state, weight, server.params,
+            server.state, stale.params, stale.state)
+    ok = finite_clients(losses, params, state)
+    dropped = ((weight > 0) & ~ok).sum().float()
+    return params, state, torch.where(ok, weight, 0.0), dropped
+
+
+class StaleHistory:
+    """The server entering each round, keyed by round index, for a fault
+    plan's stragglers: ``history(server, r, k)`` records round r's server
+    and returns round r - k's (the oldest retained entry on early rounds,
+    and after a resume: the history is not checkpointed). With no
+    straggler in the plan (`max_staleness` 0) it keeps nothing and
+    returns `server`, whose straggler codes cannot occur."""
+
+    def __init__(self, max_staleness: int):
+        self.max_staleness = int(max_staleness)
+        self._by_round: dict[int, ServerState] = {}
+
+    def __call__(self, server: ServerState, r: int,
+                 staleness: int) -> ServerState:
+        if self.max_staleness == 0:
+            return server
+        self._by_round[r] = copy_tree(server)
+        for old in [x for x in self._by_round
+                    if x < r - self.max_staleness]:
+            del self._by_round[old]
+        return self._by_round.get(r - staleness,
+                                  self._by_round[min(self._by_round)])
+
+
+def float_metrics(m: dict) -> dict[str, float]:
+    """A round's metric tensors as floats, in one device-to-host copy."""
+    return dict(zip(m, torch.stack([v.float() for v in m.values()])
+                    .tolist()))
+
+
 def make_fedavg_round(model: nn.Module, lr: float, loss_fn: LossFn, *,
                       local_epochs: int = 1, batch_size: int = 32,
                       trainable_mask: dict[str, bool] | None = None,
@@ -221,17 +301,7 @@ def make_fedavg_round(model: nn.Module, lr: float, loss_fn: LossFn, *,
     local_train = make_local_trainer(
         model, lr, loss_fn, local_epochs=local_epochs,
         batch_size=batch_size, trainable_mask=trainable_mask)
-    history: dict[int, ServerState] = {}
-
-    def stale_server(server: ServerState, r: int) -> ServerState:
-        # the server ENTERING each round, keyed by round index; round r
-        # at staleness k replays history[r - k] (the oldest retained
-        # entry on early rounds)
-        history[r] = copy_tree(server)
-        for old in [x for x in history
-                    if x < r - max(faults.max_staleness, 1)]:
-            del history[old]
-        return history.get(r - faults.staleness(r), history[min(history)])
+    history = StaleHistory(faults.max_staleness if faults else 0)
 
     def round_fn(server: ServerState, images, labels, weights, key: Key, *,
                  round_idx: int | None = None):
@@ -247,47 +317,30 @@ def make_fedavg_round(model: nn.Module, lr: float, loss_fn: LossFn, *,
             raise ValueError(
                 f"fault plan covers {faults.n_clients} clients but only "
                 f"{n} client shards were passed")
-        weight = w_host.to(device)
         server = server.to(device)
         glob = {**server.params, **server.state}
-        stacked = {k: v.unsqueeze(0).repeat((n,) + (1,) * v.dim())
-                   for k, v in glob.items()}
-        losses = torch.zeros(n, device=device)
-        accs = torch.zeros(n, device=device)
-        for c in np.flatnonzero(w_host.numpy() > 0).tolist():
-            load_server(model, server)
-            loss, acc = local_train(images[c], labels[c],
-                                    client_generator(key, c, device))
-            losses[c], accs[c] = loss.mean(), acc.mean()
-            with torch.no_grad():
-                for k, v in model.state_dict().items():
-                    stacked[k][c].copy_(v)
-        client_p = {k: stacked[k] for k in server.params}
-        client_s = {k: stacked[k] for k in server.state}
+        client_p, client_s, losses, accs = train_clients(
+            model, local_train, server, images, labels,
+            w_host.numpy() > 0, key)
+        faulted = None
         if faults is not None:
             r = server.round if round_idx is None else int(round_idx)
             codes, scales = faults.codes(r)
             pad = n - faults.n_clients
-            codes = torch.as_tensor(np.concatenate(
-                [codes, np.zeros((pad,), np.int32)]), device=device)
-            scales = torch.as_tensor(np.concatenate(
-                [scales, np.ones((pad,), np.float32)]), device=device)
-            stale = stale_server(server, r)
-            client_p, client_s, weight = faults_lib.apply_faults(
-                codes, scales, client_p, client_s, weight, server.params,
-                server.state, stale.params, stale.state)
-
-        ok = finite_clients(losses, client_p, client_s)
-        dropped = ((weight > 0) & ~ok).sum().float()
-        weight = torch.where(ok, weight, 0.0)
+            faulted = (
+                torch.as_tensor(np.concatenate(
+                    [codes, np.zeros((pad,), np.int32)]), device=device),
+                torch.as_tensor(np.concatenate(
+                    [scales, np.ones((pad,), np.float32)]), device=device),
+                history(server, r, faults.staleness(r)))
+        client_p, client_s, weight, dropped = screen_clients(
+            client_p, client_s, losses, w_host.to(device), server, faulted)
 
         agg, agg_m = agg_fn({**client_p, **client_s}, weight, glob)
-        m = {"loss": robust.weighted_mean(losses, weight),
-             "accuracy": robust.weighted_mean(accs, weight),
-             "clients_dropped": dropped, **agg_m}
-        m = dict(zip(m, torch.stack([v.float() for v in m.values()])
-                     .tolist()))
-        if not float(torch.clamp(weight, min=0.0).sum()) > 0:
+        m = float_metrics({"loss": robust.weighted_mean(losses, weight),
+                           "accuracy": robust.weighted_mean(accs, weight),
+                           "clients_dropped": dropped, **agg_m})
+        if not float(robust.weight_total(weight)) > 0:
             # every client dropped: keep the incoming server and report
             # NaN metrics -- an all-zero-weight mean would read as a
             # perfect 0.0 loss while training silently stalls

@@ -27,16 +27,29 @@ Tree = dict[str, torch.Tensor]
 ORDER_STATISTIC = ("trimmed_mean", "median")
 
 
+def weighted_sum(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """Sum of `x` over its leading [C] client axis weighted by `weight`
+    [C]; clients at weight <= 0 count for nothing, even when their value
+    is not finite. The numerator of `weighted_mean`, and what a streamed
+    round's waves accumulate (`federated/population.py`)."""
+    w = torch.clamp(weight.float(), min=0.0)
+    wx = w.reshape((-1,) + (1,) * (x.dim() - 1)).to(x.dtype)
+    return torch.where(wx > 0, x * wx, 0).sum(0)
+
+
+def weight_total(weight: torch.Tensor) -> torch.Tensor:
+    """The f32 sum of the positive weights: `weighted_mean`'s
+    denominator before its 1e-30 floor."""
+    return torch.clamp(weight.float(), min=0.0).sum()
+
+
 def weighted_mean(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """Mean of `x` over its leading [C] client axis weighted by `weight`
-    [C]; clients at weight <= 0 count for nothing, even when their value
-    is not finite (all-zero weights give 0, not NaN). The JAX package's
+    [C]: `weighted_sum` over `weight_total`, floored at 1e-30 (all-zero
+    weights give 0, not NaN). The JAX package's
     ``collectives.weighted_pmean_local`` on one device."""
-    w = torch.clamp(weight.float(), min=0.0)
-    total = torch.clamp(w.sum(), min=1e-30)
-    wx = w.reshape((-1,) + (1,) * (x.dim() - 1)).to(x.dtype)
-    masked = torch.where(wx > 0, x * wx, 0).sum(0)
-    return masked / total.to(x.dtype)
+    total = torch.clamp(weight_total(weight), min=1e-30)
+    return weighted_sum(x, weight) / total.to(x.dtype)
 
 
 class Aggregator:

@@ -152,8 +152,9 @@ def test_fed_trimmed_mean_under_a_sign_flipper(first_run, tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--population", "8"], "A5-rest"),
-    (["--async-buffer", "4"], "A5-rest"),
+    (["--population", "8"], "exceeds --population 8"),
+    (["--population", "64", "--async-buffer", "4", "--cohort-wave", "8"],
+     "only applies to synchronous"),
     (["--checkpoint-every", "0"], "must be >= 1"),
     (["--loss-spike-ratio", "0.5"], "must be > 1"),
 ])

@@ -779,3 +779,109 @@ def test_trimmed_mean_ranks_ties_by_client_on_the_card(cuda):
     for k in server:
         torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-6,
                                    atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the population path: streamed waves and the buffered async server
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def deterministic(cuda):
+    """cuDNN's deterministic algorithms (no atomics in the weight
+    gradients), so two runs of one program on the card agree bit for
+    bit."""
+    torch.backends.cudnn.deterministic = True
+    yield cuda
+    torch.backends.cudnn.deterministic = False
+
+
+def _population(weight_range=(8.0, 24.0)):
+    from idc_models_tpu_torch.federated import ClientPopulation, CohortSampler
+
+    pop = ClientPopulation(64, examples_per_client=16, image_size=10, seed=3,
+                           weight_range=weight_range)
+    return pop, CohortSampler(pop, 8, seed=5)
+
+
+@pytest.mark.parametrize("mode", ["1 wave", "2 waves", "async"])
+def test_population_rounds_on_the_card_match_the_cpu(cuda, mode):
+    """Two rounds of the streamed or the async round from the same
+    weights on the card and on the CPU, in float64 (as the FedAvg round
+    above): each server tensor within 1e-4 (1 + max |w|), the same
+    metrics, and for async the same clients in the same order."""
+    from idc_models_tpu_torch.federated import (
+        make_async_round, make_population_round,
+    )
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        pop, sampler = _population()
+        model = _fed_model().double()
+        if mode == "async":
+            rnd = make_async_round(model, 1e-3, binary_cross_entropy, pop,
+                                   sampler, buffer_size=4, batch_size=16,
+                                   seed=11, device=device)
+        else:
+            rnd = make_population_round(
+                model, 1e-3, binary_cross_entropy, pop, sampler,
+                wave_size=8 // int(mode[0]), batch_size=16, device=device)
+        server, ms, order = ServerState.of(model), [], []
+        for r in range(2):
+            server, m = rnd(server, None, None, None, (1, r, 0), round_idx=r)
+            ms.append(m)
+            order.append(getattr(rnd, "last_participants", None))
+        out[device] = server, ms, order
+    (card, cm, co), (cpu, pm, po) = out["cuda"], out["cpu"]
+    for k, want in cpu.params.items():
+        assert card.params[k].is_cuda
+        err = float((card.params[k].cpu() - want).abs().max())
+        assert err <= 1e-4 * (1 + float(want.abs().max())), k
+    for a, b in zip(cm, pm):
+        assert a.keys() == b.keys()
+        for k in a:
+            assert abs(a[k] - b[k]) <= 1e-4 * (1 + abs(b[k])), k
+    if mode == "async":
+        for a, b in zip(co, po):
+            assert a.tolist() == b.tolist()
+
+
+def test_one_wave_equals_the_fedavg_round_on_the_card(deterministic):
+    """On the card, with cuDNN deterministic and TF32 off, one wave over
+    the cohort equals make_fedavg_round on the materialized cohort bit
+    for bit, and a crash equals a zeroed participation mask."""
+    from idc_models_tpu_torch import faults as tfaults
+    from idc_models_tpu_torch.federated import (
+        make_fedavg_round, make_population_round,
+    )
+
+    pop, sampler = _population()
+    ids = sampler.cohort(0)
+    imgs, labels, w = pop.materialize(ids)
+    model = small_cnn.small_cnn(10, 3, 1)
+    core.init_params(model, 0)
+    server = ServerState.of(model.cuda())
+    one, m1 = make_fedavg_round(model, 1e-3, binary_cross_entropy,
+                                batch_size=16, device="cuda")(
+        server, imgs, labels, w, (7, 0, 0))
+    stream = make_population_round(model, 1e-3, binary_cross_entropy, pop,
+                                   sampler, wave_size=8, batch_size=16,
+                                   device="cuda")
+    wave, mw = stream(server, None, None, None, (7, 0, 0), round_idx=0)
+    for k in one.params:
+        assert torch.equal(one.params[k], wave.params[k]), k
+    assert mw["loss"] == m1["loss"]
+
+    plan = tfaults.PopulationFaultPlan(64, [tfaults.PopulationFault(
+        "crash", clients=(int(ids[3]),))])
+    crashed, _ = make_population_round(
+        model, 1e-3, binary_cross_entropy, pop, sampler, wave_size=4,
+        batch_size=16, faults=plan, device="cuda")(
+        server, None, None, None, (5, 0, 0), round_idx=0)
+    mask = torch.ones(8)
+    mask[3] = 0.0
+    masked, _ = make_population_round(
+        model, 1e-3, binary_cross_entropy, pop, sampler, wave_size=4,
+        batch_size=16, device="cuda")(
+        server, None, None, mask, (5, 0, 0), round_idx=0)
+    for k in crashed.params:
+        assert torch.equal(crashed.params[k], masked.params[k]), k

@@ -95,6 +95,29 @@ def test_entry_points_raise_without_cuda_unless_given_cpu(no_cuda):
                                      device="cpu")
 
 
+def test_population_entry_points_raise_without_cuda_unless_given_cpu(
+        no_cuda):
+    from idc_models_tpu_torch.federated import (
+        ClientPopulation, CohortSampler, make_async_round,
+        make_population_round,
+    )
+
+    pop = ClientPopulation(16, examples_per_client=4)
+    sampler = CohortSampler(pop, 4)
+    model = tsmall.small_cnn(10, 3, 1)
+    bce = tlosses.binary_cross_entropy
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_population_round(model, 1e-3, bce, pop, sampler, wave_size=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_async_round(model, 1e-3, bce, pop, sampler, buffer_size=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["fed", "--population", "16", "--cohort", "4"])
+    make_population_round(model, 1e-3, bce, pop, sampler, wave_size=2,
+                          device="cpu")
+    make_async_round(model, 1e-3, bce, pop, sampler, buffer_size=2,
+                     device="cpu")
+
+
 def test_kernel_path_refuses_to_build_or_launch_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="needs a CUDA card"):
         tfc.KERNEL.lib()
