@@ -130,6 +130,25 @@ non-zero before the result line:
    population 10,000 and 1,000,000, which must not grow; host ms of a
    round (1 wave, 4 waves, async; in turns), device busy, idle share,
    kernels and peak memory;
+9. observe and stream -- (i) `cli.main(["profile", ...])` on VGG16,
+   MobileNetV2 (`--depthwise-impl fused`) and DenseNet201 at the bench
+   batches (configs.BENCH_TRAIN_CONFIGS: 2048, 4096, 2048) in bf16 and on
+   the LM (vocab 8192, embed 1024, 4 blocks, T=512, batch 8, f32), 8
+   measured steps each: the records' frozen key sets, the card's name,
+   MFU in (0, 1], a verdict, a host-wait share in [0, 1], each record's
+   FLOPs and bytes equal to the op count of its counted call plus, for
+   mobile, exactly the fused kernel's analytic account, the kernel's
+   launches (11 chains x 18 steps), no compile; `profile --churn-drill`
+   flagged; `--trace-out` on the `mobile` argv of (a) and the `fed` argv
+   of (g) (their spans, and `stats --json` with the metrics snapshot),
+   the `fed` run with `--profile-dir`, which files its first attempt as
+   fed.round; `--profile-dir` on that `mobile` argv, whose trace holds
+   one fused_depthwise kernel event per launch in its window and whose
+   metrics snapshot holds the train.step account with its peak memory; `mobile --stream
+   --decode-workers 2` over 512 PNG patches (written with zlib) against
+   two_phase_fit on the same file-level split, equal losses and launches
+   (cuDNN deterministic); `vgg --central-storage` against the mirrored
+   run within rtol 1e-4 (cuDNN deterministic, TF32 off);
 
 then one JSON line of per-kernel numbers, and the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}`.
@@ -2572,6 +2591,394 @@ def population_rounds(torch, card: str) -> None:
             f" {card}")
 
 
+# ---------------------------------------------------------------------------
+# (i) observe and stream: profile, stats, --trace-out, --profile-dir,
+# the PNG loaders under --stream, --central-storage
+# ---------------------------------------------------------------------------
+
+# the frozen key sets of the JAX package's profile records
+# (tests/test_observability.py, test_profile_program_jsonl_schema_frozen
+# and test_profile_step_jsonl_schema_frozen)
+PROFILE_PROGRAM_KEYS = frozenset({
+    "ts", "event", "program", "flops", "bytes_accessed",
+    "arithmetic_intensity", "argument_bytes", "output_bytes", "temp_bytes",
+    "peak_hbm_bytes", "generated_code_bytes", "available", "step_ms",
+    "verdict", "achieved_tflops", "achieved_hbm_gbps", "mfu",
+    "hbm_utilization", "bound_fraction", "ridge_intensity", "peak_tflops",
+    "peak_hbm_gbps", "device_kind"})
+PROFILE_STEP_KEYS = frozenset({
+    "ts", "event", "loop", "steps", "wall_ms", "device_ms", "host_gap_ms",
+    "device_busy_fraction", "host_gap_fraction", "step_ms_mean"})
+PROFILE_STEPS = 8
+PROFILE_MODELS = (("vgg", []), ("mobile", ["--depthwise-impl", "fused"]),
+                  ("dense", []), ("lm", []))
+# the PNG tree of the streamed phase: 50x50 patches, half of each label
+STREAM_FILES = 512
+
+
+def png_bytes(rgb: np.ndarray) -> bytes:
+    """An 8-bit RGB PNG, written with zlib and struct alone (the card's
+    machine may have no image library to write one)."""
+    import struct
+    import zlib
+
+    h, w, _ = rgb.shape
+    raw = b"".join(b"\x00" + rgb[y].tobytes() for y in range(h))
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def write_png_tree(root: Path, n: int, size: int = 50, seed: int = 0):
+    """`n` random `size`x`size` patches under root/{0,1}/; returns the
+    root."""
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        d = root / str(i % 2)
+        d.mkdir(parents=True, exist_ok=True)
+        (d / f"p{i:04d}.png").write_bytes(png_bytes(
+            rng.integers(0, 256, (size, size, 3), np.uint8)))
+    return root
+
+
+def jsonl(path: Path) -> list[dict]:
+    return [json.loads(line) for line in path.read_text().splitlines()]
+
+
+def profile_models(torch, fc, smk, fbk, card: str, tmp: Path) -> None:
+    """(i1) `profile` on VGG16, MobileNetV2 (fused), DenseNet201 at their
+    bench batches in bf16, and on the LM (f32, plain block): frozen key
+    sets, the card's name, MFU in (0, 1], a verdict, a host-wait share
+    in [0, 1] (`device_busy_fraction`: the share of the fenced steps the
+    host spent blocked on the card, a floor on its busy share), the
+    record's FLOPs and bytes equal to the op count of the verb's counted
+    call (`program_report`, watched as the verb calls it) plus, for the
+    fused mobile, exactly the kernel's analytic account; the kernel's
+    launches, no compile."""
+    from idc_models_tpu_torch import cli
+    from idc_models_tpu_torch.configs import BENCH_TRAIN_CONFIGS
+    from idc_models_tpu_torch.models import mobilenet
+    from idc_models_tpu_torch.observe import profile as prof
+
+    kind = torch.cuda.get_device_name(0)
+    counted = []
+    program_report = prof.program_report
+
+    def watched(*args, **kw):
+        cost, out = program_report(*args, **kw)
+        counted.append(cost)
+        return cost, out
+
+    for model, extra in PROFILE_MODELS:
+        out = tmp / f"profile_{model}.jsonl"
+        zero_counts(fc, smk, fbk)
+        counted.clear()
+        prof.program_report = watched
+        t0 = time.perf_counter()
+        try:
+            rc = cli.main(["profile", "--model", model, "--steps",
+                           str(PROFILE_STEPS), "--out", str(out)] + extra)
+        finally:
+            prof.program_report = program_report
+        seconds = time.perf_counter() - t0
+        launches = {"fused": fc.KERNEL.launches,
+                    "masking": smk.KERNEL.launches,
+                    "flash": sum(flash_counts(fbk))}
+        recs = jsonl(out)
+        progs = [r for r in recs if r["event"] == "profile_program"]
+        steps = [r for r in recs if r["event"] == "profile_step"]
+        snap = [r for r in recs if r["event"] == "metrics_snapshot"][-1]
+        if rc != 0 or len(progs) != 1 or len(steps) != 1:
+            raise SystemExit(f"profile {model}: rc {rc}, records "
+                             f"{[r['event'] for r in recs]}")
+        prog, step = progs[0], steps[0]
+        if set(prog) != PROFILE_PROGRAM_KEYS or set(step) != PROFILE_STEP_KEYS:
+            raise SystemExit(f"profile {model}: keys {sorted(prog)} / "
+                             f"{sorted(step)} differ from the frozen sets")
+        compiles = sum(m["value"] for m in snap["metrics"]
+                       if m["name"] == "compiles_total")
+        checks = {"device_kind": prog["device_kind"] == kind,
+                  "mfu": prog["mfu"] is not None and 0 < prog["mfu"] <= 1,
+                  "verdict": prog["verdict"] != "unknown",
+                  "host_wait": 0 <= step["device_busy_fraction"] <= 1,
+                  "compiles": compiles == 0,
+                  "one_counted_call": len(counted) == 1}
+        k_flops = k_bytes = 0.0
+        calls = 2 + 2 * PROFILE_STEPS       # two warm-ups, two passes
+        if model == "mobile":
+            bc = BENCH_TRAIN_CONFIGS["mobilenet_v2"]
+            n_fused = mobilenet.fused_chain_count(bc["fine_tune_at"],
+                                                  train=True)
+            k_flops, k_bytes = fc.depthwise_chain_cost(
+                mobilenet.fused_call_shapes(
+                    bc["batch_per_chip"], bc["image_size"])[:n_fused],
+                itemsize=2)
+            want = {"fused": n_fused * calls, "masking": 0, "flash": 0}
+        else:
+            want = {"fused": 0, "masking": 0, "flash": 0}
+        # the record is the counted call's op count, merged with the
+        # kernel's account where the step launches it, and nothing else
+        ops = counted[0] if counted else None
+        checks["kernel_account"] = ops is not None and (
+            prog["flops"] == ops.flops + k_flops
+            and prog["bytes_accessed"] == ops.bytes_accessed + k_bytes)
+        checks["launches"] = launches == want
+        if model == "lm":
+            batch, unit = 8, "sequences of 512 tokens"
+        else:
+            name = {"vgg": "vgg16", "mobile": "mobilenet_v2",
+                    "dense": "densenet201"}[model]
+            batch, unit = BENCH_TRAIN_CONFIGS[name]["batch_per_chip"], "patches"
+        log(f"profile {model} {' '.join(extra)}: {prog['step_ms']!r} ms a "
+            f"step, {batch / prog['step_ms'] * 1e3!r} {unit} a second, MFU "
+            f"{prog['mfu']!r}, HBM utilisation {prog['hbm_utilization']!r}, "
+            f"{prog['verdict']} ({prog['flops']!r} FLOP, "
+            f"{prog['bytes_accessed']!r} bytes, intensity "
+            f"{prog['arithmetic_intensity']!r}), peak memory "
+            f"{prog['peak_hbm_bytes']!r} bytes (arguments "
+            f"{prog['argument_bytes']!r}), op count "
+            f"{ops.flops if ops else None!r} FLOP, "
+            f"{ops.bytes_accessed if ops else None!r} bytes + kernel "
+            f"account {k_flops!r} FLOP, {k_bytes!r} bytes; host-wait share "
+            f"{step['device_busy_fraction']!r} of the fenced steps; "
+            f"launches {launches} (want {want}); {compiles} compiles; verb "
+            f"{seconds!r} s; {card}")
+        if not all(checks.values()):
+            raise SystemExit(f"profile {model}: failed checks "
+                             f"{[k for k, v in checks.items() if not v]}")
+
+    out = tmp / "profile_drill.jsonl"
+    rc = cli.main(["profile", "--model", "small", "--steps", "2",
+                   "--churn-drill", "--out", str(out)])
+    snap = [r for r in jsonl(out) if r["event"] == "metrics_snapshot"][-1]
+    flagged = [m for m in snap["metrics"]
+               if m["name"] == "compile_churn_flagged_total"
+               and m["labels"].get("program") == "churn.drill"]
+    log(f"profile churn drill: compile_churn_flagged_total "
+        f"{[(m['labels'], m['value']) for m in flagged]}")
+    if rc != 0 or not flagged or flagged[0]["value"] < 1:
+        raise SystemExit("profile --churn-drill: the watchdog did not flag "
+                         "churn.drill")
+
+
+def traced_runs(torch, fc, smk, fbk, card: str, tmp: Path) -> None:
+    """(i3) --trace-out on the `mobile` argv of (a) and the `fed` argv of
+    (g): the Chrome JSON loads and holds the loops' spans; `stats --json`
+    on run.jsonl carries the metrics snapshot. The `fed` run also takes
+    --profile-dir, which arms program accounting: its snapshot holds the
+    fed.round account. (i4) --profile-dir on the same `mobile` argv: the
+    trace holds one fused_depthwise kernel event per launch made while
+    it was armed, and the snapshot the train.step account (fit's first
+    step, counted; the kernel's work is not in it) with its peak
+    memory."""
+    import contextlib
+    import io
+
+    from idc_models_tpu_torch import cli
+    from idc_models_tpu_torch.configs import get_preset
+    from idc_models_tpu_torch.data.idc import ArrayDataset, train_val_test_split
+    from idc_models_tpu_torch.data import synthetic
+    from idc_models_tpu_torch.observe import profile as prof
+
+    mobile = ["mobile", "--depthwise-impl", "fused", "--synthetic-examples",
+              str(CLS_EXAMPLES), "--epochs", "1", "--fine-tune-epochs", "1",
+              "--seed", "0"]
+    fed = ["fed", "--synthetic-examples", str(FED_EXAMPLES),
+           "--pretrain-epochs", "1", "--seed", "0", "--rounds",
+           str(FED_ROUNDS)]
+    fed_prof = ["--profile-dir", str(tmp / "profile_fed")]
+    prof.PROGRAMS.pop("fed.round", None)
+    for argv, want in ((mobile, {"train.epoch", "train.step",
+                                 "device.sync", "train.eval"}),
+                       (fed + fed_prof, {"fed.round", "fed.client",
+                                         "device.sync"})):
+        run = tmp / f"trace_{argv[0]}"
+        trace_json = tmp / f"trace_{argv[0]}.json"
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(argv + ["--path", str(run), "--trace-out",
+                                  str(trace_json)])
+        events = json.loads(trace_json.read_text())["traceEvents"]
+        names = {e.get("name") for e in events}
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["stats", str(run / "logs" / "run.jsonl"), "--json"])
+        summary = json.loads(buf.getvalue())
+        log(f"--trace-out on {argv[0]}: {len(events)} trace events, "
+            f"{sorted(want & names)} of {sorted(want)}; stats --json: "
+            f"{summary['records']} records, events "
+            f"{sorted(summary['events'])}, {len(summary['metrics'])} "
+            f"metrics in the snapshot")
+        if rc != 0 or not want <= names or not summary["metrics"] or (
+                "metrics_snapshot" not in summary["events"]):
+            raise SystemExit(f"--trace-out on {argv[0]}: spans "
+                             f"{sorted(names)[:40]}, summary {summary}")
+    program_account(run, "fed.round", card)
+
+    # (i4): the profiler window is two_phase_fit; the test evaluation
+    # after it launches 17 chains a test batch outside the window
+    prof_dir = tmp / "profile_dir"
+    run = tmp / "profile_dir_run"
+    prof.PROGRAMS.pop("train.step", None)    # filed by (i1)
+    zero_counts(fc, smk, fbk)
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(mobile + ["--profile-dir", str(prof_dir), "--path",
+                                str(run)])
+    preset = get_preset("mobile")
+    imgs, labels = synthetic.make_idc_like(CLS_EXAMPLES, preset.image_size,
+                                           seed=0)
+    _, _, test = train_val_test_split(ArrayDataset(imgs, labels), seed=0)
+    outside = 17 * -(-len(test) // preset.batch_size)
+    inside = fc.KERNEL.launches - outside
+    events = json.loads((prof_dir / "trace.json").read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    ours = [e for e in kernels if "fused_depthwise" in e.get("name", "")]
+    log(f"--profile-dir on mobile --depthwise-impl fused: the trace holds "
+        f"{len(ours)} fused_depthwise kernel events of {len(kernels)} "
+        f"kernel events; the launch counter made {inside} launches inside "
+        f"the window ({fc.KERNEL.launches} in all, {outside} in the test "
+        f"evaluation after it); {card}")
+    if rc != 0 or len(ours) != inside:
+        raise SystemExit(f"--profile-dir: {len(ours)} fused_depthwise "
+                         f"events against {inside} launches")
+    program_account(run, "train.step", card)
+
+
+def program_account(run: Path, program: str, card: str) -> None:
+    """The account a --profile-dir run filed for `program` (cleared from
+    the program table before the run): in the table, with FLOPs, bytes
+    and a peak memory above zero (the memory is measured on the card
+    only), and the same numbers in the run log's metrics snapshot."""
+    from idc_models_tpu_torch.observe import profile as prof
+
+    cost = prof.registered_programs().get(program)
+    snap = [r for r in jsonl(run / "logs" / "run.jsonl")
+            if r["event"] == "metrics_snapshot"][-1]
+    got = {m["name"]: m["value"] for m in snap["metrics"]
+           if m["name"].startswith("program_")
+           and m["labels"] == {"program": program}}
+    log(f"--profile-dir account of {program}: {got}; {card}")
+    want = (None if cost is None else
+            {"program_flops": cost.flops,
+             "program_bytes_accessed": cost.bytes_accessed,
+             "program_peak_hbm_bytes": cost.peak_hbm_bytes})
+    if want is None or got != want or not all(
+            v is not None and v > 0 for v in want.values()):
+        raise SystemExit(f"--profile-dir: the {program} account "
+                         f"{want} against the metrics snapshot's {got}")
+
+
+def stream_run(torch, fc, smk, fbk, card: str, tmp: Path) -> None:
+    """(i5) `mobile --depthwise-impl fused --data-dir <PNG tree> --stream
+    --decode-workers 2` against two_phase_fit on the same file-level
+    split decoded up front (the backend `auto` picks, native or PIL):
+    equal histories, equal launches (cuDNN deterministic, TF32 off)."""
+    import contextlib
+    import io
+
+    from idc_models_tpu_torch import cli
+    from idc_models_tpu_torch.configs import get_preset
+    from idc_models_tpu_torch.data import native
+    from idc_models_tpu_torch.data.idc import (
+        ArrayDataset, decode_pairs, list_shuffled_pairs,
+    )
+    from idc_models_tpu_torch.models import registry
+    from idc_models_tpu_torch.train.loop import TwoPhaseConfig, two_phase_fit
+
+    preset = get_preset("mobile")
+    tree = write_png_tree(tmp / "pngs", STREAM_FILES)
+    backend = "native" if native.available() else "pil"
+    log(f"stream: {STREAM_FILES} 50x50 PNG patches written; decode backend "
+        f"{backend} (native loader: {native.build_error() or 'built'})")
+    torch.backends.cudnn.deterministic = True
+    run = tmp / "stream"
+    zero_counts(fc, smk, fbk)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["mobile", "--depthwise-impl", "fused", "--data-dir",
+                       str(tree), "--stream", "--decode-workers", "2",
+                       "--epochs", "1", "--fine-tune-epochs", "1", "--seed",
+                       "0", "--path", str(run)])
+    streamed_s = time.perf_counter() - t0
+    streamed_launches = fc.KERNEL.launches
+    streamed = [r for r in jsonl(run / "logs" / "run.jsonl")
+                if r["event"] == "epoch"]
+
+    pairs = list_shuffled_pairs(tree, seed=0)
+    n_tr, n_va = int(0.8 * len(pairs)), int(0.1 * len(pairs))
+
+    def materialize(subset):
+        return ArrayDataset(decode_pairs(subset, 50, backend=backend),
+                            np.asarray([l for _, l in subset], np.int32))
+
+    zero_counts(fc, smk, fbk)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        result = two_phase_fit(
+            preset.model, 1, materialize(pairs[:n_tr]),
+            materialize(pairs[n_tr:n_tr + n_va]),
+            TwoPhaseConfig(lr=preset.lr, epochs=1, fine_tune_epochs=1,
+                           batch_size=preset.batch_size,
+                           fine_tune_at=preset.fine_tune_at, seed=0),
+            build_kwargs=registry.FUSED_BUILD_KWARGS[preset.model],
+            device="cuda")
+    mat_s = time.perf_counter() - t0
+    # two_phase_fit alone: the streamed run's test evaluation adds 17
+    # chains a test batch
+    n_test = len(pairs) - n_tr - n_va
+    test_launches = 17 * -(-n_test // preset.batch_size)
+    materialized = result.history["loss"] + result.history_fine["loss"]
+    got = [r["loss"] for r in streamed]
+    torch.backends.cudnn.deterministic = False
+    log(f"stream: --stream --decode-workers 2 epoch losses {got!r} in "
+        f"{streamed_s!r} s against the materialized split's "
+        f"{materialized!r} in {mat_s!r} s; fused launches "
+        f"{streamed_launches} (test evaluation {test_launches}) against "
+        f"{fc.KERNEL.launches}; {card}")
+    if (rc != 0 or got != materialized
+            or streamed_launches - test_launches != fc.KERNEL.launches):
+        raise SystemExit("--stream: the streamed run differs from the "
+                         "materialized one")
+
+
+def central_storage_run(torch, fc, smk, fbk, card: str) -> None:
+    """(i6) `vgg --central-storage` against the mirrored `vgg`, TF32 off
+    and cuDNN deterministic (its weight gradients otherwise sum in a
+    varying order, which RMSprop's first steps amplify past the bar):
+    histories within rtol 1e-4."""
+    tf32_off(torch)
+    torch.backends.cudnn.deterministic = True
+    argv = ["vgg", "--synthetic-examples", str(CLS_EXAMPLES), "--epochs",
+            "1", "--fine-tune-epochs", "1", "--seed", "0"]
+    mirrored = classifier_run(torch, fc, smk, fbk, argv)
+    central = classifier_run(torch, fc, smk, fbk,
+                             argv + ["--central-storage"])
+    torch.backends.cudnn.deterministic = False
+    rel = same_history("vgg --central-storage", central["epochs"],
+                       mirrored["epochs"])
+    log(f"central storage: vgg in {central['seconds']!r} s against "
+        f"mirrored {mirrored['seconds']!r} s; epochs (loss, val_loss) "
+        f"{[(r['loss'], r['val_loss']) for r in central['epochs']]} against "
+        f"{[(r['loss'], r['val_loss']) for r in mirrored['epochs']]} "
+        f"(largest relative difference {rel!r}, bar 1e-4); {card}")
+
+
+def observe_path(torch, fc, smk, fbk, card: str) -> None:
+    """(i) observe and stream."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        profile_models(torch, fc, smk, fbk, card, tmp)
+        traced_runs(torch, fc, smk, fbk, card, tmp)
+        stream_run(torch, fc, smk, fbk, card, tmp)
+    central_storage_run(torch, fc, smk, fbk, card)
+    log(f"phase (i) took {time.perf_counter() - t0!r} s")
+
+
 def main() -> int:
     if not (REPO / "idc_models_tpu_torch" / "ops" / "csrc").is_dir():
         raise SystemExit("chip_smoke.py must run from a checkout of the "
@@ -2629,6 +3036,7 @@ def main() -> int:
     dense_path(torch, fc, smk, fbk, card)
     fed_path(torch, fc, smk, fbk, card)
     population_path(torch, fc, smk, fbk, card)
+    observe_path(torch, fc, smk, fbk, card)
     secure = secure_path(torch, fc, smk, card)
     aggregate_three_ways(torch, smk)
     mobilenet_round(torch, fc, smk, card)

@@ -16,14 +16,16 @@ no card and no explicit CPU request they raise (`resolve_device`).
 
 from __future__ import annotations
 
-import torch
-
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """The device an entry point runs on: CUDA unless asked otherwise.
 
     ``None`` means ``"cuda"``. A CUDA request on a machine without a card
-    raises instead of quietly running on the CPU."""
+    raises instead of quietly running on the CPU. (torch is imported
+    here, not with the package: the data loader's decode workers import
+    the package and need only numpy.)"""
+    import torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

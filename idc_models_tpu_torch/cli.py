@@ -1,5 +1,6 @@
 """Command-line entry point: the ``vgg``, ``mobile``, ``dense``, ``fed``,
-``secure-fed`` and ``lm`` verbs of ``idc_models_tpu``.
+``secure-fed``, ``lm``, ``profile`` and ``stats`` verbs of
+``idc_models_tpu``.
 
     python -m idc_models_tpu_torch vgg --path runs/vgg \\
         --data-dir .../balanced_IDC_30k --cache-features
@@ -22,6 +23,11 @@ synthetic patches. CIFAR-10: ``cifar10.npz`` or
 ``--cache-features`` fine-tunes on the frozen prefix's activations,
 computed once (``train/feature_cache.py``). ``--pretrained-weights``
 takes the JAX package's npz or a Keras ``.h5``.
+
+``--central-storage`` keeps the train state in host memory between
+steps; ``--stream`` decodes the training batches from the ``--data-dir``
+tree per batch (``data/pipeline.FileStream``, the native libpng loader
+when it builds, else PIL), fanned out to ``--decode-workers`` processes.
 
 ``--depthwise-impl fused`` runs MobileNetV2's frozen and eval depthwise
 chains through the hand-written CUDA kernel (``ops/fused_conv.py``);
@@ -61,6 +67,21 @@ threefry streams, ``auto`` picks by size. ``--paillier`` runs the
 host-side Paillier parity protocol instead. Each round prints
 ``round r: train_loss=... test_loss=... acc=... auroc=...`` and, with
 --path, logs an ``event=round`` record.
+
+Every verb takes ``--trace-out t.json`` (a Chrome trace-event export of
+the run's spans: ``train.epoch`` / ``train.step`` / ``device.sync``,
+``fed.round`` / ``fed.client``, ``lm.prefill`` / ``lm.decode``, every
+Timer) and ``--profile-dir d`` (``torch.profiler`` over the training
+phase, written to ``d/trace.json``); a run with --path ends its jsonl
+with one ``metrics_snapshot`` record.
+
+``profile --model vgg|mobile|dense|small|lm`` runs a train step at the
+bench batch (``configs.BENCH_TRAIN_CONFIGS``, bf16 for the classifiers)
+and prints each program's account, its roofline verdict, the
+device-wait vs host-gap split of the measured steps and the
+compile-churn watchdog's findings, and writes ``profile_program`` /
+``profile_step`` records (``--out`` or ``<path>/logs/profile.jsonl``).
+``stats run.jsonl`` summarizes any run log of either package.
 """
 
 from __future__ import annotations
@@ -74,10 +95,16 @@ from idc_models_tpu_torch.models.core import DEPTHWISE_IMPLS
 
 
 def main(argv: list[str] | None = None) -> int:
+    from idc_models_tpu_torch.observe import tracing
+
     ns = _parse(argv)
-    {"vgg": _run_dist, "mobile": _run_dist, "dense": _run_dist,
-     "fed": _run_fed, "secure_fed": _run_secure,
-     "lm": _run_lm}[ns.preset_key](ns)
+    runner = {"vgg": _run_dist, "mobile": _run_dist, "dense": _run_dist,
+              "fed": _run_fed, "secure_fed": _run_secure, "lm": _run_lm,
+              "stats": _run_stats, "profile": _run_profile}[ns.preset_key]
+    # --trace-out: one wiring point arms the tracer for every verb; the
+    # spans export as Chrome trace-event JSON when the run ends
+    with tracing(chrome_path=getattr(ns, "trace_out", None)):
+        runner(ns)
     return 0
 
 
@@ -99,6 +126,13 @@ def _parse(argv):
         sp.add_argument("--batch-size", type=int, default=None)
         sp.add_argument("--lr", type=float, default=None)
         sp.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+        sp.add_argument("--profile-dir", default=None,
+                        help="write a torch.profiler trace of the training "
+                             "phase to <dir>/trace.json (CPU and CUDA "
+                             "activities; Perfetto-loadable)")
+        sp.add_argument("--trace-out", default=None,
+                        help="write a Chrome trace-event JSON of the run's "
+                             "spans here (Perfetto / chrome://tracing)")
 
     for key, model in (("vgg", "VGG16"), ("mobile", "MobileNetV2"),
                        ("dense", "DenseNet201")):
@@ -124,13 +158,19 @@ def _parse(argv):
         sp.add_argument("--checkpoint-every", type=int, default=1,
                         help="with --resumable: epochs between loop "
                              "checkpoints (the final epoch always saves)")
-        for flag in _UNPORTED_DIST_FLAGS:
-            sp.add_argument(flag, action="store_true",
-                            help="rejected: not ported yet (ROADMAP "
-                                 "A1-rest)")
+        sp.add_argument("--central-storage", action="store_true",
+                        help="host-resident train state, copied to the "
+                             "card and back every step (the reference's "
+                             "use_mirror=False CentralStorageStrategy "
+                             "toggle)")
+        sp.add_argument("--stream", action="store_true",
+                        help="decode training batches from disk on the "
+                             "fly instead of materializing the train "
+                             "split; needs a real --data-dir IDC tree")
         sp.add_argument("--decode-workers", type=int, default=0,
-                        help="rejected above 0: --stream's decode workers "
-                             "are not ported yet (ROADMAP A1-rest)")
+                        help="with --stream: fan batch decoding out to N "
+                             "worker processes (whole batches, round "
+                             "robin; the same stream bit for bit)")
         sp.add_argument("--model-parallel", type=int, default=1,
                         help="rejected above 1: tensor parallelism is not "
                              "ported yet (ROADMAP A4)")
@@ -295,14 +335,99 @@ def _parse(argv):
     sp.add_argument("--top-k", type=int, default=0,
                     help="restrict sampling to the k most likely tokens "
                          "(0 = no restriction; needs --temperature > 0)")
+
+    sp = sub.add_parser(
+        "profile",
+        help="performance attribution over a train step: each program's "
+             "FLOP/byte/memory account, a compute- vs bandwidth-bound "
+             "roofline verdict, device-wait vs host-gap step attribution "
+             "and the compile-churn watchdog; writes profile_program / "
+             "profile_step jsonl (rendered by `stats`)")
+    sp.add_argument("--model", required=True,
+                    choices=("vgg", "mobile", "dense", "small", "serve",
+                             "lm"),
+                    help="which train step to profile: a backbone's "
+                         "fine-tune step at its bench batch "
+                         "(vgg/mobile/dense; `small` is the tiny CNN) or "
+                         "the LM's (`serve` waits for ROADMAP A9)")
+    sp.add_argument("--fsdp", type=int, default=0,
+                    help="rejected above 1: parameter sharding is not "
+                         "ported yet (ROADMAP A4)")
+    sp.add_argument("--tp", type=int, default=0,
+                    help="rejected above 1: tensor parallelism is not "
+                         "ported yet (ROADMAP A4)")
+    sp.add_argument("--host-devices", type=int, default=0,
+                    help="rejected: virtual devices wait for the "
+                         "distribution layer (ROADMAP A4)")
+    sp.add_argument("--steps", type=int, default=None,
+                    help="measured steps (default: 30 on the card, 4 on "
+                         "the CPU)")
+    sp.add_argument("--batch-size", type=int, default=None,
+                    help="per-card batch (default: the bench batch on the "
+                         "card, 8 on the CPU)")
+    sp.add_argument("--path", default=None,
+                    help="artifact root (profile events stream to "
+                         "<path>/logs/profile.jsonl)")
+    sp.add_argument("--out", default=None,
+                    help="explicit profile jsonl path (overrides --path's "
+                         "default location)")
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    sp.add_argument("--compile-limit", type=int, default=5,
+                    help="compile-churn watchdog: flag any program "
+                         "compiled more than this many times")
+    sp.add_argument("--peak-tflops", type=float, default=None,
+                    help="declare the device's peak dense bf16 TFLOP/s "
+                         "(with --peak-gbps; needed for a verdict on a "
+                         "device the roof table does not know, e.g. the "
+                         "CPU)")
+    sp.add_argument("--peak-gbps", type=float, default=None,
+                    help="declare the device's peak memory bandwidth, "
+                         "GB/s")
+    sp.add_argument("--depthwise-impl", default="grouped",
+                    choices=DEPTHWISE_IMPLS,
+                    help="with --model mobile: 'fused' runs the frozen "
+                         "depthwise+BN+relu6 chains through the CUDA "
+                         "kernel and merges its analytic FLOPs/bytes "
+                         "into the train.step account (a ctypes launch "
+                         "is invisible to the op count)")
+    sp.add_argument("--churn-drill", action="store_true",
+                    help="end with a deliberately shape-varying compiled "
+                         "loop so the compile-churn watchdog fires (a "
+                         "clean run stays silent)")
+    sp.add_argument("--trace-out", default=None,
+                    help="also export the run's spans as Chrome "
+                         "trace-event JSON")
+
+    sp = sub.add_parser("stats",
+                        help="offline summary of any run jsonl (train, "
+                             "fed, profile; of either package): per-event "
+                             "counts, percentiles over every numeric "
+                             "field, timer/span tables and the last "
+                             "metrics snapshot")
+    sp.add_argument("jsonl", nargs="+",
+                    help="path(s) to run.jsonl / profile.jsonl / "
+                         "exported span jsonl; several merge into one "
+                         "summary")
+    sp.add_argument("--json", action="store_true",
+                    help="emit the summary as one JSON object")
+    sp.add_argument("--request", default=None, metavar="RID",
+                    help="render one request's timeline instead of the "
+                         "whole-run summary")
+    sp.add_argument("--top", type=int, default=15,
+                    help="rows in the span self-time table")
     ns = p.parse_args(argv)
     ns.preset_key = ns.preset_key.replace("-", "_")
     return ns
 
 
-# flags of the JAX package's classifier verbs that the port refuses so
-# far (ROADMAP A1-rest)
-_UNPORTED_DIST_FLAGS = ("--central-storage", "--stream")
+def _log_snapshot(logger) -> None:
+    """The shared tail of every logged run that ends well: one
+    ``metrics_snapshot`` record of the process-wide registry."""
+    if logger is not None:
+        from idc_models_tpu_torch.observe import REGISTRY
+
+        REGISTRY.log_snapshot(logger)
 
 
 def _apply_overrides(preset, ns, fields):
@@ -336,27 +461,56 @@ def _load_idc(ns, image_size, limit):
     return ArrayDataset(imgs, labels)
 
 
+def _streamed_idc_splits(ns, preset, batch_size: int):
+    """80/10/10 split at the FILE level: train as a FileStream (decoded
+    per batch), val/test materialized (small, and evaluation takes
+    ArrayDatasets). None when there is no real data tree."""
+    import numpy as np
+
+    from idc_models_tpu_torch.data.idc import (
+        ArrayDataset, decode_pairs, list_shuffled_pairs,
+    )
+    from idc_models_tpu_torch.data.pipeline import FileStream
+
+    root = _data_root(ns)
+    if root is None:
+        return None
+    pairs = list_shuffled_pairs(root, seed=ns.seed,
+                                limit=preset.dataset_limit)
+    n = len(pairs)
+    n_tr, n_va = int(0.8 * n), int(0.1 * n)
+    if n_tr < batch_size or n_va == 0 or n - n_tr - n_va == 0:
+        sys.exit(f"--stream: {n} files are too few for an 80/10/10 split "
+                 f"at batch {batch_size}")
+    train = FileStream(pairs[:n_tr], preset.image_size, batch_size,
+                       seed=ns.seed, repeat=preset.repeats,
+                       decode_workers=ns.decode_workers)
+
+    def materialize(subset):
+        labels = np.asarray([l for _, l in subset], np.int32)
+        return ArrayDataset(decode_pairs(subset, preset.image_size), labels)
+
+    return (train, materialize(pairs[n_tr:n_tr + n_va]),
+            materialize(pairs[n_tr + n_va:]))
+
+
 def _run_dist(ns):
     from idc_models_tpu_torch import convert, resolve_device
     from idc_models_tpu_torch.configs import get_preset
     from idc_models_tpu_torch.data.cifar10 import load_cifar10
     from idc_models_tpu_torch.data.idc import train_val_test_split
     from idc_models_tpu_torch.models.pretrained import save_npz
-    from idc_models_tpu_torch.observe import JsonlLogger
+    from idc_models_tpu_torch.observe import JsonlLogger, profile_trace
     from idc_models_tpu_torch.train import losses
     from idc_models_tpu_torch.train.loop import (
         TwoPhaseConfig, evaluate, two_phase_fit,
     )
 
     device = resolve_device(ns.device)
-    for flag in _UNPORTED_DIST_FLAGS:
-        if getattr(ns, flag[2:].replace("-", "_")):
-            sys.exit(f"{flag}: not ported yet (ROADMAP A1-rest); the port "
-                     f"trains from a materialized dataset, mirrored")
-    if ns.decode_workers:
-        sys.exit(f"--decode-workers {ns.decode_workers}: not ported yet "
-                 f"(ROADMAP A1-rest); the port trains from a materialized "
-                 f"dataset")
+    if ns.model_parallel > 1 and ns.central_storage:
+        sys.exit("--central-storage broadcasts a host-resident replica "
+                 "each step and cannot keep a model-sharded layout; drop "
+                 "one of the two flags")
     if ns.model_parallel > 1:
         sys.exit(f"--model-parallel {ns.model_parallel}: tensor "
                  f"parallelism is not ported yet (ROADMAP A4); the port "
@@ -380,7 +534,18 @@ def _run_dist(ns):
     # the synthetic fallback must yield at least one full batch after the
     # train split, or the Loader rightly refuses to run
     ns.synthetic_examples = max(ns.synthetic_examples, 2 * preset.batch_size)
-    if preset.dataset == "cifar10":
+    streamed = None
+    if ns.stream:
+        if preset.dataset != "idc":
+            sys.exit("--stream needs an IDC directory preset (vgg/mobile)")
+        streamed = _streamed_idc_splits(ns, preset, preset.batch_size)
+        if streamed is None:
+            print("[idc_models_tpu_torch] --stream: no real data dir "
+                  "found; falling back to the materialized synthetic path",
+                  file=sys.stderr)
+    if streamed is not None:
+        train, val, test = streamed
+    elif preset.dataset == "cifar10":
         ds = load_cifar10(ns.path, split="train",
                           synthetic_size=ns.synthetic_examples, seed=ns.seed)
         test = load_cifar10(ns.path, split="test",
@@ -399,20 +564,24 @@ def _run_dist(ns):
     logger = (JsonlLogger(Path(ns.path) / "logs" / "run.jsonl")
               if ns.path is not None else None)
     try:
-        result = two_phase_fit(
-            preset.model, preset.num_outputs, train, val,
-            TwoPhaseConfig(lr=preset.lr, epochs=preset.epochs,
-                           fine_tune_epochs=preset.fine_tune_epochs,
-                           batch_size=preset.batch_size,
-                           fine_tune_at=preset.fine_tune_at,
-                           repeats=preset.repeats,
-                           cache_features=ns.cache_features, seed=ns.seed),
-            loss_fn=loss_fn, build_kwargs=build_kwargs,
-            pretrained_weights=ns.pretrained_weights,
-            checkpoint_dir=(Path(ns.path) / "dist_ckpt" if ns.resumable
-                            else None),
-            checkpoint_every=ns.checkpoint_every,
-            logger=logger, device=device)
+        with profile_trace(ns.profile_dir):
+            result = two_phase_fit(
+                preset.model, preset.num_outputs, train, val,
+                TwoPhaseConfig(lr=preset.lr, epochs=preset.epochs,
+                               fine_tune_epochs=preset.fine_tune_epochs,
+                               batch_size=preset.batch_size,
+                               fine_tune_at=preset.fine_tune_at,
+                               repeats=preset.repeats,
+                               cache_features=ns.cache_features,
+                               central_storage=ns.central_storage,
+                               seed=ns.seed),
+                loss_fn=loss_fn, build_kwargs=build_kwargs,
+                pretrained_weights=ns.pretrained_weights,
+                artifact_path=ns.path,
+                checkpoint_dir=(Path(ns.path) / "dist_ckpt" if ns.resumable
+                                else None),
+                checkpoint_every=ns.checkpoint_every,
+                logger=logger, device=device)
         test_metrics = evaluate(result.model, test, loss_fn,
                                 batch_size=preset.batch_size,
                                 with_auroc=preset.num_outputs == 1)
@@ -423,7 +592,10 @@ def _run_dist(ns):
             params, state = convert.to_jax(result.model)
             save_npz(Path(ns.path) / "model.npz",
                      {"params": params, "state": state})
+        _log_snapshot(logger)
     finally:
+        if streamed is not None:
+            train.close()
         if logger is not None:
             logger.close()
 
@@ -571,13 +743,14 @@ def _run_fed(ns):
             ns, round_fn, server, imgs, labels, w_train,
             rounds=preset.rounds, eval_round=eval_round, logger=logger,
             server_ckpt=server_ckpt, logged_through=logged_through,
-            on_round=warn_degenerate)
+            on_round=warn_degenerate, fault_plan=plan)
         for entry in result.history:
             dropped = int(entry.get("clients_dropped", 0))
             if dropped:
                 print(f"[idc_models_tpu_torch] round {entry['round']}: "
                       f"dropped {dropped} client(s) with non-finite "
                       f"updates from the aggregate", file=sys.stderr)
+        _log_snapshot(logger)
     finally:
         if logger is not None:
             logger.close()
@@ -611,16 +784,18 @@ def _restore_fed_server(server, ns):
 
 
 def _drive_fed(ns, round_fn, server, images, labels, weights, *, rounds,
-               eval_round, logger, server_ckpt, logged_through, on_round):
+               eval_round, logger, server_ckpt, logged_through, on_round,
+               fault_plan=None, participant_ids_fn=None):
     """Run the fed verbs' rounds under the self-healing driver: print
     each round and append its ``round`` record past `logged_through`,
     call `on_round(entry)`, checkpoint the server, exit on a round that
-    could not be healed and report the healed attempts. Returns the
+    could not be healed and report the healed attempts. `fault_plan`
+    and `participant_ids_fn` label the ``fed.client`` spans. Returns the
     driver's result."""
     from idc_models_tpu_torch.federated import (
         DriverConfig, RoundFailure, run_rounds,
     )
-    from idc_models_tpu_torch.observe import Timer
+    from idc_models_tpu_torch.observe import Timer, profile_trace
 
     print("round, train_loss, train_acc, test_loss, test_acc")
 
@@ -647,12 +822,14 @@ def _drive_fed(ns, round_fn, server, images, labels, weights, *, rounds,
         checkpoint_path=server_ckpt,
         checkpoint_every=ns.checkpoint_every)
     try:
-        with Timer("Federated training", logger=logger):
+        with Timer("Federated training", logger=logger), \
+                profile_trace(ns.profile_dir):
             result = run_rounds(
                 round_fn, server, images, labels, weights, config=config,
                 seed=ns.seed + 1, eval_fn=eval_round, on_round=print_round,
                 logger=logger, verbose=True, log_from_round=logged_through,
-                log_round_records=False)
+                log_round_records=False, fault_plan=fault_plan,
+                participant_ids_fn=participant_ids_fn)
     except RoundFailure as e:
         sys.exit(f"[idc_models_tpu_torch] federated training aborted: {e}")
     retried = [e for e in result.events if e["status"] != "ok"]
@@ -813,11 +990,16 @@ def _run_fed_population(ns, device):
                 entry.get("staleness_mean", 0.0)) * n
             totals["participants"] += n
 
+        # the fed.client spans name VIRTUAL clients: the async server's
+        # completions of the attempt, the sync round's cohort
+        ids_fn = ((lambda r: round_fn.last_participants) if use_async
+                  else sampler.cohort)
         _drive_fed(ns, round_fn, server, None, None,
                    np.ones((cohort,), np.float32), rounds=preset.rounds,
                    eval_round=eval_round, logger=logger,
                    server_ckpt=server_ckpt, logged_through=logged_through,
-                   on_round=add_totals)
+                   on_round=add_totals, fault_plan=plan,
+                   participant_ids_fn=ids_fn)
         mode = "weighted" if ns.weighted_sampling else "uniform"
         decomp = (f" in {cohort // wave} wave(s) of {wave}; memory "
                   f"bounded by the wave, not the population"
@@ -831,6 +1013,7 @@ def _run_fed_population(ns, device):
             print(f"async buffer: K={int(ns.async_buffer)}, staleness "
                   f"decay {decay}, {totals['updates']} buffered "
                   f"update(s), mean staleness {mean_st:.2f}")
+        _log_snapshot(logger)
     finally:
         if logger is not None:
             logger.close()
@@ -846,7 +1029,7 @@ def _run_secure(ns):
         initialize_server, load_server,
     )
     from idc_models_tpu_torch.models import registry
-    from idc_models_tpu_torch.observe import JsonlLogger, Timer
+    from idc_models_tpu_torch.observe import JsonlLogger, Timer, profile_trace
     from idc_models_tpu_torch.secure.fedavg import make_secure_fedavg_round
     from idc_models_tpu_torch.train import losses
     from idc_models_tpu_torch.train.loop import evaluate
@@ -884,6 +1067,7 @@ def _run_secure(ns):
                       file=sys.stderr)
             _run_secure_paillier(preset, client_ds, test_ds, model, loss_fn,
                                  logger, ns, device)
+            _log_snapshot(logger)
             return
         # strided shard per client (secure_fed_model.py:206-210), stacked
         # and uploaded to the card once
@@ -899,7 +1083,8 @@ def _run_secure(ns):
             local_epochs=preset.local_epochs, batch_size=preset.batch_size,
             mask_impl=ns.mask_impl, device=device)
         generator = torch.Generator().manual_seed(ns.seed + 1)
-        with Timer("Secure fed model", logger=logger):
+        with Timer("Secure fed model", logger=logger), \
+                profile_trace(ns.profile_dir):
             for r in range(preset.rounds):
                 server, tm = round_fn(server, imgs, labels, generator)
                 em = evaluate(load_server(model, server), test_ds, loss_fn,
@@ -927,6 +1112,7 @@ def _run_secure(ns):
             params, state = convert.to_jax(load_server(model, server))
             save_npz(Path(ns.path) / "model.npz",
                      {"params": params, "state": state})
+        _log_snapshot(logger)
     finally:
         if logger is not None:
             logger.close()
@@ -979,7 +1165,7 @@ def _run_lm(ns):
     from idc_models_tpu_torch.models.lm import (
         AttentionLM, Generator, next_token_loss,
     )
-    from idc_models_tpu_torch.observe import JsonlLogger, Timer
+    from idc_models_tpu_torch.observe import JsonlLogger, Timer, profile_trace
     from idc_models_tpu_torch.train.state import TrainState, rmsprop
     from idc_models_tpu_torch.train.step import make_train_step
 
@@ -1014,7 +1200,8 @@ def _run_lm(ns):
               if ns.path is not None else None)
     rng = np.random.default_rng(ns.seed + 1)
     try:
-        with Timer("LM training", logger=logger):
+        with Timer("LM training", logger=logger), \
+                profile_trace(ns.profile_dir):
             for i in range(ns.steps):
                 starts = rng.integers(0, ns.vocab, (batch, 1))
                 seqs = torch.as_tensor(
@@ -1069,6 +1256,326 @@ def _run_lm(ns):
                 # end to end (prefill + decode + host fetch) / tokens
                 logger.log(event="generate", tokens=toks, matches=ok,
                            generate_ms_per_token=dt * 1e3 / n_gen)
+        _log_snapshot(logger)
     finally:
         if logger is not None:
             logger.close()
+
+
+def _run_stats(ns):
+    """Offline run-log rollup (``observe/stats.py``) of any jsonl either
+    package writes: run.jsonl, profile.jsonl, a tracer's span export."""
+    import json
+
+    from idc_models_tpu_torch.observe import (
+        format_request_timeline, format_summary, summarize_jsonl,
+    )
+
+    paths = [Path(p) for p in ns.jsonl]
+    for p in paths:
+        if not p.exists():
+            sys.exit(f"stats: no such file: {p}")
+    summary = summarize_jsonl(paths[0] if len(paths) == 1 else paths)
+    if ns.request is not None:
+        try:
+            text = format_request_timeline(summary, ns.request)
+        except KeyError as e:
+            sys.exit(f"stats: {e.args[0]}")
+        if ns.json:
+            print(json.dumps({ns.request: summary["requests"][ns.request]}))
+        else:
+            print(text)
+    elif ns.json:
+        print(json.dumps(summary))
+    else:
+        if ns.top < 1:
+            sys.exit(f"stats: --top {ns.top} must be >= 1")
+        print(format_summary(summary, top=ns.top))
+
+
+def _run_profile(ns):
+    """Performance attribution over one train step (``observe/profile.py``):
+    the program's account from one counted real call, a roofline verdict
+    against the device's roof, the device-wait vs host-gap split of a
+    fenced pass, and the compile-churn watchdog -- printed, and written
+    as ``profile_program`` / ``profile_step`` records."""
+    import torch
+
+    from idc_models_tpu_torch import resolve_device
+    from idc_models_tpu_torch.observe import REGISTRY, JsonlLogger, trace
+    from idc_models_tpu_torch.observe import profile as prof
+
+    if ns.model == "serve":
+        sys.exit("profile --model serve: the serving engine is not ported "
+                 "yet (ROADMAP A9)")
+    if ns.fsdp > 1 or ns.tp > 1:
+        sys.exit(f"profile: --fsdp {ns.fsdp} / --tp {ns.tp}: parameter "
+                 f"sharding is not ported yet (ROADMAP A4); the port "
+                 f"profiles one card")
+    if ns.host_devices:
+        sys.exit(f"profile: --host-devices {ns.host_devices}: virtual "
+                 f"devices wait for the distribution layer (ROADMAP A4)")
+    if ns.steps is not None and ns.steps < 1:
+        sys.exit(f"profile: --steps {ns.steps} must be >= 1")
+    if ns.batch_size is not None and ns.batch_size < 1:
+        sys.exit(f"profile: --batch-size {ns.batch_size} must be >= 1")
+    if ns.compile_limit < 1:
+        sys.exit(f"profile: --compile-limit {ns.compile_limit} must "
+                 f"be >= 1")
+    if (ns.peak_tflops is None) != (ns.peak_gbps is None):
+        sys.exit("profile: --peak-tflops and --peak-gbps declare the "
+                 "two axes of one roofline -- pass both or neither")
+    device = resolve_device(ns.device)
+    kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    if ns.peak_tflops is not None:
+        try:
+            prof.register_roof(kind, ns.peak_tflops, ns.peak_gbps)
+        except ValueError as e:
+            sys.exit(f"profile: {e}")
+    wd = prof.arm_watchdog(limit=ns.compile_limit)
+    # main()'s --trace-out context may already have armed a tracer (the
+    # whole run then lands in the export); the timeline below reads only
+    # the measured region either way
+    own = trace.get_tracer() is None
+    prev = trace.set_tracer(trace.Tracer()) if own else None
+    tr = trace.get_tracer()
+    try:
+        if ns.model == "lm":
+            progs, mark = _profile_lm(ns, device, kind)
+        else:
+            progs, mark = _profile_train_step(ns, device, kind)
+        if ns.churn_drill:
+            _profile_churn_drill(ns.compile_limit, device)
+        records = prof.records_since(tr, mark)
+    finally:
+        prof.disarm_watchdog()
+        if own:
+            trace.set_tracer(prev)
+
+    timeline = prof.DeviceTimeline().consume(records)
+    step_stats = timeline.report()
+    print("programs (performance attribution):")
+    recs = []
+    for cost, roofline, step_ms in progs.values():
+        rec = prof.program_record(cost, roofline, step_ms=step_ms,
+                                  device_kind=kind)
+        recs.append(rec)
+        print(prof.format_program(rec))
+    print("step-time attribution (device-wait vs host-gap):")
+    print(timeline.format_report(step_stats))
+    rep = wd.report()
+    line = (f"compiles: {rep['total_compiles']} observed, "
+            f"{rep['compile_seconds_total']} s total")
+    if rep["flagged"]:
+        line += (f"; CHURN flagged: {', '.join(rep['flagged'])} "
+                 f"(> {rep['limit']} compiles each -- a shape/dtype is "
+                 f"varying per call)")
+    else:
+        line += "; churn: none"
+    print(line)
+
+    out_path = ns.out or (Path(ns.path) / "logs" / "profile.jsonl"
+                          if ns.path else None)
+    if out_path:
+        with JsonlLogger(out_path) as logger:
+            for rec in recs:
+                logger.log(event="profile_program", **rec)
+            for loop, st in step_stats.items():
+                logger.log(event="profile_step",
+                           **prof.step_record(loop, st))
+            REGISTRY.log_snapshot(logger)
+        print(f"profile events written to {out_path}")
+
+
+def _measure_steps(one_step, fence, steps: int):
+    """The two measured passes of a profiled step, after its two warm-up
+    steps: a throughput window (`steps` launches, one fence) for the
+    roofline verdict, then a fenced pass (one ``device.sync`` wait per
+    ``profile.step``) for the device-wait vs host-gap split. Returns
+    (seconds a step, the trace mark where the measured region starts)."""
+    import time
+
+    from idc_models_tpu_torch.observe import profile as prof
+    from idc_models_tpu_torch.observe import trace
+
+    mark = prof.trace_mark(trace.get_tracer())
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        one_step()
+    fence()
+    step_s = (time.perf_counter() - t0) / steps
+    for _ in range(steps):
+        with trace.span("profile.step"):
+            one_step()
+            with trace.span("device.sync"):
+                fence()
+    return step_s, mark
+
+
+def _profile_train_step(ns, device, kind: str):
+    """Profile one backbone's fine-tune train step in bf16 at its bench
+    configuration (``configs.BENCH_TRAIN_CONFIGS``; batch 8 on the CPU).
+    The first of the two warm-up steps is the counted call of the
+    program account."""
+    import numpy as np
+    import torch
+
+    from idc_models_tpu_torch.configs import BENCH_TRAIN_CONFIGS
+    from idc_models_tpu_torch.models import core, mobilenet, registry
+    from idc_models_tpu_torch.models.small_cnn import small_cnn
+    from idc_models_tpu_torch.observe import profile as prof
+    from idc_models_tpu_torch.ops import fused_conv
+    from idc_models_tpu_torch.train.losses import (
+        binary_cross_entropy, sparse_categorical_cross_entropy,
+    )
+    from idc_models_tpu_torch.train.state import TrainState, rmsprop
+    from idc_models_tpu_torch.train.step import make_train_step
+
+    on_card = device.type == "cuda"
+    if ns.model == "small":
+        cfg = dict(model=None, image=10, outputs=1, ft=None, lr=1e-3,
+                   batch=64)
+    else:
+        name = {"vgg": "vgg16", "mobile": "mobilenet_v2",
+                "dense": "densenet201"}[ns.model]
+        bc = BENCH_TRAIN_CONFIGS[name]
+        cfg = dict(model=name, image=bc["image_size"],
+                   outputs=bc["num_outputs"], ft=bc["fine_tune_at"],
+                   lr=bc["lr"], batch=bc["batch_per_chip"])
+    batch = ns.batch_size or (cfg["batch"] if on_card else 8)
+    steps = ns.steps or (30 if on_card else 4)
+    if cfg["model"] is None:
+        model = core.init_params(small_cnn(cfg["image"], 3, cfg["outputs"]),
+                                 ns.seed).to(device)
+        core.use_generator(model, torch.Generator(device=device)
+                           .manual_seed(ns.seed + 2))
+        opt = rmsprop(model, cfg["lr"])
+    else:
+        spec = registry.get_model(cfg["model"])
+        # BN-freeze only exists on the BN backbones (VGG has none)
+        build_kw = ({"bn_frozen_below": cfg["ft"]}
+                    if ns.model in ("mobile", "dense") else {})
+        if ns.model == "mobile":
+            build_kw["depthwise_impl"] = ns.depthwise_impl
+        model = core.init_params(spec.build(cfg["outputs"], **build_kw),
+                                 ns.seed).to(device)
+        opt = rmsprop(model, cfg["lr"], trainable_mask=spec.fine_tune_mask(
+            model, cfg["ft"]))
+    loss_fn = (binary_cross_entropy if cfg["outputs"] == 1
+               else sparse_categorical_cross_entropy)
+    step = make_train_step(TrainState(model, opt), loss_fn,
+                           compute_dtype=torch.bfloat16)
+    rng = np.random.default_rng(ns.seed)
+    s = cfg["image"]
+    x = torch.as_tensor(rng.random((batch, s, s, 3), np.float32),
+                        device=device)
+    y = torch.as_tensor(rng.integers(0, max(cfg["outputs"], 2), batch)
+                        .astype(np.int32), device=device)
+    first = next(model.parameters())
+
+    def one_step():
+        step(x, y)
+
+    def fence():
+        return float(first.detach().float().sum())   # waits for the card
+
+    cost, _ = prof.program_report(step, x, y, name="train.step",
+                                  arguments=(model, opt))
+    if (ns.model == "mobile" and ns.depthwise_impl == "fused"
+            and on_card):
+        # the fused chains whose BN is frozen launch the CUDA kernel, a
+        # ctypes call the op count cannot see: merge their analytic
+        # account, counted at the step's bf16 (itemsize 2)
+        n_fused = mobilenet.fused_chain_count(cfg["ft"], train=True)
+        k_flops, k_bytes = fused_conv.depthwise_chain_cost(
+            mobilenet.fused_call_shapes(batch, s)[:n_fused], itemsize=2)
+        cost = prof.augment_cost(cost, flops=k_flops,
+                                 bytes_accessed=k_bytes)
+    cost = prof.register_cost("train.step", cost)
+    one_step()
+    fence()                                  # warm + fence
+    step_s, mark = _measure_steps(one_step, fence, steps)
+    roofline = prof.roofline_verdict(cost, step_s, kind)
+    print(f"profile: train.step ({cfg['model'] or 'small_cnn'}, batch "
+          f"{batch} on {kind}, bf16, {steps} steps)")
+    print(f"  throughput {batch / step_s:.1f} patches/sec, "
+          f"{step_s * 1e3:.2f} ms/step")
+    if cost.peak_hbm_bytes is not None:
+        print(f"  peak memory: {cost.peak_hbm_bytes / 2**20:.2f} MiB")
+    return {"train.step": (cost, roofline, step_s * 1e3)}, mark
+
+
+def _profile_lm(ns, device, kind: str):
+    """Profile the LM train step, f32 with the plain (jnp) block, at the
+    JAX package's accelerator configuration on the card (vocab 8192,
+    embed 1024, 4 blocks, T=512, batch 8) and a small one on the CPU."""
+    import numpy as np
+    import torch
+
+    from idc_models_tpu_torch.models.core import init_params
+    from idc_models_tpu_torch.models.lm import AttentionLM, next_token_loss
+    from idc_models_tpu_torch.observe import profile as prof
+    from idc_models_tpu_torch.train.state import TrainState, rmsprop
+    from idc_models_tpu_torch.train.step import make_train_step
+
+    if device.type == "cuda":
+        vocab, e, mlp, heads, blocks, seq_len = 8192, 1024, 4096, 8, 4, 512
+    else:
+        vocab, e, mlp, heads, blocks, seq_len = 512, 128, 512, 4, 2, 64
+    batch = ns.batch_size or (8 if device.type == "cuda" else 4)
+    steps = ns.steps or (30 if device.type == "cuda" else 4)
+    model = init_params(AttentionLM(vocab, seq_len, embed_dim=e,
+                                    num_heads=heads, mlp_dim=mlp,
+                                    num_blocks=blocks), ns.seed).to(device)
+    opt = rmsprop(model, 3e-3)
+    step = make_train_step(TrainState(model, opt), next_token_loss)
+    rng = np.random.default_rng(ns.seed + 1)
+    seqs = torch.as_tensor((rng.integers(0, vocab, (batch, 1))
+                            + np.arange(seq_len)) % vocab, device=device)
+
+    def one_step():
+        step(seqs, seqs)
+
+    def fence():
+        return float(model.embed.detach().sum())     # waits for the card
+
+    cost, _ = prof.register_program("train.step", step, seqs, seqs,
+                                    arguments=(model, opt))
+    one_step()
+    fence()                                  # warm + fence
+    step_s, mark = _measure_steps(one_step, fence, steps)
+    roofline = prof.roofline_verdict(cost, step_s, kind)
+    print(f"profile: train.step (lm {e}x{blocks}, vocab {vocab}, seq "
+          f"{seq_len}, batch {batch}, f32, {steps} steps)")
+    print(f"  {step_s * 1e3:.2f} ms/step")
+    if cost.peak_hbm_bytes is not None:
+        print(f"  peak memory: {cost.peak_hbm_bytes / 2**20:.2f} MiB")
+    return {"train.step": (cost, roofline, step_s * 1e3)}, mark
+
+
+def _profile_churn_drill(limit: int, device) -> None:
+    """The injected recompile loop: a ``torch.compile``d reduction
+    (eager backend, static shapes) called with a different shape every
+    iteration, so the watchdog's churn detector fires on
+    ``churn.drill``. Dynamo's own recompile limit is raised above the
+    drill's count for the drill only."""
+    import torch
+    import torch._dynamo
+
+    from idc_models_tpu_torch.observe import profile as prof
+
+    cfg = torch._dynamo.config
+    key = ("recompile_limit" if hasattr(cfg, "recompile_limit")
+           else "cache_size_limit")
+    saved = getattr(cfg, key)
+    setattr(cfg, key, max(saved, limit + 4))
+    try:
+        f = torch.compile(lambda t: torch.sum(t * 2.0), backend="eager",
+                          dynamic=False)
+        with prof.compiling("churn.drill"):
+            for n in range(limit + 2):
+                float(f(torch.zeros((n + 1,), device=device)))
+    finally:
+        setattr(cfg, key, saved)
+        torch._dynamo.reset()

@@ -101,3 +101,18 @@ def get_preset(name: str):
     if key not in PRESETS:
         raise KeyError(f"unknown preset {name!r}; have {sorted(PRESETS)}")
     return PRESETS[key]
+
+
+# The train-step configurations the `profile` verb times each backbone's
+# fine-tune step at, as the JAX package's table: the per-card batch, the
+# fine-tune index and the rate handed to RMSprop (the phase-2 rate, the
+# preset lr / 10 for the BN backbones). The batches are the JAX package's
+# bench batches, kept so both packages profile the same step.
+BENCH_TRAIN_CONFIGS = {
+    "vgg16": dict(image_size=50, num_outputs=1, fine_tune_at=15,
+                  lr=1e-4, batch_per_chip=2048),
+    "mobilenet_v2": dict(image_size=50, num_outputs=1, fine_tune_at=100,
+                         lr=1e-5, batch_per_chip=4096),
+    "densenet201": dict(image_size=32, num_outputs=10, fine_tune_at=150,
+                        lr=1e-5, batch_per_chip=2048),
+}

@@ -1,4 +1,4 @@
-"""IDC directory-tree image loader (PIL backend).
+"""IDC directory-tree image loader.
 
 The counterpart of ``idc_models_tpu/data/idc.py``: a labeled dataset is
 built from ``<root>/<label>/<file>.png`` where the label is the parent
@@ -7,8 +7,11 @@ resized with the same half-pixel bilinear. The file list is sorted,
 shuffled once with a seed, and the split is materialized, so a seed
 gives the same examples and the same split as the JAX package.
 
-PIL is imported only when a file is decoded: the card's machine has no
-PIL, and the synthetic path never needs it.
+Two decode backends, as in the JAX package: "native" (the C++/libpng
+loader of ``data/native``, built at first use) and "pil" (a Python
+thread pool); "auto" takes native when it builds, else PIL. PIL is
+imported only when it decodes a file. numpy only: the spawned decode
+workers of ``pipeline.FileStream`` import this module, never torch.
 """
 
 from __future__ import annotations
@@ -90,22 +93,88 @@ def _resize_bilinear(arr: np.ndarray, size: int) -> np.ndarray:
 
 def load_directory(root: str | os.PathLike, *, image_size: int = 50,
                    limit: int | None = None, seed: int = 0,
-                   workers: int = 16) -> ArrayDataset:
+                   workers: int = 16, backend: str = "auto") -> ArrayDataset:
     """Load the ``<root>/<label>/*.png`` tree into an ArrayDataset.
 
     The file list is shuffled once with `seed` before the optional
-    `limit` is applied ("first N of a shuffled list")."""
+    `limit` is applied ("first N of a shuffled list"). `backend`:
+    "native", "pil" or "auto" (native when it builds, else pil)."""
+    pairs = list_shuffled_pairs(root, seed=seed, limit=limit)
+    labels = np.asarray([l for _, l in pairs], np.int32)
+    return ArrayDataset(decode_pairs(pairs, image_size, workers=workers,
+                                     backend=backend), labels)
+
+
+def list_shuffled_pairs(root: str | os.PathLike, *, seed: int = 0,
+                        limit: int | None = None) -> list[tuple[str, int]]:
+    """The loaders' shared preamble: list the labeled tree, shuffle once
+    with `seed`, apply the optional subset `limit`."""
     pairs = list_labeled_files(root)
     if not pairs:
         raise FileNotFoundError(f"no <label>/*.png files under {root}")
     order = np.random.default_rng(seed).permutation(len(pairs))
     pairs = [pairs[i] for i in order]
-    if limit is not None:
-        pairs = pairs[:limit]
-    labels = np.asarray([l for _, l in pairs], np.int32)
-    with ThreadPoolExecutor(max_workers=workers) as ex:
-        imgs = list(ex.map(lambda p: _decode_one(p[0], image_size), pairs))
-    return ArrayDataset(np.stack(imgs), labels)
+    return pairs[:limit] if limit is not None else pairs
+
+
+def decode_pairs(pairs: list[tuple[str, int]], image_size: int, *,
+                 workers: int = 16, backend: str = "auto",
+                 pool=None) -> np.ndarray:
+    """Decode (path, label) pairs to a float32 [n, s, s, 3] batch: the
+    one decode entry point of the materializing loader and the streaming
+    one (`pipeline.FileStream`); `backend` as in `load_directory`.
+    `pool` (a zero-arg callable returning a live executor) lets
+    per-batch callers reuse one thread pool on the PIL path."""
+    if backend not in ("auto", "native", "pil"):
+        raise ValueError(f"backend must be auto|native|pil, got {backend!r}")
+    if not pairs:
+        return np.zeros((0, image_size, image_size, 3), np.float32)
+    if backend in ("auto", "native"):
+        from idc_models_tpu_torch.data import native
+
+        if native.available():
+            return native.decode_batch([p for p, _ in pairs], image_size,
+                                       threads=workers)
+        if backend == "native":
+            raise RuntimeError(native.build_error())
+    job = lambda p: _decode_one(p[0], image_size)
+    if pool is not None:
+        imgs = list(pool().map(job, pairs))
+    else:
+        with ThreadPoolExecutor(max_workers=workers) as ex:
+            imgs = list(ex.map(job, pairs))
+    return np.stack(imgs)
+
+
+_TASK_POOL: list = [None, 0]  # [executor, max_workers], per process
+
+
+def _task_pool(workers: int):
+    """A persistent thread pool per decode worker process for
+    `decode_task`'s PIL path, so a worker does not build and tear down a
+    pool per batch."""
+    if _TASK_POOL[0] is None or _TASK_POOL[1] != workers:
+        if _TASK_POOL[0] is not None:
+            _TASK_POOL[0].shutdown(wait=False)
+        _TASK_POOL[0] = ThreadPoolExecutor(max_workers=workers)
+        _TASK_POOL[1] = workers
+    return _TASK_POOL[0]
+
+
+def decode_worker_init():
+    """Decode workers never touch the card: hide it from any torch a
+    worker might import, before anything could claim it."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+
+
+def decode_task(args):
+    """Worker-process entry of `pipeline.FileStream`'s multi-process
+    decode: one whole batch per task, through the same `decode_pairs`
+    call a single-process stream makes."""
+    pairs, image_size, backend, workers = args
+    return decode_pairs(pairs, image_size, workers=workers,
+                        backend=backend,
+                        pool=lambda: _task_pool(workers))
 
 
 def train_val_test_split(ds: ArrayDataset,

@@ -51,6 +51,7 @@ from torch import nn
 from idc_models_tpu_torch import faults as faults_lib
 from idc_models_tpu_torch import resolve_device
 from idc_models_tpu_torch.federated import robust
+from idc_models_tpu_torch.observe import metrics_registry as mreg
 from idc_models_tpu_torch.federated.fedavg import (
     LossFn, ServerState, client_generator, copy_tree, load_server,
     make_local_trainer,
@@ -177,6 +178,16 @@ def make_async_round(
         model, lr, loss_fn, local_epochs=local_epochs,
         batch_size=batch_size)
     K = int(buffer_size)
+    m_buffer = mreg.REGISTRY.gauge(
+        "fed_buffer_fill", "client updates currently buffered by the "
+        "async federated server")
+    m_updates = mreg.REGISTRY.counter(
+        "fed_async_updates_total", "staleness-weighted buffered server "
+        "updates applied")
+    m_staleness = mreg.REGISTRY.histogram(
+        "fed_update_staleness", "server-update lag (server versions) "
+        "of buffered client updates when applied",
+        buckets=(0.5, 1.5, 2.5, 3.5, 4.5))
 
     def train_one(snap: ServerState, cid: int, i: int):
         imgs, lbls = population.shard(cid)
@@ -385,6 +396,7 @@ def make_async_round(
             state["buffer"].append(
                 (new, snap, cw, staleness_decay ** s, code, scale))
             stalenesses.append(s)
+            m_staleness.observe(float(s))
             processed_ids.append(cid)
             wloss += cw * loss
             wacc += cw * acc
@@ -402,11 +414,13 @@ def make_async_round(
                 state["snapshots"][state["version"]] = copy_tree(server)
                 state["refs"].setdefault(state["version"], 0)
                 updates_applied += 1
+                m_updates.inc()
                 # prune superseded snapshots nothing references any more
                 for old_v in [vv for vv, n in state["refs"].items()
                               if n == 0 and vv != state["version"]]:
                     del state["snapshots"][old_v], state["refs"][old_v]
 
+        m_buffer.set(len(state["buffer"]))
         st = np.asarray(stalenesses, np.float64)
         hist = (np.bincount(
             np.minimum(st.astype(np.int64), STALENESS_BUCKETS - 1),

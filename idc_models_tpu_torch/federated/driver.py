@@ -32,9 +32,14 @@ package's ``fold_in(fold_in(key(seed), r), a)``) and its subset from
 ``default_rng((seed, r, a))``, so resumed and replayed runs reproduce
 the stream.
 
-The JAX driver's trace spans, metrics-registry counters, ``slo`` hook,
-``participant_ids_fn`` and program accounting wait for the port of
-observability (ROADMAP A7).
+Observability, as the JAX driver: each attempt is a ``fed.round`` span
+(round, attempt, status, participants) holding a ``device.sync`` span
+around the wait for the card and, while a tracer is armed, one
+``fed.client`` marker per participant with its fault outcome; the
+registry counts ``fed_round_attempts_total{status}``,
+``fed_round_seconds`` and ``fed_train_loss``; an `SLOEngine` passed as
+`slo` sees every attempt; with accounting armed the first attempt runs
+counted and is filed as the ``fed.round`` program.
 """
 
 from __future__ import annotations
@@ -49,6 +54,9 @@ import numpy as np
 import torch
 
 from idc_models_tpu_torch.federated.fedavg import ServerState, copy_tree
+from idc_models_tpu_torch.observe import metrics_registry as mreg
+from idc_models_tpu_torch.observe import profile as prof
+from idc_models_tpu_torch.observe import trace
 
 
 class RoundFailure(RuntimeError):
@@ -141,7 +149,8 @@ def run_rounds(round_fn, server: ServerState, images, labels, weights, *,
                config: DriverConfig, seed: int = 0, eval_fn=None,
                on_round=None, logger=None, clock=time.monotonic,
                verbose: bool = False, log_from_round: int = -1,
-               log_round_records: bool = True) -> DriverResult:
+               log_round_records: bool = True, fault_plan=None, slo=None,
+               participant_ids_fn=None) -> DriverResult:
     """Run `config.rounds` federated rounds with self-healing.
 
     `round_fn` is a `make_fedavg_round` product (or anything with its
@@ -153,6 +162,14 @@ def run_rounds(round_fn, server: ServerState, images, labels, weights, *,
     resume's replay must not double-append to an append-only jsonl);
     ``log_round_records=False`` leaves the per-round ``round`` records to
     the caller while the driver still writes ``round_health``.
+
+    `fault_plan` (the round's `faults` plan) labels the ``fed.client``
+    markers with each client's fault outcome. `slo` (an `SLOEngine`)
+    observes ``round_seconds`` and records ``round_failure_rate`` for
+    whichever it declares, and evaluates after every attempt.
+    `participant_ids_fn(round_idx) -> ids` names the markers by virtual
+    client id (population and async rounds); a plan with
+    ``codes_for(round, ids)`` is asked per id.
 
     Returns the last good server state, the per-round history and the
     per-attempt health events; raises `RoundFailure` when a round
@@ -174,6 +191,19 @@ def run_rounds(round_fn, server: ServerState, images, labels, weights, *,
         if logger is not None and record["round"] > log_from_round:
             logger.log(event="round_health", **record)
 
+    # process-wide instruments (idempotent: resumed runs and several
+    # drivers share them)
+    m_attempts = mreg.REGISTRY.counter(
+        "fed_round_attempts_total", "federated round attempts by "
+        "outcome", labels=("status",))
+    m_seconds = mreg.REGISTRY.histogram(
+        "fed_round_seconds", "wall seconds per round attempt")
+    m_loss = mreg.REGISTRY.gauge(
+        "fed_train_loss", "last healthy round's training loss")
+    # program accounting while armed (a profile_trace window): the
+    # first attempt runs counted, in place of a plain call
+    accounted = not prof.accounting_enabled()
+
     last_error: Exception | None = None
     for r in range(start, config.rounds):
         for attempt in range(config.max_attempts):
@@ -185,43 +215,72 @@ def run_rounds(round_fn, server: ServerState, images, labels, weights, *,
             t0 = clock()
             status, tm_host = "ok", {}
             candidate = None
-            try:
-                if kw:
-                    kw["round_idx"] = r
-                candidate, tm = round_fn(anchor, images, labels, w,
-                                         (seed, r, attempt), **kw)
-                _synchronize(candidate)
-                tm_host = {k: float(v) for k, v in tm.items()}
-                if not _all_finite(candidate) or not np.isfinite(
-                        tm_host.get("loss", np.nan)):
-                    status = "diverged"
-                elif (config.loss_spike_ratio is not None
-                      and ref_loss is not None
-                      and tm_host["loss"]
-                      > config.loss_spike_ratio * ref_loss):
-                    status = "diverged"
-            except Exception as e:  # noqa: BLE001 -- chained into RoundFailure
-                last_error = e
-                status = "error"
-                tm_host = {"error": f"{type(e).__name__}: {e}"}
-            elapsed = clock() - t0
-            timeout_exempt = (config.timeout_exempt_first
-                              and not first_attempt_done)
-            first_attempt_done = True
-            if (status == "ok" and config.timeout_s is not None
-                    and not timeout_exempt and elapsed > config.timeout_s):
-                status = "timeout"
-            w_host = np.asarray(torch.as_tensor(w).cpu())
-            health({"round": r, "attempt": attempt, "status": status,
-                    "seconds": round(elapsed, 4),
-                    "participants": int((w_host > 0).sum()),
-                    **{k: v for k, v in tm_host.items()
-                       if k in ("loss", "accuracy", "clients_dropped",
-                                "clients_clipped", "clients_trimmed",
-                                "trim_degenerate", "error")}})
+            with trace.span("fed.round", round=r,
+                            attempt=attempt) as att_span:
+                try:
+                    if kw:
+                        kw["round_idx"] = r
+                    call = (round_fn, anchor, images, labels, w,
+                            (seed, r, attempt))
+                    if accounted:
+                        candidate, tm = call[0](*call[1:], **kw)
+                    else:
+                        accounted = True
+                        _, (candidate, tm) = prof.register_program(
+                            "fed.round", *call,
+                            arguments=(anchor.params, anchor.state), **kw)
+                    # the wait for the card, and the metrics' fetch
+                    with trace.span("device.sync"):
+                        _synchronize(candidate)
+                        tm_host = {k: float(v) for k, v in tm.items()}
+                    if not _all_finite(candidate) or not np.isfinite(
+                            tm_host.get("loss", np.nan)):
+                        status = "diverged"
+                    elif (config.loss_spike_ratio is not None
+                          and ref_loss is not None
+                          and tm_host["loss"]
+                          > config.loss_spike_ratio * ref_loss):
+                        status = "diverged"
+                except Exception as e:  # noqa: BLE001 -- chained into RoundFailure
+                    last_error = e
+                    status = "error"
+                    tm_host = {"error": f"{type(e).__name__}: {e}"}
+                elapsed = clock() - t0
+                timeout_exempt = (config.timeout_exempt_first
+                                  and not first_attempt_done)
+                first_attempt_done = True
+                if (status == "ok" and config.timeout_s is not None
+                        and not timeout_exempt
+                        and elapsed > config.timeout_s):
+                    status = "timeout"
+                w_host = np.asarray(torch.as_tensor(w).cpu())
+                record = {"round": r, "attempt": attempt, "status": status,
+                          "seconds": round(elapsed, 4),
+                          "participants": int((w_host > 0).sum()),
+                          **{k: v for k, v in tm_host.items()
+                             if k in ("loss", "accuracy", "clients_dropped",
+                                      "clients_clipped", "clients_trimmed",
+                                      "trim_degenerate", "error")}}
+                att_span.set(status=status,
+                             participants=record["participants"])
+                if trace.get_tracer() is not None:
+                    ids = (participant_ids_fn(r)
+                           if participant_ids_fn is not None else None)
+                    _client_spans(att_span, w_host, r, attempt, fault_plan,
+                                  ids=ids)
+            m_attempts.inc(status=status)
+            m_seconds.observe(elapsed)
+            health(record)
+            if slo is not None:
+                if slo.has("round_seconds"):
+                    slo.observe("round_seconds", elapsed)
+                if slo.has("round_failure_rate"):
+                    slo.record("round_failure_rate", ok=status == "ok")
+                slo.evaluate()
             if status == "ok":
                 good = candidate
                 ref_loss = tm_host["loss"]
+                m_loss.set(ref_loss)
                 entry = {"round": r, "attempts": attempt + 1, **tm_host}
                 if eval_fn is not None:
                     entry.update(eval_fn(good))
@@ -252,6 +311,47 @@ def run_rounds(round_fn, server: ServerState, images, labels, weights, *,
             and int(good.round) % max(config.checkpoint_every, 1) != 0):
         _save(config.checkpoint_path, good)
     return DriverResult(server=good, history=history, events=events)
+
+
+def _client_spans(att_span, weights, round_idx: int, attempt: int,
+                  fault_plan, ids=None) -> None:
+    """One ``fed.client`` marker span per participating client, nested
+    under the attempt's ``fed.round`` span, carrying the client's fault
+    outcome for the round (the plan's pure (plan, round) function: the
+    codes the round branched on). Markers, not timings. `weights` is the
+    attempt's host array; `ids`, when given, are VIRTUAL client ids of a
+    population-scale round (the weight attr is then left out: the
+    positional weights do not describe them)."""
+    from idc_models_tpu_torch import faults as faults_lib
+
+    w = np.asarray(weights)
+    by_position = ids is None
+    ids = np.flatnonzero(w > 0) if by_position else np.asarray(ids)
+    if not by_position and len(ids) == len(w):
+        # sync population rounds: the cohort's ids align with the
+        # participation mask a reseeded retry zeroes
+        ids = ids[w > 0]
+    per_id = fault_plan is not None and hasattr(fault_plan, "codes_for")
+    codes = scales = None
+    if fault_plan is not None:
+        codes, scales = (fault_plan.codes_for(round_idx, ids) if per_id
+                         else fault_plan.codes(round_idx))
+    for i, cid in enumerate(ids):
+        cid = int(cid)
+        attrs = {"round": round_idx, "attempt": attempt, "client": cid}
+        if by_position:
+            attrs["weight"] = float(w[cid])
+        # population plans align codes to `ids`; materialized plans index
+        # by client position
+        ci = i if per_id else cid
+        if codes is not None and ci < len(codes):
+            code = int(codes[ci])
+            attrs["fault"] = faults_lib.kind_of(code)
+            if code in (faults_lib.SCALE, faults_lib.SIGN_FLIP):
+                attrs["fault_scale"] = float(scales[ci])
+            elif code == faults_lib.STRAGGLER:
+                attrs["staleness"] = fault_plan.staleness(round_idx)
+        trace.point("fed.client", parent=att_span.span_id, **attrs)
 
 
 def _save(path, server: ServerState) -> None:

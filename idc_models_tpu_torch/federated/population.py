@@ -51,6 +51,7 @@ from torch import nn
 from idc_models_tpu_torch import resolve_device
 from idc_models_tpu_torch.data import synthetic
 from idc_models_tpu_torch.federated import robust
+from idc_models_tpu_torch.observe import metrics_registry as mreg
 from idc_models_tpu_torch.federated.fedavg import (
     Key, LossFn, ServerState, StaleHistory, float_metrics,
     make_local_trainer, screen_clients, train_clients,
@@ -335,6 +336,12 @@ def make_population_round(
     history = StaleHistory(faults.max_staleness if faults else 0)
     n_waves = cohort_size // wave_size
     logged_rounds: set[int] = set()
+    m_cohort = mreg.REGISTRY.gauge(
+        "fed_cohort_size", "virtual clients sampled into the last "
+        "federated round's cohort")
+    m_sampled = mreg.REGISTRY.counter(
+        "fed_clients_sampled_total", "virtual clients sampled into "
+        "round cohorts, cumulative")
 
     def round_fn(server: ServerState, images=None, labels=None,
                  weights=None, key: Key = (0,), *,
@@ -431,6 +438,8 @@ def make_population_round(
             new = glob
             m["loss"] = m["accuracy"] = float("nan")
         participants = int((mask > 0).sum())
+        m_cohort.set(cohort_size)
+        m_sampled.inc(participants)
         m.update(cohort=cohort_size, participants=participants,
                  waves=n_waves)
         if (logger is not None and r > log_from_round

@@ -111,7 +111,10 @@ class Dense(nn.Module):
             nn.init.zeros_(self.bias)
 
     def forward(self, x):
-        y = x @ self.kernel
+        # JAX's type promotion: a bf16 input meeting the f32 kernel
+        # computes in f32, as ``x @ kernel`` does there
+        dt = torch.promote_types(x.dtype, self.kernel.dtype)
+        y = x.to(dt) @ self.kernel.to(dt)
         return y + self.bias if self.bias is not None else y
 
 

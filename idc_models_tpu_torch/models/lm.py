@@ -16,9 +16,11 @@ decode loop of one-token steps through `ring_decode`. The JAX package
 fuses the decode loop into one ``lax.scan`` dispatch; here it is a
 Python loop over the positions, eager PyTorch. Greedy decoding
 (temperature 0) is deterministic; sampling draws from an explicit
-``torch.Generator``, whose stream is not JAX's. Left out so far
-(ROADMAP A9): chunked prefill (``prefill_chunk``), partition rules (A4),
-the adapter hook and ``program_costs``.
+``torch.Generator``, whose stream is not JAX's. Its prefill and decode
+record ``lm.prefill`` / ``lm.decode`` spans while a tracer is armed, and
+`Generator.program_costs` accounts both programs
+(``observe/profile.py``). Left out so far (ROADMAP A9): chunked prefill
+(``prefill_chunk``), partition rules (A4) and the adapter hook.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from torch import nn
 from idc_models_tpu_torch import convert, resolve_device
 from idc_models_tpu_torch.models.attention import TransformerBlock
 from idc_models_tpu_torch.models.core import Dense, LayerNorm, gelu, layer_norm
+from idc_models_tpu_torch.observe import trace
 from idc_models_tpu_torch.ring_attention import make_ring_attention
 from idc_models_tpu_torch.ring_decode import init_cache, make_ring_decode
 
@@ -326,8 +329,9 @@ class Generator:
         needs T a multiple of 128."""
         tokens = _check_prompt(prompt, self.t_max)
         padded, p_len = _pad_prompt(tokens, self.t_max, 1)
-        return _prefill(self._cfg, self._model, self._ring,
-                        padded.to(self.device), p_len)
+        with trace.span("lm.prefill", p_len=p_len, bucket=padded.shape[1]):
+            return _prefill(self._cfg, self._model, self._ring,
+                            padded.to(self.device), p_len)
 
     @torch.no_grad()
     def decode(self, caches, logits, pos0: int, steps: int, *, rng=None):
@@ -348,12 +352,16 @@ class Generator:
                              "(a torch.Generator)")
         cfg, model, fold = self._cfg, self._model, self._fold
         toks = []
-        for pos in range(pos0, pos0 + steps):
-            tok = self._pick(logits, rng)
-            logits, caches = _token_forward(
-                cfg, model, caches, tok, pos,
-                lambda kc, vc, q, k, v, pos=pos: fold(kc, vc, q, k, v, pos))
-            toks.append(tok)
+        # the span covers the steps' launches; the caller's token fetch
+        # waits for the card
+        with trace.span("lm.decode", pos0=pos0, steps=steps):
+            for pos in range(pos0, pos0 + steps):
+                tok = self._pick(logits, rng)
+                logits, caches = _token_forward(
+                    cfg, model, caches, tok, pos,
+                    lambda kc, vc, q, k, v, pos=pos: fold(kc, vc, q, k, v,
+                                                          pos))
+                toks.append(tok)
         return torch.stack(toks, 1), logits, caches
 
     def __call__(self, prompt, steps: int, *, rng=None) -> torch.Tensor:
@@ -379,6 +387,29 @@ class Generator:
         second same-shape call trivially recompiles nothing."""
         return {"step": 0, "prefill": 0, "prefill_chunk": 0,
                 "decode_loop": 0}
+
+    def program_costs(self, *, batch: int = 1, steps: int = 8) -> dict:
+        """Cost/memory accounts of the serial serving programs
+        (``observe/profile.py`` ProgramCost): the full-bucket prefill of
+        `batch` prompts of ``t_max`` tokens, and `steps` decode steps
+        from fresh caches. Each is one counted real call, registered
+        under ``lm.prefill`` / ``lm.decode``. The flash kernels of
+        ``block_impl="pallas"`` are ctypes launches the count cannot
+        see."""
+        from idc_models_tpu_torch.observe import profile as prof
+
+        vocab = self._model.embed.shape[0]
+        toks = torch.zeros((batch, self.t_max), dtype=torch.long)
+        prefill, _ = prof.register_program(
+            "lm.prefill", self.prefill, toks, arguments=(self._model,))
+        caches = self.init_caches(batch)
+        logits = torch.zeros((batch, vocab), device=self.device)
+        rng = (torch.Generator(device=self.device).manual_seed(0)
+               if self.temperature > 0.0 else None)
+        decode, _ = prof.register_program(
+            "lm.decode", self.decode, caches, logits, 0, steps, rng=rng,
+            arguments=(self._model,))
+        return {"lm.prefill": prefill, "lm.decode": decode}
 
 
 def generate(params, prompt, steps: int, *, embed_dim: int, num_heads: int,

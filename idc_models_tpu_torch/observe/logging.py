@@ -1,6 +1,7 @@
 """Structured jsonl run logs, as ``idc_models_tpu/observe/logging.py``:
-one timestamped record per epoch / evaluation / timer, with the same
-event names and fields (``epoch``, ``test``, ``timer``)."""
+one timestamped record per epoch / round / evaluation / timer /
+metrics snapshot / profile row, with the same event names and fields,
+so ``stats`` reads the logs of either package."""
 
 from __future__ import annotations
 
@@ -47,13 +48,20 @@ class JsonlLogger:
 
 def _jsonable(v):
     shape = getattr(v, "shape", None)
-    if shape is not None:
-        if len(shape) == 0:
-            return v.item()
-        if math.prod(shape) > _MAX_INLINE_ELEMENTS:
-            return {"__array__": True, "shape": list(shape),
-                    "dtype": str(v.dtype)}
-        return v.tolist()
+    if shape is not None and hasattr(v, "tolist"):
+        # tensors and numpy arrays: scalars as numbers, small arrays
+        # inline, large ones summarized from the shape alone (never
+        # copied off the card); what cannot convert is written as its
+        # repr rather than failing the record and the caller's loop
+        try:
+            if len(shape) == 0:
+                return v.item()
+            if math.prod(shape) > _MAX_INLINE_ELEMENTS:
+                return {"__array__": True, "shape": list(shape),
+                        "dtype": str(v.dtype)}
+            return v.tolist()
+        except Exception:  # noqa: BLE001
+            return repr(v)
     if isinstance(v, dict):
         return {k: _jsonable(x) for k, x in v.items()}
     if isinstance(v, (list, tuple)):

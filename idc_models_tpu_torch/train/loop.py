@@ -21,7 +21,13 @@ passes over the train set per epoch (the ``dense`` preset's 2).
 the model's parameters and buffers, the RMSprop moments, the step count
 and the history as the state (`train/checkpoint.py`'s format).
 
-Left out of this port so far: ``central_storage`` and ``plot_history``.
+``central_storage`` keeps the train state in host memory between steps
+(the reference's CentralStorageStrategy toggle). `fit` records
+``train.epoch`` / ``train.step`` / ``device.sync`` / ``train.eval`` spans
+and the ``train_*`` registry metrics, and registers the train step's
+program account when accounting is armed (``profile_trace``, which the
+verbs' ``--profile-dir`` opens, arms it).
+``two_phase_fit`` saves the training-curve plot under `artifact_path`.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import hashlib
 import inspect
 import json
 import shutil
+import sys
 import warnings
 from pathlib import Path
 
@@ -42,6 +49,9 @@ from idc_models_tpu_torch import convert, resolve_device
 from idc_models_tpu_torch.data.idc import ArrayDataset
 from idc_models_tpu_torch.data.pipeline import Loader, eval_batches, to_device
 from idc_models_tpu_torch.models import core, registry
+from idc_models_tpu_torch.observe import metrics_registry as mreg
+from idc_models_tpu_torch.observe import profile as prof
+from idc_models_tpu_torch.observe import trace
 from idc_models_tpu_torch.observe.timer import Timer
 from idc_models_tpu_torch.train import checkpoint, losses
 from idc_models_tpu_torch.train import metrics as metrics_lib
@@ -98,10 +108,40 @@ def predict(model: nn.Module, images, *, batch_size: int = 32) -> np.ndarray:
     return batched_logits(model, ds, batch_size).cpu().numpy()
 
 
-def fit(state: TrainState, loss_fn, train_ds: ArrayDataset,
-        val_ds: ArrayDataset | None, *, epochs: int,
-        batch_size: int = 32, initial_epoch: int = 0, seed: int = 0,
-        repeats: int = 1, logger=None, verbose: bool = True,
+class _CentralStore:
+    """The train state (parameters, BN statistics, optimizer moments) kept
+    in host memory between steps: `to_device()` moves every tensor that
+    lived on the card there, `to_host()` moves them back. A Parameter
+    keeps its identity (its ``.data`` moves), so the optimizer's
+    references stay valid; RMSprop's step count, a host scalar, stays
+    where it is."""
+
+    def __init__(self, state: TrainState, device: torch.device):
+        self._device = device
+        self._tensors = [*state.model.parameters(), *state.model.buffers()]
+        self._opt = state.optimizer
+        self.to_host()
+
+    def _move(self, device: torch.device) -> None:
+        with torch.no_grad():
+            for t in self._tensors:
+                t.data = t.data.to(device)
+            for st in self._opt.state.values():
+                for k, v in st.items():
+                    if isinstance(v, torch.Tensor) and v.dim() > 0:
+                        st[k] = v.to(device)
+
+    def to_device(self) -> None:
+        self._move(self._device)
+
+    def to_host(self) -> None:
+        self._move(torch.device("cpu"))
+
+
+def fit(state: TrainState, loss_fn, train_ds, val_ds: ArrayDataset | None,
+        *, epochs: int, batch_size: int = 32, initial_epoch: int = 0,
+        seed: int = 0, repeats: int = 1, logger=None, verbose: bool = True,
+        central_storage: bool = False,
         checkpoint_dir: str | Path | None = None,
         checkpoint_every: int = 1) -> History:
     """Keras-``fit``-shaped epoch loop on the model's device.
@@ -110,9 +150,18 @@ def fit(state: TrainState, loss_fn, train_ds: ArrayDataset,
     "val_accuracy"} per epoch). Batch order is the JAX package's
     (``Loader``'s (seed, epoch) contract), so the same seed feeds the
     same batches in the same order; each epoch passes over `train_ds`
-    `repeats` times, freshly shuffled each pass. Per-step metrics stay on the device
-    and are read once per epoch. A non-finite epoch loss raises
-    ``FloatingPointError`` naming the first bad step.
+    `repeats` times, freshly shuffled each pass. `train_ds` may be a
+    ``pipeline.FileStream`` instead of an ArrayDataset: it keeps its
+    decode configuration, and fit imposes the schedule (batch, shuffle,
+    seed, repeat), so both train identically. Per-step metrics stay on
+    the device and are read once per epoch, inside a ``device.sync``
+    span. A non-finite epoch loss raises ``FloatingPointError`` naming
+    the first bad step.
+
+    `central_storage=True` keeps the state in host memory between steps:
+    each step copies it to the card, runs there and copies the new state
+    back -- the same numbers as the default, with a host round trip a
+    step.
 
     `checkpoint_dir` makes the loop resumable: the state is saved every
     `checkpoint_every` epochs and after the last, and a restart with the
@@ -124,15 +173,19 @@ def fit(state: TrainState, loss_fn, train_ds: ArrayDataset,
     model = state.model
     device = _model_device(model)
     step = make_train_step(state, loss_fn)
-    loader = Loader(train_ds, batch_size, shuffle=True, seed=seed,
-                    repeat=repeats)
+    if isinstance(train_ds, ArrayDataset):
+        loader = Loader(train_ds, batch_size, shuffle=True, seed=seed,
+                        repeat=repeats)
+    else:
+        loader = train_ds.replace(batch_size=batch_size, shuffle=True,
+                                  seed=seed, repeat=repeats)
     history: History = {"loss": [], "accuracy": [],
                         "val_loss": [], "val_accuracy": []}
     start_epoch = initial_epoch
     fingerprint = None
     if checkpoint_dir is not None:
-        fingerprint = _fit_fingerprint(model, seed, batch_size, repeats,
-                                       initial_epoch)
+        fingerprint = _fit_fingerprint(model, loader.seed, loader.batch_size,
+                                       loader.repeat, initial_epoch)
         restored = _restore_fit_checkpoint(checkpoint_dir, state, epochs,
                                            fingerprint)
         if restored is not None:
@@ -140,39 +193,85 @@ def fit(state: TrainState, loss_fn, train_ds: ArrayDataset,
             start_epoch = max(start_epoch, initial_epoch)
             if verbose and start_epoch > initial_epoch:
                 print(f"resuming fit from epoch {start_epoch + 1}")
-    for epoch in range(start_epoch, epochs):
-        step_losses, step_accs = [], []
-        for x, y in to_device(loader.epoch(epoch), device):
+    store = _CentralStore(state, device) if central_storage else None
+    m_steps = mreg.REGISTRY.counter("train_steps_total",
+                                    "optimizer steps taken")
+    m_epochs = mreg.REGISTRY.counter("train_epochs_total",
+                                     "epochs completed")
+    m_loss = mreg.REGISTRY.gauge("train_loss",
+                                 "last completed epoch's train loss")
+    # program accounting only while armed (a profile_trace window): the
+    # first step runs under the counting mode, in place of a plain call
+    accounted = not prof.accounting_enabled()
+
+    def run_step(x, y):
+        nonlocal accounted
+        if store is not None:
+            store.to_device()
+        if accounted:
             m = step(x, y)
-            step_losses.append(m["loss"])
-            step_accs.append(m["accuracy"])
-        loss_arr = torch.stack(step_losses).cpu()
-        ep = {"loss": float(loss_arr.mean()),
-              "accuracy": float(torch.stack(step_accs).mean())}
-        if not np.isfinite(ep["loss"]):
-            bad = int(np.flatnonzero(~np.isfinite(loss_arr.numpy()))[0])
-            raise FloatingPointError(
-                f"non-finite training loss ({ep['loss']}) at epoch "
-                f"{epoch + 1}, step {bad + 1}/{len(step_losses)}: the "
-                f"parameters and optimizer state are corrupt from that "
-                f"step on -- lower the lr or check the input data for "
-                f"NaN/Inf")
-        if val_ds is not None:
-            vm = evaluate(model, val_ds, loss_fn, batch_size=batch_size)
-            ep["val_loss"] = vm["loss"]
-            ep["val_accuracy"] = vm["accuracy"]
-        for k, v in ep.items():
-            history[k].append(v)
-        if verbose:
-            msg = " ".join(f"{k}={v:.4f}" for k, v in ep.items())
-            print(f"epoch {epoch + 1}/{epochs} {msg}")
-        if logger is not None:
-            logger.log(event="epoch", epoch=epoch, **ep)
-        if checkpoint_dir is not None and (
-                (epoch + 1) % max(checkpoint_every, 1) == 0
-                or epoch + 1 == epochs):
-            _save_fit_checkpoint(checkpoint_dir, state, history, epoch + 1,
-                                 fingerprint)
+        else:
+            accounted = True
+            _, m = prof.register_program("train.step", step, x, y,
+                                         arguments=(model, state.optimizer))
+        if store is not None:
+            store.to_host()
+        return m
+
+    try:
+        for epoch in range(start_epoch, epochs):
+            step_losses, step_accs = [], []
+            with trace.span("train.epoch", epoch=epoch) as ep_span:
+                for x, y in to_device(loader.epoch(epoch), device):
+                    # the span covers the host's part and the step's
+                    # launches; the device time they hide is waited for
+                    # in the device.sync below
+                    with trace.span("train.step"):
+                        m = run_step(x, y)
+                    step_losses.append(m["loss"])
+                    step_accs.append(m["accuracy"])
+                m_steps.inc(len(step_losses))
+                # the epoch-mean fetch is where the loop waits for the card
+                with trace.span("device.sync"):
+                    loss_arr = torch.stack(step_losses).cpu()
+                    ep = {"loss": float(loss_arr.mean()),
+                          "accuracy": float(torch.stack(step_accs).mean())}
+                ep_span.set(steps=len(step_losses), loss=ep["loss"])
+            if not np.isfinite(ep["loss"]):
+                bad = int(np.flatnonzero(~np.isfinite(loss_arr.numpy()))[0])
+                raise FloatingPointError(
+                    f"non-finite training loss ({ep['loss']}) at epoch "
+                    f"{epoch + 1}, step {bad + 1}/{len(step_losses)}: the "
+                    f"parameters and optimizer state are corrupt from that "
+                    f"step on -- lower the lr or check the input data for "
+                    f"NaN/Inf")
+            if val_ds is not None:
+                with trace.span("train.eval", epoch=epoch):
+                    if store is not None:
+                        store.to_device()
+                    vm = evaluate(model, val_ds, loss_fn,
+                                  batch_size=batch_size)
+                    if store is not None:
+                        store.to_host()
+                ep["val_loss"] = vm["loss"]
+                ep["val_accuracy"] = vm["accuracy"]
+            for k, v in ep.items():
+                history[k].append(v)
+            m_epochs.inc()
+            m_loss.set(ep["loss"])
+            if verbose:
+                msg = " ".join(f"{k}={v:.4f}" for k, v in ep.items())
+                print(f"epoch {epoch + 1}/{epochs} {msg}")
+            if logger is not None:
+                logger.log(event="epoch", epoch=epoch, **ep)
+            if checkpoint_dir is not None and (
+                    (epoch + 1) % max(checkpoint_every, 1) == 0
+                    or epoch + 1 == epochs):
+                _save_fit_checkpoint(checkpoint_dir, state, history,
+                                     epoch + 1, fingerprint)
+    finally:
+        if store is not None:
+            store.to_device()      # the caller gets its model back on its card
     return history
 
 
@@ -292,6 +391,7 @@ class TwoPhaseConfig:
     cache_features: bool = False   # phase 2 on cached frozen-prefix
     #                                activations (train/feature_cache.py)
     seed: int = 0
+    central_storage: bool = False  # host-resident train state per step
 
 
 @dataclasses.dataclass
@@ -328,6 +428,7 @@ def two_phase_fit(model_name: str, num_outputs: int, train_ds: ArrayDataset,
                   loss_fn=None,
                   build_kwargs: dict | None = None,
                   pretrained_weights: str | None = None,
+                  artifact_path: str | Path | None = None,
                   checkpoint_dir: str | Path | None = None,
                   checkpoint_every: int = 1,
                   logger=None, device=None) -> TwoPhaseResult:
@@ -341,7 +442,10 @@ def two_phase_fit(model_name: str, num_outputs: int, train_ds: ArrayDataset,
     to the model constructor (``registry.FUSED_BUILD_KWARGS[name]``
     selects the fused depthwise kernel). `checkpoint_dir` makes both
     phases resumable at epoch granularity (``phase1/`` and ``phase2/``
-    under it; `fit`). `device` is CUDA unless "cpu" is asked for."""
+    under it; `fit`). `artifact_path` gets the training-curve plot
+    (``<artifact_path>/logs/plot_dev1.png``; without matplotlib one line
+    on stderr says so and nothing else changes). `device` is CUDA unless
+    "cpu" is asked for."""
     device = resolve_device(device)
     if loss_fn is None:
         loss_fn = (losses.binary_cross_entropy if num_outputs == 1
@@ -373,7 +477,7 @@ def two_phase_fit(model_name: str, num_outputs: int, train_ds: ArrayDataset,
         history = fit(state1, loss_fn, train_ds, val_ds,
                       epochs=config.epochs, batch_size=config.batch_size,
                       seed=config.seed, repeats=config.repeats,
-                      logger=logger,
+                      logger=logger, central_storage=config.central_storage,
                       checkpoint_dir=_phase_dir(checkpoint_dir, 1),
                       checkpoint_every=checkpoint_every)
 
@@ -384,6 +488,11 @@ def two_phase_fit(model_name: str, num_outputs: int, train_ds: ArrayDataset,
     del model1
     plan = None
     if config.cache_features:
+        if not isinstance(train_ds, ArrayDataset):
+            raise ValueError(
+                "cache_features needs a materialized ArrayDataset (the "
+                "cache runs the frozen prefix over the whole train set); "
+                "drop --stream or --cache-features")
         from idc_models_tpu_torch.train import feature_cache as fc
 
         plan = fc.plan_feature_cache(model2, spec.layer_index or {},
@@ -410,10 +519,13 @@ def two_phase_fit(model_name: str, num_outputs: int, train_ds: ArrayDataset,
                                initial_epoch=config.epochs,
                                seed=config.seed + 1,
                                repeats=config.repeats, logger=logger,
+                               central_storage=config.central_storage,
                                checkpoint_dir=_phase_dir(checkpoint_dir, 2),
                                checkpoint_every=checkpoint_every)
     print(history)
     print(history_fine)
+    if artifact_path is not None:
+        _plot(artifact_path, history, history_fine, config.epochs)
     return TwoPhaseResult(
         model=model2, history=history, history_fine=history_fine,
         baseline=baseline, pretrain_seconds=t1.seconds,
@@ -450,6 +562,7 @@ def _fit_cached_phase2(plan, spec: registry.ModelSpec, model: nn.Module,
                        epochs=total_epochs, batch_size=config.batch_size,
                        initial_epoch=config.epochs, seed=config.seed + 1,
                        repeats=config.repeats, logger=logger,
+                       central_storage=config.central_storage,
                        checkpoint_dir=checkpoint_dir,
                        checkpoint_every=checkpoint_every)
     full = TrainState(model, rmsprop(
@@ -457,3 +570,19 @@ def _fit_cached_phase2(plan, spec: registry.ModelSpec, model: nn.Module,
         trainable_mask=spec.fine_tune_mask(model, fine_tune_at)),
         step=sstate.step)
     return full, history_fine
+
+
+def _plot(artifact_path, history: History, history_fine: History,
+          initial_epochs: int) -> None:
+    """The training-curve plot on one card, or one stderr line when
+    matplotlib is missing (the card's machine has none)."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        print("[idc_models_tpu_torch] matplotlib is not installed: no "
+              "training-curve plot written", file=sys.stderr)
+        return
+    from idc_models_tpu_torch.observe.plots import plot_history
+
+    plot_history(artifact_path, history, history_fine, 1,
+                 initial_epochs=initial_epochs)

@@ -221,8 +221,10 @@ def test_cli_dense_runs_on_cifar_and_saves_the_jax_layout(tmp_path, capsys,
     recs = [json.loads(line) for line in
             (tmp_path / "logs" / "run.jsonl").read_text().splitlines()]
     assert [r["event"] for r in recs].count("epoch") == 2
-    assert recs[-1]["event"] == "test" and "auroc" not in recs[-1]
-    assert np.isfinite(recs[-1]["loss"])
+    # the run log closes with the registry's metrics snapshot
+    assert recs[-1]["event"] == "metrics_snapshot"
+    assert recs[-2]["event"] == "test" and "auroc" not in recs[-2]
+    assert np.isfinite(recs[-2]["loss"])
     assert "test: loss=" in capsys.readouterr().out
     params, state = tpretrained.load_pretrained_file(tmp_path / "model.npz")
     x = _images()

@@ -885,3 +885,102 @@ def test_one_wave_equals_the_fedavg_round_on_the_card(deterministic):
         server, None, None, mask, (5, 0, 0), round_idx=0)
     for k in crashed.params:
         assert torch.equal(crashed.params[k], masked.params[k]), k
+
+
+def _fused_mobilenet_step(device, batch: int = 8,
+                          compute_dtype=torch.bfloat16):
+    """A MobileNetV2 fine-tune step (fused depthwise chains, BN frozen
+    below 100, the bench configuration's mask and rate; bf16 unless
+    asked otherwise) on `device`, from seed-0 weights, and its inputs."""
+    from idc_models_tpu_torch.train.state import TrainState, rmsprop
+    from idc_models_tpu_torch.train.step import make_train_step
+
+    model = core.init_params(mobilenet.mobilenet_v2(
+        1, bn_frozen_below=100, depthwise_impl="fused"), 0).to(device)
+    opt = rmsprop(model, 1e-5,
+                  trainable_mask=mobilenet.fine_tune_mask(model, 100))
+    step = make_train_step(TrainState(model, opt), binary_cross_entropy,
+                           compute_dtype=compute_dtype)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.rand(batch, 50, 50, 3, generator=gen).to(device)
+    y = (torch.arange(batch) % 2).to(torch.int32).to(device)
+    return model, opt, step, x, y
+
+
+def test_program_report_on_the_card_measures_memory_and_the_kernel(cuda):
+    """On the card `program_report` measures the call's memory, and the
+    fused chains' analytic account (at bf16's itemsize 2) merges into
+    its count: the 11 frozen chains launch the kernel, a ctypes call the
+    op count cannot see."""
+    from idc_models_tpu_torch.observe import profile as prof
+
+    model, opt, step, x, y = _fused_mobilenet_step("cuda", batch=32)
+    before = fc.KERNEL.launches
+    cost, m = prof.program_report(step, x, y, name="gpu.step",
+                                  arguments=(model, opt))
+    assert fc.KERNEL.launches - before == mobilenet.fused_chain_count(
+        100, train=True) == 11
+    assert torch.isfinite(m["loss"])
+    assert cost.argument_bytes > 0 and cost.temp_bytes > 0
+    assert cost.peak_hbm_bytes == cost.argument_bytes + cost.temp_bytes
+    assert cost.output_bytes is not None
+    assert set(cost.missing) == {"alias_bytes", "generated_code_bytes"}
+    k_flops, k_bytes = fc.depthwise_chain_cost(
+        mobilenet.fused_call_shapes(32, 50)[:11], itemsize=2)
+    merged = prof.augment_cost(cost, flops=k_flops, bytes_accessed=k_bytes)
+    assert merged.flops == cost.flops + k_flops
+    assert merged.bytes_accessed == cost.bytes_accessed + k_bytes
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_fused_mobilenet_step_on_the_card_matches_the_cpu(cuda, dtype):
+    """The fused MobileNetV2 at `dtype` through the kernel on the card
+    against the plain version on the CPU, from the same weights and
+    inputs: eval logits, then one fine-tune step. Every convolution,
+    the fused depthwise chains included, sees `dtype` in and out.
+
+    bf16: the eval logits within 5e-2 of the largest |logit| (measured
+    on the H100 over two weight seeds and three inputs: 2.9e-3 to
+    2.3e-2, each layer's bf16 rounding of sums taken in another order),
+    the train step's loss within 2e-2 relative. Its gradients are not
+    held: through the train-mode BNs of blocks 11-16 bf16 rounding moves
+    them by amounts comparable to the gradients themselves between any
+    two implementations (the CPU's grouped conv against the CPU's f32
+    step as much as cuDNN against the kernel). f32: the eval logits
+    within 1e-5 of the largest |logit| (measured 1.6e-6), the loss
+    within 1e-5 relative, and all trained gradients together within
+    1e-4 of their norm (a BN bias whose every path runs into a
+    train-mode BN has a zero gradient but rounding noise, so tensors are
+    not held one by one)."""
+    from idc_models_tpu_torch.train.step import make_eval_step
+
+    dt = getattr(torch, dtype)
+    results = {}
+    for device in ("cuda", "cpu"):
+        model, _, step, x, y = _fused_mobilenet_step(device,
+                                                     compute_dtype=dt)
+        seen = set()
+        for mod in model.modules():
+            if isinstance(mod, (core.Conv2d, core.DepthwiseConv2d)):
+                mod.register_forward_hook(
+                    lambda m, a, out: seen.update({a[0].dtype, out.dtype}))
+        before = fc.KERNEL.launches
+        logits = make_eval_step(model, binary_cross_entropy,
+                                compute_dtype=dt)(x, y)["logits"]
+        m = step(x, y)
+        if device == "cuda":
+            assert fc.KERNEL.launches - before == 17 + 11
+        assert seen == {dt}, (device, seen)
+        results[device] = (logits.cpu(), float(m["loss"]), torch.cat([
+            p.grad.float().cpu().reshape(-1)
+            for p in model.parameters() if p.grad is not None]))
+    (card_z, card_loss, card_g), (cpu_z, cpu_loss, cpu_g) = (
+        results["cuda"], results["cpu"])
+    z_err = float((card_z - cpu_z).abs().max() / cpu_z.abs().max())
+    if dtype == "bfloat16":
+        assert z_err <= 5e-2
+        assert card_loss == pytest.approx(cpu_loss, rel=2e-2)
+    else:
+        assert z_err <= 1e-5
+        assert card_loss == pytest.approx(cpu_loss, rel=1e-5)
+        assert float((card_g - cpu_g).norm()) <= 1e-4 * float(cpu_g.norm())

@@ -306,8 +306,8 @@ def test_lm_verb_runs_on_the_cpu_through_the_pallas_ring(tmp_path):
     records = [json.loads(line) for line in
                (tmp_path / "logs" / "run.jsonl").read_text().splitlines()]
     assert [r["event"] for r in records] == ["step", "step", "timer",
-                                             "generate"]
-    assert len(records[-1]["tokens"]) == 15
+                                             "generate", "metrics_snapshot"]
+    assert len(records[-2]["tokens"]) == 15
 
 
 def test_lm_verb_refuses_what_is_not_ported(monkeypatch):

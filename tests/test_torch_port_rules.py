@@ -156,3 +156,21 @@ def test_kernel_build_names_sm90a_and_a_source_hash():
     assert tsmk.KERNEL.library_path().name.startswith("libsecure_masking-")
     assert "idc_models_tpu_torch/_build/" in (
         REPO / ".gitignore").read_text().splitlines()
+
+
+def test_native_loader_builds_from_the_ports_own_source():
+    """The PNG loader's C++ source is the port's own file, and the
+    binding compiles it into the port's build directory -- never the
+    JAX package's source or binary."""
+    from idc_models_tpu_torch.data import native
+
+    port = REPO / "idc_models_tpu_torch"
+    jax_native = REPO / "idc_models_tpu" / "data" / "native"
+    assert native._SRC == port / "data" / "native" / "loader.cpp"
+    assert native._SRC.is_file()
+    assert native._SO.parent == build.BUILD_DIR
+    for path in (native._SRC, native._SO):
+        assert port in path.parents and jax_native not in path.parents
+    assert "idc_models_tpu/data/native" not in (
+        port / "data" / "native" / "__init__.py").read_text().replace(
+        "``idc_models_tpu/data/native/__init__.py``", "")

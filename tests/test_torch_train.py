@@ -136,7 +136,8 @@ def test_load_directory_pil_matches_jax(tmp_path):
         for i in range(3):
             arr = rng.integers(0, 256, (7 + i, 9, 3), dtype=np.uint8)
             Image.fromarray(arr).save(tmp_path / label / f"p{i}.png")
-    got = tidc.load_directory(tmp_path, image_size=6, seed=5, limit=5)
+    got = tidc.load_directory(tmp_path, image_size=6, seed=5, limit=5,
+                              backend="pil")
     want = jidc.load_directory(tmp_path, image_size=6, seed=5, limit=5,
                                backend="pil")
     np.testing.assert_array_equal(got.labels, want.labels)
@@ -231,8 +232,9 @@ def test_timer_and_jsonl_logger_records(tmp_path):
 
 def test_cli_mobile_runs_two_phases_on_the_cpu(tmp_path, capsys):
     """The `mobile` verb end to end at a small size: jsonl epoch/test
-    records (AUROC included) and a model.npz in the JAX layout that loads
-    back into a fresh port model."""
+    records (AUROC included), the closing metrics_snapshot record, and a
+    model.npz in the JAX layout that loads back into a fresh port
+    model."""
     rc = cli.main(["mobile", "--device", "cpu", "--synthetic-examples",
                    "48", "--batch-size", "8", "--epochs", "1",
                    "--fine-tune-epochs", "1", "--depthwise-impl", "fused",
@@ -241,8 +243,9 @@ def test_cli_mobile_runs_two_phases_on_the_cpu(tmp_path, capsys):
     recs = [json.loads(line) for line in
             (tmp_path / "logs" / "run.jsonl").read_text().splitlines()]
     events = [r["event"] for r in recs]
-    assert events.count("epoch") == 2 and events[-1] == "test"
-    assert {"loss", "accuracy", "auroc"} <= set(recs[-1])
+    assert events.count("epoch") == 2
+    assert events[-2:] == ["test", "metrics_snapshot"]
+    assert {"loss", "accuracy", "auroc"} <= set(recs[-2])
     assert "test: loss=" in capsys.readouterr().out
     params, state = tpretrained.load_pretrained_file(tmp_path / "model.npz")
     model = tmobile.mobilenet_v2(1)
@@ -286,3 +289,180 @@ def test_two_phase_fit_passes_the_train_set_repeats_times():
                                 device="cpu")
     assert once.train_steps == (2, 2)
     assert twice.train_steps == (4, 4)
+
+
+def _bn_classifier_pair(seed: int = 0):
+    """The same conv -> BN -> relu classifier in both packages, on the
+    JAX init's weights (no conv bias: a bias before a training BN has no
+    gradient but rounding noise)."""
+    jm = jcore.classifier(jcore.sequential(
+        [jcore.conv2d(3, 8, 3, stride=2, use_bias=False, name="stem"),
+         jcore.batch_norm(8, name="bn"), jcore.relu()], name="body"),
+        8, 1, name="clf")
+    v = jm.init(jax.random.key(seed))
+    tm = tcore.Classifier(tcore.Sequential(
+        [tcore.Conv2d(3, 8, 3, stride=2, use_bias=False, name="stem"),
+         tcore.BatchNorm(8, name="bn"), tcore.ReLU()], name="body"),
+        8, 1, name="clf")
+    convert.load_jax(tm, v.params, v.state)
+    return jm, v, tm
+
+
+def _jax_fit(jm, v, ds, *, central_storage, epochs=2):
+    from idc_models_tpu import mesh as meshlib
+    from idc_models_tpu.train import loop as jloop
+
+    opt = jstate.rmsprop(1e-3)
+    state = jstate.TrainState(step=jnp.zeros((), jnp.int32),
+                              params=v.params, model_state=v.state,
+                              opt_state=opt.init(v.params))
+    _, hist = jloop.fit(jm, opt, jlosses.binary_cross_entropy, state,
+                        jidc.ArrayDataset(ds.images, ds.labels), None,
+                        meshlib.data_mesh(1), epochs=epochs, batch_size=8,
+                        seed=3, verbose=False,
+                        central_storage=central_storage)
+    return hist
+
+
+def test_central_storage_equals_mirrored_and_jax():
+    """central_storage keeps the state on the host between steps: the
+    port's history and final weights equal its mirrored run bit for bit
+    on the CPU, and its losses equal the JAX central_storage run's
+    within rtol 1e-5 (the port's round tolerance, tests/
+    test_torch_population.py)."""
+    imgs, labels = tsynthetic.make_idc_like(32, size=10, seed=0)
+    ds = tidc.ArrayDataset(imgs.astype(np.float32), labels)
+    runs = {}
+    for central in (False, True):
+        jm, v, tm = _bn_classifier_pair()
+        state = tstate.TrainState(tm, tstate.rmsprop(tm, 1e-3))
+        hist = tloop.fit(state, tlosses.binary_cross_entropy, ds, None,
+                         epochs=2, batch_size=8, seed=3, verbose=False,
+                         central_storage=central)
+        runs[central] = hist, {k: t.detach().clone()
+                               for k, t in tm.state_dict().items()}
+        assert state.step == 8
+    (h_mir, w_mir), (h_cen, w_cen) = runs[False], runs[True]
+    assert h_cen == h_mir
+    for k in w_mir:
+        assert torch.equal(w_cen[k], w_mir[k]), k
+    want = _jax_fit(jm, v, ds, central_storage=True)
+    np.testing.assert_allclose(h_cen["loss"], want["loss"], rtol=1e-5)
+    np.testing.assert_allclose(h_cen["accuracy"], want["accuracy"],
+                               rtol=1e-5)
+
+
+def _bf16_steps_against_jax(compute_dtype):
+    """One train step and one eval step of the port at `compute_dtype`
+    against JAX's bf16 steps, from the same weights and inputs. Returns
+    (loss error relative to JAX's, each gradient's largest error over
+    its largest |gradient|, largest logit error, the dtypes the stem
+    convolution saw in and out)."""
+    from idc_models_tpu.train import step as jstep
+    from idc_models_tpu_torch.train import step as tstep
+
+    rng = np.random.default_rng(0)
+    x = rng.random((8, 10, 10, 3)).astype(np.float32)
+    y = (np.arange(8) % 2).astype(np.int32)
+    jm, v, tm = _bn_classifier_pair(1)
+
+    def jax_loss(params):
+        # the JAX train step's loss_of at compute_dtype=bf16
+        logits, _ = jm.apply(params, v.state, jnp.asarray(x, jnp.bfloat16),
+                             train=True)
+        return jlosses.binary_cross_entropy(logits.astype(jnp.float32),
+                                            jnp.asarray(y))
+
+    jloss, jgrads = jax.value_and_grad(jax_loss)(v.params)
+    seen = set()
+    tm.backbone.stem.register_forward_hook(
+        lambda m, a, out: seen.update({a[0].dtype, out.dtype}))
+    state = tstate.TrainState(tm, tstate.rmsprop(tm, 1e-3))
+    m = tstep.make_train_step(state, tlosses.binary_cross_entropy,
+                              compute_dtype=compute_dtype)(
+        torch.from_numpy(x), torch.from_numpy(y))
+    loss_err = abs(float(m["loss"]) - float(jloss)) / abs(float(jloss))
+    want = convert.flatten(jax.device_get(jgrads))
+    grad_err = {}
+    for k, p in tm.named_parameters():
+        g = want[k.replace(".", "/")]
+        grad_err[k] = float(np.abs(p.grad.numpy() - g).max()
+                            / np.abs(g).max())
+    assert all(p.dtype == torch.float32 for p in tm.parameters())
+    assert all(s["square_avg"].dtype == torch.float32
+               for s in state.optimizer.state.values())
+    assert all(b.dtype == torch.float32 for b in tm.buffers())
+
+    # the eval step on the JAX weights, again
+    jm, v, tm = _bn_classifier_pair(1)
+    jeval = jstep.make_eval_step(jm, jlosses.binary_cross_entropy,
+                                 compute_dtype=jnp.bfloat16)(
+        jstate.TrainState(step=0, params=v.params, model_state=v.state,
+                          opt_state=None), x, y)
+    teval = tstep.make_eval_step(tm, tlosses.binary_cross_entropy,
+                                 compute_dtype=compute_dtype)(
+        torch.from_numpy(x), torch.from_numpy(y))
+    assert teval["logits"].dtype == torch.float32
+    logit_err = float(np.abs(teval["logits"].numpy()
+                             - np.asarray(jeval["logits"])).max())
+    return loss_err, grad_err, logit_err, seen
+
+
+def test_bf16_train_and_eval_steps_match_jax():
+    """compute_dtype=bf16 has the JAX step's semantics: inputs cast once,
+    convolution weights cast to bf16, BN statistics in f32, the dense
+    head promoted to f32, logits in f32 before the loss, master weights
+    and moments f32. Both sides round at the same places, so on the same
+    weights the port's bf16 steps agree with JAX's closely: the loss
+    within 1e-5 relative and the eval logits within 1e-5 absolute
+    (measured on the CPU: 8e-8 and 4.5e-8); each gradient within 1e-4
+    of its largest |gradient| (measured: 1.2e-6), except the stem
+    convolution's weight gradient, within 5e-2 (it sums 200 bf16
+    products a weight in another order on each side; measured 2.0e-2).
+    The stem convolution sees bf16 in and out.
+
+    The control: the port's f32 steps on the same inputs fall outside
+    those bounds (measured: loss 7.2e-5 relative, logits 9.2e-4, head
+    kernel gradient 3.6e-3 of its largest), so the bounds tell a bf16
+    step from an f32 one. The updated weights are not compared:
+    RMSprop's first step moves each weight by lr*sqrt(10)*sign(g), so a
+    near-zero gradient whose sign the two bf16 roundings differ on moves
+    6e-3 apart."""
+    loss_err, grad_err, logit_err, seen = _bf16_steps_against_jax(
+        torch.bfloat16)
+    assert seen == {torch.bfloat16}
+    assert loss_err <= 1e-5
+    assert logit_err <= 1e-5
+    for k, err in grad_err.items():
+        assert err <= (5e-2 if k == "backbone.stem.kernel" else 1e-4), (k, err)
+
+    loss_err, grad_err, logit_err, seen = _bf16_steps_against_jax(None)
+    assert seen == {torch.float32}
+    assert loss_err > 1e-5
+    assert logit_err > 1e-5
+    assert grad_err["head.kernel"] > 1e-4
+
+
+def test_bf16_steps_keep_token_ids_exact():
+    """Integer inputs skip the compute-dtype cast, as the JAX step skips
+    them (idc_models_tpu/train/step.py:39-46): token ids above 256 reach
+    the LM unrounded under bf16, so the bf16 step's loss equals the f32
+    step's on the same ids."""
+    from idc_models_tpu_torch.models.lm import AttentionLM, next_token_loss
+    from idc_models_tpu_torch.train import step as tstep
+
+    ids = torch.tensor([[257, 300, 511, 1000, 1023, 5, 6, 7]])
+    assert not torch.equal(ids.to(torch.bfloat16).long(), ids)
+    assert torch.equal(tstep.cast_inputs(ids, torch.bfloat16), ids)
+    losses = []
+    for dtype in (torch.bfloat16, None):
+        model = tcore.init_params(AttentionLM(
+            1024, 8, embed_dim=16, num_heads=2, mlp_dim=32, num_blocks=1), 0)
+        seen = []
+        model.register_forward_pre_hook(lambda m, a: seen.append(a[0]))
+        step = tstep.make_train_step(
+            tstate.TrainState(model, tstate.rmsprop(model, 1e-3)),
+            next_token_loss, compute_dtype=dtype)
+        losses.append(float(step(ids, ids)["loss"]))
+        assert torch.equal(seen[0], ids)
+    assert losses[0] == losses[1]

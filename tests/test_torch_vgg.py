@@ -155,8 +155,10 @@ def test_cli_vgg_runs_two_phases_and_saves_the_jax_layout(tmp_path, capsys):
     recs = [json.loads(line) for line in
             (tmp_path / "logs" / "run.jsonl").read_text().splitlines()]
     events = [r["event"] for r in recs]
-    assert events.count("epoch") == 2 and events[-1] == "test"
-    assert {"loss", "accuracy", "auroc"} <= set(recs[-1])
+    # the run log closes with the registry's metrics snapshot
+    assert events.count("epoch") == 2
+    assert events[-2:] == ["test", "metrics_snapshot"]
+    assert {"loss", "accuracy", "auroc"} <= set(recs[-2])
     assert "test: loss=" in capsys.readouterr().out
     params, state = tpretrained.load_pretrained_file(tmp_path / "model.npz")
     x = _images()
@@ -168,10 +170,13 @@ def test_cli_vgg_runs_two_phases_and_saves_the_jax_layout(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--central-storage"], "A1-rest"), (["--decode-workers", "2"],
-                                          "A1-rest"),
-    (["--stream"], "A1-rest"), (["--model-parallel", "2"], "A4"),
+    (["--model-parallel", "2"], "A4"),
+    # the JAX verb's refusal of the combination, before the A4 one
+    (["--model-parallel", "2", "--central-storage"], "model-sharded"),
 ])
 def test_cli_refuses_unported_flags_naming_the_item(argv, match):
+    """Tensor parallelism waits for ROADMAP A4. (--central-storage,
+    --stream and --decode-workers are ported: tests/
+    test_torch_observe_cli.py runs them.)"""
     with pytest.raises(SystemExit, match=match):
         cli.main(["vgg", "--device", "cpu", *argv])
