@@ -149,6 +149,30 @@ non-zero before the result line:
    two_phase_fit on the same file-level split, equal losses and launches
    (cuDNN deterministic); `vgg --central-storage` against the mirrored
    run within rtol 1e-4 (cuDNN deterministic, TF32 off);
+10. attention -- right after the flash phases: the pallas zigzag ring's
+   values and gradients against the plain zigzag ring and full attention
+   at 1x2048x8x64 (f32 at the ring tests' tolerances; bf16 per tensor,
+   ||err|| / ||want|| <= 2^-7); the three flash kernels against their
+   plain versions at every quarter fold a 4-rank zigzag ring makes (B=2,
+   H=8, quarters of 256 cut as the ring cuts them, f32 and bf16); an
+   AttentionClassifier with remat against one without (values and
+   gradients, dropout 0 and 0.1); then (j) `cli.main(["attention",
+   ...])` at the JAX bench's width (T=16,384, 8 features, embed 512, 8
+   heads, MLP 2048, 2 blocks, batch 1, --block-impl pallas), 3 steps on
+   8 synthetic sequences and a validation pass over 2, three runs
+   (contiguous, --layout zigzag, --layout zigzag --remat), each with the
+   launch counts set to 0 just before and read just after and held to
+   its schedule (per block a step: 1/1/1, 3/3/3, 6/3/3 update/dq/dkv;
+   an eval forward 1 or 3 updates), finite losses and val with AUROC,
+   the zigzag and remat losses against the contiguous run's, and one
+   batch's gradients at that width, zigzag and remat against contiguous
+   per tensor (the losses cannot see a gradient's scale); later, with
+   the times, the three layouts' train steps (host ms, device busy, idle
+   share, kernels, peak memory), an emulated ring-of-8 rank-7 forward
+   schedule at t_local 16,384 in bf16 (contiguous against zigzag), and
+   each kernel at the path's 8,192 x 8,192 quarters ([0, 0] and [8192,
+   8192] causal, [8192, 0] unmasked), held against its plain version
+   there and timed;
 
 then one JSON line of per-kernel numbers, and the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}`.
@@ -1483,11 +1507,12 @@ def serving(torch, fc, smk, fbk, card: str) -> dict:
     return {"rows": rows}
 
 
-def flash_bytes_flops(t: int, d: int, h: int, itemsize: int):
+def flash_bytes_flops(t: int, d: int, h: int, itemsize: int,
+                      causal: bool = True):
     """Bytes each kernel must move (inputs read once, outputs written
-    once) and the flops it needs, counting only causally visible
-    (query, key) pairs, for B=1, Tq=Tk=t, causal, offsets [0, 0]."""
-    pairs = h * t * (t + 1) // 2
+    once) and the flops it needs, counting only the visible (query, key)
+    pairs, for B=1, Tq=Tk=t: causal at offsets [0, 0], or every pair."""
+    pairs = h * t * (t + 1) // 2 if causal else h * t * t
     qkv = t * h * d * itemsize
     f32_rows, f32_vec = t * h * d * 4, h * t * 4
     return {
@@ -1717,6 +1742,490 @@ def lm_step_times(torch, card: str) -> None:
         + ", ".join(f"{FLASH_NAMES[key]} {us[sym]!r}"
                     for key, sym in KERNEL_SYMBOLS.items())
         + f"; {card}")
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the attention classifier and the zigzag ring (`attention`)
+# ---------------------------------------------------------------------------
+
+# the JAX bench's model step (bench.py:557-590): attention_classifier at
+# T=16,384, 8 features, embed 512, 8 heads of 64, MLP 2048, 2 blocks,
+# batch 1, pallas blocks, a ring of one
+ATT = dict(seq_len=16384, features=8, embed_dim=512, num_heads=8,
+           mlp_dim=2048, num_blocks=2)
+# cut: 3 steps on 8 synthetic sequences; validation is max(8 // 4, 1) = 2
+# sequences, one eval forward each at batch 1
+ATT_STEPS, ATT_EXAMPLES, ATT_VAL = 3, 8, 2
+ATT_RUNS = {"contiguous": [], "zigzag": ["--layout", "zigzag"],
+            "zigzag_remat": ["--layout", "zigzag", "--remat"]}
+# launches of (update, dq, dk/dv) per block: a train step (forward and
+# backward; remat runs the forward again in the backward), and the
+# update kernel per eval forward
+ATT_PER_STEP = {"contiguous": (1, 1, 1), "zigzag": (3, 3, 3),
+                "zigzag_remat": (6, 3, 3)}
+ATT_PER_EVAL = {"contiguous": 1, "zigzag": 3, "zigzag_remat": 3}
+# the step losses against the contiguous run's, relative: step 0 is one
+# forward from the same weights, whose folds differ in order only
+# (quarters against whole blocks: f32 rounding, FLASH_TOL's scale); the
+# later steps follow RMSprop updates, whose first step has slope lr/1e-7
+# at a zero gradient (eps 1e-7), so the rounding of near-zero
+# gradients can move single weights by up to lr: 1e-3. The remat run
+# recomputes the zigzag run's forward through the same kernels on the
+# same inputs: 1e-6 (bit for bit expected; the line says which)
+ATT_LOSS_RTOL_FIRST, ATT_LOSS_RTOL, ATT_REMAT_RTOL = 1e-5, 1e-3, 1e-6
+# bf16 rings against their plain versions, ||got - want|| / ||want||
+# per tensor: both sides sum in f32 in other orders and round to bf16,
+# and the pallas backward's D = rowsum(dout * out) reads the rounded
+# output, which moves small dq and dk elements by up to a tenth of their
+# mean |value| (an elementwise bar would have to allow that); the
+# readings were at most 2.9e-3 (PERF.md), the bar is 2^-7. A tenth off
+# on the late half of the rows alone would read about 3e-2
+BF16_REL = 2.0 ** -7
+# the bench-width gradients of the zigzag and remat layouts against the
+# contiguous one, per tensor ||a - b|| / ||b||: f32 (TF32 off) folds in
+# other orders only
+ATT_GRAD_REL = 1e-4
+ZZ_RING = 4        # the rank count whose quarter schedule the grid covers
+EMU_RING, EMU_T = 8, 16384   # the emulated per-rank ring schedule
+# the attention path's quarter folds (ring of one) in the kernels line
+QUARTERS = ("diagonal", "diagonal_high", "unmasked")
+
+
+def ring_err(got, want, tol: float) -> float:
+    """max |got - want|, raising past tol * (1 + max |want|)."""
+    err = (got.float() - want.float()).abs().max().item()
+    if not err <= tol * (1.0 + want.float().abs().max().item()):
+        raise SystemExit(f"ring differs: max |err| {err!r} > {tol} x "
+                         f"(1 + max |want|)")
+    return err
+
+
+def bf16_err(got, want, what: str) -> tuple[float, float]:
+    """max |got - want| and ||got - want|| / ||want||, raising past
+    BF16_REL."""
+    a, b = got.float(), want.float()
+    rel = ((a - b).norm() / b.norm()).item()
+    if not rel <= BF16_REL:
+        raise SystemExit(f"bf16 {what} differs: ||err|| / ||want|| "
+                         f"{rel!r} > {BF16_REL}")
+    return (a - b).abs().max().item(), rel
+
+
+def zigzag_on_card(torch, tring) -> None:
+    """The pallas zigzag ring's values and gradients against the plain
+    (jnp) zigzag ring and full attention under autograd, f32 (TF32 off)
+    and bf16, at 1x2048x8x64."""
+    tf32_off(torch)
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    q, k, v, g = (torch.randn(1, 2048, 8, 64, device="cuda", generator=gen)
+                  for _ in range(4))
+    for dtype in (torch.float32, torch.bfloat16):
+        runs = {}
+        for name, fn in (
+                ("pallas", tring.make_ring_attention(
+                    causal=True, layout="zigzag", block_impl="pallas")),
+                ("plain", tring.make_ring_attention(causal=True,
+                                                    layout="zigzag")),
+                ("full", lambda a, b, c: tring.full_attention(
+                    a, b, c, causal=True))):
+            ins = [t.to(dtype).clone().requires_grad_() for t in (q, k, v)]
+            out = fn(*ins)
+            out.backward(g.to(dtype))
+            runs[name] = [out.detach()] + [t.grad for t in ins]
+        torch.cuda.synchronize()
+        errs = {}
+        for ref in ("plain", "full"):
+            for i, what in enumerate(("out", "dq", "dk", "dv")):
+                if dtype == torch.float32:
+                    a, b = runs["pallas"][i], runs[ref][i]
+                    rtol, atol = (1e-5, 1e-5) if i == 0 else (2e-4, 2e-5)
+                    torch.testing.assert_close(
+                        a, b, rtol=rtol, atol=atol,
+                        msg=f"zigzag pallas ring {what} vs {ref}")
+                    errs[f"{what} vs {ref}"] = (a - b).abs().max().item()
+                else:
+                    errs[f"{what} vs {ref}"] = bf16_err(
+                        runs["pallas"][i], runs[ref][i], f"{what} vs {ref}")
+        log(f"ring: make_ring_attention(layout='zigzag', block_impl="
+            f"'pallas') at 1x2048x8x64 {str(dtype)[6:]} matches the plain "
+            f"zigzag ring and full attention ("
+            + ("values rtol/atol 1e-5, gradients rtol 2e-4 atol 2e-5); "
+               "max |err| " if dtype == torch.float32 else
+               f"||err|| / ||want|| within {BF16_REL}); (max |err|, "
+               f"||err|| / ||want||) ")
+            + f"{errs!r}")
+
+
+def zigzag_offsets(tring, n: int, th: int) -> list:
+    """Every (query stripe, key stripe, q_off, k_off, causal) quarter
+    fold of an n-rank zigzag ring, each once: the ring's own schedule
+    (`zigzag_schedule`) walked by all its ranks."""
+    return sorted({quarter for me in range(n)
+                   for step in tring.zigzag_schedule(me, n, th)
+                   for quarter in step})
+
+
+def quarter_grid(torch, fbk, tring) -> dict:
+    """The three flash kernels against their plain versions at every
+    quarter fold a 4-rank zigzag ring makes, B=2, H=8, D=64, quarters of
+    256, f32 and bf16: each operand cut from a [2, 512, 8, 64] block (or
+    its [2, 8, 512] carry) the way the ring cuts it (`_halves`), a fresh
+    carry for a stripe's first fold, else a mid-stream one."""
+    tf32_off(torch)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    th = 256
+    cases = zigzag_offsets(tring, ZZ_RING, th)
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for qi, ki, q_off, k_off, causal in cases:
+            full = flash_inputs(torch, gen, 2, 2 * th, 2 * th, 8, 64, dtype,
+                                fresh=causal)
+            q, k, v, m, l, acc, dout, lse, delta = full
+            rows = lambda t, dim=1: tring._halves(t, th, dim)[qi]  # noqa
+            keys = lambda t: tring._halves(t, th)[ki]              # noqa
+            ins = (rows(q), keys(k), keys(v), rows(m, 2), rows(l, 2),
+                   rows(acc), rows(dout), rows(lse, 2), rows(delta, 2))
+            errs = flash_case(torch, fbk, ins, [q_off, k_off], causal)
+            for key in worst:
+                worst[key] = max(worst[key], errs[key])
+    log(f"flash parity, {ZZ_RING}-rank zigzag quarters: {len(cases)} "
+        f"(q_off, k_off, causal) folds x f32/bf16 at B=2, H=8, D=64, "
+        f"quarters of {th}: {[c[2:] for c in cases]}; match the plain "
+        f"versions (normwise {FLASH_TOL}, m elementwise); worst |err| "
+        f"update {worst['fwd']!r}, dq {worst['dq']!r}, dk/dv "
+        f"{worst['dkv']!r}")
+    return worst
+
+
+def remat_on_card(torch) -> None:
+    """An AttentionClassifier (T=2048, embed 512, 8 heads, 2 blocks,
+    pallas, zigzag) with remat against the same weights without it:
+    logits and gradients, f32 (TF32 off), without and with dropout 0.1
+    under one seed."""
+    from idc_models_tpu_torch.models import core
+    from idc_models_tpu_torch.models.attention import AttentionClassifier
+    from idc_models_tpu_torch.train.losses import binary_cross_entropy
+
+    tf32_off(torch)
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    x = torch.randn(2, 2048, 8, device="cuda", generator=gen)
+    y = torch.tensor([0, 1], device="cuda")
+    kw = dict(**{k: ATT[k] for k in ("embed_dim", "num_heads", "mlp_dim",
+                                      "num_blocks")},
+              block_impl="pallas", layout="zigzag")
+    for dropout in (0.0, 0.1):
+        runs = []
+        for remat in (False, True):
+            model = core.init_params(AttentionClassifier(
+                2048, 8, dropout_rate=dropout, remat=remat, **kw),
+                0).cuda().train()
+            core.use_generator(model, torch.Generator(
+                device="cuda").manual_seed(5))
+            logits = model(x)
+            binary_cross_entropy(logits, y).backward()
+            runs.append([logits.detach()] + [p.grad for p in
+                                             model.parameters()])
+        torch.cuda.synchronize()
+        errs = [ring_err(a, b, FLASH_TOL) for a, b in zip(*runs)]
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        log(f"remat: AttentionClassifier(T=2048, embed 512, 8 heads, 2 "
+            f"blocks, pallas, zigzag, dropout {dropout}) with remat "
+            f"against without: logits and {len(errs) - 1} gradients "
+            f"within {FLASH_TOL} normwise, bit for bit: {same}; max |err| "
+            f"{max(errs)!r}")
+
+
+def attention_run(torch, fc, smk, fbk, name: str) -> dict:
+    """One `cli.main(["attention", ...])` run of ATT_RUNS, its launch
+    counts set to 0 just before and read just after."""
+    import contextlib
+    import io
+
+    from idc_models_tpu_torch import cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["attention", "--seq-len", str(ATT["seq_len"]),
+                "--features", str(ATT["features"]), "--embed-dim",
+                str(ATT["embed_dim"]), "--num-heads", str(ATT["num_heads"]),
+                "--mlp-dim", str(ATT["mlp_dim"]), "--num-blocks",
+                str(ATT["num_blocks"]), "--batch-size", "1", "--block-impl",
+                "pallas", "--steps", str(ATT_STEPS), "--synthetic-examples",
+                str(ATT_EXAMPLES), "--seed", "0", *ATT_RUNS[name],
+                "--path", tmp]
+        out = io.StringIO()
+        zero_counts(fc, smk, fbk)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = flash_counts(fbk)
+        others = (fc.KERNEL.launches, smk.KERNEL.launches)
+        records = jsonl(Path(tmp) / "logs" / "run.jsonl")
+    for line in out.getvalue().splitlines():
+        log(f"  attention {name} | {line}")
+    if rc != 0:
+        raise SystemExit(f"cli.main returned {rc}")
+    steps = [r for r in records if r["event"] == "step"]
+    vals = [r for r in records if r["event"] == "val"]
+    if (not steps or not all(math.isfinite(r["loss"]) for r in steps)
+            or len(vals) != 1 or not all(
+                math.isfinite(vals[0][k]) for k in ("loss", "accuracy",
+                                                    "auroc"))):
+        raise SystemExit(f"attention {name}: step or val records missing "
+                         f"or not finite: {steps} {vals}")
+    blocks = ATT["num_blocks"]
+    per_step, per_eval = ATT_PER_STEP[name], ATT_PER_EVAL[name]
+    want = tuple(blocks * (ATT_STEPS * p + (ATT_VAL * per_eval if i == 0
+                                            else 0))
+                 for i, p in enumerate(per_step))
+    log(f"main path: cli.main({' '.join(argv[:-1])} <tmp>) in {seconds!r} "
+        f"s; step losses {[r['loss'] for r in steps]}; val {vals[0]}; "
+        f"flash launches update/dq/dkv {launches} (expected {blocks} blocks "
+        f"x ({ATT_STEPS} steps x {per_step} + {ATT_VAL} eval forwards x "
+        f"({per_eval}, 0, 0)) = {want}); other kernels {others}")
+    if launches != want or others != (0, 0):
+        raise SystemExit(f"attention {name} launches {launches} / {others}")
+    return {"launches": launches, "seconds": seconds,
+            "losses": [r["loss"] for r in steps]}
+
+
+def attention_grads(torch, card: str) -> None:
+    """The gradients of one train batch at the bench width (ATT, the
+    verb's seed-0 weights and first synthetic sequence, pallas, f32 with
+    TF32 off), zigzag and zigzag with remat against contiguous, each
+    tensor within ATT_GRAD_REL of its norm: the losses of the runs above
+    cannot see a gradient's scale (RMSprop divides it out), this does."""
+    from idc_models_tpu_torch.data import synthetic
+    from idc_models_tpu_torch.models import core
+    from idc_models_tpu_torch.models.attention import AttentionClassifier
+    from idc_models_tpu_torch.train.losses import binary_cross_entropy
+
+    tf32_off(torch)
+    x, y = synthetic.make_sequence_task(1, ATT["seq_len"], ATT["features"],
+                                        seed=0)
+    x, y = torch.as_tensor(x).cuda(), torch.as_tensor(y).cuda()
+    grads = {}
+    for name, (layout, remat) in (("contiguous", ("contiguous", False)),
+                                  ("zigzag", ("zigzag", False)),
+                                  ("zigzag_remat", ("zigzag", True))):
+        model = core.init_params(AttentionClassifier(
+            ATT["seq_len"], ATT["features"], block_impl="pallas",
+            layout=layout, remat=remat,
+            **{k: ATT[k] for k in ("embed_dim", "num_heads", "mlp_dim",
+                                   "num_blocks")}), 0).cuda()
+        binary_cross_entropy(model(x), y).backward()
+        grads[name] = {n: p.grad for n, p in model.named_parameters()}
+        del model
+    torch.cuda.synchronize()
+    base = grads["contiguous"]
+    for name in ("zigzag", "zigzag_remat"):
+        rel = {n: ((g - base[n]).norm() / base[n].norm()).item()
+               for n, g in grads[name].items()}
+        scale = {n: (g.norm() / base[n].norm()).item()
+                 for n, g in grads[name].items()}
+        worst = max(rel, key=rel.get)
+        log(f"attention gradients at the bench width, {name} against "
+            f"contiguous: {len(rel)} tensors, worst ||a - b|| / ||b|| "
+            f"{rel[worst]!r} ({worst}), norm ratios "
+            f"{min(scale.values())!r} .. {max(scale.values())!r} (bar "
+            f"{ATT_GRAD_REL}); {card}")
+        if not all(r <= ATT_GRAD_REL for r in rel.values()):
+            raise SystemExit(f"attention {name} gradients differ: {rel}")
+    same = all(torch.equal(g, grads["zigzag"][n])
+               for n, g in grads["zigzag_remat"].items())
+    log(f"attention gradients, remat against zigzag bit for bit: {same}")
+
+
+def attention_path(torch, fc, smk, fbk, tring, card: str) -> dict:
+    """Phase 10: (j) the `attention` verb at the bench width in the three
+    layouts, their step losses held together; the zigzag ring, the
+    quarter grid and remat on the card. Returns the runs and the grid's
+    worst errors."""
+    t0 = time.perf_counter()
+    zigzag_on_card(torch, tring)
+    grid = quarter_grid(torch, fbk, tring)
+    remat_on_card(torch)
+    runs = {name: attention_run(torch, fc, smk, fbk, name)
+            for name in ATT_RUNS}
+    base = runs["contiguous"]["losses"]
+    for name in ("zigzag", "zigzag_remat"):
+        got = runs[name]["losses"]
+        rel = [abs(a - b) / abs(b) for a, b in zip(got, base)]
+        log(f"attention {name} step losses {got!r} against contiguous "
+            f"{base!r}: relative {rel!r} (bars {ATT_LOSS_RTOL_FIRST} at "
+            f"step 0, {ATT_LOSS_RTOL} after)")
+        if (len(got) != len(base) or not rel[0] <= ATT_LOSS_RTOL_FIRST
+                or not all(r <= ATT_LOSS_RTOL for r in rel)):
+            raise SystemExit(f"attention {name} losses leave the bars")
+    attention_grads(torch, card)
+    zz, rm = runs["zigzag"]["losses"], runs["zigzag_remat"]["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(rm, zz))
+    log(f"attention remat step losses against zigzag: bit for bit "
+        f"{rm == zz}, largest relative difference {rel!r} (bar "
+        f"{ATT_REMAT_RTOL}); {card}")
+    if not rel <= ATT_REMAT_RTOL:
+        raise SystemExit("remat changed the zigzag run's losses")
+    log(f"phase 10 (attention) checks took {time.perf_counter() - t0!r} s")
+    return {"runs": runs, "grid": grid}
+
+
+def attention_step_times(torch, card: str) -> dict:
+    """Host ms a train step of the attention classifier at the bench
+    width (T=16,384, batch 1, pallas, f32), the three layouts in turns;
+    device busy, idle share and kernels a step from the profiler; peak
+    memory of a step."""
+    from idc_models_tpu_torch.models import core
+    from idc_models_tpu_torch.models.attention import AttentionClassifier
+    from idc_models_tpu_torch.train.losses import binary_cross_entropy
+    from idc_models_tpu_torch.train.state import TrainState, rmsprop
+    from idc_models_tpu_torch.train.step import make_train_step
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    x = torch.randn(1, ATT["seq_len"], ATT["features"], device="cuda",
+                    generator=gen)
+    y = torch.tensor([1], device="cuda")
+    layouts = {"contiguous": ("contiguous", False),
+               "zigzag": ("zigzag", False), "zigzag_remat": ("zigzag", True)}
+    calls = {}
+    for name, (layout, remat) in layouts.items():
+        model = core.init_params(AttentionClassifier(
+            ATT["seq_len"], ATT["features"], block_impl="pallas",
+            layout=layout, remat=remat,
+            **{k: ATT[k] for k in ("embed_dim", "num_heads", "mlp_dim",
+                                   "num_blocks")}), 0).cuda()
+        step = make_train_step(TrainState(model, rmsprop(model, 1e-4)),
+                               binary_cross_entropy)
+        calls[name] = lambda step=step: step(x, y)
+    ms = {name: [] for name in calls}
+    order = list(calls) + list(calls)[::-1]
+    for name in order:
+        ms[name].append(host_ms(torch, calls[name], n=5, warmup=1))
+    out = {}
+    for name, fn in calls.items():
+        torch.cuda.empty_cache()
+        peak = peak_mb(torch, fn)
+        prof = profiled(torch, fn, n=3, kernel="flash_block")
+        out[name] = {"host_ms": ms[name], "peak_mb": peak}
+        log(f"time attention train step {name} (T={ATT['seq_len']}, embed "
+            f"512, 8 heads, MLP 2048, 2 blocks, batch 1, pallas, f32): "
+            f"{ms[name]!r} ms (in turns {order}); peak {peak!r} MB above "
+            f"the weights; {prof}; {card}")
+    return out
+
+
+class _EmulatedRing:
+    """Rank EMU_RING - 1 of an EMU_RING-rank ring on one card: each hop
+    hands over the next visiting block, already on the card, cut as the
+    fold asks (2 tensors: k, v; 4: their halves), so only the folds are
+    timed, as experiments/zigzag_bench.py times one rank's schedule."""
+
+    def __init__(self, tring, blocks):
+        self.rank, self.size = EMU_RING - 1, EMU_RING
+        th = blocks[0][0].shape[1] // 2
+        self._whole = blocks
+        self._halves = [(*tring._halves(k, th), *tring._halves(v, th))
+                        for k, v in blocks]
+        self._step = 0
+
+    def start(self):
+        self._step = 0
+        return self
+
+    def hop(self, *xs):
+        self._step += 1
+        if len(xs) == 2:
+            return self._whole[self._step]
+        k_lo, k_hi, v_lo, v_hi = self._halves[self._step]
+        return k_lo, k_hi, v_lo, v_hi
+
+
+def emulated_ring_times(torch, fbk, tring, card: str) -> dict:
+    """One rank's forward schedule of a causal ring of EMU_RING ranks at
+    t_local EMU_T, bf16, contiguous against zigzag (in turns c, z, z, c),
+    CUDA events over the kernel folds alone; rank EMU_RING - 1, which
+    sets the pace. The sizing to check (not a claim): contiguous folds
+    one causal diagonal (half its tiles, skipped exactly) and 7 full
+    blocks, 7.5 blocks; zigzag 2n+1 = 17 quarters, 4.25 blocks: 0.57 of
+    the time at equal efficiency."""
+    gen = torch.Generator(device="cuda").manual_seed(24)
+
+    def mk(*shape):
+        return torch.randn(*shape, device="cuda",
+                           generator=gen).to(torch.bfloat16)
+
+    q = mk(1, EMU_T, 8, 64)
+    blocks = [(mk(1, EMU_T, 8, 64), mk(1, EMU_T, 8, 64))
+              for _ in range(EMU_RING)]
+    ring = _EmulatedRing(tring, blocks)
+    attend = tring._kernel_attend(0.125)
+
+    def contiguous():
+        return tring._contiguous_fold(q, *blocks[0], attend, ring.start(),
+                                      True)
+
+    def zigzag():
+        return tring._zigzag_fold(q, *blocks[0], attend, ring.start())
+
+    ms = {"contiguous": [], "zigzag": []}
+    for name in ("contiguous", "zigzag", "zigzag", "contiguous"):
+        ms[name].append(time_ms(torch, {"contiguous": contiguous,
+                                        "zigzag": zigzag}[name], 3,
+                                warmup=1))
+    ratio = min(ms["zigzag"]) / min(ms["contiguous"])
+    log(f"time emulated ring-of-{EMU_RING} rank {EMU_RING - 1} forward "
+        f"schedule, t_local {EMU_T}, bf16, causal: contiguous "
+        f"{ms['contiguous']!r} ms, zigzag {ms['zigzag']!r} ms (in turns c, "
+        f"z, z, c), zigzag / contiguous {ratio!r} (the schedule's work: "
+        f"4.25 / 7.5 = {4.25 / 7.5!r}); {card}")
+    return {**ms, "ratio": ratio}
+
+
+def quarter_times(torch, fbk, card: str) -> dict:
+    """Each flash kernel at the quarter size of the `attention` path's
+    zigzag ring of one (B=1, 8192 x 8192, H=8, D=64, f32): the causal
+    stripe diagonals (offsets [0, 0] and [8192, 8192], fresh carries)
+    and the unmasked high-on-low quarter ([8192, 0], mid-stream), held
+    against the plain versions (FLASH_TOL, two heads at a time), then
+    device ms beside the bound."""
+    tf32_off(torch)
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    t = ATT["seq_len"] // 2
+    rows = {}
+    for what, offs, causal in (("diagonal", [0, 0], True),
+                               ("diagonal_high", [t, t], True),
+                               ("unmasked", [t, 0], False)):
+        ins = flash_inputs(torch, gen, 1, t, t, 8, 64, torch.float32,
+                           fresh=causal)
+        errs = flash_case(torch, fbk, ins, offs, causal, heads_per_plain=2)
+        log(f"flash parity at the attention path's quarter {what} {t}x{t} "
+            f"offsets {offs} causal {causal}, 1x{t}x8x64 f32: max |err| "
+            f"update {errs['fwd']!r}, dq {errs['dq']!r}, dk/dv "
+            f"{errs['dkv']!r} (normwise {FLASH_TOL}, m elementwise)")
+        q, k, v, m, l, acc, dout, lse, delta = ins
+        o = torch.tensor(offs, dtype=torch.int32, device="cuda")
+        kw = dict(scale=0.125, causal=causal)
+        grads_in = (q, k, v, dout, lse, delta, o)
+        fns = {"fwd": lambda: fbk.flash_block_fold(q, k, v, m, l, acc, o,
+                                                   **kw),
+               "dq": lambda: fbk.flash_block_dq(*grads_in, **kw),
+               "dkv": lambda: fbk.flash_block_dkv(*grads_in, **kw)}
+        work = flash_bytes_flops(t, 64, 8, 4, causal=causal)
+        for key, fn in fns.items():
+            dev = device_ms(torch, fn, 5)
+            nbytes, flops = work[key]
+            bound = max(nbytes / PEAK_BYTES_PER_S,
+                        flops / PEAK_TF32_FLOP_PER_S) * 1e3
+            rows[(what, key)] = {"ms": dev, "bound_ms": bound,
+                                 "max_abs_err": errs[key]}
+            log(f"time flash {FLASH_NAMES[key]} zigzag quarter {what} "
+                f"{t}x{t} f32: {dev!r} ms on the device (events behind a "
+                f"sleep kernel), bound {bound!r} ms ({flops} flops of the "
+                f"visible pairs at 495 TFLOP/s); kernel at "
+                f"{bound / dev!r} of the bound; {card}")
+        del ins, q, k, v, m, l, acc, dout, lse, delta, fns
+        torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -3027,6 +3536,7 @@ def main() -> int:
     backward_memory(torch, tring)
     lm = lm_path(torch, fc, smk, fbk, card)
     serving(torch, fc, smk, fbk, card)
+    att = attention_path(torch, fc, smk, fbk, tring, card)
 
     worst = parity(torch, fc, mobilenet)
     mask_worst = masking_parity(torch, smk)
@@ -3053,6 +3563,9 @@ def main() -> int:
     secure_round_times(torch, card)
     flash = flash_times(torch, fbk, card)
     lm_step_times(torch, card)
+    attention_step_times(torch, card)
+    emulated_ring_times(torch, fbk, tring, card)
+    quarters = quarter_times(torch, fbk, card)
 
     # the masking kernel's row is at the main path's buffer: the small
     # CNN's 1,920 protected elements, 8 clients
@@ -3097,7 +3610,18 @@ def main() -> int:
         "bound_ms": flash[key]["bound_ms"],
         "bound_by": flash[key]["bound_by"],
         "library_ms": flash[key]["library_ms"],
-    } for key, kern in zip(("fwd", "dq", "dkv"), fbk.KERNELS)]}))
+        # phase 10: the `attention` runs' launches (i: this kernel's
+        # place in (update, dq, dk/dv)); the 4-rank quarter grid's worst
+        # error (quarters of 256); and at the path's own quarters (8192
+        # x 8192) the error, the device ms and the bound
+        "launches_attention": {name: run["launches"][i] for name, run
+                               in att["runs"].items()},
+        "max_abs_err_zigzag_grid_256": att["grid"][key],
+        **{f"quarter_{field}": {what: quarters[(what, key)][field]
+                                for what in QUARTERS}
+           for field in ("max_abs_err", "ms", "bound_ms")},
+    } for i, (key, kern) in enumerate(zip(("fwd", "dq", "dkv"),
+                                          fbk.KERNELS))]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

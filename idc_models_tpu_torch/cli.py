@@ -1,5 +1,5 @@
 """Command-line entry point: the ``vgg``, ``mobile``, ``dense``, ``fed``,
-``secure-fed``, ``lm``, ``profile`` and ``stats`` verbs of
+``secure-fed``, ``lm``, ``attention``, ``profile`` and ``stats`` verbs of
 ``idc_models_tpu``.
 
     python -m idc_models_tpu_torch vgg --path runs/vgg \\
@@ -68,6 +68,18 @@ host-side Paillier parity protocol instead. Each round prints
 ``round r: train_loss=... test_loss=... acc=... auroc=...`` and, with
 --path, logs an ``event=round`` record.
 
+``lm`` trains the causal LM through the ring on the counting task and
+generates through the KV-cache decoder; ``attention`` trains the
+ring-attention sequence classifier on the synthetic sequence task (or
+IDC patches as token sequences, ``--data-dir``) and prints ``val:
+loss=... accuracy=... auroc=...``. Both take ``--block-impl pallas``
+(the hand-written CUDA flash kernels), ``--layout zigzag`` and
+``--remat``, on a ring of one card.
+
+    python -m idc_models_tpu_torch attention --seq-len 16384 \\
+        --embed-dim 512 --num-heads 8 --mlp-dim 2048 --batch-size 1 \\
+        --block-impl pallas --layout zigzag --remat
+
 Every verb takes ``--trace-out t.json`` (a Chrome trace-event export of
 the run's spans: ``train.epoch`` / ``train.step`` / ``device.sync``,
 ``fed.round`` / ``fed.client``, ``lm.prefill`` / ``lm.decode``, every
@@ -100,7 +112,8 @@ def main(argv: list[str] | None = None) -> int:
     ns = _parse(argv)
     runner = {"vgg": _run_dist, "mobile": _run_dist, "dense": _run_dist,
               "fed": _run_fed, "secure_fed": _run_secure, "lm": _run_lm,
-              "stats": _run_stats, "profile": _run_profile}[ns.preset_key]
+              "attention": _run_attention, "stats": _run_stats,
+              "profile": _run_profile}[ns.preset_key]
     # --trace-out: one wiring point arms the tracer for every verb; the
     # spans export as Chrome trace-event JSON when the run ends
     with tracing(chrome_path=getattr(ns, "trace_out", None)):
@@ -173,7 +186,7 @@ def _parse(argv):
                              "robin; the same stream bit for bit)")
         sp.add_argument("--model-parallel", type=int, default=1,
                         help="rejected above 1: tensor parallelism is not "
-                             "ported yet (ROADMAP A4)")
+                             "ported yet (ROADMAP A4-rest)")
         if key == "mobile":
             sp.add_argument("--depthwise-impl", default="grouped",
                             choices=DEPTHWISE_IMPLS,
@@ -336,6 +349,46 @@ def _parse(argv):
                     help="restrict sampling to the k most likely tokens "
                          "(0 = no restriction; needs --temperature > 0)")
 
+    sp = sub.add_parser("attention",
+                        help="ring-attention transformer classifier over "
+                             "sequences: synthetic, or IDC patches as "
+                             "token sequences")
+    common(sp)
+    sp.add_argument("--host-devices", type=int, default=0,
+                    help="rejected: virtual devices wait for the "
+                         "distribution layer (ROADMAP A4-rest)")
+    sp.add_argument("--seq-len", type=int, default=128)
+    sp.add_argument("--features", type=int, default=8)
+    sp.add_argument("--embed-dim", type=int, default=64)
+    sp.add_argument("--num-heads", type=int, default=4)
+    sp.add_argument("--mlp-dim", type=int, default=128)
+    sp.add_argument("--num-blocks", type=int, default=2)
+    sp.add_argument("--steps", type=int, default=300)
+    sp.add_argument("--seq-parallel", type=int, default=0,
+                    help="ring size over the 'seq' axis; only 1 (one "
+                         "card) is ported (0 = 1)")
+    sp.add_argument("--layout", choices=("contiguous", "zigzag"),
+                    default="contiguous",
+                    help="causal sequence layout (zigzag balances the "
+                         "causal ring schedule)")
+    sp.add_argument("--block-impl", choices=("jnp", "pallas"),
+                    default="jnp",
+                    help="ring block fold: jnp (plain PyTorch) or pallas "
+                         "-- the hand-written CUDA flash kernels; needs "
+                         "--seq-len a multiple of 128 (256 under zigzag)")
+    sp.add_argument("--remat", action="store_true",
+                    help="checkpoint each transformer block: the "
+                         "backward recomputes its activations instead of "
+                         "keeping them")
+    sp.add_argument("--dropout", type=float, default=0.0,
+                    help="residual dropout rate inside each block")
+    sp.add_argument("--patch-size", type=int, default=5,
+                    help="with --data-dir: each image becomes a raster "
+                         "sequence of patch-size^2-pixel tokens; "
+                         "--seq-len/--features then come from the images")
+    sp.add_argument("--image-size", type=int, default=50,
+                    help="with --data-dir: decode size of the IDC patches")
+
     sp = sub.add_parser(
         "profile",
         help="performance attribution over a train step: each program's "
@@ -352,13 +405,13 @@ def _parse(argv):
                          "the LM's (`serve` waits for ROADMAP A9)")
     sp.add_argument("--fsdp", type=int, default=0,
                     help="rejected above 1: parameter sharding is not "
-                         "ported yet (ROADMAP A4)")
+                         "ported yet (ROADMAP A4-rest)")
     sp.add_argument("--tp", type=int, default=0,
                     help="rejected above 1: tensor parallelism is not "
-                         "ported yet (ROADMAP A4)")
+                         "ported yet (ROADMAP A4-rest)")
     sp.add_argument("--host-devices", type=int, default=0,
                     help="rejected: virtual devices wait for the "
-                         "distribution layer (ROADMAP A4)")
+                         "distribution layer (ROADMAP A4-rest)")
     sp.add_argument("--steps", type=int, default=None,
                     help="measured steps (default: 30 on the card, 4 on "
                          "the CPU)")
@@ -513,7 +566,7 @@ def _run_dist(ns):
                  "one of the two flags")
     if ns.model_parallel > 1:
         sys.exit(f"--model-parallel {ns.model_parallel}: tensor "
-                 f"parallelism is not ported yet (ROADMAP A4); the port "
+                 f"parallelism is not ported yet (ROADMAP A4-rest); the port "
                  f"trains on one card")
     if ns.resumable and ns.path is None:
         sys.exit("--resumable requires --path (checkpoints live under it)")
@@ -1174,21 +1227,20 @@ def _run_lm(ns):
         sys.exit(f"--dropout {ns.dropout} must be in [0, 1)")
     if ns.fsdp > 1 or ns.tp > 1:
         sys.exit(f"--fsdp {ns.fsdp} / --tp {ns.tp}: parameter sharding is "
-                 f"not ported yet (ROADMAP A4); the port trains on one "
-                 f"card")
+                 f"not ported yet (ROADMAP A4-rest); the port trains on "
+                 f"one card")
     if ns.seq_parallel > 1:
-        sys.exit(f"--seq-parallel {ns.seq_parallel}: the ring runs on one "
-                 f"card so far (ROADMAP A4)")
-    if ns.layout == "zigzag":
-        sys.exit("--layout zigzag is not ported yet (ROADMAP A8)")
-    if ns.remat:
-        sys.exit("--remat is not ported yet (ROADMAP A8)")
+        sys.exit(f"--seq-parallel {ns.seq_parallel}: the model trains on "
+                 f"a ring of one card so far (ROADMAP A4-rest: sequence "
+                 f"parallelism inside the model)")
+    _check_stripes(ns.layout, ns.seq_len, f"--seq-len {ns.seq_len}")
     print(f"Device: {device} (ring size 1)")
     model = init_params(AttentionLM(
         ns.vocab, ns.seq_len, embed_dim=ns.embed_dim,
         num_heads=ns.num_heads, mlp_dim=ns.mlp_dim,
         num_blocks=ns.num_blocks, block_impl=ns.block_impl,
-        dropout_rate=ns.dropout), ns.seed).to(device)
+        layout=ns.layout, dropout_rate=ns.dropout, remat=ns.remat),
+        ns.seed).to(device)
     if ns.dropout:
         use_generator(model, torch.Generator(device=device).manual_seed(
             ns.seed + 2))
@@ -1262,6 +1314,119 @@ def _run_lm(ns):
             logger.close()
 
 
+def _check_stripes(layout: str, seq_len: int, what: str) -> None:
+    """The layout's stripes on a ring of one, 2 under zigzag, must cut
+    the sequence evenly; `what` names the sequence in the message."""
+    stripes = 2 if layout == "zigzag" else 1
+    if seq_len % stripes:
+        sys.exit(f"{what} must divide into {stripes} equal stripes for "
+                 f"--layout {layout} at ring size 1")
+
+
+def _run_attention(ns):
+    """The ring-attention transformer classifier (`AttentionClassifier`)
+    trained on the position-sensitive synthetic sequence task or, with
+    --data-dir, on IDC patches as raster token sequences (``patchify``),
+    split 80/10/10; RMSprop at 1e-3 and BCE; then a validation pass
+    with AUROC."""
+    import numpy as np
+    import torch
+
+    from idc_models_tpu_torch import resolve_device
+    from idc_models_tpu_torch.data import synthetic
+    from idc_models_tpu_torch.data.idc import (
+        ArrayDataset, train_val_test_split,
+    )
+    from idc_models_tpu_torch.data.sequences import patchify, sequence_shape
+    from idc_models_tpu_torch.models.attention import AttentionClassifier
+    from idc_models_tpu_torch.models.core import init_params, use_generator
+    from idc_models_tpu_torch.observe import JsonlLogger, Timer, profile_trace
+    from idc_models_tpu_torch.train.loop import evaluate
+    from idc_models_tpu_torch.train.losses import binary_cross_entropy
+    from idc_models_tpu_torch.train.state import TrainState, rmsprop
+    from idc_models_tpu_torch.train.step import make_train_step
+
+    device = resolve_device(ns.device)
+    if not 0.0 <= ns.dropout < 1.0:
+        sys.exit(f"--dropout {ns.dropout} must be in [0, 1)")
+    if ns.host_devices:
+        sys.exit(f"--host-devices {ns.host_devices}: virtual devices wait "
+                 f"for the distribution layer (ROADMAP A4-rest)")
+    if ns.seq_parallel > 1:
+        sys.exit(f"--seq-parallel {ns.seq_parallel}: the model trains on "
+                 f"a ring of one card so far (ROADMAP A4-rest: sequence "
+                 f"parallelism inside the model)")
+    # explicit --data-dir only: real data sets the sequence shape, so an
+    # artifact directory holding an IDC tree must not turn a synthetic
+    # long-context run into a short IDC one
+    root = ns.data_dir
+    seq_len, features = ns.seq_len, ns.features
+    if root is not None:
+        try:
+            seq_len, features = sequence_shape(ns.image_size, ns.patch_size)
+        except ValueError as e:
+            sys.exit(f"--patch-size: {e}")
+    what = ("--seq-len" if root is None
+            else f"the {seq_len}-token patch sequence "
+                 f"({ns.image_size}x{ns.image_size} images at "
+                 f"--patch-size {ns.patch_size})")
+    _check_stripes(ns.layout, seq_len, f"{what} = {seq_len}")
+    print(f"Device: {device} (ring size 1)")
+    model = init_params(AttentionClassifier(
+        seq_len, features, embed_dim=ns.embed_dim, num_heads=ns.num_heads,
+        mlp_dim=ns.mlp_dim, num_blocks=ns.num_blocks, num_outputs=1,
+        causal=True, block_impl=ns.block_impl, layout=ns.layout,
+        dropout_rate=ns.dropout, remat=ns.remat), ns.seed).to(device)
+    if ns.dropout:
+        use_generator(model, torch.Generator(device=device).manual_seed(
+            ns.seed + 1))
+    batch = ns.batch_size or 64
+    lr = ns.lr if ns.lr is not None else 1e-3
+    if root is not None:
+        # the reference's data domain: the labeled tree, the 80/10/10
+        # split, then each patch as a token sequence
+        train_ds, val_ds, _ = train_val_test_split(
+            _load_idc(ns, ns.image_size, None), seed=ns.seed)
+        x, y = patchify(train_ds.images, ns.patch_size), train_ds.labels
+        vx, vy = patchify(val_ds.images, ns.patch_size), val_ds.labels
+        print(f"IDC patch sequences: {len(x)} train / {len(vx)} val, "
+              f"{seq_len} tokens x {features} features per patch")
+    else:
+        n_train = max(ns.synthetic_examples, 4 * batch)
+        x, y = synthetic.make_sequence_task(n_train, seq_len, features,
+                                            seed=ns.seed)
+        vx, vy = synthetic.make_sequence_task(max(n_train // 4, batch),
+                                              seq_len, features,
+                                              seed=ns.seed + 1)
+    step = make_train_step(TrainState(model, rmsprop(model, lr)),
+                           binary_cross_entropy)
+    logger = (JsonlLogger(Path(ns.path) / "logs" / "run.jsonl")
+              if ns.path is not None else None)
+    sel_rng = np.random.default_rng(ns.seed + 2)
+    try:
+        with Timer("Attention training", logger=logger), \
+                profile_trace(ns.profile_dir):
+            for i in range(ns.steps):
+                sel = sel_rng.integers(0, len(x), batch)
+                m = step(torch.as_tensor(x[sel]).to(device),
+                         torch.as_tensor(y[sel]).to(device))
+                if i % 50 == 0 or i == ns.steps - 1:
+                    loss, acc = float(m["loss"]), float(m["accuracy"])
+                    print(f"step {i}, loss={loss:.4f}, accuracy={acc:.4f}")
+                    if logger is not None:
+                        logger.log(event="step", step=i, loss=loss,
+                                   accuracy=acc)
+        vm = evaluate(model, ArrayDataset(vx, vy), binary_cross_entropy,
+                      batch_size=batch, with_auroc=True)
+        print("val:", " ".join(f"{k}={v:.4f}" for k, v in vm.items()))
+        if logger is not None:
+            logger.log(event="val", **vm)
+        _log_snapshot(logger)
+    finally:
+        if logger is not None:
+            logger.close()
+
+
 def _run_stats(ns):
     """Offline run-log rollup (``observe/stats.py``) of any jsonl either
     package writes: run.jsonl, profile.jsonl, a tracer's span export."""
@@ -1310,11 +1475,11 @@ def _run_profile(ns):
                  "yet (ROADMAP A9)")
     if ns.fsdp > 1 or ns.tp > 1:
         sys.exit(f"profile: --fsdp {ns.fsdp} / --tp {ns.tp}: parameter "
-                 f"sharding is not ported yet (ROADMAP A4); the port "
+                 f"sharding is not ported yet (ROADMAP A4-rest); the port "
                  f"profiles one card")
     if ns.host_devices:
         sys.exit(f"profile: --host-devices {ns.host_devices}: virtual "
-                 f"devices wait for the distribution layer (ROADMAP A4)")
+                 f"devices wait for the distribution layer (ROADMAP A4-rest)")
     if ns.steps is not None and ns.steps < 1:
         sys.exit(f"profile: --steps {ns.steps} must be >= 1")
     if ns.batch_size is not None and ns.batch_size < 1:

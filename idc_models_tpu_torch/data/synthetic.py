@@ -1,9 +1,9 @@
-"""Synthetic IDC-like and CIFAR-like data for tests, benchmarks, and
+"""Synthetic IDC-like, sequence and CIFAR-like data for tests, benchmarks, and
 smoke runs.
 
 Verbatim copies of ``idc_models_tpu/data/synthetic.py``'s
-``make_idc_like`` and ``make_cifar_like`` (numpy only), so the same seed
-gives the same images in both packages. Positive IDC patches get a
+``make_idc_like``, ``make_sequence_task`` and ``make_cifar_like`` (numpy
+only), so the same seed gives the same data in both packages. Positive IDC patches get a
 brighter center blob (a cartoon of IDC nuclei density), CIFAR-like
 images a class-dependent mean shift, so a model can demonstrably learn.
 """
@@ -25,6 +25,25 @@ def make_idc_like(n: int, size: int = 50, *, seed: int = 0,
     blob = blob[None, :, :, None].astype(np.float32)
     imgs = imgs + labels[:, None, None, None] * 0.4 * blob
     return np.clip(imgs, 0.0, 1.0), labels
+
+
+def make_sequence_task(n: int, seq_len: int, features: int = 8, *,
+                       seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """Position-sensitive sequence task for the attention classifier:
+    noise sequences with one marker spike on channel 0; label = whether
+    the marker sits in the LATE half. GAP over raw inputs cannot solve
+    it (the marker's value is position-independent) — the model must
+    move positional information into the pooled features, which is
+    exactly what attention + learned positions provide.
+
+    Returns (x [n, seq_len, features] float32, labels [n] int32).
+    """
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0.0, 0.3, (n, seq_len, features)).astype(np.float32)
+    pos = rng.integers(0, seq_len, n)
+    x[np.arange(n), pos, 0] += 3.0
+    labels = (pos >= seq_len // 2).astype(np.int32)
+    return x, labels
 
 
 def make_cifar_like(n: int, *, seed: int = 0,

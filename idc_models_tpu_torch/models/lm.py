@@ -4,7 +4,12 @@ KV cache -- the counterpart of ``idc_models_tpu/models/lm.py``.
 `AttentionLM` is the decoder-only LM of the JAX package's
 ``attention_lm``: token embedding + learned positions, pre-LN ring
 attention blocks (``models/attention.py``), a final LN and a
-per-position vocab head. Its state-dict keys are the JAX tree's paths
+per-position vocab head. ``layout="zigzag"`` permutes the token ids and
+positions into the balanced causal layout and the logits back, so the
+loss needs no layout; ``remat=True`` checkpoints each block. Both are
+training knobs: the `Generator` serves the same parameters in natural
+order whatever the model trained under. Its state-dict keys are the JAX
+tree's paths
 (``embed``, ``pos``, ``block0.mha.wq``, ``block0.fc1.kernel``, ...,
 ``ln_f.scale``, ``head.kernel``), so ``convert.load_jax`` /
 ``convert.to_jax`` carry parameters across unchanged in both directions.
@@ -20,7 +25,7 @@ Python loop over the positions, eager PyTorch. Greedy decoding
 record ``lm.prefill`` / ``lm.decode`` spans while a tracer is armed, and
 `Generator.program_costs` accounts both programs
 (``observe/profile.py``). Left out so far (ROADMAP A9): chunked prefill
-(``prefill_chunk``), partition rules (A4) and the adapter hook.
+(``prefill_chunk``), partition rules (A4-rest) and the adapter hook.
 """
 
 from __future__ import annotations
@@ -33,31 +38,38 @@ import torch.nn.functional as F
 from torch import nn
 
 from idc_models_tpu_torch import convert, resolve_device
-from idc_models_tpu_torch.models.attention import TransformerBlock
+from idc_models_tpu_torch.models.attention import (
+    TransformerBlock, run_blocks,
+)
 from idc_models_tpu_torch.models.core import Dense, LayerNorm, gelu, layer_norm
 from idc_models_tpu_torch.observe import trace
-from idc_models_tpu_torch.ring_attention import make_ring_attention
+from idc_models_tpu_torch.ring_attention import (
+    from_zigzag, make_ring_attention, to_zigzag,
+)
 from idc_models_tpu_torch.ring_decode import init_cache, make_ring_decode
 
 
 class AttentionLM(nn.Module):
     """Decoder-only LM: int tokens [B, T] -> logits [B, T, vocab], T the
-    position table's length (``seq_len``). Causal by construction. The
-    zigzag layout and remat are not ported yet (ROADMAP A8)."""
+    position table's length (``seq_len``). Causal by construction."""
 
     def __init__(self, vocab_size: int, seq_len: int, *,
                  embed_dim: int = 64, num_heads: int = 4,
                  mlp_dim: int = 128, num_blocks: int = 2,
-                 block_impl: str = "jnp", dropout_rate: float = 0.0):
+                 block_impl: str = "jnp", layout: str = "contiguous",
+                 dropout_rate: float = 0.0, remat: bool = False):
         super().__init__()
         self.name = "attention_lm"
         self.num_blocks = num_blocks
+        self.zigzag = layout == "zigzag"
+        self.remat = remat
         self.embed = nn.Parameter(torch.empty(vocab_size, embed_dim))
         self.pos = nn.Parameter(torch.empty(seq_len, embed_dim))
         for i in range(num_blocks):
             self.add_module(f"block{i}", TransformerBlock(
                 embed_dim, num_heads, mlp_dim, block_impl=block_impl,
-                dropout_rate=dropout_rate, name=f"block{i}"))
+                layout=layout, dropout_rate=dropout_rate,
+                name=f"block{i}"))
         self.ln_f = LayerNorm(embed_dim, name="ln_f")
         self.head = Dense(embed_dim, vocab_size, name="head")
 
@@ -74,10 +86,13 @@ class AttentionLM(nn.Module):
     def forward(self, tokens):
         # the train step may hand over any integer (or float) type; the
         # table gather needs int64
-        h = self.embed[tokens.long()] + self.pos
-        for blk in self.blocks:
-            h = blk(h)
-        return self.head(self.ln_f(h))
+        tokens, pos = tokens.long(), self.pos
+        if self.zigzag:
+            tokens, pos = to_zigzag(tokens, 1), to_zigzag(pos[None], 1)[0]
+        h = run_blocks(self.blocks, self.embed[tokens] + pos,
+                       remat=self.remat)
+        logits = self.head(self.ln_f(h))
+        return from_zigzag(logits, 1) if self.zigzag else logits
 
 
 def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,7 @@ token appends its k/v at `pos`, attends the query against the whole
 cache with slots past `pos` masked (the finite sentinel, and their p
 zeroed), and merges the partial softmax across the ring -- the max and
 the sums over ranks are the identity on one card, but the merge is kept
-so the multi-card ring (ROADMAP A4) plugs in. The append writes the
+so the multi-card ring (ROADMAP A4-rest) plugs in. The append writes the
 cache IN PLACE (the JAX version donates the cache; here the caller's
 tensor is the cache). The batched, chunk and paged folds and the int8
 cache are not ported yet (ROADMAP A9).

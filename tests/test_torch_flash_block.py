@@ -233,6 +233,10 @@ def test_non_tile_multiple_rejected_as_in_jax():
 
 
 def test_zigzag_helpers_match_jax_and_the_layout_is_not_ported():
+    """The zigzag helpers equal the JAX package's, and the layout the
+    port once refused now runs: the rings build, and refuse what the
+    JAX rings refuse with the JAX package's ValueErrors (an odd local
+    block; quarters off the kernels' 128 tile under pallas)."""
     x = np.arange(2 * 64 * 3, dtype=np.float32).reshape(2, 64, 3)
     for n in (1, 2, 4):
         assert np.array_equal(tring.zigzag_indices(64, n),
@@ -240,12 +244,83 @@ def test_zigzag_helpers_match_jax_and_the_layout_is_not_ported():
         zz = tring.to_zigzag(torch.from_numpy(x), n)
         np.testing.assert_array_equal(zz, jring.to_zigzag(jnp.asarray(x), n))
         np.testing.assert_array_equal(tring.from_zigzag(zz, n), x)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        tring.make_ring_attention(causal=True, layout="zigzag")
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        tring.make_ring_attention(causal=True, world_size=2)
+    mesh = meshlib.seq_mesh(1)
+    for t, impl in ((5, "jnp"), (384, "pallas"), (129, "pallas")):
+        q = np.zeros((1, t, 1, 16), np.float32)
+        with pytest.raises(ValueError) as want:
+            jring.make_ring_attention(mesh, causal=True, layout="zigzag",
+                                      block_impl=impl)(*_j(q, q, q))
+        with pytest.raises(ValueError) as got:
+            tring.make_ring_attention(causal=True, layout="zigzag",
+                                      block_impl=impl)(*_t(q, q, q))
+        assert str(got.value) == str(want.value)
+    # a non-causal zigzag ring is the contiguous walk: no even-block rule
+    q = np.ones((1, 5, 1, 16), np.float32)
+    np.testing.assert_allclose(
+        tring.make_ring_attention(layout="zigzag")(*_t(q, q, q)), q)
     with pytest.raises(ValueError, match="unknown block_impl"):
         tring.make_ring_attention(block_impl="triton")
+    with pytest.raises(ValueError, match="unknown layout"):
+        tring.make_ring_attention(layout="striped")
+
+
+@pytest.mark.parametrize("block_impl", ["jnp", "pallas"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_zigzag_ring_of_one_matches_jax_and_full_attention(block_impl,
+                                                           causal):
+    """The zigzag ring at ring size 1 (three quarter folds when causal)
+    against the JAX zigzag ring on seq_mesh(1), same block impl, and
+    against full attention: values 1e-5, gradients rtol 2e-4 atol 2e-5
+    (tests/test_zigzag.py:92-153)."""
+    rng = np.random.default_rng(9)
+    q, k, v, g = (rng.normal(0, 1, (B, T, H, D)).astype(np.float32)
+                  for _ in range(4))
+    jfn = jring.make_ring_attention(meshlib.seq_mesh(1), causal=causal,
+                                    layout="zigzag", block_impl=block_impl)
+    want, jvjp = jax.vjp(jfn, *_j(q, k, v))
+    want_grads = jvjp(jnp.asarray(g))
+    ring = tring.make_ring_attention(causal=causal, layout="zigzag",
+                                     block_impl=block_impl)
+    outs, grads = [], []
+    for fn in (ring, lambda a, b, c: tring.full_attention(a, b, c,
+                                                          causal=causal)):
+        ins = [t.requires_grad_() for t in _t(q, k, v)]
+        out = fn(*ins)
+        out.backward(torch.from_numpy(g))
+        outs.append(out.detach())
+        grads.append([t.grad for t in ins])
+    _close((outs[0], outs[0]), (want, outs[1]), 1e-5, 1e-5,
+           ("ring vs jax ring", "ring vs full"))
+    # the one-shot wrapper builds (and caches) the same ring
+    once = tring.ring_attention(*_t(q, k, v), causal=causal,
+                                layout="zigzag", block_impl=block_impl)
+    assert torch.equal(once, outs[0])
+    _close(grads[0], want_grads, 2e-4, 2e-5, ("dq", "dk", "dv"))
+    _close(grads[0], grads[1], 2e-4, 2e-5, ("dq", "dk", "dv"))
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 8])
+def test_zigzag_schedule_folds_each_visible_stripe_pair_once(n):
+    """The quarter schedule both zigzag walks read: rank me folds 2n+1
+    quarters, each (query stripe, key stripe) pair at or below the
+    causal diagonal exactly once, causal exactly on the diagonal; its
+    query stripes are its own (me, 2n-1-me), and at step s its key
+    stripe is one of rank (me - s) mod n's."""
+    th = 4
+    for me in range(n):
+        own = (me, 2 * n - 1 - me)
+        seen = []
+        for s, step in enumerate(tring.zigzag_schedule(me, n, th)):
+            c = (me - s) % n
+            for qi, ki, q_off, k_off, causal in step:
+                qs, ks = q_off // th, k_off // th
+                assert qs == own[qi]
+                assert ks == (c, 2 * n - 1 - c)[ki]
+                assert causal == (qs == ks)
+                seen.append((qs, ks))
+        assert len(seen) == 2 * n + 1
+        assert sorted(seen) == sorted((a, b) for a in own
+                                      for b in range(2 * n) if b <= a)
 
 
 def test_kernels_refuse_cpu_tensors_and_count_no_cpu_calls():

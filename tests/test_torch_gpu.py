@@ -566,6 +566,129 @@ def test_pallas_ring_backward_memory_is_blockwise(cuda):
     assert torch.cuda.max_memory_allocated() - base < 1e9
 
 
+# the zigzag layout: bf16 rings against their plain versions sum in f32
+# in other orders and round to bf16, and the pallas backward's D reads
+# the rounded output, so they are held at ||a - b|| / ||b|| <= 2^-7 per
+# tensor, chip_smoke.py's bar (readings at most 2.9e-3)
+ZIGZAG_BF16_REL = 2.0 ** -7
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pallas_zigzag_ring_on_the_card(cuda, dtype):
+    """Values and gradients of the pallas zigzag ring (three quarter
+    folds forward, three backward, B=2 so the quarters are cut from
+    non-contiguous halves) against the plain zigzag ring and full
+    attention, T=1024."""
+    dt = getattr(torch, dtype)
+    q, k, v, g = (torch.randn(2, 1024, 4, 64, device="cuda", generator=cuda)
+                  for _ in range(4))
+    runs = []
+    before = [kern.launches for kern in fbk.KERNELS]
+    for fn in (tring.make_ring_attention(causal=True, layout="zigzag",
+                                         block_impl="pallas"),
+               tring.make_ring_attention(causal=True, layout="zigzag"),
+               lambda a, b, c: tring.full_attention(a, b, c, causal=True)):
+        ins = [t.to(dt).clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*ins)
+        out.backward(g.to(dt))
+        runs.append([out.detach()] + [t.grad for t in ins])
+        if len(runs) == 1:
+            torch.cuda.synchronize()
+            assert [kern.launches - b for kern, b in
+                    zip(fbk.KERNELS, before)] == [3, 3, 3]
+    for ref in runs[1:]:
+        for i, (a, b) in enumerate(zip(runs[0], ref)):
+            assert a.dtype == dt
+            if dt == torch.float32:
+                tol = (dict(rtol=1e-5, atol=1e-5) if i == 0
+                       else dict(rtol=2e-4, atol=2e-5))
+                torch.testing.assert_close(a, b, **tol)
+            else:
+                a, b = a.float(), b.float()
+                rel = ((a - b).norm() / b.norm()).item()
+                assert rel <= ZIGZAG_BF16_REL, (i, rel)
+
+
+def _zigzag_quarters(n, th):
+    """Every (query stripe, key stripe, q_off, k_off, causal) quarter
+    fold an n-rank zigzag ring makes, once each: the ring's own
+    schedule walked by all its ranks."""
+    return sorted({quarter for me in range(n)
+                   for step in tring.zigzag_schedule(me, n, th)
+                   for quarter in step})
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernels_at_every_four_rank_zigzag_quarter(cuda, dtype):
+    """The update, dq and dk/dv kernels against their plain versions at
+    every quarter fold of a 4-rank zigzag ring (36 offset pairs),
+    B=2, H=8, D=64, quarters of 256 cut from [2, 512, 8, 64] blocks and
+    [2, 8, 512] carries the way the ring cuts them; a fresh carry for a
+    stripe's first (diagonal) fold, else a mid-stream one."""
+    dt = getattr(torch, dtype)
+    th = 256
+    cases = _zigzag_quarters(4, th)
+    assert len(cases) == 36
+    for qi, ki, q_off, k_off, causal in cases:
+        def mk(*shape):
+            return torch.randn(*shape, device="cuda", generator=cuda)
+        q, dout, k, v = (mk(2, 2 * th, 8, 64).to(dt) for _ in range(4))
+        if causal:
+            m = torch.full((2, 8, 2 * th), -1e30, device="cuda")
+            l = torch.zeros(2, 8, 2 * th, device="cuda")
+            acc = torch.zeros(2, 2 * th, 8, 64, device="cuda")
+        else:
+            m, acc = mk(2, 8, 2 * th), mk(2, 2 * th, 8, 64)
+            l = torch.rand(2, 8, 2 * th, device="cuda", generator=cuda) + 0.5
+        lse, delta = mk(2, 8, 2 * th) + 8.0, mk(2, 8, 2 * th)
+        rows = [tring._halves(t, th)[qi] for t in (q, acc, dout)]
+        cols = [tring._halves(t, th, 2)[qi] for t in (m, l, lse, delta)]
+        ks, vs = (tring._halves(t, th)[ki] for t in (k, v))
+        offs = torch.tensor([q_off, k_off], dtype=torch.int32,
+                            device="cuda")
+        kw = dict(scale=0.125, causal=causal)
+        fold_in = (rows[0], ks, vs, cols[0], cols[1], rows[1], offs)
+        got = fbk.flash_block_update(*fold_in, **kw)
+        for i, (a, b) in enumerate(zip(got, fbk.reference_impl(
+                *fold_in, **kw))):
+            _flash_close(a, b, elementwise=i == 0)
+        grads_in = (rows[0], ks, vs, rows[2], cols[2], cols[3], offs)
+        for a, b in zip(fbk.flash_block_grads(*grads_in, **kw),
+                        fbk.block_grads_reference(*grads_in, **kw)):
+            _flash_close(a, b)
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+def test_remat_classifier_on_the_card(cuda, dropout):
+    """An AttentionClassifier (pallas, zigzag, T=512) with remat against
+    the same weights without: logits and gradients within FLASH_TOL
+    normwise, dropout masks drawn alike under one seed; remat runs the
+    update kernel again in the backward (6 launches a block a step
+    instead of 3)."""
+    from idc_models_tpu_torch.models.attention import AttentionClassifier
+
+    x = torch.randn(2, 512, 8, device="cuda", generator=cuda)
+    y = torch.tensor([0, 1], device="cuda")
+    runs, launches = [], []
+    for remat in (False, True):
+        model = core.init_params(AttentionClassifier(
+            512, 8, embed_dim=64, num_heads=2, mlp_dim=128, num_blocks=2,
+            block_impl="pallas", layout="zigzag", dropout_rate=dropout,
+            remat=remat), 0).cuda().train()
+        core.use_generator(model, torch.Generator(device="cuda")
+                           .manual_seed(3))
+        before = [kern.launches for kern in fbk.KERNELS]
+        logits = model(x)
+        binary_cross_entropy(logits, y).backward()
+        torch.cuda.synchronize()
+        launches.append([kern.launches - b for kern, b in
+                         zip(fbk.KERNELS, before)])
+        runs.append([logits.detach()] + [p.grad for p in model.parameters()])
+    assert launches == [[6, 6, 6], [12, 6, 6]]
+    for a, b in zip(*runs):
+        _flash_close(a, b)
+
+
 # ---------------------------------------------------------------------------
 # the classifier zoo: VGG16, DenseNet201 packed/concat, the feature cache
 # ---------------------------------------------------------------------------

@@ -119,7 +119,11 @@ def test_fed_trace_out_writes_round_and_client_spans(tmp_path, argv):
     assert "fed_round_attempts_total" in {m["name"] for m in snap["metrics"]}
 
 
-def test_profile_small_writes_the_frozen_records(tmp_path, capsys):
+def test_profile_small_writes_the_frozen_records(tmp_path, capsys,
+                                                 monkeypatch):
+    # --peak-tflops registers a "cpu" roof for the process: keep it out
+    # of the tests that follow (test_torch_profile.py reads the table)
+    monkeypatch.setattr(prof, "BACKEND_ROOFS", dict(prof.BACKEND_ROOFS))
     out = tmp_path / "p.jsonl"
     assert cli.main(["profile", "--model", "small", "--device", "cpu",
                      "--steps", "2", "--peak-tflops", "1", "--peak-gbps",
