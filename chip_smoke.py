@@ -173,6 +173,22 @@ non-zero before the result line:
    each kernel at the path's 8,192 x 8,192 quarters ([0, 0] and [8192,
    8192] causal, [8192, 0] unmasked), held against its plain version
    there and timed;
+11. dist -- right after the `mobile` paths, the distribution layer on a
+   world of one card: without a process group, the LM's plan path
+   (LM_RULES over a 1-rank fsdp x tp x seq mesh, the vocab-parallel
+   loss) against the plain path, 3 steps at the `lm` width; then a
+   1-rank NCCL group started here through a file:// rendezvous in a
+   temporary directory (its backend must be nccl, an all-reduce on the
+   card must give its input), and on it, each with the launch counts
+   set to 0 just before and read just after: `mobile --depthwise-impl
+   fused` through the data-parallel path (506 B1 launches, epochs
+   within DIST_RERUN_RTOL of the un-meshed run's), `lm --fsdp 1 --tp 1
+   --seq-parallel 1` at lm_path's flags (8 launches of each flash
+   kernel, losses against lm_path's) and `attention --seq-parallel 1`
+   (10/6/6, losses against the contiguous run's); and the layer's cost
+   at world size 1, host ms of the `vgg` b32 phase-2 step and the `lm`
+   step (plain and plan paths) without and with the group, in turns;
+   the group is taken down at the end;
 
 then one JSON line of per-kernel numbers, and the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}`.
@@ -388,7 +404,7 @@ def parity(torch, fc, mobilenet) -> float:
     return worst
 
 
-def main_path(torch, fc, mobilenet, card: str) -> dict:
+def main_path(torch, fc, mobilenet, card: str, extra=()) -> dict:
     """Drive the port's `mobile` verb through the kernel and hold its
     launches, outputs and predictions to what the schedule implies."""
     from idc_models_tpu_torch import cli, convert
@@ -408,7 +424,7 @@ def main_path(torch, fc, mobilenet, card: str) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         argv = ["mobile", "--depthwise-impl", "fused", "--synthetic-examples",
                 str(n_examples), "--epochs", "1", "--fine-tune-epochs", "1",
-                "--seed", str(seed), "--path", tmp]
+                "--seed", str(seed), *extra, "--path", tmp]
         imgs, labels = synthetic.make_idc_like(n_examples, preset.image_size,
                                                seed=seed)
         train, val, test = train_val_test_split(ArrayDataset(imgs, labels),
@@ -1407,7 +1423,8 @@ def lm_path(torch, fc, smk, fbk, card: str) -> dict:
         f"kernels {others}; {card}")
     if launches != (want, want, want) or others != (0, 0):
         raise SystemExit(f"lm launches {launches} / {others}")
-    return {"launches": want, "seconds": seconds}
+    return {"launches": want, "seconds": seconds, "argv": argv[:-2],
+            "losses": [r["loss"] for r in steps]}
 
 
 def cache_diff(torch, a, b) -> tuple[int, int, int, float]:
@@ -1935,9 +1952,10 @@ def remat_on_card(torch) -> None:
             f"{max(errs)!r}")
 
 
-def attention_run(torch, fc, smk, fbk, name: str) -> dict:
-    """One `cli.main(["attention", ...])` run of ATT_RUNS, its launch
-    counts set to 0 just before and read just after."""
+def attention_run(torch, fc, smk, fbk, name: str, extra=()) -> dict:
+    """One `cli.main(["attention", ...])` run of ATT_RUNS (`extra` flags
+    appended), its launch counts set to 0 just before and read just
+    after."""
     import contextlib
     import io
 
@@ -1950,7 +1968,7 @@ def attention_run(torch, fc, smk, fbk, name: str) -> dict:
                 "--mlp-dim", str(ATT["mlp_dim"]), "--num-blocks",
                 str(ATT["num_blocks"]), "--batch-size", "1", "--block-impl",
                 "pallas", "--steps", str(ATT_STEPS), "--synthetic-examples",
-                str(ATT_EXAMPLES), "--seed", "0", *ATT_RUNS[name],
+                str(ATT_EXAMPLES), "--seed", "0", *ATT_RUNS[name], *extra,
                 "--path", tmp]
         out = io.StringIO()
         zero_counts(fc, smk, fbk)
@@ -2277,18 +2295,19 @@ def classifier_run(torch, fc, smk, fbk, argv: list[str]) -> dict:
             "state": state, "seconds": seconds, "launches": launches}
 
 
-def same_history(name: str, got: list[dict], want: list[dict]) -> float:
+def same_history(name: str, got: list[dict], want: list[dict],
+                 rtol: float = 1e-4) -> float:
     """Cached against uncached epoch records: loss and val_loss within
-    rtol 1e-4 (the JAX package's tests/test_feature_cache.py bar);
+    `rtol` (1e-4: the JAX package's tests/test_feature_cache.py bar);
     returns the largest relative difference."""
     worst = 0.0
     for g, w in zip(got, want, strict=True):
         for k in ("loss", "val_loss"):
             rel = abs(g[k] - w[k]) / abs(w[k])
             worst = max(worst, rel)
-            if not rel <= 1e-4:
-                raise SystemExit(f"{name}: cached {k} {g[k]!r} against "
-                                 f"uncached {w[k]!r} (rel {rel!r} > 1e-4)")
+            if not rel <= rtol:
+                raise SystemExit(f"{name}: {k} {g[k]!r} against "
+                                 f"{w[k]!r} (rel {rel!r} > {rtol})")
     return worst
 
 
@@ -3476,6 +3495,217 @@ def central_storage_run(torch, fc, smk, fbk, card: str) -> None:
         f"(largest relative difference {rel!r}, bar 1e-4); {card}")
 
 
+# ---------------------------------------------------------------------------
+# phase (j): the distribution layer on a world of one card (`dist`)
+# ---------------------------------------------------------------------------
+
+# host-ms steps a cost sample (in turns), LM plan-path steps held against
+# the plain path's
+DIST_STEPS, DIST_LM_STEPS = 10, 3
+# the plan path's LM losses against the plain path's, relative: the
+# vocab-parallel cross-entropy sums its terms in another order
+DIST_LM_RTOL = 1e-5
+# a rerun against the first run (epoch and step losses), relative: the
+# embedding's and cuDNN's backward add in an order that may change
+# between two runs on the card
+DIST_RERUN_RTOL = 1e-4
+
+
+def dist_models(torch):
+    """The `vgg` b32 phase-2 step and the `lm` step (pallas, T=16,384,
+    batch 1) as the verbs build them: `make` returns ``(vgg(mesh),
+    lm_plain(mesh), lm_plan())`` step callables, each on fresh weights
+    from seed 0; the plan path is the LM over an fsdp 1 x tp 1 x seq 1
+    mesh under LM_RULES (FSDP gathers, TP splits, vocab-parallel loss,
+    each a no-op at one rank)."""
+    from idc_models_tpu_torch import mesh as meshlib
+    from idc_models_tpu_torch.models import core, registry
+    from idc_models_tpu_torch.models.lm import (
+        AttentionLM, make_lm_train_step, next_token_loss,
+    )
+    from idc_models_tpu_torch.train import losses
+    from idc_models_tpu_torch.train.state import TrainState, rmsprop
+    from idc_models_tpu_torch.train.step import make_train_step
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.rand(32, 50, 50, 3, device="cuda", generator=gen)
+    y = torch.randint(0, 2, (32,), device="cuda", generator=gen)
+    rng = np.random.default_rng(1)
+    seqs = torch.as_tensor((rng.integers(0, LM["vocab"], (1, 1))
+                            + np.arange(LM_T)) % LM["vocab"]).cuda()
+    dims = {k: LM[k] for k in ("embed_dim", "num_heads", "mlp_dim",
+                               "num_blocks")}
+
+    def vgg(mesh):
+        spec = registry.get_model("vgg16")
+        model = core.init_params(spec.build(1), 0).cuda()
+        step = make_train_step(TrainState(model, rmsprop(
+            model, 1e-4, trainable_mask=spec.fine_tune_mask(model, 15))),
+            losses.binary_cross_entropy, mesh=mesh)
+        return lambda: step(x, y)
+
+    def lm_plain(mesh):
+        model = core.init_params(AttentionLM(
+            LM["vocab"], LM_T, block_impl="pallas", **dims), 0).cuda()
+        step = make_train_step(TrainState(model, rmsprop(model, 3e-3)),
+                               next_token_loss, mesh=mesh)
+        return lambda: step(seqs, seqs)
+
+    def lm_plan():
+        model = core.init_params(AttentionLM(
+            LM["vocab"], LM_T, block_impl="pallas",
+            mesh=meshlib.fsdp_tp_mesh(1, 1, 1), **dims), 0).cuda()
+        model.shard_(registry.LM_RULES)
+        step = make_lm_train_step(TrainState(model, rmsprop(model, 3e-3)),
+                                  global_batch=1)
+        return lambda: step(seqs, seqs)
+
+    return vgg, lm_plain, lm_plan
+
+
+def dist_cost(torch, calls: dict) -> dict:
+    """Host ms a step of each call, in turns forward then back."""
+    names = list(calls)
+    ms = {k: [] for k in names}
+    for k in names + names[::-1]:
+        ms[k].append(host_ms(torch, calls[k], n=DIST_STEPS, warmup=2))
+    return ms
+
+
+def dist_path(torch, fc, smk, fbk, mobile: dict, lm: dict, att: dict,
+              card: str) -> dict:
+    """(j) the distribution layer on one card. Without a process group:
+    the cost samples, and the LM's plan path (LM_RULES over a one-rank
+    mesh) held against the plain path. Then a 1-rank NCCL group through
+    a file:// rendezvous, checked to be NCCL and to all-reduce on the
+    card, and on it the verbs: `mobile --depthwise-impl fused`
+    data-parallel (its launches as the un-meshed run's, its epochs
+    within DIST_RERUN_RTOL), `lm --fsdp 1 --tp 1 --seq-parallel 1` at the
+    bench width (launches and losses against `lm_path`'s; at one rank
+    the verb runs the plain LM), `attention --seq-parallel 1` (against
+    the contiguous run); the LM's plan path built on the group, its
+    losses against the plain path's; and the same cost samples with the
+    group. The group is taken down at the end."""
+    import torch.distributed as dist
+
+    from idc_models_tpu_torch import collectives
+    from idc_models_tpu_torch import mesh as meshlib
+    from idc_models_tpu_torch.models import mobilenet
+
+    t0 = time.perf_counter()
+    tf32_off(torch)
+    vgg, lm_plain, lm_plan = dist_models(torch)
+    plain, plan = lm_plain(None), lm_plan()
+    losses = {}
+    for name, call in (("plain", plain), ("plan", plan)):
+        losses[name] = [float(call()["loss"]) for _ in range(DIST_LM_STEPS)]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["plan"],
+                                                 losses["plain"])]
+    log(f"dist: lm step losses, plan path (LM_RULES on a 1-rank fsdp x tp x "
+        f"seq mesh, vocab-parallel loss) {losses['plan']!r} against the "
+        f"plain path {losses['plain']!r}: relative {rel!r} (bar "
+        f"{DIST_LM_RTOL}); {card}")
+    if not all(r <= DIST_LM_RTOL for r in rel):
+        raise SystemExit("the LM's plan path left the plain path's losses")
+    alone = dist_cost(torch, {"vgg": vgg(None), "lm plain": lm_plain(None),
+                              "lm plan": plan})
+    del plain, plan
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        meshlib.initialize_multihost(f"file://{tmp}/store", 1, 0)
+        try:
+            backend = dist.get_backend()
+            probe = torch.full((4,), 2.0, device="cuda")
+            dist.all_reduce(probe)
+            log(f"dist: a 1-rank group, backend {backend}, all-reduce of "
+                f"2.0 on the card gives {probe.tolist()}")
+            if backend != "nccl" or probe.tolist() != [2.0] * 4:
+                raise SystemExit(f"the 1-rank group is {backend}, "
+                                 f"all-reduce {probe.tolist()}")
+            if not collectives.initialized():
+                raise SystemExit("the port does not see the group")
+            grouped = main_path(torch, fc, mobilenet, card)
+            rel = same_history("dist mobile", grouped["epochs"],
+                               mobile["epochs"], DIST_RERUN_RTOL)
+            log(f"dist: mobile data-parallel on the group: {grouped['launches']} "
+                f"fused launches (un-meshed run {mobile['launches']}); "
+                f"epochs within {rel!r} of the un-meshed run's (bar "
+                f"{DIST_RERUN_RTOL}); {card}")
+            if grouped["launches"] != mobile["launches"]:
+                raise SystemExit("dist mobile launches differ")
+            lm_launches = dist_lm(torch, fc, smk, fbk, lm, card)
+            run = attention_run(torch, fc, smk, fbk, "contiguous",
+                                ["--seq-parallel", "1"])
+            base = att["runs"]["contiguous"]
+            rel = [abs(a - b) / abs(b) for a, b in zip(run["losses"],
+                                                         base["losses"])]
+            log(f"dist: attention --seq-parallel 1 on the group: launches "
+                f"{run['launches']} (first run {base['launches']}), losses "
+                f"{run['losses']!r} against {base['losses']!r}: relative "
+                f"{rel!r} (bar {DIST_RERUN_RTOL}); {card}")
+            if (run["launches"] != base["launches"]
+                    or not all(r <= DIST_RERUN_RTOL for r in rel)):
+                raise SystemExit("dist attention left the first run")
+            plan = lm_plan()
+            got = [float(plan()["loss"]) for _ in range(DIST_LM_STEPS)]
+            rel = [abs(a - b) / abs(b) for a, b in zip(got, losses["plain"])]
+            log(f"dist: lm step losses, plan path built on the group "
+                f"{got!r} against the plain path without it "
+                f"{losses['plain']!r}: relative {rel!r} (bar "
+                f"{DIST_LM_RTOL}); {card}")
+            if not all(r <= DIST_LM_RTOL for r in rel):
+                raise SystemExit("the LM's plan path on the group left the "
+                                 "plain path's losses")
+            grid = meshlib.data_mesh()
+            with_group = dist_cost(torch, {
+                "vgg": vgg(grid), "lm plain": lm_plain(grid),
+                "lm plan": plan})
+        finally:
+            dist.destroy_process_group()
+    for k in alone:
+        log(f"time dist {k} step (vgg: b32 phase-2 50x50 f32; lm: "
+            f"T={LM_T} batch 1 pallas f32): host ms without a process "
+            f"group {alone[k]!r}, with a 1-rank NCCL group {with_group[k]!r} "
+            f"(each in turns); TF32 off; {card}")
+    log(f"phase (j) dist took {time.perf_counter() - t0!r} s")
+    return {"mobile": grouped["launches"], "lm": lm_launches,
+            "attention": run["launches"]}
+
+
+def dist_lm(torch, fc, smk, fbk, lm: dict, card: str) -> tuple:
+    """`lm --fsdp 1 --tp 1 --seq-parallel 1` with lm_path's flags on the
+    group: the same flash launches (returned), losses within
+    DIST_RERUN_RTOL."""
+    import contextlib
+    import io
+
+    from idc_models_tpu_torch import cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = [*lm["argv"], "--fsdp", "1", "--tp", "1", "--seq-parallel",
+                "1", "--path", tmp]
+        out = io.StringIO()
+        zero_counts(fc, smk, fbk)
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        launches = flash_counts(fbk)
+        records = jsonl(Path(tmp) / "logs" / "run.jsonl")
+    if rc != 0:
+        raise SystemExit(f"dist lm returned {rc}")
+    got = [r["loss"] for r in records if r["event"] == "step"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, lm["losses"])]
+    log(f"dist: lm --fsdp 1 --tp 1 --seq-parallel 1 on the group: flash "
+        f"launches {launches} (lm path {lm['launches']} each), losses "
+        f"{got!r} against {lm['losses']!r}: relative {rel!r} (bar "
+        f"{DIST_RERUN_RTOL}); {card}")
+    if (launches != (lm["launches"],) * 3 or len(got) != len(lm["losses"])
+            or not all(r <= DIST_RERUN_RTOL for r in rel)):
+        raise SystemExit("dist lm left lm_path")
+    return launches
+
+
 def observe_path(torch, fc, smk, fbk, card: str) -> None:
     """(i) observe and stream."""
     t0 = time.perf_counter()
@@ -3542,6 +3772,7 @@ def main() -> int:
     mask_worst = masking_parity(torch, smk)
     path = main_path(torch, fc, mobilenet, card)
     mobile_cache_path(torch, fc, smk, fbk, path, card)
+    dist = dist_path(torch, fc, smk, fbk, path, lm, att, card)
     vgg_path(torch, fc, smk, fbk, card)
     dense_path(torch, fc, smk, fbk, card)
     fed_path(torch, fc, smk, fbk, card)
@@ -3583,6 +3814,8 @@ def main() -> int:
         "bound_by": ("bytes" if t32["bytes"] / PEAK_BYTES_PER_S
                      >= t32["flops"] / PEAK_F32_FLOP_PER_S else "operations"),
         "library_ms": t32["library_ms"],
+        # phase (j): the data-parallel `mobile` run on a 1-rank group
+        "launches_dist": dist["mobile"],
         "device_us_per_launch": t32["device_us_per_launch"],
         "host_us_per_call": t32["host_us"],
     }, {
@@ -3616,6 +3849,10 @@ def main() -> int:
         # x 8192) the error, the device ms and the bound
         "launches_attention": {name: run["launches"][i] for name, run
                                in att["runs"].items()},
+        # phase (j): `lm --fsdp 1 --tp 1 --seq-parallel 1` and
+        # `attention --seq-parallel 1` on a 1-rank group
+        "launches_dist": {"lm": dist["lm"][i],
+                          "attention": dist["attention"][i]},
         "max_abs_err_zigzag_grid_256": att["grid"][key],
         **{f"quarter_{field}": {what: quarters[(what, key)][field]
                                 for what in QUARTERS}

@@ -74,7 +74,10 @@ ring-attention sequence classifier on the synthetic sequence task (or
 IDC patches as token sequences, ``--data-dir``) and prints ``val:
 loss=... accuracy=... auroc=...``. Both take ``--block-impl pallas``
 (the hand-written CUDA flash kernels), ``--layout zigzag`` and
-``--remat``, on a ring of one card.
+``--remat``; ``attention --seq-parallel N`` splits the sequence over a
+ring of N ranks and the batch over the rest, and ``lm --fsdp F --tp T
+--seq-parallel S`` shards the LM over a ("data", "model", "seq") mesh
+under the rule set ``lm`` (FSDP, Megatron TP, the sequence ring).
 
     python -m idc_models_tpu_torch attention --seq-len 16384 \\
         --embed-dim 512 --num-heads 8 --mlp-dim 2048 --batch-size 1 \\
@@ -94,6 +97,20 @@ device-wait vs host-gap split of the measured steps and the
 compile-churn watchdog's findings, and writes ``profile_program`` /
 ``profile_step`` records (``--out`` or ``<path>/logs/profile.jsonl``).
 ``stats run.jsonl`` summarizes any run log of either package.
+
+Distribution: a verb runs over every rank of the world it was started
+into -- ``torchrun`` ranks (one card each, NCCL), or ``--host-devices
+N`` gloo ranks on the CPU (``mesh.launch_cpu_pod``; rank 0 prints and
+writes the run's files). ``vgg``/``mobile``/``dense`` train
+data-parallel (the batch is split over the "data" ranks, BatchNorm takes
+the global batch's moments; ``dense`` scales its per-replica batch by
+them), and ``--model-parallel N`` stores their parameters and RMSprop
+moments channel-sharded over a "model" axis of N ranks (the compute is
+not split: each step gathers them whole).
+
+    torchrun --nproc-per-node 4 -m idc_models_tpu_torch lm --fsdp 2 --tp 2
+    python -m idc_models_tpu_torch attention --host-devices 4 \
+        --seq-parallel 4 --device cpu
 """
 
 from __future__ import annotations
@@ -107,18 +124,60 @@ from idc_models_tpu_torch.models.core import DEPTHWISE_IMPLS
 
 
 def main(argv: list[str] | None = None) -> int:
+    from idc_models_tpu_torch import collectives, mesh
     from idc_models_tpu_torch.observe import tracing
 
+    argv = list(sys.argv[1:] if argv is None else argv)
     ns = _parse(argv)
+    if getattr(ns, "host_devices", 0) < 0:
+        sys.exit(f"--host-devices {ns.host_devices} must be >= 0 (0: this "
+                 f"process alone)")
+    if getattr(ns, "host_devices", 0):
+        if ns.host_devices > 1 and ns.preset_key in ("fed", "secure_fed"):
+            _one_rank_fed(ns.host_devices)
+        if ns.host_devices > 1 and not mesh.in_cpu_pod():
+            return mesh.launch_cpu_pod(ns.host_devices, argv)
+        # the ranks of a CPU pod run on the CPU
+        ns.device = "cpu"
+    mesh.join_world()
     runner = {"vgg": _run_dist, "mobile": _run_dist, "dense": _run_dist,
               "fed": _run_fed, "secure_fed": _run_secure, "lm": _run_lm,
               "attention": _run_attention, "stats": _run_stats,
               "profile": _run_profile}[ns.preset_key]
     # --trace-out: one wiring point arms the tracer for every verb; the
     # spans export as Chrome trace-event JSON when the run ends
-    with tracing(chrome_path=getattr(ns, "trace_out", None)):
+    writer = collectives.is_writer()
+    with tracing(chrome_path=getattr(ns, "trace_out", None) if writer
+                 else None):
         runner(ns)
     return 0
+
+
+def _ranks_line(mesh) -> str:
+    """The ' over N ranks (axis=size, ...)' suffix of a device line, for
+    a mesh of several ranks."""
+    if mesh.size == 1:
+        return ""
+    axes = ", ".join(f"{a}={n}" for a, n in mesh.shape.items())
+    return f" over {mesh.size} ranks ({axes})"
+
+
+def _one_rank_fed(ranks: int) -> None:
+    """The federated verbs run on one rank: the client-axis meshes of
+    the rounds wait for ROADMAP A4-client."""
+    sys.exit(f"{ranks} ranks: the federated rounds run on one rank so far; "
+             f"their client-axis meshes wait for ROADMAP A4-client")
+
+
+def _run_logger(ns):
+    """The run's jsonl logger under --path, on rank 0 only."""
+    from idc_models_tpu_torch import collectives
+
+    if ns.path is None or not collectives.is_writer():
+        return None
+    from idc_models_tpu_torch.observe import JsonlLogger
+
+    return JsonlLogger(Path(ns.path) / "logs" / "run.jsonl")
 
 
 def _parse(argv):
@@ -136,6 +195,10 @@ def _parse(argv):
         sp.add_argument("--synthetic-examples", type=int, default=512,
                         help="synthetic dataset size when no real data")
         sp.add_argument("--seed", type=int, default=0)
+        sp.add_argument("--host-devices", type=int, default=0,
+                        help="run as N gloo ranks on the CPU (the TPU-pod "
+                             "stand-in for local runs); rank 0 prints and "
+                             "writes")
         sp.add_argument("--batch-size", type=int, default=None)
         sp.add_argument("--lr", type=float, default=None)
         sp.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -185,8 +248,11 @@ def _parse(argv):
                              "worker processes (whole batches, round "
                              "robin; the same stream bit for bit)")
         sp.add_argument("--model-parallel", type=int, default=1,
-                        help="rejected above 1: tensor parallelism is not "
-                             "ported yet (ROADMAP A4-rest)")
+                        help="store the weights and RMSprop moments "
+                             "channel-sharded over a 'model' mesh axis of "
+                             "this size (tp.py; gathered whole for each "
+                             "step's compute); data parallelism over the "
+                             "remaining ranks")
         if key == "mobile":
             sp.add_argument("--depthwise-impl", default="grouped",
                             choices=DEPTHWISE_IMPLS,
@@ -323,13 +389,18 @@ def _parse(argv):
     sp.add_argument("--num-blocks", type=int, default=2)
     sp.add_argument("--steps", type=int, default=200)
     sp.add_argument("--fsdp", type=int, default=0,
-                    help="rejected above 1: FSDP is not ported yet")
+                    help="FSDP degree: shard the parameters AND RMSprop "
+                         "moments over a 'data' mesh axis of this size "
+                         "(partition.py, rule set 'lm'); 0 = off")
     sp.add_argument("--tp", type=int, default=0,
-                    help="rejected above 1: tensor parallelism is not "
-                         "ported yet")
+                    help="tensor-parallel degree: shard the attention/MLP/"
+                         "head weights over a 'model' mesh axis of this "
+                         "size (Megatron orientation); composes with "
+                         "--fsdp on a ('data', 'model', 'seq') mesh; "
+                         "0 = off")
     sp.add_argument("--seq-parallel", type=int, default=0,
-                    help="ring size over the 'seq' axis; only 1 (one "
-                         "card) is ported (0 = 1)")
+                    help="ring size over the 'seq' mesh axis (0 = the "
+                         "largest dividing power of two, capped at 4)")
     sp.add_argument("--layout", choices=("contiguous", "zigzag"),
                     default="contiguous")
     sp.add_argument("--block-impl", choices=("jnp", "pallas"),
@@ -354,9 +425,6 @@ def _parse(argv):
                              "sequences: synthetic, or IDC patches as "
                              "token sequences")
     common(sp)
-    sp.add_argument("--host-devices", type=int, default=0,
-                    help="rejected: virtual devices wait for the "
-                         "distribution layer (ROADMAP A4-rest)")
     sp.add_argument("--seq-len", type=int, default=128)
     sp.add_argument("--features", type=int, default=8)
     sp.add_argument("--embed-dim", type=int, default=64)
@@ -365,8 +433,10 @@ def _parse(argv):
     sp.add_argument("--num-blocks", type=int, default=2)
     sp.add_argument("--steps", type=int, default=300)
     sp.add_argument("--seq-parallel", type=int, default=0,
-                    help="ring size over the 'seq' axis; only 1 (one "
-                         "card) is ported (0 = 1)")
+                    help="ring size over the 'seq' mesh axis; remaining "
+                         "ranks form the 'data' axis (0 = the largest "
+                         "power of two that divides the rank count, "
+                         "capped at 4)")
     sp.add_argument("--layout", choices=("contiguous", "zigzag"),
                     default="contiguous",
                     help="causal sequence layout (zigzag balances the "
@@ -404,14 +474,16 @@ def _parse(argv):
                          "(vgg/mobile/dense; `small` is the tiny CNN) or "
                          "the LM's (`serve` waits for ROADMAP A9)")
     sp.add_argument("--fsdp", type=int, default=0,
-                    help="rejected above 1: parameter sharding is not "
-                         "ported yet (ROADMAP A4-rest)")
+                    help="with --model lm: FSDP degree (the parameters and "
+                         "RMSprop moments shard over a 'data' axis of "
+                         "this size; rule set 'lm')")
     sp.add_argument("--tp", type=int, default=0,
-                    help="rejected above 1: tensor parallelism is not "
-                         "ported yet (ROADMAP A4-rest)")
+                    help="with --model lm: tensor-parallel degree (the "
+                         "weights shard over a 'model' axis); composes "
+                         "with --fsdp")
     sp.add_argument("--host-devices", type=int, default=0,
-                    help="rejected: virtual devices wait for the "
-                         "distribution layer (ROADMAP A4-rest)")
+                    help="run as N gloo ranks on the CPU; rank 0 prints "
+                         "and writes")
     sp.add_argument("--steps", type=int, default=None,
                     help="measured steps (default: 30 on the card, 4 on "
                          "the CPU)")
@@ -548,26 +620,20 @@ def _streamed_idc_splits(ns, preset, batch_size: int):
 
 
 def _run_dist(ns):
-    from idc_models_tpu_torch import convert, resolve_device
+    from idc_models_tpu_torch import (
+        collectives, convert, mesh as meshlib, resolve_device,
+    )
     from idc_models_tpu_torch.configs import get_preset
     from idc_models_tpu_torch.data.cifar10 import load_cifar10
     from idc_models_tpu_torch.data.idc import train_val_test_split
     from idc_models_tpu_torch.models.pretrained import save_npz
-    from idc_models_tpu_torch.observe import JsonlLogger, profile_trace
+    from idc_models_tpu_torch.observe import profile_trace
     from idc_models_tpu_torch.train import losses
     from idc_models_tpu_torch.train.loop import (
         TwoPhaseConfig, evaluate, two_phase_fit,
     )
 
     device = resolve_device(ns.device)
-    if ns.model_parallel > 1 and ns.central_storage:
-        sys.exit("--central-storage broadcasts a host-resident replica "
-                 "each step and cannot keep a model-sharded layout; drop "
-                 "one of the two flags")
-    if ns.model_parallel > 1:
-        sys.exit(f"--model-parallel {ns.model_parallel}: tensor "
-                 f"parallelism is not ported yet (ROADMAP A4-rest); the port "
-                 f"trains on one card")
     if ns.resumable and ns.path is None:
         sys.exit("--resumable requires --path (checkpoints live under it)")
     if ns.checkpoint_every < 1:
@@ -578,14 +644,40 @@ def _run_dist(ns):
         sys.exit("--checkpoint-every needs --resumable: it paces the "
                  "resume checkpoints, and without --resumable none "
                  "are written")
-    # one card: a per-replica batch (dense) is the global batch
     preset = _apply_overrides(
         get_preset(ns.preset_key), ns,
         ["batch_size", "lr", "epochs", "fine_tune_epochs", "fine_tune_at",
          "repeats"])
-    print(f"Device: {device}")
-    # the synthetic fallback must yield at least one full batch after the
-    # train split, or the Loader rightly refuses to run
+    if ns.model_parallel > 1:
+        if ns.central_storage:
+            sys.exit("--central-storage broadcasts a host-resident "
+                     "replica each step and cannot keep a model-sharded "
+                     "layout; drop one of the two flags")
+        if ns.resumable:
+            sys.exit("--resumable checkpoints of a model-sharded state "
+                     "wait for the sharded checkpoints (ROADMAP A11); "
+                     "drop one of the two flags")
+        from idc_models_tpu_torch import tp
+
+        try:
+            mesh = tp.dp_tp_mesh(ns.model_parallel)
+        except ValueError as e:
+            sys.exit(str(e))
+    else:
+        mesh = meshlib.data_mesh()
+    n_data = mesh.shape[meshlib.DATA_AXIS]
+    batch = (preset.batch_size * n_data if preset.per_replica_batch
+             else preset.batch_size)
+    if batch % n_data:
+        sys.exit(f"--batch-size {batch} must divide by the {n_data} "
+                 f"data-parallel ranks (each takes an equal share)")
+    preset = dataclasses.replace(preset, batch_size=batch)
+    print(f"Device: {device}" + _ranks_line(mesh))
+    # a process started alone trains on its card without a mesh
+    if not collectives.initialized():
+        mesh = None
+    # the synthetic fallback must yield at least one full global batch
+    # after the train split, or the Loader rightly refuses to run
     ns.synthetic_examples = max(ns.synthetic_examples, 2 * preset.batch_size)
     streamed = None
     if ns.stream:
@@ -614,10 +706,9 @@ def _run_dist(ns):
     build_kwargs = ({"depthwise_impl": ns.depthwise_impl}
                     if preset.model == "mobilenet_v2" else {})
 
-    logger = (JsonlLogger(Path(ns.path) / "logs" / "run.jsonl")
-              if ns.path is not None else None)
+    logger = _run_logger(ns)
     try:
-        with profile_trace(ns.profile_dir):
+        with profile_trace(ns.profile_dir if collectives.is_writer() else None):
             result = two_phase_fit(
                 preset.model, preset.num_outputs, train, val,
                 TwoPhaseConfig(lr=preset.lr, epochs=preset.epochs,
@@ -634,10 +725,11 @@ def _run_dist(ns):
                 checkpoint_dir=(Path(ns.path) / "dist_ckpt" if ns.resumable
                                 else None),
                 checkpoint_every=ns.checkpoint_every,
-                logger=logger, device=device)
+                logger=logger, device=device, mesh=mesh)
         test_metrics = evaluate(result.model, test, loss_fn,
                                 batch_size=preset.batch_size,
-                                with_auroc=preset.num_outputs == 1)
+                                with_auroc=preset.num_outputs == 1,
+                                mesh=mesh)
         print("test:", " ".join(f"{k}={v:.4f}"
                                 for k, v in test_metrics.items()))
         if logger is not None:
@@ -662,7 +754,7 @@ def _run_fed(ns):
     import numpy as np
     import torch
 
-    from idc_models_tpu_torch import convert, resolve_device
+    from idc_models_tpu_torch import collectives, convert, resolve_device
     from idc_models_tpu_torch import faults as faults_lib
     from idc_models_tpu_torch.configs import get_preset
     from idc_models_tpu_torch.data.idc import train_val_test_split
@@ -682,6 +774,8 @@ def _run_fed(ns):
     from idc_models_tpu_torch.train.loop import TwoPhaseConfig, two_phase_fit
 
     device = resolve_device(ns.device)
+    if collectives.axis_size() > 1:
+        _one_rank_fed(collectives.axis_size())
     if ns.checkpoint_every < 1:
         sys.exit(f"--checkpoint-every {ns.checkpoint_every} must be "
                  f">= 1: saving every 0 rounds is never, and a crash "
@@ -1076,7 +1170,7 @@ def _run_secure(ns):
     import numpy as np
     import torch
 
-    from idc_models_tpu_torch import resolve_device
+    from idc_models_tpu_torch import collectives, resolve_device
     from idc_models_tpu_torch.configs import get_preset
     from idc_models_tpu_torch.federated.fedavg import (
         initialize_server, load_server,
@@ -1088,6 +1182,8 @@ def _run_secure(ns):
     from idc_models_tpu_torch.train.loop import evaluate
 
     device = resolve_device(ns.device)
+    if collectives.axis_size() > 1:
+        _one_rank_fed(collectives.axis_size())
     if ns.async_buffer:
         from idc_models_tpu_torch.federated import ensure_async_compatible
 
@@ -1213,51 +1309,82 @@ def _run_lm(ns):
     import numpy as np
     import torch
 
-    from idc_models_tpu_torch import resolve_device
+    from idc_models_tpu_torch import collectives, resolve_device
+    from idc_models_tpu_torch import mesh as meshlib
+    from idc_models_tpu_torch.models import registry
     from idc_models_tpu_torch.models.core import init_params, use_generator
     from idc_models_tpu_torch.models.lm import (
-        AttentionLM, Generator, next_token_loss,
+        AttentionLM, Generator, make_lm_train_step, next_token_loss,
     )
-    from idc_models_tpu_torch.observe import JsonlLogger, Timer, profile_trace
+    from idc_models_tpu_torch.observe import Timer, profile_trace
     from idc_models_tpu_torch.train.state import TrainState, rmsprop
-    from idc_models_tpu_torch.train.step import make_train_step
+    from idc_models_tpu_torch.train.step import make_train_step, shard_batch
 
     device = resolve_device(ns.device)
     if not 0.0 <= ns.dropout < 1.0:
         sys.exit(f"--dropout {ns.dropout} must be in [0, 1)")
-    if ns.fsdp > 1 or ns.tp > 1:
-        sys.exit(f"--fsdp {ns.fsdp} / --tp {ns.tp}: parameter sharding is "
-                 f"not ported yet (ROADMAP A4-rest); the port trains on "
-                 f"one card")
-    if ns.seq_parallel > 1:
-        sys.exit(f"--seq-parallel {ns.seq_parallel}: the model trains on "
-                 f"a ring of one card so far (ROADMAP A4-rest: sequence "
-                 f"parallelism inside the model)")
-    _check_stripes(ns.layout, ns.seq_len, f"--seq-len {ns.seq_len}")
-    print(f"Device: {device} (ring size 1)")
+    if ns.fsdp < 0 or ns.tp < 0:
+        sys.exit(f"--fsdp/--tp must be >= 0 (0 = off), got "
+                 f"{ns.fsdp}/{ns.tp}")
+    n_dev = collectives.axis_size()
+    batch = ns.batch_size or 32
+    sharded = ns.fsdp > 1 or ns.tp > 1
+    if sharded:
+        # the rule-sharded mesh: FSDP over "data", TP over "model", the
+        # ring over "seq"; --seq-parallel defaults to 1 here (the three
+        # axes share the ranks)
+        f, t = max(ns.fsdp, 1), max(ns.tp, 1)
+        n_seq = ns.seq_parallel or 1
+        if f * t * n_seq > n_dev:
+            sys.exit(f"--fsdp {f} x --tp {t} x --seq-parallel {n_seq} "
+                     f"needs {f * t * n_seq} devices, have {n_dev} "
+                     f"(use --host-devices to grow the virtual pod)")
+        if batch % f:
+            sys.exit(f"--batch-size {batch} must divide by --fsdp {f} "
+                     f"(the batch shards over the same 'data' axis the "
+                     f"params shard over)")
+        mesh = meshlib.fsdp_tp_mesh(f, t, n_seq)
+    else:
+        n_seq = _seq_ring(ns.seq_parallel, n_dev)
+        mesh = meshlib.data_seq_mesh(n_seq)
+        if batch % mesh.shape[meshlib.DATA_AXIS]:
+            sys.exit(f"--batch-size {batch} must divide by the "
+                     f"{mesh.shape[meshlib.DATA_AXIS]} data-parallel ranks")
+    _check_stripes(ns.layout, ns.seq_len, f"--seq-len {ns.seq_len}", n_seq)
+    print(f"Device: {device} (ring size {n_seq})" + _ranks_line(mesh)
+          + ("; params + optimizer state sharded by rule set 'lm'"
+             if sharded else ""))
+    if mesh.coords is None:
+        return               # a rank the mesh leaves idle
+    # one rank is one card: the plain model, no plan
+    model_mesh = mesh if mesh.size > 1 else None
     model = init_params(AttentionLM(
         ns.vocab, ns.seq_len, embed_dim=ns.embed_dim,
         num_heads=ns.num_heads, mlp_dim=ns.mlp_dim,
         num_blocks=ns.num_blocks, block_impl=ns.block_impl,
-        layout=ns.layout, dropout_rate=ns.dropout, remat=ns.remat),
-        ns.seed).to(device)
+        layout=ns.layout, dropout_rate=ns.dropout, remat=ns.remat,
+        mesh=model_mesh), ns.seed).to(device)
+    if sharded:
+        model.shard_(registry.get_partition_rules("lm"))
     if ns.dropout:
         use_generator(model, torch.Generator(device=device).manual_seed(
             ns.seed + 2))
-    batch = ns.batch_size or 32
     lr = ns.lr if ns.lr is not None else 3e-3
-    step = make_train_step(TrainState(model, rmsprop(model, lr)),
-                           next_token_loss)
-    logger = (JsonlLogger(Path(ns.path) / "logs" / "run.jsonl")
-              if ns.path is not None else None)
+    state = TrainState(model, rmsprop(model, lr))
+    step = (make_lm_train_step(state, global_batch=batch)
+            if model_mesh is not None else
+            make_train_step(state, next_token_loss,
+                            mesh=mesh if collectives.initialized() else None))
+    logger = _run_logger(ns)
     rng = np.random.default_rng(ns.seed + 1)
     try:
         with Timer("LM training", logger=logger), \
-                profile_trace(ns.profile_dir):
+                profile_trace(ns.profile_dir if collectives.is_writer() else None):
             for i in range(ns.steps):
                 starts = rng.integers(0, ns.vocab, (batch, 1))
-                seqs = torch.as_tensor(
-                    (starts + np.arange(ns.seq_len)) % ns.vocab).to(device)
+                seqs = shard_batch(mesh, (starts + np.arange(ns.seq_len))
+                                   % ns.vocab, axis=meshlib.DATA_AXIS,
+                                   device=device)
                 m = step(seqs, seqs)
                 if i % 50 == 0 or i == ns.steps - 1:
                     loss, acc = float(m["loss"]), float(m["accuracy"])
@@ -1277,7 +1404,9 @@ def _run_lm(ns):
                 print("[idc_models_tpu_torch] --top-k has no effect at "
                       "--temperature 0 (greedy argmax already picks the "
                       "top-1 token)", file=sys.stderr)
-            gen = Generator(model, embed_dim=ns.embed_dim,
+            gen = Generator(model if model_mesh is None
+                            else model.gathered_params(),
+                            embed_dim=ns.embed_dim,
                             num_heads=ns.num_heads,
                             num_blocks=ns.num_blocks, t_max=ns.seq_len,
                             cache_dtype=torch.float32,
@@ -1314,13 +1443,25 @@ def _run_lm(ns):
             logger.close()
 
 
-def _check_stripes(layout: str, seq_len: int, what: str) -> None:
-    """The layout's stripes on a ring of one, 2 under zigzag, must cut
-    the sequence evenly; `what` names the sequence in the message."""
-    stripes = 2 if layout == "zigzag" else 1
+def _check_stripes(layout: str, seq_len: int, what: str,
+                   n_seq: int = 1) -> None:
+    """The layout's stripes on a ring of n_seq, 2 n_seq under zigzag,
+    must cut the sequence evenly; `what` names the sequence in the
+    message."""
+    stripes = 2 * n_seq if layout == "zigzag" else n_seq
     if seq_len % stripes:
         sys.exit(f"{what} must divide into {stripes} equal stripes for "
-                 f"--layout {layout} at ring size 1")
+                 f"--layout {layout} at ring size {n_seq}")
+
+
+def _seq_ring(seq_parallel: int, n_dev: int) -> int:
+    """--seq-parallel, or by default the largest power of two that
+    divides the rank count (at most 4); it must divide the ranks."""
+    n_seq = seq_parallel or max(p for p in (4, 2, 1) if n_dev % p == 0)
+    if n_seq < 1 or n_dev % n_seq:
+        sys.exit(f"--seq-parallel {n_seq} must be a positive divisor of "
+                 f"the device count ({n_dev})")
+    return n_seq
 
 
 def _run_attention(ns):
@@ -1332,7 +1473,8 @@ def _run_attention(ns):
     import numpy as np
     import torch
 
-    from idc_models_tpu_torch import resolve_device
+    from idc_models_tpu_torch import collectives, resolve_device
+    from idc_models_tpu_torch import mesh as meshlib
     from idc_models_tpu_torch.data import synthetic
     from idc_models_tpu_torch.data.idc import (
         ArrayDataset, train_val_test_split,
@@ -1340,22 +1482,15 @@ def _run_attention(ns):
     from idc_models_tpu_torch.data.sequences import patchify, sequence_shape
     from idc_models_tpu_torch.models.attention import AttentionClassifier
     from idc_models_tpu_torch.models.core import init_params, use_generator
-    from idc_models_tpu_torch.observe import JsonlLogger, Timer, profile_trace
+    from idc_models_tpu_torch.observe import Timer, profile_trace
     from idc_models_tpu_torch.train.loop import evaluate
     from idc_models_tpu_torch.train.losses import binary_cross_entropy
     from idc_models_tpu_torch.train.state import TrainState, rmsprop
-    from idc_models_tpu_torch.train.step import make_train_step
+    from idc_models_tpu_torch.train.step import make_train_step, shard_batch
 
     device = resolve_device(ns.device)
     if not 0.0 <= ns.dropout < 1.0:
         sys.exit(f"--dropout {ns.dropout} must be in [0, 1)")
-    if ns.host_devices:
-        sys.exit(f"--host-devices {ns.host_devices}: virtual devices wait "
-                 f"for the distribution layer (ROADMAP A4-rest)")
-    if ns.seq_parallel > 1:
-        sys.exit(f"--seq-parallel {ns.seq_parallel}: the model trains on "
-                 f"a ring of one card so far (ROADMAP A4-rest: sequence "
-                 f"parallelism inside the model)")
     # explicit --data-dir only: real data sets the sequence shape, so an
     # artifact directory holding an IDC tree must not turn a synthetic
     # long-context run into a short IDC one
@@ -1370,17 +1505,23 @@ def _run_attention(ns):
             else f"the {seq_len}-token patch sequence "
                  f"({ns.image_size}x{ns.image_size} images at "
                  f"--patch-size {ns.patch_size})")
-    _check_stripes(ns.layout, seq_len, f"{what} = {seq_len}")
-    print(f"Device: {device} (ring size 1)")
+    n_seq = _seq_ring(ns.seq_parallel, collectives.axis_size())
+    _check_stripes(ns.layout, seq_len, f"{what} = {seq_len}", n_seq)
+    mesh = meshlib.data_seq_mesh(n_seq)
+    print(f"Device: {device} (ring size {n_seq})" + _ranks_line(mesh))
     model = init_params(AttentionClassifier(
         seq_len, features, embed_dim=ns.embed_dim, num_heads=ns.num_heads,
         mlp_dim=ns.mlp_dim, num_blocks=ns.num_blocks, num_outputs=1,
         causal=True, block_impl=ns.block_impl, layout=ns.layout,
-        dropout_rate=ns.dropout, remat=ns.remat), ns.seed).to(device)
+        dropout_rate=ns.dropout, remat=ns.remat, mesh=mesh),
+        ns.seed).to(device)
     if ns.dropout:
         use_generator(model, torch.Generator(device=device).manual_seed(
             ns.seed + 1))
     batch = ns.batch_size or 64
+    if batch % mesh.shape[meshlib.DATA_AXIS]:
+        sys.exit(f"--batch-size {batch} must divide by the "
+                 f"{mesh.shape[meshlib.DATA_AXIS]} data-parallel ranks")
     lr = ns.lr if ns.lr is not None else 1e-3
     if root is not None:
         # the reference's data domain: the labeled tree, the 80/10/10
@@ -1398,18 +1539,25 @@ def _run_attention(ns):
         vx, vy = synthetic.make_sequence_task(max(n_train // 4, batch),
                                               seq_len, features,
                                               seed=ns.seed + 1)
+    # a process started alone trains on its card without a mesh
+    mesh = mesh if collectives.initialized() else None
     step = make_train_step(TrainState(model, rmsprop(model, lr)),
-                           binary_cross_entropy)
-    logger = (JsonlLogger(Path(ns.path) / "logs" / "run.jsonl")
-              if ns.path is not None else None)
+                           binary_cross_entropy, mesh=mesh)
+    logger = _run_logger(ns)
     sel_rng = np.random.default_rng(ns.seed + 2)
     try:
         with Timer("Attention training", logger=logger), \
-                profile_trace(ns.profile_dir):
+                profile_trace(ns.profile_dir if collectives.is_writer() else None):
             for i in range(ns.steps):
                 sel = sel_rng.integers(0, len(x), batch)
-                m = step(torch.as_tensor(x[sel]).to(device),
-                         torch.as_tensor(y[sel]).to(device))
+                if mesh is None:
+                    xs, ys = (torch.as_tensor(a).to(device)
+                              for a in (x[sel], y[sel]))
+                else:
+                    xs, ys = shard_batch(mesh, x[sel], y[sel],
+                                         axis=meshlib.DATA_AXIS,
+                                         device=device)
+                m = step(xs, ys)
                 if i % 50 == 0 or i == ns.steps - 1:
                     loss, acc = float(m["loss"]), float(m["accuracy"])
                     print(f"step {i}, loss={loss:.4f}, accuracy={acc:.4f}")
@@ -1417,7 +1565,7 @@ def _run_attention(ns):
                         logger.log(event="step", step=i, loss=loss,
                                    accuracy=acc)
         vm = evaluate(model, ArrayDataset(vx, vy), binary_cross_entropy,
-                      batch_size=batch, with_auroc=True)
+                      batch_size=batch, with_auroc=True, mesh=mesh)
         print("val:", " ".join(f"{k}={v:.4f}" for k, v in vm.items()))
         if logger is not None:
             logger.log(event="val", **vm)
@@ -1466,20 +1614,13 @@ def _run_profile(ns):
     as ``profile_program`` / ``profile_step`` records."""
     import torch
 
-    from idc_models_tpu_torch import resolve_device
+    from idc_models_tpu_torch import collectives, resolve_device
     from idc_models_tpu_torch.observe import REGISTRY, JsonlLogger, trace
     from idc_models_tpu_torch.observe import profile as prof
 
     if ns.model == "serve":
         sys.exit("profile --model serve: the serving engine is not ported "
                  "yet (ROADMAP A9)")
-    if ns.fsdp > 1 or ns.tp > 1:
-        sys.exit(f"profile: --fsdp {ns.fsdp} / --tp {ns.tp}: parameter "
-                 f"sharding is not ported yet (ROADMAP A4-rest); the port "
-                 f"profiles one card")
-    if ns.host_devices:
-        sys.exit(f"profile: --host-devices {ns.host_devices}: virtual "
-                 f"devices wait for the distribution layer (ROADMAP A4-rest)")
     if ns.steps is not None and ns.steps < 1:
         sys.exit(f"profile: --steps {ns.steps} must be >= 1")
     if ns.batch_size is not None and ns.batch_size < 1:
@@ -1490,6 +1631,13 @@ def _run_profile(ns):
     if (ns.peak_tflops is None) != (ns.peak_gbps is None):
         sys.exit("profile: --peak-tflops and --peak-gbps declare the "
                  "two axes of one roofline -- pass both or neither")
+    if ns.fsdp < 0 or ns.tp < 0:
+        sys.exit(f"profile: --fsdp/--tp must be >= 0 (0 = off), got "
+                 f"{ns.fsdp}/{ns.tp}")
+    if (ns.fsdp > 1 or ns.tp > 1) and ns.model != "lm":
+        sys.exit(f"profile: --fsdp/--tp shard the LM's rule-based "
+                 f"partition layout (--model lm); the {ns.model} "
+                 f"model's default rules are replicated")
     device = resolve_device(ns.device)
     kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
@@ -1542,7 +1690,7 @@ def _run_profile(ns):
 
     out_path = ns.out or (Path(ns.path) / "logs" / "profile.jsonl"
                           if ns.path else None)
-    if out_path:
+    if out_path and collectives.is_writer():
         with JsonlLogger(out_path) as logger:
             for rec in recs:
                 logger.log(event="profile_program", **rec)
@@ -1674,30 +1822,55 @@ def _profile_train_step(ns, device, kind: str):
 def _profile_lm(ns, device, kind: str):
     """Profile the LM train step, f32 with the plain (jnp) block, at the
     JAX package's accelerator configuration on the card (vocab 8192,
-    embed 1024, 4 blocks, T=512, batch 8) and a small one on the CPU."""
+    embed 1024, 4 blocks, T=512, batch 8) and a small one on the CPU;
+    with --fsdp/--tp the step of the rule-sharded LM on an (fsdp, tp)
+    mesh, its account this rank's."""
     import numpy as np
-    import torch
 
+    from idc_models_tpu_torch import collectives
+    from idc_models_tpu_torch import mesh as meshlib
+    from idc_models_tpu_torch.models import registry
     from idc_models_tpu_torch.models.core import init_params
-    from idc_models_tpu_torch.models.lm import AttentionLM, next_token_loss
+    from idc_models_tpu_torch.models.lm import (
+        AttentionLM, make_lm_train_step, next_token_loss,
+    )
     from idc_models_tpu_torch.observe import profile as prof
     from idc_models_tpu_torch.train.state import TrainState, rmsprop
-    from idc_models_tpu_torch.train.step import make_train_step
+    from idc_models_tpu_torch.train.step import make_train_step, shard_batch
 
     if device.type == "cuda":
         vocab, e, mlp, heads, blocks, seq_len = 8192, 1024, 4096, 8, 4, 512
     else:
         vocab, e, mlp, heads, blocks, seq_len = 512, 128, 512, 4, 2, 64
+    sharded = ns.fsdp > 1 or ns.tp > 1
+    f, t = max(ns.fsdp, 1), max(ns.tp, 1)
+    n_dev = collectives.axis_size()
+    if f * t > n_dev:
+        sys.exit(f"profile: --fsdp {f} x --tp {t} needs {f * t} "
+                 f"devices, have {n_dev} (use --host-devices)")
+    mesh = meshlib.fsdp_tp_mesh(f, t, 1)
     batch = ns.batch_size or (8 if device.type == "cuda" else 4)
+    if batch % f:
+        sys.exit(f"profile: --batch-size {batch} must divide by "
+                 f"--fsdp {f} (the batch shards over the same 'data' "
+                 f"axis the params shard over)")
+    if mesh.coords is None:
+        sys.exit(f"profile: rank {collectives.axis_index()} is outside "
+                 f"the {f} x {t} mesh; run {f * t} ranks")
     steps = ns.steps or (30 if device.type == "cuda" else 4)
-    model = init_params(AttentionLM(vocab, seq_len, embed_dim=e,
-                                    num_heads=heads, mlp_dim=mlp,
-                                    num_blocks=blocks), ns.seed).to(device)
-    opt = rmsprop(model, 3e-3)
-    step = make_train_step(TrainState(model, opt), next_token_loss)
+    model = init_params(AttentionLM(
+        vocab, seq_len, embed_dim=e, num_heads=heads, mlp_dim=mlp,
+        num_blocks=blocks, mesh=mesh if sharded else None),
+        ns.seed).to(device)
+    opt = rmsprop(model if not sharded else model.shard_(
+        registry.get_partition_rules("lm")), 3e-3)
+    step = (make_lm_train_step(TrainState(model, opt), global_batch=batch)
+            if sharded else
+            make_train_step(TrainState(model, opt), next_token_loss))
     rng = np.random.default_rng(ns.seed + 1)
-    seqs = torch.as_tensor((rng.integers(0, vocab, (batch, 1))
-                            + np.arange(seq_len)) % vocab, device=device)
+    seqs = shard_batch(mesh, (rng.integers(0, vocab, (batch, 1))
+                              + np.arange(seq_len)) % vocab,
+                       axis=meshlib.DATA_AXIS, device=device)
 
     def one_step():
         step(seqs, seqs)
@@ -1711,11 +1884,15 @@ def _profile_lm(ns, device, kind: str):
     fence()                                  # warm + fence
     step_s, mark = _measure_steps(one_step, fence, steps)
     roofline = prof.roofline_verdict(cost, step_s, kind)
+    layout = (f"fsdp={f}, tp={t} (rule set 'lm': params + optimizer "
+              f"state sharded)" if sharded else "replicated")
     print(f"profile: train.step (lm {e}x{blocks}, vocab {vocab}, seq "
-          f"{seq_len}, batch {batch}, f32, {steps} steps)")
+          f"{seq_len}, batch {batch} global, f32, {steps} steps) -- "
+          f"{layout}")
     print(f"  {step_s * 1e3:.2f} ms/step")
     if cost.peak_hbm_bytes is not None:
-        print(f"  peak memory: {cost.peak_hbm_bytes / 2**20:.2f} MiB")
+        print(f"  per-rank peak memory: {cost.peak_hbm_bytes / 2**20:.2f} "
+              f"MiB over {mesh.size} rank(s)")
     return {"train.step": (cost, roofline, step_s * 1e3)}, mark
 
 

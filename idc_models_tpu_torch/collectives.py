@@ -13,7 +13,10 @@ accepted where the JAX function takes a pytree. The functions run
 outside any traced program, eagerly, one collective call per tensor.
 `ppermute` is differentiable, as ``lax.ppermute`` is: its backward sends
 the gradient the other way round the permutation, so a ring built from
-it trains under autograd. The others are not.
+it trains under autograd. The others are not; the sharded layers use the
+differentiable operators at the end of this file, each with the backward
+its place in a sharded program needs (`mean_moments`, `enter_split`,
+`leave_split`, `gather_on_use`).
 """
 
 from __future__ import annotations
@@ -38,6 +41,12 @@ def axis_index(group=None) -> int:
     return dist.get_rank(group) if initialized() else 0
 
 
+def is_writer() -> bool:
+    """Whether this process is rank 0, which prints a run's records and
+    writes its files; the other ranks only compute."""
+    return axis_index() == 0
+
+
 def _global_rank(group, rank: int) -> int:
     """A group rank as the default group numbers it, which is what
     point-to-point operations take."""
@@ -57,10 +66,33 @@ def psum(tree, group=None):
     return _pytree.tree_map(lambda x: _sum(x, group), tree)
 
 
+def psum_(tensors, group=None) -> None:
+    """Sum each of `tensors` over the group in place: one all-reduce per
+    dtype, over their flat concatenation."""
+    if axis_size(group) == 1:
+        return
+    by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for ts in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in ts])
+        dist.all_reduce(flat, group=group)
+        for t, part in zip(ts, flat.split([t.numel() for t in ts])):
+            t.copy_(part.view_as(t))
+
+
 def pmean(tree, group=None):
     """Mean of a tree across the group (FedAvg's unweighted aggregate)."""
     n = axis_size(group)
     return _pytree.tree_map(lambda x: _sum(x, group) / n, tree)
+
+
+def pmax(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Elementwise maximum across the group (not differentiable)."""
+    out = x.clone()
+    if axis_size(group) > 1:
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
 
 
 def weighted_pmean(tree, weight, group=None):
@@ -169,13 +201,19 @@ def reduce_scatter(x: torch.Tensor, group=None, *,
                    scatter_dimension: int = 0) -> torch.Tensor:
     """This rank's block of the group's sum, `x` cut into as many equal
     blocks along `scatter_dimension` as the group has ranks (tiled, as
-    the JAX package calls ``psum_scatter``). An all-reduce and a slice:
-    gloo has no reduce-scatter."""
+    the JAX package calls ``psum_scatter``). NCCL's own reduce-scatter
+    on the card; on gloo, which has none, an all-reduce and a slice."""
     n, me = axis_size(group), axis_index(group)
     size = x.shape[scatter_dimension]
     if size % n:
         raise ValueError(f"dimension {scatter_dimension} of size {size} "
                          f"does not divide into {n} blocks")
+    if n > 1 and dist.get_backend(group) == "nccl":
+        blocks = x.movedim(scatter_dimension, 0).contiguous()
+        out = torch.empty((size // n,) + blocks.shape[1:], dtype=x.dtype,
+                          device=x.device)
+        dist.reduce_scatter_tensor(out, blocks, group=group)
+        return out.movedim(0, scatter_dimension)
     return _sum(x, group).narrow(scatter_dimension, me * (size // n),
                                  size // n)
 
@@ -210,3 +248,102 @@ def ring_psum(x: torch.Tensor, group=None) -> torch.Tensor:
         carry = ppermute(carry, group, fwd)
         out[(me - s) % n] = carry
     return out.reshape(-1)[:flat.numel()].reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# differentiable operators of the sharded layers
+#
+# A tensor replicated over a group is held whole by every rank, and so is
+# its gradient; a tensor split over the group is held in blocks, each with
+# the gradient of its block. Each operator below maps one to the other,
+# and its backward is the one that keeps that contract.
+# ---------------------------------------------------------------------------
+
+
+class _MeanMoments(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, *xs):
+        ctx.group = group
+        return tuple(pmean(list(xs), group))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *pmean(list(grads), ctx.group))
+
+
+def mean_moments(xs, group):
+    """The group's mean of each of `xs`, with the mean's adjoint (the
+    group's mean of the gradients) as the backward: batch statistics of
+    the global batch from each rank's moments, each rank's loss the mean
+    of its own rows (BatchNorm under data parallelism)."""
+    if axis_size(group) == 1:
+        return list(xs)
+    return list(_MeanMoments.apply(group, *xs))
+
+
+class _EnterSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, _sum(grad, ctx.group)
+
+
+def enter_split(x: torch.Tensor, group) -> torch.Tensor:
+    """A replicated tensor about to feed a split computation (the input
+    of a column-parallel layer): the identity, whose backward sums the
+    ranks' partial gradients."""
+    if axis_size(group) == 1:
+        return x
+    return _EnterSplit.apply(group, x)
+
+
+class _LeaveSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, x):
+        return _sum(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, grad
+
+
+def leave_split(x: torch.Tensor, group) -> torch.Tensor:
+    """Partial sums of a split computation made whole (the output of a
+    row-parallel layer, a pooled mean over sequence shards): the group's
+    sum, whose backward passes the replicated gradient through."""
+    if axis_size(group) == 1:
+        return x
+    return _LeaveSplit.apply(group, x)
+
+
+class _GatherOnUse(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, dim, reduce, x):
+        ctx.group, ctx.dim, ctx.reduce = group, dim, reduce
+        return all_gather(x, group, axis=dim, tiled=True)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.reduce:
+            out = reduce_scatter(grad, ctx.group, scatter_dimension=ctx.dim)
+        else:
+            n, me = axis_size(ctx.group), axis_index(ctx.group)
+            size = grad.shape[ctx.dim] // n
+            out = grad.narrow(ctx.dim, me * size, size)
+        return None, None, None, out
+
+
+def gather_on_use(x: torch.Tensor, group, dim: int, *,
+                  reduce: bool) -> torch.Tensor:
+    """The whole parameter from this rank's block along `dim`. With
+    `reduce` (FSDP: every rank computes on its own rows) the backward
+    reduce-scatters the gradient, the sum over the group of this
+    block's part; without it (every rank computes the same thing) it
+    keeps this block's part of the replicated gradient."""
+    if axis_size(group) == 1:
+        return x
+    return _GatherOnUse.apply(group, dim, reduce, x)

@@ -7,7 +7,9 @@ permutation keyed by ``(seed, epoch)`` for the first pass and
 ``(seed, epoch, rep)`` for extra passes -- the JAX package's contract,
 so a seed gives the same batch order in both packages. ``to_device``
 copies batches from pinned host memory with ``non_blocking=True`` and
-keeps the next batch's copy in flight while the current one is used.
+keeps the next batch's copy in flight while the current one is used;
+``prefetch_to_mesh`` does so with this rank's rows of each batch, and
+``pad_to_multiple`` pads an eval batch to divide the mesh.
 """
 
 from __future__ import annotations
@@ -253,3 +255,35 @@ def to_device(batches: Iterable, device: torch.device
             yield pending.popleft()
     while pending:
         yield pending.popleft()
+
+
+def prefetch_to_mesh(batches: Iterable, mesh, *, axis: str | None = None,
+                     device: torch.device | None = None
+                     ) -> Iterator[tuple[torch.Tensor, ...]]:
+    """This rank's rows of each host batch, split over the mesh's batch
+    axis (`axis`, default "data"), on `device` (the CPU when None), with
+    `to_device`'s copies in flight ahead of the consumer. Every rank
+    reads the same global batches (a seeded schedule)."""
+    from idc_models_tpu_torch import mesh as meshlib
+
+    sh = meshlib.sharding(mesh, meshlib.batch_axis(mesh, axis))
+    local = (tuple(meshlib.put_with_sharding(np.asarray(a), sh).numpy()
+                   for a in batch) for batch in batches)
+    return to_device(local, device or torch.device("cpu"))
+
+
+def pad_to_multiple(images: np.ndarray, labels: np.ndarray,
+                    multiple: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Pad a final partial batch up to `multiple` rows with zeros,
+    returning (images, labels, mask of the real rows): the eval loops see
+    every example once while the batch still divides the mesh."""
+    n = len(images)
+    pad = (-n) % multiple
+    if pad == 0:
+        return images, labels, np.ones(n, bool)
+    images = np.concatenate([images, np.zeros((pad,) + images.shape[1:],
+                                              images.dtype)])
+    labels = np.concatenate([labels, np.zeros((pad,) + labels.shape[1:],
+                                              labels.dtype)])
+    mask = np.concatenate([np.ones(n, bool), np.zeros(pad, bool)])
+    return images, labels, mask

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from idc_models_tpu_torch import collectives
 from idc_models_tpu_torch.ops import fused_conv
 from idc_models_tpu_torch.ops.fused_conv import same_pads
 
@@ -111,11 +112,16 @@ class Dense(nn.Module):
             nn.init.zeros_(self.bias)
 
     def forward(self, x):
-        # JAX's type promotion: a bf16 input meeting the f32 kernel
-        # computes in f32, as ``x @ kernel`` does there
-        dt = torch.promote_types(x.dtype, self.kernel.dtype)
-        y = x.to(dt) @ self.kernel.to(dt)
-        return y + self.bias if self.bias is not None else y
+        return dense(x, self.kernel, self.bias)
+
+
+def dense(x, kernel, bias=None):
+    """`Dense`'s arithmetic on given weights. JAX's type promotion: a
+    bf16 input meeting the f32 kernel computes in f32, as
+    ``x @ kernel`` does there."""
+    dt = torch.promote_types(x.dtype, kernel.dtype)
+    y = x.to(dt) @ kernel.to(dt)
+    return y + bias if bias is not None else y
 
 
 class Conv2d(nn.Module):
@@ -258,7 +264,13 @@ class BatchNorm(nn.Module):
       whatever the train flag.
 
     In train mode the moving statistics are updated in place (the JAX
-    layer returns them as new state)."""
+    layer returns them as new state).
+
+    ``group`` (set by `sync_batch_norm`) is the data-parallel group: train
+    mode then takes the moments of the global batch, as GSPMD does in the
+    JAX package -- the raw f32 moments (mean and mean square) averaged
+    over the group before ``var = second - mean**2``, never the ranks'
+    variances, and the same moving statistics on every rank."""
 
     def __init__(self, features: int, *, momentum: float = 0.99,
                  eps: float = 1e-3, frozen: bool = False, name: str = "bn"):
@@ -267,6 +279,7 @@ class BatchNorm(nn.Module):
         self.momentum = momentum
         self.eps = eps
         self.frozen = frozen
+        self.group = None
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
@@ -284,7 +297,11 @@ class BatchNorm(nn.Module):
         if self.training and not self.frozen:
             axes = tuple(range(x.dim() - 1))
             mean = xf.mean(axes)
-            var = _MeanSquare.apply(xf, xf - mean, mean, axes) - mean ** 2
+            second = _MeanSquare.apply(xf, xf - mean, mean, axes)
+            if self.group is not None:
+                mean, second = collectives.mean_moments((mean, second),
+                                                        self.group)
+            var = second - mean ** 2
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean)
@@ -433,6 +450,9 @@ class Dropout(nn.Module):
         self.name = name
         self.rate = rate
         self.generator: torch.Generator | None = None
+        # {dim: (this rank's block, blocks)} where x is a block of the
+        # global activation (`shard_dropout`)
+        self.blocks: dict[int, tuple[int, int]] = {}
 
     def forward(self, x):
         if not self.training or self.rate == 0.0:
@@ -441,8 +461,13 @@ class Dropout(nn.Module):
             raise ValueError(f"dropout({self.name}) needs a generator in "
                              f"train mode (core.use_generator)")
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=self.generator,
+        shape = list(x.shape)
+        for dim, (_, parts) in self.blocks.items():
+            shape[dim] *= parts
+        mask = torch.rand(shape, generator=self.generator,
                           device=x.device) < keep
+        for dim, (index, parts) in self.blocks.items():
+            mask = mask.narrow(dim, index * x.shape[dim], x.shape[dim])
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -453,6 +478,31 @@ def use_generator(module: nn.Module,
     for m in module.modules():
         if isinstance(m, Dropout):
             m.generator = generator
+    return module
+
+
+def shard_dropout(module: nn.Module,
+                  blocks: dict[int, tuple[int, int]]) -> nn.Module:
+    """Make every `Dropout` of `module` draw the mask of the global
+    activation and keep this rank's block: `blocks` maps a dim of the
+    activation to (this rank's block, blocks along it). Every rank draws
+    from a generator seeded alike, so n ranks apply the masks one rank
+    would (the JAX package draws one mask for the global batch). Dims
+    set before and not named here keep their blocks. Returns
+    `module`."""
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.blocks.update(blocks)
+            m.blocks = {d: b for d, b in m.blocks.items() if b[1] > 1}
+    return module
+
+
+def sync_batch_norm(module: nn.Module, group) -> nn.Module:
+    """Point every `BatchNorm` of `module` at the data-parallel `group`
+    (None: this rank's batch alone). Returns `module`."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
     return module
 
 

@@ -14,6 +14,27 @@ tree's paths
 ``ln_f.scale``, ``head.kernel``), so ``convert.load_jax`` /
 ``convert.to_jax`` carry parameters across unchanged in both directions.
 
+Over a ("data", "model", "seq") mesh (``mesh=``, then `shard_` with
+partition rules, ``registry.LM_RULES``) each rank keeps its block of
+every parameter and of its RMSprop moments, and the compute is planned
+from each leaf's resolved spec:
+
+- FSDP over "data": a parameter split over "data" is gathered on use,
+  and its gradient reduce-scattered (``collectives.gather_on_use``);
+- Megatron TP over "model": where qkv and wo are split over "model" (and
+  the heads divide), each rank projects and attends over its H/tp heads
+  (ring and flash kernels included) and the out-projection's partial
+  sums are all-reduced, ``bo`` added once after; fc1/fc2 alike with
+  fc2/bias; a leaf the rules leave whole (its dim not divisible) is
+  gathered and its compute replicated, so a mesh may mix the two (tp 3
+  at 8 heads);
+- the vocab-split head feeds a vocab-parallel cross-entropy
+  (`token_loss`): max, sum of exponentials and the target's logit
+  reduced over "model", no [B, T, vocab] gather;
+- the sequence rides "seq": each rank holds T/n positions (zigzag
+  stripes under that layout), and the loss is the global token mean, so
+  every parameter's gradient sums over "seq" (`reduce_gradients`).
+
 `Generator` serves the same parameters: a bucketed ring prefill over
 the prompt (the ring of the config's ``block_impl``; "pallas" runs the
 flash block-update kernel) that fills one KV cache per block, then a
@@ -25,7 +46,8 @@ Python loop over the positions, eager PyTorch. Greedy decoding
 record ``lm.prefill`` / ``lm.decode`` spans while a tracer is armed, and
 `Generator.program_costs` accounts both programs
 (``observe/profile.py``). Left out so far (ROADMAP A9): chunked prefill
-(``prefill_chunk``), partition rules (A4-rest) and the adapter hook.
+(``prefill_chunk``), serving under partition rules (the Generator
+holds the whole tree) and the adapter hook.
 """
 
 from __future__ import annotations
@@ -37,41 +59,58 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from idc_models_tpu_torch import convert, resolve_device
+from idc_models_tpu_torch import collectives, convert, resolve_device
+from idc_models_tpu_torch import mesh as meshlib
 from idc_models_tpu_torch.models.attention import (
-    TransformerBlock, run_blocks,
+    TransformerBlock, run_blocks, seq_layout,
 )
-from idc_models_tpu_torch.models.core import Dense, LayerNorm, gelu, layer_norm
+from idc_models_tpu_torch.models.core import (
+    Dense, LayerNorm, dense, gelu, layer_norm, shard_dropout,
+)
 from idc_models_tpu_torch.observe import trace
 from idc_models_tpu_torch.ring_attention import (
-    from_zigzag, make_ring_attention, to_zigzag,
+    from_zigzag, local_shard, make_ring_attention, to_zigzag,
 )
 from idc_models_tpu_torch.ring_decode import init_cache, make_ring_decode
 
 
 class AttentionLM(nn.Module):
     """Decoder-only LM: int tokens [B, T] -> logits [B, T, vocab], T the
-    position table's length (``seq_len``). Causal by construction."""
+    position table's length (``seq_len``). Causal by construction.
+
+    With `mesh` the input is this rank's rows [B_local, T] of the global
+    batch in natural order, and the output this rank's logits
+    [B_local, T/n, vocab block] in layout order (`local_positions`
+    orders and cuts anything per position alike); `token_loss` scores
+    them. `shard_` cuts the parameters by partition rules."""
 
     def __init__(self, vocab_size: int, seq_len: int, *,
                  embed_dim: int = 64, num_heads: int = 4,
                  mlp_dim: int = 128, num_blocks: int = 2,
                  block_impl: str = "jnp", layout: str = "contiguous",
-                 dropout_rate: float = 0.0, remat: bool = False):
+                 dropout_rate: float = 0.0, remat: bool = False,
+                 mesh=None):
         super().__init__()
         self.name = "attention_lm"
         self.num_blocks = num_blocks
+        self.num_heads = num_heads
         self.zigzag = layout == "zigzag"
         self.remat = remat
+        self.mesh = mesh
+        self.n_ring, self.seq_group, blocks = seq_layout(mesh)
         self.embed = nn.Parameter(torch.empty(vocab_size, embed_dim))
         self.pos = nn.Parameter(torch.empty(seq_len, embed_dim))
         for i in range(num_blocks):
             self.add_module(f"block{i}", TransformerBlock(
                 embed_dim, num_heads, mlp_dim, block_impl=block_impl,
-                layout=layout, dropout_rate=dropout_rate,
-                name=f"block{i}"))
+                layout=layout, group=self.seq_group,
+                dropout_rate=dropout_rate, name=f"block{i}"))
         self.ln_f = LayerNorm(embed_dim, name="ln_f")
         self.head = Dense(embed_dim, vocab_size, name="head")
+        # every parameter whole until `shard_` cuts them
+        self.specs = {n: meshlib.P() for n, _ in self.named_parameters()}
+        self._split: dict[str, bool] = {}
+        shard_dropout(self, blocks)
 
     @property
     def blocks(self) -> list[TransformerBlock]:
@@ -84,6 +123,8 @@ class AttentionLM(nn.Module):
                                            device=g.device))
 
     def forward(self, tokens):
+        if self.mesh is not None:
+            return self._sharded_forward(tokens)
         # the train step may hand over any integer (or float) type; the
         # table gather needs int64
         tokens, pos = tokens.long(), self.pos
@@ -94,12 +135,196 @@ class AttentionLM(nn.Module):
         logits = self.head(self.ln_f(h))
         return from_zigzag(logits, 1) if self.zigzag else logits
 
+    # -- over a mesh ------------------------------------------------------
+
+    def shard_(self, rules) -> "AttentionLM":
+        """Keep this rank's block of every parameter, cut by the spec
+        `rules` (``partition.PartitionRules``) resolve on the model's
+        mesh from the whole parameter's shape, and plan the compute from
+        those specs. Returns the model; build its optimizer after."""
+        specs = rules.specs({"params": convert.unflatten(
+            {n.replace(".", "/"): p for n, p in self.named_parameters()})},
+            mesh=self.mesh)["params"]
+        flat = convert.flatten(specs)
+        tp = self.mesh.axis_size(meshlib.MODEL_AXIS)
+        with torch.no_grad():
+            for name, p in self.named_parameters():
+                spec = flat[name.replace(".", "/")]
+                for entry in spec:
+                    axes = meshlib.axes_of(entry)
+                    if len(axes) > 1 or not set(axes) <= {
+                            meshlib.DATA_AXIS, meshlib.MODEL_AXIS}:
+                        raise ValueError(
+                            f"the LM splits a parameter dim over 'data' "
+                            f"or 'model' alone; {name} resolves to {spec}")
+                p.data = meshlib.put_with_sharding(
+                    p.data, meshlib.Sharding(self.mesh, spec)).clone()
+                self.specs[name] = spec
+
+        def on_model(*names):
+            return all(meshlib.MODEL_AXIS in self.specs[n] for n in names)
+
+        for blk in self.blocks:
+            b = blk.name
+            self._split[f"{b}.attn"] = self.num_heads % tp == 0 and on_model(
+                *(f"{b}.mha.{w}" for w in ("wq", "wk", "wv", "wo")))
+            self._split[f"{b}.mlp"] = on_model(
+                f"{b}.fc1.kernel", f"{b}.fc1.bias", f"{b}.fc2.kernel")
+        self._split["head"] = on_model("head.kernel", "head.bias")
+        return self
+
+    def _weight(self, name: str, keep_model: bool = False) -> torch.Tensor:
+        """A parameter as the compute uses it: gathered over "data"
+        (FSDP: the gradient reduce-scattered), and over "model" unless
+        `keep_model` (the compute is split there)."""
+        p = self.get_parameter(name)
+        for dim, axis in enumerate(self.specs[name]):
+            if axis == meshlib.DATA_AXIS:
+                p = collectives.gather_on_use(
+                    p, self.mesh.group(axis), dim, reduce=True)
+            elif axis == meshlib.MODEL_AXIS and not keep_model:
+                p = collectives.gather_on_use(
+                    p, self.mesh.group(axis), dim, reduce=False)
+        return p
+
+    def local_positions(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's positions of a per-position [B, T, ...] tensor in
+        natural order: permuted into the layout, then cut over "seq"."""
+        if self.zigzag:
+            x = to_zigzag(x, self.n_ring)
+        return local_shard(x, self.seq_group)
+
+    def _sharded_block(self, blk: TransformerBlock, h):
+        """One block on this rank's blocks of its parameters, its heads
+        and MLP split over "model" where `shard_` planned it."""
+        groups = (self.mesh.group(meshlib.MODEL_AXIS)
+                  if self._split.get(f"{blk.name}.{part}") else None
+                  for part in ("attn", "mlp"))
+        return blk(h, lambda n, split=False: self._weight(
+            f"{blk.name}.{n}", split), *groups)
+
+    def _sharded_forward(self, tokens):
+        tokens = self.local_positions(tokens.long())
+        pos = self.local_positions(self._weight("pos")[None])[0]
+        h = self._weight("embed")[tokens] + pos
+        h = run_blocks(self.blocks, h, remat=self.remat,
+                       fn=self._sharded_block)
+        h = layer_norm(h, self._weight("ln_f.scale"),
+                       self._weight("ln_f.bias"))
+        split = self._split.get("head", False)
+        if split:
+            h = collectives.enter_split(h, self.mesh.group(meshlib.MODEL_AXIS))
+        return dense(h, self._weight("head.kernel", split),
+                     self._weight("head.bias", split))
+
+    def vocab_offset(self) -> int:
+        """The first vocab id of this rank's logits block."""
+        if not self._split.get("head", False):
+            return 0
+        return (self.mesh.axis_index(meshlib.MODEL_AXIS)
+                * self.head.kernel.shape[1])
+
+    def next_token_targets(self, tokens: torch.Tensor):
+        """(targets, mask) at this rank's positions: position t's target
+        is token t+1, the last position has none."""
+        tokens = tokens.long()
+        targets = torch.cat([tokens[:, 1:], tokens[:, :1]], 1)
+        mask = torch.ones_like(tokens, dtype=torch.bool)
+        mask[:, -1] = False
+        return self.local_positions(targets), self.local_positions(mask)
+
+    def token_loss(self, logits, targets, mask):
+        """(sum of the masked tokens' cross-entropy, count of them the
+        argmax gets right) over this rank's logits block: the
+        vocab-parallel cross-entropy, its max, sum of exponentials and
+        target logit reduced over "model" (the sum and target through
+        ``leave_split``: the loss is whole on every rank of the model
+        axis, and so is its gradient)."""
+        split = self._split.get("head", False)
+        group = self.mesh.group(meshlib.MODEL_AXIS) if split else None
+        offset, lf = self.vocab_offset(), logits.float()
+        vl = lf.shape[-1]
+        shift = lf.detach().amax(-1)
+        if split:
+            shift = collectives.pmax(shift, group)
+        z = lf - shift[..., None]
+        sum_exp = z.exp().sum(-1)
+        local = targets - offset
+        inside = (local >= 0) & (local < vl)
+        picked = z.gather(-1, local.clamp(0, vl - 1)[..., None])[..., 0]
+        picked = torch.where(inside, picked, torch.zeros_like(picked))
+        best, pred = lf.detach().max(-1)
+        if split:
+            sum_exp = collectives.leave_split(sum_exp, group)
+            picked = collectives.leave_split(picked, group)
+            bests = collectives.all_gather(best, group)
+            preds = collectives.all_gather(pred + offset, group)
+            pred = preds.gather(0, bests.argmax(0)[None])[0]
+        loss = ((torch.log(sum_exp) - picked) * mask).sum()
+        return loss, ((pred == targets) & mask).sum()
+
+    def reduce_gradients(self) -> None:
+        """Sum the gradients over "data" (those FSDP did not already
+        reduce-scatter) and over "seq" (each rank's positions carry
+        their own loss terms). Nothing without a mesh."""
+        if self.mesh is None:
+            return
+        data, seq = (self.mesh.group(a) for a in (meshlib.DATA_AXIS,
+                                                  meshlib.SEQ_AXIS))
+        named = [(n, p) for n, p in self.named_parameters()
+                 if p.grad is not None]
+        collectives.psum_([p.grad for n, p in named
+                           if meshlib.DATA_AXIS not in self.specs[n]], data)
+        collectives.psum_([p.grad for _, p in named], seq)
+
+    def gathered_params(self) -> dict:
+        """The whole JAX-shaped parameter tree (host arrays), gathered
+        from every rank's blocks: every rank of the mesh must call it."""
+        out = {}
+        for name, p in self.named_parameters():
+            x = p.detach()
+            if self.mesh is not None:
+                x = meshlib.gather_block(
+                    x, meshlib.Sharding(self.mesh, self.specs[name]))
+            out[name.replace(".", "/")] = x.cpu().numpy()
+        return convert.unflatten(out)
+
 
 def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """Mean cross-entropy of logits[:, :-1] predicting tokens[:, 1:]."""
     logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
     tgt = tokens[:, 1:].long()
     return -logp.gather(-1, tgt[..., None])[..., 0].mean()
+
+
+def make_lm_train_step(state, *, global_batch: int):
+    """The LM's train step over its mesh: ``step(tokens, labels) ->
+    metrics`` with this rank's rows of the global batch (natural
+    order). The loss is the global batch's token mean (each rank's
+    share over the global count), the gradients are reduced as the
+    specs say (`AttentionLM.reduce_gradients`), and each rank's
+    optimizer updates its own blocks; the metrics are the global
+    batch's, the same on every rank."""
+    model, optimizer = state.model, state.optimizer
+    groups = [model.mesh.group(a) for a in (meshlib.DATA_AXIS,
+                                            meshlib.SEQ_AXIS)]
+
+    def train_step(tokens, labels):
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        count = global_batch * (labels.shape[1] - 1)
+        targets, mask = model.next_token_targets(labels)
+        loss, correct = model.token_loss(model(tokens), targets, mask)
+        (loss / count).backward()
+        model.reduce_gradients()
+        optimizer.step()
+        state.step += 1
+        m = torch.stack([loss.detach(), correct.float()]) / count
+        for g in groups:
+            m = collectives.psum(m, g)
+        return {"loss": m[0], "accuracy": m[1]}
+
+    return train_step
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,10 @@
 """Model registry: name -> constructor, masks, fine-tune default, Keras
-layer index.
+layer index, partition rules.
 
 The counterpart of ``idc_models_tpu/models/registry.py`` for the
-classifier zoo (VGG16, MobileNetV2, DenseNet201, the small CNN). One
-card, world size 1: no partition rules.
+classifier zoo (VGG16, MobileNetV2, DenseNet201, the small CNN), and
+each model's default partition rules (``partition.py``): replicated for
+the zoo, `LM_RULES` for the LM.
 """
 
 from __future__ import annotations
@@ -13,8 +14,45 @@ from collections.abc import Callable
 
 from torch import nn
 
+from idc_models_tpu_torch import mesh as meshlib, partition
+from idc_models_tpu_torch.mesh import PartitionSpec as P
 from idc_models_tpu_torch.models import core, densenet, mobilenet, vgg
 from idc_models_tpu_torch.models import small_cnn as small_cnn_mod
+
+# The zoo replicates by default: data parallelism alone is fastest at the
+# reference's 50x50.
+REPLICATED_RULES = partition.PartitionRules.replicated()
+
+_D, _M = meshlib.DATA_AXIS, meshlib.MODEL_AXIS
+
+# The LM (models/lm.py): FSDP over "data" (the parameters and the RMSprop
+# moments that mirror them), tensor parallelism over "model" in the
+# Megatron orientation (qkv, fc1 and the head column-parallel, wo and fc2
+# row-parallel), biases riding their kernel's output split. First match
+# wins; the catch-all replicates the LayerNorms, bo, fc2/bias and the
+# step counter. The JAX package's rules, pattern for pattern.
+_LM_RULE_PAIRS = (
+    (r"mha/w[qkv]$", P(_D, _M)),       # [E, E] column-parallel
+    (r"mha/wo$", P(_M, _D)),           # [E, E] row-parallel
+    (r"fc1/kernel$", P(_D, _M)),       # [E, mlp] column-parallel
+    (r"fc1/bias$", P(_M)),             # [mlp] rides fc1's out split
+    (r"fc2/kernel$", P(_M, _D)),       # [mlp, E] row-parallel
+    (r"head/kernel$", P(_D, _M)),      # [E, vocab] column-parallel
+    (r"head/bias$", P(_M)),            # [vocab] rides the head split
+    (r"embed$", P(None, _D)),          # [vocab, E] FSDP on E
+    (r"pos$", P(None, _D)),            # [T, E] FSDP on E
+    (r".*", P()),                      # LN scale/bias, bo, fc2/bias,
+    #                                    step counter: replicated
+)
+LM_RULES = partition.PartitionRules(_LM_RULE_PAIRS)
+# the learned drafter's own rule set (the same schema; tuned apart)
+DRAFT_LM_RULES = partition.PartitionRules(_LM_RULE_PAIRS)
+
+PARTITION_RULES: dict[str, partition.PartitionRules] = {
+    "replicated": REPLICATED_RULES,
+    "lm": LM_RULES,
+    "draft_lm": DRAFT_LM_RULES,
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,6 +65,8 @@ class ModelSpec:
     # fine-tune boundary of the frozen-prefix feature cache; None for
     # models without one
     layer_index: dict[str, int] | None = None
+    # the model's default regex -> spec policy (partition.py)
+    partition_rules: partition.PartitionRules = REPLICATED_RULES
 
 
 REGISTRY: dict[str, ModelSpec] = {
@@ -51,6 +91,18 @@ REGISTRY: dict[str, ModelSpec] = {
             module, lambda p: True),
         default_fine_tune_at=0),
 }
+
+
+def get_partition_rules(name: str) -> partition.PartitionRules:
+    """Default partition rules for a registered model, or the "lm",
+    "draft_lm" and "replicated" rule sets."""
+    if name in PARTITION_RULES:
+        return PARTITION_RULES[name]
+    if name in REGISTRY:
+        return REGISTRY[name].partition_rules
+    raise KeyError(
+        f"no partition rules for {name!r}; have "
+        f"{sorted(set(PARTITION_RULES) | set(REGISTRY))}")
 
 
 def get_model(name: str) -> ModelSpec:

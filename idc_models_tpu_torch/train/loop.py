@@ -1,8 +1,11 @@
 """Training orchestration: epoch loops, evaluation, prediction and the
 two-phase transfer-learning schedule.
 
-The counterpart of ``idc_models_tpu/train/loop.py`` on one card:
-evaluate the untrained floor on a few validation batches -> fit N epochs
+The counterpart of ``idc_models_tpu/train/loop.py``, on one card or
+data-parallel over a mesh (``mesh=``: every rank reads the same seeded
+batches and computes on its rows; the last eval batch is padded to
+divide the mesh and its padding dropped from the metrics; rank 0 writes
+the checkpoints and the plot): evaluate the untrained floor on a few validation batches -> fit N epochs
 with the backbone frozen (head-only mask at `lr`) -> unfreeze the layers
 at and above ``fine_tune_at`` with a fresh RMSprop at ``lr / 10`` -> fit
 the remaining epochs, continuing the epoch counter with ``seed + 1``.
@@ -45,9 +48,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from idc_models_tpu_torch import convert, resolve_device
+from idc_models_tpu_torch import collectives, convert, resolve_device
+from idc_models_tpu_torch import mesh as meshlib
 from idc_models_tpu_torch.data.idc import ArrayDataset
-from idc_models_tpu_torch.data.pipeline import Loader, eval_batches, to_device
+from idc_models_tpu_torch.data.pipeline import (
+    Loader, eval_batches, pad_to_multiple, prefetch_to_mesh, to_device,
+)
 from idc_models_tpu_torch.models import core, registry
 from idc_models_tpu_torch.observe import metrics_registry as mreg
 from idc_models_tpu_torch.observe import profile as prof
@@ -56,7 +62,9 @@ from idc_models_tpu_torch.observe.timer import Timer
 from idc_models_tpu_torch.train import checkpoint, losses
 from idc_models_tpu_torch.train import metrics as metrics_lib
 from idc_models_tpu_torch.train.state import TrainState, rmsprop
-from idc_models_tpu_torch.train.step import make_train_step
+from idc_models_tpu_torch.train.step import (
+    ShardedOptimizer, make_train_step, place_state,
+)
 
 History = dict[str, list[float]]
 
@@ -65,25 +73,46 @@ def _model_device(model: nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
-def batched_logits(model: nn.Module, ds: ArrayDataset, batch_size: int,
-                   steps: int | None = None) -> torch.Tensor:
+def batched_forward(model: nn.Module, ds: ArrayDataset, batch_size: int,
+                    steps: int | None = None, *,
+                    mesh: meshlib.Mesh | None = None) -> torch.Tensor:
     """Eval-mode logits of the first `steps` batches of `ds` (all of
     them when None; the final batch is partial, so every example counts
-    once), concatenated in order on the model's device."""
+    once), concatenated in order on the model's device. Over a `mesh`
+    each rank runs its rows of each batch, the final batch padded with
+    zero rows to divide the batch axis, and the logits are gathered and
+    the padding rows dropped: every rank gets every example's logits."""
     device = _model_device(model)
     model.eval()
+    batches = eval_batches(ds, batch_size, steps=steps)
     with torch.no_grad():
-        parts = [model(x).float() for x, _ in
-                 to_device(eval_batches(ds, batch_size, steps=steps), device)]
-    return torch.cat(parts)
+        if mesh is None:
+            return torch.cat([model(x).float()
+                              for x, _ in to_device(batches, device)])
+        axis = meshlib.batch_axis(mesh)
+        n, group = mesh.shape[axis], mesh.group(axis)
+        sizes = []
+
+        def padded():
+            for x, y in batches:
+                sizes.append(len(x))
+                yield pad_to_multiple(x, y, n)[:2]
+
+        parts = [collectives.all_gather(model(x).float(), group,
+                                        tiled=True)
+                 for x, _ in prefetch_to_mesh(padded(), mesh, axis=axis,
+                                              device=device)]
+    return torch.cat([p[:size] for p, size in zip(parts, sizes)])
 
 
 def evaluate(model: nn.Module, ds: ArrayDataset, loss_fn, *,
              batch_size: int = 32, steps: int | None = None,
-             with_auroc: bool = False) -> dict[str, float]:
+             with_auroc: bool = False,
+             mesh: meshlib.Mesh | None = None) -> dict[str, float]:
     """Loss and accuracy (and AUROC of the sigmoid scores) over `ds`, or
-    its first `steps` batches, in eval mode on the model's device."""
-    logits = batched_logits(model, ds, batch_size, steps)
+    its first `steps` batches, in eval mode on the model's device (over
+    `mesh`: `batched_forward`'s padded, gathered batches)."""
+    logits = batched_forward(model, ds, batch_size, steps, mesh=mesh)
     labels = torch.from_numpy(ds.labels[:len(logits)]).to(logits.device)
     out = {"loss": float(loss_fn(logits, labels)),
            "accuracy": float(metrics_lib.auto_accuracy(logits, labels))}
@@ -93,9 +122,10 @@ def evaluate(model: nn.Module, ds: ArrayDataset, loss_fn, *,
     return out
 
 
-def predict(model: nn.Module, images, *, batch_size: int = 32) -> np.ndarray:
+def predict(model: nn.Module, images, *, batch_size: int = 32,
+            mesh: meshlib.Mesh | None = None) -> np.ndarray:
     """Eval-mode logits for every image, in order, as a host array (the
-    Keras ``model.predict`` convenience)."""
+    Keras ``model.predict`` convenience), over `mesh` when given."""
     images = np.asarray(images, np.float32)
     if len(images) == 0:
         with torch.no_grad():
@@ -105,7 +135,8 @@ def predict(model: nn.Module, images, *, batch_size: int = 32) -> np.ndarray:
             shape = model(probe).shape
         return np.zeros((0,) + tuple(shape[1:]), np.float32)
     ds = ArrayDataset(images, np.zeros((len(images),), np.int32))
-    return batched_logits(model, ds, batch_size).cpu().numpy()
+    return batched_forward(model, ds, batch_size,
+                           mesh=mesh).cpu().numpy()
 
 
 class _CentralStore:
@@ -143,7 +174,8 @@ def fit(state: TrainState, loss_fn, train_ds, val_ds: ArrayDataset | None,
         seed: int = 0, repeats: int = 1, logger=None, verbose: bool = True,
         central_storage: bool = False,
         checkpoint_dir: str | Path | None = None,
-        checkpoint_every: int = 1) -> History:
+        checkpoint_every: int = 1,
+        mesh: meshlib.Mesh | None = None) -> History:
     """Keras-``fit``-shaped epoch loop on the model's device.
 
     Returns the history ({"loss", "accuracy", "val_loss",
@@ -169,10 +201,25 @@ def fit(state: TrainState, loss_fn, train_ds, val_ds: ArrayDataset | None,
     epoch. Nothing else in the loop draws from a random stream (the
     classifier models have no dropout, and a dropout layer without a
     generator refuses to train), so a resumed run equals a
-    straight-through one bit for bit."""
+    straight-through one bit for bit.
+
+    `mesh` makes the loop data-parallel: each rank trains on its rows of
+    every batch (``train.step.make_train_step``), under the layout
+    `place_state` gave `state` (a ``ShardedOptimizer`` stores the
+    parameters and moments by rule); rank 0 saves the checkpoints."""
     model = state.model
     device = _model_device(model)
-    step = make_train_step(state, loss_fn)
+    sharded = isinstance(state.optimizer, ShardedOptimizer)
+    if sharded and central_storage:
+        raise NotImplementedError(
+            "central_storage broadcasts a host-resident replica each "
+            "step and cannot keep a model-sharded layout; drop model "
+            "parallelism or central_storage")
+    if sharded and checkpoint_dir is not None:
+        raise NotImplementedError(
+            "resumable checkpoints of a rule-sharded optimizer state "
+            "wait for the sharded checkpoints (ROADMAP A11)")
+    step = make_train_step(state, loss_fn, mesh=mesh)
     if isinstance(train_ds, ArrayDataset):
         loader = Loader(train_ds, batch_size, shuffle=True, seed=seed,
                         repeat=repeats)
@@ -222,7 +269,11 @@ def fit(state: TrainState, loss_fn, train_ds, val_ds: ArrayDataset | None,
         for epoch in range(start_epoch, epochs):
             step_losses, step_accs = [], []
             with trace.span("train.epoch", epoch=epoch) as ep_span:
-                for x, y in to_device(loader.epoch(epoch), device):
+                batches = (to_device(loader.epoch(epoch), device)
+                           if mesh is None else
+                           prefetch_to_mesh(loader.epoch(epoch), mesh,
+                                            device=device))
+                for x, y in batches:
                     # the span covers the host's part and the step's
                     # launches; the device time they hide is waited for
                     # in the device.sync below
@@ -250,7 +301,7 @@ def fit(state: TrainState, loss_fn, train_ds, val_ds: ArrayDataset | None,
                     if store is not None:
                         store.to_device()
                     vm = evaluate(model, val_ds, loss_fn,
-                                  batch_size=batch_size)
+                                  batch_size=batch_size, mesh=mesh)
                     if store is not None:
                         store.to_host()
                 ep["val_loss"] = vm["loss"]
@@ -264,7 +315,7 @@ def fit(state: TrainState, loss_fn, train_ds, val_ds: ArrayDataset | None,
                 print(f"epoch {epoch + 1}/{epochs} {msg}")
             if logger is not None:
                 logger.log(event="epoch", epoch=epoch, **ep)
-            if checkpoint_dir is not None and (
+            if checkpoint_dir is not None and collectives.is_writer() and (
                     (epoch + 1) % max(checkpoint_every, 1) == 0
                     or epoch + 1 == epochs):
                 _save_fit_checkpoint(checkpoint_dir, state, history,
@@ -431,7 +482,8 @@ def two_phase_fit(model_name: str, num_outputs: int, train_ds: ArrayDataset,
                   artifact_path: str | Path | None = None,
                   checkpoint_dir: str | Path | None = None,
                   checkpoint_every: int = 1,
-                  logger=None, device=None) -> TwoPhaseResult:
+                  logger=None, device=None,
+                  mesh: meshlib.Mesh | None = None) -> TwoPhaseResult:
     """The reference's two-phase transfer-learning program.
 
     Phase 1: head-only training at `lr` with every BN frozen. Phase 2:
@@ -445,7 +497,10 @@ def two_phase_fit(model_name: str, num_outputs: int, train_ds: ArrayDataset,
     under it; `fit`). `artifact_path` gets the training-curve plot
     (``<artifact_path>/logs/plot_dev1.png``; without matplotlib one line
     on stderr says so and nothing else changes). `device` is CUDA unless
-    "cpu" is asked for."""
+    "cpu" is asked for. `mesh` trains both phases data-parallel (and on
+    a mesh with a "model" axis stores the parameters and moments by the
+    channel rule, ``train.step.place_state``); the batch size is the
+    global batch."""
     device = resolve_device(device)
     if loss_fn is None:
         loss_fn = (losses.binary_cross_entropy if num_outputs == 1
@@ -465,10 +520,10 @@ def two_phase_fit(model_name: str, num_outputs: int, train_ds: ArrayDataset,
         maybe_load_pretrained(model1, pretrained_weights)
     model1.to(device)
 
-    state1 = TrainState(model1, rmsprop(
-        model1, config.lr, trainable_mask=spec.head_only_mask(model1)))
+    state1 = _placed(mesh, TrainState(model1, rmsprop(
+        model1, config.lr, trainable_mask=spec.head_only_mask(model1))))
     baseline = evaluate(model1, val_ds, loss_fn, batch_size=config.batch_size,
-                        steps=config.eval_steps)
+                        steps=config.eval_steps, mesh=mesh)
     print(f"initial loss: {baseline['loss']:.2f}")
     print(f"initial accuracy: {baseline['accuracy']:.2f}")
 
@@ -479,7 +534,7 @@ def two_phase_fit(model_name: str, num_outputs: int, train_ds: ArrayDataset,
                       seed=config.seed, repeats=config.repeats,
                       logger=logger, central_storage=config.central_storage,
                       checkpoint_dir=_phase_dir(checkpoint_dir, 1),
-                      checkpoint_every=checkpoint_every)
+                      checkpoint_every=checkpoint_every, mesh=mesh)
 
     # Phase 2: "recompile" = a fresh optimizer (and moments) at lr/10 with
     # the fine-tune mask; BN below fine_tune_at stays in inference mode
@@ -508,11 +563,11 @@ def two_phase_fit(model_name: str, num_outputs: int, train_ds: ArrayDataset,
                 plan, spec, model2, train_ds, val_ds, config, fine_tune_at,
                 loss_fn, total_epochs, logger,
                 checkpoint_dir=_phase_dir(checkpoint_dir, 2),
-                checkpoint_every=checkpoint_every)
+                checkpoint_every=checkpoint_every, mesh=mesh)
         else:
-            state2 = TrainState(model2, rmsprop(
+            state2 = _placed(mesh, TrainState(model2, rmsprop(
                 model2, config.lr / 10.0,
-                trainable_mask=spec.fine_tune_mask(model2, fine_tune_at)))
+                trainable_mask=spec.fine_tune_mask(model2, fine_tune_at))))
             history_fine = fit(state2, loss_fn, train_ds, val_ds,
                                epochs=total_epochs,
                                batch_size=config.batch_size,
@@ -521,11 +576,13 @@ def two_phase_fit(model_name: str, num_outputs: int, train_ds: ArrayDataset,
                                repeats=config.repeats, logger=logger,
                                central_storage=config.central_storage,
                                checkpoint_dir=_phase_dir(checkpoint_dir, 2),
-                               checkpoint_every=checkpoint_every)
+                               checkpoint_every=checkpoint_every,
+                               mesh=mesh)
     print(history)
     print(history_fine)
-    if artifact_path is not None:
-        _plot(artifact_path, history, history_fine, config.epochs)
+    if artifact_path is not None and collectives.is_writer():
+        _plot(artifact_path, history, history_fine, config.epochs,
+              mesh.size if mesh is not None else 1)
     return TwoPhaseResult(
         model=model2, history=history, history_fine=history_fine,
         baseline=baseline, pretrain_seconds=t1.seconds,
@@ -538,7 +595,8 @@ def _fit_cached_phase2(plan, spec: registry.ModelSpec, model: nn.Module,
                        config: TwoPhaseConfig, fine_tune_at: int, loss_fn,
                        total_epochs: int, logger,
                        checkpoint_dir: Path | None = None,
-                       checkpoint_every: int = 1
+                       checkpoint_every: int = 1,
+                       mesh: meshlib.Mesh | None = None
                        ) -> tuple[TrainState, History]:
     """Phase 2 on cached frozen-prefix features: run the prefix once over
     train and val, then fit the suffix model (which trains `model`'s own
@@ -555,16 +613,16 @@ def _fit_cached_phase2(plan, spec: registry.ModelSpec, model: nn.Module,
                                         batch_size=config.batch_size)
                     if val_ds is not None else None)
     suffix = plan.suffix_model
-    sstate = TrainState(suffix, rmsprop(
+    sstate = _placed(mesh, TrainState(suffix, rmsprop(
         suffix, config.lr / 10.0,
-        trainable_mask=spec.fine_tune_mask(suffix, fine_tune_at)))
+        trainable_mask=spec.fine_tune_mask(suffix, fine_tune_at))))
     history_fine = fit(sstate, loss_fn, feat_train, feat_val,
                        epochs=total_epochs, batch_size=config.batch_size,
                        initial_epoch=config.epochs, seed=config.seed + 1,
                        repeats=config.repeats, logger=logger,
                        central_storage=config.central_storage,
                        checkpoint_dir=checkpoint_dir,
-                       checkpoint_every=checkpoint_every)
+                       checkpoint_every=checkpoint_every, mesh=mesh)
     full = TrainState(model, rmsprop(
         model, config.lr / 10.0,
         trainable_mask=spec.fine_tune_mask(model, fine_tune_at)),
@@ -572,10 +630,14 @@ def _fit_cached_phase2(plan, spec: registry.ModelSpec, model: nn.Module,
     return full, history_fine
 
 
+def _placed(mesh, state: TrainState) -> TrainState:
+    return state if mesh is None else place_state(mesh, state)
+
+
 def _plot(artifact_path, history: History, history_fine: History,
-          initial_epochs: int) -> None:
-    """The training-curve plot on one card, or one stderr line when
-    matplotlib is missing (the card's machine has none)."""
+          initial_epochs: int, num_devices: int) -> None:
+    """The training-curve plot, or one stderr line when matplotlib is
+    missing (the card's machine has none)."""
     try:
         import matplotlib  # noqa: F401
     except ImportError:
@@ -584,5 +646,5 @@ def _plot(artifact_path, history: History, history_fine: History,
         return
     from idc_models_tpu_torch.observe.plots import plot_history
 
-    plot_history(artifact_path, history, history_fine, 1,
+    plot_history(artifact_path, history, history_fine, num_devices,
                  initial_epochs=initial_epochs)

@@ -358,7 +358,8 @@ def test_attention_verb_reads_an_idc_tree_through_patchify(tmp_path,
 
 
 def test_attention_verb_rejections(monkeypatch):
-    """The JAX verb's own refusals, and what waits for ROADMAP A4-rest."""
+    """The JAX verb's own refusals, in one process and over a CPU pod."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
     def refused(*argv, match):
         with pytest.raises(SystemExit, match=match):
             cli.main(["attention", "--device", "cpu", *argv])
@@ -370,8 +371,33 @@ def test_attention_verb_rejections(monkeypatch):
             match="--patch-size: image size 50 not divisible by "
                   "patch_size 7")
     refused("--dropout", "1.0", match="must be in")
-    refused("--seq-parallel", "2", match="ROADMAP A4-rest")
-    refused("--host-devices", "8", match="ROADMAP A4-rest")
+    refused("--seq-parallel", "2", match="--seq-parallel 2 must be a "
+            "positive divisor of the device count \\(1\\)")
+    refused("--host-devices", "-1", match="--host-devices -1 must be >= 0")
+    refused("--host-devices", "2", "--seq-parallel", "2", "--seq-len", "34",
+            "--layout", "zigzag", match="--seq-len = 34 must divide into "
+            "4 equal stripes for --layout zigzag at ring size 2")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["attention", "--steps", "1"])
+
+
+def test_attention_verb_trains_over_a_cpu_pod(tmp_path, capsys,
+                                          monkeypatch):
+    """`attention --host-devices 4 --seq-parallel 4`: four gloo ranks,
+    each holding a quarter of every zigzag sequence; rank 0 prints and
+    writes the run's records, as one process would."""
+    # one thread a rank: the pod shares the test run's cores
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    lines = _verb(capsys, "--host-devices", "4", "--seq-parallel", "4",
+                  "--layout", "zigzag", "--steps", "2", "--seq-len", "64",
+                  "--batch-size", "4", "--embed-dim", "16", "--num-heads",
+                  "2", "--mlp-dim", "32", "--synthetic-examples", "16",
+                  "--path", str(tmp_path))
+    assert lines[0] == ("Device: cpu (ring size 4) over 4 ranks (data=1, "
+                        "seq=4)")
+    assert lines[-1].startswith("val: loss=")
+    recs = _records(tmp_path)
+    assert [r["event"] for r in recs] == ["step", "step", "timer", "val",
+                                          "metrics_snapshot"]
+    assert all(np.isfinite(r["loss"]) for r in recs if "loss" in r)

@@ -1107,3 +1107,48 @@ def test_fused_mobilenet_step_on_the_card_matches_the_cpu(cuda, dtype):
         assert z_err <= 1e-5
         assert card_loss == pytest.approx(cpu_loss, rel=1e-5)
         assert float((card_g - cpu_g).norm()) <= 1e-4 * float(cpu_g.norm())
+
+
+def test_sharded_lm_on_a_one_rank_nccl_group_matches_the_plain_lm(
+        cuda, tmp_path):
+    """A 1-rank NCCL group (file:// rendezvous): the LM under LM_RULES on
+    an fsdp x tp x seq mesh of one rank -- gathers, splits and the
+    vocab-parallel loss over the group, the pallas ring -- takes the
+    plain LM's steps (losses rtol 1e-5) with the same flash launches."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from idc_models_tpu_torch import mesh
+    from idc_models_tpu_torch.models.lm import (
+        AttentionLM, make_lm_train_step, next_token_loss,
+    )
+    from idc_models_tpu_torch.train.state import TrainState, rmsprop
+    from idc_models_tpu_torch.train.step import make_train_step
+
+    rng = np.random.default_rng(0)
+    seqs = torch.as_tensor((rng.integers(0, 64, (2, 1)) + np.arange(256))
+                           % 64).cuda()
+    kw = dict(embed_dim=64, num_heads=2, mlp_dim=128, num_blocks=2,
+              block_impl="pallas")
+    mesh.initialize_multihost(f"file://{tmp_path / 'store'}", 1, 0)
+    try:
+        assert dist.get_backend() == "nccl"
+        runs = {}
+        for name in ("plain", "plan"):
+            grid = mesh.fsdp_tp_mesh(1, 1, 1) if name == "plan" else None
+            model = core.init_params(AttentionLM(64, 256, mesh=grid, **kw),
+                                     0).cuda()
+            if grid is not None:
+                model.shard_(registry.LM_RULES)
+            state = TrainState(model, rmsprop(model, 3e-3))
+            step = (make_lm_train_step(state, global_batch=2) if grid
+                    else make_train_step(state, next_token_loss))
+            before = [k.launches for k in fbk.KERNELS]
+            runs[name] = ([float(step(seqs, seqs)["loss"])
+                           for _ in range(2)],
+                          [k.launches - b for k, b in zip(fbk.KERNELS,
+                                                          before)])
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_allclose(runs["plan"][0], runs["plain"][0], rtol=1e-5)
+    assert runs["plan"][1] == runs["plain"][1] == [4, 4, 4]

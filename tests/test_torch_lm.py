@@ -311,9 +311,10 @@ def test_lm_verb_runs_on_the_cpu_through_the_pallas_ring(tmp_path):
 
 
 def test_lm_verb_refuses_what_is_not_ported(monkeypatch, capsys):
-    """`--layout zigzag` and `--remat` train now (the stripe rule of the
-    JAX verb holds); what waits for the rest of the distribution layer
-    still exits, naming ROADMAP A4-rest."""
+    """`--layout zigzag` and `--remat` train (the stripe rule of the JAX
+    verb holds), and the sharding flags refuse what the JAX verb
+    refuses: a mesh larger than the world, a ring that does not divide
+    it."""
     assert cli.main(["lm", "--device", "cpu", "--steps", "2", "--seq-len",
                      "16", "--layout", "zigzag", "--remat", "--dropout",
                      "0.1", "--generate", "0"]) == 0
@@ -323,8 +324,16 @@ def test_lm_verb_refuses_what_is_not_ported(monkeypatch, capsys):
                                          "zigzag at ring size 1"):
         cli.main(["lm", "--device", "cpu", "--seq-len", "15", "--layout",
                   "zigzag"])
-    for argv in (["--fsdp", "2"], ["--tp", "2"], ["--seq-parallel", "2"]):
-        with pytest.raises(SystemExit, match="ROADMAP A4-rest"):
+    for argv, match in (
+            (["--fsdp", "2"], "--fsdp 2 x --tp 1 x --seq-parallel 1 needs "
+                              "2 devices, have 1 \\(use --host-devices"),
+            (["--tp", "2"], "--fsdp 1 x --tp 2 x --seq-parallel 1 needs 2 "
+                            "devices, have 1"),
+            (["--seq-parallel", "2"], "--seq-parallel 2 must be a "
+                                      "positive divisor of the device "
+                                      "count \\(1\\)"),
+            (["--fsdp", "-1"], "--fsdp/--tp must be >= 0")):
+        with pytest.raises(SystemExit, match=match):
             cli.main(["lm", "--device", "cpu", *argv])
     # without --device cpu the verb runs on CUDA or raises
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -332,3 +341,37 @@ def test_lm_verb_refuses_what_is_not_ported(monkeypatch, capsys):
         cli.main(["lm", "--steps", "1"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tlm.Generator(_jax_params(0), t_max=SEQ, **KW)
+
+
+def test_lm_verb_shards_over_a_cpu_pod(tmp_path, capsys,
+                                   monkeypatch):
+    """`lm --host-devices 4 --fsdp 2 --tp 2`: four gloo ranks train the
+    LM under the rule set 'lm' and generate from the gathered weights;
+    rank 0 prints and writes the records. Over a pod the JAX verb's
+    refusals read as from one process: --fsdp 3 x --tp 2 on 4 ranks, a
+    batch --fsdp does not divide."""
+    # one thread a rank: the pod shares the test run's cores
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    assert cli.main(["lm", "--device", "cpu", "--host-devices", "4",
+                     "--fsdp", "2", "--tp", "2", "--steps", "3",
+                     "--batch-size", "4", "--seq-len", "16",
+                     "--generate", "3", "--path", str(tmp_path)]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0] == ("Device: cpu (ring size 1) over 4 ranks (data=2, "
+                        "model=2, seq=1); params + optimizer state sharded "
+                        "by rule set 'lm'")
+    assert any(line.startswith("step 2, loss=") for line in lines)
+    assert any(line.startswith("generate: [0, 1, 2] -> ") for line in lines)
+    records = [json.loads(line) for line in
+               (tmp_path / "logs" / "run.jsonl").read_text().splitlines()]
+    assert [r["event"] for r in records] == ["step", "step", "timer",
+                                             "generate", "metrics_snapshot"]
+    assert all(np.isfinite(r["loss"]) for r in records if "loss" in r)
+    for argv, match in (
+            (["--host-devices", "4", "--fsdp", "3", "--tp", "2"],
+             "--fsdp 3 x --tp 2 x --seq-parallel 1 needs 6 devices, have "
+             "4"),
+            (["--host-devices", "2", "--fsdp", "2", "--batch-size", "3"],
+             "--batch-size 3 must divide by --fsdp 2")):
+        with pytest.raises(SystemExit, match=match):
+            cli.main(["lm", "--device", "cpu", *argv])

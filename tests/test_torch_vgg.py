@@ -170,13 +170,16 @@ def test_cli_vgg_runs_two_phases_and_saves_the_jax_layout(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--model-parallel", "2"], "A4"),
-    # the JAX verb's refusal of the combination, before the A4 one
+    (["--model-parallel", "2"],
+     "model-parallel degree 2 must divide the device count"),
+    # the JAX verb's refusal of the combination, before the mesh's
     (["--model-parallel", "2", "--central-storage"], "model-sharded"),
 ])
 def test_cli_refuses_unported_flags_naming_the_item(argv, match):
-    """Tensor parallelism waits for ROADMAP A4. (--central-storage,
-    --stream and --decode-workers are ported: tests/
-    test_torch_observe_cli.py runs them.)"""
+    """The JAX verb's refusals of --model-parallel: a degree the world's
+    ranks do not divide, and the combination with --central-storage.
+    (tests/test_torch_dist.py runs the channel-sharded step;
+    --central-storage, --stream and --decode-workers run in
+    tests/test_torch_observe_cli.py.)"""
     with pytest.raises(SystemExit, match=match):
         cli.main(["vgg", "--device", "cpu", *argv])
