@@ -189,6 +189,22 @@ non-zero before the result line:
    at world size 1, host ms of the `vgg` b32 phase-2 step and the `lm`
    step (plain and plan paths) without and with the group, in turns;
    the group is taken down at the end;
+12. serve -- right after the serving Generator, the continuous-batching
+   server (serve/) at that width (t_max 32,768, 8 slots, windows of 16),
+   replaying a burst of 24 Poisson requests (prompts 128-16,384 tokens,
+   budgets 16-128), each run with the launch counts set to 0 just before
+   and read just after: (k1) LMServer(block_impl="pallas", bf16 caches),
+   greedy, B3 launched 48 times (once a block a prefill) and no backward
+   kernel; (k2) int8 caches, against a one-slot int8 engine; (k3)
+   prefill_chunk=512, no flash launch, against the chunked Generator;
+   (k4) sampled (temperature 0.8, top-k 50, seeded requests) against the
+   serial sampled Generator; every request ok and its tokens equal to
+   its serial reference's up to the first near tie (SERVE_TOL); then
+   TTFT (queue wait + prefill), the window at 8 live slots (ms a step,
+   tokens/s, device busy, idle share, kernels, peak memory) and warm
+   prefill ms at the 4,096 and 16,384 buckets; (k5) `cli.main(["serve",
+   ...])` at that width (t_max 1,024) with --metrics-port 0, scraped
+   while it serves, no kernel launched;
 
 then one JSON line of per-kernel numbers, and the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}`.
@@ -1522,6 +1538,339 @@ def serving(torch, fc, smk, fbk, card: str) -> dict:
     if launches != (6, 0, 0) or fc.KERNEL.launches or smk.KERNEL.launches:
         raise SystemExit(f"serving launches {launches}")
     return {"rows": rows}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: continuous-batching serving (serve/)
+# ---------------------------------------------------------------------------
+
+# the serving width of phase (f) (LM, t_max SERVE_T_MAX), seed-0 weights;
+# 8 slots, windows of 16; a burst of 24 Poisson arrivals, prompts of 128
+# to 16,384 tokens (every pallas bucket is at least 128), budgets 16-128
+SERVE_SLOTS, SERVE_WINDOW = 8, 16
+SERVE_TRACE = dict(rate_per_s=50.0, vocab=LM["vocab"], t_max=SERVE_T_MAX,
+                   prompt_lens=(128, 16384), budgets=(16, 128), seed=0)
+SERVE_N = 24
+# the engine-against-serial contract on the card: the engine's products
+# are [8, E] @ W where the serial ones are [1, E] @ W (cuBLAS rounds them
+# differently), so tokens are held equal up to the first step where the
+# serial run's top-2 margin falls below SERVE_TOL of its largest |logit|.
+# The logits are f32 over bf16 or int8 caches; an appended element that
+# the other rounding flips by one level moves a logit by far less than
+# this (one of thousands of attended positions)
+SERVE_TOL = 1e-4
+SERVE_CHUNK, SERVE_CHUNK_PREFILLS = 512, 32  # (k3): 32 chunks a cycle
+SERVE_TEMPERATURE, SERVE_TOP_K = 0.8, 50
+SERVE_CLI_T_MAX = 1024                        # (k5): budgets up to 256
+
+
+def serve_model(torch):
+    from idc_models_tpu_torch.models import core
+    from idc_models_tpu_torch.models.lm import AttentionLM
+
+    return core.init_params(AttentionLM(
+        LM["vocab"], SERVE_T_MAX, embed_dim=LM["embed_dim"],
+        num_heads=LM["num_heads"], mlp_dim=LM["mlp_dim"],
+        num_blocks=LM["num_blocks"]), 0)
+
+
+def serve_kw(**kw) -> dict:
+    return dict(embed_dim=LM["embed_dim"], num_heads=LM["num_heads"],
+                num_blocks=LM["num_blocks"], t_max=SERVE_T_MAX,
+                device="cuda", **kw)
+
+
+def serial_steps(gen, prompt, n: int, rng=None):
+    """A request alone through the serial Generator: its tokens, the
+    logits each step's pick read, and the generator's state before each
+    draw."""
+    logits, caches = gen.prefill([list(prompt)])
+    toks, seen, states = [], [], []
+    for i in range(n):
+        seen.append(logits[0].clone())
+        states.append(None if rng is None else rng.get_state())
+        tok, logits, caches = gen.decode(caches, logits, len(prompt) + i, 1,
+                                         rng=rng)
+        toks.append(int(tok[0, 0]))
+    return toks, seen, states
+
+
+def engine_steps(eng, prompt, n: int):
+    """A request alone through a one-slot engine, a step a window: its
+    tokens and the logits each step's pick read."""
+    eng.admit(0, list(prompt), n)
+    toks, seen = [], []
+    while not eng.finished(0):
+        seen.append(eng._logits[0].clone())
+        toks += eng.step_window(1)[0]
+    eng.release(0)
+    return toks, seen, [None] * n
+
+
+def held_steps(torch, got, want, seen, states, pick=None):
+    """The contract for one request: the number of steps its tokens were
+    held equal, and whether a near tie released it. Greedy: released at
+    the first step whose serial top-2 margin is below SERVE_TOL of the
+    largest |logit|, and any earlier difference fails. Sampled (`pick`):
+    released at the first differing step if the serial draw, from the
+    same generator state, gives the engine's token once the two tokens'
+    logits are moved SERVE_TOL of the scale toward it; else it fails."""
+    if len(got) != len(want):
+        raise SystemExit(f"serve: {len(got)} tokens, the serial run "
+                         f"{len(want)}")
+    for j, (g, w) in enumerate(zip(got, want)):
+        lw = seen[j]
+        eps = SERVE_TOL * float(lw.abs().max())
+        if pick is None:
+            top2 = lw.topk(2).values
+            if float(top2[0] - top2[1]) < eps:
+                return j, True
+        if g == w:
+            continue
+        if pick is not None:
+            nudged = lw.clone()
+            nudged[g] += eps
+            nudged[w] -= eps
+            rng = torch.Generator(device="cuda")
+            rng.set_state(states[j])
+            if int(pick(nudged[None], rng)[0]) == g:
+                return j, True
+        raise SystemExit(f"serve: the engine's token {g} at step {j} is "
+                         f"not the serial {w}, and no near tie explains it")
+    return len(want), False
+
+
+def serve_once(torch, fc, smk, fbk, model, trace, **kw) -> tuple:
+    """LMServer over `trace` as a burst, every launch count set to 0 just
+    before and read just after: (server, results, flash launches,
+    seconds)."""
+    from idc_models_tpu_torch.observe import MetricsRegistry
+    from idc_models_tpu_torch.serve import LMServer
+
+    server = LMServer(model, n_slots=SERVE_SLOTS, window=SERVE_WINDOW,
+                      registry=MetricsRegistry(), **serve_kw(**kw))
+    torch.cuda.synchronize()
+    zero_counts(fc, smk, fbk)
+    t0 = time.perf_counter()
+    results = server.run(trace)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = flash_counts(fbk)
+    if fc.KERNEL.launches or smk.KERNEL.launches:
+        raise SystemExit("the serve path launched a classifier kernel")
+    bad = [r for r in results if r.status != "ok"]
+    if len(results) != len(trace) or bad:
+        raise SystemExit(f"serve: {len(results)} results of {len(trace)}, "
+                         f"not ok: {bad[:3]}")
+    return server, results, launches, seconds
+
+
+def serve_case(torch, fc, smk, fbk, model, name, trace, want_launches,
+               reference, card, pick=None, **kw) -> tuple:
+    """One of (k1)-(k4): the server's run, its launches, and every
+    request's tokens against `reference(request)` under the contract."""
+    server, results, launches, seconds = serve_once(
+        torch, fc, smk, fbk, model, trace, **kw)
+    if launches != want_launches:
+        raise SystemExit(f"serve {name}: flash launches update/dq/dkv "
+                         f"{launches}, expected {want_launches}")
+    held = total = released = 0
+    for _, req in trace:
+        want, seen, states = reference(req)
+        n, near = held_steps(torch, server.poll(req.id).tokens, want, seen,
+                             states, pick)
+        held, total, released = held + n, total + len(want), released + near
+    summary = server.summary()
+    log(f"serve {name}: {len(results)} requests ok in {seconds!r} s; "
+        f"flash launches update/dq/dkv {launches} (expected "
+        f"{want_launches}); tokens held equal to the serial reference for "
+        f"{held} of {total} steps, {released} request(s) released at a near "
+        f"tie (tolerance {SERVE_TOL} of max |logit|); "
+        f"{summary['serve_tokens']} tokens, "
+        f"{summary['serve_decode_dispatches']} windows; {card}")
+    return server, summary, launches
+
+
+def serve_times(torch, fbk, server, gen, card: str) -> None:
+    """Serving times at the (k1) configuration: TTFT (queue wait +
+    prefill) from the run's summary; at 8 live slots, the window's host
+    ms a step, decode tokens/s, device busy, idle share, kernels a step
+    and peak memory; warm pallas prefill ms at the 4,096 and 16,384
+    buckets (median of 7 calls after a warm-up)."""
+    s = server.summary()
+    log(f"serve times (k1, a burst of {SERVE_N}): TTFT p50 "
+        f"{s['serve_ttft_ms_p50']!r} / p95 {s['serve_ttft_ms_p95']!r} ms = "
+        f"queue wait p50 {s['serve_queue_wait_ms_p50']!r} / p95 "
+        f"{s['serve_queue_wait_ms_p95']!r} + prefill p50 "
+        f"{s['serve_prefill_ms_p50']!r} / p95 {s['serve_prefill_ms_p95']!r} "
+        f"ms; {s['serve_tokens_per_sec']!r} tokens/s over the run; "
+        f"inter-token p50 {s['serve_token_ms_p50']!r} ms; {card}")
+    eng = server.engine
+    rng = np.random.default_rng(1)
+    for slot in range(SERVE_SLOTS):
+        eng.admit(slot, rng.integers(0, LM["vocab"], 1024), 512)
+    eng.step_window(SERVE_WINDOW)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n = 5
+    t0 = time.perf_counter()
+    for _ in range(n):
+        if len(sum(eng.step_window(SERVE_WINDOW).values(), [])) != \
+                SERVE_SLOTS * SERVE_WINDOW:
+            raise SystemExit("serve: a steady window emitted short")
+    window_s = (time.perf_counter() - t0) / n
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    prof = profiled(torch, lambda: eng.step_window(SERVE_WINDOW), n=1,
+                    kernel="elementwise")
+    log(f"serve steady state (8 live slots, t_max {SERVE_T_MAX}, bf16 "
+        f"caches, windows of {SERVE_WINDOW}): {window_s * 1e3!r} ms a "
+        f"window, {window_s * 1e3 / SERVE_WINDOW!r} ms a step, "
+        f"{SERVE_SLOTS * SERVE_WINDOW / window_s!r} decode tokens/s; peak "
+        f"memory {peak!r} MiB; one window (16 steps): {prof}; {card}")
+    for slot in range(SERVE_SLOTS):
+        eng.release(slot)
+    for p_len in (4096, 16384):
+        prompt = rng.integers(0, LM["vocab"], (1, p_len))
+        gen.prefill(prompt)
+        ms = []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gen.prefill(prompt)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        log(f"serve prefill warm (pallas, bf16 cache) at bucket {p_len}: "
+            f"median {float(np.median(ms))!r} ms of {sorted(ms)} (host "
+            f"clock, each ending in a synchronize); {card}")
+
+
+def serve_cli(torch, fc, smk, fbk, card: str) -> tuple:
+    """(k5) `cli.main(["serve", ...])` at the serving width, 16 requests,
+    --metrics-port 0, --realtime: one scrape of /metrics and one of
+    /healthz while it serves; no kernel launches."""
+    import contextlib
+    import io
+    import re
+    import threading
+    import urllib.request
+
+    from idc_models_tpu_torch import cli
+
+    argv = ["serve", "--vocab", str(LM["vocab"]), "--embed-dim",
+            str(LM["embed_dim"]), "--num-heads", str(LM["num_heads"]),
+            "--mlp-dim", str(LM["mlp_dim"]), "--num-blocks",
+            str(LM["num_blocks"]), "--t-max", str(SERVE_CLI_T_MAX),
+            "--slots", str(SERVE_SLOTS), "--window", str(SERVE_WINDOW),
+            "--requests", "16", "--realtime", "--metrics-port", "0"]
+    out, rc = io.StringIO(), []
+
+    def run():
+        with contextlib.redirect_stdout(out):
+            rc.append(cli.main(argv))
+
+    zero_counts(fc, smk, fbk)
+    t0 = time.perf_counter()
+    worker = threading.Thread(target=run)
+    worker.start()
+    scraped, deadline = {}, time.monotonic() + 300
+    while worker.is_alive() and time.monotonic() < deadline:
+        m = re.search(r"metrics: (http://\S+)/metrics", out.getvalue())
+        if m and "serving " in out.getvalue():
+            # /healthz until the scheduler has ticked, then /metrics
+            with urllib.request.urlopen(m.group(1) + "/healthz",
+                                        timeout=30) as r:
+                scraped["/healthz"] = (r.status, r.read())
+            if json.loads(scraped["/healthz"][1])["last_tick_age_s"] is None:
+                time.sleep(0.01)
+                continue
+            with urllib.request.urlopen(m.group(1) + "/metrics",
+                                        timeout=30) as r:
+                scraped["/metrics"] = (r.status, r.read())
+            break
+        time.sleep(0.01)
+    worker.join(timeout=600)
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = flash_counts(fbk) + (fc.KERNEL.launches, smk.KERNEL.launches)
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        if not line.startswith("serve summary:"):
+            log(f"  serve | {line}")
+    if worker.is_alive() or rc != [0]:
+        raise SystemExit(f"serve verb: rc {rc}, still running "
+                         f"{worker.is_alive()}")
+    if not any(line.startswith("served: ok=16 ") for line in lines):
+        raise SystemExit("serve verb: not every request was ok")
+    health = json.loads(scraped.get("/healthz", (0, b"{}"))[1] or b"{}")
+    if (scraped.get("/metrics", (0,))[0] != 200
+            or b"serve_requests_submitted_total" not in
+            scraped["/metrics"][1] or health.get("status") != "ok"):
+        raise SystemExit(f"serve verb: scrapes {scraped}")
+    if any(launches):
+        raise SystemExit(f"serve verb launched kernels {launches}")
+    log(f"serve (k5): cli.main({' '.join(argv)}) in {seconds!r} s; /metrics "
+        f"{len(scraped['/metrics'][1])} bytes, /healthz {health}; no kernel "
+        f"launched; {card}")
+    return (0, 0, 0)
+
+
+def serve_path(torch, fc, smk, fbk, card: str) -> dict:
+    """Phase 12: (k1) LMServer(block_impl="pallas", bf16 caches, 8 slots,
+    windows of 16) replaying the 24-request trace as a burst, greedy, B3
+    launched once a block a prefill (48) and no backward kernel; (k2) the
+    same with int8 caches against a one-slot int8 engine; (k3) chunked
+    prefill of 512 (32 chunks a cycle), no flash launch, against
+    Generator(prefill_chunk=512); (k4) sampled (temperature 0.8, top-k
+    50, seeded requests) against the serial sampled Generator; every
+    request ok and held to the engine-against-serial contract; then the
+    times; (k5) the `serve` verb. Returns B3's serve launches by run."""
+    from idc_models_tpu_torch.models.lm import Generator, _make_pick
+    from idc_models_tpu_torch.serve import SlotEngine, poisson_trace
+
+    t_start = time.perf_counter()
+    tf32_off(torch)
+    model = serve_model(torch)
+    trace = poisson_trace(SERVE_N, **SERVE_TRACE)
+    bf16 = dict(block_impl="pallas", cache_dtype=torch.bfloat16)
+    gen = Generator(model, **serve_kw(**bf16))
+
+    def serial(g):
+        return lambda req: serial_steps(g, req.prompt, req.max_new_tokens)
+
+    out = {}
+    k1, _, out["k1"] = serve_case(torch, fc, smk, fbk, model, "(k1)", trace,
+                                  (2 * SERVE_N, 0, 0), serial(gen), card,
+                                  **bf16)
+    one = SlotEngine(model, n_slots=1, kv_dtype="int8", **serve_kw(**bf16))
+    _, _, out["k2"] = serve_case(
+        torch, fc, smk, fbk, model, "(k2) int8", trace, (2 * SERVE_N, 0, 0),
+        lambda req: engine_steps(one, req.prompt, req.max_new_tokens), card,
+        kv_dtype="int8", **bf16)
+    del one
+    chunked = Generator(model, prefill_chunk=SERVE_CHUNK, **serve_kw(**bf16))
+    _, _, out["k3"] = serve_case(
+        torch, fc, smk, fbk, model, f"(k3) chunk {SERVE_CHUNK}", trace,
+        (0, 0, 0), serial(chunked), card, prefill_chunk=SERVE_CHUNK,
+        max_prefills_per_cycle=SERVE_CHUNK_PREFILLS, **bf16)
+    del chunked
+    sampled = dict(temperature=SERVE_TEMPERATURE, top_k=SERVE_TOP_K)
+    sgen = Generator(model, **serve_kw(**bf16, **sampled))
+    strace = poisson_trace(SERVE_N, sampled=True, **SERVE_TRACE)
+    _, _, out["k4"] = serve_case(
+        torch, fc, smk, fbk, model, "(k4) sampled", strace,
+        (2 * SERVE_N, 0, 0),
+        lambda req: serial_steps(sgen, req.prompt, req.max_new_tokens,
+                                 torch.Generator(device="cuda").manual_seed(
+                                     req.seed)),
+        card, pick=_make_pick(sgen._cfg), **bf16, **sampled)
+    del sgen
+    torch.cuda.empty_cache()
+    serve_times(torch, fbk, k1, gen, card)
+    del k1, gen
+    torch.cuda.empty_cache()
+    out["k5"] = serve_cli(torch, fc, smk, fbk, card)
+    log(f"phase 12 (serve) took {time.perf_counter() - t_start!r} s")
+    return out
 
 
 def flash_bytes_flops(t: int, d: int, h: int, itemsize: int,
@@ -3766,6 +4115,7 @@ def main() -> int:
     backward_memory(torch, tring)
     lm = lm_path(torch, fc, smk, fbk, card)
     serving(torch, fc, smk, fbk, card)
+    served = serve_path(torch, fc, smk, fbk, card)
     att = attention_path(torch, fc, smk, fbk, tring, card)
 
     worst = parity(torch, fc, mobilenet)
@@ -3853,6 +4203,8 @@ def main() -> int:
         # `attention --seq-parallel 1` on a 1-rank group
         "launches_dist": {"lm": dist["lm"][i],
                           "attention": dist["attention"][i]},
+        # phase 12: the serve runs (k1)-(k5)
+        "launches_serve": {run: counts[i] for run, counts in served.items()},
         "max_abs_err_zigzag_grid_256": att["grid"][key],
         **{f"quarter_{field}": {what: quarters[(what, key)][field]
                                 for what in QUARTERS}

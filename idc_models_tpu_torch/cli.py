@@ -1,6 +1,6 @@
 """Command-line entry point: the ``vgg``, ``mobile``, ``dense``, ``fed``,
-``secure-fed``, ``lm``, ``attention``, ``profile`` and ``stats`` verbs of
-``idc_models_tpu``.
+``secure-fed``, ``lm``, ``attention``, ``serve``, ``profile`` and
+``stats`` verbs of ``idc_models_tpu``.
 
     python -m idc_models_tpu_torch vgg --path runs/vgg \\
         --data-dir .../balanced_IDC_30k --cache-features
@@ -90,6 +90,17 @@ Timer) and ``--profile-dir d`` (``torch.profiler`` over the training
 phase, written to ``d/trace.json``); a run with --path ends its jsonl
 with one ``metrics_snapshot`` record.
 
+``serve`` replays a request trace (``--trace``, or synthetic Poisson
+arrivals) through the continuous-batching server (``serve/``): an LM at
+the given widths, random from --seed or trained --train-steps on the
+counting task, decoding in --slots slots, --window tokens a window, f32
+caches. It prints ``serving N requests on ...``, ``served: ok=...``,
+the TTFT split into queue wait and prefill, and ``serve summary: {...}``;
+``--metrics-port`` serves ``/metrics`` and ``/healthz`` for the run.
+
+    python -m idc_models_tpu_torch serve --requests 16 --slots 4 \
+        --window 8 --t-max 64 --metrics-port 0
+
 ``profile --model vgg|mobile|dense|small|lm`` runs a train step at the
 bench batch (``configs.BENCH_TRAIN_CONFIGS``, bf16 for the classifiers)
 and prints each program's account, its roofline verdict, the
@@ -123,6 +134,38 @@ from pathlib import Path
 from idc_models_tpu_torch.models.core import DEPTHWISE_IMPLS
 
 
+# the serve verb's flags of later ROADMAP items: (flag, argparse
+# keywords, label); `_run_serve` refuses any that differs from its default
+_LATER = [
+    ("--prefix-cache-mb", dict(type=float, default=0.0), "A9.2"),
+    ("--kv-page-size", dict(type=int, default=0), "A9.2"),
+    ("--kv-pages", dict(type=int, default=0), "A9.2"),
+    ("--kv-decode-reserve", dict(type=int, default=0), "A9.2"),
+    ("--spec-decode", dict(action="store_true"), "A9.3"),
+    ("--draft-k", dict(type=int, default=8), "A9.3"),
+    ("--ngram-order", dict(type=int, default=3), "A9.3"),
+    ("--drafter", dict(default="ngram"), "A9.3"),
+    ("--draft-ckpt", dict(default=None), "A9.3"),
+    ("--serve-faults", dict(default=None), "A9.4"),
+    ("--journal", dict(default=None), "A9.4"),
+    ("--brownout", dict(action="store_true"), "A9.4"),
+    ("--brownout-queue-high", dict(type=int, default=None), "A9.4"),
+    ("--brownout-clamp-tokens", dict(type=int, default=8), "A9.4"),
+    ("--brownout-dwell-ms", dict(type=float, default=250.0), "A9.4"),
+    ("--brownout-clear-ms", dict(type=float, default=1000.0), "A9.4"),
+    ("--tenants", dict(default=None), "A9.4"),
+    ("--tenant-quota", dict(action="append", default=None), "A9.4"),
+    ("--tenant-slo-ttft-ms", dict(action="append", default=None), "A9.4"),
+    ("--rollout-adapters", dict(type=int, default=None), "A9.4"),
+    ("--save-ckpt", dict(default=None), "A11"),
+    ("--rollout", dict(default=None), "A11"),
+    ("--canary-fraction", dict(type=float, default=None), "A11"),
+    ("--canary-requests", dict(type=int, default=None), "A11"),
+    ("--rollout-at", dict(type=float, default=None), "A11"),
+    ("--compile-cache", dict(default=None), "A10"),
+]
+
+
 def main(argv: list[str] | None = None) -> int:
     from idc_models_tpu_torch import collectives, mesh
     from idc_models_tpu_torch.observe import tracing
@@ -135,6 +178,10 @@ def main(argv: list[str] | None = None) -> int:
     if getattr(ns, "host_devices", 0):
         if ns.host_devices > 1 and ns.preset_key in ("fed", "secure_fed"):
             _one_rank_fed(ns.host_devices)
+        if ns.preset_key == "serve":
+            sys.exit(f"serve --host-devices {ns.host_devices}: serving "
+                     f"over several ranks is not ported yet (ROADMAP "
+                     f"A9-dist)")
         if ns.host_devices > 1 and not mesh.in_cpu_pod():
             return mesh.launch_cpu_pod(ns.host_devices, argv)
         # the ranks of a CPU pod run on the CPU
@@ -142,8 +189,8 @@ def main(argv: list[str] | None = None) -> int:
     mesh.join_world()
     runner = {"vgg": _run_dist, "mobile": _run_dist, "dense": _run_dist,
               "fed": _run_fed, "secure_fed": _run_secure, "lm": _run_lm,
-              "attention": _run_attention, "stats": _run_stats,
-              "profile": _run_profile}[ns.preset_key]
+              "attention": _run_attention, "serve": _run_serve,
+              "stats": _run_stats, "profile": _run_profile}[ns.preset_key]
     # --trace-out: one wiring point arms the tracer for every verb; the
     # spans export as Chrome trace-event JSON when the run ends
     writer = collectives.is_writer()
@@ -459,6 +506,94 @@ def _parse(argv):
     sp.add_argument("--image-size", type=int, default=50,
                     help="with --data-dir: decode size of the IDC patches")
 
+    sp = sub.add_parser("serve",
+                        help="continuous-batching LM serving: fixed decode "
+                             "slots, masked windows, FIFO admission with "
+                             "backpressure (serve/)")
+    sp.add_argument("--path", default=None,
+                    help="artifact root (serving events stream to "
+                         "<path>/logs/serve.jsonl)")
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    sp.add_argument("--host-devices", type=int, default=0,
+                    help="refused: serving over several ranks waits for "
+                         "ROADMAP A9-dist")
+    sp.add_argument("--profile-dir", default=None,
+                    help="write a torch.profiler trace of the serve loop "
+                         "to <dir>/trace.json")
+    sp.add_argument("--trace-out", default=None,
+                    help="write a Chrome trace-event JSON of the serve "
+                         "loop's spans (admission, prefill, windows, "
+                         "collects) here")
+    sp.add_argument("--vocab", type=int, default=16)
+    sp.add_argument("--t-max", type=int, default=64,
+                    help="cache capacity per slot (prompt + generation)")
+    sp.add_argument("--embed-dim", type=int, default=32)
+    sp.add_argument("--num-heads", type=int, default=2)
+    sp.add_argument("--mlp-dim", type=int, default=64)
+    sp.add_argument("--num-blocks", type=int, default=2)
+    sp.add_argument("--seq-parallel", type=int, default=1,
+                    help="ring size of the serving mesh; above 1 waits "
+                         "for ROADMAP A9-dist")
+    sp.add_argument("--tp", type=int, default=0,
+                    help="tensor-parallel serving; above 1 waits for "
+                         "ROADMAP A9-dist")
+    sp.add_argument("--fsdp", type=int, default=0,
+                    help="must stay 0 or 1: a serving engine holds no "
+                         "optimizer state")
+    sp.add_argument("--train-steps", type=int, default=0,
+                    help="train the counting task this many steps before "
+                         "serving (0 = serve from random init)")
+    sp.add_argument("--slots", type=int, default=4,
+                    help="concurrent decode slots")
+    sp.add_argument("--window", type=int, default=8,
+                    help="tokens per decode window")
+    sp.add_argument("--requests", type=int, default=16,
+                    help="synthetic trace length (ignored with --trace)")
+    sp.add_argument("--rate", type=float, default=50.0,
+                    help="synthetic Poisson arrival rate, requests/s")
+    sp.add_argument("--trace", default=None,
+                    help="JSONL request trace to replay (serve.load_trace "
+                         "format)")
+    sp.add_argument("--realtime", action="store_true",
+                    help="honor trace arrival times on the wall clock")
+    sp.add_argument("--temperature", type=float, default=0.0)
+    sp.add_argument("--top-k", type=int, default=0)
+    sp.add_argument("--eos", type=int, default=None,
+                    help="stop token id (default: none)")
+    sp.add_argument("--max-queue-depth", type=int, default=64,
+                    help="admission-queue backpressure bound")
+    sp.add_argument("--max-prefills-per-cycle", type=int, default=1,
+                    help="prefill-vs-decode interleave cap per cycle")
+    sp.add_argument("--prefill-chunk", type=int, default=0,
+                    help="chunked prefill: admit prompts C tokens a cycle "
+                         "(0 = off; must divide --t-max)")
+    sp.add_argument("--kv-dtype", default="bf16", choices=("bf16", "int8"),
+                    help="cache K/V storage: int8 rows with per-(slot, "
+                         "head) scales, or the float cache")
+    sp.add_argument("--metrics-port", type=int, default=None,
+                    help="serve GET /metrics and GET /healthz on "
+                         "127.0.0.1:PORT for the run (0 = OS-assigned)")
+    sp.add_argument("--max-retries", type=int, default=0,
+                    help="re-admissions of a request recovered from a "
+                         "quarantined slot (0 = off; arms the per-cycle "
+                         "slot health checks)")
+    sp.add_argument("--retry-backoff-ms", type=float, default=50.0,
+                    help="base delay between retries (doubles per retry)")
+    sp.add_argument("--slo-ttft-p95-ms", type=float, default=None,
+                    help="declare a TTFT SLO, burn-rate alerted "
+                         "(observe/slo.py)")
+    sp.add_argument("--slo-error-rate", type=float, default=None,
+                    help="declare an error-rate SLO (fraction in (0, 1))")
+    sp.add_argument("--slo-window-s", type=float, default=60.0,
+                    help="the SLO engine's short window (the long one is "
+                         "5x)")
+    # the JAX verb's flags of later items: accepted, and refused by
+    # `_run_serve` with the item's label when set
+    for flag, kw, label in _LATER:
+        sp.add_argument(flag, help=f"not ported yet (ROADMAP {label})",
+                        **kw)
+
     sp = sub.add_parser(
         "profile",
         help="performance attribution over a train step: each program's "
@@ -472,7 +607,7 @@ def _parse(argv):
                     help="which train step to profile: a backbone's "
                          "fine-tune step at its bench batch "
                          "(vgg/mobile/dense; `small` is the tiny CNN) or "
-                         "the LM's (`serve` waits for ROADMAP A9)")
+                         "the LM's (`serve` waits for ROADMAP A9.3)")
     sp.add_argument("--fsdp", type=int, default=0,
                     help="with --model lm: FSDP degree (the parameters and "
                          "RMSprop moments shard over a 'data' axis of "
@@ -1575,6 +1710,180 @@ def _run_attention(ns):
             logger.close()
 
 
+def _run_serve(ns):
+    """The continuous-batching server (``serve/``) over an LM at the
+    given widths -- random from --seed, or trained --train-steps steps on
+    the counting task -- replaying a request trace (JSONL or synthetic
+    Poisson arrivals) and reporting throughput, TTFT and occupancy, as
+    the JAX package's ``serve`` verb does."""
+    import json
+
+    import numpy as np
+    import torch
+
+    from idc_models_tpu_torch import resolve_device
+    from idc_models_tpu_torch.models.core import init_params
+    from idc_models_tpu_torch.models.lm import AttentionLM, next_token_loss
+    from idc_models_tpu_torch.observe import (
+        SLO, JsonlLogger, MetricsExporter, SLOEngine, Timer, profile_trace,
+    )
+    from idc_models_tpu_torch.serve import (
+        InjectedEngineCrash, LMServer, RetryPolicy, load_trace,
+        poisson_trace,
+    )
+
+    for flag, kw, label in _LATER:
+        dest = flag.lstrip("-").replace("-", "_")
+        if getattr(ns, dest) != kw.get("default", False):
+            sys.exit(f"serve {flag}: not ported yet (ROADMAP {label})")
+    if ns.seq_parallel < 1:
+        sys.exit(f"--seq-parallel {ns.seq_parallel} must be >= 1")
+    if ns.seq_parallel > 1 or ns.tp > 1:
+        sys.exit(f"serve --seq-parallel {ns.seq_parallel} --tp {ns.tp}: "
+                 f"serving over several ranks is not ported yet "
+                 f"(ROADMAP A9-dist)")
+    if ns.fsdp not in (0, 1):
+        sys.exit(f"--fsdp {ns.fsdp}: FSDP shards the optimizer+param "
+                 f"state over the batch axis at TRAIN time; a serving "
+                 f"engine holds no optimizer state and prefills [1, P] "
+                 f"batches — use --tp for serving-side param sharding")
+    if ns.tp < 0:
+        sys.exit(f"--tp {ns.tp} must be >= 0 (0 = off)")
+    if ns.temperature < 0.0:
+        sys.exit(f"--temperature {ns.temperature} must be >= 0")
+    if ns.prefill_chunk and (ns.prefill_chunk < 1
+                             or ns.t_max % ns.prefill_chunk):
+        sys.exit(f"--prefill-chunk {ns.prefill_chunk} must be >= 1 and "
+                 f"divide --t-max {ns.t_max}")
+    if ns.slo_ttft_p95_ms is not None and ns.slo_ttft_p95_ms <= 0:
+        sys.exit(f"--slo-ttft-p95-ms {ns.slo_ttft_p95_ms} must be > 0")
+    if (ns.slo_error_rate is not None
+            and not 0.0 < ns.slo_error_rate < 1.0):
+        sys.exit(f"--slo-error-rate {ns.slo_error_rate} must be a "
+                 f"fraction in (0, 1)")
+    if ns.slo_window_s <= 0:
+        sys.exit(f"--slo-window-s {ns.slo_window_s} must be > 0")
+    if ns.metrics_port is not None and not 0 <= ns.metrics_port <= 65535:
+        sys.exit(f"--metrics-port {ns.metrics_port} must be in "
+                 f"[0, 65535] (0 = OS-assigned)")
+    if ns.max_retries < 0:
+        sys.exit(f"--max-retries {ns.max_retries} must be >= 0")
+    if ns.retry_backoff_ms < 0:
+        sys.exit(f"--retry-backoff-ms {ns.retry_backoff_ms} must be "
+                 f">= 0")
+    device = resolve_device(ns.device)
+    model = init_params(AttentionLM(
+        ns.vocab, ns.t_max, embed_dim=ns.embed_dim, num_heads=ns.num_heads,
+        mlp_dim=ns.mlp_dim, num_blocks=ns.num_blocks), ns.seed).to(device)
+    if ns.train_steps > 0:
+        from idc_models_tpu_torch.train.state import TrainState, rmsprop
+        from idc_models_tpu_torch.train.step import make_train_step
+
+        state = TrainState(model, rmsprop(model, 3e-3))
+        step = make_train_step(state, next_token_loss)
+        rng = np.random.default_rng(ns.seed + 1)
+        with Timer("Serve pre-training"):
+            for _ in range(ns.train_steps):
+                starts = rng.integers(0, ns.vocab, (16, 1))
+                seqs = torch.as_tensor((starts + np.arange(ns.t_max))
+                                       % ns.vocab, device=device)
+                m = step(seqs, seqs)
+            print(f"pre-trained {ns.train_steps} steps, "
+                  f"loss={float(m['loss']):.4f}")
+    logger = (JsonlLogger(Path(ns.path) / "logs" / "serve.jsonl")
+              if ns.path else None)
+    slos = []
+    if ns.slo_ttft_p95_ms is not None:
+        slos.append(SLO.latency("ttft",
+                                threshold_s=ns.slo_ttft_p95_ms / 1e3))
+    if ns.slo_error_rate is not None:
+        slos.append(SLO.rate("error_rate", budget=ns.slo_error_rate))
+    slo = (SLOEngine(slos, short_window_s=ns.slo_window_s,
+                     long_window_s=5.0 * ns.slo_window_s, logger=logger)
+           if slos else None)
+    retry = (RetryPolicy(max_retries=ns.max_retries,
+                         backoff_s=ns.retry_backoff_ms / 1e3)
+             if ns.max_retries > 0 else None)
+    # armed before the server's warmup, so a scraper sees the process
+    # from the start; taken down with the run
+    exporter = None
+    if ns.metrics_port is not None:
+        try:
+            exporter = MetricsExporter(port=ns.metrics_port).start()
+        except OSError as e:
+            sys.exit(f"serve: cannot bind --metrics-port "
+                     f"{ns.metrics_port}: {e}")
+        print(f"metrics: {exporter.url}/metrics  healthz: "
+              f"{exporter.url}/healthz")
+    try:
+        server = LMServer(
+            model, embed_dim=ns.embed_dim, num_heads=ns.num_heads,
+            num_blocks=ns.num_blocks, t_max=ns.t_max, n_slots=ns.slots,
+            window=ns.window, cache_dtype=torch.float32,
+            temperature=ns.temperature, top_k=ns.top_k or None,
+            eos_id=ns.eos, max_queue_depth=ns.max_queue_depth,
+            max_prefills_per_cycle=ns.max_prefills_per_cycle,
+            logger=logger, prefill_chunk=ns.prefill_chunk or None,
+            kv_dtype=("int8" if ns.kv_dtype == "int8" else None),
+            slo=slo, retry=retry, device=device)
+        if ns.trace:
+            trace = load_trace(ns.trace)
+        else:
+            trace = poisson_trace(
+                ns.requests, rate_per_s=ns.rate, vocab=ns.vocab,
+                t_max=ns.t_max, eos_id=ns.eos,
+                prompt_lens=(2, max(ns.t_max // 4, 2)),
+                budgets=(2, max(ns.t_max // 4, 2)), seed=ns.seed,
+                sampled=ns.temperature > 0.0)
+        print(f"serving {len(trace)} requests on {ns.slots} slots "
+              f"(window {ns.window}, t_max {ns.t_max}, ring "
+              f"{ns.seq_parallel})")
+        crashed = None
+        with Timer("Serving trace", logger=logger), \
+                profile_trace(ns.profile_dir):
+            try:
+                results = server.run(trace, realtime=ns.realtime)
+            except InjectedEngineCrash as e:
+                # the failure cleanup already recorded every in-flight
+                # request as an error Result
+                crashed = e
+                results = server.results()
+        if crashed is not None:
+            print(f"engine crashed mid-run (injected): {crashed}")
+        n_ok = sum(r.status == "ok" for r in results)
+        summary = server.summary()
+        print(f"served: ok={n_ok} timeout={summary['serve_timed_out']} "
+              f"rejected={summary['serve_rejected']} "
+              f"tokens={summary['serve_tokens']}")
+        # p95 TTFT = queue wait (add slots, shed load) + prefill compute
+        # (shrink prompts, chunk smaller)
+        if summary.get("serve_ttft_ms_p95") is not None:
+            print(f"ttft p95 {summary['serve_ttft_ms_p95']} ms = "
+                  f"queue-wait {summary['serve_queue_wait_ms_p95']} ms + "
+                  f"prefill {summary['serve_prefill_ms_p95']} ms (p95s)")
+        if slo is not None:
+            names = sorted({a["slo"] for a in slo.alerts})
+            print(f"slo: {len(slo.alerts)} alert(s)"
+                  + (f" ({', '.join(names)})" if names else ""))
+        if retry is not None or summary["serve_slot_faults"]:
+            print(f"resilience: injected="
+                  f"{summary['serve_faults_injected']}"
+                  f" slot_faults={summary['serve_slot_faults']}"
+                  f" retries={summary['serve_retries']}"
+                  f" shed={summary['serve_shed']}"
+                  f" clamped={summary['serve_clamped']}")
+        print("serve summary:", json.dumps(summary))
+        if logger is not None:
+            logger.log(event="serve_summary", **summary)
+        server.close()
+        _log_snapshot(logger)
+    finally:
+        if exporter is not None:
+            exporter.close()
+        if logger is not None:
+            logger.close()
+
+
 def _run_stats(ns):
     """Offline run-log rollup (``observe/stats.py``) of any jsonl either
     package writes: run.jsonl, profile.jsonl, a tracer's span export."""
@@ -1619,8 +1928,8 @@ def _run_profile(ns):
     from idc_models_tpu_torch.observe import profile as prof
 
     if ns.model == "serve":
-        sys.exit("profile --model serve: the serving engine is not ported "
-                 "yet (ROADMAP A9)")
+        sys.exit("profile --model serve: its verify program and draft "
+                 "LM are not ported yet (ROADMAP A9.3)")
     if ns.steps is not None and ns.steps < 1:
         sys.exit(f"profile: --steps {ns.steps} must be >= 1")
     if ns.batch_size is not None and ns.batch_size < 1:

@@ -37,17 +37,19 @@ from each leaf's resolved spec:
 
 `Generator` serves the same parameters: a bucketed ring prefill over
 the prompt (the ring of the config's ``block_impl``; "pallas" runs the
-flash block-update kernel) that fills one KV cache per block, then a
-decode loop of one-token steps through `ring_decode`. The JAX package
-fuses the decode loop into one ``lax.scan`` dispatch; here it is a
-Python loop over the positions, eager PyTorch. Greedy decoding
-(temperature 0) is deterministic; sampling draws from an explicit
-``torch.Generator``, whose stream is not JAX's. Its prefill and decode
-record ``lm.prefill`` / ``lm.decode`` spans while a tracer is armed, and
-`Generator.program_costs` accounts both programs
-(``observe/profile.py``). Left out so far (ROADMAP A9): chunked prefill
-(``prefill_chunk``), serving under partition rules (the Generator
-holds the whole tree) and the adapter hook.
+flash block-update kernel) that fills one KV cache per block, or with
+``prefill_chunk=C`` the chunk program C tokens at a time
+(`chunked_prefill`), then a decode loop of one-token steps through
+`ring_decode`. The JAX package fuses the decode loop into one
+``lax.scan`` dispatch; here it is a Python loop over the positions,
+eager PyTorch. Greedy decoding (temperature 0) is deterministic;
+sampling draws from an explicit ``torch.Generator``, whose stream is
+not JAX's. Its prefill and decode record ``lm.prefill`` / ``lm.decode``
+spans while a tracer is armed, and `Generator.program_costs` accounts
+both programs (``observe/profile.py``). The serving engine
+(``serve/engine.py``) runs the same prefill, per-token forward and pick.
+Left out so far: serving under partition rules (the Generator holds the
+whole tree; ROADMAP A9-dist) and the adapter hook (A9.4).
 """
 
 from __future__ import annotations
@@ -71,7 +73,9 @@ from idc_models_tpu_torch.observe import trace
 from idc_models_tpu_torch.ring_attention import (
     from_zigzag, local_shard, make_ring_attention, to_zigzag,
 )
-from idc_models_tpu_torch.ring_decode import init_cache, make_ring_decode
+from idc_models_tpu_torch.ring_decode import (
+    init_cache, make_chunk_ring_decode, make_ring_decode,
+)
 
 
 class AttentionLM(nn.Module):
@@ -401,6 +405,19 @@ def prefill_buckets(t_max: int, n_ring: int) -> tuple[int, ...]:
     return tuple(out)
 
 
+def check_prefill_chunk(chunk: int, t_max: int) -> int:
+    """The one chunk-length contract: chunks tile the cache exactly, so
+    chunk k starts at k*chunk and never hangs past t_max (the ragged
+    last chunk is cut by its true end, not by a different shape)."""
+    chunk = int(chunk)
+    if not 1 <= chunk <= t_max:
+        raise ValueError(f"prefill_chunk {chunk} outside [1, {t_max}]")
+    if t_max % chunk:
+        raise ValueError(f"prefill_chunk {chunk} must divide t_max "
+                         f"{t_max} so chunk boundaries tile the cache")
+    return chunk
+
+
 def _pad_prompt(tokens: torch.Tensor, t_max: int, n_ring: int):
     """[B, P] -> ([B, bucket] zero-padded, true length P). Causality keeps
     the pad tokens from reaching any real position."""
@@ -469,17 +486,36 @@ def _token_forward(cfg: _ServeConfig, model: AttentionLM, caches, tok, pos,
     """One token per row through every block: embed (+ position), then
     per block [pre-LN -> q/k/v of this token -> cache fold ->
     out-projection residual -> pre-LN MLP residual], final LN, vocab
-    head. ``fold(kc, vc, q, k, v) -> (o, kc, vc)`` is the cache fold."""
+    head. `pos` is an int or one position per row [B];
+    ``fold(i, kc, vc, q, k, v) -> (o, kc, vc)`` is block i's cache fold."""
     b = tok.shape[0]
     h = model.embed[tok] + model.pos[pos]                   # [B, E]
     new_caches = []
-    for blk, (kc, vc) in zip(model.blocks, caches):
+    for i, (blk, (kc, vc)) in enumerate(zip(model.blocks, caches)):
         q, k, v = _project_qkv(cfg, blk, h, (1,))
-        o, kc, vc = fold(kc, vc, q, k, v)
+        o, kc, vc = fold(i, kc, vc, q, k, v)
         h = _attn_residual(blk, h, o.reshape(b, cfg.embed_dim))
         h = _mlp_residual(blk, h)
         new_caches.append((kc, vc))
     return _final_logits(model, h), tuple(new_caches)
+
+
+def _chunk_forward(cfg: _ServeConfig, model: AttentionLM, caches, tokens,
+                   start: int, p_end: int, fold):
+    """One prompt chunk [B, C] at positions [start, start + C) through
+    every block: `_token_forward` widened to C positions, with the chunk
+    fold in place of the one-token fold. Returns the logits of the last
+    REAL position (p_end - 1) and the extended caches."""
+    b, c = tokens.shape
+    h = model.embed[tokens] + model.pos[start:start + c]    # [B, C, E]
+    new_caches = []
+    for blk, (kc, vc) in zip(model.blocks, caches):
+        q, k, v = _project_qkv(cfg, blk, h, (c,))
+        o, kc, vc = fold(kc, vc, q, k, v, start, p_end)
+        h = _attn_residual(blk, h, o.reshape(b, c, cfg.embed_dim))
+        h = _mlp_residual(blk, h)
+        new_caches.append((kc, vc))
+    return _final_logits(model, h[:, p_end - start - 1]), tuple(new_caches)
 
 
 def _prefill(cfg: _ServeConfig, model: AttentionLM, ring, tokens, p_len):
@@ -529,13 +565,18 @@ class Generator:
     greedy argmax; ``temperature > 0`` samples (``rng``, a
     ``torch.Generator``, required), optionally from the ``top_k`` most
     likely tokens. The Generator owns the positions: `__call__`/`decode`
-    reject any request past `t_max` before any work is done."""
+    reject any request past `t_max` before any work is done.
+
+    ``prefill_chunk=C`` prefills through the chunk program, C tokens at a
+    time (`chunked_prefill`), the path a chunked serving engine admits
+    through; None keeps the one bucketed ring prefill."""
 
     def __init__(self, params_or_module, *, embed_dim: int, num_heads: int,
                  num_blocks: int, t_max: int,
                  cache_dtype: torch.dtype = torch.bfloat16,
                  block_impl: str = "jnp", temperature: float = 0.0,
-                 top_k: int | None = None, device=None):
+                 top_k: int | None = None,
+                 prefill_chunk: int | None = None, device=None):
         tree = (convert.to_jax(params_or_module)[0]
                 if isinstance(params_or_module, nn.Module)
                 else params_or_module)
@@ -549,9 +590,12 @@ class Generator:
                 self.device).eval()
         self._ring = make_ring_attention(causal=True, block_impl=block_impl)
         self._fold = make_ring_decode()
+        self._chunk_fold = make_chunk_ring_decode()
         self._pick = _make_pick(self._cfg)
         self.t_max = t_max
         self.temperature = float(temperature)
+        self.prefill_chunk = (None if prefill_chunk is None
+                              else check_prefill_chunk(prefill_chunk, t_max))
 
     def init_caches(self, batch: int):
         """Fresh zeroed caches, one (k, v) pair per block."""
@@ -566,12 +610,27 @@ class Generator:
         """Prompt [B, P] -> (last-position logits [B, vocab], caches). The
         prompt is padded to its prefill bucket (`prefill_bucket`); with
         ``block_impl="pallas"`` a bucket under 128 raises, as the kernel
-        needs T a multiple of 128."""
+        needs T a multiple of 128. With `prefill_chunk` the prompt runs
+        through the chunk program instead, ceil(P / C) chunks extending
+        fresh caches (no flash kernel)."""
         tokens = _check_prompt(prompt, self.t_max)
+        if self.prefill_chunk is not None:
+            with trace.span("lm.prefill", p_len=tokens.shape[1],
+                            chunk=self.prefill_chunk):
+                return chunked_prefill(self, tokens, self.prefill_chunk)
         padded, p_len = _pad_prompt(tokens, self.t_max, 1)
         with trace.span("lm.prefill", p_len=p_len, bucket=padded.shape[1]):
             return _prefill(self._cfg, self._model, self._ring,
                             padded.to(self.device), p_len)
+
+    @torch.no_grad()
+    def prefill_chunk_step(self, caches, tokens, start: int, p_end: int):
+        """One chunk [B, C] at positions [start, start + C), real below
+        `p_end`, through every block, extending `caches` in place:
+        (logits of position p_end - 1, caches)."""
+        return _chunk_forward(self._cfg, self._model, caches,
+                              _as_tokens(tokens).to(self.device), start,
+                              p_end, self._chunk_fold)
 
     @torch.no_grad()
     def decode(self, caches, logits, pos0: int, steps: int, *, rng=None):
@@ -599,8 +658,8 @@ class Generator:
                 tok = self._pick(logits, rng)
                 logits, caches = _token_forward(
                     cfg, model, caches, tok, pos,
-                    lambda kc, vc, q, k, v, pos=pos: fold(kc, vc, q, k, v,
-                                                          pos))
+                    lambda _i, kc, vc, q, k, v, pos=pos: fold(
+                        kc, vc, q, k, v, pos))
                 toks.append(tok)
         return torch.stack(toks, 1), logits, caches
 
@@ -650,6 +709,29 @@ class Generator:
             "lm.decode", self.decode, caches, logits, 0, steps, rng=rng,
             arguments=(self._model,))
         return {"lm.prefill": prefill, "lm.decode": decode}
+
+
+def chunked_prefill(gen: Generator, tokens, chunk: int, caches=None,
+                    start: int = 0):
+    """Drive `gen`'s chunk program over ``tokens[:, start:]``: ceil((P -
+    start) / chunk) chunks, each extending the previous one's caches in
+    place. `caches=None` starts from fresh zeroed caches; caches with a
+    chunk-aligned `start` resume a prefix already in them. Returns (the
+    last real position's logits, caches)."""
+    tokens = _as_tokens(tokens)
+    b, p_len = tokens.shape
+    if start % chunk or not 0 <= start < p_len:
+        raise ValueError(f"chunk resume start {start} must be a chunk "
+                         f"multiple inside the prompt (P={p_len})")
+    if caches is None:
+        caches = gen.init_caches(b)
+    logits = None
+    for c0 in range(start, p_len, chunk):
+        end = min(c0 + chunk, p_len)
+        padded = torch.zeros((b, chunk), dtype=torch.long)
+        padded[:, :end - c0] = tokens[:, c0:end]
+        logits, caches = gen.prefill_chunk_step(caches, padded, c0, end)
+    return logits, caches
 
 
 def generate(params, prompt, steps: int, *, embed_dim: int, num_heads: int,

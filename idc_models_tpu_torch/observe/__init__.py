@@ -3,6 +3,7 @@ stats, performance attribution, timers and the jsonl run log (the
 counterpart of ``idc_models_tpu/observe``)."""
 
 from idc_models_tpu_torch.observe import profile, trace  # noqa: F401
+from idc_models_tpu_torch.observe.exporter import MetricsExporter
 from idc_models_tpu_torch.observe.logging import JsonlLogger
 from idc_models_tpu_torch.observe.metrics_registry import (
     REGISTRY, Counter, Gauge, Histogram, MetricsRegistry, default_registry,
@@ -24,7 +25,7 @@ from idc_models_tpu_torch.observe.trace import (
 
 __all__ = [
     "CompileWatchdog", "Counter", "DeviceTimeline", "Gauge", "Histogram",
-    "JsonlLogger", "MetricsRegistry", "ProgramCost", "REGISTRY",
+    "JsonlLogger", "MetricsExporter", "MetricsRegistry", "ProgramCost", "REGISTRY",
     "RooflineSpec", "SLO", "SLOEngine", "Timer", "Tracer", "arm_watchdog",
     "default_registry", "disarm_watchdog", "format_request_timeline",
     "format_summary", "get_tracer", "plot_history", "profile",

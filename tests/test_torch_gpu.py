@@ -1152,3 +1152,117 @@ def test_sharded_lm_on_a_one_rank_nccl_group_matches_the_plain_lm(
         dist.destroy_process_group()
     np.testing.assert_allclose(runs["plan"][0], runs["plain"][0], rtol=1e-5)
     assert runs["plan"][1] == runs["plain"][1] == [4, 4, 4]
+
+
+# -- serving (ring_decode.py's batched and chunk folds, serve/engine.py) ---
+
+def _fold_inputs(b, t, h, d, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(*shape, generator=g) for shape in
+            ((b, t, h, d), (b, t, h, d), (b, 1, h, d), (b, 1, h, d),
+             (b, 1, h, d))]
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["f32", "int8"])
+def test_batched_fold_on_the_card_matches_the_cpu(cuda, quantized):
+    """The batched fold at 4 rows (two live, one dead mid-cache, one
+    dead at pos == t_max) on the card against the CPU: outputs of the
+    live rows and both caches (int8 appends bit for bit), the dead rows'
+    cache rows untouched."""
+    from idc_models_tpu_torch import ring_decode as tdecode
+
+    b, t, h, d = 4, 256, 8, 64
+    kc, vc, q, k, v = _fold_inputs(b, t, h, d, 0)
+    scales = ()
+    if quantized:
+        kc, vc = (torch.clamp(torch.round(x * 40), -127, 127).to(torch.int8)
+                  for x in (kc, vc))
+        scales = (torch.rand(b, h) * 0.02 + 0.005,
+                  torch.rand(b, h) * 0.02 + 0.005)
+    pos = torch.tensor([0, 200, 17, t])
+    live = torch.tensor([True, True, False, False])
+    fold = tdecode.make_batched_ring_decode(quantized=quantized)
+    want = fold(kc.clone(), vc.clone(), q, k, v, pos, live, *scales)
+    got = fold(kc.cuda(), vc.cuda(), q.cuda(), k.cuda(), v.cuda(),
+               pos.cuda(), live.cuda(), *(s.cuda() for s in scales))
+    torch.testing.assert_close(got[0].cpu()[live], want[0][live], **F32_TOL)
+    for g, w, before in zip(got[1:], want[1:], (kc, vc)):
+        if quantized:
+            assert torch.equal(g.cpu(), w)
+        else:
+            torch.testing.assert_close(g.cpu(), w, **F32_TOL)
+        assert torch.equal(g.cpu()[~live], before[~live])
+
+
+def test_chunk_fold_on_the_card_matches_the_cpu(cuda):
+    """A ragged chunk (64 of 128 positions real) at 256 over a 1,024-slot
+    cache: the real queries' outputs and both caches."""
+    from idc_models_tpu_torch import ring_decode as tdecode
+
+    g = torch.Generator().manual_seed(1)
+    kc, vc = (torch.randn(2, 1024, 8, 64, generator=g) for _ in range(2))
+    q, k, v = (torch.randn(2, 128, 8, 64, generator=g) for _ in range(3))
+    fold = tdecode.make_chunk_ring_decode()
+    want = fold(kc.clone(), vc.clone(), q, k, v, 256, 320)
+    got = fold(kc.cuda(), vc.cuda(), q.cuda(), k.cuda(), v.cuda(), 256, 320)
+    torch.testing.assert_close(got[0].cpu()[:, :64], want[0][:, :64],
+                               **F32_TOL)
+    for gc, wc in zip(got[1:], want[1:]):
+        torch.testing.assert_close(gc.cpu(), wc, **F32_TOL)
+
+
+def test_engine_greedy_on_the_card_meets_the_serial_contract(cuda):
+    """A 4-slot engine (f32 caches) serving six requests with recycling,
+    windows of one step, against each request alone through the serial
+    Generator on the card: every step's logits within 1e-5 of the
+    largest |logit|, tokens equal up to the first step where the serial
+    top-2 margin falls below that; prints whether any bit differed."""
+    from idc_models_tpu_torch.models.lm import AttentionLM, Generator
+    from idc_models_tpu_torch.serve import SlotEngine
+
+    model = core.init_params(AttentionLM(64, 256, embed_dim=128,
+                                         num_heads=4, mlp_dim=256,
+                                         num_blocks=2), 0)
+    kw = dict(embed_dim=128, num_heads=4, num_blocks=2, t_max=256,
+              cache_dtype=torch.float32, device="cuda")
+    eng, gen = SlotEngine(model, n_slots=4, **kw), Generator(model, **kw)
+    g = torch.Generator().manual_seed(2)
+    prompts = [torch.randint(0, 64, (int(n),), generator=g).tolist()
+               for n in torch.randint(5, 120, (6,), generator=g)]
+    budgets = [int(n) for n in torch.randint(8, 40, (6,), generator=g)]
+    queue, slot_of = list(range(6)), {}
+    toks = {i: [] for i in queue}
+    seen = {i: [] for i in queue}
+    while queue or slot_of:
+        for s in eng.free_slots():
+            if queue:
+                i = queue.pop(0)
+                eng.admit(s, prompts[i], budgets[i])
+                slot_of[s] = i
+        for s, i in slot_of.items():
+            seen[i].append(eng._logits[s].clone())
+        for s, row in eng.step_window(1).items():
+            toks[slot_of[s]] += row
+        for s in [s for s in slot_of if eng.finished(s)]:
+            eng.release(s)
+            del slot_of[s]
+    held = total = same_bits = 0
+    for i, (p, n) in enumerate(zip(prompts, budgets)):
+        logits, caches = gen.prefill([p])
+        bits = True
+        for j in range(n):
+            scale = float(logits.abs().max())
+            diff = float((seen[i][j] - logits[0]).abs().max())
+            bits &= diff == 0.0
+            assert diff <= 1e-5 * scale, (i, j, diff, scale)
+            top2 = logits[0].topk(2).values
+            total += 1
+            if float(top2[0] - top2[1]) < 1e-5 * scale:
+                total += n - j - 1
+                break
+            tok, logits, caches = gen.decode(caches, logits, len(p) + j, 1)
+            assert toks[i][j] == int(tok[0, 0]), (i, j)
+            held += 1
+        same_bits += bits
+    print(f"engine vs serial on the card: tokens held {held} of {total} "
+          f"steps; logits bit-equal in {same_bits} of 6 requests")

@@ -13,6 +13,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from idc_models_tpu.observe import profile as jprof
@@ -23,6 +24,18 @@ REPO = Path(__file__).resolve().parent.parent
 MOBILE = ["mobile", "--device", "cpu", "--synthetic-examples", "48",
           "--batch-size", "8", "--epochs", "1", "--fine-tune-epochs", "1",
           "--depthwise-impl", "fused", "--seed", "0"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs in several worker processes on a few cores; torch's
+    default of one thread a core oversubscribes them, and its OpenMP
+    barriers then stall the many small ops of these models (a DenseNet
+    test of 10 s took 350 s beside five other workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _quiet(argv):

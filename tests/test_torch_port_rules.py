@@ -22,11 +22,13 @@ from idc_models_tpu_torch.ops import secure_masking_kernel as tsmk
 from idc_models_tpu_torch.train import loop as tloop
 
 REPO = Path(__file__).resolve().parent.parent
-# every module of the port (collectives.py, mesh.py and data/sequences.py
-# among them), the card's smoke script, and the rank processes of the
-# multi-rank ring tests, which must start without JAX
+# every module of the port (collectives.py, mesh.py, data/sequences.py
+# and serve/ among them), the card's smoke script, and the rank processes
+# of the multi-rank ring and distribution tests, which must start
+# without JAX
 PORT_FILES = sorted((REPO / "idc_models_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "tests" / "_torch_ring_worker.py"]
+    REPO / "chip_smoke.py", REPO / "tests" / "_torch_ring_worker.py",
+    REPO / "tests" / "_torch_dist_worker.py"]
 
 
 def _imported_modules(path: Path) -> list[str]:

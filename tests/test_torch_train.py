@@ -33,6 +33,18 @@ from idc_models_tpu_torch.train import metrics as tmetrics
 from idc_models_tpu_torch.train import state as tstate
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs in several worker processes on a few cores; torch's
+    default of one thread a core oversubscribes them, and its OpenMP
+    barriers then stall the many small ops of these models (a DenseNet
+    test of 10 s took 350 s beside five other workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tiny_classifier():
     return tcore.init_params(
         tcore.Classifier(tcore.Conv2d(3, 4, 3, name="stem"), 4, 1), 0)
