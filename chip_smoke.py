@@ -205,6 +205,26 @@ non-zero before the result line:
    prefill ms at the 4,096 and 16,384 buckets; (k5) `cli.main(["serve",
    ...])` at that width (t_max 1,024) with --metrics-port 0, scraped
    while it serves, no kernel launched;
+13. paged -- right after serve, paged KV and the prefix cache at that
+   width (bf16 pools of 256-token pages, chunks of 512), each run with
+   the launch counts set to 0 just before and read just after, no hand
+   kernel launched in any: (m1) LMServer over 16 slots and 512 pages
+   replaying phase 12's trace as a burst, held to the contract against
+   phase 12's chunked Generator reference, every page back at drain
+   (peak pages, live slots, tokens per byte and page exhaustions
+   printed), then the window at 16 and at 8 live slots beside phase
+   12's contiguous one; (m2) int8 pages: every request ok, the first 4
+   requests run twice give equal tokens, a one-page request's logits
+   at each of 32 decode steps, all appended into a decode page stamped
+   at admission, within INT8_DRIFT of (m1)'s, the page bytes' ratio;
+   (m3) a paged
+   prefix cache and (m4) a contiguous one over 12 requests sharing an
+   8,192-token system prompt: 11 hits, each paged hit request granted
+   at least 32 fewer fresh pages, the contiguous snapshot cut to its prefix, two hits'
+   logits bit-equal to cold prefills, TTFT of the cold request and of
+   the hits; (m5) `cli.main(["serve", ...])` with pages and a prefix
+   cache, its `paged kv:` and `prefix cache:` lines and the page gauges
+   in both scrapes;
 
 then one JSON line of per-kernel numbers, and the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}`.
@@ -1640,14 +1660,15 @@ def held_steps(torch, got, want, seen, states, pick=None):
     return len(want), False
 
 
-def serve_once(torch, fc, smk, fbk, model, trace, **kw) -> tuple:
+def serve_once(torch, fc, smk, fbk, model, trace, n_slots=SERVE_SLOTS,
+               **kw) -> tuple:
     """LMServer over `trace` as a burst, every launch count set to 0 just
     before and read just after: (server, results, flash launches,
     seconds)."""
     from idc_models_tpu_torch.observe import MetricsRegistry
     from idc_models_tpu_torch.serve import LMServer
 
-    server = LMServer(model, n_slots=SERVE_SLOTS, window=SERVE_WINDOW,
+    server = LMServer(model, n_slots=n_slots, window=SERVE_WINDOW,
                       registry=MetricsRegistry(), **serve_kw(**kw))
     torch.cuda.synchronize()
     zero_counts(fc, smk, fbk)
@@ -1691,7 +1712,51 @@ def serve_case(torch, fc, smk, fbk, model, name, trace, want_launches,
     return server, summary, launches
 
 
-def serve_times(torch, fbk, server, gen, card: str) -> None:
+# the timed windows: each live slot admitted with a prompt of this many
+# tokens and this budget
+WINDOW_PROMPT, WINDOW_BUDGET = 1024, 512
+
+
+def window_times(torch, eng, live: int, card: str, what: str) -> float:
+    """The window at `live` live slots of `eng` (each admitted with a
+    WINDOW_PROMPT-token prompt and a budget of WINDOW_BUDGET): host ms a
+    window over 5
+    windows ending in a synchronize, ms a step, decode tokens/s, peak
+    memory, and one profiled window (device busy, idle share, kernels a
+    step). Returns the ms a step."""
+    rng = np.random.default_rng(1)
+    for slot in range(live):
+        eng.admit(slot, rng.integers(0, LM["vocab"], WINDOW_PROMPT),
+                  WINDOW_BUDGET)
+    eng.step_window(SERVE_WINDOW)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n = 5
+    t0 = time.perf_counter()
+    for _ in range(n):
+        if len(sum(eng.step_window(SERVE_WINDOW).values(), [])) != \
+                live * SERVE_WINDOW:
+            raise SystemExit(f"{what}: a steady window emitted short")
+    torch.cuda.synchronize()
+    window_s = (time.perf_counter() - t0) / n
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    prof = profiled(torch, lambda: eng.step_window(SERVE_WINDOW), n=1,
+                    kernel="elementwise")
+    for slot in range(live):
+        eng.release(slot)
+    step_ms = window_s * 1e3 / SERVE_WINDOW
+    layout = (f"{eng.kv_pages} pages of {eng.kv_page_size}" if eng.paged
+              else "rows")
+    log(f"{what}: {live} live slots of {eng.n_slots} (t_max {eng.t_max}, "
+        f"{eng._cfg.cache_dtype} {layout}, windows of {SERVE_WINDOW}): "
+        f"{window_s * 1e3!r} ms a window, {step_ms!r} "
+        f"ms a step, {live * SERVE_WINDOW / window_s!r} decode tokens/s; "
+        f"peak memory {peak!r} MiB; one window ({SERVE_WINDOW} steps): "
+        f"{prof}; {card}")
+    return step_ms
+
+
+def serve_times(torch, fbk, server, gen, card: str) -> float:
     """Serving times at the (k1) configuration: TTFT (queue wait +
     prefill) from the run's summary; at 8 live slots, the window's host
     ms a step, decode tokens/s, device busy, idle share, kernels a step
@@ -1705,30 +1770,9 @@ def serve_times(torch, fbk, server, gen, card: str) -> None:
         f"{s['serve_prefill_ms_p50']!r} / p95 {s['serve_prefill_ms_p95']!r} "
         f"ms; {s['serve_tokens_per_sec']!r} tokens/s over the run; "
         f"inter-token p50 {s['serve_token_ms_p50']!r} ms; {card}")
-    eng = server.engine
+    step_ms = window_times(torch, server.engine, SERVE_SLOTS, card,
+                           "serve steady state")
     rng = np.random.default_rng(1)
-    for slot in range(SERVE_SLOTS):
-        eng.admit(slot, rng.integers(0, LM["vocab"], 1024), 512)
-    eng.step_window(SERVE_WINDOW)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    n = 5
-    t0 = time.perf_counter()
-    for _ in range(n):
-        if len(sum(eng.step_window(SERVE_WINDOW).values(), [])) != \
-                SERVE_SLOTS * SERVE_WINDOW:
-            raise SystemExit("serve: a steady window emitted short")
-    window_s = (time.perf_counter() - t0) / n
-    peak = torch.cuda.max_memory_allocated() / 2**20
-    prof = profiled(torch, lambda: eng.step_window(SERVE_WINDOW), n=1,
-                    kernel="elementwise")
-    log(f"serve steady state (8 live slots, t_max {SERVE_T_MAX}, bf16 "
-        f"caches, windows of {SERVE_WINDOW}): {window_s * 1e3!r} ms a "
-        f"window, {window_s * 1e3 / SERVE_WINDOW!r} ms a step, "
-        f"{SERVE_SLOTS * SERVE_WINDOW / window_s!r} decode tokens/s; peak "
-        f"memory {peak!r} MiB; one window (16 steps): {prof}; {card}")
-    for slot in range(SERVE_SLOTS):
-        eng.release(slot)
     for p_len in (4096, 16384):
         prompt = rng.integers(0, LM["vocab"], (1, p_len))
         gen.prefill(prompt)
@@ -1742,12 +1786,18 @@ def serve_times(torch, fbk, server, gen, card: str) -> None:
         log(f"serve prefill warm (pallas, bf16 cache) at bucket {p_len}: "
             f"median {float(np.median(ms))!r} ms of {sorted(ms)} (host "
             f"clock, each ending in a synchronize); {card}")
+    return step_ms
 
 
-def serve_cli(torch, fc, smk, fbk, card: str) -> tuple:
-    """(k5) `cli.main(["serve", ...])` at the serving width, 16 requests,
-    --metrics-port 0, --realtime: one scrape of /metrics and one of
-    /healthz while it serves; no kernel launches."""
+def serve_cli(torch, fc, smk, fbk, card: str, name: str = "(k5)",
+              flags=(), ready=lambda health: True, lines_wanted=(),
+              metrics_wanted=(b"serve_requests_submitted_total",)) -> tuple:
+    """`cli.main(["serve", ...])` at the serving width, 16 requests,
+    --metrics-port 0, --realtime, plus `flags`: one scrape of /healthz
+    once the scheduler has ticked and `ready(health)` holds, then one of
+    /metrics, while it serves; every request ok, the output lines
+    starting with each of `lines_wanted`, /metrics holding each of
+    `metrics_wanted`; no kernel launches. (k5) is the plain verb."""
     import contextlib
     import io
     import re
@@ -1761,7 +1811,8 @@ def serve_cli(torch, fc, smk, fbk, card: str) -> tuple:
             "--mlp-dim", str(LM["mlp_dim"]), "--num-blocks",
             str(LM["num_blocks"]), "--t-max", str(SERVE_CLI_T_MAX),
             "--slots", str(SERVE_SLOTS), "--window", str(SERVE_WINDOW),
-            "--requests", "16", "--realtime", "--metrics-port", "0"]
+            "--requests", "16", "--realtime", "--metrics-port", "0",
+            *flags]
     out, rc = io.StringIO(), []
 
     def run():
@@ -1780,7 +1831,8 @@ def serve_cli(torch, fc, smk, fbk, card: str) -> tuple:
             with urllib.request.urlopen(m.group(1) + "/healthz",
                                         timeout=30) as r:
                 scraped["/healthz"] = (r.status, r.read())
-            if json.loads(scraped["/healthz"][1])["last_tick_age_s"] is None:
+            health = json.loads(scraped["/healthz"][1])
+            if health["last_tick_age_s"] is None or not ready(health):
                 time.sleep(0.01)
                 continue
             with urllib.request.urlopen(m.group(1) + "/metrics",
@@ -1797,24 +1849,25 @@ def serve_cli(torch, fc, smk, fbk, card: str) -> tuple:
         if not line.startswith("serve summary:"):
             log(f"  serve | {line}")
     if worker.is_alive() or rc != [0]:
-        raise SystemExit(f"serve verb: rc {rc}, still running "
+        raise SystemExit(f"serve verb {name}: rc {rc}, still running "
                          f"{worker.is_alive()}")
-    if not any(line.startswith("served: ok=16 ") for line in lines):
-        raise SystemExit("serve verb: not every request was ok")
+    for want in ("served: ok=16 ", *lines_wanted):
+        if not any(line.startswith(want) for line in lines):
+            raise SystemExit(f"serve verb {name}: no line {want!r}")
     health = json.loads(scraped.get("/healthz", (0, b"{}"))[1] or b"{}")
     if (scraped.get("/metrics", (0,))[0] != 200
-            or b"serve_requests_submitted_total" not in
-            scraped["/metrics"][1] or health.get("status") != "ok"):
-        raise SystemExit(f"serve verb: scrapes {scraped}")
+            or not all(w in scraped["/metrics"][1] for w in metrics_wanted)
+            or health.get("status") != "ok" or not ready(health)):
+        raise SystemExit(f"serve verb {name}: scrapes {scraped}")
     if any(launches):
-        raise SystemExit(f"serve verb launched kernels {launches}")
-    log(f"serve (k5): cli.main({' '.join(argv)}) in {seconds!r} s; /metrics "
-        f"{len(scraped['/metrics'][1])} bytes, /healthz {health}; no kernel "
-        f"launched; {card}")
+        raise SystemExit(f"serve verb {name} launched kernels {launches}")
+    log(f"serve {name}: cli.main({' '.join(argv)}) in {seconds!r} s; "
+        f"/metrics {len(scraped['/metrics'][1])} bytes, /healthz {health}; "
+        f"no kernel launched; {card}")
     return (0, 0, 0)
 
 
-def serve_path(torch, fc, smk, fbk, card: str) -> dict:
+def serve_path(torch, fc, smk, fbk, card: str, memo: dict) -> dict:
     """Phase 12: (k1) LMServer(block_impl="pallas", bf16 caches, 8 slots,
     windows of 16) replaying the 24-request trace as a burst, greedy, B3
     launched once a block a prefill (48) and no backward kernel; (k2) the
@@ -1823,7 +1876,10 @@ def serve_path(torch, fc, smk, fbk, card: str) -> dict:
     Generator(prefill_chunk=512); (k4) sampled (temperature 0.8, top-k
     50, seeded requests) against the serial sampled Generator; every
     request ok and held to the engine-against-serial contract; then the
-    times; (k5) the `serve` verb. Returns B3's serve launches by run."""
+    times; (k5) the `serve` verb. Returns B3's serve launches by run, and
+    leaves in `memo` the chunked Generator's reference for each request
+    of the trace ("chunked") and the window's ms a step at 8 live slots
+    ("step_ms"), which phase 13 reuses."""
     from idc_models_tpu_torch.models.lm import Generator, _make_pick
     from idc_models_tpu_torch.serve import SlotEngine, poisson_trace
 
@@ -1848,9 +1904,15 @@ def serve_path(torch, fc, smk, fbk, card: str) -> dict:
         kv_dtype="int8", **bf16)
     del one
     chunked = Generator(model, prefill_chunk=SERVE_CHUNK, **serve_kw(**bf16))
+    refs = memo["chunked"] = {}
+
+    def chunked_ref(req):
+        refs[req.id] = serial_steps(chunked, req.prompt, req.max_new_tokens)
+        return refs[req.id]
+
     _, _, out["k3"] = serve_case(
         torch, fc, smk, fbk, model, f"(k3) chunk {SERVE_CHUNK}", trace,
-        (0, 0, 0), serial(chunked), card, prefill_chunk=SERVE_CHUNK,
+        (0, 0, 0), chunked_ref, card, prefill_chunk=SERVE_CHUNK,
         max_prefills_per_cycle=SERVE_CHUNK_PREFILLS, **bf16)
     del chunked
     sampled = dict(temperature=SERVE_TEMPERATURE, top_k=SERVE_TOP_K)
@@ -1865,12 +1927,312 @@ def serve_path(torch, fc, smk, fbk, card: str) -> dict:
         card, pick=_make_pick(sgen._cfg), **bf16, **sampled)
     del sgen
     torch.cuda.empty_cache()
-    serve_times(torch, fbk, k1, gen, card)
+    memo["step_ms"] = serve_times(torch, fbk, k1, gen, card)
     del k1, gen
     torch.cuda.empty_cache()
     out["k5"] = serve_cli(torch, fc, smk, fbk, card)
     log(f"phase 12 (serve) took {time.perf_counter() - t_start!r} s")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 13: paged KV and the prefix cache (serve/pages.py, prefix_cache.py)
+# ---------------------------------------------------------------------------
+
+# phase 12's model, bf16 pools of 256-token pages (1 MiB a page over both
+# blocks' K and V), chunks of 512 (32 a cycle). (m1)/(m2): 16 slots over
+# 512 pages -- 131,072 tokens, 512 MiB, half of phase 12's 8-slot
+# contiguous reservation -- replaying phase 12's trace
+PAGE_SIZE, PAGED_SLOTS, PAGED_POOL = 256, 16, 512
+# (m3)/(m4): 12 requests sharing an 8,192-token system prompt (16 chunks,
+# 32 pages), each with its own 128-1,024 tokens and a budget of 16-64,
+# seed 0; the first served alone, then the other 11 as a burst, on 8
+# slots; the paged cache's budget is 64 MB, the contiguous one's 512 MB
+PREFIX_LEN, PREFIX_N, PREFIX_SLOTS = 8192, 12, 8
+PREFIX_TAILS, PREFIX_BUDGETS = (128, 1024), (16, 64)
+# int8 pages against bf16 ones: a request's logits at each decode step
+# within this share of max |logit| (tests/test_paged_kv.py bars 0.35;
+# an H100 gave 0.0030 after 4 steps), and the bytes of a bf16 page
+# over an int8 one (with its scales) at least this
+INT8_DRIFT, INT8_PAGE_RATIO = 0.05, 1.99
+# the drift request: a one-page prompt, so each of these decode steps
+# appends into the first decode page, whose scale was stamped at
+# admission (a stamp 10x too small, or 0, drifts 0.10-0.15 at a narrow
+# width on the CPU; the right one 0.012)
+INT8_DRIFT_STEPS = 32
+# (m5): the verb at SERVE_CLI_T_MAX over 64 pages of 64 with chunks of
+# 128 and a 16 MB prefix cache
+PAGED_CLI_PAGES = 64
+PAGED_CLI = ("--prefill-chunk", "128", "--kv-page-size", "64", "--kv-pages",
+             str(PAGED_CLI_PAGES), "--prefix-cache-mb", "16")
+
+
+def paged_kw(torch, **kw) -> dict:
+    return dict(block_impl="pallas", cache_dtype=torch.bfloat16,
+                prefill_chunk=SERVE_CHUNK, kv_page_size=PAGE_SIZE,
+                max_prefills_per_cycle=SERVE_CHUNK_PREFILLS, **kw)
+
+
+def prefix_trace():
+    """(m3)/(m4)'s 12 requests: the system prompt and each tail drawn
+    from seed 0."""
+    from idc_models_tpu_torch.serve import Request
+
+    rng = np.random.default_rng(0)
+    system = rng.integers(0, LM["vocab"], PREFIX_LEN).tolist()
+    reqs = []
+    for i in range(PREFIX_N):
+        tail = rng.integers(0, LM["vocab"],
+                            int(rng.integers(PREFIX_TAILS[0],
+                                             PREFIX_TAILS[1] + 1))).tolist()
+        reqs.append(Request(id=f"p{i}", prompt=tuple(system + tail),
+                            max_new_tokens=int(rng.integers(
+                                PREFIX_BUDGETS[0], PREFIX_BUDGETS[1] + 1))))
+    return reqs
+
+
+def no_kernels(fc, smk, fbk, what: str) -> None:
+    """Fail when any hand kernel launched since the counts were set to
+    0."""
+    launches = flash_counts(fbk) + (fc.KERNEL.launches, smk.KERNEL.launches)
+    if any(launches):
+        raise SystemExit(f"{what}: kernel launches {launches}")
+
+
+def int8_drift(eng, i8, prompt) -> list:
+    """`prompt` alone through the bf16 engine `eng` and the int8 engine
+    `i8`, one step a window: each step's max |logit difference| over
+    the bf16 run's max |logit|, while both runs fed the same tokens (up
+    to and including the first step whose greedy picks differ)."""
+    rels = []
+    for a, b in zip(step_logits(eng, prompt, INT8_DRIFT_STEPS),
+                    step_logits(i8, prompt, INT8_DRIFT_STEPS)):
+        a, b = a.float(), b.float()
+        rels.append(float((a - b).abs().max()) / float(a.abs().max()))
+        if int(a.argmax()) != int(b.argmax()):
+            break
+    return rels
+
+
+def step_logits(eng, prompt, n: int) -> list:
+    """A request alone through slot 0 of `eng`, a step a window: the
+    logits row after its admission and after each step."""
+    eng.admit(0, list(prompt), n)
+    seen = [eng._logits[0].clone()]
+    while not eng.finished(0):
+        eng.step_window(1)
+        seen.append(eng._logits[0].clone())
+    eng.release(0)
+    return seen
+
+
+def prefix_case(torch, fc, smk, fbk, model, name: str, card: str,
+                **kw) -> None:
+    """(m3) or (m4): `prefix_trace()` through an 8-slot server with a
+    prefix cache (the first request alone, the other 11 as a burst), no
+    kernel launched; every request ok, at least 11 hits; on a paged
+    engine only the cache's pages in use at drain, and each hit request,
+    admitted again, granted at least the system prompt's 32 pages fewer
+    fresh pages than a cold admission; on a contiguous one the deepest system snapshot cut to its
+    prefix (32 MiB). Then two more requests on the system prompt, hits
+    on the warm engine, against the same requests cold on a fresh engine
+    without a cache: their logits at admission and after each of 8 steps
+    equal bit for bit. Prints the TTFT of the cold request and the p50
+    of the hits."""
+    from idc_models_tpu_torch.observe import MetricsRegistry
+    from idc_models_tpu_torch.serve import LMServer, Request, SlotEngine
+
+    reqs = prefix_trace()
+    server = LMServer(model, n_slots=PREFIX_SLOTS, window=SERVE_WINDOW,
+                      registry=MetricsRegistry(), **serve_kw(**kw))
+    eng, pc = server.engine, server.engine.prefix_cache
+    torch.cuda.synchronize()
+    zero_counts(fc, smk, fbk)
+    t0 = time.perf_counter()
+    cold = server.run([(0.0, reqs[0])])
+    hot = server.run([(0.0, r) for r in reqs[1:]])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = flash_counts(fbk) + (fc.KERNEL.launches, smk.KERNEL.launches)
+    bad = [r for r in cold + hot if r.status != "ok"]
+    if any(launches) or bad or len(cold + hot) != PREFIX_N:
+        raise SystemExit(f"paged {name}: launches {launches}, not ok "
+                         f"{bad[:3]}")
+    if pc.hits < PREFIX_N - 1:
+        raise SystemExit(f"paged {name}: {pc.hits} prefix hits, expected "
+                         f"at least {PREFIX_N - 1}")
+    sys_pages = PREFIX_LEN // PAGE_SIZE
+    if eng.paged:
+        used = eng.page_stats()["pages_used"]
+        # each hit request admitted again on the warm engine: granted
+        # at least the system prompt's pages fewer fresh pages than a
+        # cold one (more where its own deeper boundary is still cached)
+        grants = []
+        for r in reqs[1:]:
+            eng.start_prefill(0, np.asarray(r.prompt), r.max_new_tokens)
+            grants.append((eng.pages_for_admission(len(r.prompt),
+                                                   r.max_new_tokens),)
+                          + eng.prefill_grant(0))
+            eng.cancel_prefill(0)
+        if (any(g[1] + g[2] != g[0] or g[2] < sys_pages for g in grants)
+                or used != pc.cached_pages()
+                or eng.page_stats()["pages_used"] != used):
+            raise SystemExit(f"paged {name}: grants (cold, fresh, shared) "
+                             f"{grants}; {used} pages used at drain, "
+                             f"{pc.cached_pages()} cached")
+        detail = (f"each of the {len(grants)} hit requests, admitted "
+                  f"again, granted at least {sys_pages} fewer fresh pages "
+                  f"than cold "
+                  f"(grants (cold, fresh, shared) {grants}); at drain "
+                  f"{used} pages used = the cache's {pc.cached_pages()}")
+    else:
+        node = pc._root
+        for i in range(PREFIX_LEN // SERVE_CHUNK):
+            node = node.children[reqs[0].prompt[i * SERVE_CHUNK:
+                                                 (i + 1) * SERVE_CHUNK]]
+        deepest = sum(a.nbytes for kv in node.snapshot[0] for a in kv)
+        want = PREFIX_LEN * 2 * LM["num_blocks"] * LM["embed_dim"] * 2
+        if deepest != want:
+            raise SystemExit(f"paged {name}: the deepest system snapshot "
+                             f"holds {deepest} B of caches, not {want}")
+        detail = (f"the deepest system snapshot {deepest} B of caches "
+                  f"(cut to {PREFIX_LEN} tokens)")
+    hot_ttft = float(np.median([r.ttft_ms for r in hot]))
+    summary = server.summary()
+    log(f"paged {name}: {PREFIX_N} requests ok in {seconds!r} s, no kernel "
+        f"launched; prefix hits {pc.hits}, misses {pc.misses}, evictions "
+        f"{pc.evictions}, {summary['serve_prefix_bytes']} B in "
+        f"{pc.n_snapshots} snapshots; {detail}; TTFT of the cold request "
+        f"{cold[0].ttft_ms!r} ms, p50 of the {len(hot)} hits (a burst) "
+        f"{hot_ttft!r} ms; {card}")
+    rng = np.random.default_rng(1)
+    plain = {k: v for k, v in kw.items() if k != "prefix_cache_mb"}
+    fresh = SlotEngine(model, n_slots=PREFIX_SLOTS, **serve_kw(**{
+        k: v for k, v in plain.items()
+        if k != "max_prefills_per_cycle"}))
+    hits0 = pc.hits
+    for i in range(2):
+        tail = PREFIX_TAILS[0] + i * (PREFIX_TAILS[1] - PREFIX_TAILS[0]) // 3
+        prompt = reqs[0].prompt[:PREFIX_LEN] + tuple(
+            int(x) for x in rng.integers(0, LM["vocab"], tail))
+        warm, coldl = step_logits(eng, prompt, 8), step_logits(fresh,
+                                                               prompt, 8)
+        if not all(torch.equal(a, b) for a, b in zip(warm, coldl)):
+            diff = max(float((a - b).abs().max())
+                       for a, b in zip(warm, coldl))
+            raise SystemExit(f"paged {name}: a hit's logits differ from a "
+                             f"cold prefill's by up to {diff!r}")
+    if pc.hits != hits0 + 2:
+        raise SystemExit(f"paged {name}: the check's requests did not hit")
+    torch.cuda.synchronize()
+    launches = flash_counts(fbk) + (fc.KERNEL.launches, smk.KERNEL.launches)
+    if any(launches):
+        raise SystemExit(f"paged {name}: launches {launches}")
+    log(f"paged {name}: 2 hit requests' logits at admission and after 8 "
+        f"steps equal a cold prefill's on a fresh engine bit for bit; "
+        f"{card}")
+
+
+def paged_path(torch, fc, smk, fbk, card: str, memo: dict) -> None:
+    """Phase 13: (m1) LMServer over a paged engine (16 slots, 512 pages
+    of 256, bf16, chunks of 512) replaying phase 12's trace as a burst,
+    held to the engine-against-serial contract against phase 12's
+    chunked Generator reference, every page back at drain; the window at
+    16 and at 8 live slots beside phase 12's contiguous window; (m2) the
+    same with int8 pages (every request ok, the first 4 run twice give
+    equal tokens, a one-page request's logits over its decode steps
+    within INT8_DRIFT of (m1)'s, the page bytes' ratio); (m3) a paged prefix cache and (m4) a
+    contiguous one (`prefix_case`); (m5) the `serve` verb with pages and
+    a prefix cache. Every run with the launch counts set to 0 just
+    before and read just after: no hand kernel launches on these
+    paths."""
+    from idc_models_tpu_torch.serve import poisson_trace
+
+    t_start = time.perf_counter()
+    tf32_off(torch)
+    model = serve_model(torch)
+    trace = poisson_trace(SERVE_N, **SERVE_TRACE)
+    refs = memo["chunked"]
+    pool = paged_kw(torch, kv_pages=PAGED_POOL)
+    m1, s1, _ = serve_case(torch, fc, smk, fbk, model, "(m1) paged", trace,
+                           (0, 0, 0), lambda req: refs[req.id], card,
+                           n_slots=PAGED_SLOTS, **pool)
+    eng = m1.engine
+    live_peak = round(max(m1.metrics.occupancies) * PAGED_SLOTS)
+    if (eng._alloc.used_count() != 0
+            or not 0 < s1["serve_kv_pages_used_peak"] <= PAGED_POOL):
+        raise SystemExit(f"paged (m1): {eng._alloc.used_count()} pages in "
+                         f"use at drain, peak {s1['serve_kv_pages_used_peak']}")
+    log(f"paged (m1): peak {s1['serve_kv_pages_used_peak']} of "
+        f"{PAGED_POOL} pages, peak {live_peak} concurrent live slots of "
+        f"{PAGED_SLOTS}, resident peak {s1['serve_kv_resident_tokens_peak']} "
+        f"tokens / {s1['serve_kv_resident_bytes_peak']} B "
+        f"(serve_kv_tokens_per_hbm_byte {s1['serve_kv_tokens_per_hbm_byte']}"
+        f"), serve_page_exhaustions {s1['serve_page_exhaustions']}; TTFT "
+        f"p50 {s1['serve_ttft_ms_p50']!r} / p95 {s1['serve_ttft_ms_p95']!r} "
+        f"ms, {s1['serve_tokens_per_sec']!r} tokens/s over the run; {card}")
+    at = {}
+    for live in (PAGED_SLOTS, SERVE_SLOTS):
+        zero_counts(fc, smk, fbk)
+        at[live] = window_times(torch, eng, live, card, "paged (m1) window")
+        no_kernels(fc, smk, fbk, f"paged (m1) window at {live} live slots")
+    at16, at8 = at[PAGED_SLOTS], at[SERVE_SLOTS]
+    log(f"paged (m1) window, ms a step: {at16!r} at {PAGED_SLOTS} live "
+        f"slots, {at8!r} at {SERVE_SLOTS}, against phase 12's contiguous "
+        f"{SERVE_SLOTS}-slot engine {memo['step_ms']!r}; {card}")
+    _, r2, launches, sec = serve_once(torch, fc, smk, fbk, model, trace,
+                                      n_slots=PAGED_SLOTS, kv_dtype="int8",
+                                      **pool)
+    if any(launches):
+        raise SystemExit(f"paged (m2): launches {launches}")
+    twice = []
+    for _ in range(2):
+        i8, got, launches, _ = serve_once(
+            torch, fc, smk, fbk, model, trace[:4], n_slots=PAGED_SLOTS,
+            kv_dtype="int8", **pool)
+        twice.append({r.id: r.tokens for r in got})
+        if any(launches):
+            raise SystemExit(f"paged (m2): launches {launches}")
+    if twice[0] != twice[1]:
+        raise SystemExit("paged (m2): two int8 runs of the first 4 "
+                         "requests gave different tokens")
+    i8 = i8.engine
+    ratio = eng.kv_page_bytes() / i8.kv_page_bytes()
+    prompt = np.random.default_rng(2).integers(0, LM["vocab"],
+                                               PAGE_SIZE).tolist()
+    zero_counts(fc, smk, fbk)
+    rels = int8_drift(eng, i8, prompt)
+    no_kernels(fc, smk, fbk, "paged (m2) drift")
+    # rels[0] is the prefill's; rels[1:] attend to the stamped page
+    if (len(rels) < 2 or max(rels) >= INT8_DRIFT
+            or ratio < INT8_PAGE_RATIO):
+        raise SystemExit(f"paged (m2): drift {rels!r}, page ratio "
+                         f"{ratio!r}")
+    log(f"paged (m2) int8: {len(r2)} requests ok in {sec!r} s, no kernel "
+        f"launched; the first 4 requests run twice: equal tokens; a "
+        f"{PAGE_SIZE}-token prompt's logits over {len(rels) - 1} "
+        f"decode steps into its stamped decode page within {max(rels)!r} "
+        f"of max |logit| of the bf16 pages' (each step {rels!r}; bar "
+        f"{INT8_DRIFT}); page bytes bf16 {eng.kv_page_bytes()} / int8 "
+        f"{i8.kv_page_bytes()} = {ratio!r}; {card}")
+    del m1, eng, i8
+    torch.cuda.empty_cache()
+    prefix_case(torch, fc, smk, fbk, model, "(m3) paged prefix", card,
+                **paged_kw(torch, kv_pages=PAGED_POOL, prefix_cache_mb=64))
+    torch.cuda.empty_cache()
+    prefix_case(torch, fc, smk, fbk, model, "(m4) contiguous prefix", card,
+                block_impl="pallas", cache_dtype=torch.bfloat16,
+                prefill_chunk=SERVE_CHUNK,
+                max_prefills_per_cycle=SERVE_CHUNK_PREFILLS,
+                prefix_cache_mb=512)
+    torch.cuda.empty_cache()
+    serve_cli(torch, fc, smk, fbk, card, name="(m5) paged", flags=PAGED_CLI,
+              ready=lambda health: (health.get("kv_pages_total")
+                                    == PAGED_CLI_PAGES),
+              lines_wanted=("paged kv: ", "prefix cache: "),
+              metrics_wanted=(f"serve_kv_pages_total {PAGED_CLI_PAGES}\n"
+                              .encode(),))
+    log(f"phase 13 (paged) took {time.perf_counter() - t_start!r} s")
 
 
 def flash_bytes_flops(t: int, d: int, h: int, itemsize: int,
@@ -4115,7 +4477,10 @@ def main() -> int:
     backward_memory(torch, tring)
     lm = lm_path(torch, fc, smk, fbk, card)
     serving(torch, fc, smk, fbk, card)
-    served = serve_path(torch, fc, smk, fbk, card)
+    memo = {}
+    served = serve_path(torch, fc, smk, fbk, card, memo)
+    paged_path(torch, fc, smk, fbk, card, memo)
+    del memo
     att = attention_path(torch, fc, smk, fbk, tring, card)
 
     worst = parity(torch, fc, mobilenet)

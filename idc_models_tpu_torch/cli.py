@@ -94,12 +94,17 @@ with one ``metrics_snapshot`` record.
 arrivals) through the continuous-batching server (``serve/``): an LM at
 the given widths, random from --seed or trained --train-steps on the
 counting task, decoding in --slots slots, --window tokens a window, f32
-caches. It prints ``serving N requests on ...``, ``served: ok=...``,
-the TTFT split into queue wait and prefill, and ``serve summary: {...}``;
-``--metrics-port`` serves ``/metrics`` and ``/healthz`` for the run.
+caches (paged with ``--kv-page-size``/``--kv-pages``, a prefix cache
+with ``--prefix-cache-mb``). It prints ``serving N requests on ...``,
+``served: ok=...``, the TTFT split into queue wait and prefill, the
+``prefix cache:`` and ``paged kv:`` lines when those are on, and ``serve
+summary: {...}``; ``--metrics-port`` serves ``/metrics`` and
+``/healthz`` for the run.
 
     python -m idc_models_tpu_torch serve --requests 16 --slots 4 \
         --window 8 --t-max 64 --metrics-port 0
+    python -m idc_models_tpu_torch serve --device cpu --prefill-chunk 8 \
+        --kv-page-size 4 --kv-pages 16 --prefix-cache-mb 4
 
 ``profile --model vgg|mobile|dense|small|lm`` runs a train step at the
 bench batch (``configs.BENCH_TRAIN_CONFIGS``, bf16 for the classifiers)
@@ -137,10 +142,6 @@ from idc_models_tpu_torch.models.core import DEPTHWISE_IMPLS
 # the serve verb's flags of later ROADMAP items: (flag, argparse
 # keywords, label); `_run_serve` refuses any that differs from its default
 _LATER = [
-    ("--prefix-cache-mb", dict(type=float, default=0.0), "A9.2"),
-    ("--kv-page-size", dict(type=int, default=0), "A9.2"),
-    ("--kv-pages", dict(type=int, default=0), "A9.2"),
-    ("--kv-decode-reserve", dict(type=int, default=0), "A9.2"),
     ("--spec-decode", dict(action="store_true"), "A9.3"),
     ("--draft-k", dict(type=int, default=8), "A9.3"),
     ("--ngram-order", dict(type=int, default=3), "A9.3"),
@@ -568,9 +569,33 @@ def _parse(argv):
     sp.add_argument("--prefill-chunk", type=int, default=0,
                     help="chunked prefill: admit prompts C tokens a cycle "
                          "(0 = off; must divide --t-max)")
+    sp.add_argument("--prefix-cache-mb", type=float, default=0.0,
+                    help="radix prefix cache budget in MB (0 = off; "
+                         "needs --prefill-chunk): requests sharing a "
+                         "token prefix reuse chunk-boundary KV "
+                         "snapshots instead of recomputing them")
     sp.add_argument("--kv-dtype", default="bf16", choices=("bf16", "int8"),
                     help="cache K/V storage: int8 rows with per-(slot, "
                          "head) scales, or the float cache")
+    sp.add_argument("--kv-page-size", type=int, default=0,
+                    help="paged KV (0 = off, needs --kv-pages and "
+                         "--prefill-chunk): replace the per-slot "
+                         "[t_max] ring rows with fixed-size cache "
+                         "pages + per-slot page tables, so HBM holds "
+                         "tokens actually resident instead of every "
+                         "slot's worst case. Must divide "
+                         "--prefill-chunk (and t-max)")
+    sp.add_argument("--kv-pages", type=int, default=0,
+                    help="page-pool size for --kv-page-size: the HBM "
+                         "budget in pages, shared by slots and prefix-"
+                         "cache snapshots (pages*size must cover at "
+                         "least one t-max request)")
+    sp.add_argument("--kv-decode-reserve", type=int, default=0,
+                    help="decode tokens PRE-reserved per admission on "
+                         "the paged engine (0 = the full budget, "
+                         "never exhausts mid-decode; smaller admits "
+                         "optimistically and grows grants mid-decode, "
+                         "quarantining honestly on exhaustion)")
     sp.add_argument("--metrics-port", type=int, default=None,
                     help="serve GET /metrics and GET /healthz on "
                          "127.0.0.1:PORT for the run (0 = OS-assigned)")
@@ -1755,6 +1780,33 @@ def _run_serve(ns):
                              or ns.t_max % ns.prefill_chunk):
         sys.exit(f"--prefill-chunk {ns.prefill_chunk} must be >= 1 and "
                  f"divide --t-max {ns.t_max}")
+    if ns.prefix_cache_mb > 0 and not ns.prefill_chunk:
+        sys.exit("--prefix-cache-mb needs --prefill-chunk (snapshots "
+                 "live on chunk boundaries)")
+    if bool(ns.kv_page_size) != bool(ns.kv_pages):
+        sys.exit("paged KV needs BOTH --kv-page-size and --kv-pages "
+                 "(or neither for the contiguous per-slot rows)")
+    if ns.kv_page_size:
+        if not ns.prefill_chunk:
+            sys.exit("--kv-page-size needs --prefill-chunk: prompts "
+                     "stream straight into pool pages chunk by chunk")
+        if ns.kv_page_size < 1 or ns.t_max % ns.kv_page_size:
+            sys.exit(f"--kv-page-size {ns.kv_page_size} must be >= 1 "
+                     f"and divide --t-max {ns.t_max}")
+        if ns.prefill_chunk % ns.kv_page_size:
+            sys.exit(f"--prefill-chunk {ns.prefill_chunk} must be a "
+                     f"multiple of --kv-page-size {ns.kv_page_size} "
+                     f"(chunk boundaries must land on the page grid)")
+        if ns.kv_pages * ns.kv_page_size < ns.t_max:
+            sys.exit(f"--kv-pages {ns.kv_pages} x --kv-page-size "
+                     f"{ns.kv_page_size} < --t-max {ns.t_max}: one "
+                     f"full-length request could never be admitted")
+    if ns.kv_decode_reserve and not ns.kv_page_size:
+        sys.exit("--kv-decode-reserve needs paged KV "
+                 "(--kv-page-size/--kv-pages)")
+    if ns.kv_decode_reserve < 0:
+        sys.exit(f"--kv-decode-reserve {ns.kv_decode_reserve} must be "
+                 f">= 0 (0 = reserve the full budget)")
     if ns.slo_ttft_p95_ms is not None and ns.slo_ttft_p95_ms <= 0:
         sys.exit(f"--slo-ttft-p95-ms {ns.slo_ttft_p95_ms} must be > 0")
     if (ns.slo_error_rate is not None
@@ -1824,7 +1876,11 @@ def _run_serve(ns):
             eos_id=ns.eos, max_queue_depth=ns.max_queue_depth,
             max_prefills_per_cycle=ns.max_prefills_per_cycle,
             logger=logger, prefill_chunk=ns.prefill_chunk or None,
+            prefix_cache_mb=ns.prefix_cache_mb,
             kv_dtype=("int8" if ns.kv_dtype == "int8" else None),
+            kv_page_size=ns.kv_page_size or None,
+            kv_pages=ns.kv_pages or None,
+            kv_decode_reserve=ns.kv_decode_reserve or None,
             slo=slo, retry=retry, device=device)
         if ns.trace:
             trace = load_trace(ns.trace)
@@ -1861,6 +1917,24 @@ def _run_serve(ns):
             print(f"ttft p95 {summary['serve_ttft_ms_p95']} ms = "
                   f"queue-wait {summary['serve_queue_wait_ms_p95']} ms + "
                   f"prefill {summary['serve_prefill_ms_p95']} ms (p95s)")
+        if summary.get("serve_prefix_hit_rate") is not None:
+            print(f"prefix cache: hit rate "
+                  f"{summary['serve_prefix_hit_rate']} "
+                  f"({summary['serve_prefix_hits']} hits, "
+                  f"{summary['serve_prefix_evictions']} evictions, "
+                  f"{summary['serve_prefix_bytes']} bytes)")
+        if ns.kv_page_size:
+            # what paging bought: peak pool occupancy, and the tokens
+            # per device byte the capacity claim is stated in
+            print(f"paged kv: {summary['serve_kv_pages_used_peak']}/"
+                  f"{summary['serve_kv_pages_total']} pages peak "
+                  f"(page {ns.kv_page_size} tokens), resident peak "
+                  f"{summary['serve_kv_resident_tokens_peak']} tokens / "
+                  f"{summary['serve_kv_resident_bytes_peak']} bytes "
+                  f"(tokens/HBM-byte "
+                  f"{summary['serve_kv_tokens_per_hbm_byte']}), "
+                  f"exhaustion backpressure "
+                  f"{summary['serve_page_exhaustions']}")
         if slo is not None:
             names = sorted({a["slo"] for a in slo.alerts})
             print(f"slo: {len(slo.alerts)} alert(s)"

@@ -504,14 +504,16 @@ def _chunk_forward(cfg: _ServeConfig, model: AttentionLM, caches, tokens,
                    start: int, p_end: int, fold):
     """One prompt chunk [B, C] at positions [start, start + C) through
     every block: `_token_forward` widened to C positions, with the chunk
-    fold in place of the one-token fold. Returns the logits of the last
-    REAL position (p_end - 1) and the extended caches."""
+    fold in place of the one-token fold,
+    ``fold(i, kc, vc, q, k, v, start, p_end) -> (o, kc, vc)``. Returns the
+    logits of the last REAL position (p_end - 1) and the extended
+    caches."""
     b, c = tokens.shape
     h = model.embed[tokens] + model.pos[start:start + c]    # [B, C, E]
     new_caches = []
-    for blk, (kc, vc) in zip(model.blocks, caches):
+    for i, (blk, (kc, vc)) in enumerate(zip(model.blocks, caches)):
         q, k, v = _project_qkv(cfg, blk, h, (c,))
-        o, kc, vc = fold(kc, vc, q, k, v, start, p_end)
+        o, kc, vc = fold(i, kc, vc, q, k, v, start, p_end)
         h = _attn_residual(blk, h, o.reshape(b, c, cfg.embed_dim))
         h = _mlp_residual(blk, h)
         new_caches.append((kc, vc))
@@ -630,7 +632,7 @@ class Generator:
         (logits of position p_end - 1, caches)."""
         return _chunk_forward(self._cfg, self._model, caches,
                               _as_tokens(tokens).to(self.device), start,
-                              p_end, self._chunk_fold)
+                              p_end, lambda i, *a: self._chunk_fold(*a))
 
     @torch.no_grad()
     def decode(self, caches, logits, pos0: int, steps: int, *, rng=None):

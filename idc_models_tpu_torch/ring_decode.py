@@ -10,7 +10,7 @@ so the multi-card decode ring (ROADMAP A9-dist) plugs in. Appends write
 the cache IN PLACE (the JAX version donates the cache; here the caller's
 tensor is the cache).
 
-Three folds share that algebra (`_attend`):
+Five folds share that algebra (`_attend`):
 
 - `make_ring_decode`: one token per step, every row at one position;
 - `make_batched_ring_decode`: one token per row, each row its own
@@ -20,13 +20,18 @@ Three folds share that algebra (`_attend`):
   scales that factor out of both contractions;
 - `make_chunk_ring_decode`: C prompt tokens at once, appended at
   `start`, each query attending causally over the whole cache -- chunked
-  prefill (``models/lm.py``).
+  prefill (``models/lm.py``);
+- `make_paged_batched_ring_decode` and `make_paged_chunk_ring_decode`:
+  the same two serving folds over a POOL of fixed-size pages and a page
+  table (the paged engine, ``serve/pages.py``), attending through each
+  row's gathered logical view, bit for bit the contiguous folds' result
+  at world size 1; int8 pools carry one scale per (page, head).
 
 `prefill` places a prompt's K/V into a fresh cache. The folds upcast
-the whole cache to f32 for the contractions, as the one-row fold always
-has (PERF.md §7 lists a fused decode fold as speed work). The paged
-folds go with ``pages.py`` (ROADMAP A9.2), the batched chunk fold with
-the speculative verify program (A9.3).
+the whole cache (or view) to f32 for the contractions, as the one-row
+fold always has (PERF.md §7 lists a fused decode fold as speed work).
+The paged batched chunk fold goes with the speculative verify program
+(ROADMAP A9.3).
 """
 
 from __future__ import annotations
@@ -48,29 +53,52 @@ def init_cache(batch: int, t_max: int, heads: int, dim: int, *,
 
 
 def _attend(q, kc, vc, visible, k_scale=None, v_scale=None):
-    """One query per row [B, H, D] against the whole cache: f32 scores,
-    masked where `visible` ([T] or [B, T]) is false, the stable softmax
-    and the merge over the ring (one rank: the max and the sums over
-    ranks are the identity and corr is 1). The int8 scales [B, H]
-    multiply the scores and the value sums after the contractions."""
-    vis = visible if visible.dim() == 1 else visible[:, None, :]
-    s = torch.einsum("bhd,bkhd->bhk", q.float(), kc.float()) * (
-        kc.shape[-1] ** -0.5)
+    """Queries against the whole cache: f32 scores, masked where
+    `visible` is false, the stable softmax and the merge over the ring
+    (one rank: the max and the sums over ranks are the identity and corr
+    is 1). The one attend of every fold, contiguous and paged.
+
+    `q` is one query per row [B, H, D] (`visible` [T] or [B, T]) or a
+    chunk [B, C, H, D] (`visible` [C, T] or [B, C, T]; the output is
+    [B, C, H, D]). int8 scales are per (row, head) [B, H] -- constant
+    over the positions, they multiply the scores and the value sums
+    after the contractions -- or per (row, head, position) [B, H, T]
+    (paged pools, one scale a page), which multiply the scores and the
+    probabilities before the value contraction."""
+    chunk = q.dim() == 4
+    if chunk:
+        s = torch.einsum("bchd,bkhd->bhck", q.float(), kc.float())
+        vis = visible if visible.dim() == 2 else visible[:, None]
+    else:
+        s = torch.einsum("bhd,bkhd->bhk", q.float(), kc.float())
+        vis = visible if visible.dim() == 1 else visible[:, None, :]
+    s = s * (kc.shape[-1] ** -0.5)
+
+    def over_scores(scale):
+        # [B, H] or [B, H, T] -> broadcastable against the scores
+        scale = scale[..., None] if scale.dim() == 2 else scale
+        return scale[:, :, None] if chunk else scale
+
     if k_scale is not None:
-        s = s * k_scale[:, :, None]
+        s = s * over_scores(k_scale)
     s = torch.where(vis, s, MASKED)
     m_loc = s.amax(-1)
     # a fully masked row would fold p = exp(0) = 1 garbage: zero it
     p = torch.where(vis, torch.exp(s - m_loc[..., None]), 0.0)
     l_loc = p.sum(-1)
-    acc_loc = torch.einsum("bhk,bkhd->bhd", p, vc.float())
-    if v_scale is not None:
-        acc_loc = acc_loc * v_scale[..., None]
+    per_position = v_scale is not None and v_scale.dim() == 3
+    p_v = p * over_scores(v_scale) if per_position else p
+    acc_loc = torch.einsum("bhck,bkhd->bhcd" if chunk else "bhk,bkhd->bhd",
+                           p_v, vc.float())
+    if v_scale is not None and not per_position:
+        acc_loc = acc_loc * (v_scale[:, :, None, None] if chunk
+                             else v_scale[..., None])
     m_glob = m_loc
     corr = torch.exp(m_loc - m_glob)
     l_glob = l_loc * corr
     acc_glob = acc_loc * corr[..., None]
-    return acc_glob / torch.clamp(l_glob, min=1e-37)[..., None]
+    out = acc_glob / torch.clamp(l_glob, min=1e-37)[..., None]
+    return out.movedim(1, 2) if chunk else out
 
 
 def make_ring_decode():
@@ -204,19 +232,190 @@ def make_chunk_ring_decode():
         g = torch.arange(t_max, device=kc.device)
         qpos = start + torch.arange(c, device=kc.device)
         visible = g[None, :] <= qpos[:, None]                   # [C, T]
-        s = torch.einsum("bchd,bkhd->bhck", q.float(), kc.float()) * (
-            kc.shape[-1] ** -0.5)
-        s = torch.where(visible, s, MASKED)
-        m_loc = s.amax(-1)                                      # [B, H, C]
-        p = torch.where(visible, torch.exp(s - m_loc[..., None]), 0.0)
-        l_loc = p.sum(-1)
-        acc_loc = torch.einsum("bhck,bkhd->bhcd", p, vc.float())
-        m_glob = m_loc
-        corr = torch.exp(m_loc - m_glob)
-        l_glob = l_loc * corr
-        acc_glob = acc_loc * corr[..., None]
-        out = acc_glob / torch.clamp(l_glob, min=1e-37)[..., None]
-        return out.movedim(1, 2).to(q.dtype), kc, vc            # [B,C,H,D]
+        out = _attend(q, kc, vc, visible)
+        return out.to(q.dtype), kc, vc                          # [B,C,H,D]
+
+    return fold
+
+
+def _page_view(pool, pt):
+    """Gather a pool into each row's LOGICAL view: pt [S, L] physical
+    page ids (-1 = unallocated) -> [S, L*ps, H, D] in logical position
+    order. Rows gathered through an unallocated id (clamped to page 0)
+    hold values the caller's visibility mask discards, as the contiguous
+    folds' slots past `pos`."""
+    view = pool[pt.clamp(min=0)]                          # [S, L, ps, H, D]
+    s, l, ps, h, d = view.shape
+    return view.reshape(s, l * ps, h, d)
+
+
+def _page_scales(scale, pt, ps):
+    """Per-page [n_pages, H] scales -> each row's [S, H, L*ps] scale of
+    every logical position."""
+    return scale[pt.clamp(min=0)].movedim(2, 1).repeat_interleave(ps, 2)
+
+
+def _page_positions(pt, ps):
+    """The logical positions [L*ps] of a page table's view, and [S, L*ps]
+    whether each lies on an allocated page."""
+    g = torch.arange(pt.shape[1] * ps, device=pt.device)
+    return g, (pt >= 0).repeat_interleave(ps, 1)
+
+
+def _check_paged_pool(kp, pt, page_size, quantized, scales):
+    """The one pool/table contract of every paged fold."""
+    if quantized and len(scales) != 2:
+        raise ValueError("quantized paged fold needs (k_scale, v_scale)")
+    if not quantized and scales:
+        raise ValueError("scales passed to a non-quantized paged fold")
+    if kp.shape[1] != page_size:
+        raise ValueError(f"pool page dim {kp.shape[1]} != the fold's "
+                         f"page_size {page_size}")
+    if pt.dim() != 2:
+        raise ValueError(f"page table must be [S, L] int32, got shape "
+                         f"{tuple(pt.shape)}")
+
+
+def make_paged_batched_ring_decode(*, page_size: int,
+                                   quantized: bool = False):
+    """Page-table-indirect `make_batched_ring_decode`, the one-token-per-
+    row fold of the PAGED serving engine: ``fn(k_pool, v_pool,
+    page_table, q_t, k_t, v_t, pos, live) -> (out_t, k_pool, v_pool)``.
+
+    The caches are a POOL of fixed-size pages [n_pages + 1, page_size,
+    H, D] shared by every slot, and an int32 page table [S, L] maps row
+    b's logical page j to a physical page (-1 = unallocated). The pool's
+    LAST page is a sink that no page table names. Per live row the fold
+    appends the new token into the ONE physical page that owns its
+    position; a dead row, or one whose page is unallocated, sends its
+    append to the sink instead, so no real page receives a non-writer's
+    value and nothing is read back to the host. It then gathers every
+    row's logical view and runs the contiguous folds' attend (`_attend`)
+    with visibility (position <= pos) & (page allocated). The view holds
+    the contiguous cache's values in the same order, so a live row's
+    output and append equal the contiguous batched fold's bit for bit.
+
+    With ``quantized=True`` the pools hold int8 pages and the signature
+    grows per-(page, head) f32 [n_pages + 1, H] scales: an append
+    quantizes with its target page's scale, and the attend scales each
+    position by its page's. Callers own the bound pos[b] < L*page_size
+    and that a live row's page is allocated: an unallocated append is
+    dropped."""
+
+    def fold(kp, vp, pt, q, kt, vt, pos, live, *scales):
+        _check_paged_pool(kp, pt, page_size, quantized, scales)
+        if q.shape[1] != 1:
+            raise ValueError(
+                f"paged batched decode takes ONE token per row per "
+                f"step: q_t has sequence length {q.shape[1]}")
+        if tuple(np.shape(pos)) != (pt.shape[0],):
+            raise ValueError(
+                f"pos must be one position per page-table row, shape "
+                f"({pt.shape[0]},); got {tuple(np.shape(pos))}")
+        l_pages = pt.shape[1]
+        dev = kp.device
+        pt = pt.to(dev).long()
+        pos = torch.as_tensor(pos, device=dev).long()
+        live = torch.as_tensor(live, device=dev).bool()
+        posc = pos.clamp(0, l_pages * page_size - 1)
+        phys = pt.gather(1, (posc // page_size)[:, None])[:, 0]
+        dst = torch.where(live & (phys >= 0), phys, kp.shape[0] - 1)
+        if quantized:
+            kt = _quantize_token(kt, scales[0][dst])
+            vt = _quantize_token(vt, scales[1][dst])
+        at = (dst, posc % page_size)
+        kp.index_put_(at, kt[:, 0].to(kp.dtype))
+        vp.index_put_(at, vt[:, 0].to(vp.dtype))
+        g, owned = _page_positions(pt, page_size)
+        visible = owned & (g[None, :] <= posc[:, None])       # [S, L*ps]
+        extra = tuple(_page_scales(sc, pt, page_size) for sc in scales)
+        out = _attend(q[:, 0], _page_view(kp, pt), _page_view(vp, pt),
+                      visible, *extra)
+        return out[:, None].to(q.dtype), kp, vp
+
+    return fold
+
+
+def make_paged_chunk_ring_decode(*, page_size: int, quantized: bool = False):
+    """Page-table-indirect `make_chunk_ring_decode`, the chunked-prefill
+    fold of the paged engine: ``fn(k_pool, v_pool, page_table, q, k, v,
+    start, p_end) -> (out, k_pool, v_pool)`` runs C prompt tokens against
+    the request's OWN pages, splicing the real positions [start, p_end)
+    straight into the pool (no contiguous single-request cache exists on
+    the paged path), then attends each query causally through the
+    contiguous folds' attend.
+
+    `page_table` is the request's row(s) [B, L]; the pool's last page is
+    the batched fold's sink, where padding positions and unallocated
+    pages send their writes. Chunks are aligned to the page grid
+    (page_size divides C, checked here), so a chunk fills whole pages and
+    a completed chunk boundary's pages are never written again -- the
+    invariant that lets prefix-cache snapshots share pages with live
+    slots without copies.
+
+    With ``quantized=True`` the signature grows the [n_pages + 1, H]
+    scales, which the fold updates in place and returns: ``fn(..., start, p_end,
+    k_scale, v_scale) -> (out, k_pool, v_pool, k_scale, v_scale)``. Each
+    page the chunk fills gets a fresh per-head scale (absmax of its REAL
+    tokens / 127, floor 1e-8) before its content quantizes with it."""
+
+    def fold(kp, vp, pt, q, kt, vt, start: int, p_end: int, *scales):
+        _check_paged_pool(kp, pt, page_size, quantized, scales)
+        if q.dim() != 4 or q.shape[1] < 1:
+            raise ValueError(f"paged chunk fold expects [B, C, H, D] "
+                             f"queries, got shape {tuple(q.shape)}")
+        if q.shape[1] % page_size:
+            raise ValueError(
+                f"chunk {q.shape[1]} must be a multiple of the page "
+                f"size {page_size} — chunk boundaries must land on the "
+                f"page grid so completed pages are never rewritten")
+        b, c, h, d = q.shape
+        l_pages = pt.shape[1]
+        dev = kp.device
+        pt = pt.to(dev).long()
+        start, p_end = int(start), int(p_end)
+        n_real = max(min(p_end, start + c) - start, 0)
+        cpos = start + torch.arange(c, device=dev)
+        real = torch.arange(c, device=dev) < n_real
+        phys = pt[:, (cpos // page_size).clamp(max=l_pages - 1)]  # [B, C]
+        sink = kp.shape[0] - 1
+        if quantized:
+            cpp = c // page_size
+
+            def page_scales(t):
+                tf = torch.where(real[None, :, None, None],
+                                 t.float().abs(), 0.0)
+                m = tf.reshape(b, cpp, page_size, h, d).amax(dim=(0, 2, 4))
+                return torch.clamp(m, min=1e-8) / 127.0       # [cpp, H]
+
+            k_new, v_new = page_scales(kt), page_scales(vt)
+            first = min(start // page_size, l_pages - 1)
+            dst = pt[0, (first + torch.arange(cpp, device=dev)).clamp(
+                max=l_pages - 1)]
+            fills = ((torch.arange(cpp, device=dev) * page_size < n_real)
+                     & (dst >= 0))
+            dst = torch.where(fills, dst, sink)
+            scales[0].index_put_((dst,), k_new)
+            scales[1].index_put_((dst,), v_new)
+            ksc = k_new.repeat_interleave(page_size, 0)       # [C, H]
+            vsc = v_new.repeat_interleave(page_size, 0)
+            kt = torch.clamp(torch.round(
+                kt.float() / ksc[None, :, :, None]), -127, 127)
+            vt = torch.clamp(torch.round(
+                vt.float() / vsc[None, :, :, None]), -127, 127)
+        writer = real[None, :] & (phys >= 0)                  # [B, C]
+        at = (torch.where(writer, phys, sink),
+              (cpos % page_size).expand(b, c))
+        kp.index_put_(at, kt.to(kp.dtype))
+        vp.index_put_(at, vt.to(vp.dtype))
+        g, owned = _page_positions(pt, page_size)
+        visible = owned[:, None] & (g[None, None] <= cpos[None, :, None])
+        extra = tuple(_page_scales(sc, pt, page_size) for sc in scales)
+        out = _attend(q, _page_view(kp, pt), _page_view(vp, pt), visible,
+                      *extra).to(q.dtype)
+        if quantized:
+            return (out, kp, vp) + tuple(scales)
+        return out, kp, vp
 
     return fold
 

@@ -1,6 +1,7 @@
 """Continuous-batching LM serving, the counterpart of
-``idc_models_tpu/serve`` (the contiguous engine, its scheduler, server,
-metrics and the injected-failure exceptions; ROADMAP A9.0-A9.1)."""
+``idc_models_tpu/serve`` (the contiguous and paged engines, the page
+allocator, both prefix-cache flavours, the scheduler, server, metrics
+and the injected-failure exceptions; ROADMAP A9.0-A9.2)."""
 
 from idc_models_tpu_torch.serve.api import (  # noqa: F401
     LMServer, Request, Result, load_trace, poisson_trace, save_trace,
@@ -13,6 +14,12 @@ from idc_models_tpu_torch.serve.faults import (  # noqa: F401
 )
 from idc_models_tpu_torch.serve.metrics import (  # noqa: F401
     ServingMetrics, aggregate_summaries,
+)
+from idc_models_tpu_torch.serve.pages import (  # noqa: F401
+    PageAllocator, PageExhausted,
+)
+from idc_models_tpu_torch.serve.prefix_cache import (  # noqa: F401
+    PagedPrefixCache, PrefixCache,
 )
 from idc_models_tpu_torch.serve.scheduler import (  # noqa: F401
     AdmissionQueue, Entry, RetryPolicy, Scheduler,

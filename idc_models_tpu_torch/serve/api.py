@@ -2,9 +2,10 @@
 `submit()` / `poll()` API and `run(trace)` trace replay -- the
 counterpart of ``idc_models_tpu/serve/api.py``.
 
-`LMServer` composes `SlotEngine` (the device state machine),
-`Scheduler` (admission queue, deadlines, interleave, recycling) and
-`ServingMetrics` (TTFT, throughput, occupancy):
+`LMServer` composes `SlotEngine` (the device state machine, contiguous
+or paged), `Scheduler` (admission queue, deadlines, interleave,
+recycling, page-aware admission), an optional prefix cache and
+`ServingMetrics` (TTFT, throughput, occupancy, pages):
 
     server = LMServer(params, embed_dim=..., num_heads=...,
                       num_blocks=..., t_max=..., n_slots=4, window=8)
@@ -101,10 +102,30 @@ class LMServer:
                  device=None):
         from idc_models_tpu_torch.serve.engine import SlotEngine, later
         from idc_models_tpu_torch.serve.metrics import ServingMetrics
+        from idc_models_tpu_torch.serve.prefix_cache import (
+            PagedPrefixCache, PrefixCache,
+        )
         from idc_models_tpu_torch.serve.scheduler import Scheduler
 
-        if prefix_cache_mb:
-            raise later("A9.2", "the prefix cache (prefix_cache_mb)")
+        # prefix reuse rides the chunk grid, so the budget needs chunked
+        # admission. An existing cache may be passed instead of a budget
+        # (a server rebuilt around the old one's snapshots). With paged
+        # KV the budget builds a PagedPrefixCache, its MB converted to
+        # pages when the engine binds its allocator.
+        if prefix_cache is not None and prefix_cache_mb:
+            raise ValueError("pass prefix_cache OR prefix_cache_mb, "
+                             "not both")
+        if prefix_cache is None and prefix_cache_mb and prefix_cache_mb > 0:
+            if prefill_chunk is None:
+                raise ValueError("prefix_cache_mb needs prefill_chunk")
+            if kv_page_size is not None or kv_pages is not None:
+                prefix_cache = PagedPrefixCache(
+                    prefill_chunk, budget_mb=prefix_cache_mb,
+                    logger=logger, registry=registry)
+            else:
+                prefix_cache = PrefixCache(
+                    prefill_chunk, int(prefix_cache_mb * 1024 * 1024),
+                    logger=logger, registry=registry)
         if spec_decode or drafter is not None:
             raise later("A9.3", "speculative decoding (spec_decode)")
         if compile_cache is not None:
@@ -122,7 +143,8 @@ class LMServer:
             kv_decode_reserve=kv_decode_reserve,
             partition_rules=partition_rules,
             draft_partition_rules=draft_partition_rules, device=device)
-        self.metrics = ServingMetrics(logger, registry=registry, slo=slo)
+        self.metrics = ServingMetrics(logger, prefix_cache=prefix_cache,
+                                      registry=registry, slo=slo)
         self.scheduler = Scheduler(
             self.engine, window=window, max_queue_depth=max_queue_depth,
             max_prefills_per_cycle=max_prefills_per_cycle,

@@ -32,6 +32,26 @@ window costs one device-to-host copy: its tokens.
   int8), logits, position, budget, stop id and generator written into
   its row.
 
+**Paged KV** (`kv_page_size`, `kv_pages`): the per-slot rows give way to
+one pool of fixed-size pages per block, [kv_pages + 1, page_size, H, D]
+(or int8 with [kv_pages + 1, H] f32 scales; the last page is the folds'
+sink, which the allocator never grants), shared by every slot, and one int32
+page table [S, t_max/page_size] (-1 = unallocated); the host
+`PageAllocator` (``serve/pages.py``) grants each admission the pages of
+its prompt plus the decode reservation. Prompts stream chunk by chunk
+straight into the slot's pages (the paged chunk fold), and the windows
+run the paged batched fold; the window loop, pick, sampling, retirement
+and pipeline are the contiguous engine's. A released slot is KILLED in
+the same step its pages go back (table row cleared, device budget
+zeroed): stream order then keeps a window still in flight from writing
+into a page the allocator grants again.
+
+**Prefix cache** (``serve/prefix_cache.py``, needs `prefill_chunk`):
+every completed chunk boundary of a prefill is snapshotted, and an
+admission resumes from the longest cached prefix -- on a contiguous
+engine from clones of the snapshot's caches (stored cut to the prefix),
+on a paged engine by sharing the snapshot's pages, refcounted, no copy.
+
 Parity with the serial `Generator`: prefill, the per-token forward and
 the pick are the serial definitions, but the engine's products are
 [S, E] @ W where the serial ones are [1, E] @ W, and neither the CPU
@@ -39,12 +59,13 @@ nor cuBLAS promises the same rounding for both. A request's logits
 through the engine stay within the cache dtype's rounding of the serial
 run's, and its tokens equal the serial tokens up to the first step where
 the serial run's top-2 margin falls inside that tolerance (ROADMAP,
-"Differences by design").
+"Differences by design"). A paged engine gives the contiguous engine's
+result bit for bit (float caches): only the cache indirection differs.
 
 Left for later items, each raising NotImplementedError with its label:
-paged KV and the prefix cache (A9.2), speculative decoding (A9.3), the
-adapter bank (A9.4), slot export/import and the compile cache (A10),
-partition rules and meshes of several ranks (A9-dist).
+speculative decoding (A9.3), the adapter bank (A9.4), slot export/import
+and the compile cache (A10), partition rules and meshes of several ranks
+(A9-dist).
 """
 
 from __future__ import annotations
@@ -54,10 +75,15 @@ import torch
 
 from idc_models_tpu_torch import convert
 from idc_models_tpu_torch.models.lm import (
-    Generator, _pad_prompt, _prefill, _token_forward, prefill_bucket,
+    Generator, _chunk_forward, _pad_prompt, _prefill, _token_forward,
+    prefill_bucket,
 )
 from idc_models_tpu_torch.observe import trace
-from idc_models_tpu_torch.ring_decode import make_batched_ring_decode
+from idc_models_tpu_torch.ring_decode import (
+    make_batched_ring_decode, make_paged_batched_ring_decode,
+    make_paged_chunk_ring_decode,
+)
+from idc_models_tpu_torch.serve.pages import PageAllocator, PageExhausted
 
 # a last-token logit past this magnitude is corruption, not a model
 # output: the finite-garbage fault class a pure isfinite check misses
@@ -80,23 +106,36 @@ def _quantize_row(x):
     return q.to(torch.int8), s
 
 
+def _cut_to_prefix(caches, n_tokens: int):
+    """A contiguous engine's [1, t_max] caches cut to their first
+    `n_tokens` positions (the rest are zeros by construction): what a
+    `PrefixCache` snapshot stores."""
+    return tuple((k[:, :n_tokens], v[:, :n_tokens]) for k, v in caches)
+
+
 class _PendingPrefill:
     """One chunked prefill in flight: the prompt, the single-request
     caches being extended chunk by chunk, and where the next chunk
-    starts."""
+    starts (past any prefix-cache hit). On a paged engine `caches` is
+    None (chunks write the slot's granted pool pages) and `pages` holds
+    the grant, of which the first `shared` ids are prefix-cache pages
+    the request only references."""
 
     __slots__ = ("prompt", "budget", "rng", "eos_id", "caches", "logits",
-                 "next_start", "tag")
+                 "next_start", "tag", "pages", "shared")
 
-    def __init__(self, *, prompt, budget, rng, eos_id, caches, tag):
+    def __init__(self, *, prompt, budget, rng, eos_id, caches, tag,
+                 logits=None, next_start=0, pages=None, shared=0):
         self.prompt = prompt
         self.budget = budget
         self.rng = rng
         self.eos_id = eos_id
         self.caches = caches
-        self.logits = None
-        self.next_start = 0
+        self.logits = logits
+        self.next_start = next_start
         self.tag = tag
+        self.pages = pages
+        self.shared = shared
 
 
 class SlotEngine:
@@ -126,10 +165,6 @@ class SlotEngine:
         if n_slots < 1:
             raise ValueError(f"need n_slots >= 1, got {n_slots}")
         for label, what, value in (
-                ("A9.2", "paged KV (kv_page_size, kv_pages, "
-                 "kv_decode_reserve)",
-                 (kv_page_size, kv_pages, kv_decode_reserve)),
-                ("A9.2", "the prefix cache", (prefix_cache,)),
                 ("A9.3", "speculative decoding (draft_k, draft_model)",
                  (draft_k, draft_model, draft_partition_rules)),
                 ("A9.4", "the tenant adapter bank", (adapter_bank,)),
@@ -140,10 +175,61 @@ class SlotEngine:
         if mesh is not None and mesh.size > 1:
             raise later("A9-dist", f"serving over a mesh of {mesh.size} "
                                    f"ranks")
+        # paged KV: a pool of kv_pages fixed-size pages and per-slot page
+        # tables replace the per-slot [t_max] rows, so device memory
+        # holds the tokens resident, not every slot's worst case.
+        # kv_decode_reserve bounds the decode tokens reserved at
+        # admission (default: the whole budget, never exhausting
+        # mid-decode); a smaller reserve admits optimistically and grows
+        # grants mid-decode, which can exhaust (a scheduler quarantine)
+        if (kv_page_size is None) != (kv_pages is None):
+            raise ValueError(
+                "paged KV needs BOTH kv_page_size and kv_pages (or "
+                "neither for the contiguous per-slot ring rows)")
+        self.paged = kv_page_size is not None
+        if self.paged:
+            kv_page_size, kv_pages = int(kv_page_size), int(kv_pages)
+            if prefill_chunk is None:
+                raise ValueError(
+                    "paged KV needs chunked prefill (prefill_chunk=C):"
+                    " prompts stream straight into pool pages chunk by"
+                    " chunk — there is no monolithic [1, t_max] cache "
+                    "to insert from")
+            if kv_page_size < 1 or t_max % kv_page_size:
+                raise ValueError(
+                    f"kv_page_size {kv_page_size} must be >= 1 and "
+                    f"divide t_max {t_max} so logical pages tile the "
+                    f"position space")
+            if int(prefill_chunk) % kv_page_size:
+                raise ValueError(
+                    f"prefill_chunk {prefill_chunk} must be a multiple"
+                    f" of kv_page_size {kv_page_size}: chunk "
+                    f"boundaries must land on the page grid so "
+                    f"completed pages are never rewritten (the prefix-"
+                    f"cache sharing invariant)")
+            if kv_pages * kv_page_size < t_max:
+                raise ValueError(
+                    f"kv_pages {kv_pages} x kv_page_size "
+                    f"{kv_page_size} < t_max {t_max}: one full-length "
+                    f"request could never be admitted")
+            if kv_decode_reserve is not None and kv_decode_reserve < 1:
+                raise ValueError(f"need kv_decode_reserve >= 1, got "
+                                 f"{kv_decode_reserve}")
+        elif kv_decode_reserve is not None:
+            raise ValueError("kv_decode_reserve needs paged KV "
+                             "(kv_page_size/kv_pages)")
+        self.kv_page_size = kv_page_size
+        self.kv_pages = kv_pages
+        self.kv_decode_reserve = kv_decode_reserve
         if kv_dtype not in (None, "bf16", "int8"):
             raise ValueError(f"kv_dtype must be None, 'bf16' or 'int8', "
                              f"got {kv_dtype!r}")
         self.kv_int8 = kv_dtype == "int8"
+        if prefix_cache is not None and prefill_chunk is None:
+            raise ValueError(
+                "a prefix cache needs chunked prefill (prefill_chunk=C):"
+                " snapshots live on chunk boundaries and only the chunk "
+                "program can extend a cached prefix")
         # the serial Generator is the engine's prefill, pick and model
         self._gen = Generator(
             params, embed_dim=embed_dim, num_heads=num_heads,
@@ -154,7 +240,29 @@ class SlotEngine:
         self._pick = self._gen._pick
         self.device = self._gen.device
         self.prefill_chunk = self._gen.prefill_chunk
-        self._fold = make_batched_ring_decode(quantized=self.kv_int8)
+        self.prefix_cache = prefix_cache
+        if (prefix_cache is not None
+                and prefix_cache.chunk != self.prefill_chunk):
+            raise ValueError(
+                f"prefix cache chunk {prefix_cache.chunk} != engine "
+                f"prefill_chunk {self.prefill_chunk}")
+        cache_is_paged = bool(getattr(prefix_cache, "is_paged", False))
+        if prefix_cache is not None and cache_is_paged != self.paged:
+            raise ValueError(
+                "prefix-cache flavor must match the engine: a paged "
+                "engine shares pool pages with PagedPrefixCache "
+                "snapshots; a contiguous engine stores array snapshots "
+                "in PrefixCache")
+        if prefix_cache is not None and not cache_is_paged:
+            prefix_cache.set_packer(_cut_to_prefix,
+                                    self._pad_to_t_max)
+        if self.paged:
+            self._fold = make_paged_batched_ring_decode(
+                page_size=kv_page_size, quantized=self.kv_int8)
+            self._chunk_fold = make_paged_chunk_ring_decode(
+                page_size=kv_page_size, quantized=self.kv_int8)
+        else:
+            self._fold = make_batched_ring_decode(quantized=self.kv_int8)
         self.t_max = t_max
         self.n_slots = n_slots
         self.pad_id = int(pad_id)
@@ -166,16 +274,21 @@ class SlotEngine:
         self._min_bucket = 128 if block_impl == "pallas" else 1
         dev = self.device
         head_dim = embed_dim // num_heads
+        # per block: each slot's [t_max] rows, or the pool of pages (the
+        # page count, not the slot count, is what a memory budget buys)
+        # and the folds' sink page
+        rows, width = ((kv_pages + 1, kv_page_size) if self.paged
+                       else (n_slots, t_max))
 
-        def rows(dtype):
-            return torch.zeros((n_slots, t_max, num_heads, head_dim),
+        def cache(dtype):
+            return torch.zeros((rows, width, num_heads, head_dim),
                                dtype=dtype, device=dev)
 
         cdt = torch.int8 if self.kv_int8 else cache_dtype
-        self._caches = tuple((rows(cdt), rows(cdt))
+        self._caches = tuple((cache(cdt), cache(cdt))
                              for _ in range(num_blocks))
         self._scales = tuple(
-            tuple(torch.zeros((n_slots, num_heads), device=dev)
+            tuple(torch.zeros((rows, num_heads), device=dev)
                   for _ in range(2))
             for _ in range(num_blocks)) if self.kv_int8 else ()
         self._logits = torch.zeros((n_slots, self.vocab),
@@ -194,6 +307,31 @@ class SlotEngine:
         # chunked prefills in progress: slot -> _PendingPrefill; these
         # slots are reserved until the final chunk's insert
         self._prefills: dict[int, _PendingPrefill] = {}
+        # paged state: the host allocator, the device page table and
+        # per-slot grants (page ids, token capacity)
+        self._alloc = None
+        if self.paged:
+            self._alloc = PageAllocator(kv_pages, kv_page_size)
+            self._l_pages = t_max // kv_page_size
+            self._pt = torch.full((n_slots, self._l_pages), -1,
+                                  dtype=torch.int32, device=dev)
+            self._slot_pages: dict[int, list[int]] = {}
+            self._alloc_tokens = np.zeros(n_slots, np.int64)
+            if prefix_cache is not None:
+                prefix_cache.bind(self._alloc, self.kv_page_bytes())
+
+    def _pad_to_t_max(self, caches):
+        """A `PrefixCache` snapshot, stored cut to its prefix, as fresh
+        [1, t_max] caches on the engine's device (zeros past the
+        prefix, as a cold prefill leaves them)."""
+        def grow(a):
+            a = torch.as_tensor(a)
+            out = torch.zeros((a.shape[0], self.t_max) + a.shape[2:],
+                              dtype=a.dtype, device=self.device)
+            out[:, :a.shape[1]] = a
+            return out
+
+        return tuple((grow(k), grow(v)) for k, v in caches)
 
     # -- slot lifecycle -------------------------------------------------
 
@@ -214,12 +352,23 @@ class SlotEngine:
         return bool(self._occupied[slot]) and self._rem_h[slot] == 0
 
     def release(self, slot: int) -> None:
-        """Vacate a slot (done, or a deadline cancel). Its device row is
-        left as is: a cancelled row at worst rides along with its
+        """Vacate a slot (done, or a deadline cancel). A contiguous row
+        is left as is: a cancelled row at worst rides along with its
         bounded remaining budget (dead rows never append or touch live
-        ones), and the next insert overwrites the whole row."""
+        ones), and the next insert overwrites the whole row. A paged
+        slot is first KILLED (its table row cleared and its device
+        budget zeroed, in stream order after any window in flight) and
+        only then are its pages returned: they may be granted again at
+        once, and a row still live on the device would write through its
+        old table into the new owner's pages. Pages a prefix-cache
+        snapshot still holds survive through their refcounts."""
         self._occupied[slot] = False
         self._rem_h[slot] = 0
+        if self.paged:
+            if slot in self._slot_pages:
+                self._set_page_row(slot, [], kill=True)
+            self._alloc.release(self._slot_pages.pop(slot, []))
+            self._alloc_tokens[slot] = 0
 
     def export_slot(self, slot: int) -> dict:
         raise later("A10", "slot export for migration")
@@ -279,8 +428,9 @@ class SlotEngine:
         eos = self.eos_id if eos_id is None else eos_id
         eos = -1 if eos is None else int(eos)
         gen = self._generator(rng)
-        for i, ((kc, vc), (nk, nv)) in enumerate(zip(self._caches,
-                                                     caches1)):
+        # a paged request's K/V is already in its pages
+        for i, ((kc, vc), (nk, nv)) in enumerate(zip(
+                self._caches, () if self.paged else caches1)):
             if self.kv_int8:
                 nk, k_s = _quantize_row(nk)
                 nv, v_s = _quantize_row(nv)
@@ -288,7 +438,8 @@ class SlotEngine:
                 self._scales[i][1][slot] = v_s
             kc[slot] = nk[0].to(kc.dtype)
             vc[slot] = nv[0].to(vc.dtype)
-        self._logits[slot] = logits1[0].to(self._logits.dtype)
+        self._logits[slot] = torch.as_tensor(logits1)[0].to(
+            self._logits.dtype)
         self._pos[slot] = p_len
         self._rem[slot] = max_new_tokens
         self._eos[slot] = eos
@@ -336,38 +487,190 @@ class SlotEngine:
         """Reserve `slot` for a chunked prefill of `prompt` without
         running anything: each later `prefill_step(slot)` runs one
         chunk, so a long prompt no longer stalls the in-flight decodes
-        behind one monolithic prefill. The slot is out of `free_slots`
-        until the final chunk's insert (or `cancel_prefill`)."""
+        behind one monolithic prefill. Consults the prefix cache for the
+        longest cached prefix: only the suffix is prefilled. A paged
+        engine grants the request's pages here. The slot is out of
+        `free_slots` until the final chunk's insert (or
+        `cancel_prefill`)."""
         if self.prefill_chunk is None:
             raise RuntimeError("engine built without prefill_chunk")
         prompt = self._validate_admit(slot, prompt, max_new_tokens, rng)
+        if self.paged:
+            self._start_prefill_paged(slot, prompt, max_new_tokens, rng,
+                                      eos_id, tag)
+            return
+        start, caches, logits = 0, None, None
+        if self.prefix_cache is not None:
+            start, caches, logits = self.prefix_cache.lookup(prompt[0])
+            start = min(start, prompt.shape[1])
+        if caches is None:
+            caches = self._gen.init_caches(1)
         self._prefills[slot] = _PendingPrefill(
             prompt=prompt, budget=int(max_new_tokens), rng=rng,
-            eos_id=eos_id, caches=self._gen.init_caches(1), tag=tag)
+            eos_id=eos_id, caches=caches, logits=logits, next_start=start,
+            tag=tag)
+
+    def _pages_for(self, p_len: int, budget: int) -> int:
+        """Pages an admission reserves: the prompt plus the decode
+        reservation (the whole budget unless kv_decode_reserve bounds
+        it), on the page grid."""
+        eff = (budget if self.kv_decode_reserve is None
+               else min(budget, self.kv_decode_reserve))
+        tokens = min(p_len + eff, self.t_max)
+        return -(-tokens // self.kv_page_size)
+
+    def pages_for_admission(self, p_len: int, budget: int) -> int:
+        """Pages an admission of (p_len, budget) would reserve; 0 on a
+        contiguous engine."""
+        if not self.paged:
+            return 0
+        return self._pages_for(p_len, budget)
+
+    def can_admit_pages(self, p_len: int, budget: int) -> bool:
+        """The scheduler's page-aware admission gate: True when pages for
+        `p_len` prompt tokens plus the decode reservation exist
+        (reclaiming prefix-cache snapshots if the free list alone is
+        short). Conservative -- a prefix hit can only lower the need --
+        so True guarantees `start_prefill` succeeds. Always True on a
+        contiguous engine. Snapshots are evicted only when that can make
+        the head admissible: a blocked head asking every cycle must not
+        grind the cache away for nothing."""
+        if not self.paged:
+            return True
+        need = self._pages_for(p_len, budget)
+        free = self._alloc.free_count()
+        if free >= need:
+            return True
+        if (self.prefix_cache is None
+                or free + self.prefix_cache.reclaimable_pages() < need):
+            return False
+        self.prefix_cache.reclaim(need - free)
+        return self._alloc.free_count() >= need
+
+    def _grant(self, n: int) -> list[int] | None:
+        """`n` fresh pages, reclaiming prefix-cache snapshots when the
+        free list alone is short and eviction can cover it; None when
+        not even that suffices."""
+        fresh = self._alloc.alloc(n)
+        if (fresh is None and self.prefix_cache is not None
+                and (self._alloc.free_count()
+                     + self.prefix_cache.reclaimable_pages()) >= n):
+            self.prefix_cache.reclaim(n - self._alloc.free_count())
+            fresh = self._alloc.alloc(n)
+        return fresh
+
+    def _set_page_row(self, slot: int, pages: list[int], *,
+                      kill: bool = False) -> None:
+        """Rewrite `slot`'s page-table row (unallocated past `pages`);
+        with `kill` also zero its device budget in the same step."""
+        row = torch.full((self._l_pages,), -1, dtype=torch.int32)
+        row[:len(pages)] = torch.tensor(pages, dtype=torch.int32)
+        self._pt[slot] = row.to(self.device)
+        if kill:
+            self._rem[slot] = 0
+
+    def _stamp_decode_scales(self, pages: list[int], src: int) -> None:
+        """int8 pools: freshly granted decode pages take the slot's last
+        content page's per-head scale -- a fresh page has no content to
+        derive one from, and an append quantizes with its target page's
+        scale."""
+        if not self.kv_int8 or not pages:
+            return
+        dst = torch.tensor(pages, device=self.device)
+        for pair in self._scales:
+            for sc in pair:
+                sc[dst] = sc[src].clone()
+
+    def _start_prefill_paged(self, slot, prompt, max_new_tokens, rng,
+                             eos_id, tag) -> None:
+        """Paged admission: grant pages for prompt + reservation (a
+        prefix hit's pages SHARED -- retained, not copied), write the
+        slot's page-table row and register the pending prefill; chunks
+        then stream straight into the granted pages."""
+        p_len = prompt.shape[1]
+        start, shared, logits = 0, [], None
+        if self.prefix_cache is not None:
+            start, shared, logits = self.prefix_cache.lookup(prompt[0])
+            shared = list(shared or [])
+        if shared:
+            # the slot's OWN reference on the snapshot's pages: release()
+            # drops it whether or not the snapshot is evicted meanwhile
+            self._alloc.retain(shared)
+        fresh_n = self._pages_for(p_len, max_new_tokens) - len(shared)
+        fresh = self._grant(fresh_n)
+        if fresh is None:
+            if shared:
+                self._alloc.release(shared)
+            raise PageExhausted(
+                f"admission needs {fresh_n} fresh pages, only "
+                f"{self._alloc.free_count()} free — gate admissions "
+                f"on can_admit_pages()")
+        pages = shared + fresh
+        self._set_page_row(slot, pages)
+        self._alloc_tokens[slot] = len(pages) * self.kv_page_size
+        self._prefills[slot] = _PendingPrefill(
+            prompt=prompt, budget=int(max_new_tokens), rng=rng,
+            eos_id=eos_id, caches=None, logits=logits, next_start=start,
+            tag=tag, pages=pages, shared=len(shared))
+
+    def _paged_chunk(self, slot: int, tokens, start: int, p_end: int):
+        """One chunk through every block, written straight into the
+        slot's pages: the logits of position p_end - 1."""
+        pt_row = self._pt[slot:slot + 1]
+
+        def fold(i, kp, vp, q, k, v, start, p_end):
+            return self._chunk_fold(kp, vp, pt_row, q, k, v, start, p_end,
+                                    *(self._scales[i] if self.kv_int8
+                                      else ()))[:3]
+
+        logits, _ = _chunk_forward(self._cfg, self._model, self._caches,
+                                   tokens.to(self.device), start, p_end,
+                                   fold)
+        return logits
 
     @torch.no_grad()
     def prefill_step(self, slot: int) -> bool:
         """Advance `slot`'s pending prefill by ONE chunk; True once the
         request is admitted (the final chunk and the insert happen
-        together)."""
+        together). Each completed full-chunk boundary is snapshotted
+        into the prefix cache, so the next request sharing the prefix
+        prefills only its suffix."""
         pend = self._prefills.get(slot)
         if pend is None:
             raise ValueError(f"slot {slot} has no prefill in progress")
         p_len = pend.prompt.shape[1]
         c = self.prefill_chunk
         start = pend.next_start
-        end = min(start + c, p_len)
-        with trace.span("serve.prefill_chunk", slot=slot, start=start,
-                        end=end, p_len=p_len, rid=pend.tag):
-            padded = torch.zeros((1, c), dtype=torch.long)
-            padded[:, :end - start] = torch.from_numpy(
-                pend.prompt[:, start:end])
-            pend.logits, pend.caches = self._gen.prefill_chunk_step(
-                pend.caches, padded, start, end)
-            pend.next_start = end
-        if end < p_len:
-            return False
+        # a prompt on a chunk boundary and wholly cached needs no chunk
+        if start < p_len:
+            end = min(start + c, p_len)
+            with trace.span("serve.prefill_chunk", slot=slot, start=start,
+                            end=end, p_len=p_len, rid=pend.tag):
+                padded = torch.zeros((1, c), dtype=torch.long)
+                padded[:, :end - start] = torch.from_numpy(
+                    pend.prompt[:, start:end])
+                if self.paged:
+                    pend.logits = self._paged_chunk(slot, padded, start,
+                                                    end)
+                else:
+                    pend.logits, pend.caches = self._gen.prefill_chunk_step(
+                        pend.caches, padded, start, end)
+                pend.next_start = end
+                if self.prefix_cache is not None and end % c == 0:
+                    # a paged snapshot IS the slot's pages [0, end):
+                    # page-aligned, written, never written again
+                    self.prefix_cache.insert(
+                        pend.prompt[0, :end],
+                        (pend.pages[:end // self.kv_page_size]
+                         if self.paged else pend.caches), pend.logits)
+            if end < p_len:
+                return False
         del self._prefills[slot]
+        if self.paged:
+            self._slot_pages[slot] = pend.pages
+            n_prompt = -(-p_len // self.kv_page_size)
+            self._stamp_decode_scales(pend.pages[n_prompt:],
+                                      pend.pages[n_prompt - 1])
         self._insert(slot, pend.caches, pend.logits, p_len, pend.budget,
                      pend.eos_id, pend.rng)
         return True
@@ -375,8 +678,14 @@ class SlotEngine:
     def cancel_prefill(self, slot: int) -> None:
         """Drop a pending prefill (deadline hit while still chunking):
         its partial caches are discarded and the slot is free at once --
-        nothing reached the batch row."""
-        self._prefills.pop(slot, None)
+        nothing reached the batch row. A paged engine clears the slot's
+        table row and returns the grant (pages a snapshot shares
+        survive through its references)."""
+        pend = self._prefills.pop(slot, None)
+        if pend is not None and self.paged and pend.pages:
+            self._set_page_row(slot, [], kill=True)
+            self._alloc.release(pend.pages)
+            self._alloc_tokens[slot] = 0
 
     def prefilling(self) -> list[int]:
         """Slots with a chunked prefill in progress, admission order."""
@@ -411,8 +720,11 @@ class SlotEngine:
             pos = self._pos
 
             def block_fold(i, kc, vc, q, k, v, pos=pos, live=live):
-                return fold(kc, vc, q, k, v, pos, live,
-                            *(scales[i] if scales else ()))
+                extra = scales[i] if scales else ()
+                if self.paged:
+                    return fold(kc, vc, self._pt, q, k, v, pos, live,
+                                *extra)
+                return fold(kc, vc, q, k, v, pos, live, *extra)
 
             logits, self._caches = _token_forward(
                 cfg, model, self._caches, toks,
@@ -553,23 +865,60 @@ class SlotEngine:
 
     # -- the rest -----------------------------------------------------------
 
+    def ensure_decode_room(self, n_tokens: int) -> list[int]:
+        """Paged engines (a contiguous room is sized at admission:
+        returns []): grow every occupied slot's grant so the next window
+        can emit min(n_tokens, remaining budget) tokens without writing
+        an unallocated page. Returns the slots that could NOT be granted
+        after the free list and the prefix cache's reclaimable snapshots
+        -- the scheduler quarantines those before the window, so a
+        starved slot never decodes blind past its last page. With the
+        default whole-budget reservation this grants nothing."""
+        if not self.paged:
+            return []
+        failed = []
+        ps = self.kv_page_size
+        for slot in range(self.n_slots):
+            if not self._occupied[slot] or self._rem_h[slot] < 1:
+                continue
+            target = int(self._pos_h[slot]
+                         + min(int(n_tokens), int(self._rem_h[slot])))
+            if target <= self._alloc_tokens[slot]:
+                continue
+            fresh = self._grant(
+                -(-(target - int(self._alloc_tokens[slot])) // ps))
+            if fresh is None:
+                failed.append(slot)
+                continue
+            pages = self._slot_pages[slot]
+            self._stamp_decode_scales(fresh, pages[-1])
+            pages.extend(fresh)
+            self._set_page_row(slot, pages)
+            self._alloc_tokens[slot] = len(pages) * ps
+        return failed
+
     def warmup(self, n_steps: int, compile_cache=None) -> None:
         """Run every program the serve loop touches once on the empty
-        state: a prefill (one chunk when chunked, else the smallest
-        bucket the block impl takes), two insert -> window cycles into
-        slot 0 with a zero budget (every row dead, so the windows are
-        bit-level no-ops) and the health reduction. Eager PyTorch
-        compiles nothing; this pays the first calls' one-time costs
-        (library handles, the allocator) before traffic."""
+        state: a prefill (one chunk when chunked -- on a paged engine
+        against an all-unallocated table with p_end 0, writing nothing
+        -- else the smallest bucket the block impl takes), two insert ->
+        window cycles into slot 0 with a zero budget (every row dead, so
+        the windows are bit-level no-ops), a page-row kill and the
+        health reduction. Eager PyTorch compiles nothing; this pays the
+        first calls' one-time costs (library handles, the allocator)
+        before traffic."""
         if compile_cache is not None:
             raise later("A10", "the compile cache")
+        zeros = torch.zeros((1, self.prefill_chunk or 1), dtype=torch.long)
         with torch.no_grad():
-            if self.prefill_chunk is not None:
+            caches1 = None
+            if self.paged:
+                for _ in range(2):
+                    logits1 = self._paged_chunk(0, zeros, 0, 0)
+            elif self.prefill_chunk is not None:
                 caches1 = self._gen.init_caches(1)
                 logits1, caches1 = self._gen.prefill_chunk_step(
-                    caches1, torch.zeros((1, self.prefill_chunk),
-                                         dtype=torch.long),
-                    0, self.prefill_chunk)
+                    caches1, zeros, 0, self.prefill_chunk)
             else:
                 b = min(self._min_bucket, self.t_max)
                 logits1, caches1 = _prefill(
@@ -581,18 +930,39 @@ class SlotEngine:
             self._insert(0, caches1, logits1, 1, 0, -1, None)
             self._occupied[0] = occupied
             self.step_window(n_steps)
+        if self.paged:
+            self._set_page_row(0, [], kill=True)
         self.slot_health()
 
     def kv_bytes_per_slot(self) -> int:
         """Device bytes of cache state per slot (K + V rows of every
         block, plus the dequantization scales when int8) -- the
-        denominator of the int8 capacity claim."""
+        denominator of the int8 capacity claim. On a paged engine the
+        WORST case (a full-t_max request's pages); the live figure is
+        `kv_bytes_resident`."""
+        if self.paged:
+            return self._l_pages * self.kv_page_bytes()
         per = sum(kc.nbytes + vc.nbytes for kc, vc in self._caches)
         per += sum(s.nbytes for pair in self._scales for s in pair)
         return per // self.n_slots
 
+    def kv_page_bytes(self) -> int:
+        """Device bytes ONE page costs across every block's K and V
+        pools, plus its per-(page, head) scales when int8 -- the unit of
+        the tokens-per-byte capacity figure."""
+        cfg = self._cfg
+        item = 1 if self.kv_int8 else cfg.cache_dtype.itemsize
+        per = (cfg.num_blocks * 2 * self.kv_page_size * cfg.embed_dim
+               * item)
+        if self.kv_int8:
+            per += cfg.num_blocks * 2 * cfg.num_heads * 4
+        return per
+
     def kv_bytes_resident(self) -> int:
-        """Device bytes of KV state reserved: every slot's full row."""
+        """Device bytes of KV state reserved: every slot's full row on a
+        contiguous engine, the pages in use on a paged one."""
+        if self.paged:
+            return self._alloc.used_count() * self.kv_page_bytes()
         return self.n_slots * self.kv_bytes_per_slot()
 
     def tokens_resident(self) -> int:
@@ -602,10 +972,39 @@ class SlotEngine:
                        if self._occupied[s]))
         return toks + int(sum(p.next_start for p in self._prefills.values()))
 
+    def page_stats(self) -> dict | None:
+        """The per-cycle page rollup the scheduler feeds
+        `ServingMetrics.on_pages` (None: a contiguous engine)."""
+        if not self.paged:
+            return None
+        return {
+            "pages_total": self.kv_pages,
+            "pages_used": self._alloc.used_count(),
+            "pages_cached": (self.prefix_cache.cached_pages()
+                             if self.prefix_cache is not None else 0),
+            "resident_tokens": self.tokens_resident(),
+            "resident_bytes": self.kv_bytes_resident(),
+        }
+
+    def prefill_grant(self, slot: int) -> tuple[int, int] | None:
+        """(fresh, shared): the pages granted to `slot`'s pending paged
+        prefill, and how many of them it shares with a prefix-cache
+        snapshot; None when `slot` has no paged prefill pending."""
+        pend = self._prefills.get(slot)
+        if pend is None or pend.pages is None:
+            return None
+        return len(pend.pages) - pend.shared, pend.shared
+
     def cache_sizes(self) -> dict:
         """The JAX engine's per-program compile-cache counts. Eager
         PyTorch compiles no serving program: every count is 0."""
         out = {"window": 0, "insert": 0, "health": 0}
-        out["prefill" if self.prefill_chunk is None
-            else "prefill_chunk"] = 0
+        if self.paged:
+            out.update(prefill_chunk=0, page_row=0)
+            if self.kv_int8:
+                out["stamp_scales"] = 0
+        else:
+            out["prefill"] = 0
+            if self.prefill_chunk is not None:
+                out["prefill_chunk"] = 0
         return out

@@ -1,14 +1,15 @@
 """Serving observability: TTFT, per-token latency, throughput, queue
-depth, slot occupancy -- the counterpart of
+depth, slot occupancy, KV pages -- the counterpart of
 ``idc_models_tpu/serve/metrics.py``.
 
 Counters accumulate in memory and stream, when a logger is given,
 through the jsonl record shape every other loop writes; `summary()` is
-the serving record (`serve_*` fields) with the JAX package's key set.
-The hooks are the ones this slice's scheduler calls (submit, reject,
-admit, first token, finish, slot fault, retry, dispatch, cycle); the
-shed, clamp, fault-plan, tenant, rollout, speculative, page and
-compile-cache hooks come with their items (ROADMAP A9.2-A9.4, A10,
+the serving record (`serve_*` fields) with the JAX package's key set,
+and with a prefix cache attached its `serve_prefix_*` fields merged in.
+The hooks are the ones the scheduler calls (submit, reject, admit,
+first token, finish, slot fault, retry, dispatch, cycle, pages, page
+exhaustion); the shed, clamp, fault-plan, tenant, rollout, speculative
+and compile-cache hooks come with their items (ROADMAP A9.3, A9.4, A10,
 A11), and until then their summary keys hold the values a server
 without them reports. Eager PyTorch compiles no serving program, so
 `serve_compiles_observed` is 0.
@@ -42,9 +43,13 @@ class ServingMetrics:
     (bad = rejected, or a finish of error/timeout/deadline), evaluated
     once per cycle."""
 
-    def __init__(self, logger=None, registry=None, slo=None):
+    def __init__(self, logger=None, prefix_cache=None, registry=None,
+                 slo=None):
         self.logger = logger
         self.slo = slo
+        # an attached prefix cache's serve_prefix_* counters roll into
+        # summary() next to the serving fields
+        self.prefix_cache = prefix_cache
         reg = registry if registry is not None else mreg.REGISTRY
         # submissions and terminal outcomes are separate counters: one
         # status-labeled counter would count each request twice
@@ -83,6 +88,30 @@ class ServingMetrics:
             "decode dispatches by kind: 'window' (fused one-token-per-"
             "step scan) or 'verify' (speculative draft-and-verify)",
             labels=("kind",))
+        # paged KV: pool occupancy gauges and the page-exhaustion
+        # backpressure counter
+        self._m_pages_used = reg.gauge(
+            "serve_kv_pages_used",
+            "KV pool pages currently allocated (slots + prefix-cache "
+            "snapshots), last cycle")
+        self._m_pages_total = reg.gauge(
+            "serve_kv_pages_total",
+            "total KV pool pages the paged engine was built with")
+        self._m_pages_cached = reg.gauge(
+            "serve_kv_pages_cached",
+            "distinct KV pool pages pinned by prefix-cache snapshots "
+            "(a subset of serve_kv_pages_used; shared zero-copy with "
+            "the slots that wrote them), last cycle")
+        self._m_page_exhausted = reg.counter(
+            "serve_page_exhaustions_total",
+            "cycles the paged engine refused work for lack of free "
+            "pages (admission gate or mid-decode growth)")
+        self.kv_pages_total: int | None = None
+        self.kv_pages_used_peak = 0
+        self.kv_resident_tokens_peak = 0
+        self.kv_resident_bytes_peak = 0
+        self.kv_tokens_per_byte_peak: float | None = None
+        self.page_exhaustions = 0
         self.window_dispatches = 0
         self.submitted = 0
         self.rejected = 0
@@ -185,6 +214,38 @@ class ServingMetrics:
         self._log(event="serve_retry", id=rid, attempt=attempt,
                   delay_ms=delay_s * 1e3)
 
+    # -- paged KV ---------------------------------------------------------
+
+    def on_pages(self, *, pages_total: int, pages_used: int,
+                 pages_cached: int, resident_tokens: int,
+                 resident_bytes: int) -> None:
+        """Per-cycle pool occupancy from a paged engine
+        (`SlotEngine.page_stats`): the gauges, and the peaks the summary
+        reports -- peak resident tokens over the bytes holding them is
+        the tokens-per-byte capacity figure. Logs nothing per cycle."""
+        if self.kv_pages_total is None:
+            self._m_pages_total.set(pages_total)
+        self.kv_pages_total = int(pages_total)
+        self._m_pages_used.set(pages_used)
+        self._m_pages_cached.set(pages_cached)
+        self.kv_pages_used_peak = max(self.kv_pages_used_peak,
+                                      int(pages_used))
+        if resident_tokens > self.kv_resident_tokens_peak:
+            self.kv_resident_tokens_peak = int(resident_tokens)
+            if resident_bytes > 0:
+                self.kv_tokens_per_byte_peak = (resident_tokens
+                                                / resident_bytes)
+        self.kv_resident_bytes_peak = max(self.kv_resident_bytes_peak,
+                                          int(resident_bytes))
+
+    def on_page_exhausted(self, *, rid=None, needed: int = 0) -> None:
+        """The paged engine could not grant pages this cycle: admission
+        held the queue head back, or a running slot's decode growth
+        failed."""
+        self.page_exhaustions += 1
+        self._m_page_exhausted.inc()
+        self._log(event="serve_page_exhausted", id=rid, needed=needed)
+
     # -- engine cycle ----------------------------------------------------
 
     def on_dispatch(self, kind: str) -> None:
@@ -216,7 +277,8 @@ class ServingMetrics:
                 if self._t_first is not None and self._t_last is not None
                 else None)
         dispatches = self.window_dispatches
-        return {
+        paged = self.kv_pages_total is not None
+        out = {
             "serve_requests": self.finished,
             "serve_rejected": self.rejected,
             "serve_timed_out": self.timed_out,
@@ -269,18 +331,28 @@ class ServingMetrics:
             "serve_spec_accept_rate": None,
             "serve_spec_tokens_per_dispatch": None,
             "serve_spec_propose_s": None,
-            # paged KV (A9.2): contiguous rows only
-            "serve_kv_pages_total": None,
-            "serve_kv_pages_used_peak": None,
-            "serve_kv_resident_tokens_peak": None,
-            "serve_kv_resident_bytes_peak": None,
-            "serve_kv_tokens_per_hbm_byte": None,
-            "serve_page_exhaustions": 0,
+            # paged KV: pool size and peak occupancy, the peak tokens
+            # per device byte, how often the pool ran dry (None/0 on a
+            # contiguous engine)
+            "serve_kv_pages_total": self.kv_pages_total,
+            "serve_kv_pages_used_peak": (
+                self.kv_pages_used_peak if paged else None),
+            "serve_kv_resident_tokens_peak": (
+                self.kv_resident_tokens_peak if paged else None),
+            "serve_kv_resident_bytes_peak": (
+                self.kv_resident_bytes_peak if paged else None),
+            "serve_kv_tokens_per_hbm_byte": (
+                None if self.kv_tokens_per_byte_peak is None
+                else round(self.kv_tokens_per_byte_peak, 6)),
+            "serve_page_exhaustions": self.page_exhaustions,
             # hot weight rollout (A11)
             "serve_rollouts": 0,
             "serve_rollout_outcome": None,
             "serve_rollout_stage": None,
         }
+        if self.prefix_cache is not None:
+            out.update(self.prefix_cache.summary())
+        return out
 
     def _log(self, **record) -> None:
         if self.logger is not None:

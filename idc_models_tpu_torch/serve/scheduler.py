@@ -19,6 +19,13 @@ opinion on which request runs where or when; this module is the policy:
 - **Slot recycling** -- EOS, budget and deadline finishes release the
   row, and with `admit_after_collect` it refills on the same tick,
   before the next window is issued.
+- **Page-aware admission** (paged engines) -- the queue HEAD leaves the
+  queue only when the engine can grant pages for its prompt plus the
+  decode reservation (`can_admit_pages`); FIFO holds (no skipping past a
+  starved head), and the wait is counted as page-exhaustion
+  backpressure. Before each window every running slot's grant grows to
+  cover the window (`ensure_decode_room`); a slot the pool cannot cover
+  is quarantined (``page_exhausted``) under the retry policy.
 - **Resilience** -- with health checks armed (by default when a
   `RetryPolicy` is), a slot whose last-token logits are non-finite or
   blown up, or whose host invariants fail, is quarantined: the request
@@ -27,9 +34,11 @@ opinion on which request runs where or when; this module is the policy:
   in-flight slot, records the entries as errors (`pop_failed`) and
   re-raises, so the queue stays serviceable.
 
-The fault plan, the journal, brownout and tenancy (ROADMAP A9.4), the
-speculative window (A9.3) and drain-and-migrate (A10) come with their
-items; their knobs raise NotImplementedError naming the label.
+The fault plan, the journal, brownout and tenancy (ROADMAP A9.4: the
+per-tenant page budgets, and the page pressure as a brownout input,
+which `_page_pressure` already records), the speculative window (A9.3)
+and drain-and-migrate (A10) come with their items; their knobs raise
+NotImplementedError naming the label.
 """
 
 from __future__ import annotations
@@ -137,6 +146,11 @@ class AdmissionQueue:
     def pop(self) -> Entry:
         return self._q.popleft()
 
+    def peek(self) -> Entry:
+        """The head entry without popping it: the page-aware admission
+        gate inspects its demand before taking it."""
+        return self._q[0]
+
     def push_front(self, entry: Entry) -> None:
         """Head-of-line insertion for RETRIED entries only: they were
         admitted once already, so they do not cheat the bound."""
@@ -194,6 +208,11 @@ class Scheduler:
         # entries finalized by a tick that raised (pop_failed)
         self._failed: list[Entry] = []
         self._chunked = engine.prefill_chunk is not None
+        # set when a paged engine refused pages this cycle (admission
+        # gate or decode growth), reset once a cycle; nothing reads it
+        # until the brownout controller takes it as its pressure input
+        # (ROADMAP A9.4)
+        self._page_pressure = False
 
     # -- admission -------------------------------------------------------
 
@@ -261,6 +280,11 @@ class Scheduler:
         free = self.engine.free_slots()
         while (admitted < self.max_prefills_per_cycle and free
                and len(self.queue)):
+            # paged engines: the HEAD must fit before it leaves the
+            # queue; no skipping ahead of it (that would starve long
+            # requests forever)
+            if not self._page_gate(self.queue.peek()):
+                break
             e = self.queue.pop()
             slot = free.pop(0)
             eos = e.eos_id if e.eos_id is not None else -1
@@ -285,6 +309,18 @@ class Scheduler:
                 self.metrics.on_admit(e.rid, e.t_admit - e.t_submit)
             admitted += 1
         return admitted
+
+    def _page_gate(self, entry: Entry) -> bool:
+        """True when the engine can grant pages for the entry's prompt
+        and budget now (always, on a contiguous engine); on False the
+        wait is recorded as page-exhaustion backpressure."""
+        if self.engine.can_admit_pages(len(entry.prompt), entry.budget):
+            return True
+        self._page_pressure = True
+        if self.metrics:
+            self.metrics.on_page_exhausted(
+                rid=entry.rid, needed=len(entry.prompt) + entry.budget)
+        return False
 
     def _step_prefills(self, done) -> int:
         """Advance pending chunked prefills: at most
@@ -497,6 +533,28 @@ class Scheduler:
                 self._abort_running(e)
                 raise
             prefill_stall_s += self.clock() - t_pf2
+        # 5.5 paged engines: grow every running slot's grant to cover
+        #     the next window; a slot the pool cannot cover even after
+        #     reclaiming snapshots is quarantined now (retry or an
+        #     honest finish, never a window decoding past its last
+        #     page), its just-collected tokens dropped as a health
+        #     quarantine's are (a retry restarts from the prompt)
+        if self._running:
+            starved = self.engine.ensure_decode_room(self.window)
+            if starved:
+                self._page_pressure = True
+                quarantined = set()
+                for slot in starved:
+                    e = self._running.pop(slot, None)
+                    if e is None:
+                        continue
+                    if self.metrics:
+                        self.metrics.on_page_exhausted(rid=e.rid,
+                                                       needed=self.window)
+                    self.engine.release(slot)
+                    quarantined.add(id(e))
+                    self._quarantine(e, "page_exhausted", now, done)
+                got = [(e, t) for e, t in got if id(e) not in quarantined]
         # 6. issue the next window over every occupied slot
         occupancy = len(self._running) / self.engine.n_slots
         if self._running:
@@ -516,10 +574,14 @@ class Scheduler:
         # 7. deferred bookkeeping, while the new window computes
         emitted = self._finalize_window(got, finished, cancelled, t_now,
                                         now, done)
+        self._page_pressure = False
         if (self._running or admitted or chunk_steps) and self.metrics:
             self.metrics.on_cycle(queue_depth=len(self.queue),
                                   occupancy=occupancy, tokens=emitted,
                                   prefill_s=prefill_stall_s)
+            stats = self.engine.page_stats()
+            if stats is not None:
+                self.metrics.on_pages(**stats)
         return done
 
     def drain(self) -> list[Entry]:

@@ -1211,21 +1211,12 @@ def test_chunk_fold_on_the_card_matches_the_cpu(cuda):
         torch.testing.assert_close(gc.cpu(), wc, **F32_TOL)
 
 
-def test_engine_greedy_on_the_card_meets_the_serial_contract(cuda):
-    """A 4-slot engine (f32 caches) serving six requests with recycling,
-    windows of one step, against each request alone through the serial
-    Generator on the card: every step's logits within 1e-5 of the
-    largest |logit|, tokens equal up to the first step where the serial
-    top-2 margin falls below that; prints whether any bit differed."""
-    from idc_models_tpu_torch.models.lm import AttentionLM, Generator
-    from idc_models_tpu_torch.serve import SlotEngine
-
-    model = core.init_params(AttentionLM(64, 256, embed_dim=128,
-                                         num_heads=4, mlp_dim=256,
-                                         num_blocks=2), 0)
-    kw = dict(embed_dim=128, num_heads=4, num_blocks=2, t_max=256,
-              cache_dtype=torch.float32, device="cuda")
-    eng, gen = SlotEngine(model, n_slots=4, **kw), Generator(model, **kw)
+def _engine_against_serial(eng, gen, what):
+    """Six requests through a 4-slot engine with recycling, windows of
+    one step, against each request alone through the serial `gen` on the
+    card: every step's logits within 1e-5 of the largest |logit|, tokens
+    equal up to the first step where the serial top-2 margin falls below
+    that; prints whether any bit differed."""
     g = torch.Generator().manual_seed(2)
     prompts = [torch.randint(0, 64, (int(n),), generator=g).tolist()
                for n in torch.randint(5, 120, (6,), generator=g)]
@@ -1264,5 +1255,150 @@ def test_engine_greedy_on_the_card_meets_the_serial_contract(cuda):
             assert toks[i][j] == int(tok[0, 0]), (i, j)
             held += 1
         same_bits += bits
-    print(f"engine vs serial on the card: tokens held {held} of {total} "
+    print(f"{what} vs serial on the card: tokens held {held} of {total} "
           f"steps; logits bit-equal in {same_bits} of 6 requests")
+
+
+def _card_lm():
+    from idc_models_tpu_torch.models.lm import AttentionLM
+
+    model = core.init_params(AttentionLM(64, 256, embed_dim=128,
+                                         num_heads=4, mlp_dim=256,
+                                         num_blocks=2), 0)
+    kw = dict(embed_dim=128, num_heads=4, num_blocks=2, t_max=256,
+              cache_dtype=torch.float32, device="cuda")
+    return model, kw
+
+
+def test_engine_greedy_on_the_card_meets_the_serial_contract(cuda):
+    """A 4-slot engine (f32 caches) against the serial Generator on the
+    card (`_engine_against_serial`)."""
+    from idc_models_tpu_torch.models.lm import Generator
+    from idc_models_tpu_torch.serve import SlotEngine
+
+    model, kw = _card_lm()
+    _engine_against_serial(SlotEngine(model, n_slots=4, **kw),
+                           Generator(model, **kw), "engine")
+
+
+def test_paged_engine_greedy_on_the_card_meets_the_serial_contract(cuda):
+    """A 4-slot PAGED engine (f32 pools of 16-token pages, chunks of 32,
+    40 pages) against the serial chunked Generator on the card, and
+    every page back at the end."""
+    from idc_models_tpu_torch.models.lm import Generator
+    from idc_models_tpu_torch.serve import SlotEngine
+
+    model, kw = _card_lm()
+    eng = SlotEngine(model, n_slots=4, prefill_chunk=32, kv_page_size=16,
+                     kv_pages=40, **kw)
+    _engine_against_serial(eng, Generator(model, prefill_chunk=32, **kw),
+                           "paged engine")
+    assert eng._alloc.used_count() == 0
+
+
+def _paged_case(b, h, d, ps, n_pages, seed, quantized):
+    """Contiguous [b, t] caches scattered into a pool of `n_pages` pages
+    by a random table (row b's last page left unallocated; the pool's
+    last page is the folds' sink, named by no row), with int8 levels and
+    per-page scales when `quantized`."""
+    g = torch.Generator().manual_seed(seed)
+    t = 256
+    l_pages = t // ps
+    kc, vc = (torch.randn(b, t, h, d, generator=g) for _ in range(2))
+    pt = torch.randperm(n_pages - 1, generator=g)[:b * l_pages].reshape(
+        b, l_pages).to(torch.int32)
+    pt[-1, -1] = -1
+    pools = []
+    for c in (kc, vc):
+        pool = torch.randn(n_pages, ps, h, d, generator=g)
+        for r in range(b):
+            for j in range(l_pages):
+                if pt[r, j] >= 0:
+                    pool[pt[r, j]] = c[r, j * ps:(j + 1) * ps]
+        pools.append(pool)
+    scales = ()
+    if quantized:
+        pools = [torch.clamp(torch.round(x * 40), -127, 127).to(torch.int8)
+                 for x in pools]
+        scales = (torch.rand(n_pages, h, generator=g) * 0.02 + 0.005,
+                  torch.rand(n_pages, h, generator=g) * 0.02 + 0.005)
+    return kc, vc, pt, pools, scales
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["f32", "int8"])
+def test_paged_folds_on_the_card_match_the_cpu(cuda, quantized):
+    """The paged batched fold (4 rows: two live, a dead one, a live one
+    whose page is unallocated) and the paged chunk fold (a ragged chunk,
+    48 of 64 positions real, at 128) over pools of 16-token pages on the
+    card against the CPU: the live rows' and real queries' outputs, the
+    pools (int8 appends bit for bit) and the chunk's new int8 scales."""
+    from idc_models_tpu_torch import ring_decode as tdecode
+
+    _, _, pt, (kp, vp), scales = _paged_case(4, 8, 64, 16, 80, 3,
+                                             quantized)
+    g = torch.Generator().manual_seed(4)
+    q, k, v = (torch.randn(4, 1, 8, 64, generator=g) for _ in range(3))
+    pos = torch.tensor([0, 200, 17, 250])
+    live = torch.tensor([True, True, False, True])
+    fold = tdecode.make_paged_batched_ring_decode(page_size=16,
+                                                  quantized=quantized)
+    want = fold(kp.clone(), vp.clone(), pt, q, k, v, pos, live,
+                *(s.clone() for s in scales))
+    got = fold(kp.cuda(), vp.cuda(), pt.cuda(), q.cuda(), k.cuda(),
+               v.cuda(), pos.cuda(), live.cuda(), *(s.cuda() for s in scales))
+    torch.testing.assert_close(got[0].cpu()[live], want[0][live], **F32_TOL)
+    for a, w in zip(got[1:], want[1:]):
+        if quantized:
+            assert torch.equal(a.cpu(), w)
+        else:
+            torch.testing.assert_close(a.cpu(), w, **F32_TOL)
+    q, k, v = (torch.randn(1, 64, 8, 64, generator=g) for _ in range(3))
+    chunk = tdecode.make_paged_chunk_ring_decode(page_size=16,
+                                                 quantized=quantized)
+    want = chunk(kp.clone(), vp.clone(), pt[:1], q, k, v, 128, 176,
+                 *(s.clone() for s in scales))
+    got = chunk(kp.cuda(), vp.cuda(), pt[:1].cuda(), q.cuda(), k.cuda(),
+                v.cuda(), 128, 176, *(s.cuda() for s in scales))
+    torch.testing.assert_close(got[0].cpu()[:, :48], want[0][:, :48],
+                               **F32_TOL)
+    for a, w in zip(got[1:], want[1:]):
+        if quantized and a.dtype == torch.int8:
+            # the chunk's levels round x / scale: a tie may flip one level
+            assert (a.cpu().int() - w.int()).abs().max() <= 1
+        else:
+            torch.testing.assert_close(a.cpu(), w, **F32_TOL)
+
+
+def test_paged_folds_on_the_card_are_bit_equal_to_the_contiguous(cuda):
+    """On the card, the paged batched and chunk folds over scattered
+    pages give the contiguous folds' outputs and appends bit for bit
+    (f32 and bf16 caches): the gathered view holds the same values in
+    the same order."""
+    from idc_models_tpu_torch import ring_decode as tdecode
+
+    for dtype in (torch.float32, torch.bfloat16):
+        kc, vc, pt, (kp, vp), _ = _paged_case(4, 8, 64, 16, 80, 5, False)
+        full = (pt >= 0).all(1)
+        g = torch.Generator().manual_seed(6)
+        q, k, v = (torch.randn(4, 1, 8, 64, generator=g) for _ in range(3))
+        pos = torch.tensor([0, 200, 17, 230])
+        live = torch.tensor([True, True, False, True]) & full
+        kc, vc, kp, vp = (x.to(dtype).cuda() for x in (kc, vc, kp, vp))
+        dev = [x.cuda() for x in (q, k, v, pos, live)]
+        out_c, kc2, _ = tdecode.make_batched_ring_decode()(kc, vc, *dev)
+        out_p, kp2, _ = tdecode.make_paged_batched_ring_decode(
+            page_size=16)(kp, vp, pt.cuda(), *dev)
+        live = live.cuda()
+        assert torch.equal(out_p[live], out_c[live]), dtype
+        ptc = pt.cuda().long()
+        view = kp2[ptc.clamp(min=0)].reshape(4, 256, 8, 64)
+        assert torch.equal(view[live], kc2[live]), dtype
+        q, k, v = (torch.randn(1, 64, 8, 64, generator=g).cuda()
+                   for _ in range(3))
+        out_c, kc2, _ = tdecode.make_chunk_ring_decode()(
+            kc[:1].clone(), vc[:1].clone(), q, k, v, 128, 176)
+        out_p, kp2, _ = tdecode.make_paged_chunk_ring_decode(
+            page_size=16)(kp, vp, pt[:1].cuda(), q, k, v, 128, 176)
+        assert torch.equal(out_p[:, :48], out_c[:, :48]), dtype
+        view = kp2[ptc[:1]].reshape(1, 256, 8, 64)
+        assert torch.equal(view[:, :176], kc2[:, :176]), dtype

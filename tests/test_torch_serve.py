@@ -34,8 +34,8 @@ from idc_models_tpu_torch import cli
 from idc_models_tpu_torch.models import lm as tlm
 from idc_models_tpu_torch.observe import JsonlLogger, MetricsRegistry
 from idc_models_tpu_torch.serve import (
-    HEALTH_KINDS, LMServer, Request, RetryPolicy, SlotEngine, poisson_trace,
-    save_trace,
+    HEALTH_KINDS, LMServer, PagedPrefixCache, Request, RetryPolicy,
+    SlotEngine, poisson_trace, save_trace,
 )
 
 VOCAB, E, HEADS, MLP, BLOCKS, T_MAX = 16, 32, 2, 64, 2, 64
@@ -247,9 +247,12 @@ def test_admit_rejections_and_later_items():
     server = _server(n_slots=1, temperature=1.0, warmup=False)
     with pytest.raises(ValueError, match="rng"):
         server.submit(Request(id="x", prompt=(1,), max_new_tokens=2))
-    for kw, label in ((dict(kv_page_size=8, kv_pages=16), "A9.2"),
-                      (dict(prefix_cache=object()), "A9.2"),
-                      (dict(draft_k=4), "A9.3"),
+    with pytest.raises(ValueError, match="chunked prefill"):
+        _engine(kv_page_size=8, kv_pages=16)
+    with pytest.raises(ValueError, match="flavor must match"):
+        _engine(prefill_chunk=8, prefix_cache=PagedPrefixCache(
+            8, max_pages=4))
+    for kw, label in ((dict(draft_k=4), "A9.3"),
                       (dict(adapter_bank=object()), "A9.4"),
                       (dict(partition_rules=object()), "A9-dist")):
         with pytest.raises(NotImplementedError, match=label):
@@ -521,6 +524,20 @@ def test_serve_verb_refuses_later_flags_naming_their_item(flag, label):
     (["--slo-error-rate", "1.5"], "fraction in"),
     (["--metrics-port", "70000"], "must be in"),
     (["--max-retries", "-1"], "must be >= 0"),
+    (["--kv-page-size", "4"], "BOTH --kv-page-size and --kv-pages"),
+    (["--kv-pages", "16"], "BOTH --kv-page-size and --kv-pages"),
+    (["--kv-page-size", "4", "--kv-pages", "16"],
+     "--kv-page-size needs --prefill-chunk"),
+    (["--prefill-chunk", "8", "--kv-page-size", "5", "--kv-pages", "16"],
+     "--kv-page-size 5 must be >= 1 and divide --t-max"),
+    (["--prefill-chunk", "4", "--kv-page-size", "8", "--kv-pages", "16"],
+     "must be a multiple of --kv-page-size"),
+    (["--prefill-chunk", "8", "--kv-page-size", "4", "--kv-pages", "8"],
+     "full-length request could never be admitted"),
+    (["--kv-decode-reserve", "4"], "--kv-decode-reserve needs paged KV"),
+    (["--prefill-chunk", "8", "--kv-page-size", "4", "--kv-pages", "16",
+      "--kv-decode-reserve", "-1"], "must be >= 0 \\(0 = reserve"),
+    (["--prefix-cache-mb", "4"], "--prefix-cache-mb needs --prefill-chunk"),
 ])
 def test_serve_verb_checks_carry_the_jax_messages(argv, match):
     with pytest.raises(SystemExit, match=match):
