@@ -225,8 +225,34 @@ non-zero before the result line:
    the hits; (m5) `cli.main(["serve", ...])` with pages and a prefix
    cache, its `paged kv:` and `prefix cache:` lines and the page gauges
    in both scrapes;
+14. spec -- right after paged, speculative decoding at that width and on
+   phase 12's burst (draft_k 8), each run with the launch counts set to
+   0 just before and read just after, every request ok and held to its
+   phase 12 or 13 reference under the contract, and the speculative
+   ledger printed (verifies, drafted, accepted, accept rate, tokens a
+   slot a verify, propose seconds): (s1) the n-gram drafter on
+   LMServer(block_impl="pallas", bf16 caches), B3 48 launches and no
+   backward kernel, its tokens and time beside (k1)'s, then a verify at
+   8 live slots (ms, beside the window step; device busy, idle share,
+   kernels); (s2) int8 caches against (k2)'s reference; (s3) the paged
+   engine of (m1) (the paged verify fold) against the chunked
+   reference, every page back at drain; (s4) sampled against (k4)'s
+   serial reference, its tokens beside (k4)'s; (s5) a draft LM whose
+   position table is the (s5) engine's t_max of 1,024, distilled
+   through `fit` from the target's greedy streams of that length, saved
+   and loaded through the sharded checkpoint bit for bit, its host
+   drafts scored on held-out streams, then served alone and behind the
+   n-gram lookup on a burst of held-out stream prefixes at t_max 1,024
+   against the serial reference there (B3 96: its own prefill takes the
+   flash kernel too), the drafting passes read from the `serve.propose`
+   spans (one propose program each, its backlog ingests beside); (s6)
+   the `serve` verb with --spec-decode, then --drafter chained --draft-ckpt
+   --save-ckpt, the saved parameters restored bit for bit; (s7)
+   `cli.main(["profile", "--model", "serve"])`, both windows timed and
+   `lm.verify` and `serve.propose` filed;
 
-then one JSON line of per-kernel numbers, and the last line
+then one JSON line of per-kernel numbers (B3's row carries its launches
+of each phase-14 run in `launches_spec`), and the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}`.
 """
 
@@ -1595,9 +1621,9 @@ def serve_model(torch):
 
 
 def serve_kw(**kw) -> dict:
-    return dict(embed_dim=LM["embed_dim"], num_heads=LM["num_heads"],
-                num_blocks=LM["num_blocks"], t_max=SERVE_T_MAX,
-                device="cuda", **kw)
+    return {**dict(embed_dim=LM["embed_dim"], num_heads=LM["num_heads"],
+                   num_blocks=LM["num_blocks"], t_max=SERVE_T_MAX,
+                   device="cuda"), **kw}
 
 
 def serial_steps(gen, prompt, n: int, rng=None):
@@ -1688,10 +1714,12 @@ def serve_once(torch, fc, smk, fbk, model, trace, n_slots=SERVE_SLOTS,
 
 def serve_case(torch, fc, smk, fbk, model, name, trace, want_launches,
                reference, card, pick=None, **kw) -> tuple:
-    """One of (k1)-(k4): the server's run, its launches, and every
-    request's tokens against `reference(request)` under the contract."""
+    """One of (k1)-(k4) (and of phases 13 and 14): the server's run, its
+    launches, and every request's tokens against `reference(request)`
+    under the contract."""
     server, results, launches, seconds = serve_once(
         torch, fc, smk, fbk, model, trace, **kw)
+    server.seconds = seconds
     if launches != want_launches:
         raise SystemExit(f"serve {name}: flash launches update/dq/dkv "
                          f"{launches}, expected {want_launches}")
@@ -1877,9 +1905,10 @@ def serve_path(torch, fc, smk, fbk, card: str, memo: dict) -> dict:
     50, seeded requests) against the serial sampled Generator; every
     request ok and held to the engine-against-serial contract; then the
     times; (k5) the `serve` verb. Returns B3's serve launches by run, and
-    leaves in `memo` the chunked Generator's reference for each request
-    of the trace ("chunked") and the window's ms a step at 8 live slots
-    ("step_ms"), which phase 13 reuses."""
+    leaves in `memo` each request's reference of (k1), (k2), (k3) and
+    (k4) ("serial", "int8", "chunked", "sampled"), (k1)'s and (k4)'s
+    tokens and summaries ("k1", "k4") and the window's ms a step at 8
+    live slots ("step_ms"), which phases 13 and 14 reuse."""
     from idc_models_tpu_torch.models.lm import Generator, _make_pick
     from idc_models_tpu_torch.serve import SlotEngine, poisson_trace
 
@@ -1890,41 +1919,51 @@ def serve_path(torch, fc, smk, fbk, card: str, memo: dict) -> dict:
     bf16 = dict(block_impl="pallas", cache_dtype=torch.bfloat16)
     gen = Generator(model, **serve_kw(**bf16))
 
-    def serial(g):
-        return lambda req: serial_steps(g, req.prompt, req.max_new_tokens)
+    def kept(name, ref):
+        refs = memo[name] = {}
+
+        def reference(req):
+            refs[req.id] = ref(req)
+            return refs[req.id]
+
+        return reference
 
     out = {}
-    k1, _, out["k1"] = serve_case(torch, fc, smk, fbk, model, "(k1)", trace,
-                                  (2 * SERVE_N, 0, 0), serial(gen), card,
-                                  **bf16)
+    k1, s1, out["k1"] = serve_case(
+        torch, fc, smk, fbk, model, "(k1)", trace, (2 * SERVE_N, 0, 0),
+        kept("serial", lambda req: serial_steps(gen, req.prompt,
+                                                req.max_new_tokens)),
+        card, **bf16)
+    memo["k1"] = ({r.id: k1.poll(r.id).tokens for _, r in trace}, s1,
+                  k1.seconds)
     one = SlotEngine(model, n_slots=1, kv_dtype="int8", **serve_kw(**bf16))
     _, _, out["k2"] = serve_case(
         torch, fc, smk, fbk, model, "(k2) int8", trace, (2 * SERVE_N, 0, 0),
-        lambda req: engine_steps(one, req.prompt, req.max_new_tokens), card,
+        kept("int8", lambda req: engine_steps(one, req.prompt,
+                                              req.max_new_tokens)), card,
         kv_dtype="int8", **bf16)
     del one
     chunked = Generator(model, prefill_chunk=SERVE_CHUNK, **serve_kw(**bf16))
-    refs = memo["chunked"] = {}
-
-    def chunked_ref(req):
-        refs[req.id] = serial_steps(chunked, req.prompt, req.max_new_tokens)
-        return refs[req.id]
-
     _, _, out["k3"] = serve_case(
         torch, fc, smk, fbk, model, f"(k3) chunk {SERVE_CHUNK}", trace,
-        (0, 0, 0), chunked_ref, card, prefill_chunk=SERVE_CHUNK,
+        (0, 0, 0), kept("chunked", lambda req: serial_steps(
+            chunked, req.prompt, req.max_new_tokens)), card,
+        prefill_chunk=SERVE_CHUNK,
         max_prefills_per_cycle=SERVE_CHUNK_PREFILLS, **bf16)
     del chunked
     sampled = dict(temperature=SERVE_TEMPERATURE, top_k=SERVE_TOP_K)
     sgen = Generator(model, **serve_kw(**bf16, **sampled))
     strace = poisson_trace(SERVE_N, sampled=True, **SERVE_TRACE)
-    _, _, out["k4"] = serve_case(
+    k4, s4, out["k4"] = serve_case(
         torch, fc, smk, fbk, model, "(k4) sampled", strace,
         (2 * SERVE_N, 0, 0),
-        lambda req: serial_steps(sgen, req.prompt, req.max_new_tokens,
-                                 torch.Generator(device="cuda").manual_seed(
-                                     req.seed)),
+        kept("sampled", lambda req: serial_steps(
+            sgen, req.prompt, req.max_new_tokens,
+            torch.Generator(device="cuda").manual_seed(req.seed))),
         card, pick=_make_pick(sgen._cfg), **bf16, **sampled)
+    memo["k4"] = ({r.id: k4.poll(r.id).tokens for _, r in strace}, s4)
+    memo["pick"] = _make_pick(sgen._cfg)
+    del k4
     del sgen
     torch.cuda.empty_cache()
     memo["step_ms"] = serve_times(torch, fbk, k1, gen, card)
@@ -2233,6 +2272,337 @@ def paged_path(torch, fc, smk, fbk, card: str, memo: dict) -> None:
               metrics_wanted=(f"serve_kv_pages_total {PAGED_CLI_PAGES}\n"
                               .encode(),))
     log(f"phase 13 (paged) took {time.perf_counter() - t_start!r} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 14: speculative decoding (models/draft.py, draft_lm.py, the verify)
+# ---------------------------------------------------------------------------
+
+# phase 12's model and width, draft_k 8. The LM forward reads exactly
+# its position table, so (s5)'s learned drafter, the
+# draft_config(1024, SPEC_T_MAX) student (embed 32, 2 heads, MLP 64, 2
+# blocks), distils on the target's greedy streams of SPEC_T_MAX tokens
+# (the target's weights with its first SPEC_T_MAX position rows) and
+# serves an engine of that t_max, where it has been trained at every
+# position. DISTILL_PROMPTS seed-1 prompts of DISTILL_PROMPT tokens:
+# the first DISTILL_TRAIN streams distil for DISTILL_EPOCHS epochs, the
+# rest are held out; (s5)'s burst is SERVE_N prefixes of the held-out
+# streams, SPEC_PREFIX tokens long, with SPEC_BUDGETS budgets
+SPEC_K = 8
+SPEC_T_MAX = SERVE_CLI_T_MAX
+DISTILL_PROMPTS, DISTILL_PROMPT, DISTILL_TRAIN = 24, 16, 16
+DISTILL_EPOCHS = 8
+SPEC_PREFIX, SPEC_BUDGETS = (128, 512), (16, 128)
+
+
+def spec_stats(summary: dict) -> str:
+    return (f"{summary['serve_spec_verify_dispatches']} verify + "
+            f"{summary['serve_decode_dispatches'] - summary['serve_spec_verify_dispatches']}"
+            f" window dispatches, drafted {summary['serve_spec_drafted']}, "
+            f"accepted {summary['serve_spec_accepted']}, accept rate "
+            f"{summary['serve_spec_accept_rate']!r}, tokens a slot a verify "
+            f"{summary['serve_spec_tokens_per_dispatch']!r}, propose "
+            f"{summary['serve_spec_propose_s']!r} s")
+
+
+def spec_case(torch, fc, smk, fbk, model, name, trace, want_launches,
+              reference, card, pick=None, **kw) -> tuple:
+    """One of (s1)-(s5): `serve_case` with speculation on (draft_k 8),
+    which must verify; prints the speculative ledger and the run's
+    tokens/s. Returns (server, summary, launches)."""
+    server, summary, launches = serve_case(
+        torch, fc, smk, fbk, model, name, trace, want_launches, reference,
+        card, pick=pick, spec_decode=True, draft_k=SPEC_K, **kw)
+    if summary["serve_spec_verify_dispatches"] < 1:
+        raise SystemExit(f"spec {name}: no verify dispatch")
+    log(f"spec {name}: {spec_stats(summary)}; {summary['serve_tokens']} "
+        f"tokens in {server.seconds!r} s = "
+        f"{summary['serve_tokens'] / server.seconds!r} tokens/s over the "
+        f"burst (prefills included); {card}")
+    return server, summary, launches
+
+
+def verify_times(torch, eng, card: str, step_ms: float) -> float:
+    """A verify at SERVE_SLOTS live slots of `eng` (each admitted with a
+    WINDOW_PROMPT-token prompt and a budget of WINDOW_BUDGET; drafts that
+    all miss, so each verify emits one token a slot -- its cost does not
+    depend on the drafts): host ms a verify over 5 verifies ending in a
+    synchronize, beside phase 12's window step, and one profiled verify
+    (device busy, idle share, kernels). Returns the ms a verify."""
+    rng = np.random.default_rng(1)
+    for slot in range(SERVE_SLOTS):
+        eng.admit(slot, rng.integers(0, LM["vocab"], WINDOW_PROMPT),
+                  WINDOW_BUDGET)
+    drafts = np.zeros((eng.n_slots, SPEC_K), np.int64)
+    live = np.arange(eng.n_slots) < SERVE_SLOTS
+
+    def verify():
+        eng.begin_verify(drafts, live)
+        if len(sum(eng.collect().values(), [])) != SERVE_SLOTS:
+            raise SystemExit("spec: a verify emitted other than one token "
+                             "a slot")
+
+    verify()
+    torch.cuda.synchronize()
+    n = 5
+    t0 = time.perf_counter()
+    for _ in range(n):
+        verify()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n * 1e3
+    prof = profiled(torch, verify, n=1, kernel="elementwise")
+    for slot in range(SERVE_SLOTS):
+        eng.release(slot)
+    log(f"spec verify: {SERVE_SLOTS} live slots (t_max {eng.t_max}, "
+        f"{eng._cfg.cache_dtype} rows, K={SPEC_K}): {ms!r} ms a verify "
+        f"(host clock, 5 verifies ending in a synchronize) = "
+        f"{ms / step_ms!r} window steps of phase 12's {step_ms!r} ms, so "
+        f"speculation pays above that many tokens a slot a verify; "
+        f"{SERVE_SLOTS / ms * 1e3!r} decode tokens/s with no draft "
+        f"accepted against the window's {SERVE_SLOTS / step_ms * 1e3!r}; "
+        f"one verify: {prof}; {card}")
+    return ms
+
+
+def distill_drafter(torch, model, card: str, out: Path):
+    """(s5)'s drafter and burst: the target's greedy streams of SPEC_T_MAX
+    tokens (its weights under a position table of that length), the
+    student distilled through fit on the first DISTILL_TRAIN of them,
+    saved with save_draft_lm and loaded back (its tree and its host
+    proposals equal before and after), and its host drafts scored
+    against the held-out streams at the burst's cut points. Returns (the
+    loaded DraftLM, the burst: SERVE_N held-out prefixes at arrival 0)."""
+    from idc_models_tpu_torch import convert
+    from idc_models_tpu_torch.models import draft_lm as tdlm
+    from idc_models_tpu_torch.models.lm import AttentionLM
+    from idc_models_tpu_torch.serve import Request
+
+    t0 = time.perf_counter()
+    tree = convert.to_jax(model)[0]
+    tree["pos"] = tree["pos"][:SPEC_T_MAX]
+    target = convert.load_jax(AttentionLM(
+        LM["vocab"], SPEC_T_MAX, embed_dim=LM["embed_dim"],
+        num_heads=LM["num_heads"], mlp_dim=LM["mlp_dim"],
+        num_blocks=LM["num_blocks"]), tree).cuda()
+    rng = np.random.default_rng(1)
+    prompts = rng.integers(0, LM["vocab"], (DISTILL_PROMPTS, DISTILL_PROMPT))
+    streams = tdlm.greedy_streams(target, prompts, SPEC_T_MAX)
+    t_streams = time.perf_counter() - t0
+    cfg = tdlm.draft_config(LM["vocab"], SPEC_T_MAX)
+    student, _, history = tdlm.distill_draft_lm(
+        target, streams[:DISTILL_TRAIN], config=cfg, epochs=DISTILL_EPOCHS,
+        batch_size=8, seed=0)
+    del target
+    dtree = convert.to_jax(student)[0]
+    tdlm.save_draft_lm(out, dtree, config=cfg).wait()
+    params, loaded_cfg = tdlm.load_draft_lm(out)
+    same = loaded_cfg == cfg and all(
+        np.array_equal(a, convert.flatten(params)[n])
+        for n, a in convert.flatten(dtree).items())
+    before = tdlm.DraftLM(SPEC_K, dtree, cfg, device="cuda")
+    after = tdlm.DraftLM(SPEC_K, params, loaded_cfg, device="cuda")
+    held = streams[DISTILL_TRAIN:]
+    if not same or not np.array_equal(before.propose(held[0, :100]),
+                                      after.propose(held[0, :100])):
+        raise SystemExit("spec (s5): the drafter did not come back from "
+                         "its checkpoint bit for bit")
+    cuts = rng.integers(SPEC_PREFIX[0], SPEC_PREFIX[1] + 1, SERVE_N)
+    budgets = rng.integers(SPEC_BUDGETS[0], SPEC_BUDGETS[1] + 1, SERVE_N)
+    burst, agree, seen = [], [], []
+    for i, (cut, budget) in enumerate(zip(cuts, budgets)):
+        row, trained = held[i % len(held)], streams[i % DISTILL_TRAIN]
+        agree.append(after.propose(row[:cut]) == row[cut:cut + SPEC_K])
+        seen.append(after.propose(trained[:cut])
+                    == trained[cut:cut + SPEC_K])
+        burst.append((0.0, Request(id=f"l{i}", prompt=tuple(
+            int(x) for x in row[:cut]), max_new_tokens=int(budget))))
+    agree, seen = np.array(agree), np.array(seen)
+    log(f"spec (s5) drafter: {DISTILL_PROMPTS} greedy streams of "
+        f"{SPEC_T_MAX} tokens in {t_streams!r} s, the first {DISTILL_TRAIN} "
+        f"distilled {DISTILL_EPOCHS} epochs (KL {history['loss']!r}) in "
+        f"{time.perf_counter() - t0 - t_streams!r} s; saved and loaded bit "
+        f"for bit, proposals equal before and after; at the burst's "
+        f"{SERVE_N} cuts of the {len(held)} held-out streams its {SPEC_K} "
+        f"host drafts equal the target's continuation in "
+        f"{float(agree.mean())!r} (first draft {float(agree[:, 0].mean())!r}, "
+        f"a leading run of "
+        f"{float(np.cumprod(agree, 1).sum(1).mean())!r} tokens), at the same "
+        f"cuts of training streams in {float(seen.mean())!r} (first draft "
+        f"{float(seen[:, 0].mean())!r}); {card}")
+    return after, burst
+
+
+def spec_path(torch, fc, smk, fbk, card: str, memo: dict) -> dict:
+    """Phase 14: speculative decoding at phase 12's width and trace,
+    draft_k 8, each run with the launch counts set to 0 just before and
+    read just after, every request ok and held to its phase 12/13
+    reference under the contract: (s1) the n-gram drafter,
+    LMServer(block_impl="pallas"), greedy, B3 launched as in (k1) (48)
+    and no backward kernel; (s2) int8 caches against (k2)'s one-slot
+    int8 engine; (s3) the paged engine of phase 13 (the paged verify
+    fold) against the chunked Generator, every page back at drain; (s4)
+    sampled against (k4)'s serial sampled reference; (s5) a DraftLM
+    distilled at the (s5) engine's t_max of SPEC_T_MAX (saved and loaded
+    through the sharded checkpoint), served alone and behind the n-gram
+    lookup on held-out stream prefixes against the serial reference at
+    that t_max, each drafting pass one propose program; the verify's and
+    propose's times; (s6) the `serve`
+    verb with --drafter ngram and with --drafter chained --draft-ckpt
+    --save-ckpt; (s7) `profile --model serve`. Returns B3's launches by
+    run."""
+    import contextlib
+    import io
+
+    from idc_models_tpu_torch import cli, convert
+    from idc_models_tpu_torch.checkpoint import restore_sharded
+    from idc_models_tpu_torch.models.core import init_params
+    from idc_models_tpu_torch.models.draft import (
+        ChainedDrafter, NGramDrafter,
+    )
+    from idc_models_tpu_torch.models.lm import AttentionLM, Generator
+    from idc_models_tpu_torch.observe import profile as prof
+    from idc_models_tpu_torch.observe import trace as otrace
+    from idc_models_tpu_torch.serve import poisson_trace
+
+    t_start = time.perf_counter()
+    tf32_off(torch)
+    model = serve_model(torch)
+    trace = poisson_trace(SERVE_N, **SERVE_TRACE)
+    bf16 = dict(block_impl="pallas", cache_dtype=torch.bfloat16)
+    out = {}
+    s1, sum1, out["s1"] = spec_case(
+        torch, fc, smk, fbk, model, "(s1) ngram", trace, (2 * SERVE_N, 0, 0),
+        lambda req: memo["serial"][req.id], card, **bf16)
+    k1_tokens, k1_sum, k1_seconds = memo["k1"]
+    same = sum(s1.poll(r.id).tokens == k1_tokens[r.id] for _, r in trace)
+    log(f"spec (s1) against (k1) on the same burst: tokens equal in {same} "
+        f"of {SERVE_N} requests; {sum1['serve_tokens']} tokens in "
+        f"{s1.seconds!r} s with speculation ({sum1['serve_decode_dispatches']}"
+        f" dispatches) against {k1_sum['serve_tokens']} in {k1_seconds!r} s "
+        f"without ({k1_sum['serve_decode_dispatches']} windows of "
+        f"{SERVE_WINDOW}); TTFT p50 {sum1['serve_ttft_ms_p50']!r} against "
+        f"{k1_sum['serve_ttft_ms_p50']!r} ms; {card}")
+    zero_counts(fc, smk, fbk)
+    verify_ms = verify_times(torch, s1.engine, card, memo["step_ms"])
+    # B3 twice an admission's pallas prefill, nothing in the verifies
+    launches = flash_counts(fbk) + (fc.KERNEL.launches, smk.KERNEL.launches)
+    if launches != (2 * SERVE_SLOTS, 0, 0, 0, 0):
+        raise SystemExit(f"spec verify times: kernel launches {launches}")
+    del s1
+    torch.cuda.empty_cache()
+    _, _, out["s2"] = spec_case(
+        torch, fc, smk, fbk, model, "(s2) int8", trace, (2 * SERVE_N, 0, 0),
+        lambda req: memo["int8"][req.id], card, kv_dtype="int8", **bf16)
+    s3, _, out["s3"] = spec_case(
+        torch, fc, smk, fbk, model, "(s3) paged", trace, (0, 0, 0),
+        lambda req: memo["chunked"][req.id], card, n_slots=PAGED_SLOTS,
+        **paged_kw(torch, kv_pages=PAGED_POOL))
+    if s3.engine._alloc.used_count() != 0:
+        raise SystemExit(f"spec (s3): {s3.engine._alloc.used_count()} "
+                         f"pages in use at drain")
+    del s3
+    torch.cuda.empty_cache()
+    sampled = dict(temperature=SERVE_TEMPERATURE, top_k=SERVE_TOP_K)
+    strace = poisson_trace(SERVE_N, sampled=True, **SERVE_TRACE)
+    s4, _, out["s4"] = spec_case(
+        torch, fc, smk, fbk, model, "(s4) sampled", strace,
+        (2 * SERVE_N, 0, 0), lambda req: memo["sampled"][req.id], card,
+        pick=memo["pick"], **bf16, **sampled)
+    k4_tokens = memo["k4"][0]
+    same = sum(s4.poll(r.id).tokens == k4_tokens[r.id] for _, r in strace)
+    log(f"spec (s4) against (k4), the spec-off sampled server, on the same "
+        f"seeds: tokens equal in {same} of {SERVE_N} requests; {card}")
+    del s4
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        learned, burst = distill_drafter(torch, model, card, tmp / "draft")
+        lgen = Generator(model, **serve_kw(**bf16, t_max=SPEC_T_MAX))
+        lrefs = {r.id: serial_steps(lgen, r.prompt, r.max_new_tokens)
+                 for _, r in burst}
+        del lgen
+        for name, drafter in (("(s5) learned", learned),
+                              ("(s5) chained", ChainedDrafter(
+                                  NGramDrafter(SPEC_K), learned))):
+            # the drafter's own prefill runs the engine's block impl: B3
+            # once a drafter block an admission, too. Each drafting pass
+            # (a propose_all with a slot to propose for) is one
+            # serve.propose span: one propose program after rounds - 1
+            # backlog ingest chunks
+            with otrace.tracing(tracer=otrace.Tracer()) as tr:
+                _, summary, launches = spec_case(
+                    torch, fc, smk, fbk, model, name, burst,
+                    (4 * SERVE_N, 0, 0), lambda req: lrefs[req.id], card,
+                    drafter=drafter, t_max=SPEC_T_MAX, **bf16)
+            out[name.replace("(", "").replace(")", "").replace(" ", "_")] = \
+                launches
+            passes = [sp for sp in tr.finished()
+                      if sp.name == "serve.propose"]
+            rounds = [sp.attrs["rounds"] for sp in passes]
+            if not passes or len(passes) > summary["serve_decode_dispatches"]:
+                raise SystemExit(f"spec {name}: {len(passes)} drafting "
+                                 f"passes over "
+                                 f"{summary['serve_decode_dispatches']} "
+                                 f"dispatches")
+            log(f"spec {name}: {len(passes)} drafting passes (serve.propose "
+                f"spans, one propose program each) over "
+                f"{summary['serve_decode_dispatches']} dispatches "
+                f"({SERVE_N} admissions); {rounds.count(1)} of them in the "
+                f"steady state (no backlog), {sum(rounds) - len(rounds)} "
+                f"backlog ingest chunks in all; "
+                f"{float(np.mean([sp.dur_s for sp in passes])) * 1e3!r} ms a "
+                f"drafting pass (host clock, the drafts' fetch included); "
+                f"{card}")
+            torch.cuda.empty_cache()
+        # (s6) the verb, with the n-gram drafter, then chained over the
+        # distilled checkpoint, exporting the served parameters
+        out["s6"] = serve_cli(
+            torch, fc, smk, fbk, card, name="(s6) ngram",
+            flags=("--spec-decode", "--draft-k", str(SPEC_K)),
+            lines_wanted=("speculative (ngram): drafted=",))
+        saved = tmp / "served"
+        serve_cli(torch, fc, smk, fbk, card, name="(s6) chained",
+                  flags=("--spec-decode", "--draft-k", str(SPEC_K),
+                         "--drafter", "chained", "--draft-ckpt",
+                         str(tmp / "draft"), "--save-ckpt", str(saved)),
+                  lines_wanted=("speculative (chained): drafted=",
+                                "checkpoint: wrote "))
+        want = convert.flatten(convert.to_jax(init_params(AttentionLM(
+            LM["vocab"], SERVE_CLI_T_MAX, embed_dim=LM["embed_dim"],
+            num_heads=LM["num_heads"], mlp_dim=LM["mlp_dim"],
+            num_blocks=LM["num_blocks"]), 0))[0])
+        got = convert.flatten(restore_sharded(saved))
+        if sorted(got) != sorted(want) or not all(
+                np.array_equal(got[n], want[n]) for n in want):
+            raise SystemExit("spec (s6): --save-ckpt did not restore the "
+                             "served parameters")
+        log(f"spec (s6): restore_sharded(--save-ckpt) gave the {len(want)} "
+            f"served leaves bit for bit; {card}")
+    # (s7) profile --model serve on the card
+    zero_counts(fc, smk, fbk)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["profile", "--model", "serve"])
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"  profile | {line}")
+    filed = prof.registered_programs()
+    if (rc != 0 or "ms/window" not in text or "  paged: " not in text
+            or not {"lm.verify", "serve.propose", "serve.window",
+                    "serve.window_paged"} <= set(filed)):
+        raise SystemExit(f"spec (s7): profile --model serve rc {rc}, "
+                         f"programs {sorted(filed)}")
+    no_kernels(fc, smk, fbk, "spec (s7) profile")
+    out["s7"] = (0, 0, 0)
+    log(f"spec (s7): cli.main(['profile', '--model', 'serve']) in "
+        f"{time.perf_counter() - t0!r} s; lm.verify "
+        f"{filed['lm.verify'].flops!r} flops / "
+        f"{filed['lm.verify'].bytes_accessed!r} bytes, serve.propose "
+        f"{filed['serve.propose'].flops!r} flops; {card}")
+    log(f"phase 14 (spec) took {time.perf_counter() - t_start!r} s; the "
+        f"verify at {SERVE_SLOTS} live slots {verify_ms!r} ms; {card}")
+    return out
 
 
 def flash_bytes_flops(t: int, d: int, h: int, itemsize: int,
@@ -4480,6 +4850,7 @@ def main() -> int:
     memo = {}
     served = serve_path(torch, fc, smk, fbk, card, memo)
     paged_path(torch, fc, smk, fbk, card, memo)
+    spec = spec_path(torch, fc, smk, fbk, card, memo)
     del memo
     att = attention_path(torch, fc, smk, fbk, tring, card)
 
@@ -4570,6 +4941,8 @@ def main() -> int:
                           "attention": dist["attention"][i]},
         # phase 12: the serve runs (k1)-(k5)
         "launches_serve": {run: counts[i] for run, counts in served.items()},
+        # phase 14: the speculative runs (s1)-(s7)
+        "launches_spec": {run: counts[i] for run, counts in spec.items()},
         "max_abs_err_zigzag_grid_256": att["grid"][key],
         **{f"quarter_{field}": {what: quarters[(what, key)][field]
                                 for what in QUARTERS}

@@ -139,14 +139,28 @@ from pathlib import Path
 from idc_models_tpu_torch.models.core import DEPTHWISE_IMPLS
 
 
+# `serve --drafter`: choice -> (module, class, story). Every class listed
+# honours the models/draft.py contract (`propose(history) -> [k] ids |
+# None`), and the argparse choices are this table's keys (both held by
+# tests/test_torch_spec_decode.py)
+SERVE_DRAFTERS = {
+    "ngram": ("idc_models_tpu_torch.models.draft", "NGramDrafter",
+              "prompt-lookup over the slot's own stream; free, wins on "
+              "repetitive/templated traffic, proposes nothing on fresh "
+              "text"),
+    "learned": ("idc_models_tpu_torch.models.draft_lm", "DraftLM",
+                "distilled draft LM (--draft-ckpt) with device-resident "
+                "per-slot caches; one batched propose a cycle, wins on "
+                "non-repetitive traffic"),
+    "chained": ("idc_models_tpu_torch.models.draft", "ChainedDrafter",
+                "lookup-first / learned-fallback composition: the n-gram "
+                "scan's free hits where streams repeat, the draft LM "
+                "(--draft-ckpt) everywhere else"),
+}
+
 # the serve verb's flags of later ROADMAP items: (flag, argparse
 # keywords, label); `_run_serve` refuses any that differs from its default
 _LATER = [
-    ("--spec-decode", dict(action="store_true"), "A9.3"),
-    ("--draft-k", dict(type=int, default=8), "A9.3"),
-    ("--ngram-order", dict(type=int, default=3), "A9.3"),
-    ("--drafter", dict(default="ngram"), "A9.3"),
-    ("--draft-ckpt", dict(default=None), "A9.3"),
     ("--serve-faults", dict(default=None), "A9.4"),
     ("--journal", dict(default=None), "A9.4"),
     ("--brownout", dict(action="store_true"), "A9.4"),
@@ -158,7 +172,6 @@ _LATER = [
     ("--tenant-quota", dict(action="append", default=None), "A9.4"),
     ("--tenant-slo-ttft-ms", dict(action="append", default=None), "A9.4"),
     ("--rollout-adapters", dict(type=int, default=None), "A9.4"),
-    ("--save-ckpt", dict(default=None), "A11"),
     ("--rollout", dict(default=None), "A11"),
     ("--canary-fraction", dict(type=float, default=None), "A11"),
     ("--canary-requests", dict(type=int, default=None), "A11"),
@@ -179,7 +192,8 @@ def main(argv: list[str] | None = None) -> int:
     if getattr(ns, "host_devices", 0):
         if ns.host_devices > 1 and ns.preset_key in ("fed", "secure_fed"):
             _one_rank_fed(ns.host_devices)
-        if ns.preset_key == "serve":
+        if ns.preset_key == "serve" or (ns.preset_key == "profile"
+                                        and ns.model == "serve"):
             sys.exit(f"serve --host-devices {ns.host_devices}: serving "
                      f"over several ranks is not ported yet (ROADMAP "
                      f"A9-dist)")
@@ -613,6 +627,36 @@ def _parse(argv):
     sp.add_argument("--slo-window-s", type=float, default=60.0,
                     help="the SLO engine's short window (the long one is "
                          "5x)")
+    sp.add_argument("--spec-decode", action="store_true",
+                    help="speculative decoding (models/draft.py + the "
+                         "engine's verify program): the drafter proposes "
+                         "--draft-k continuation tokens a slot, one "
+                         "batched verify accepts the prefix the model "
+                         "itself would have emitted (+ its own pick at "
+                         "the first miss) -- up to k+1 tokens a slot a "
+                         "dispatch")
+    sp.add_argument("--draft-k", type=int, default=8,
+                    help="draft tokens a slot a verify dispatch")
+    sp.add_argument("--ngram-order", type=int, default=3,
+                    help="longest trailing n-gram the prompt-lookup "
+                         "drafter matches against the stream's history "
+                         "(falls back to shorter n-grams down to 1)")
+    sp.add_argument("--drafter", choices=sorted(SERVE_DRAFTERS),
+                    default="ngram",
+                    help="which drafter proposes under --spec-decode: "
+                         + "; ".join(f"'{name}' = {entry[2]}"
+                                     for name, entry
+                                     in sorted(SERVE_DRAFTERS.items())))
+    sp.add_argument("--draft-ckpt", default=None, metavar="DIR",
+                    help="distilled draft-LM checkpoint directory "
+                         "(models/draft_lm.save_draft_lm: sharded params "
+                         "+ draft_config.json sidecar, either package's) "
+                         "-- required by --drafter learned/chained")
+    sp.add_argument("--save-ckpt", default=None, metavar="DIR",
+                    help="export the serving params as a sharded "
+                         "checkpoint (checkpoint/sharded.py) before the "
+                         "trace replays; MANIFEST.json commits the save "
+                         "atomically")
     # the JAX verb's flags of later items: accepted, and refused by
     # `_run_serve` with the item's label when set
     for flag, kw, label in _LATER:
@@ -629,10 +673,13 @@ def _parse(argv):
     sp.add_argument("--model", required=True,
                     choices=("vgg", "mobile", "dense", "small", "serve",
                              "lm"),
-                    help="which train step to profile: a backbone's "
-                         "fine-tune step at its bench batch "
-                         "(vgg/mobile/dense; `small` is the tiny CNN) or "
-                         "the LM's (`serve` waits for ROADMAP A9.3)")
+                    help="what to profile: a backbone's fine-tune step "
+                         "at its bench batch (vgg/mobile/dense; `small` "
+                         "is the tiny CNN), the LM's train step, or "
+                         "`serve`: the continuous-batching decode loop "
+                         "(contiguous and paged windows timed; the "
+                         "window, verify, propose and prefill programs "
+                         "accounted)")
     sp.add_argument("--fsdp", type=int, default=0,
                     help="with --model lm: FSDP degree (the parameters and "
                          "RMSprop moments shard over a 'data' axis of "
@@ -1807,6 +1854,29 @@ def _run_serve(ns):
     if ns.kv_decode_reserve < 0:
         sys.exit(f"--kv-decode-reserve {ns.kv_decode_reserve} must be "
                  f">= 0 (0 = reserve the full budget)")
+    if ns.spec_decode and not 1 <= ns.draft_k <= ns.t_max - 2:
+        sys.exit(f"--draft-k {ns.draft_k} must be in [1, t_max - 2] "
+                 f"(a verify needs room for k drafts + the bonus "
+                 f"token inside the {ns.t_max}-slot cache)")
+    if ns.spec_decode and ns.ngram_order < 1:
+        sys.exit(f"--ngram-order {ns.ngram_order} must be >= 1")
+    if ns.drafter != "ngram" and not ns.spec_decode:
+        sys.exit(f"--drafter {ns.drafter} without --spec-decode: the "
+                 f"drafter only runs inside the speculative loop (its "
+                 f"proposals feed the engine's fixed-k verify "
+                 f"program) — add --spec-decode")
+    if ns.drafter in ("learned", "chained") and not ns.draft_ckpt:
+        sys.exit(f"--drafter {ns.drafter} needs --draft-ckpt DIR: the "
+                 f"learned drafter is a distilled draft LM restored "
+                 f"from a models/draft_lm.save_draft_lm checkpoint "
+                 f"(params + draft_config.json sidecar); distill one "
+                 f"with models/draft_lm.distill_draft_lm, or use "
+                 f"--drafter ngram which needs no model")
+    if ns.draft_ckpt and ns.drafter == "ngram":
+        sys.exit(f"--draft-ckpt without a learned drafter: the n-gram "
+                 f"drafter loads no model, so the checkpoint would be "
+                 f"silently ignored — pass --drafter learned (or "
+                 f"chained) to use it")
     if ns.slo_ttft_p95_ms is not None and ns.slo_ttft_p95_ms <= 0:
         sys.exit(f"--slo-ttft-p95-ms {ns.slo_ttft_p95_ms} must be > 0")
     if (ns.slo_error_rate is not None
@@ -1856,6 +1926,34 @@ def _run_serve(ns):
     retry = (RetryPolicy(max_retries=ns.max_retries,
                          backoff_s=ns.retry_backoff_ms / 1e3)
              if ns.max_retries > 0 else None)
+    # --drafter learned/chained: the distilled draft LM restored through
+    # the sharded checkpoint; 'ngram' stays None, so the server builds
+    # its default prompt-lookup drafter from --ngram-order. The vocab is
+    # checked here, at load time, before anything lands on the card
+    drafter = None
+    if ns.spec_decode and ns.drafter != "ngram":
+        from idc_models_tpu_torch.models.draft_lm import (
+            DraftLM, load_draft_lm,
+        )
+
+        dparams, dcfg = load_draft_lm(ns.draft_ckpt)
+        if dcfg["vocab_size"] != ns.vocab:
+            sys.exit(f"--draft-ckpt {ns.draft_ckpt} was distilled against "
+                     f"a {dcfg['vocab_size']}-token vocab but this target "
+                     f"serves --vocab {ns.vocab}: drafter and target must "
+                     f"share one tokenizer (the verify program compares "
+                     f"token IDS) — re-distill the drafter against this "
+                     f"target (models/draft_lm.distill_draft_lm)")
+        learned = DraftLM(ns.draft_k, dparams, dcfg, device=device)
+        if ns.drafter == "chained":
+            from idc_models_tpu_torch.models.draft import (
+                ChainedDrafter, NGramDrafter,
+            )
+
+            drafter = ChainedDrafter(
+                NGramDrafter(ns.draft_k, order=ns.ngram_order), learned)
+        else:
+            drafter = learned
     # armed before the server's warmup, so a scraper sees the process
     # from the start; taken down with the run
     exporter = None
@@ -1881,7 +1979,20 @@ def _run_serve(ns):
             kv_page_size=ns.kv_page_size or None,
             kv_pages=ns.kv_pages or None,
             kv_decode_reserve=ns.kv_decode_reserve or None,
-            slo=slo, retry=retry, device=device)
+            slo=slo, retry=retry, spec_decode=ns.spec_decode,
+            draft_k=ns.draft_k, draft_order=ns.ngram_order,
+            drafter=drafter, device=device)
+        if ns.save_ckpt:
+            # rank 0 writes the whole tree; MANIFEST.json commits the
+            # save atomically (checkpoint/sharded.py)
+            from idc_models_tpu_torch import convert
+            from idc_models_tpu_torch.checkpoint import save_sharded
+
+            manifest = save_sharded(
+                ns.save_ckpt, convert.to_jax(server.engine._model)[0],
+                step=ns.train_steps, logger=logger).wait()
+            print(f"checkpoint: wrote {manifest['n_shards']} shard(s) / "
+                  f"{len(manifest['leaves'])} leaves to {ns.save_ckpt}")
         if ns.trace:
             trace = load_trace(ns.trace)
         else:
@@ -1935,6 +2046,21 @@ def _run_serve(ns):
                   f"{summary['serve_kv_tokens_per_hbm_byte']}), "
                   f"exhaustion backpressure "
                   f"{summary['serve_page_exhaustions']}")
+        if ns.spec_decode:
+            # what speculation bought: the accept rate over drafted
+            # tokens, tokens a slot a verify, and what proposing cost
+            line = (f"speculative ({ns.drafter}): "
+                    f"drafted={summary['serve_spec_drafted']} "
+                    f"accepted={summary['serve_spec_accepted']} "
+                    f"accept_rate={summary['serve_spec_accept_rate']} "
+                    f"tokens/dispatch="
+                    f"{summary['serve_spec_tokens_per_dispatch']} "
+                    f"({summary['serve_spec_verify_dispatches']} verify + "
+                    f"{summary['serve_decode_dispatches'] - summary['serve_spec_verify_dispatches']}"
+                    f" window dispatches)")
+            if summary.get("serve_spec_propose_s") is not None:
+                line += f" propose_s={summary['serve_spec_propose_s']}"
+            print(line)
         if slo is not None:
             names = sorted({a["slo"] for a in slo.alerts})
             print(f"slo: {len(slo.alerts)} alert(s)"
@@ -2001,9 +2127,6 @@ def _run_profile(ns):
     from idc_models_tpu_torch.observe import REGISTRY, JsonlLogger, trace
     from idc_models_tpu_torch.observe import profile as prof
 
-    if ns.model == "serve":
-        sys.exit("profile --model serve: its verify program and draft "
-                 "LM are not ported yet (ROADMAP A9.3)")
     if ns.steps is not None and ns.steps < 1:
         sys.exit(f"profile: --steps {ns.steps} must be >= 1")
     if ns.batch_size is not None and ns.batch_size < 1:
@@ -2039,6 +2162,8 @@ def _run_profile(ns):
     try:
         if ns.model == "lm":
             progs, mark = _profile_lm(ns, device, kind)
+        elif ns.model == "serve":
+            progs, mark = _profile_serve(ns, device, kind)
         else:
             progs, mark = _profile_train_step(ns, device, kind)
         if ns.churn_drill:
@@ -2277,6 +2402,109 @@ def _profile_lm(ns, device, kind: str):
         print(f"  per-rank peak memory: {cost.peak_hbm_bytes / 2**20:.2f} "
               f"MiB over {mesh.size} rank(s)")
     return {"train.step": (cost, roofline, step_s * 1e3)}, mark
+
+
+def _profile_serve(ns, device, kind: str):
+    """Profile the continuous-batching decode loop: 8 slots (4 on the
+    CPU) saturated with long-budget requests, steady-state windows timed
+    through the scheduler (collect's token fetch is the device.sync
+    fence), contiguous and paged, and the engines' programs accounted
+    (`SlotEngine.program_costs`). On the card the bench shape (vocab
+    1024, embed 512, 8 heads, 2 blocks, MLP 2048, t_max 2,048, windows
+    of 64), bf16 caches; a drafter that never proposes arms the verify
+    program and a draft LM's propose program, so both are accounted
+    while the timed loop stays pure windows."""
+    import time
+
+    import torch
+
+    from idc_models_tpu_torch import convert
+    from idc_models_tpu_torch.models.core import init_params
+    from idc_models_tpu_torch.models.draft_lm import (
+        DraftLM, draft_config, draft_lm,
+    )
+    from idc_models_tpu_torch.models.lm import AttentionLM
+    from idc_models_tpu_torch.observe import profile as prof
+    from idc_models_tpu_torch.observe import trace
+    from idc_models_tpu_torch.serve import LMServer, Request
+
+    if device.type == "cuda":
+        vocab, e, heads, blocks, mlp = 1024, 512, 8, 2, 2048
+        t_max, n_slots, window = 2048, 8, 64
+    else:
+        vocab, e, heads, blocks, mlp = 32, 32, 2, 2, 64
+        t_max, n_slots, window = 128, 4, 8
+    model = init_params(AttentionLM(vocab, t_max, embed_dim=e,
+                                    num_heads=heads, mlp_dim=mlp,
+                                    num_blocks=blocks), ns.seed)
+    dcfg = draft_config(vocab, t_max)
+    dparams = convert.to_jax(init_params(draft_lm(dcfg), ns.seed + 1))[0]
+    k = min(8, window)
+
+    class _NoDraft:
+        # arms the verify program and the drafter's device state (via
+        # `learned`) so lm.verify and serve.propose are accounted, and
+        # never proposes: the timed loop runs windows only
+        learned = DraftLM(k, dparams, dcfg, device=device)
+
+        def propose(self, history):
+            return None
+
+    kw = dict(embed_dim=e, num_heads=heads, num_blocks=blocks, t_max=t_max,
+              n_slots=n_slots, window=window, cache_dtype=torch.bfloat16,
+              device=device)
+    budget = t_max - 8
+
+    def timed(server, settle: int, name: str):
+        for i in range(n_slots):
+            server.submit(Request(id=f"{name}{i}", prompt=(1, 2, 3, 4),
+                                  max_new_tokens=budget))
+        for _ in range(settle):
+            server.step()
+        costs = server.engine.program_costs(window)
+        steps = ns.steps or max(budget // window - 4, 2)
+        mark = prof.trace_mark(trace.get_tracer())
+        t0 = time.perf_counter()
+        n = 0
+        for _ in range(steps):
+            if server.scheduler.idle():
+                break
+            server.step()
+            n += 1
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        window_s = (time.perf_counter() - t0) / max(n, 1)
+        server.close()
+        return costs, window_s, n, mark
+
+    costs, window_s, n, mark = timed(
+        LMServer(model, spec_decode=True, draft_k=k, drafter=_NoDraft(),
+                 **kw), 2, "p")
+    # the paged twin at the same decode configuration: its window beside
+    # the contiguous one shows what the page-table gather costs
+    page_size = max(t_max // 16, 1)
+    paged_costs, paged_window_s, n_paged, _ = timed(
+        LMServer(model, prefill_chunk=page_size, kv_page_size=page_size,
+                 kv_pages=n_slots * (t_max // page_size), **kw),
+        n_slots + 2, "g")
+    progs = {"serve.window": (costs.pop("serve.window"), window_s),
+             "serve.window_paged": (paged_costs.pop("serve.window_paged"),
+                                    paged_window_s)}
+    progs = {name: (c, prof.roofline_verdict(c, sec, kind), sec * 1e3)
+             for name, (c, sec) in progs.items()}
+    for name, c in list(costs.items()) + list(paged_costs.items()):
+        # untimed programs (the prefills, the verify, the propose) get an
+        # intensity-based verdict; achieved fractions stay None
+        progs[name] = (c, prof.roofline_verdict(c, None, kind), None)
+    print(f"profile: serve decode loop ({n_slots} slots x {window} "
+          f"tokens/window, {n} measured windows)")
+    print(f"  {window_s * 1e3:.2f} ms/window, "
+          f"{n_slots * window / window_s:.1f} tokens/sec at full "
+          f"occupancy")
+    print(f"  paged: {paged_window_s * 1e3:.2f} ms/window "
+          f"({n_paged} measured) — indirection overhead "
+          f"{(paged_window_s / window_s - 1) * 100:+.1f}% vs contiguous")
+    return progs, mark
 
 
 def _profile_churn_drill(limit: int, device) -> None:

@@ -520,6 +520,32 @@ def _chunk_forward(cfg: _ServeConfig, model: AttentionLM, caches, tokens,
     return _final_logits(model, h[:, p_end - start - 1]), tuple(new_caches)
 
 
+def _chunk_batch_forward(cfg: _ServeConfig, model: AttentionLM, caches,
+                         toks, pos, fold):
+    """C tokens per row through every block: `_token_forward` widened to
+    C positions with PER-ROW start positions, the model half of the
+    speculative verify. Row b's tokens [B, C] occupy positions
+    [pos[b], pos[b] + C) (clamped into the position table); per block
+    the q/k/v of the C tokens go through
+    ``fold(i, kc, vc, q, k, v) -> (o [B, C, H, D], kc, vc)`` (the
+    batched chunk fold, contiguous or paged, with liveness and positions
+    closed over by the caller). Returns the logits at EVERY position
+    [B, C, V] -- the verify needs each next-token distribution -- and
+    the caches."""
+    b, c = toks.shape
+    idx = (pos[:, None] + torch.arange(c, device=toks.device)).clamp(
+        0, model.pos.shape[0] - 1)
+    h = model.embed[toks] + model.pos[idx]                  # [B, C, E]
+    new_caches = []
+    for i, (blk, (kc, vc)) in enumerate(zip(model.blocks, caches)):
+        q, k, v = _project_qkv(cfg, blk, h, (c,))
+        o, kc, vc = fold(i, kc, vc, q, k, v)
+        h = _attn_residual(blk, h, o.reshape(b, c, cfg.embed_dim))
+        h = _mlp_residual(blk, h)
+        new_caches.append((kc, vc))
+    return _final_logits(model, h), tuple(new_caches)
+
+
 def _prefill(cfg: _ServeConfig, model: AttentionLM, ring, tokens, p_len):
     """The bucketed prompt [B, P'] through every block's ring attention:
     the last REAL position's logits, and per block the prompt's K/V with

@@ -10,7 +10,7 @@ so the multi-card decode ring (ROADMAP A9-dist) plugs in. Appends write
 the cache IN PLACE (the JAX version donates the cache; here the caller's
 tensor is the cache).
 
-Five folds share that algebra (`_attend`):
+Seven folds share that algebra (`_attend`):
 
 - `make_ring_decode`: one token per step, every row at one position;
 - `make_batched_ring_decode`: one token per row, each row its own
@@ -21,17 +21,21 @@ Five folds share that algebra (`_attend`):
 - `make_chunk_ring_decode`: C prompt tokens at once, appended at
   `start`, each query attending causally over the whole cache -- chunked
   prefill (``models/lm.py``);
-- `make_paged_batched_ring_decode` and `make_paged_chunk_ring_decode`:
-  the same two serving folds over a POOL of fixed-size pages and a page
-  table (the paged engine, ``serve/pages.py``), attending through each
-  row's gathered logical view, bit for bit the contiguous folds' result
-  at world size 1; int8 pools carry one scale per (page, head).
+- `make_batched_chunk_ring_decode`: C draft tokens per row, each row
+  at its own position, dead rows appending nothing -- the speculative
+  verify's fold (and the learned drafter's ingest);
+- `make_paged_batched_ring_decode`, `make_paged_chunk_ring_decode` and
+  `make_paged_batched_chunk_ring_decode`: the serving folds over a POOL
+  of fixed-size pages and a page table (the paged engine,
+  ``serve/pages.py``), attending through each row's gathered logical
+  view, bit for bit the contiguous folds' result at world size 1; int8
+  pools carry one scale per (page, head).
 
 `prefill` places a prompt's K/V into a fresh cache. The folds upcast
 the whole cache (or view) to f32 for the contractions, as the one-row
 fold always has (PERF.md §7 lists a fused decode fold as speed work).
-The paged batched chunk fold goes with the speculative verify program
-(ROADMAP A9.3).
+No fold reads anything back to the host: liveness, positions and the
+append targets stay on the device.
 """
 
 from __future__ import annotations
@@ -201,6 +205,77 @@ def make_batched_ring_decode(*, quantized: bool = False):
                    <= posc[:, None])
         out = _attend(q[:, 0], kc, vc, visible, *scales)
         return out[:, None].to(q.dtype), kc, vc
+
+    return fold
+
+
+def _checked_chunk(q, pos, rows: int, what: str):
+    """The [B, C, H, D] draft-chunk and one-position-per-row contract of
+    the batched chunk folds."""
+    if q.dim() != 4 or q.shape[1] < 1:
+        raise ValueError(f"{what} expects [B, C, H, D] queries, got "
+                         f"shape {tuple(q.shape)}")
+    if tuple(np.shape(pos)) != (rows,):
+        raise ValueError(f"pos must be one position per row, shape "
+                         f"({rows},); got {tuple(np.shape(pos))}")
+
+
+def make_batched_chunk_ring_decode(*, quantized: bool = False):
+    """The speculative verify's fold: ``fn(k_cache, v_cache, q, k, v,
+    pos, live) -> (out, k_cache, v_cache)`` runs C draft tokens per
+    batch row against the row's cache, each row an INDEPENDENT sequence
+    at its OWN position -- the chunk-query algebra of
+    `make_chunk_ring_decode` crossed with the per-row masking of
+    `make_batched_ring_decode`.
+
+    q/k/v are [B, C, H, D]; `pos` is [B] (row b's chunk occupies
+    positions [pos[b], pos[b] + C)) and `live` bool [B]. Per live row the
+    chunk's K/V are spliced into [pos[b], pos[b] + C) (positions past the
+    cache are dropped); every query then attends the row's whole updated
+    cache with per-query causal visibility (cache position <= query
+    position, which covers causality inside the chunk too). A dead row
+    appends NOTHING: its cache row is bit-untouched, so slots that do not
+    speculate ride through a verify as bit-level no-ops. Callers own the
+    bound pos[b] + C <= t_max for live rows.
+
+    The splice writes each chunk entry into its target, and an entry
+    that must not write (a dead row, a position past the cache) writes
+    its row's stored value at pos[b] - 1 back over itself: no live entry
+    of the row targets that position, so every index the write sees
+    twice carries one value.
+
+    With ``quantized=True`` the caches hold int8 K/V and the signature
+    grows the per-(row, head) f32 scales, ``fn(..., pos, live, k_scale,
+    v_scale)``; appends quantize with the row's frozen insert-time
+    scale, as the one-token fold's do."""
+
+    def fold(kc, vc, q, kt, vt, pos, live, *scales):
+        if quantized and len(scales) != 2:
+            raise ValueError("quantized fold needs (k_scale, v_scale)")
+        if not quantized and scales:
+            raise ValueError("scales passed to a non-quantized fold")
+        b, t_max = kc.shape[:2]
+        _checked_chunk(q, pos, b, "batched chunk fold")
+        c = q.shape[1]
+        dev = kc.device
+        pos = torch.as_tensor(pos, device=dev).long()
+        live = torch.as_tensor(live, device=dev).bool()
+        posc = pos.clamp(0, t_max - 1)
+        qpos = posc[:, None] + torch.arange(c, device=dev)     # [B, C]
+        writes = live[:, None] & (qpos < t_max)
+        at = (torch.arange(b, device=dev)[:, None].expand(b, c),
+              torch.where(writes, qpos, (posc - 1).clamp(min=0)[:, None]))
+        if quantized:
+            kt = _quantize_token(kt, scales[0])
+            vt = _quantize_token(vt, scales[1])
+        keep = writes[..., None, None]
+        for cache, tok in ((kc, kt), (vc, vt)):
+            cache.index_put_(at, torch.where(keep, tok.to(cache.dtype),
+                                             cache[at]))
+        visible = (torch.arange(t_max, device=dev)[None, None, :]
+                   <= qpos[:, :, None])                        # [B, C, T]
+        out = _attend(q, kc, vc, visible, *scales)
+        return out.to(q.dtype), kc, vc
 
     return fold
 
@@ -416,6 +491,64 @@ def make_paged_chunk_ring_decode(*, page_size: int, quantized: bool = False):
         if quantized:
             return (out, kp, vp) + tuple(scales)
         return out, kp, vp
+
+    return fold
+
+
+def make_paged_batched_chunk_ring_decode(*, page_size: int,
+                                         quantized: bool = False):
+    """Page-table-indirect `make_batched_chunk_ring_decode`, the
+    speculative verify's fold on the PAGED engine: ``fn(k_pool, v_pool,
+    page_table, q, k, v, pos, live) -> (out, k_pool, v_pool)`` runs C
+    draft tokens per row against the row's pages, each row at its OWN
+    position.
+
+    Each live row's entry at position pos[b] + j lands in the physical
+    page that owns that position; a dead row's entries, a position past
+    the row's logical view and a position on an unallocated page (-1)
+    send their writes to the pool's LAST page, the sink no page table
+    names, so no real page receives a non-writer's value and nothing is
+    read back to the host. The attend is the contiguous folds' through
+    each row's gathered view, visibility (position <= query position) &
+    (page allocated). Callers (the engine's room check and the
+    scheduler's page grants) own that live rows' pages cover
+    [pos[b], pos[b] + C).
+
+    With ``quantized=True`` the pools hold int8 pages and the signature
+    grows the [n_pages + 1, H] f32 scales: appends quantize with their
+    target page's EXISTING scale (decode pages are stamped when granted)
+    and no scale is written."""
+
+    def fold(kp, vp, pt, q, kt, vt, pos, live, *scales):
+        _check_paged_pool(kp, pt, page_size, quantized, scales)
+        _checked_chunk(q, pos, pt.shape[0], "paged batched chunk fold")
+        s_rows, c = q.shape[:2]
+        l_pages = pt.shape[1]
+        span = l_pages * page_size
+        dev = kp.device
+        pt = pt.to(dev).long()
+        pos = torch.as_tensor(pos, device=dev).long()
+        live = torch.as_tensor(live, device=dev).bool()
+        posc = pos.clamp(0, span - 1)
+        qraw = posc[:, None] + torch.arange(c, device=dev)     # [S, C]
+        qpos = qraw.clamp(max=span - 1)
+        phys = pt.gather(1, qpos // page_size)                  # [S, C]
+        writer = live[:, None] & (qraw < span) & (phys >= 0)
+        dst = torch.where(writer, phys, kp.shape[0] - 1)
+        if quantized:
+            kt = torch.clamp(torch.round(
+                kt.float() / scales[0][dst][..., None]), -127, 127)
+            vt = torch.clamp(torch.round(
+                vt.float() / scales[1][dst][..., None]), -127, 127)
+        at = (dst, qpos % page_size)
+        kp.index_put_(at, kt.to(kp.dtype))
+        vp.index_put_(at, vt.to(vp.dtype))
+        g, owned = _page_positions(pt, page_size)
+        visible = owned[:, None] & (g[None, None] <= qpos[:, :, None])
+        extra = tuple(_page_scales(sc, pt, page_size) for sc in scales)
+        out = _attend(q, _page_view(kp, pt), _page_view(vp, pt), visible,
+                      *extra)
+        return out.to(q.dtype), kp, vp
 
     return fold
 

@@ -4,8 +4,9 @@ counterpart of ``idc_models_tpu/serve/api.py``.
 
 `LMServer` composes `SlotEngine` (the device state machine, contiguous
 or paged), `Scheduler` (admission queue, deadlines, interleave,
-recycling, page-aware admission), an optional prefix cache and
-`ServingMetrics` (TTFT, throughput, occupancy, pages):
+recycling, page-aware admission, speculative verify), an optional prefix
+cache and `ServingMetrics` (TTFT, throughput, occupancy, pages, the
+speculative ledger):
 
     server = LMServer(params, embed_dim=..., num_heads=...,
                       num_blocks=..., t_max=..., n_slots=4, window=8)
@@ -76,7 +77,15 @@ class LMServer:
     """Continuous-batching server over one `attention_lm` parameter tree
     (JAX-shaped, or an `AttentionLM`), on `device` (CUDA unless "cpu").
     With `warmup` the engine runs each of its programs once before the
-    first request."""
+    first request.
+
+    `spec_decode=True` arms speculative decoding: the engine verifies
+    `draft_k` drafted tokens a slot, and the scheduler's drafter is
+    `drafter` (any object with ``propose(history) -> [k] ids | None``)
+    or by default ``NGramDrafter(draft_k, order=draft_order)``. A
+    learned drafter (``models/draft_lm.DraftLM``, or a `ChainedDrafter`
+    holding one) exposes `.learned`, which arms the engine's drafter
+    state."""
 
     def __init__(self, params, *, embed_dim: int, num_heads: int,
                  num_blocks: int, t_max: int, n_slots: int = 4,
@@ -126,8 +135,21 @@ class LMServer:
                 prefix_cache = PrefixCache(
                     prefill_chunk, int(prefix_cache_mb * 1024 * 1024),
                     logger=logger, registry=registry)
-        if spec_decode or drafter is not None:
-            raise later("A9.3", "speculative decoding (spec_decode)")
+        if drafter is not None and not spec_decode:
+            raise ValueError("a custom drafter needs spec_decode=True")
+        if spec_decode and drafter is None:
+            from idc_models_tpu_torch.models.draft import NGramDrafter
+
+            drafter = NGramDrafter(draft_k, order=draft_order)
+        # a learned drafter's model handle arms the engine's drafter
+        # state; host drafters leave it None
+        draft_model = getattr(drafter, "learned", None)
+        if draft_model is None and draft_partition_rules is not None:
+            raise ValueError(
+                "draft_partition_rules without a learned drafter: the "
+                "rules place models/draft_lm.DraftLM params — pass "
+                "drafter=DraftLM(...) (or a ChainedDrafter containing "
+                "one), or drop the rules")
         if compile_cache is not None:
             raise later("A10", "the compile cache")
         self.engine = SlotEngine(
@@ -139,9 +161,10 @@ class LMServer:
             block_impl=block_impl, temperature=temperature, top_k=top_k,
             pad_id=pad_id, eos_id=eos_id, prefill_chunk=prefill_chunk,
             prefix_cache=prefix_cache, kv_dtype=kv_dtype,
+            draft_k=draft_k if spec_decode else None,
             kv_page_size=kv_page_size, kv_pages=kv_pages,
             kv_decode_reserve=kv_decode_reserve,
-            partition_rules=partition_rules,
+            partition_rules=partition_rules, draft_model=draft_model,
             draft_partition_rules=draft_partition_rules, device=device)
         self.metrics = ServingMetrics(logger, prefix_cache=prefix_cache,
                                       registry=registry, slo=slo)
@@ -151,7 +174,8 @@ class LMServer:
             admit_after_collect=admit_after_collect,
             metrics=self.metrics, clock=clock, retry=retry,
             fault_plan=fault_plan, health_checks=health_checks,
-            journal=journal, brownout=brownout, tenancy=tenancy)
+            journal=journal, brownout=brownout, drafter=drafter,
+            tenancy=tenancy)
         self._results: dict[str, Result] = {}
         self._inflight: set[str] = set()
         if warmup:

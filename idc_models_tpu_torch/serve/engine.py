@@ -31,6 +31,27 @@ window costs one device-to-host copy: its tokens.
 - **insert** -- the request's [1, t_max] caches (quantized per head for
   int8), logits, position, budget, stop id and generator written into
   its row.
+- **verify** (`draft_k=K`) -- `begin_verify` is the speculative
+  alternative to a window: the K drafted tokens of every participating
+  row go through the chunk forward (``models/lm._chunk_batch_forward``
+  over the batched chunk fold), each row picks its K+1 candidates by its
+  request's rule (``cand[:, 0]`` is the stored logits, so the first
+  emitted token is the window's own), accepts the longest matching draft
+  prefix m and the bonus pick at m, truncates by budget and EOS, and
+  runs one masked token step for the bonus (its K/V lands at pos + m).
+  All of it stays on the device; `collect` reads back (tokens, emitted,
+  accepted) through the window's pinned copy and event. A sampled row
+  draws its K+1 candidates in order from its generator, keeping the
+  generator's state after each draw, and `collect` rewinds it to the
+  state after the emitted count: the stream advances exactly as that
+  many serial draws.
+- **learned drafter** (`draft_model`, ``models/draft_lm.DraftLM``) --
+  its own per-slot caches [S, t_max, H_d, D_d] at the draft model's
+  dims; an admission prefills the prompt minus its last token through
+  the drafter (that token stays pending), `collect` queues emitted
+  tokens, and `propose_all` ingests each slot's backlog in chunks of
+  C = K + 1 and rolls K greedy draft steps for every qualifying slot in
+  one call.
 
 **Paged KV** (`kv_page_size`, `kv_pages`): the per-slot rows give way to
 one pool of fixed-size pages per block, [kv_pages + 1, page_size, H, D]
@@ -63,9 +84,10 @@ the serial run's top-2 margin falls inside that tolerance (ROADMAP,
 result bit for bit (float caches): only the cache indirection differs.
 
 Left for later items, each raising NotImplementedError with its label:
-speculative decoding (A9.3), the adapter bank (A9.4), slot export/import
-and the compile cache (A10), partition rules and meshes of several ranks
-(A9-dist).
+the adapter bank (A9.4; drafter adapters are refused by `DraftLM`),
+slot export/import (with the drafter's state) and the compile cache
+(A10), partition rules of the target and of the drafter, and meshes of
+several ranks (A9-dist).
 """
 
 from __future__ import annotations
@@ -75,12 +97,14 @@ import torch
 
 from idc_models_tpu_torch import convert
 from idc_models_tpu_torch.models.lm import (
-    Generator, _chunk_forward, _pad_prompt, _prefill, _token_forward,
-    prefill_bucket,
+    Generator, _chunk_batch_forward, _chunk_forward, _lm_from_tree,
+    _pad_prompt, _prefill, _serve_config, _token_forward, prefill_bucket,
 )
 from idc_models_tpu_torch.observe import trace
+from idc_models_tpu_torch.ring_attention import make_ring_attention
 from idc_models_tpu_torch.ring_decode import (
-    make_batched_ring_decode, make_paged_batched_ring_decode,
+    make_batched_chunk_ring_decode, make_batched_ring_decode,
+    make_paged_batched_chunk_ring_decode, make_paged_batched_ring_decode,
     make_paged_chunk_ring_decode,
 )
 from idc_models_tpu_torch.serve.pages import PageAllocator, PageExhausted
@@ -164,13 +188,18 @@ class SlotEngine:
                  draft_partition_rules=None, device=None):
         if n_slots < 1:
             raise ValueError(f"need n_slots >= 1, got {n_slots}")
+        if draft_partition_rules is not None and draft_model is None:
+            raise ValueError(
+                "draft_partition_rules without draft_model: the rules "
+                "shard the learned drafter's params — pass draft_model "
+                "(models/draft_lm.DraftLM.learned) or drop the rules")
         for label, what, value in (
-                ("A9.3", "speculative decoding (draft_k, draft_model)",
-                 (draft_k, draft_model, draft_partition_rules)),
-                ("A9.4", "the tenant adapter bank", (adapter_bank,)),
+                ("A9.4", "the tenant adapter bank", adapter_bank),
                 ("A9-dist", "serving under partition rules",
-                 (partition_rules,))):
-            if any(v is not None for v in value):
+                 partition_rules),
+                ("A9-dist", "the drafter under partition rules",
+                 draft_partition_rules)):
+            if value is not None:
                 raise later(label, what)
         if mesh is not None and mesh.size > 1:
             raise later("A9-dist", f"serving over a mesh of {mesh.size} "
@@ -221,6 +250,16 @@ class SlotEngine:
         self.kv_page_size = kv_page_size
         self.kv_pages = kv_pages
         self.kv_decode_reserve = kv_decode_reserve
+        # draft_k arms speculative decoding: begin_verify checks exactly
+        # K drafts a slot; None leaves the engine as it was
+        if draft_k is not None:
+            draft_k = int(draft_k)
+            if not 1 <= draft_k <= t_max - 2:
+                raise ValueError(
+                    f"draft_k {draft_k} outside [1, t_max - 2]: a "
+                    f"verify needs room for K drafts + the bonus "
+                    f"token inside the {t_max}-slot cache")
+        self.draft_k = draft_k
         if kv_dtype not in (None, "bf16", "int8"):
             raise ValueError(f"kv_dtype must be None, 'bf16' or 'int8', "
                              f"got {kv_dtype!r}")
@@ -261,8 +300,12 @@ class SlotEngine:
                 page_size=kv_page_size, quantized=self.kv_int8)
             self._chunk_fold = make_paged_chunk_ring_decode(
                 page_size=kv_page_size, quantized=self.kv_int8)
+            self._vfold = make_paged_batched_chunk_ring_decode(
+                page_size=kv_page_size, quantized=self.kv_int8)
         else:
             self._fold = make_batched_ring_decode(quantized=self.kv_int8)
+            self._vfold = make_batched_chunk_ring_decode(
+                quantized=self.kv_int8)
         self.t_max = t_max
         self.n_slots = n_slots
         self.pad_id = int(pad_id)
@@ -303,7 +346,14 @@ class SlotEngine:
         self._rem_h = np.zeros(n_slots, np.int64)
         self._eos_h = np.full(n_slots, -1, np.int64)
         self._occupied = np.zeros(n_slots, bool)
-        self._pending = None     # (host tokens, event, snapshot)
+        # (host tokens, event, snapshot, verify record or None)
+        self._pending = None
+        # the rollup of the last COLLECTED verify ({drafted, accepted,
+        # emitted, slots}); None after a window
+        self.last_spec = None
+        self._dmodel = None
+        if draft_model is not None:
+            self._init_drafter(draft_model, block_impl, cache_dtype)
         # chunked prefills in progress: slot -> _PendingPrefill; these
         # slots are reserved until the final chunk's insert
         self._prefills: dict[int, _PendingPrefill] = {}
@@ -319,6 +369,67 @@ class SlotEngine:
             self._alloc_tokens = np.zeros(n_slots, np.int64)
             if prefix_cache is not None:
                 prefix_cache.bind(self._alloc, self.kv_page_bytes())
+
+    def _init_drafter(self, draft_model, block_impl, cache_dtype) -> None:
+        """The learned drafter's device state: its model on the engine's
+        device, its per-slot caches [S, t_max, H_d, D_d] (positions
+        mirroring the target's) and its folds, after the checks that
+        make its drafts comparable with the target's picks."""
+        if self.draft_k is None:
+            raise ValueError(
+                "a draft_model needs draft_k: its proposals feed the "
+                "speculative verify program, which only exists on a "
+                "spec-armed engine — build with draft_k=K")
+        dparams, dconfig = draft_model.params, draft_model.config
+        dvocab = int(np.shape(dparams["embed"])[0])
+        if dvocab != self.vocab:
+            raise ValueError(
+                f"draft model vocab {dvocab} != target vocab "
+                f"{self.vocab}: speculation verifies draft token IDS "
+                f"against the target's own picks, so the two models "
+                f"must share one tokenizer/vocab — distill the drafter "
+                f"from THIS target (models/draft_lm.distill_draft_lm)")
+        d_seq = int(np.shape(dparams["pos"])[0])
+        if d_seq < self.t_max:
+            raise ValueError(
+                f"draft model position table {d_seq} < engine t_max "
+                f"{self.t_max}: the drafter's ring mirrors the target's "
+                f"positions up to t_max — distill with "
+                f"draft_config(seq_len >= t_max)")
+        self._dcfg = _serve_config(
+            dparams, embed_dim=dconfig["embed_dim"],
+            num_heads=dconfig["num_heads"],
+            num_blocks=dconfig["num_blocks"], t_max=self.t_max,
+            cache_dtype=cache_dtype)
+        self._dmodel = _lm_from_tree(
+            dparams, num_heads=dconfig["num_heads"],
+            num_blocks=dconfig["num_blocks"]).to(self.device).eval()
+        self._dring = make_ring_attention(causal=True,
+                                          block_impl=block_impl)
+        self._dfold = make_batched_ring_decode()
+        self._dchunk = make_batched_chunk_ring_decode()
+        head_dim = dconfig["embed_dim"] // dconfig["num_heads"]
+
+        def cache():
+            return torch.zeros((self.n_slots, self.t_max,
+                                dconfig["num_heads"], head_dim),
+                               dtype=cache_dtype, device=self.device)
+
+        self._dcaches = tuple((cache(), cache())
+                              for _ in range(dconfig["num_blocks"]))
+        # host stream bookkeeping: _dfront[s] tokens of slot s's stream
+        # are in the drafter's caches, _dpend[s] are emitted but not yet
+        # ingested (_dfront + len(_dpend) == the slot's position)
+        self._dpend: list[list[int]] = [[] for _ in range(self.n_slots)]
+        self._dfront = np.zeros(self.n_slots, np.int64)
+
+    def _upload(self, arr) -> torch.Tensor:
+        """A small host array on the engine's device without a host
+        sync: pinned, and copied non-blocking on the card."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     def _pad_to_t_max(self, caches):
         """A `PrefixCache` snapshot, stored cut to its prefix, as fresh
@@ -364,6 +475,11 @@ class SlotEngine:
         snapshot still holds survive through their refcounts."""
         self._occupied[slot] = False
         self._rem_h[slot] = 0
+        if self._dmodel is not None:
+            # the drafter row's K/V stays, like the target row's: the
+            # next admission's _draft_admit overwrites it
+            self._dpend[slot] = []
+            self._dfront[slot] = 0
         if self.paged:
             if slot in self._slot_pages:
                 self._set_page_row(slot, [], kill=True)
@@ -422,9 +538,10 @@ class SlotEngine:
 
     @torch.no_grad()
     def _insert(self, slot, caches1, logits1, p_len, max_new_tokens,
-                eos_id, rng) -> None:
+                eos_id, rng, prompt=None) -> None:
         """Write a fully prefilled request into its batch row -- the
-        shared tail of both admission paths."""
+        shared tail of both admission paths. `prompt` (the [P] token
+        row) seeds the learned drafter's row when one is armed."""
         eos = self.eos_id if eos_id is None else eos_id
         eos = -1 if eos is None else int(eos)
         gen = self._generator(rng)
@@ -448,6 +565,38 @@ class SlotEngine:
         self._rem_h[slot] = max_new_tokens
         self._eos_h[slot] = eos
         self._occupied[slot] = True
+        if self._dmodel is not None and prompt is not None:
+            self._draft_admit(slot, np.asarray(prompt, np.int64).ravel())
+
+    @torch.no_grad()
+    def _draft_admit(self, slot: int, prompt: np.ndarray) -> None:
+        """Seed the learned drafter's row for a fresh admission: the
+        prompt MINUS its last token through the drafter's own prefill
+        (at least the smallest bucket the block impl takes), written into
+        the row, and the last prompt token left PENDING -- so the propose
+        program's chunk ingest always has a real token whose logits seed
+        draft 0, and no per-slot drafter logits exist to carry."""
+        p_len = prompt.shape[0]
+        if p_len <= 1:
+            row = None
+            front = 0
+        else:
+            bucket = max(prefill_bucket(p_len - 1, self.t_max, 1),
+                         min(self._min_bucket, self.t_max))
+            padded = torch.zeros((1, bucket), dtype=torch.long)
+            padded[0, :p_len - 1] = torch.from_numpy(prompt[:p_len - 1])
+            _, row = _prefill(self._dcfg, self._dmodel, self._dring,
+                              padded.to(self.device), p_len - 1)
+            front = p_len - 1
+        for i, (dk, dv) in enumerate(self._dcaches):
+            if row is None:
+                dk[slot] = 0
+                dv[slot] = 0
+            else:
+                dk[slot] = row[i][0][0].to(dk.dtype)
+                dv[slot] = row[i][1][0].to(dv.dtype)
+        self._dfront[slot] = front
+        self._dpend[slot] = [int(prompt[-1])]
 
     @torch.no_grad()
     def admit(self, slot: int, prompt, max_new_tokens: int, *, rng=None,
@@ -477,7 +626,7 @@ class SlotEngine:
                                         self._gen._ring,
                                         padded.to(self.device), p_len)
             self._insert(slot, caches1, logits1, p_len, max_new_tokens,
-                         eos_id, rng)
+                         eos_id, rng, prompt=prompt[0])
 
     # -- chunked prefill --------------------------------------------------
 
@@ -672,7 +821,7 @@ class SlotEngine:
             self._stamp_decode_scales(pend.pages[n_prompt:],
                                       pend.pages[n_prompt - 1])
         self._insert(slot, pend.caches, pend.logits, p_len, pend.budget,
-                     pend.eos_id, pend.rng)
+                     pend.eos_id, pend.rng, prompt=pend.prompt[0])
         return True
 
     def cancel_prefill(self, slot: int) -> None:
@@ -737,10 +886,22 @@ class SlotEngine:
             toks_out.append(toks)
         return torch.stack(toks_out, 1)
 
+    @staticmethod
+    def _fetch_async(t):
+        """(host tensor, event): a non-blocking copy of `t` into pinned
+        memory behind a CUDA event (`t` itself and None on the CPU)."""
+        if not t.is_cuda:
+            return t, None
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+
     def begin_window(self, n_steps: int) -> None:
         """Issue ONE masked window of up to `n_steps` tokens per slot and
         return without waiting; `collect` returns its tokens. At most
-        one window may be in flight."""
+        one window (or verify) may be in flight."""
         if self._pending is not None:
             raise RuntimeError("a window is already in flight — "
                                "collect() it first")
@@ -749,15 +910,161 @@ class SlotEngine:
         snapshot = (self._rem_h.copy(), self._occupied.copy(),
                     self._eos_h.copy())
         toks = self._window(n_steps, snapshot[0], snapshot[1])
-        event = None
-        if toks.is_cuda:
-            host = torch.empty(toks.shape, dtype=toks.dtype,
-                               pin_memory=True)
-            host.copy_(toks, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
-            toks = host
-        self._pending = (toks, event, snapshot)
+        self._pending = (*self._fetch_async(toks), snapshot, None)
+
+    # -- speculative decoding ---------------------------------------------
+
+    def spec_room(self, slot: int) -> bool:
+        """True when `slot` has cache room for a full verify: K draft
+        appends plus the bonus token's land inside t_max. A slot without
+        room is within draft_k + 1 tokens of finishing and decodes
+        through windows."""
+        if self.draft_k is None:
+            return False
+        return bool(self._pos_h[slot] + self.draft_k + 1 <= self.t_max)
+
+    @torch.no_grad()
+    def _verify(self, drafts, vlive):
+        """The verify program over every row: `drafts` [S, K] and host
+        `vlive` [S] (rows that participate; a row also needs budget on
+        the device). Returns the packed [S, K + 3] device result
+        (tokens, emitted count, accepted count) and, when sampling, per
+        row the generator's state before and after each draw."""
+        cfg, model, k, s_rows = self._cfg, self._model, self.draft_k, \
+            self.n_slots
+        dev = self.device
+        drafts = self._upload(np.asarray(drafts, np.int64))
+        live = self._upload(np.asarray(vlive, bool)) & (self._rem > 0)
+        pos, scales = self._pos, self._scales
+
+        def chunk_fold(i, kc, vc, q, kt, vt):
+            extra = scales[i] if scales else ()
+            if self.paged:
+                return self._vfold(kc, vc, self._pt, q, kt, vt, pos, live,
+                                   *extra)
+            return self._vfold(kc, vc, q, kt, vt, pos, live, *extra)
+
+        lg, self._caches = _chunk_batch_forward(cfg, model, self._caches,
+                                                drafts, pos, chunk_fold)
+        # the K+1 candidate distributions along the accepted path:
+        # cand[:, 0] is the stored logits, cand[:, j] those after
+        # drafts[:, :j]
+        cand = torch.cat([self._logits.to(lg.dtype)[:, None], lg], 1)
+        states = None
+        if self.temperature == 0.0:
+            g = self._pick(cand.reshape(s_rows * (k + 1), -1)).reshape(
+                s_rows, k + 1)
+        else:
+            # each row's draws in candidate order, on the window's [1, V]
+            # call shape; the states let collect keep exactly n_f draws
+            states = [[] for _ in range(s_rows)]
+            rows = []
+            for s in range(s_rows):
+                if not vlive[s]:
+                    rows.append(torch.zeros(k + 1, dtype=torch.long,
+                                            device=dev))
+                    continue
+                gen = self._gens[s]
+                states[s].append(gen.get_state())
+                draws = []
+                for j in range(k + 1):
+                    draws.append(self._pick(cand[s:s + 1, j], gen))
+                    states[s].append(gen.get_state())
+                rows.append(torch.cat(draws))
+            g = torch.stack(rows)
+        # the accepted prefix m, the bonus pick g[m], and the emitted
+        # count n_f after budget and EOS truncation
+        m = torch.cumprod((drafts == g[:, :k]).long(), 1).sum(1)
+        bonus = g.gather(1, m[:, None])[:, 0]
+        cand_n = torch.where(live, torch.minimum(m + 1, self._rem), 0)
+        ar = torch.arange(k + 1, device=dev)[None]
+        emitted = torch.where(
+            ar < m[:, None],
+            torch.cat([drafts, torch.zeros_like(drafts[:, :1])], 1),
+            torch.where(ar == m[:, None], bonus[:, None], self.pad_id))
+        is_eos = ((self._eos[:, None] >= 0)
+                  & (emitted == self._eos[:, None])
+                  & (ar < cand_n[:, None]))
+        any_eos = is_eos.any(1)
+        n_f = torch.where(any_eos, is_eos.int().argmax(1) + 1, cand_n)
+        n_acc = torch.minimum(m, n_f)
+        toks = torch.where(ar < n_f[:, None], emitted, self.pad_id)
+        # the bonus token's own masked step: its K/V lands at pos + m
+        bonus_live = live & (n_f == m + 1)
+        bpos = (pos + m).clamp(0, self.t_max - 1)
+
+        def tok_fold(i, kc, vc, q, kt, vt):
+            extra = scales[i] if scales else ()
+            if self.paged:
+                return self._fold(kc, vc, self._pt, q, kt, vt, bpos,
+                                  bonus_live, *extra)
+            return self._fold(kc, vc, q, kt, vt, bpos, bonus_live, *extra)
+
+        b_logits, self._caches = _token_forward(
+            cfg, model, self._caches, bonus, bpos, tok_fold)
+        after = cand.gather(1, n_f.clamp(0, k)[:, None, None].expand(
+            -1, 1, cand.shape[-1]))[:, 0]
+        new = torch.where(bonus_live[:, None],
+                          b_logits.to(self._logits.dtype),
+                          after.to(self._logits.dtype))
+        self._logits = torch.where(live[:, None], new, self._logits)
+        self._pos = torch.where(live, pos + n_f, pos)
+        self._rem = torch.where(
+            live, torch.where(any_eos, 0, self._rem - n_f), self._rem)
+        return torch.cat([toks, n_f[:, None], n_acc[:, None]], 1), states
+
+    def begin_verify(self, drafts, vlive, proposed=None) -> None:
+        """Start ONE speculative verify, collected like a window:
+        `drafts` is int [n_slots, draft_k] and `vlive` bool [n_slots]
+        marks the participating rows. Every vlive row must be occupied,
+        have budget left and `spec_room`; the other rows ride along
+        bit-untouched. Each vlive row emits between 1 and draft_k + 1
+        tokens -- the accepted draft prefix plus the model's own pick at
+        the first disagreement -- so a row whose drafts all miss still
+        advances by the window's one token. Returns without waiting.
+
+        `proposed` (bool [n_slots], default `vlive`, a subset of it)
+        marks the rows whose drafts came from a real proposal: only
+        those enter `last_spec`'s drafted/accepted ledger."""
+        if self.draft_k is None:
+            raise RuntimeError("engine built without draft_k — "
+                               "speculative decoding is not armed")
+        if self._pending is not None:
+            raise RuntimeError("a window is already in flight — "
+                               "collect() it first")
+        drafts = np.asarray(drafts)
+        vlive = np.asarray(vlive, bool)
+        if drafts.shape != (self.n_slots, self.draft_k):
+            raise ValueError(
+                f"drafts must be [{self.n_slots}, {self.draft_k}], "
+                f"got {drafts.shape}")
+        if not np.issubdtype(drafts.dtype, np.integer) or (
+                drafts.size and (drafts.min() < 0
+                                 or drafts.max() >= self.vocab)):
+            raise ValueError(f"drafts must be integer token ids in "
+                             f"[0, {self.vocab})")
+        if vlive.shape != (self.n_slots,):
+            raise ValueError(f"vlive must be [{self.n_slots}], got "
+                             f"{vlive.shape}")
+        proposed = (vlive if proposed is None
+                    else np.asarray(proposed, bool))
+        if proposed.shape != vlive.shape or (proposed & ~vlive).any():
+            raise ValueError("proposed must be a [n_slots] subset of "
+                             "vlive")
+        for s in np.flatnonzero(vlive):
+            if not self._occupied[s] or self._rem_h[s] < 1:
+                raise ValueError(f"verify slot {int(s)} is not occupied "
+                                 f"with budget left")
+            if not self.spec_room(int(s)):
+                raise ValueError(
+                    f"verify slot {int(s)} at pos {self._pos_h[s]} lacks "
+                    f"room for {self.draft_k} drafts + the bonus before "
+                    f"t_max {self.t_max}")
+        snapshot = (self._rem_h.copy(), self._occupied.copy(),
+                    self._eos_h.copy())
+        packed, states = self._verify(drafts, vlive)
+        self._pending = (*self._fetch_async(packed), snapshot,
+                         (vlive.copy(), proposed.copy(), states))
 
     def abort_window(self) -> None:
         """Discard an in-flight window without collecting it (the
@@ -766,14 +1073,18 @@ class SlotEngine:
         self._pending = None
 
     def collect(self) -> dict[int, list[int]]:
-        """Wait for the in-flight window's tokens ({} if none) and replay
-        the device's retirement rule onto the host shadows: live steps
-        are a prefix of the window, and an EOS zeroes the budget after
-        it is emitted. Returns {slot: tokens emitted} for the slots
-        occupied when the window was issued."""
+        """Wait for the in-flight window's (or verify's) tokens ({} if
+        none) and replay the device's retirement rule onto the host
+        shadows: live steps are a prefix of the window, and an EOS zeroes
+        the budget after it is emitted; a verify's counts come back with
+        its tokens. Returns {slot: tokens emitted} for the slots occupied
+        when it was started (a verify's ride-along rows: [])."""
+        # reset first: a window's collect must not leave the last
+        # verify's rollup answering for it
+        self.last_spec = None
         if self._pending is None:
             return {}
-        toks, event, (rem_before, occupied, eos_h) = self._pending
+        toks, event, (rem_before, occupied, eos_h), spec = self._pending
         self._pending = None
         # the one host transfer, and where the serve loop waits on the
         # device: bracketed as device.sync for step-time attribution
@@ -782,6 +1093,11 @@ class SlotEngine:
                 event.synchronize()
             toks = toks.numpy()
         out = {}
+        if spec is not None:
+            out = self._collect_verify(toks, rem_before, occupied, eos_h,
+                                       *spec)
+            self._note_emitted(out)
+            return out
         for s in range(self.n_slots):
             if not occupied[s]:
                 continue
@@ -794,7 +1110,157 @@ class SlotEngine:
                 self._rem_h[s] = rem_before[s] - len(row)
             self._pos_h[s] += len(row)
             out[s] = row
+        self._note_emitted(out)
         return out
+
+    def _collect_verify(self, packed, rem_before, occupied, eos_h, vlive,
+                        proposed, states) -> dict[int, list[int]]:
+        """A verify's host half: the device already truncated by budget
+        and EOS, so the emitted count is exact; the shadows replay it,
+        a sampled row's generator is rewound to the state after its
+        emitted count of draws, and `last_spec` ledgers the PROPOSED
+        rows only (ride-alongs would dilute the acceptance figures)."""
+        k = self.draft_k
+        toks, n_emit, n_acc = packed[:, :k + 1], packed[:, k + 1], \
+            packed[:, k + 2]
+        self.last_spec = {
+            "drafted": int(proposed.sum()) * k,
+            "accepted": int(n_acc[proposed].sum()),
+            "emitted": int(n_emit[proposed].sum()),
+            "slots": int(proposed.sum()),
+        }
+        out = {}
+        for s in range(self.n_slots):
+            if not occupied[s]:
+                continue
+            if not vlive[s]:
+                out[s] = []                  # rode along bit-untouched
+                continue
+            n = int(n_emit[s])
+            if states is not None:
+                self._gens[s].set_state(states[s][n])
+            row = [int(t) for t in toks[s, :n]]
+            if eos_h[s] >= 0 and eos_h[s] in row:
+                self._rem_h[s] = 0
+            else:
+                self._rem_h[s] = rem_before[s] - n
+            self._pos_h[s] += n
+            out[s] = row
+        return out
+
+    def _note_emitted(self, out: dict[int, list[int]]) -> None:
+        """Queue the collected tokens for the learned drafter: its caches
+        ingest them at the next `propose_all`, so collect never touches
+        the device on the drafter's behalf."""
+        if self._dmodel is None:
+            return
+        for s, row in out.items():
+            if row:
+                self._dpend[s].extend(row)
+
+    @torch.no_grad()
+    def _draft_chunk(self, toks, pos0, live):
+        """One C-chunk per row through the drafter (the batched chunk
+        fold appends the live rows' real tokens): its logits [S, C, V]."""
+        lg, self._dcaches = _chunk_batch_forward(
+            self._dcfg, self._dmodel, self._dcaches, toks, pos0,
+            lambda i, kc, vc, q, kt, vt: self._dchunk(kc, vc, q, kt, vt,
+                                                      pos0, live))
+        return lg
+
+    @torch.no_grad()
+    def _draft_propose(self, toks, n_new, pos0, live):
+        """The propose program: the final chunk of every row's pending
+        tokens, then K - 1 greedy token steps from the logits of its last
+        REAL token; [S, K] drafts on the device."""
+        k, c = self.draft_k, self.draft_k + 1
+        toks, n_new, pos0 = (self._upload(np.asarray(a, np.int64))
+                             for a in (toks, n_new, pos0))
+        live = self._upload(np.asarray(live, bool))
+        lg = self._draft_chunk(toks, pos0, live)
+        idx = (n_new - 1).clamp(0, c - 1)
+        cur = lg.gather(1, idx[:, None, None].expand(
+            -1, 1, lg.shape[-1]))[:, 0].argmax(-1)
+        front = pos0 + n_new
+        drafts = [cur]
+        for j in range(k - 1):
+            p = (front + j).clamp(0, self.t_max - 1)
+            lg2, self._dcaches = _token_forward(
+                self._dcfg, self._dmodel, self._dcaches, cur, p,
+                lambda i, kc, vc, q, kt, vt, p=p: self._dfold(
+                    kc, vc, q, kt, vt, p, live))
+            cur = lg2.argmax(-1)
+            drafts.append(cur)
+        return torch.stack(drafts, 1)
+
+    def propose_all(self):
+        """LEARNED proposals for every speculating slot in one call:
+        drain each slot's pending emitted tokens into the drafter's
+        caches, then roll the drafter `draft_k` greedy steps for ALL
+        qualifying slots together. Returns `(drafts, live)` -- int32
+        [n_slots, draft_k] proposals and the bool mask of rows they are
+        real for -- or None when no slot qualifies.
+
+        The steady state (every slot emitted <= draft_k + 1 tokens since
+        the last call, the verify's most) is one propose program; a
+        deeper backlog (window cycles, a fresh admission's pending token)
+        drains through fixed-width ingest rounds first, remainder first
+        per slot, so every live slot's final chunk lands in the one
+        shared final round with 1..C real tokens. Only slots with
+        `spec_room` are proposed for, which also keeps every chunk
+        inside t_max. The drafts are fetched to the host (one wait)."""
+        if self._dmodel is None:
+            raise RuntimeError(
+                "propose_all() requires a learned drafter: build the "
+                "engine with draft_model= (a models/draft_lm.DraftLM) "
+                "— host-side drafters (NGramDrafter) propose via their "
+                "own propose(history) instead")
+        if self._pending is not None:
+            raise RuntimeError("a window is already in flight — "
+                               "collect() it first")
+        c = self.draft_k + 1
+        live = np.array([
+            bool(self._occupied[s]) and self._rem_h[s] >= 1
+            and len(self._dpend[s]) > 0 and self.spec_room(s)
+            for s in range(self.n_slots)])
+        if not live.any():
+            return None
+        pend = {int(s): np.asarray(self._dpend[s], np.int64)
+                for s in np.flatnonzero(live)}
+        offs = dict.fromkeys(pend, 0)
+        rounds = max(-(-len(p) // c) for p in pend.values())
+        with trace.span("serve.propose", slots=int(live.sum()),
+                        rounds=rounds), torch.no_grad():
+            for r in range(rounds - 1):
+                left = rounds - r
+                toks = np.zeros((self.n_slots, c), np.int64)
+                pos0 = np.zeros(self.n_slots, np.int64)
+                rlive = np.zeros(self.n_slots, bool)
+                for s, p in pend.items():
+                    remaining = len(p) - offs[s]
+                    if remaining <= (left - 1) * c:
+                        continue
+                    n = remaining - (left - 1) * c
+                    toks[s, :n] = p[offs[s]:offs[s] + n]
+                    pos0[s] = self._dfront[s] + offs[s]
+                    rlive[s] = True
+                    offs[s] += n
+                self._draft_chunk(self._upload(toks), self._upload(pos0),
+                                  self._upload(rlive))
+            toks = np.zeros((self.n_slots, c), np.int64)
+            pos0 = np.zeros(self.n_slots, np.int64)
+            n_new = np.zeros(self.n_slots, np.int64)
+            for s, p in pend.items():
+                n = len(p) - offs[s]
+                toks[s, :n] = p[offs[s]:]
+                pos0[s] = self._dfront[s] + offs[s]
+                n_new[s] = n
+            drafts = self._draft_propose(toks, n_new, pos0, live)
+            drafts = drafts.cpu().numpy()
+        for s in pend:
+            self._dfront[s] += len(self._dpend[s])
+            self._dpend[s] = []
+        return drafts.astype(np.int32), live
 
     def step_window(self, n_steps: int) -> dict[int, list[int]]:
         """Synchronous window: begin + collect."""
@@ -903,10 +1369,12 @@ class SlotEngine:
         against an all-unallocated table with p_end 0, writing nothing
         -- else the smallest bucket the block impl takes), two insert ->
         window cycles into slot 0 with a zero budget (every row dead, so
-        the windows are bit-level no-ops), a page-row kill and the
-        health reduction. Eager PyTorch compiles nothing; this pays the
-        first calls' one-time costs (library handles, the allocator)
-        before traffic."""
+        the windows are bit-level no-ops), each followed on a spec-armed
+        engine by a verify with every row dead, a page-row kill, the
+        health reduction and the learned drafter's chain (a prefill, an
+        ingest and a propose with every row dead). Eager PyTorch
+        compiles nothing; this pays the first calls' one-time costs
+        (library handles, the allocator) before traffic."""
         if compile_cache is not None:
             raise later("A10", "the compile cache")
         zeros = torch.zeros((1, self.prefill_chunk or 1), dtype=torch.long)
@@ -930,9 +1398,27 @@ class SlotEngine:
             self._insert(0, caches1, logits1, 1, 0, -1, None)
             self._occupied[0] = occupied
             self.step_window(n_steps)
+            if self.draft_k is not None:
+                self.begin_verify(
+                    np.zeros((self.n_slots, self.draft_k), np.int64),
+                    np.zeros(self.n_slots, bool))
+                self.collect()
         if self.paged:
             self._set_page_row(0, [], kill=True)
         self.slot_health()
+        if self._dmodel is not None:
+            dead = np.zeros(self.n_slots, bool)
+            zc = np.zeros((self.n_slots, self.draft_k + 1), np.int64)
+            zi = np.zeros(self.n_slots, np.int64)
+            b = min(self._min_bucket, self.t_max)
+            with torch.no_grad():
+                _prefill(self._dcfg, self._dmodel, self._dring,
+                         torch.zeros((1, b), dtype=torch.long,
+                                     device=self.device), b)
+                self._draft_chunk(self._upload(zc), self._upload(zi),
+                                  self._upload(dead))
+                self._draft_propose(zc, zi, zi, dead)
+        self.last_spec = None
 
     def kv_bytes_per_slot(self) -> int:
         """Device bytes of cache state per slot (K + V rows of every
@@ -1007,4 +1493,78 @@ class SlotEngine:
             out["prefill"] = 0
             if self.prefill_chunk is not None:
                 out["prefill_chunk"] = 0
+        if self.draft_k is not None:
+            out["verify"] = 0
+        if self._dmodel is not None:
+            out.update(propose=0, draft_ingest=0, draft_insert=0,
+                       draft_prefill=0)
+        return out
+
+    @torch.no_grad()
+    def program_costs(self, window: int) -> dict:
+        """Cost/memory accounts (``observe/profile.py`` ProgramCost) of
+        the engine's programs, each from one counted real call filed
+        through ``profile.register_program``: the window at `window`
+        steps (``serve.window``, or ``serve.window_paged``), the verify
+        (``lm.verify``) and the learned drafter's propose
+        (``serve.propose``) when armed -- each run with every row dead,
+        so no cache, logit, position, budget or generator changes (a
+        paged engine's dead appends land in the sink page) -- and the
+        admission prefill (``serve.prefill``, ``serve.prefill_chunk``,
+        or ``serve.prefill_chunk_paged`` against an unallocated table
+        row) on fresh state."""
+        from idc_models_tpu_torch.observe import profile as prof
+
+        out = {}
+        s_rows, dead = self.n_slots, np.zeros(self.n_slots, bool)
+        state = (self._model, self._caches)
+
+        def register(name, fn, *args, arguments=state):
+            out[name] = prof.register_program(name, fn, *args,
+                                              arguments=arguments)[0]
+
+        # dead rows change nothing, so a window in flight keeps its
+        # results: these calls run after it in stream order
+        rem = self._rem
+        self._rem = torch.zeros_like(rem)
+        try:
+            register("serve.window_paged" if self.paged
+                     else "serve.window", self._window, window,
+                     np.zeros(s_rows, np.int64), dead)
+            if self.draft_k is not None:
+                register("lm.verify", self._verify,
+                         np.zeros((s_rows, self.draft_k), np.int64), dead)
+            if self._dmodel is not None:
+                zi = np.zeros(s_rows, np.int64)
+                register("serve.propose", self._draft_propose,
+                         np.zeros((s_rows, self.draft_k + 1), np.int64),
+                         zi, zi, dead,
+                         arguments=(self._dmodel, self._dcaches))
+        finally:
+            self._rem = rem
+        c = self.prefill_chunk
+        if self.paged:
+            none = torch.full((1, self._l_pages), -1, dtype=torch.int32,
+                              device=self.device)
+
+            def fold(i, kp, vp, q, kt, vt, start, p_end):
+                return self._chunk_fold(
+                    kp, vp, none, q, kt, vt, start, p_end,
+                    *(self._scales[i] if self.kv_int8 else ()))[:3]
+
+            register("serve.prefill_chunk_paged", _chunk_forward, self._cfg,
+                     self._model, self._caches,
+                     torch.zeros((1, c), dtype=torch.long,
+                                 device=self.device), 0, 0, fold)
+        elif c is not None:
+            register("serve.prefill_chunk", self._gen.prefill_chunk_step,
+                     self._gen.init_caches(1),
+                     torch.zeros((1, c), dtype=torch.long), 0, c,
+                     arguments=(self._model,))
+        else:
+            register("serve.prefill", _prefill, self._cfg, self._model,
+                     self._gen._ring,
+                     torch.zeros((1, self.t_max), dtype=torch.long,
+                                 device=self.device), self.t_max,
+                     arguments=(self._model,))
         return out

@@ -7,11 +7,11 @@ through the jsonl record shape every other loop writes; `summary()` is
 the serving record (`serve_*` fields) with the JAX package's key set,
 and with a prefix cache attached its `serve_prefix_*` fields merged in.
 The hooks are the ones the scheduler calls (submit, reject, admit,
-first token, finish, slot fault, retry, dispatch, cycle, pages, page
-exhaustion); the shed, clamp, fault-plan, tenant, rollout, speculative
-and compile-cache hooks come with their items (ROADMAP A9.3, A9.4, A10,
-A11), and until then their summary keys hold the values a server
-without them reports. Eager PyTorch compiles no serving program, so
+first token, finish, slot fault, retry, dispatch, speculative verify and
+propose, cycle, pages, page exhaustion); the shed, clamp, fault-plan,
+tenant, rollout and compile-cache hooks come with their items (ROADMAP
+A9.4, A10, A11), and until then their summary keys hold the values a
+server without them reports. Eager PyTorch compiles no serving program, so
 `serve_compiles_observed` is 0.
 """
 
@@ -88,6 +88,14 @@ class ServingMetrics:
             "decode dispatches by kind: 'window' (fused one-token-per-"
             "step scan) or 'verify' (speculative draft-and-verify)",
             labels=("kind",))
+        # the speculative ledger: acceptance rate and tokens a dispatch
+        # derive from these
+        self._m_spec_drafted = reg.counter(
+            "serve_spec_drafted_tokens_total",
+            "draft tokens submitted to speculative verify dispatches")
+        self._m_spec_accepted = reg.counter(
+            "serve_spec_accepted_tokens_total",
+            "draft tokens the verify accepted (emitted as-is)")
         # paged KV: pool occupancy gauges and the page-exhaustion
         # backpressure counter
         self._m_pages_used = reg.gauge(
@@ -113,6 +121,13 @@ class ServingMetrics:
         self.kv_tokens_per_byte_peak: float | None = None
         self.page_exhaustions = 0
         self.window_dispatches = 0
+        self.verify_dispatches = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.spec_emitted = 0
+        self.spec_slot_verifies = 0
+        self.propose_s = 0.0
+        self.propose_calls = 0
         self.submitted = 0
         self.rejected = 0
         self.timed_out = 0
@@ -249,10 +264,39 @@ class ServingMetrics:
     # -- engine cycle ----------------------------------------------------
 
     def on_dispatch(self, kind: str) -> None:
-        """One decode dispatch was COLLECTED (an aborted one never lands
-        tokens, so it is not counted)."""
-        self.window_dispatches += 1
+        """One decode dispatch was COLLECTED: 'window' or 'verify' (an
+        aborted one never lands tokens, so it is not counted). The
+        tokens-per-dispatch figure divides by both kinds, so spec-on and
+        spec-off runs compare on one denominator."""
+        if kind == "verify":
+            self.verify_dispatches += 1
+        else:
+            self.window_dispatches += 1
         self._m_dispatches.inc(kind=kind)
+
+    def on_spec(self, *, drafted: int, accepted: int, emitted: int,
+                slots: int) -> None:
+        """A verify was collected: `drafted` tokens proposed across
+        `slots` genuinely proposing rows (ride-alongs excluded),
+        `accepted` of them emitted as-is, `emitted` those rows' tokens
+        out (accepted plus one bonus pick a row with budget for it)."""
+        self.spec_drafted += drafted
+        self.spec_accepted += accepted
+        self.spec_emitted += emitted
+        self.spec_slot_verifies += slots
+        if drafted:
+            self._m_spec_drafted.inc(drafted)
+        if accepted:
+            self._m_spec_accepted.inc(accepted)
+        self._log(event="serve_spec_verify", drafted=drafted,
+                  accepted=accepted, emitted=emitted, slots=slots)
+
+    def on_propose(self, seconds: float) -> None:
+        """One drafting pass took `seconds` of wall time (the n-gram
+        scans and/or the learned drafter's device calls). Rollup only:
+        no event a cycle."""
+        self.propose_s += float(seconds)
+        self.propose_calls += 1
 
     def on_cycle(self, *, queue_depth: int, occupancy: float,
                  tokens: int = 0, prefill_s: float = 0.0) -> None:
@@ -276,7 +320,7 @@ class ServingMetrics:
         span = ((self._t_last - self._t_first)
                 if self._t_first is not None and self._t_last is not None
                 else None)
-        dispatches = self.window_dispatches
+        dispatches = self.window_dispatches + self.verify_dispatches
         paged = self.kv_pages_total is not None
         out = {
             "serve_requests": self.finished,
@@ -324,13 +368,21 @@ class ServingMetrics:
             "serve_tokens_per_dispatch": (
                 round(self.tokens_out / dispatches, 3)
                 if dispatches else None),
-            # speculative decoding (A9.3): no verify dispatch yet
-            "serve_spec_verify_dispatches": 0,
-            "serve_spec_drafted": 0,
-            "serve_spec_accepted": 0,
-            "serve_spec_accept_rate": None,
-            "serve_spec_tokens_per_dispatch": None,
-            "serve_spec_propose_s": None,
+            # speculative decoding: tokens a dispatch is per SLOT a
+            # verify (>1: speculation beat one token a step for the
+            # slots that ran it); propose seconds None when nothing
+            # drafted
+            "serve_spec_verify_dispatches": self.verify_dispatches,
+            "serve_spec_drafted": self.spec_drafted,
+            "serve_spec_accepted": self.spec_accepted,
+            "serve_spec_accept_rate": (
+                round(self.spec_accepted / self.spec_drafted, 4)
+                if self.spec_drafted else None),
+            "serve_spec_tokens_per_dispatch": (
+                round(self.spec_emitted / self.spec_slot_verifies, 3)
+                if self.spec_slot_verifies else None),
+            "serve_spec_propose_s": (
+                round(self.propose_s, 6) if self.propose_calls else None),
             # paged KV: pool size and peak occupancy, the peak tokens
             # per device byte, how often the pool ran dry (None/0 on a
             # contiguous engine)

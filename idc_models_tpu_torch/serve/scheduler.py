@@ -26,6 +26,13 @@ opinion on which request runs where or when; this module is the policy:
   backpressure. Before each window every running slot's grant grows to
   cover the window (`ensure_decode_room`); a slot the pool cannot cover
   is quarantined (``page_exhausted``) under the retry policy.
+- **Speculative decoding** -- with a `drafter` and an engine built with
+  `draft_k`, each cycle's dispatch may be a VERIFY (up to draft_k + 1
+  tokens a slot) instead of a window: `_propose_drafts` builds every
+  running slot's stream, asks the drafter (one `propose_batched` call
+  when it has one, else `propose(history)` a slot), validates each
+  proposal (`_check_proposal`) and falls back to the window when no
+  slot proposed or any running slot lacks verify room.
 - **Resilience** -- with health checks armed (by default when a
   `RetryPolicy` is), a slot whose last-token logits are non-finite or
   blown up, or whose host invariants fail, is quarantined: the request
@@ -36,9 +43,9 @@ opinion on which request runs where or when; this module is the policy:
 
 The fault plan, the journal, brownout and tenancy (ROADMAP A9.4: the
 per-tenant page budgets, and the page pressure as a brownout input,
-which `_page_pressure` already records), the speculative window (A9.3)
-and drain-and-migrate (A10) come with their items; their knobs raise
-NotImplementedError naming the label.
+which `_page_pressure` already records) and drain-and-migrate (A10)
+come with their items; their knobs raise NotImplementedError naming the
+label.
 """
 
 from __future__ import annotations
@@ -48,6 +55,8 @@ import itertools
 import os
 import time
 from collections import deque
+
+import numpy as np
 
 from idc_models_tpu_torch.observe import profile as prof
 from idc_models_tpu_torch.observe import trace
@@ -183,12 +192,23 @@ class Scheduler:
                 ("A9.4", "the serve fault plan", fault_plan),
                 ("A9.4", "the request journal", journal),
                 ("A9.4", "brownout", brownout),
-                ("A9.4", "tenancy", tenancy),
-                ("A9.3", "a drafter (speculative decoding)", drafter)):
+                ("A9.4", "tenancy", tenancy)):
             if value is not None:
                 raise later(label, what)
         self.engine = engine
         self.window = window
+        # speculative mode: with a drafter AND an engine built with
+        # draft_k, a cycle's dispatch may be a verify (_propose_drafts)
+        self.drafter = drafter
+        self._spec = (drafter is not None
+                      and getattr(engine, "draft_k", None) is not None)
+        if drafter is not None and not self._spec:
+            raise ValueError(
+                "a drafter needs an engine built with draft_k — the "
+                "verify program checks exactly that fixed draft length")
+        # wall seconds spent in the drafting passes (host scans and the
+        # learned drafter's device calls)
+        self.propose_seconds = 0.0
         self.queue = AdmissionQueue(max_queue_depth)
         self.max_prefills_per_cycle = max(int(max_prefills_per_cycle), 1)
         self.metrics = metrics
@@ -484,9 +504,13 @@ class Scheduler:
                 raise
             _sp.set(slots=len(out),
                     tokens=sum(len(t) for t in out.values()))
-            # counted at collect: an aborted window never lands tokens
-            if out and self.metrics:
-                self.metrics.on_dispatch("window")
+            # counted at collect: an aborted dispatch never lands tokens;
+            # a collected verify reports its accept ledger
+            spec = self.engine.last_spec
+            if (out or spec) and self.metrics:
+                self.metrics.on_dispatch("verify" if spec else "window")
+            if spec and self.metrics:
+                self.metrics.on_spec(**spec)
         t_now = self.clock()
         got: list[tuple[Entry, list]] = []
         finished: list[Entry] = []
@@ -540,7 +564,10 @@ class Scheduler:
         #     page), its just-collected tokens dropped as a health
         #     quarantine's are (a retry restarts from the prompt)
         if self._running:
-            starved = self.engine.ensure_decode_room(self.window)
+            need = self.window
+            if self._spec:
+                need = max(need, self.engine.draft_k + 1)
+            starved = self.engine.ensure_decode_room(need)
             if starved:
                 self._page_pressure = True
                 quarantined = set()
@@ -550,21 +577,36 @@ class Scheduler:
                         continue
                     if self.metrics:
                         self.metrics.on_page_exhausted(rid=e.rid,
-                                                       needed=self.window)
+                                                       needed=need)
                     self.engine.release(slot)
                     quarantined.add(id(e))
                     self._quarantine(e, "page_exhausted", now, done)
                 got = [(e, t) for e, t in got if id(e) not in quarantined]
-        # 6. issue the next window over every occupied slot
+        # 6. start the next dispatch over every occupied slot: the
+        #    window, or (speculative mode, when the drafter proposed and
+        #    every running slot has verify room) one verify
         occupancy = len(self._running) / self.engine.n_slots
         if self._running:
             try:
-                with trace.span("serve.window", window=self.window,
-                                slots=len(self._running)) as _wsp:
-                    if trace.get_tracer() is not None:
-                        _wsp.set(rids=[e.rid for e
-                                       in self._running.values()])
-                    self.engine.begin_window(self.window)
+                proposal = (self._propose_drafts(got) if self._spec
+                            else None)
+                rids = ([e.rid for e in self._running.values()]
+                        if trace.get_tracer() is not None else None)
+                if proposal is not None:
+                    drafts, vlive, proposed = proposal
+                    with trace.span("serve.verify",
+                                    k=self.engine.draft_k,
+                                    slots=int(vlive.sum()),
+                                    hits=int(proposed.sum())) as _wsp:
+                        if rids is not None:
+                            _wsp.set(rids=rids)
+                        self.engine.begin_verify(drafts, vlive, proposed)
+                else:
+                    with trace.span("serve.window", window=self.window,
+                                    slots=len(self._running)) as _wsp:
+                        if rids is not None:
+                            _wsp.set(rids=rids)
+                        self.engine.begin_window(self.window)
             except Exception as e:
                 self._finalize_window(got, finished, cancelled, t_now,
                                       now, self._failed)
@@ -583,6 +625,94 @@ class Scheduler:
             if stats is not None:
                 self.metrics.on_pages(**stats)
         return done
+
+    def _propose_drafts(self, got):
+        """The speculative policy pass, host work before the next
+        dispatch: each running slot's FULL stream (prompt, bookkept
+        tokens and this cycle's just-collected ones) goes to the drafter,
+        and the result is (drafts [S, k], vlive [S], proposed [S]) for a
+        verify -- `proposed` marking the rows with a real proposal -- or
+        None for the plain window when no slot proposed or ANY running
+        slot lacks verify room (`engine.spec_room`: such a slot is
+        within draft_k + 1 tokens of finishing). Slots with room but no
+        proposal ride along with zero drafts: a verify row whose drafts
+        all miss emits exactly a window step's one token. A drafter with
+        `propose_batched` (the learned DraftLM, or a chain holding one)
+        gets one call for every slot; every proposal passes
+        `_check_proposal`, and the pass's wall time accrues to
+        `propose_seconds`."""
+        eng = self.engine
+        k = eng.draft_k
+        # one slot without room vetoes the verify: check before drafting
+        for slot in self._running:
+            if not eng.spec_room(slot):
+                return None
+        just = {id(e): t for e, t in got}
+        drafts = np.zeros((eng.n_slots, k), np.int64)
+        vlive = np.zeros(eng.n_slots, bool)
+        proposed = np.zeros(eng.n_slots, bool)
+        slots, hists = [], []
+        for slot, e in self._running.items():
+            vlive[slot] = True
+            slots.append(slot)
+            hists.append(np.concatenate([
+                np.asarray(e.prompt, np.int64).ravel(),
+                np.asarray(e.tokens + just.get(id(e), []), np.int64)]))
+        t0 = self.clock()
+        batched = getattr(self.drafter, "propose_batched", None)
+        if batched is not None:
+            props = batched(eng, slots, hists)
+        else:
+            props = {s: self.drafter.propose(h)
+                     for s, h in zip(slots, hists)}
+        dt = self.clock() - t0
+        self.propose_seconds += dt
+        if self.metrics:
+            self.metrics.on_propose(dt)
+        for slot in slots:
+            prop = self._check_proposal(props.get(slot), k)
+            if prop is None:
+                continue
+            drafts[slot] = prop
+            proposed[slot] = True
+        if not proposed.any():
+            return None
+        return drafts, vlive, proposed
+
+    def _check_proposal(self, prop, k: int):
+        """The one validation point between a `propose()` return and
+        `begin_verify`: a malformed proposal raises an error naming the
+        drafter class and the contract. None passes through: it is the
+        contract's own nothing-to-verify answer."""
+        if prop is None:
+            return None
+        name = type(self.drafter).__name__
+        contract = (f"the models/draft.py contract: propose(history) "
+                    f"-> np.ndarray [k={k}] integer token ids in "
+                    f"[0, {self.engine.vocab}), or None")
+        arr = np.asarray(prop)
+        if not np.issubdtype(arr.dtype, np.integer):
+            raise ValueError(
+                f"{name}.propose returned dtype {arr.dtype}: draft "
+                f"tokens are ids the verify program compares against "
+                f"the target's own integer picks — {contract}")
+        if arr.ndim != 1:
+            raise ValueError(
+                f"{name}.propose returned shape {tuple(arr.shape)}: the "
+                f"verify program takes ONE flat row of drafts per slot "
+                f"— {contract}")
+        if arr.shape[0] != k:
+            raise ValueError(
+                f"{name}.propose returned {arr.shape[0]} tokens; the "
+                f"verify program checks exactly k={k} — {contract}")
+        vocab = self.engine.vocab
+        if (arr < 0).any() or (arr >= vocab).any():
+            bad = arr[(arr < 0) | (arr >= vocab)][0]
+            raise ValueError(
+                f"{name}.propose returned out-of-vocab id {int(bad)} "
+                f"(vocab is {vocab}): the verify embedding gather would "
+                f"read a DIFFERENT token than proposed — {contract}")
+        return arr
 
     def drain(self) -> list[Entry]:
         """Tick until every queued and running request has finished."""

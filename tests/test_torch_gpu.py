@@ -1402,3 +1402,137 @@ def test_paged_folds_on_the_card_are_bit_equal_to_the_contiguous(cuda):
         assert torch.equal(out_p[:, :48], out_c[:, :48]), dtype
         view = kp2[ptc[:1]].reshape(1, 256, 8, 64)
         assert torch.equal(view[:, :176], kc2[:, :176]), dtype
+
+
+# -- speculative decoding (ring_decode.py's batched chunk folds, the
+# -- engine's verify) ---------------------------------------------------
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["f32", "int8"])
+def test_batched_chunk_folds_on_the_card_match_the_cpu(cuda, quantized):
+    """The verify's two folds on the card against the CPU, 8 draft
+    queries a row: the contiguous fold (two live rows, a dead one mid-
+    cache, a dead one at t_max) and the paged fold over 16-token pages
+    (two live rows, a dead one, a live one whose chunk runs onto its
+    unallocated last page): the live rows' outputs, the caches and pools
+    (int8 appends bit for bit), the dead rows' cache rows untouched, no
+    page scale written."""
+    from idc_models_tpu_torch import ring_decode as tdecode
+
+    b, t, h, d, c = 4, 256, 8, 64, 8
+    g = torch.Generator().manual_seed(7)
+    kc, vc = (torch.randn(b, t, h, d, generator=g) for _ in range(2))
+    q, k, v = (torch.randn(b, c, h, d, generator=g) for _ in range(3))
+    scales = ()
+    if quantized:
+        kc, vc = (torch.clamp(torch.round(x * 40), -127, 127).to(torch.int8)
+                  for x in (kc, vc))
+        scales = (torch.rand(b, h, generator=g) * 0.02 + 0.005,
+                  torch.rand(b, h, generator=g) * 0.02 + 0.005)
+    pos = torch.tensor([0, 200, 17, t])
+    live = torch.tensor([True, True, False, False])
+    fold = tdecode.make_batched_chunk_ring_decode(quantized=quantized)
+    want = fold(kc.clone(), vc.clone(), q, k, v, pos, live, *scales)
+    got = fold(kc.cuda(), vc.cuda(), q.cuda(), k.cuda(), v.cuda(),
+               pos.cuda(), live.cuda(), *(s.cuda() for s in scales))
+    torch.testing.assert_close(got[0].cpu()[live], want[0][live], **F32_TOL)
+    for a, w, before in zip(got[1:], want[1:], (kc, vc)):
+        if quantized:
+            assert torch.equal(a.cpu(), w)
+        else:
+            torch.testing.assert_close(a.cpu(), w, **F32_TOL)
+        assert torch.equal(a.cpu()[~live], before[~live])
+    _, _, pt, (kp, vp), scales = _paged_case(4, h, d, 16, 80, 8, quantized)
+    pos = torch.tensor([0, 200, 17, 244])
+    live = torch.tensor([True, True, False, True])
+    fold = tdecode.make_paged_batched_chunk_ring_decode(page_size=16,
+                                                        quantized=quantized)
+    want = fold(kp.clone(), vp.clone(), pt, q, k, v, pos, live,
+                *(s.clone() for s in scales))
+    dev_scales = [s.cuda() for s in scales]
+    got = fold(kp.cuda(), vp.cuda(), pt.cuda(), q.cuda(), k.cuda(),
+               v.cuda(), pos.cuda(), live.cuda(), *dev_scales)
+    torch.testing.assert_close(got[0].cpu()[live], want[0][live], **F32_TOL)
+    for a, w in zip(got[1:], want[1:]):
+        a, w = a.cpu()[:-1], w[:-1]            # the sink page aside
+        if quantized:
+            assert torch.equal(a, w)
+        else:
+            torch.testing.assert_close(a, w, **F32_TOL)
+    for s, before in zip(dev_scales, scales):
+        assert torch.equal(s.cpu(), before)
+
+
+class _Scripted:
+    """A drafter replaying known streams at a fixed accepted length a
+    request (the rest of each draft off by one)."""
+
+    def __init__(self, k, plans, vocab=64):
+        self.k, self.plans, self.vocab = k, plans, vocab
+
+    def propose(self, history):
+        import numpy as np
+
+        h = [int(x) for x in history]
+        for prompt, stream, accept in self.plans:
+            if h[:len(prompt)] != list(prompt):
+                continue
+            done = len(h) - len(prompt)
+            cont = list(stream[done:done + self.k])
+            cont += [0] * (self.k - len(cont))
+            for j in range(accept, self.k):
+                cont[j] = (cont[j] + 1) % self.vocab
+            return np.asarray(cont, np.int64)
+        return None
+
+
+@pytest.mark.parametrize("kind", ["greedy", "sampled", "paged"])
+def test_spec_server_on_the_card_matches_spec_off(cuda, kind):
+    """On the card, the spec-off server's streams fed back through a
+    scripted drafter at mixed accepted lengths come out of the spec-on
+    server unchanged: greedy, sampled (each verify's K+1 draws rewound to
+    its emitted count on the card's generators) and paged; and a greedy
+    `begin_verify` launches its work without a host sync (CUDA sync debug
+    mode "error")."""
+    from idc_models_tpu_torch.observe import MetricsRegistry
+    from idc_models_tpu_torch.serve import LMServer, Request
+
+    model, kw = _card_lm()
+    extra = {"greedy": {}, "sampled": dict(temperature=0.9, top_k=8),
+             "paged": dict(prefill_chunk=32, kv_page_size=16,
+                           kv_pages=40)}[kind]
+    g = torch.Generator().manual_seed(3)
+    reqs = [Request(id=f"c{i}", prompt=tuple(
+        torch.randint(0, 64, (int(n),), generator=g).tolist()),
+        max_new_tokens=int(b), seed=50 + i)
+        for i, (n, b) in enumerate(zip(torch.randint(5, 90, (6,), generator=g),
+                                       torch.randint(8, 30, (6,), generator=g)))]
+
+    def run(**more):
+        server = LMServer(model, n_slots=4, window=4,
+                          registry=MetricsRegistry(), **kw, **extra, **more)
+        server.run([(0.0, r) for r in reqs])
+        return server, {r.id: server.poll(r.id).tokens for r in reqs}
+
+    _, base = run()
+    plans = [(r.prompt, base[r.id], a) for r, a in zip(reqs, (4, 0, 2, 4, 1, 3))]
+    server, got = run(spec_decode=True, draft_k=4,
+                      drafter=_Scripted(4, plans))
+    assert got == base
+    s = server.summary()
+    assert s["serve_spec_verify_dispatches"] > 0 and s["serve_spec_accepted"]
+    if kind != "greedy":
+        return
+    eng = server.engine
+    eng.admit(0, reqs[0].prompt, 8)
+    drafts = torch.zeros((4, 4), dtype=torch.long).numpy()
+    live = torch.tensor([True, False, False, False]).numpy()
+    eng.begin_verify(drafts, live)
+    eng.collect()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.begin_verify(drafts, live)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(eng.collect()[0]) == 1

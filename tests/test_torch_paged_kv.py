@@ -11,10 +11,10 @@ BIT for bit at world size 1 (only the cache indirection differs); pages
 are safe (dead rows, unallocated entries and foreign pages untouched,
 refcounts balanced over 100 recycles, a killed zombie row writes
 nothing, exhaustion handled honestly); int8 pages are held on
-determinism, bounded drift and their byte ratio. Two of the JAX cases
-wait for their items: the speculative verify through the paged folds
-(ROADMAP A9.3, tests/test_paged_kv.py:325) and page pressure feeding the
-brownout controller (A9.4, :532)."""
+determinism, bounded drift and their byte ratio. The speculative verify
+through the paged folds (tests/test_paged_kv.py:325) is held in
+tests/test_torch_spec_decode.py; page pressure feeding the brownout
+controller (A9.4, :532) waits for its item."""
 
 from __future__ import annotations
 

@@ -28,7 +28,8 @@ REPO = Path(__file__).resolve().parent.parent
 # without JAX
 PORT_FILES = sorted((REPO / "idc_models_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tests" / "_torch_ring_worker.py",
-    REPO / "tests" / "_torch_dist_worker.py"]
+    REPO / "tests" / "_torch_dist_worker.py",
+    REPO / "tests" / "_torch_ckpt_worker.py"]
 
 
 def _imported_modules(path: Path) -> list[str]:

@@ -252,15 +252,15 @@ def test_admit_rejections_and_later_items():
     with pytest.raises(ValueError, match="flavor must match"):
         _engine(prefill_chunk=8, prefix_cache=PagedPrefixCache(
             8, max_pages=4))
-    for kw, label in ((dict(draft_k=4), "A9.3"),
-                      (dict(adapter_bank=object()), "A9.4"),
+    for kw, label in ((dict(adapter_bank=object()), "A9.4"),
                       (dict(partition_rules=object()), "A9-dist")):
         with pytest.raises(NotImplementedError, match=label):
             _engine(**kw)
     with pytest.raises(NotImplementedError, match="A10"):
         eng.export_slot(0)
-    with pytest.raises(NotImplementedError, match="A9.3"):
-        _server(spec_decode=True, warmup=False)
+    with pytest.raises(ValueError, match="without a learned drafter"):
+        _server(spec_decode=True, draft_partition_rules=object(),
+                warmup=False)
     with pytest.raises(NotImplementedError, match="A9.4"):
         _server(journal="wal.jsonl", warmup=False)
 
