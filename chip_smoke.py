@@ -250,9 +250,32 @@ non-zero before the result line:
    --save-ckpt, the saved parameters restored bit for bit; (s7)
    `cli.main(["profile", "--model", "serve"])`, both windows timed and
    `lm.verify` and `serve.propose` filed;
+15. resilience -- right after spec, the fault plan, the request journal
+   and the brownout at phase 12's width, each run with the launch counts
+   set to 0 just before and read just after, B3 held to two launches an
+   admission (counted from the `serve_admit` records; every retry and
+   every journal re-admission prefills again): (r1) three poisoned slots
+   (NaN twice, +-1e32 once) and two stalls on phase 12's burst with a
+   RetryPolicy, every request ok at the attempts the plan implies and
+   held to (k1)'s serial reference, how many equal (k1)'s tokens bit for
+   bit; (r2) a crash mid-burst with a journal, then a new server on the
+   same weights and journal re-admitting the pending requests, every one
+   ok and held, one submit record an id plus the re-submits, nothing
+   pending after; (r3) a burst of 48 512-token requests under a
+   watermark brownout: stage 3, sheds and clamps, clamped streams held
+   to their references' prefixes, normal again after the drain, TTFT
+   beside the same burst without it; (r4) phase 13's paged engine and a
+   paged prefix cache: a `pages` transition, writes paused, every page
+   back, no kernel; (r5) a crash of the contiguous chunked prefix-cache
+   server, rebuilt around its cache: hits rise, tokens equal (m4)'s;
+   (r6) the `serve` verb's drill (--serve-faults with a crash,
+   --journal, --brownout), then its recovery from the journal; (r7) the
+   armed clean path's tick beside the plain one's and the health
+   reduce's device time;
 
 then one JSON line of per-kernel numbers (B3's row carries its launches
-of each phase-14 run in `launches_spec`), and the last line
+of each phase-14 run in `launches_spec` and of each phase-15 run in
+`launches_resilience`), and the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}`.
 """
 
@@ -2066,7 +2089,7 @@ def step_logits(eng, prompt, n: int) -> list:
 
 
 def prefix_case(torch, fc, smk, fbk, model, name: str, card: str,
-                **kw) -> None:
+                tokens: dict | None = None, **kw) -> None:
     """(m3) or (m4): `prefix_trace()` through an 8-slot server with a
     prefix cache (the first request alone, the other 11 as a burst), no
     kernel launched; every request ok, at least 11 hits; on a paged
@@ -2077,7 +2100,7 @@ def prefix_case(torch, fc, smk, fbk, model, name: str, card: str,
     on the warm engine, against the same requests cold on a fresh engine
     without a cache: their logits at admission and after each of 8 steps
     equal bit for bit. Prints the TTFT of the cold request and the p50
-    of the hits."""
+    of the hits. `tokens`, when given, receives each request's tokens."""
     from idc_models_tpu_torch.observe import MetricsRegistry
     from idc_models_tpu_torch.serve import LMServer, Request, SlotEngine
 
@@ -2136,6 +2159,8 @@ def prefix_case(torch, fc, smk, fbk, model, name: str, card: str,
                              f"holds {deepest} B of caches, not {want}")
         detail = (f"the deepest system snapshot {deepest} B of caches "
                   f"(cut to {PREFIX_LEN} tokens)")
+    if tokens is not None:
+        tokens.update({r.id: r.tokens for r in cold + hot})
     hot_ttft = float(np.median([r.ttft_ms for r in hot]))
     summary = server.summary()
     log(f"paged {name}: {PREFIX_N} requests ok in {seconds!r} s, no kernel "
@@ -2260,6 +2285,7 @@ def paged_path(torch, fc, smk, fbk, card: str, memo: dict) -> None:
                 **paged_kw(torch, kv_pages=PAGED_POOL, prefix_cache_mb=64))
     torch.cuda.empty_cache()
     prefix_case(torch, fc, smk, fbk, model, "(m4) contiguous prefix", card,
+                tokens=memo.setdefault("m4", {}),
                 block_impl="pallas", cache_dtype=torch.bfloat16,
                 prefill_chunk=SERVE_CHUNK,
                 max_prefills_per_cycle=SERVE_CHUNK_PREFILLS,
@@ -2602,6 +2628,516 @@ def spec_path(torch, fc, smk, fbk, card: str, memo: dict) -> dict:
         f"{filed['serve.propose'].flops!r} flops; {card}")
     log(f"phase 14 (spec) took {time.perf_counter() - t_start!r} s; the "
         f"verify at {SERVE_SLOTS} live slots {verify_ms!r} ms; {card}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: serving resilience (serve/faults.py, journal.py, brownout.py)
+# ---------------------------------------------------------------------------
+
+# phase 12's model, server (pallas, bf16, 8 slots, windows of 16) and
+# burst. A greedy burst's schedule (which request holds which slot at
+# which cycle) depends only on the budgets, so these cycles were read off
+# the schedule a CPU run of the same budgets gives: (r1) poisons three
+# running slots whose requests outlive the window in flight, three
+# distinct requests (r7, r9, r14), one retry each, and stalls two cycles
+RES_POISON = (("nan_logits", 5, 0), ("nan_logits", 6, 5),
+              ("garbage_logits", 12, 3))
+RES_STALLS, RES_STALL_S = (3, 12), 0.02
+# (r2): the crash cycle, mid-run (the burst drains in 22 cycles)
+RES_CRASH = 9
+# (r3): 48 requests of 512 tokens (a pallas prefill needs more than 64),
+# at cycle 3, when the watermark brownout (8 queued) has escalated once
+# a cycle to shed; clamped budgets of 16 from stage 2 on
+RES_BURST = dict(tick=3, n=48, prompt_len=512, budget=64)
+RES_BROWNOUT = dict(queue_high=8, clamp_tokens=16, escalate_dwell_s=0.001,
+                    clear_after_s=0.005)
+# (r6): the verb drill at SERVE_CLI_T_MAX: its 16 requests and a burst of
+# 16 drain in 20 to 30 cycles, so the crash lands at 16
+RES_DRILL = "nan_logits:3:0,stall:5:0.02,burst:2:16,crash:16"
+# (r7): ticks timed a server, at 8 live slots
+RES_TICKS = 10
+
+
+def admissions(path: Path) -> int:
+    """The `serve_admit` records of a serve log: each one a prefill, so
+    B3 launches twice for each on the pallas server."""
+    return sum(r.get("event") == "serve_admit" for r in jsonl(path))
+
+
+def res_server(torch, model, logs: Path, name: str, n_slots=SERVE_SLOTS,
+               **kw):
+    """An LMServer at phase 12's width (pallas, bf16 unless `kw` says
+    otherwise) logging to `logs`/`name`.jsonl: (server, log path)."""
+    from idc_models_tpu_torch.observe import JsonlLogger, MetricsRegistry
+    from idc_models_tpu_torch.serve import LMServer
+
+    path = logs / f"{name}.jsonl"
+    kw = {"block_impl": "pallas", "cache_dtype": torch.bfloat16, **kw}
+    server = LMServer(model, n_slots=n_slots, window=SERVE_WINDOW,
+                      registry=MetricsRegistry(), logger=JsonlLogger(path),
+                      **serve_kw(**kw))
+    return server, path
+
+
+def res_held(torch, results, refs, pick=None) -> str:
+    """Every ok result with a reference held to it under the contract; a
+    clamped one to its reference cut to its length. Returns the tally."""
+    held = total = released = clamped = 0
+    for r in results:
+        if r.status != "ok" or r.id not in refs:
+            continue
+        want, seen, states = refs[r.id]
+        n = len(r.tokens) if r.clamped else len(want)
+        clamped += r.clamped
+        k, near = held_steps(torch, r.tokens, want[:n], seen[:n], states[:n],
+                             pick)
+        held, total, released = held + k, total + n, released + near
+    return (f"tokens held equal to the serial reference for {held} of "
+            f"{total} steps ({clamped} clamped request(s) against its "
+            f"prefix), {released} released at a near tie")
+
+
+def idle_to_normal(server, bc, what: str) -> int:
+    """Tick the idle server, as a serving loop does, until the brownout
+    has stepped back to normal (one stage a clear period); returns the
+    ticks taken."""
+    ticks = 0
+    deadline = time.monotonic() + 10.0
+    while bc.stage and time.monotonic() < deadline:
+        time.sleep(bc.clear_after_s)
+        server.step()
+        ticks += 1
+    if bc.stage:
+        raise SystemExit(f"{what}: the brownout is at stage {bc.stage} "
+                         f"10 s after the drain")
+    return ticks
+
+
+def res_verb(torch, fc, smk, fbk, argv: list[str], what: str) -> list[str]:
+    """`cli.main(["serve", ...])` at phase 12's width and SERVE_CLI_T_MAX,
+    8 slots, windows of 16, plus `argv`; its output lines (rc 0, no
+    kernel launched)."""
+    import contextlib
+    import io
+
+    from idc_models_tpu_torch import cli
+
+    base = ["serve", "--vocab", str(LM["vocab"]), "--embed-dim",
+            str(LM["embed_dim"]), "--num-heads", str(LM["num_heads"]),
+            "--mlp-dim", str(LM["mlp_dim"]), "--num-blocks",
+            str(LM["num_blocks"]), "--t-max", str(SERVE_CLI_T_MAX),
+            "--slots", str(SERVE_SLOTS), "--window", str(SERVE_WINDOW)]
+    out = io.StringIO()
+    zero_counts(fc, smk, fbk)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(base + argv)
+    torch.cuda.synchronize()
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        if not line.startswith("serve summary:"):
+            log(f"  serve | {line}")
+    if rc != 0:
+        raise SystemExit(f"{what}: rc {rc}")
+    no_kernels(fc, smk, fbk, what)
+    log(f"{what}: cli.main({' '.join(argv)}) in "
+        f"{time.perf_counter() - t0!r} s, no kernel launched")
+    return lines
+
+
+def armed_ticks(torch, server, what: str) -> tuple:
+    """`server` filled with SERVE_SLOTS requests of WINDOW_PROMPT tokens
+    and budget WINDOW_BUDGET, then RES_TICKS steady ticks (each collects
+    a window and issues the next): (host ms a decode step, profiler
+    line over 3 ticks)."""
+    from idc_models_tpu_torch.serve import Request
+
+    rng = np.random.default_rng(1)
+    for i in range(SERVE_SLOTS):
+        server.submit(Request(id=f"w{i}", prompt=tuple(
+            int(x) for x in rng.integers(0, LM["vocab"], WINDOW_PROMPT)),
+            max_new_tokens=WINDOW_BUDGET))
+    while len(server.scheduler._running) < SERVE_SLOTS:
+        server.step()
+    for _ in range(2):
+        server.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(RES_TICKS):
+        if server.step():
+            raise SystemExit(f"{what}: a request finished mid-timing")
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / RES_TICKS / SERVE_WINDOW * 1e3
+    prof = profiled(torch, server.step, n=3, kernel="elementwise")
+    return step_ms, prof
+
+
+def resilience_path(torch, fc, smk, fbk, card: str, memo: dict) -> dict:
+    """Phase 15 at phase 12's width, each run with the launch counts set
+    to 0 just before and read just after, B3 held to two launches an
+    admission (the `serve_admit` records) wherever the pallas server
+    prefills: (r1) quarantine and retry of three poisoned slots (two
+    NaN, one +-1e32) and two 20 ms stalls on phase 12's burst, every
+    request ok and held to (k1)'s serial reference, the three at
+    attempt 2; (r2) a crash mid-burst with a journal, a new server on
+    the same weights and journal re-admitting what was pending, every
+    request ok and held, one submit record an id plus the re-submits,
+    nothing pending after; (r3) a burst of 48 under a watermark
+    brownout: stage 3 reached, sheds and clamps, clamped streams held to
+    their references' prefixes, back to normal after the drain, TTFT
+    beside the same burst without brownout; (r4) page pressure on phase
+    13's paged engine with a paged prefix cache: a `pages` transition,
+    writes paused, every page back; (r5) a warm restart of the
+    contiguous chunked server around its prefix cache after a crash:
+    hits rise, tokens equal (m4)'s; (r6) the `serve` verb's drill with a
+    crash, then its recovery from the journal; (r7) the armed clean
+    path's tick beside the plain one's and phase 12's step, and the
+    health reduce's device time. Returns B3's launches by run."""
+    from idc_models_tpu_torch.observe import MetricsRegistry
+    from idc_models_tpu_torch.serve import (
+        BrownoutController, InjectedEngineCrash, RetryPolicy, ServeFault,
+        ServeFaultPlan, pending_requests, poisson_trace,
+    )
+
+    t_start = time.perf_counter()
+    tf32_off(torch)
+    model = serve_model(torch)
+    trace = poisson_trace(SERVE_N, **SERVE_TRACE)
+    refs = memo["serial"]
+    k1_tokens = memo["k1"][0]
+    tmp = Path(tempfile.mkdtemp(prefix="resilience"))
+    out = {}
+
+    def run_counted(fn):
+        torch.cuda.synchronize()
+        zero_counts(fc, smk, fbk)
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        if fc.KERNEL.launches or smk.KERNEL.launches:
+            raise SystemExit("phase 15 launched a classifier kernel")
+        return got, flash_counts(fbk), time.perf_counter() - t0
+
+    def b3(name, launches, n_admit):
+        if launches != (2 * n_admit, 0, 0):
+            raise SystemExit(f"resilience {name}: flash launches "
+                             f"update/dq/dkv {launches}, expected "
+                             f"{(2 * n_admit, 0, 0)} for {n_admit} "
+                             f"admissions")
+
+    # (r1) quarantine and retry
+    plan = ServeFaultPlan(
+        [ServeFault(kind, tick, slot=slot) for kind, tick, slot in RES_POISON]
+        + [ServeFault("stall", t, seconds=RES_STALL_S) for t in RES_STALLS])
+    server, path = res_server(
+        torch, model, tmp, "r1", fault_plan=plan,
+        retry=RetryPolicy(max_retries=2, backoff_s=0.0))
+    results, launches, sec = run_counted(lambda: server.run(trace))
+    server.close()
+    server.metrics.logger.close()
+    s = server.summary()
+    n_admit = admissions(path)
+    retried = {r.id: r.attempts for r in results if r.retried}
+    if (len(results) != SERVE_N or any(r.status != "ok" for r in results)
+            or len(retried) != len(RES_POISON)
+            or set(retried.values()) != {2}
+            or s["serve_slot_faults"] != len(RES_POISON)
+            or s["serve_faults_injected"] != len(plan.faults)
+            or n_admit != SERVE_N + len(RES_POISON)):
+        raise SystemExit(f"resilience (r1): statuses "
+                         f"{[r.status for r in results]}, retried "
+                         f"{retried}, slot faults {s['serve_slot_faults']}, "
+                         f"injected {s['serve_faults_injected']}, "
+                         f"admissions {n_admit}")
+    b3("(r1)", launches, n_admit)
+    out["r1"] = launches
+    same = sum(r.tokens == k1_tokens[r.id] for r in results)
+    log(f"resilience (r1): {SERVE_N} requests ok in {sec!r} s; quarantined "
+        f"and retried {sorted(retried)} at attempt 2; serve_slot_faults "
+        f"{s['serve_slot_faults']}, serve_faults_injected "
+        f"{s['serve_faults_injected']}, retries {s['serve_retries']}; "
+        f"{n_admit} admissions, flash launches {launches}; "
+        f"{res_held(torch, results, refs)}; {same} of {SERVE_N} "
+        f"requests equal (k1)'s tokens bit for bit; {card}")
+    del server
+    torch.cuda.empty_cache()
+
+    # (r2) crash and journal recovery
+    wal = tmp / "wal.jsonl"
+    a, path_a = res_server(torch, model, tmp, "r2a", journal=wal,
+                           fault_plan=ServeFaultPlan(
+                               [ServeFault("crash", RES_CRASH)]))
+
+    def crashed():
+        try:
+            a.run(trace)
+        except InjectedEngineCrash as e:
+            return e
+        raise SystemExit("resilience (r2): the crash never fired")
+
+    err, launches_a, sec_a = run_counted(crashed)
+    a.close()
+    a.metrics.logger.close()
+    before = {r.id: r for r in a.results()}
+    pending = [r.id for r in pending_requests(wal)]
+    del a
+    torch.cuda.empty_cache()
+    b, path_b = res_server(torch, model, tmp, "r2b", journal=wal)
+
+    def recover():
+        ids = b.resubmit_pending(wal)
+        b.drain()
+        return ids
+
+    readmitted, launches_b, sec_b = run_counted(recover)
+    b.close()
+    b.metrics.logger.close()
+    after = [b.poll(rid) for rid in readmitted]
+    submits = [r["id"] for r in jsonl(wal)
+               if r["event"] == "journal_submit"]
+    n_admit = admissions(path_a) + admissions(path_b)
+    launches = tuple(x + y for x, y in zip(launches_a, launches_b))
+    ok_before = [r for r in before.values() if r.status == "ok"]
+    if (readmitted != pending or not pending
+            or any(r is None or r.status != "ok" for r in after)
+            or len(ok_before) + len(after) != SERVE_N
+            or sorted(submits) != sorted([req.id for _, req in trace]
+                                         + pending)
+            or pending_requests(wal)):
+        raise SystemExit(f"resilience (r2): pending {pending}, re-admitted "
+                         f"{readmitted}, after {after[:3]}, submits "
+                         f"{submits}")
+    b3("(r2)", launches, n_admit)
+    out["r2"] = launches
+    log(f"resilience (r2): {err}; {len(ok_before)} requests ok before it, "
+        f"{len(pending)} pending in the journal, re-admitted by a new "
+        f"server and ok in {sec_b!r} s (crashed run {sec_a!r} s); "
+        f"{len(submits)} journal_submit records ({SERVE_N} + "
+        f"{len(pending)} re-submits), none pending after; {n_admit} "
+        f"admissions over both servers, flash launches {launches}; "
+        f"{res_held(torch, ok_before + after, refs)}; {card}")
+    del b
+    torch.cuda.empty_cache()
+
+    # (r3) brownout under a burst, then the same burst without it
+    burst = ServeFaultPlan([ServeFault("burst", **RES_BURST)])
+    bc = BrownoutController(registry=MetricsRegistry(), **RES_BROWNOUT)
+    server, path = res_server(torch, model, tmp, "r3", fault_plan=burst,
+                              brownout=bc)
+    results, launches, sec = run_counted(lambda: server.run(trace))
+    back = idle_to_normal(server, bc, "resilience (r3)")
+    server.close()
+    server.metrics.logger.close()
+    s = server.summary()
+    every = server.results()
+    n_admit = admissions(path)
+    shed = [r for r in every if r.status == "shed"]
+    if (bc.max_stage_seen != 3 or not s["serve_shed"]
+            or not s["serve_clamped"]
+            or any(r.status not in ("ok", "shed") for r in every)
+            or any(server.poll(req.id) is None for _, req in trace)):
+        raise SystemExit(f"resilience (r3): max stage {bc.max_stage_seen}, "
+                         f"shed {s['serve_shed']}, clamped "
+                         f"{s['serve_clamped']}, statuses "
+                         f"{sorted({r.status for r in every})}")
+    b3("(r3)", launches, n_admit)
+    out["r3"] = launches
+    ttft = s["serve_ttft_ms_p95"]
+    log(f"resilience (r3): burst of {RES_BURST['n']} at cycle "
+        f"{RES_BURST['tick']} under BrownoutController({RES_BROWNOUT}): "
+        f"max stage {bc.max_stage_seen}, transitions "
+        f"{[(t['stage'], t['reason']) for t in bc.transitions]}, back to "
+        f"normal {back} idle tick(s) after the drain; shed {s['serve_shed']} "
+        f"({len(shed)} shed Results), clamped {s['serve_clamped']}; "
+        f"{len(every) - len(shed)} requests ok in {sec!r} s; {n_admit} "
+        f"admissions, flash launches {launches}; "
+        f"{res_held(torch, every, refs)}; {card}")
+    del server
+    torch.cuda.empty_cache()
+    server, path = res_server(torch, model, tmp, "r3plain", fault_plan=burst)
+    plain, launches, sec = run_counted(lambda: server.run(trace))
+    server.metrics.logger.close()
+    s = server.summary()
+    b3("(r3) without brownout", launches, admissions(path))
+    out["r3_plain"] = launches
+    log(f"resilience (r3): TTFT p95 of the accepted requests {ttft!r} ms "
+        f"under the brownout against {s['serve_ttft_ms_p95']!r} ms for the "
+        f"same burst without it ({len(server.results())} requests served "
+        f"in {sec!r} s, {s['serve_rejected']} refused by the full queue); "
+        f"{card}")
+    del server
+    torch.cuda.empty_cache()
+
+    # (r4) page pressure on the paged engine
+    bc = BrownoutController(queue_high=100 * SERVE_N,
+                            escalate_dwell_s=0.001, clear_after_s=0.005,
+                            registry=MetricsRegistry())
+    server, path = res_server(
+        torch, model, tmp, "r4", n_slots=PAGED_SLOTS, brownout=bc,
+        **paged_kw(torch, kv_pages=PAGED_POOL, prefix_cache_mb=64))
+    pc, eng = server.engine.prefix_cache, server.engine
+    paused = []
+    pause = pc.pause_writes
+    pc.pause_writes = lambda on: (paused.append(on), pause(on))[1]
+    results, launches, sec = run_counted(lambda: server.run(trace))
+    back = idle_to_normal(server, bc, "resilience (r4)")
+    server.metrics.logger.close()
+    cached = pc.cached_pages()
+    pc.clear()
+    s = server.summary()
+    reasons = [t["reason"] for t in bc.transitions]
+    if (not any("pages" in r.split("+") for r in reasons)
+            or True not in paused or pc.writes_paused
+            or any(r.status != "ok" for r in results)
+            or len(results) != SERVE_N or eng._alloc.used_count() != 0
+            or any(launches)):
+        raise SystemExit(f"resilience (r4): reasons {reasons}, pauses "
+                         f"{paused}, statuses "
+                         f"{sorted({r.status for r in results})}, "
+                         f"{eng._alloc.used_count()} pages in use, launches "
+                         f"{launches}")
+    out["r4"] = launches
+    log(f"resilience (r4): paged engine ({PAGED_SLOTS} slots, {PAGED_POOL} "
+        f"pages of {PAGE_SIZE}, a 64 MB paged prefix cache) with a "
+        f"watermark of {bc.queue_high}: transitions "
+        f"{[(t['stage'], t['reason']) for t in bc.transitions]}, cache "
+        f"writes paused and resumed {paused}; {SERVE_N} requests ok in "
+        f"{sec!r} s, clamped {s['serve_clamped']}, page exhaustions "
+        f"{s['serve_page_exhaustions']}; back to normal {back} idle "
+        f"tick(s) after the drain; {cached} cached pages, then every page "
+        f"back after clear(); no kernel launched; "
+        f"{res_held(torch, results, memo['chunked'])}; {card}")
+    del server, pc, eng
+    torch.cuda.empty_cache()
+
+    # (r5) warm restart around the prefix cache
+    reqs = prefix_trace()
+    contiguous = dict(prefill_chunk=SERVE_CHUNK,
+                      max_prefills_per_cycle=SERVE_CHUNK_PREFILLS)
+    wal = tmp / "wal5.jsonl"
+    a, _ = res_server(torch, model, tmp, "r5a", n_slots=PREFIX_SLOTS,
+                      journal=wal, prefix_cache_mb=512, **contiguous)
+    zero_counts(fc, smk, fbk)
+    a.run([(0.0, reqs[0])])
+    # the crash lands two cycles into the burst of the other 11
+    a.scheduler.fault_plan = ServeFaultPlan(
+        [ServeFault("crash", a.scheduler._cycle + 2)])
+    try:
+        a.run([(0.0, r) for r in reqs[1:]])
+        raise SystemExit("resilience (r5): the crash never fired")
+    except InjectedEngineCrash:
+        pass
+    a.close()
+    # the cache keeps logging to the crashed server's log
+    cache = a.engine.prefix_cache
+    hits_at_crash = cache.hits
+    before = {r.id: r for r in a.results() if r.status == "ok"}
+    del a
+    torch.cuda.empty_cache()
+    b, _ = res_server(torch, model, tmp, "r5b", n_slots=PREFIX_SLOTS,
+                      journal=wal, prefix_cache=cache, **contiguous)
+    t0 = time.perf_counter()
+    readmitted = b.resubmit_pending(wal)
+    b.drain()
+    sec = time.perf_counter() - t0
+    b.close()
+    b.metrics.logger.close()
+    cache.logger.close()
+    got = {**before, **{rid: b.poll(rid) for rid in readmitted}}
+    want = memo["m4"]
+    no_kernels(fc, smk, fbk, "resilience (r5)")
+    if (cache.hits <= hits_at_crash or set(got) != set(want)
+            or any(got[rid].tokens != want[rid] for rid in want)):
+        raise SystemExit(f"resilience (r5): hits {hits_at_crash} -> "
+                         f"{cache.hits}; requests {sorted(got)}; differing "
+                         f"{[k for k in want if k in got and got[k].tokens != want[k]]}")
+    out["r5"] = (0, 0, 0)
+    log(f"resilience (r5): crashed two cycles into the burst with "
+        f"{len(before)} of {PREFIX_N} requests done; a server rebuilt "
+        f"around the old cache re-admitted {len(readmitted)} and drained "
+        f"them in {sec!r} s; prefix hits {hits_at_crash} at the crash, "
+        f"{cache.hits} after the recovery; every request's tokens equal "
+        f"(m4)'s uncrashed run bit for bit; no kernel launched; {card}")
+    del b, cache
+    torch.cuda.empty_cache()
+
+    # (r6) the verb: the drill, then the recovery from its journal
+    wal = tmp / "wal6.jsonl"
+    empty = tmp / "empty.jsonl"
+    empty.write_text("")
+    first = res_verb(torch, fc, smk, fbk, [
+        "--requests", "16", "--serve-faults", RES_DRILL, "--max-retries",
+        "2", "--journal", str(wal), "--brownout", "--brownout-dwell-ms",
+        "0", "--brownout-clear-ms", "50"], "resilience (r6) drill")
+    n_pending = len(pending_requests(wal))
+    second = res_verb(torch, fc, smk, fbk, [
+        "--trace", str(empty), "--journal", str(wal), "--max-retries", "2"],
+        "resilience (r6) recovery")
+    for lines, wanted in (
+            (first, ("engine crashed mid-run (injected): ",
+                     "resilience: injected=")),
+            (second, (f"journal: re-admitted {n_pending} in-flight ",
+                      f"served: ok={n_pending} ", "resilience: "))):
+        for w in wanted:
+            if not any(line.startswith(w) for line in lines):
+                raise SystemExit(f"resilience (r6): no line {w!r}")
+    if not n_pending or pending_requests(wal):
+        raise SystemExit(f"resilience (r6): {n_pending} pending after the "
+                         f"drill, {len(pending_requests(wal))} after the "
+                         f"recovery")
+    out["r6"] = (0, 0, 0)
+
+    # (r7) the armed clean path
+    from idc_models_tpu_torch.serve import LMServer
+
+    def build(armed: bool):
+        kw = dict(health_checks=armed)
+        if armed:
+            kw.update(journal=tmp / "wal7.jsonl", fault_plan=ServeFaultPlan(),
+                      brownout=BrownoutController(
+                          queue_high=100 * SERVE_N,
+                          registry=MetricsRegistry()))
+        return LMServer(model, n_slots=SERVE_SLOTS, window=SERVE_WINDOW,
+                        registry=MetricsRegistry(), **serve_kw(
+                            block_impl="pallas", cache_dtype=torch.bfloat16,
+                            **kw))
+
+    times, launches = {}, (0, 0, 0)
+    for armed in (False, True, True, False):
+        server = build(armed)
+        torch.cuda.synchronize()
+        zero_counts(fc, smk, fbk)
+        ms, prof = armed_ticks(torch, server, "resilience (r7)")
+        torch.cuda.synchronize()
+        launches = tuple(x + y for x, y in zip(launches, flash_counts(fbk)))
+        times.setdefault(armed, []).append((ms, prof))
+        if armed:
+            health = profiled(torch, server.engine.slot_health, n=20,
+                              kernel="reduce")
+            health_ms = host_ms(torch, server.engine.slot_health, n=50)
+        server.close()
+        del server
+        torch.cuda.empty_cache()
+    b3("(r7)", launches, 4 * SERVE_SLOTS)
+    out["r7"] = launches
+    plain_ms = [ms for ms, _ in times[False]]
+    armed_ms = [ms for ms, _ in times[True]]
+    log(f"resilience (r7): a window step at {SERVE_SLOTS} live slots "
+        f"through LMServer.step, plain {plain_ms!r} ms, armed (health "
+        f"checks, a journal, a brownout, an empty fault plan) {armed_ms!r} "
+        f"ms (order plain, armed, armed, plain; host clock over "
+        f"{RES_TICKS} ticks of {SERVE_WINDOW} steps ending in a "
+        f"synchronize); mean armed/plain "
+        f"{float(np.mean(armed_ms)) / float(np.mean(plain_ms))!r}; phase "
+        f"12's engine-level step {memo['step_ms']!r} ms; one tick under "
+        f"the profiler, plain: {times[False][0][1]}; armed: "
+        f"{times[True][0][1]}; {card}")
+    log(f"resilience (r7): the per-cycle health reduce and its [S] fetch "
+        f"(SlotEngine.slot_health): host {health_ms!r} ms a call ending in "
+        f"its fetch; {health}; {card}")
+    log(f"phase 15 (resilience) took {time.perf_counter() - t_start!r} s; "
+        f"{card}")
     return out
 
 
@@ -4851,6 +5387,7 @@ def main() -> int:
     served = serve_path(torch, fc, smk, fbk, card, memo)
     paged_path(torch, fc, smk, fbk, card, memo)
     spec = spec_path(torch, fc, smk, fbk, card, memo)
+    res = resilience_path(torch, fc, smk, fbk, card, memo)
     del memo
     att = attention_path(torch, fc, smk, fbk, tring, card)
 
@@ -4943,6 +5480,9 @@ def main() -> int:
         "launches_serve": {run: counts[i] for run, counts in served.items()},
         # phase 14: the speculative runs (s1)-(s7)
         "launches_spec": {run: counts[i] for run, counts in spec.items()},
+        # phase 15: the resilience runs (r1)-(r7)
+        "launches_resilience": {run: counts[i]
+                                for run, counts in res.items()},
         "max_abs_err_zigzag_grid_256": att["grid"][key],
         **{f"quarter_{field}": {what: quarters[(what, key)][field]
                                 for what in QUARTERS}

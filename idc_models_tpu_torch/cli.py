@@ -161,13 +161,6 @@ SERVE_DRAFTERS = {
 # the serve verb's flags of later ROADMAP items: (flag, argparse
 # keywords, label); `_run_serve` refuses any that differs from its default
 _LATER = [
-    ("--serve-faults", dict(default=None), "A9.4"),
-    ("--journal", dict(default=None), "A9.4"),
-    ("--brownout", dict(action="store_true"), "A9.4"),
-    ("--brownout-queue-high", dict(type=int, default=None), "A9.4"),
-    ("--brownout-clamp-tokens", dict(type=int, default=8), "A9.4"),
-    ("--brownout-dwell-ms", dict(type=float, default=250.0), "A9.4"),
-    ("--brownout-clear-ms", dict(type=float, default=1000.0), "A9.4"),
     ("--tenants", dict(default=None), "A9.4"),
     ("--tenant-quota", dict(action="append", default=None), "A9.4"),
     ("--tenant-slo-ttft-ms", dict(action="append", default=None), "A9.4"),
@@ -613,12 +606,47 @@ def _parse(argv):
     sp.add_argument("--metrics-port", type=int, default=None,
                     help="serve GET /metrics and GET /healthz on "
                          "127.0.0.1:PORT for the run (0 = OS-assigned)")
+    sp.add_argument("--serve-faults", default=None,
+                    help="deterministic serve fault drill "
+                         "(serve/faults.py), tick-indexed: e.g. "
+                         "'nan_logits:3:0,stall:5-8:0.02,burst:2:16,"
+                         "crash:40' — poisons/stalls/bursts/crashes "
+                         "replay bit-identically; pair with "
+                         "--max-retries and --journal to watch the "
+                         "recovery paths work")
     sp.add_argument("--max-retries", type=int, default=0,
                     help="re-admissions of a request recovered from a "
-                         "quarantined slot (0 = off; arms the per-cycle "
-                         "slot health checks)")
+                         "quarantined slot or a failed prefill dispatch "
+                         "(0 = off; arms the per-cycle slot health "
+                         "checks)")
     sp.add_argument("--retry-backoff-ms", type=float, default=50.0,
                     help="base delay between retries (doubles per retry)")
+    sp.add_argument("--journal", default=None,
+                    help="request-journal WAL path (serve/journal.py): "
+                         "accepted requests, per-tick progress, and "
+                         "finishes; at startup any in-flight requests "
+                         "a previous crashed run left in the file are "
+                         "re-admitted through the normal path")
+    sp.add_argument("--brownout", action="store_true",
+                    help="arm the staged degradation controller "
+                         "(serve/brownout.py): when a declared SLO "
+                         "burns or the queue passes the watermark, "
+                         "pause prefix-cache writes -> clamp "
+                         "max_new_tokens -> shed new submits (status "
+                         "'shed'), restoring with hysteresis")
+    sp.add_argument("--brownout-queue-high", type=int, default=None,
+                    help="queue-depth escalation watermark for "
+                         "--brownout (default: half --max-queue-depth)")
+    sp.add_argument("--brownout-clamp-tokens", type=int, default=8,
+                    help="the max_new_tokens bound brownout stage 2 "
+                         "applies to new admissions")
+    sp.add_argument("--brownout-dwell-ms", type=float, default=250.0,
+                    help="minimum time between brownout escalations "
+                         "(one stage per dwell while the signal "
+                         "fires; lower it for fast drills)")
+    sp.add_argument("--brownout-clear-ms", type=float, default=1000.0,
+                    help="how long the signal must stay clear before "
+                         "each one-stage restore (the hysteresis)")
     sp.add_argument("--slo-ttft-p95-ms", type=float, default=None,
                     help="declare a TTFT SLO, burn-rate alerted "
                          "(observe/slo.py)")
@@ -1800,7 +1828,8 @@ def _run_serve(ns):
         SLO, JsonlLogger, MetricsExporter, SLOEngine, Timer, profile_trace,
     )
     from idc_models_tpu_torch.serve import (
-        InjectedEngineCrash, LMServer, RetryPolicy, load_trace,
+        BrownoutController, InjectedEngineCrash, LMServer, RetryPolicy,
+        load_trace, parse_serve_fault_spec, pending_requests,
         poisson_trace,
     )
 
@@ -1893,6 +1922,24 @@ def _run_serve(ns):
     if ns.retry_backoff_ms < 0:
         sys.exit(f"--retry-backoff-ms {ns.retry_backoff_ms} must be "
                  f">= 0")
+    if (ns.brownout_queue_high is not None
+            and ns.brownout_queue_high < 1):
+        sys.exit(f"--brownout-queue-high {ns.brownout_queue_high} "
+                 f"must be >= 1")
+    if ns.brownout_clamp_tokens < 1:
+        sys.exit(f"--brownout-clamp-tokens {ns.brownout_clamp_tokens} "
+                 f"must be >= 1")
+    if ns.brownout_dwell_ms < 0 or ns.brownout_clear_ms < 0:
+        sys.exit(f"--brownout-dwell-ms/--brownout-clear-ms must be "
+                 f">= 0, got {ns.brownout_dwell_ms}/"
+                 f"{ns.brownout_clear_ms}")
+    fault_plan = None
+    if ns.serve_faults:
+        try:
+            fault_plan = parse_serve_fault_spec(ns.serve_faults,
+                                                seed=ns.seed)
+        except ValueError as e:
+            sys.exit(f"--serve-faults: {e}")
     device = resolve_device(ns.device)
     model = init_params(AttentionLM(
         ns.vocab, ns.t_max, embed_dim=ns.embed_dim, num_heads=ns.num_heads,
@@ -1923,9 +1970,25 @@ def _run_serve(ns):
     slo = (SLOEngine(slos, short_window_s=ns.slo_window_s,
                      long_window_s=5.0 * ns.slo_window_s, logger=logger)
            if slos else None)
+    # resilience wiring, each armed by its flags
     retry = (RetryPolicy(max_retries=ns.max_retries,
                          backoff_s=ns.retry_backoff_ms / 1e3)
              if ns.max_retries > 0 else None)
+    brownout = None
+    if ns.brownout:
+        queue_high = (ns.brownout_queue_high
+                      or max(ns.max_queue_depth // 2, 2))
+        brownout = BrownoutController(
+            slo=slo, queue_high=queue_high,
+            clamp_tokens=ns.brownout_clamp_tokens,
+            escalate_dwell_s=ns.brownout_dwell_ms / 1e3,
+            clear_after_s=ns.brownout_clear_ms / 1e3, logger=logger)
+    # the journal's in-flight leftovers, counted before the server opens
+    # it for appending: what a previous crashed run accepted and never
+    # finished
+    n_pending = 0
+    if ns.journal and Path(ns.journal).exists():
+        n_pending = len(pending_requests(ns.journal))
     # --drafter learned/chained: the distilled draft LM restored through
     # the sharded checkpoint; 'ngram' stays None, so the server builds
     # its default prompt-lookup drafter from --ngram-order. The vocab is
@@ -1979,9 +2042,22 @@ def _run_serve(ns):
             kv_page_size=ns.kv_page_size or None,
             kv_pages=ns.kv_pages or None,
             kv_decode_reserve=ns.kv_decode_reserve or None,
-            slo=slo, retry=retry, spec_decode=ns.spec_decode,
-            draft_k=ns.draft_k, draft_order=ns.ngram_order,
-            drafter=drafter, device=device)
+            slo=slo, retry=retry, fault_plan=fault_plan,
+            journal=ns.journal, brownout=brownout,
+            spec_decode=ns.spec_decode, draft_k=ns.draft_k,
+            draft_order=ns.ngram_order, drafter=drafter, device=device)
+        if n_pending:
+            readmitted = server.resubmit_pending(ns.journal)
+            line = (f"journal: re-admitted {len(readmitted)} in-flight "
+                    f"request(s) from a previous run")
+            refused = n_pending - len(readmitted)
+            if refused:
+                # a backpressure refusal leaves no finish record, so the
+                # WAL still holds it for a rerun
+                line += (f"; {refused} refused by backpressure — raise "
+                         f"--max-queue-depth and rerun with the same "
+                         f"--journal to recover them")
+            print(line)
         if ns.save_ckpt:
             # rank 0 writes the whole tree; MANIFEST.json commits the
             # save atomically (checkpoint/sharded.py)
@@ -2016,7 +2092,10 @@ def _run_serve(ns):
                 crashed = e
                 results = server.results()
         if crashed is not None:
-            print(f"engine crashed mid-run (injected): {crashed}")
+            hint = (f"; rerun with --journal {ns.journal} to recover the "
+                    f"in-flight requests" if ns.journal else
+                    "; arm --journal to make this recoverable")
+            print(f"engine crashed mid-run (injected): {crashed}{hint}")
         n_ok = sum(r.status == "ok" for r in results)
         summary = server.summary()
         print(f"served: ok={n_ok} timeout={summary['serve_timed_out']} "
@@ -2065,13 +2144,20 @@ def _run_serve(ns):
             names = sorted({a["slo"] for a in slo.alerts})
             print(f"slo: {len(slo.alerts)} alert(s)"
                   + (f" ({', '.join(names)})" if names else ""))
-        if retry is not None or summary["serve_slot_faults"]:
-            print(f"resilience: injected="
-                  f"{summary['serve_faults_injected']}"
-                  f" slot_faults={summary['serve_slot_faults']}"
-                  f" retries={summary['serve_retries']}"
-                  f" shed={summary['serve_shed']}"
-                  f" clamped={summary['serve_clamped']}")
+        # what the armed machinery did: faults fired, quarantines,
+        # retries, brownout sheds and clamps
+        if (fault_plan is not None or retry is not None
+                or brownout is not None or summary["serve_slot_faults"]):
+            line = (f"resilience: injected="
+                    f"{summary['serve_faults_injected']}"
+                    f" slot_faults={summary['serve_slot_faults']}"
+                    f" retries={summary['serve_retries']}"
+                    f" shed={summary['serve_shed']}"
+                    f" clamped={summary['serve_clamped']}")
+            if brownout is not None:
+                line += (f" brownout_max_stage={brownout.max_stage_seen}"
+                         f" (stage {brownout.stage} at exit)")
+            print(line)
         print("serve summary:", json.dumps(summary))
         if logger is not None:
             logger.log(event="serve_summary", **summary)

@@ -1,16 +1,24 @@
 """Continuous-batching LM serving, the counterpart of
 ``idc_models_tpu/serve`` (the contiguous and paged engines, the page
-allocator, both prefix-cache flavours, the scheduler, server, metrics
-and the injected-failure exceptions; ROADMAP A9.0-A9.2)."""
+allocator, both prefix-cache flavours, the scheduler, server, metrics,
+and the resilience layer: the serve fault plan, the request journal and
+the brownout controller; ROADMAP A9.0-A9.4a)."""
 
 from idc_models_tpu_torch.serve.api import (  # noqa: F401
     LMServer, Request, Result, load_trace, poisson_trace, save_trace,
+)
+from idc_models_tpu_torch.serve.brownout import (  # noqa: F401
+    STAGES, BrownoutController,
 )
 from idc_models_tpu_torch.serve.engine import (  # noqa: F401
     HEALTH_KINDS, SlotEngine,
 )
 from idc_models_tpu_torch.serve.faults import (  # noqa: F401
-    InjectedEngineCrash, InjectedPrefillError,
+    InjectedEngineCrash, InjectedPrefillError, ServeFault, ServeFaultPlan,
+    parse_serve_fault_spec,
+)
+from idc_models_tpu_torch.serve.journal import (  # noqa: F401
+    RequestJournal, load_journal, pending_requests,
 )
 from idc_models_tpu_torch.serve.metrics import (  # noqa: F401
     ServingMetrics, aggregate_summaries,

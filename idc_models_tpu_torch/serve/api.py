@@ -5,8 +5,10 @@ counterpart of ``idc_models_tpu/serve/api.py``.
 `LMServer` composes `SlotEngine` (the device state machine, contiguous
 or paged), `Scheduler` (admission queue, deadlines, interleave,
 recycling, page-aware admission, speculative verify), an optional prefix
-cache and `ServingMetrics` (TTFT, throughput, occupancy, pages, the
-speculative ledger):
+cache, `ServingMetrics` (TTFT, throughput, occupancy, pages, the
+speculative ledger) and the resilience knobs: a retry policy, a fault
+plan, a request journal (with `resubmit_pending` for crash recovery) and
+a brownout controller:
 
     server = LMServer(params, embed_dim=..., num_heads=...,
                       num_blocks=..., t_max=..., n_slots=4, window=8)
@@ -58,9 +60,11 @@ class Result:
     """What came back: `tokens` are the generated ids only, cut at EOS
     (inclusive). `status` is "ok" (ran to EOS or budget), "timeout"
     (deadline hit, possibly with partial tokens), "rejected" (queue full
-    with on_full="reject"), or "error" (the engine failed mid-flight, or
-    a quarantined slot ran out of retries; `error` says which).
-    `attempts` / `retried` show the retry policy's work."""
+    with on_full="reject"), "shed" (refused by the brownout's shed
+    stage: retry later or elsewhere), or "error" (the engine failed
+    mid-flight, or a quarantined slot ran out of retries; `error` says
+    which). `attempts` / `retried` show the retry policy's work;
+    `clamped` that the brownout cut the budget at admission."""
     id: str
     tokens: list
     status: str
@@ -71,6 +75,7 @@ class Result:
     trace_id: str | None = None
     attempts: int = 1
     retried: bool = False
+    clamped: bool = False
 
 
 class LMServer:
@@ -85,7 +90,12 @@ class LMServer:
     or by default ``NGramDrafter(draft_k, order=draft_order)``. A
     learned drafter (``models/draft_lm.DraftLM``, or a `ChainedDrafter`
     holding one) exposes `.learned`, which arms the engine's drafter
-    state."""
+    state.
+
+    `journal` is a `RequestJournal` or a path; `brownout` a
+    `BrownoutController`, handed the server's prefix cache unless it
+    holds one; `fault_plan` a `ServeFaultPlan`, whose bursts `step`
+    submits."""
 
     def __init__(self, params, *, embed_dim: int, num_heads: int,
                  num_blocks: int, t_max: int, n_slots: int = 4,
@@ -168,6 +178,19 @@ class LMServer:
             draft_partition_rules=draft_partition_rules, device=device)
         self.metrics = ServingMetrics(logger, prefix_cache=prefix_cache,
                                       registry=registry, slo=slo)
+        # the WAL of accepted work a rebuilt server recovers from
+        if journal is not None and not hasattr(journal, "record_submit"):
+            from idc_models_tpu_torch.serve.journal import RequestJournal
+
+            journal = RequestJournal(journal)
+        self.journal = journal
+        # the brownout degrades the prefix cache first: hand it ours
+        # unless the caller wired its own
+        if (brownout is not None and brownout.prefix_cache is None
+                and prefix_cache is not None):
+            brownout.prefix_cache = prefix_cache
+        self.brownout = brownout
+        self._fault_plan = fault_plan
         self.scheduler = Scheduler(
             self.engine, window=window, max_queue_depth=max_queue_depth,
             max_prefills_per_cycle=max_prefills_per_cycle,
@@ -184,15 +207,19 @@ class LMServer:
     # -- synchronous API -------------------------------------------------
 
     def submit(self, request: Request) -> bool:
-        """Enqueue a request. False = backpressure (queue at max depth);
-        raises ValueError for requests that could never be served."""
+        """Enqueue a request. False = backpressure (queue at max depth)
+        or a brownout shed (then `poll` answers a "shed" Result); raises
+        ValueError for requests that could never be served."""
         from idc_models_tpu_torch.serve.engine import later
         from idc_models_tpu_torch.serve.scheduler import Entry
 
         if request.tenant is not None:
             raise later("A9.4", "tenant-tagged requests")
-        if request.id in self._results or request.id in self._inflight:
-            # a duplicate in flight would overwrite the other's Result
+        prior = self._results.get(request.id)
+        if ((prior is not None and prior.status != "shed")
+                or request.id in self._inflight):
+            # a duplicate in flight would overwrite the other's Result;
+            # a shed id, refused before any work, may try again
             raise ValueError(f"request id {request.id!r} already used")
         entry = Entry(
             rid=request.id,
@@ -201,15 +228,63 @@ class LMServer:
             eos_id=request.eos_id, rng=request.seed,
             deadline=request.deadline_s, trace_id=request.trace_id)
         if not self.scheduler.submit(entry):
+            if entry.status == "shed":
+                # a shed is terminal, not transient backpressure
+                r = _to_result(entry)
+                self._results[r.id] = r
             # backpressure: no Result, the caller may retry the same id
             return False
+        # a resubmit after a shed: poll answers None until it finishes
+        self._results.pop(request.id, None)
         self._inflight.add(request.id)
         return True
 
     def close(self) -> None:
-        """Shut the server down: submit() afterwards raises. Accepted
-        work can still be drained first."""
+        """Shut the server down: submit() afterwards raises, and the
+        journal, if any, is flushed closed. Accepted work can still be
+        drained first."""
         self.scheduler.close()
+        if self.journal is not None:
+            self.journal.close()
+
+    def resubmit_pending(self, journal_path) -> list[str]:
+        """Crash recovery: re-admit every request `journal_path` shows
+        accepted but unfinished, in submit order, through the normal
+        admission path (chunked prefill and prefix-cache hits included);
+        returns the re-admitted ids. Each keeps its journaled id, seed,
+        deadline and trace id, and its greedy or seeded tokens are the
+        uncrashed run's (the engine's serial-parity contract). A request
+        this server can never serve (a prompt past a smaller t_max) is
+        skipped with a warning and stays in the WAL."""
+        import warnings
+
+        from idc_models_tpu_torch.serve.journal import pending_requests
+
+        out = []
+        for req in pending_requests(journal_path):
+            try:
+                ok = self.submit(req)
+            except ValueError as e:
+                warnings.warn(
+                    f"journal recovery skipped request {req.id!r}: "
+                    f"{e} — it remains in the WAL; rerun against a "
+                    f"configuration that can serve it",
+                    stacklevel=2)
+                continue
+            if ok:
+                out.append(req.id)
+        return out
+
+    def _fire_bursts(self) -> None:
+        """Submit the fault plan's burst arrivals for the next scheduler
+        cycle, through the normal (backpressure- and shed-visible) path;
+        the cycle counter moves once a tick, so each burst fires once."""
+        cycle = self.scheduler._cycle
+        for f in self._fault_plan.bursts_at(cycle):
+            self.metrics.on_fault_injected("burst", tick=cycle)
+            for req in self._fault_plan.burst_requests(
+                    f, vocab=self.engine.vocab, t_max=self.engine.t_max):
+                self.submit(req)
 
     def step(self) -> list[Result]:
         """One scheduler tick (admissions + one decode window); returns
@@ -217,6 +292,8 @@ class LMServer:
         the error propagates, but the in-flight requests are first
         recorded as status="error" Results (slots released, queue
         intact), so poll() answers for them and a caller can go on."""
+        if self._fault_plan is not None:
+            self._fire_bursts()
         finished = []
         try:
             ticked = self.scheduler.tick()
@@ -273,11 +350,20 @@ class LMServer:
             while i < len(trace) and (not realtime
                                       or trace[i][0] <= now):
                 # in block mode, do not OFFER a request the queue cannot
-                # take: each refused submit counts as a rejection
-                if (on_full == "block" and len(self.scheduler.queue)
+                # take: each refused submit counts as a rejection (a
+                # shedding server answers at once, so it is offered)
+                shedding = (self.brownout is not None
+                            and self.brownout.shedding)
+                if (on_full == "block" and not shedding
+                        and len(self.scheduler.queue)
                         >= self.scheduler.queue.max_depth):
                     break
                 if self.submit(trace[i][1]):
+                    i += 1
+                    continue
+                shed = self._results.get(trace[i][1].id)
+                if shed is not None and shed.status == "shed":
+                    out.append(shed)
                     i += 1
                 elif on_full == "reject":
                     r = Result(id=trace[i][1].id, tokens=[],
@@ -304,6 +390,7 @@ def _to_result(e) -> Result:
         id=e.rid, tokens=list(e.tokens), status=e.status,
         finish_reason=e.finish_reason, error=e.error,
         trace_id=e.trace_id, attempts=e.attempts, retried=e.retried,
+        clamped=e.clamped,
         ttft_ms=(None if e.t_first is None
                  else (e.t_first - e.t_submit) * 1e3),
         latency_ms=(None if e.t_done is None

@@ -7,11 +7,11 @@ through the jsonl record shape every other loop writes; `summary()` is
 the serving record (`serve_*` fields) with the JAX package's key set,
 and with a prefix cache attached its `serve_prefix_*` fields merged in.
 The hooks are the ones the scheduler calls (submit, reject, admit,
-first token, finish, slot fault, retry, dispatch, speculative verify and
-propose, cycle, pages, page exhaustion); the shed, clamp, fault-plan,
-tenant, rollout and compile-cache hooks come with their items (ROADMAP
-A9.4, A10, A11), and until then their summary keys hold the values a
-server without them reports. Eager PyTorch compiles no serving program, so
+first token, finish, slot fault, retry, brownout shed and clamp, injected
+fault, dispatch, speculative verify and propose, cycle, pages, page
+exhaustion); the tenant, rollout and compile-cache hooks come with their
+items (ROADMAP A9.4, A10, A11), and until then their summary keys hold
+the values a server without them reports. Eager PyTorch compiles no serving program, so
 `serve_compiles_observed` is 0.
 """
 
@@ -83,6 +83,17 @@ class ServingMetrics:
         self._m_retries = reg.counter(
             "serve_retries_total",
             "quarantined requests re-admitted after backoff")
+        self._m_shed = reg.counter(
+            "serve_shed_total",
+            "submits refused by the brownout controller's shed stage")
+        self._m_clamped = reg.counter(
+            "serve_clamped_total",
+            "admissions whose max_new_tokens the brownout clamp "
+            "shortened")
+        self._m_faults_injected = reg.counter(
+            "serve_faults_injected_total",
+            "declarative serve faults fired by an armed ServeFaultPlan,"
+            " by kind", labels=("kind",))
         self._m_dispatches = reg.counter(
             "serve_decode_dispatches_total",
             "decode dispatches by kind: 'window' (fused one-token-per-"
@@ -133,6 +144,9 @@ class ServingMetrics:
         self.timed_out = 0
         self.slot_faults = 0
         self.retries = 0
+        self.shed = 0
+        self.clamped = 0
+        self.faults_injected = 0
         self.finished = 0
         self.tokens_out = 0
         self.cycles = 0
@@ -228,6 +242,29 @@ class ServingMetrics:
         self._m_retries.inc()
         self._log(event="serve_retry", id=rid, attempt=attempt,
                   delay_ms=delay_s * 1e3)
+
+    def on_shed(self, rid) -> None:
+        """The brownout shed stage refused a submit: a terminal outcome
+        of its own, not fed to the error-rate SLO (shedding is the
+        controller's intended action; scoring it as an error would make
+        shedding beget more shedding)."""
+        self.shed += 1
+        self._m_shed.inc()
+        self._m_requests.inc(status="shed")
+        self._log(event="serve_shed", id=rid)
+
+    def on_clamp(self, rid, *, asked: int, clamp: int) -> None:
+        """The brownout clamp shortened an admission's budget."""
+        self.clamped += 1
+        self._m_clamped.inc()
+        self._log(event="serve_clamp", id=rid, max_new_tokens=clamp,
+                  asked=asked)
+
+    def on_fault_injected(self, kind: str, *, tick: int = 0) -> None:
+        """A declarative drill fault fired (`ServeFaultPlan`)."""
+        self.faults_injected += 1
+        self._m_faults_injected.inc(kind=kind)
+        self._log(event="serve_fault_injected", kind=kind, tick=tick)
 
     # -- paged KV ---------------------------------------------------------
 
@@ -360,10 +397,9 @@ class ServingMetrics:
             "serve_compiles_observed": 0,
             "serve_slot_faults": self.slot_faults,
             "serve_retries": self.retries,
-            # brownout (A9.4): nothing sheds or clamps yet
-            "serve_shed": 0,
-            "serve_clamped": 0,
-            "serve_faults_injected": 0,
+            "serve_shed": self.shed,
+            "serve_clamped": self.clamped,
+            "serve_faults_injected": self.faults_injected,
             "serve_decode_dispatches": dispatches,
             "serve_tokens_per_dispatch": (
                 round(self.tokens_out / dispatches, 3)
@@ -418,7 +454,7 @@ def aggregate_summaries(metrics_list) -> dict:
     latest last finish."""
     metrics_list = list(metrics_list)
     ttft, queue_wait, itl = [], [], []
-    tokens = finished = rejected = timed_out = 0
+    tokens = finished = rejected = timed_out = shed = 0
     t_first, t_last = None, None
     for m in metrics_list:
         ttft.extend(m.ttft_s)
@@ -428,6 +464,7 @@ def aggregate_summaries(metrics_list) -> dict:
         finished += m.finished
         rejected += m.rejected
         timed_out += m.timed_out
+        shed += m.shed
         if m._t_first is not None:
             t_first = (m._t_first if t_first is None
                        else min(t_first, m._t_first))
@@ -441,7 +478,7 @@ def aggregate_summaries(metrics_list) -> dict:
         "cluster_requests": finished,
         "cluster_rejected": rejected,
         "cluster_timed_out": timed_out,
-        "cluster_shed": 0,
+        "cluster_shed": shed,
         "cluster_tokens": tokens,
         "cluster_tokens_per_sec": (round(tokens / span, 2)
                                    if span and span > 0 else None),

@@ -116,6 +116,9 @@ class _RadixPrefixBase:
             "serve_prefix_evictions_total", "LRU snapshot evictions")
         self._m_bytes = reg.gauge(
             "serve_prefix_cache_bytes", "bytes of stored snapshots")
+        # brownout stage 1 (serve/brownout.py) pauses inserts; lookups
+        # keep serving hits
+        self.writes_paused = False
         self._root = _Node()
         self._clock = 0
         self.n_snapshots = 0
@@ -230,6 +233,21 @@ class _RadixPrefixBase:
             del node.parent.children[node.edge]
             node = node.parent
 
+    def pause_writes(self, paused: bool) -> None:
+        """Brownout stage 1's side effect: toggle snapshot storage.
+        Reads are never paused, so a warm cache keeps serving hits."""
+        self.writes_paused = bool(paused)
+
+    def clear(self) -> None:
+        """Drop every snapshot (each one released through
+        `_release_snapshot`: bytes for tensors, pool pages for the paged
+        flavour); the counters stay."""
+        for node in list(self._walk()):
+            self._release_snapshot(node)
+        self._root = _Node()
+        self.n_snapshots = 0
+        self._m_bytes.set(self.nbytes)
+
     # -- observability ----------------------------------------------------
 
     def hit_rate(self) -> float | None:
@@ -319,6 +337,8 @@ class PrefixCache(_RadixPrefixBase):
         alone exceeds the whole budget or the key is already present
         (the existing entry is LRU-touched)."""
         toks = self._check_boundary(tokens)
+        if self.writes_paused:
+            return False
         node = self._insert_node(toks)
         if node is None:
             return False
@@ -452,6 +472,8 @@ class PagedPrefixCache(_RadixPrefixBase):
                                "page_bytes) must run before insert — "
                                "the engine does this at construction")
         toks = self._check_boundary(tokens)
+        if self.writes_paused:
+            return False
         pages = [int(p) for p in pages]
         node = self._insert_node(toks)
         if node is None:

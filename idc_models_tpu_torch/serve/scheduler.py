@@ -39,13 +39,21 @@ opinion on which request runs where or when; this module is the policy:
   re-queues after a backoff (keeping its deadline and trace id) or
   finishes with status ``error``. An engine failure releases every
   in-flight slot, records the entries as errors (`pop_failed`) and
-  re-raises, so the queue stays serviceable.
+  re-raises, so the queue stays serviceable. A `ServeFaultPlan`
+  (``serve/faults.py``) fires its faults at the start of the cycle its
+  tick names, and arms the health checks by default.
+- **Journal** -- a `RequestJournal` (``serve/journal.py``) records each
+  accepted submit with its original relative deadline, batched progress
+  and every finish, so a rebuilt server re-admits what a crash left in
+  flight.
+- **Brownout** -- a `BrownoutController` (``serve/brownout.py``) is fed
+  the queue depth and the cycle's page pressure once a cycle; at its
+  shed stage a submit is refused with a terminal ``shed`` status before
+  the queue is consulted, and at its clamp stage an admission's budget
+  is cut to the clamp (the page gate reads the clamped budget).
 
-The fault plan, the journal, brownout and tenancy (ROADMAP A9.4: the
-per-tenant page budgets, and the page pressure as a brownout input,
-which `_page_pressure` already records) and drain-and-migrate (A10)
-come with their items; their knobs raise NotImplementedError naming the
-label.
+Tenancy (ROADMAP A9.4) and drain-and-migrate (A10) come with their
+items; their knobs raise NotImplementedError naming the label.
 """
 
 from __future__ import annotations
@@ -61,6 +69,9 @@ import numpy as np
 from idc_models_tpu_torch.observe import profile as prof
 from idc_models_tpu_torch.observe import trace
 from idc_models_tpu_torch.serve.engine import HEALTH_KINDS, later
+from idc_models_tpu_torch.serve.faults import (
+    InjectedEngineCrash, InjectedPrefillError,
+)
 
 # process-unique request trace ids (pid + a counter), stamped on every
 # request whether or not a tracer is armed
@@ -95,14 +106,15 @@ class Entry:
     t_done: float | None = None
     slot: int | None = None
     tokens: list = dataclasses.field(default_factory=list)
-    # pending|running|retrying|ok|timeout|rejected|error
+    # pending|running|retrying|ok|timeout|rejected|shed|error
     status: str = "pending"
-    # eos|budget|deadline|slot_fault|error|None
+    # eos|budget|deadline|slot_fault|shed|error|None
     finish_reason: str | None = None
     error: str | None = None         # engine failure detail (status=error)
     attempts: int = 1
     retried: bool = False
     not_before: float = 0.0
+    clamped: bool = False            # brownout shortened the budget
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,13 +200,8 @@ class Scheduler:
                  brownout=None, drafter=None, tenancy=None):
         if window < 1:
             raise ValueError(f"need window >= 1, got {window}")
-        for label, what, value in (
-                ("A9.4", "the serve fault plan", fault_plan),
-                ("A9.4", "the request journal", journal),
-                ("A9.4", "brownout", brownout),
-                ("A9.4", "tenancy", tenancy)):
-            if value is not None:
-                raise later(label, what)
+        if tenancy is not None:
+            raise later("A9.4", "tenancy")
         self.engine = engine
         self.window = window
         # speculative mode: with a drafter AND an engine built with
@@ -212,11 +219,21 @@ class Scheduler:
         self.queue = AdmissionQueue(max_queue_depth)
         self.max_prefills_per_cycle = max(int(max_prefills_per_cycle), 1)
         self.metrics = metrics
+        # resilience wiring, all off by default: retry = RetryPolicy,
+        # fault_plan = serve/faults.ServeFaultPlan, journal =
+        # serve/journal.RequestJournal, brownout =
+        # serve/brownout.BrownoutController. Health checks default to
+        # armed when quarantine could act on them or a plan poisons
         self.retry = retry
+        self.fault_plan = fault_plan
+        self.journal = journal
+        self.brownout = brownout
         if health_checks is None:
-            health_checks = retry is not None
+            health_checks = retry is not None or fault_plan is not None
         self.health_checks = bool(health_checks)
         self._retrying: list[Entry] = []
+        self._cycle = 0
+        self._prefill_error_pending = 0
         self._closed = False
         self.admit_after_collect = admit_after_collect
         self.clock = clock
@@ -229,9 +246,8 @@ class Scheduler:
         self._failed: list[Entry] = []
         self._chunked = engine.prefill_chunk is not None
         # set when a paged engine refused pages this cycle (admission
-        # gate or decode growth), reset once a cycle; nothing reads it
-        # until the brownout controller takes it as its pressure input
-        # (ROADMAP A9.4)
+        # gate or decode growth); the brownout's pressure input, reset
+        # once a cycle
         self._page_pressure = False
 
     # -- admission -------------------------------------------------------
@@ -243,8 +259,9 @@ class Scheduler:
 
     def submit(self, entry: Entry) -> bool:
         """Validate and enqueue. False when the queue is full
-        (backpressure); raises on requests that could NEVER be served
-        (caller errors, not load) and after `close()`."""
+        (backpressure) or the brownout sheds it (``entry.status ==
+        "shed"``); raises on requests that could NEVER be served (caller
+        errors, not load) and after `close()`."""
         if self._closed:
             raise RuntimeError(
                 "Scheduler.submit() after close(): the serving loop "
@@ -271,6 +288,19 @@ class Scheduler:
         if entry.eos_id is not None and entry.eos_id < 0:
             entry.eos_id = None
         entry.t_submit = self.clock()
+        # a brownout shed is an honest terminal refusal, decided before
+        # the queue is consulted so that shedding relieves the queue
+        if self.brownout is not None and self.brownout.shedding:
+            entry.status, entry.finish_reason = "shed", "shed"
+            entry.t_done = entry.t_submit
+            if entry.trace_id is None:
+                entry.trace_id = _next_trace_id()
+            trace.point("serve.shed", rid=entry.rid,
+                        trace_id=entry.trace_id)
+            if self.metrics:
+                self.metrics.on_shed(entry.rid)
+            return False
+        deadline_rel = entry.deadline
         if entry.deadline is not None:
             entry.deadline = entry.t_submit + entry.deadline
         if not self.queue.push(entry):
@@ -280,6 +310,8 @@ class Scheduler:
             return False
         if entry.trace_id is None:
             entry.trace_id = _next_trace_id()
+        if self.journal is not None:
+            self.journal.record_submit(entry, deadline_s=deadline_rel)
         # the request-lifecycle chain: a detached serve.request span
         # (submit -> finish) with the queued segment as its child; every
         # span carries rid
@@ -298,15 +330,28 @@ class Scheduler:
         reserves the slot; `_step_prefills` feeds the chunks."""
         admitted = 0
         free = self.engine.free_slots()
+        clamp = (self.brownout.token_clamp if self.brownout is not None
+                 else None)
         while (admitted < self.max_prefills_per_cycle and free
                and len(self.queue)):
             # paged engines: the HEAD must fit before it leaves the
             # queue; no skipping ahead of it (that would starve long
-            # requests forever)
-            if not self._page_gate(self.queue.peek()):
+            # requests forever). The gate reads the budget the clamp
+            # below leaves: the clamp is the smaller reservation page
+            # pressure escalates to, and gating on the unclamped ask
+            # would wedge admission at the stage meant to unwedge it
+            head = self.queue.peek()
+            eff = head.budget if clamp is None else min(head.budget, clamp)
+            if not self._page_gate(head, eff):
                 break
             e = self.queue.pop()
             slot = free.pop(0)
+            if clamp is not None and e.budget > clamp:
+                # brownout stage 2: shorter answers for everyone
+                if self.metrics:
+                    self.metrics.on_clamp(e.rid, asked=e.budget,
+                                          clamp=clamp)
+                e.budget, e.clamped = clamp, True
             eos = e.eos_id if e.eos_id is not None else -1
             e.slot, e.status, e.t_admit = slot, "running", self.clock()
             # registered BEFORE the engine call: an engine that raises
@@ -330,11 +375,12 @@ class Scheduler:
             admitted += 1
         return admitted
 
-    def _page_gate(self, entry: Entry) -> bool:
+    def _page_gate(self, entry: Entry, eff: int) -> bool:
         """True when the engine can grant pages for the entry's prompt
-        and budget now (always, on a contiguous engine); on False the
-        wait is recorded as page-exhaustion backpressure."""
-        if self.engine.can_admit_pages(len(entry.prompt), entry.budget):
+        and effective budget `eff` now (always, on a contiguous engine);
+        on False the wait is recorded as page-exhaustion backpressure,
+        the brownout's ``pages`` signal."""
+        if self.engine.can_admit_pages(len(entry.prompt), eff):
             return True
         self._page_pressure = True
         if self.metrics:
@@ -352,6 +398,10 @@ class Scheduler:
         while steps < self.max_prefills_per_cycle and self._prefilling:
             slot = next(iter(self._prefilling))
             try:
+                if self._prefill_error_pending:
+                    self._prefill_error_pending -= 1
+                    raise InjectedPrefillError(
+                        f"injected prefill-chunk failure (slot {slot})")
                 finished = self.engine.prefill_step(slot)
             except Exception as exc:
                 if self.retry is None:
@@ -420,6 +470,25 @@ class Scheduler:
                 and not len(self.queue) and not self._retrying
                 and self.engine._pending is None)
 
+    def _apply_faults(self, cycle: int) -> None:
+        """Fire the plan's non-burst faults for this cycle, a pure
+        function of (plan, cycle). Bursts are arrivals: the server
+        submits them."""
+        for f in self.fault_plan.at(cycle):
+            if self.metrics:
+                self.metrics.on_fault_injected(f.kind, tick=cycle)
+            if f.kind == "stall":
+                time.sleep(f.seconds)
+            elif f.kind == "crash":
+                exc = InjectedEngineCrash(
+                    f"injected engine crash at cycle {cycle}")
+                self._abort_running(exc)
+                raise exc
+            elif f.kind in ("nan_logits", "garbage_logits"):
+                self.engine.inject_slot_fault(f.slot, f.kind)
+            elif f.kind == "prefill_error":
+                self._prefill_error_pending += 1
+
     def _requeue_retries(self, now: float, done) -> None:
         """Move quarantined entries whose backoff elapsed back to the
         queue FRONT (oldest first); ones whose deadline died while they
@@ -471,6 +540,12 @@ class Scheduler:
     def _tick(self) -> list[Entry]:
         now = self.clock()
         done: list[Entry] = []
+        # 0. the fault drill's faults for this cycle fire before any
+        #    work, so the cycle a fault names is the cycle it perturbs
+        cycle = self._cycle
+        self._cycle += 1
+        if self.fault_plan is not None:
+            self._apply_faults(cycle)
         # 1. queued requests past deadline never occupy a slot
         for e in self.queue.expire(now):
             e.status, e.finish_reason, e.t_done = "timeout", "deadline", now
@@ -616,7 +691,13 @@ class Scheduler:
         # 7. deferred bookkeeping, while the new window computes
         emitted = self._finalize_window(got, finished, cancelled, t_now,
                                         now, done)
-        self._page_pressure = False
+        # the brownout runs every cycle, drain cycles included (its
+        # hysteresis must watch the queue empty), with the cycle's page
+        # pressure beside the queue depth
+        page_pressure, self._page_pressure = self._page_pressure, False
+        if self.brownout is not None:
+            self.brownout.evaluate(queue_depth=len(self.queue),
+                                   pressure=page_pressure)
         if (self._running or admitted or chunk_steps) and self.metrics:
             self.metrics.on_cycle(queue_depth=len(self.queue),
                                   occupancy=occupancy, tokens=emitted,
@@ -734,6 +815,7 @@ class Scheduler:
         token stamps, finish statuses), shared by the normal pass and
         the failure salvage. Returns the emitted-token count."""
         emitted = 0
+        progress = {} if self.journal is not None else None
         for e, toks in got:
             if toks and e.t_first is None:
                 e.t_first = t_now
@@ -747,6 +829,11 @@ class Scheduler:
                     self.metrics.on_first_token(e.rid, t_now - e.t_submit)
             e.tokens.extend(toks)
             emitted += len(toks)
+            if progress is not None and toks:
+                progress[e.rid] = len(e.tokens)
+        if progress:
+            # one batched, strided record a cycle
+            self.journal.record_progress(progress)
         for e in finished:
             e.status, e.t_done = "ok", t_now
             e.finish_reason = (
@@ -792,6 +879,9 @@ class Scheduler:
 
     def _finish(self, e: Entry, done: list[Entry]) -> None:
         done.append(e)
+        if self.journal is not None:
+            self.journal.record_finish(e.rid, e.status,
+                                       reason=e.finish_reason)
         # close the lifecycle chain: the queued child first (a no-op if
         # admission closed it), then serve.request with the outcome
         if e.queue_span is not None:

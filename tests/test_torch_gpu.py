@@ -1536,3 +1536,142 @@ def test_spec_server_on_the_card_matches_spec_off(cuda, kind):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert len(eng.collect()[0]) == 1
+
+
+def _res_requests(n, lo, hi, budget, seed):
+    """`n` requests of `lo`..`hi` prompt tokens over the card LM's vocab
+    of 64, each with budget `budget`."""
+    from idc_models_tpu_torch.serve import Request
+
+    g = torch.Generator().manual_seed(seed)
+    return [Request(id=f"q{i}", prompt=tuple(torch.randint(
+        0, 64, (int(p),), generator=g).tolist()), max_new_tokens=budget)
+        for i, p in enumerate(torch.randint(lo, hi, (n,), generator=g))]
+
+
+def test_health_reduce_catches_nan_and_huge_logits_on_the_card(cuda):
+    """The per-cycle health reduce on card logits: NaN reads as code 1
+    (nonfinite_logits), +1e32 and -1e32 as code 2 (logit_magnitude),
+    clean rows as 0."""
+    from idc_models_tpu_torch.serve import HEALTH_KINDS, SlotEngine
+
+    model, kw = _card_lm()
+    eng = SlotEngine(model, n_slots=4, **kw)
+    for s in range(4):
+        eng.admit(s, (1, 2, 3 + s), 4)
+    assert eng.slot_health().tolist() == [0, 0, 0, 0]
+    eng.inject_slot_fault(0, "nan_logits")
+    eng.inject_slot_fault(1, "garbage_logits")
+    eng._logits[2, 5] = -1e32
+    codes = eng.slot_health()
+    assert [HEALTH_KINDS.get(int(c)) for c in codes] == [
+        "nonfinite_logits", "logit_magnitude", "logit_magnitude", None]
+
+
+def test_retried_request_on_the_pallas_server_equals_its_unfaulted_run(
+        cuda):
+    """A NaN-poisoned slot on the pallas bf16 server (the flash kernel
+    prefills every admission, a retry's too): quarantined, retried once,
+    and its tokens equal the unfaulted run's bit for bit; B3 launches
+    twice an admission."""
+    from idc_models_tpu_torch.observe import MetricsRegistry
+    from idc_models_tpu_torch.serve import (
+        LMServer, RetryPolicy, ServeFault, ServeFaultPlan,
+    )
+
+    model, kw = _card_lm()
+    kw = dict(kw, cache_dtype=torch.bfloat16, block_impl="pallas")
+    reqs = _res_requests(3, 100, 140, 24, 5)
+
+    def run(**more):
+        server = LMServer(model, n_slots=2, window=4,
+                          registry=MetricsRegistry(), **kw, **more)
+        torch.cuda.synchronize()
+        before = fbk.KERNELS[0].launches
+        server.run([(0.0, r) for r in reqs])
+        torch.cuda.synchronize()
+        return server, fbk.KERNELS[0].launches - before
+
+    clean, clean_launches = run()
+    faulted, launches = run(
+        fault_plan=ServeFaultPlan([ServeFault("nan_logits", 2, slot=0)]),
+        retry=RetryPolicy(max_retries=1, backoff_s=0.0))
+    assert clean_launches == 2 * len(reqs)
+    assert launches == 2 * (len(reqs) + 1)
+    assert faulted.summary()["serve_slot_faults"] == 1
+    assert [faulted.poll(r.id).attempts for r in reqs].count(2) == 1
+    for r in reqs:
+        assert faulted.poll(r.id).status == "ok"
+        assert faulted.poll(r.id).tokens == clean.poll(r.id).tokens
+
+
+def test_crash_and_journal_recovery_on_the_card(cuda, tmp_path):
+    """A crash mid-run with a journal; a new server on the same weights
+    re-admits the pending requests, and every request's tokens equal an
+    uncrashed run's bit for bit."""
+    from idc_models_tpu_torch.observe import MetricsRegistry
+    from idc_models_tpu_torch.serve import (
+        InjectedEngineCrash, LMServer, ServeFault, ServeFaultPlan,
+        pending_requests,
+    )
+
+    model, kw = _card_lm()
+    reqs = _res_requests(5, 3, 40, 16, 6)
+
+    def server(**more):
+        return LMServer(model, n_slots=2, window=4,
+                        registry=MetricsRegistry(), **kw, **more)
+
+    clean = server()
+    clean.run([(0.0, r) for r in reqs])
+    wal = tmp_path / "wal.jsonl"
+    a = server(journal=wal,
+               fault_plan=ServeFaultPlan([ServeFault("crash", 4)]))
+    with pytest.raises(InjectedEngineCrash):
+        a.run([(0.0, r) for r in reqs])
+    a.close()
+    pending = [r.id for r in pending_requests(wal)]
+    assert pending
+    b = server(journal=wal)
+    assert b.resubmit_pending(wal) == pending
+    b.drain()
+    b.close()
+    for r in reqs:
+        got = b.poll(r.id) if r.id in pending else a.poll(r.id)
+        assert got.status == "ok"
+        assert got.tokens == clean.poll(r.id).tokens
+    assert pending_requests(wal) == []
+
+
+def test_armed_clean_tick_makes_no_host_sync_on_the_card(cuda, tmp_path):
+    """A steady tick of a server with a journal, a brownout and an empty
+    fault plan armed (health checks off: their [S] fetch is the one sync
+    they add, by design) runs under CUDA's sync debug mode "error": the
+    collect waits on the window's event only, and the journal, the
+    brownout and the next window's issue never synchronize."""
+    from idc_models_tpu_torch.observe import MetricsRegistry
+    from idc_models_tpu_torch.serve import (
+        BrownoutController, LMServer, ServeFaultPlan,
+    )
+
+    model, kw = _card_lm()
+    server = LMServer(
+        model, n_slots=2, window=4, registry=MetricsRegistry(),
+        journal=tmp_path / "wal.jsonl", fault_plan=ServeFaultPlan(),
+        health_checks=False,
+        brownout=BrownoutController(queue_high=64,
+                                    registry=MetricsRegistry()), **kw)
+    for r in _res_requests(2, 3, 10, 64, 7):
+        server.submit(r)
+    while len(server.scheduler._running) < 2:
+        server.step()
+    server.step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            assert server.step() == []
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    server.drain()
+    assert server.summary()["serve_requests"] == 2

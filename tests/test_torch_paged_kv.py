@@ -13,8 +13,8 @@ refcounts balanced over 100 recycles, a killed zombie row writes
 nothing, exhaustion handled honestly); int8 pages are held on
 determinism, bounded drift and their byte ratio. The speculative verify
 through the paged folds (tests/test_paged_kv.py:325) is held in
-tests/test_torch_spec_decode.py; page pressure feeding the brownout
-controller (A9.4, :532) waits for its item."""
+tests/test_torch_spec_decode.py, and page pressure feeding the brownout
+controller (:532) in tests/test_torch_serve_resilience.py."""
 
 from __future__ import annotations
 

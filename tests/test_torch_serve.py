@@ -262,7 +262,7 @@ def test_admit_rejections_and_later_items():
         _server(spec_decode=True, draft_partition_rules=object(),
                 warmup=False)
     with pytest.raises(NotImplementedError, match="A9.4"):
-        _server(journal="wal.jsonl", warmup=False)
+        _server(tenancy=object(), warmup=False)
 
 
 def test_slot_health_codes_and_quarantine_with_retry():
