@@ -43,9 +43,9 @@ non-zero before the result line:
        suffix train step) and its phase-2 history to (a)'s (rtol 1e-4);
    (a3) `vgg` and `vgg --cache-features` at full width (VGG16, 50x50,
        batch 32, lr 1e-3, fine-tune at 15): no hand kernel launched,
-       finite metrics, cached against uncached history, the card's eval
-       logits against the CPU's on the trained weights (TF32 off,
-       1e-4 (1 + max |logit|));
+       finite metrics, cached against uncached history (cuDNN
+       deterministic), the card's eval logits against the CPU's on the
+       trained weights (TF32 off, 1e-4 (1 + max |logit|));
    (a4) `dense` and `dense --cache-features` at full width
        (DenseNet201 with packed blocks, CIFAR-10 stand-in at 32x32,
        batch 256, 10 classes, two passes an epoch, fine-tune at 150, so
@@ -272,10 +272,28 @@ non-zero before the result line:
    --journal, --brownout), then its recovery from the journal; (r7) the
    armed clean path's tick beside the plain one's and the health
    reduce's device time;
+16. tenancy -- right after resilience, multi-tenant serving at phase
+   12's width on its burst tagged round-robin over acme, globex and
+   initech (rank-8 logit adapters from seed 0), each run with the launch
+   counts set to 0 just before and read just after, B3 held to two
+   launches an admission: (t1) a zero bank, tokens equal to (k1)'s bit
+   for bit; (t2) the adapters mixed, held under the contract to a
+   one-slot reference with the same bank, beside each tenant served
+   alone (bit-equal count) and (t1) (steps that differ); (t3) globex
+   floods under quota 2:8:- and a TTFT SLO beside acme: globex held to
+   2 slots, its refusals counted, acme's TTFT p95 below the unquota'd
+   run's, globex's SLO alert and brownout while acme stays normal, and
+   again with the slot cap alone (no queue watermark), where globex's
+   brownout must escalate on its ttft:globex objective; (t4)
+   the paged engine with a page budget that binds globex beside its
+   unquota'd twin (no B3), and the n-gram speculative server with the
+   bank beside (t2); (t5) the `serve` verb with the tenant flags; (t6)
+   the hook's cost, window and verify at 8 live slots;
 
 then one JSON line of per-kernel numbers (B3's row carries its launches
-of each phase-14 run in `launches_spec` and of each phase-15 run in
-`launches_resilience`), and the last line
+of each phase-14 run in `launches_spec`, of each phase-15 run in
+`launches_resilience` and of each phase-16 run in `launches_tenancy`),
+and the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}`.
 """
 
@@ -3141,6 +3159,493 @@ def resilience_path(torch, fc, smk, fbk, card: str, memo: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: multi-tenant serving (serve/tenancy.py)
+# ---------------------------------------------------------------------------
+
+# phase 12's model, server and burst, the burst tagged round-robin over
+# three tenants; rank-8 float32 logit adapters drawn from seed 0 at a
+# scale whose delta is of the order of the logits (|l U V| ~ 90 s^2 |l|
+# at V 1,024, r 8), so greedy picks move
+TENANTS = ("acme", "globex", "initech")
+TENANT_RANK, TENANT_SCALE = 8, 0.1
+# (t3): globex, the default tenant the untagged burst bills, floods
+# (phase 15's burst of 48 x 512 tokens at cycle 3) under quota 2:8:- and
+# a TTFT SLO of 100 ms; acme's 8 requests of phase 12's burst arrive at
+# cycle 4 under a loose SLO; the tenant SLOs judge from 4 samples, and
+# the brownouts move one stage a millisecond. A second flood keeps the
+# slot cap alone: without a queue quota globex's brownout has no queue
+# watermark, so only its TTFT SLO can escalate it
+TENANT_FLOOD = dict(max_resident_slots=2, max_queued=8)
+TENANT_SLO_MS = {"acme": 10_000.0, "globex": 100.0}
+TENANT_ACME_AT = 4
+TENANT_BUILD = dict(slo_min_samples=4, brownout_dwell_s=0.001,
+                    brownout_clear_s=0.005)
+# (t5): the verb's flags
+TENANT_VERB = ["--requests", "24", "--tenants", ",".join(TENANTS),
+               "--tenant-quota", "globex=2:8:-", "--tenant-slo-ttft-ms",
+               "2000", "--rollout-adapters", str(TENANT_RANK)]
+# (t6): pairs of timed windows (and verifies), the bank's engine first
+TENANT_PAIRS, TENANT_TIMED = 3, 3
+
+
+def tenant_adapters(zero: bool = False) -> dict:
+    """{tenant: (u [V, r], v [r, V])}, drawn from seed 0 (zeros with
+    `zero`)."""
+    rng = np.random.default_rng(0)
+    out = {}
+    for name in TENANTS:
+        u = rng.normal(0, TENANT_SCALE, (LM["vocab"], TENANT_RANK))
+        v = rng.normal(0, TENANT_SCALE, (TENANT_RANK, LM["vocab"]))
+        if zero:
+            u, v = np.zeros_like(u), np.zeros_like(v)
+        out[name] = (u.astype(np.float32), v.astype(np.float32))
+    return out
+
+
+def tenant_registry(adapters, names=TENANTS, quotas=None, slos=None,
+                    default=None):
+    """A TenantRegistry of `names` with their `adapters` (None: none),
+    `quotas` ({name: TenantQuota keywords}) and TTFT `slos` (ms)."""
+    from idc_models_tpu_torch.serve import TenantQuota, TenantRegistry
+
+    reg = TenantRegistry(default=default)
+    for name in names:
+        q = (quotas or {}).get(name)
+        reg.register(name, adapter=None if adapters is None
+                     else adapters[name],
+                     quota=None if q is None else TenantQuota(**q),
+                     slo_ttft_p95_ms=(slos or {}).get(name))
+    return reg
+
+
+def tenant_steps(eng, req, tid: int):
+    """A request alone in slot 0 of a one-slot engine with a bank, a step
+    a window: its tokens and the EFFECTIVE logits each step's pick read
+    (the reference the tenanted runs are held to)."""
+    eng.admit(0, list(req.prompt), req.max_new_tokens, tid=tid)
+    toks, seen = [], []
+    while not eng.finished(0):
+        seen.append(eng._head_hook()(eng._logits)[0].clone())
+        toks += eng.step_window(1)[0]
+    eng.release(0)
+    return toks, seen, [None] * req.max_new_tokens
+
+
+def tenant_drive(server, arrivals) -> dict:
+    """Submit each (cycle, request) of `arrivals` at the start of its
+    scheduler cycle and step until idle (the fault plan's bursts fire
+    inside `step`); returns each tenant's peak (resident slots, KV pages)
+    over the cycles."""
+    arrivals = sorted(arrivals, key=lambda a: a[0])
+    peaks = {}
+    while arrivals or not server.scheduler.idle():
+        while arrivals and arrivals[0][0] <= server.scheduler._cycle:
+            req = arrivals.pop(0)[1]
+            if not server.submit(req):
+                raise SystemExit(f"tenancy: {req.id} refused at submit")
+        server.step()
+        slots, pages = server.scheduler._tenant_residency()
+        for name in set(slots) | set(pages):
+            s, p = peaks.get(name, (0, 0))
+            peaks[name] = (max(s, slots.get(name, 0)),
+                           max(p, pages.get(name, 0)))
+    return peaks
+
+
+def tenant_held(torch, results, refs) -> tuple:
+    """Every request of `results` ({id: tokens}) held to its reference
+    under the contract: (steps held, steps, requests released at a near
+    tie)."""
+    held = total = released = 0
+    for rid, toks in results.items():
+        want, seen, states = refs[rid]
+        n, near = held_steps(torch, toks, want, seen, states)
+        held, total, released = held + n, total + len(want), released + near
+    return held, total, released
+
+
+def hook_times(torch, eng_bank, eng_plain, verify: bool, card: str) -> None:
+    """(t6): `eng_bank` (the three-tenant bank, slot s of tenant s % 3)
+    and `eng_plain` (no bank), each with SERVE_SLOTS live slots of
+    WINDOW_PROMPT tokens: host ms a step of a window (or of a verify of
+    K zero drafts a slot) over TENANT_TIMED calls ending in a
+    synchronize, TENANT_PAIRS pairs, bank first; one profiled call each;
+    the kernels a call of each; and the hook's device time (one gather a
+    call, one apply a step, or one apply on the verify's [S, K+1, V]
+    candidates)."""
+    from idc_models_tpu_torch.models.lm import make_adapter_head_hook
+
+    rng = np.random.default_rng(1)
+    for eng in (eng_bank, eng_plain):
+        for slot in range(SERVE_SLOTS):
+            eng.admit(slot, rng.integers(0, LM["vocab"], WINDOW_PROMPT),
+                      WINDOW_BUDGET, tid=slot % 3 if eng.n_tenants else 0)
+    live = np.ones(SERVE_SLOTS, bool)
+    drafts = np.zeros((SERVE_SLOTS, SPEC_K), np.int64)
+
+    def call(eng):
+        if verify:
+            eng.begin_verify(drafts, live)
+            eng.collect()
+        else:
+            eng.step_window(SERVE_WINDOW)
+
+    steps = 1 if verify else SERVE_WINDOW
+    pair = (("bank", eng_bank), ("plain", eng_plain))
+    for _, eng in pair:
+        call(eng)
+    ms = {"bank": [], "plain": []}
+    for _ in range(TENANT_PAIRS):
+        for what, eng in pair:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TENANT_TIMED):
+                call(eng)
+            torch.cuda.synchronize()
+            ms[what].append((time.perf_counter() - t0) / TENANT_TIMED
+                            / steps * 1e3)
+    prof = {what: profiled(torch, lambda eng=eng: call(eng), n=1,
+                           kernel="elementwise") for what, eng in pair}
+    counts = {what: sum(kernel_counts(torch, lambda eng=eng: call(eng),
+                                      n=1).values()) for what, eng in pair}
+    u, v = eng_bank._adapters
+    tslot = eng_bank._tslot
+    hook = make_adapter_head_hook(u, v, tslot)
+    logits = (torch.stack([eng_bank._logits] * (SPEC_K + 1), 1) if verify
+              else eng_bank._logits)
+    gather_us = device_ms(
+        torch, lambda: make_adapter_head_hook(u, v, tslot), 200) * 1e3
+    apply_us = device_ms(torch, lambda: hook(logits), 200) * 1e3
+    hook_us = apply_us + (0.0 if verify else gather_us / SERVE_WINDOW)
+    for _, eng in pair:
+        for slot in range(SERVE_SLOTS):
+            eng.release(slot)
+    what = "verify" if verify else "window"
+    log(f"tenancy (t6) {what}: {SERVE_SLOTS} live slots, host ms a step "
+        f"with the three-tenant bank {ms['bank']!r} against "
+        f"{ms['plain']!r} without (pairs, bank first; {TENANT_TIMED} "
+        f"{what} calls ending in a synchronize each); mean bank/plain "
+        f"{float(np.mean(ms['bank'])) / float(np.mean(ms['plain']))!r}; "
+        f"kernels a step {counts['bank'] / steps!r} against "
+        f"{counts['plain'] / steps!r}; the hook's device time "
+        f"{hook_us!r} us a step (gather {gather_us!r} us a "
+        f"{what}, apply {apply_us!r} us on {tuple(logits.shape)}; CUDA "
+        f"events behind a sleep kernel); one {what} under the profiler, "
+        f"bank: {prof['bank']}; plain: {prof['plain']}; {card}")
+
+
+def tenancy_path(torch, fc, smk, fbk, card: str, memo: dict) -> dict:
+    """Phase 16 at phase 12's width (pallas, bf16, 8 slots, windows of
+    16) on phase 12's burst tagged round-robin over acme, globex and
+    initech, each run with the launch counts set to 0 just before and
+    read just after, B3 held to two launches an admission (the
+    `serve_admit` records) wherever the pallas server prefills: (t1)
+    three tenants with zero adapters, every request's tokens equal to
+    (k1)'s bit for bit; (t2) the three rank-8 adapters mixed, every
+    request held under the contract to a one-slot engine's reference
+    with the same bank, beside the same requests on a server of that
+    tenant alone (a one-tenant bank): how many are bit-equal, and how
+    many steps differ from (t1); (t3) globex floods (48 x 512 tokens at
+    cycle 3, quota 2:8:-, a 100 ms TTFT SLO) beside acme's 8 requests at
+    cycle 4: globex held to 2 resident slots, its quota refusals
+    counted, acme's TTFT p95 below the same run's without quotas,
+    globex's SLO alert and its own brownout escalated while acme's stays
+    normal; then the slot cap alone, where the escalation's reason must
+    name the ttft:globex objective; (t4) phase 13's paged engine with the bank and a page budget
+    that binds globex, held to a chunked one-slot reference beside its
+    unquota'd twin (no B3), and phase 14's n-gram speculative server
+    with the bank beside (t2)'s spec-off run; (t5) the `serve` verb with
+    the tenant flags; (t6) the hook's cost at 8 live slots, window and
+    verify. Returns B3's launches by run."""
+    from idc_models_tpu_torch.observe import JsonlLogger, MetricsRegistry
+    from idc_models_tpu_torch.serve import (
+        LMServer, ServeFault, ServeFaultPlan, SlotEngine, poisson_trace,
+    )
+
+    t_start = time.perf_counter()
+    tf32_off(torch)
+    model = serve_model(torch)
+    reqs = [r for _, r in poisson_trace(SERVE_N, tenants=TENANTS,
+                                        **SERVE_TRACE)]
+    tids = {name: i for i, name in enumerate(TENANTS)}
+    tmp = Path(tempfile.mkdtemp(prefix="tenancy"))
+    bf16 = dict(block_impl="pallas", cache_dtype=torch.bfloat16)
+    adapters = tenant_adapters()
+    out = {}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        zero_counts(fc, smk, fbk)
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        if fc.KERNEL.launches or smk.KERNEL.launches:
+            raise SystemExit("phase 16 launched a classifier kernel")
+        return got, flash_counts(fbk), time.perf_counter() - t0
+
+    def b3(name, launches, path):
+        n_admit = admissions(path)
+        if launches != (2 * n_admit, 0, 0) or not n_admit:
+            raise SystemExit(f"tenancy {name}: flash launches "
+                             f"update/dq/dkv {launches}, expected "
+                             f"{(2 * n_admit, 0, 0)} for {n_admit} "
+                             f"admissions")
+        return n_admit
+
+    def served(name, batch, **kw):
+        """`batch` as a burst through `res_server`, every request ok:
+        ({id: tokens}, summary, launches, seconds, log path)."""
+        server, path = res_server(torch, model, tmp, name, **kw)
+        results, launches, sec = counted(
+            lambda: server.run([(0.0, r) for r in batch]))
+        server.metrics.logger.close()
+        if (len(results) != len(batch)
+                or any(r.status != "ok" for r in results)):
+            raise SystemExit(f"tenancy {name}: statuses "
+                             f"{[r.status for r in results]}")
+        summary = server.summary()
+        del server
+        torch.cuda.empty_cache()
+        return ({r.id: r.tokens for r in results}, summary, launches, sec,
+                path)
+
+    # (t1) a zero bank reproduces (k1)
+    t1, s1, launches, sec, path = served(
+        "t1", reqs, tenancy=tenant_registry(tenant_adapters(zero=True)))
+    n_admit = b3("(t1)", launches, path)
+    out["t1"] = launches
+    k1_tokens = memo["k1"][0]
+    same = sum(t1[rid] == k1_tokens[rid] for rid in t1)
+    if same != SERVE_N:
+        raise SystemExit(f"tenancy (t1): {same} of {SERVE_N} requests "
+                         f"equal (k1)'s tokens")
+    counts = {n: t["requests"] for n, t in s1["serve_tenants"].items()}
+    log(f"tenancy (t1): three tenants with zero rank-{TENANT_RANK} "
+        f"adapters, phase 12's burst tagged round-robin: {SERVE_N} "
+        f"requests ok in {sec!r} s, {same} of {SERVE_N} equal (k1)'s "
+        f"tokens bit for bit; requests by tenant {counts}; {n_admit} "
+        f"admissions, flash launches {launches}; {card}")
+
+    # (t2) the adapters, mixed, and each tenant alone
+    bank = tenant_registry(adapters).build(
+        vocab=LM["vocab"], registry=MetricsRegistry()).bank
+    one = SlotEngine(model, n_slots=1, adapter_bank=bank, **serve_kw(**bf16))
+    refs = {r.id: tenant_steps(one, r, tids[r.tenant]) for r in reqs}
+    del one
+    t2, _, launches, sec, path = served(
+        "t2", reqs, tenancy=tenant_registry(adapters))
+    n_admit = b3("(t2)", launches, path)
+    out["t2"] = launches
+    held = tenant_held(torch, t2, refs)
+    alone = {}
+    for name in TENANTS:
+        got, _, launches, _, path = served(
+            f"t2_{name}", [r for r in reqs if r.tenant == name],
+            tenancy=tenant_registry(adapters, names=(name,)))
+        b3(f"(t2) {name} alone", launches, path)
+        out[f"t2_{name}"] = launches
+        alone.update(got)
+    a_held = tenant_held(torch, alone, refs)
+    bit = sum(t2[rid] == alone[rid] for rid in t2)
+    differ = [sum(a != b for a, b in zip(t2[rid], t1[rid])) for rid in t2
+              if t2[rid] != t1[rid]]
+    if not differ:
+        raise SystemExit("tenancy (t2): the adapters changed no token")
+    log(f"tenancy (t2): rank-{TENANT_RANK} adapters (scale "
+        f"{TENANT_SCALE}), mixed: {SERVE_N} requests ok in {sec!r} s, "
+        f"{n_admit} admissions, flash launches {out['t2']}; tokens held "
+        f"to the one-slot reference with the same bank for {held[0]} of "
+        f"{held[1]} steps, {held[2]} request(s) released at a near tie; "
+        f"each tenant alone (a one-tenant bank): {a_held[0]} of "
+        f"{a_held[1]} steps held, {a_held[2]} released; mixed against "
+        f"alone: {bit} of {SERVE_N} requests bit-equal; against (t1): "
+        f"{len(differ)} requests differ, in {sum(differ)} of "
+        f"{sum(len(t) for t in t2.values())} steps; {card}")
+
+    # (t3) the noisy neighbour: globex floods, acme arrives after; once
+    # under quota 2:8:- (the caps and refusals), once with the slot cap
+    # alone, where no queue watermark exists and only globex's TTFT SLO
+    # can move its brownout, and once without quotas or SLOs
+    acme = [(TENANT_ACME_AT, r) for r in reqs if r.tenant == "acme"]
+    flood = {}
+    for mode, quota in (("t3", TENANT_FLOOD),
+                        ("t3_slo", {"max_resident_slots":
+                                    TENANT_FLOOD["max_resident_slots"]}),
+                        ("t3_plain", None)):
+        path = tmp / f"{mode}.jsonl"
+        logger = JsonlLogger(path)
+        ten = tenant_registry(
+            None, default="globex",
+            quotas=None if quota is None else {"globex": quota},
+            slos=None if quota is None else TENANT_SLO_MS).build(
+                vocab=LM["vocab"], logger=logger,
+                registry=MetricsRegistry(), **TENANT_BUILD)
+        server = LMServer(
+            model, n_slots=SERVE_SLOTS, window=SERVE_WINDOW,
+            registry=MetricsRegistry(), logger=logger, tenancy=ten,
+            fault_plan=ServeFaultPlan([ServeFault("burst", **RES_BURST)]),
+            **serve_kw(**bf16))
+        peaks, launches, sec = counted(lambda: tenant_drive(server, acme))
+        logger.close()
+        b3(f"({mode})", launches, path)
+        out[mode] = launches
+        every = server.results()
+        if any(r.status != "ok" for r in every):
+            raise SystemExit(f"tenancy ({mode}): statuses "
+                             f"{sorted({r.status for r in every})}")
+        flood[mode] = dict(peaks=peaks, sec=sec, ten=ten,
+                           tenants=server.summary()["serve_tenants"])
+        del server
+        torch.cuda.empty_cache()
+    q, o, p = flood["t3"], flood["t3_slo"], flood["t3_plain"]
+    qg, qa, pa = (q["tenants"]["globex"], q["tenants"]["acme"],
+                  p["tenants"]["acme"])
+    g_bc, a_bc = q["ten"].brownouts["globex"], q["ten"].brownouts["acme"]
+    g_moves = [(t["stage"], t["reason"]) for t in g_bc.transitions]
+    alerts = sorted({a["slo"] for a in q["ten"].slo.alerts})
+    o_bc = o["ten"].brownouts["globex"]
+    o_moves = [(t["stage"], t["reason"]) for t in o_bc.transitions]
+    o_alerts = sorted({a["slo"] for a in o["ten"].slo.alerts})
+    o_acme = o["ten"].brownouts["acme"].max_stage_seen
+    if (q["peaks"]["globex"][0] != TENANT_FLOOD["max_resident_slots"]
+            or p["peaks"]["globex"][0] <= TENANT_FLOOD["max_resident_slots"]
+            or not qg["quota_rejections"]
+            or qg["quota_rejections"] + qg["requests"] != RES_BURST["n"]
+            or not qa["ttft_ms_p95"] < pa["ttft_ms_p95"]
+            or alerts != ["ttft:globex"] or g_bc.max_stage_seen < 1
+            or a_bc.max_stage_seen != 0
+            or o_bc.queue_high is not None or o_alerts != ["ttft:globex"]
+            or not any(t["direction"] == "escalate"
+                       and "slo:ttft:globex" in t["reason"]
+                       for t in o_bc.transitions)
+            or o_acme != 0):
+        raise SystemExit(f"tenancy (t3): peaks {q['peaks']} / "
+                         f"{o['peaks']} / {p['peaks']}, tenants "
+                         f"{q['tenants']} / {o['tenants']} / {p['tenants']}, "
+                         f"SLO alerts {alerts} / {o_alerts}, globex "
+                         f"transitions {g_moves} / {o_moves}, acme max "
+                         f"stage {a_bc.max_stage_seen} / {o_acme}")
+    log(f"tenancy (t3): globex floods {RES_BURST['n']} x "
+        f"{RES_BURST['prompt_len']} tokens at cycle {RES_BURST['tick']} "
+        f"under quota {TENANT_FLOOD} and a {TENANT_SLO_MS['globex']} ms "
+        f"TTFT SLO, acme's {len(acme)} requests at cycle "
+        f"{TENANT_ACME_AT}: globex peak {q['peaks']['globex'][0]} resident "
+        f"slots ({p['peaks']['globex'][0]} without quotas), "
+        f"{qg['requests']} served and {qg['quota_rejections']} refused by "
+        f"its queue quota; acme TTFT p95 {qa['ttft_ms_p95']!r} ms against "
+        f"{pa['ttft_ms_p95']!r} ms without quotas (p50 "
+        f"{qa['ttft_ms_p50']!r} against {pa['ttft_ms_p50']!r}); globex "
+        f"TTFT p95 {qg['ttft_ms_p95']!r} ms; SLO alerts {alerts}; "
+        f"globex's brownout transitions {g_moves} (max stage "
+        f"{g_bc.max_stage_seen}, slo_breached {qg['slo_breached']}), "
+        f"acme's max stage {a_bc.max_stage_seen}; with the slot cap alone "
+        f"(no queue watermark): SLO alerts {o_alerts}, globex's brownout "
+        f"transitions {o_moves}, globex TTFT p95 "
+        f"{o['tenants']['globex']['ttft_ms_p95']!r} ms, acme's max stage "
+        f"{o_acme}; runs {q['sec']!r} s, {o['sec']!r} s and "
+        f"{p['sec']!r} s; flash launches {out['t3']}, {out['t3_slo']} and "
+        f"{out['t3_plain']}; {card}")
+    del flood, q, o, p, g_bc, a_bc, o_bc
+
+    # (t4) paged, with a page budget that binds globex, beside its
+    # unquota'd twin; then speculation with the bank beside (t2)
+    one = SlotEngine(model, n_slots=1, adapter_bank=bank,
+                     prefill_chunk=SERVE_CHUNK, **serve_kw(**bf16))
+    crefs = {r.id: tenant_steps(one, r, tids[r.tenant]) for r in reqs}
+    del one
+    budget = max(-(-min(len(r.prompt) + r.max_new_tokens, SERVE_T_MAX)
+                   // PAGE_SIZE) for r in reqs if r.tenant == "globex")
+    paged = {}
+    for quota in (True, False):
+        name = "t4_paged" if quota else "t4_paged_plain"
+        server, path = res_server(
+            torch, model, tmp, name, n_slots=PAGED_SLOTS,
+            tenancy=tenant_registry(
+                adapters, quotas={"globex": {"kv_page_budget": budget}}
+                if quota else None),
+            **paged_kw(torch, kv_pages=PAGED_POOL))
+        peaks, launches, sec = counted(
+            lambda: tenant_drive(server, [(0, r) for r in reqs]))
+        server.metrics.logger.close()
+        got = {r.id: server.poll(r.id) for r in reqs}
+        if (launches != (0, 0, 0)
+                or any(g is None or g.status != "ok" for g in got.values())
+                or server.engine._alloc.used_count()):
+            raise SystemExit(f"tenancy ({name}): flash launches "
+                             f"{launches}, results {got}, "
+                             f"{server.engine._alloc.used_count()} pages "
+                             f"in use")
+        out[name] = launches
+        toks = {k: g.tokens for k, g in got.items()}
+        paged[quota] = dict(tokens=toks, peaks=peaks, sec=sec,
+                            held=tenant_held(torch, toks, crefs))
+        del server
+        torch.cuda.empty_cache()
+    q, p = paged[True], paged[False]
+    if (q["peaks"]["globex"][1] > budget
+            or p["peaks"]["globex"][1] <= budget):
+        raise SystemExit(f"tenancy (t4): globex page peaks "
+                         f"{q['peaks']['globex'][1]} / "
+                         f"{p['peaks']['globex'][1]}, budget {budget}")
+    pbit = sum(q["tokens"][rid] == p["tokens"][rid] for rid in q["tokens"])
+    log(f"tenancy (t4) paged: {PAGED_SLOTS} slots, {PAGED_POOL} pages of "
+        f"{PAGE_SIZE}, the three adapters, globex's page budget {budget} "
+        f"(its largest request's need): globex peak "
+        f"{q['peaks']['globex'][1]} pages against "
+        f"{p['peaks']['globex'][1]} without the budget; tokens held to "
+        f"the chunked one-slot reference for {q['held'][0]} of "
+        f"{q['held'][1]} steps ({q['held'][2]} released), unquota'd "
+        f"{p['held'][0]} of {p['held'][1]} ({p['held'][2]}); {pbit} of "
+        f"{SERVE_N} requests bit-equal to the unquota'd twin; runs "
+        f"{q['sec']!r} s and {p['sec']!r} s, no flash launch; {card}")
+    del paged, q, p, crefs
+    spec, s4, launches, sec, path = served(
+        "t4_spec", reqs, tenancy=tenant_registry(adapters),
+        spec_decode=True, draft_k=SPEC_K)
+    n_admit = b3("(t4) spec", launches, path)
+    out["t4_spec"] = launches
+    if s4["serve_spec_verify_dispatches"] < 1:
+        raise SystemExit("tenancy (t4) spec: no verify dispatch")
+    sheld = tenant_held(torch, spec, refs)
+    sbit = sum(spec[rid] == t2[rid] for rid in spec)
+    log(f"tenancy (t4) spec: the n-gram drafter with the bank, {SERVE_N} "
+        f"requests ok in {sec!r} s; {spec_stats(s4)}; tokens held to the "
+        f"one-slot reference for {sheld[0]} of {sheld[1]} steps "
+        f"({sheld[2]} released); {sbit} of {SERVE_N} requests bit-equal "
+        f"to (t2)'s spec-off run; {n_admit} admissions, flash launches "
+        f"{launches}; {card}")
+    del refs
+
+    # (t5) the verb
+    lines = res_verb(torch, fc, smk, fbk, TENANT_VERB, "tenancy (t5)")
+    for w in (f"adapter rollout: hot-swapped rank-{TENANT_RANK} adapters "
+              f"for {len(TENANTS)} tenant(s)", "served: ok=24 ",
+              *(f"tenant {n}: requests=8 " for n in TENANTS)):
+        if not any(line.startswith(w) for line in lines):
+            raise SystemExit(f"tenancy (t5): no line {w!r}")
+    out["t5"] = (0, 0, 0)
+
+    # (t6) the hook's cost, window and verify
+    zero_counts(fc, smk, fbk)
+    for verify in (False, True):
+        k = dict(draft_k=SPEC_K) if verify else {}
+        eb = SlotEngine(model, n_slots=SERVE_SLOTS, adapter_bank=bank,
+                        **serve_kw(**bf16, **k))
+        ep = SlotEngine(model, n_slots=SERVE_SLOTS, **serve_kw(**bf16, **k))
+        hook_times(torch, eb, ep, verify, card)
+        del eb, ep
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launches = flash_counts(fbk)
+    if launches != (2 * 4 * SERVE_SLOTS, 0, 0):
+        raise SystemExit(f"tenancy (t6): flash launches {launches}")
+    out["t6"] = launches
+    log(f"phase 16 (tenancy) took {time.perf_counter() - t_start!r} s; "
+        f"{card}")
+    return out
+
+
 def flash_bytes_flops(t: int, d: int, h: int, itemsize: int,
                       causal: bool = True):
     """Bytes each kernel must move (inputs read once, outputs written
@@ -3947,7 +4452,8 @@ def vgg_path(torch, fc, smk, fbk, card: str) -> None:
     """`vgg` at full width (VGG16, 50x50, batch 32, lr 1e-3, fine-tune at
     15), then `vgg --cache-features`: no hand kernel runs on this path;
     finite metrics; the card's logits against the CPU's on the same
-    weights; the cached phase 2 against the uncached one."""
+    weights; the cached phase 2 against the uncached one (cuDNN
+    deterministic)."""
     from idc_models_tpu_torch.data import synthetic
     from idc_models_tpu_torch.data.idc import (
         ArrayDataset, train_val_test_split,
@@ -3956,8 +4462,16 @@ def vgg_path(torch, fc, smk, fbk, card: str) -> None:
 
     argv = ["vgg", "--synthetic-examples", str(CLS_EXAMPLES), "--epochs",
             "1", "--fine-tune-epochs", "1", "--seed", "0"]
-    plain = classifier_run(torch, fc, smk, fbk, argv)
-    cached = classifier_run(torch, fc, smk, fbk, argv + ["--cache-features"])
+    # no atomics in cuDNN's weight gradients: the cached phase 2 is held
+    # to the uncached one, not to another order of the same sums (once,
+    # without this, an epoch amplified it to a relative 1.6e-3)
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain = classifier_run(torch, fc, smk, fbk, argv)
+        cached = classifier_run(torch, fc, smk, fbk,
+                                argv + ["--cache-features"])
+    finally:
+        torch.backends.cudnn.deterministic = False
     for r in (plain, cached):
         if any(r["launches"].values()):
             raise SystemExit(f"vgg launched hand kernels: {r['launches']}")
@@ -5388,6 +5902,7 @@ def main() -> int:
     paged_path(torch, fc, smk, fbk, card, memo)
     spec = spec_path(torch, fc, smk, fbk, card, memo)
     res = resilience_path(torch, fc, smk, fbk, card, memo)
+    ten = tenancy_path(torch, fc, smk, fbk, card, memo)
     del memo
     att = attention_path(torch, fc, smk, fbk, tring, card)
 
@@ -5483,6 +5998,8 @@ def main() -> int:
         # phase 15: the resilience runs (r1)-(r7)
         "launches_resilience": {run: counts[i]
                                 for run, counts in res.items()},
+        # phase 16: the tenancy runs (t1)-(t6)
+        "launches_tenancy": {run: counts[i] for run, counts in ten.items()},
         "max_abs_err_zigzag_grid_256": att["grid"][key],
         **{f"quarter_{field}": {what: quarters[(what, key)][field]
                                 for what in QUARTERS}

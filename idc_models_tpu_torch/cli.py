@@ -161,10 +161,6 @@ SERVE_DRAFTERS = {
 # the serve verb's flags of later ROADMAP items: (flag, argparse
 # keywords, label); `_run_serve` refuses any that differs from its default
 _LATER = [
-    ("--tenants", dict(default=None), "A9.4"),
-    ("--tenant-quota", dict(action="append", default=None), "A9.4"),
-    ("--tenant-slo-ttft-ms", dict(action="append", default=None), "A9.4"),
-    ("--rollout-adapters", dict(type=int, default=None), "A9.4"),
     ("--rollout", dict(default=None), "A11"),
     ("--canary-fraction", dict(type=float, default=None), "A11"),
     ("--canary-requests", dict(type=int, default=None), "A11"),
@@ -685,6 +681,36 @@ def _parse(argv):
                          "checkpoint (checkpoint/sharded.py) before the "
                          "trace replays; MANIFEST.json commits the save "
                          "atomically")
+    sp.add_argument("--tenants", default=None,
+                    help="multi-tenant serving (serve/tenancy.py): "
+                         "comma-separated tenant names, first = the "
+                         "default for untagged requests; the synthetic "
+                         "Poisson trace tags arrivals round-robin. "
+                         "Per-tenant quotas/SLOs isolate a flooding "
+                         "tenant from its neighbors")
+    sp.add_argument("--tenant-quota", action="append", default=None,
+                    metavar="NAME=SLOTS[:QUEUED[:PAGES]]",
+                    help="per-tenant admission quota (repeatable): "
+                         "resident decode slots, queued requests, and "
+                         "KV page budget — each an int >= 1 or '-' "
+                         "for unlimited (e.g. acme=2:8:- caps acme at "
+                         "2 slots and 8 queued). Needs --tenants")
+    sp.add_argument("--tenant-slo-ttft-ms", action="append",
+                    default=None, metavar="[NAME=]MS",
+                    help="per-tenant TTFT p95 SLO in ms (repeatable): "
+                         "NAME=MS for one tenant, a bare number for "
+                         "every tenant. Burn-rate alerted per tenant "
+                         "(ttft:<name>) and the tenant's own brownout "
+                         "trigger — one tenant's flood sheds that "
+                         "tenant only. Needs --tenants")
+    sp.add_argument("--rollout-adapters", type=int, default=None,
+                    metavar="RANK",
+                    help="per-tenant adapter hot-swap drill, the cheap "
+                         "first rung of a rollout: register rank-RANK "
+                         "logit adapters for every tenant, serve the "
+                         "trace, then swap a re-seeded bank in live — "
+                         "no new program, no dropped request. Needs "
+                         "--tenants")
     # the JAX verb's flags of later items: accepted, and refused by
     # `_run_serve` with the item's label when set
     for flag, kw, label in _LATER:
@@ -1933,6 +1959,16 @@ def _run_serve(ns):
         sys.exit(f"--brownout-dwell-ms/--brownout-clear-ms must be "
                  f">= 0, got {ns.brownout_dwell_ms}/"
                  f"{ns.brownout_clear_ms}")
+    tenant_list, tenant_quotas, tenant_slos = _parse_tenant_flags(ns)
+    if ns.rollout_adapters is not None:
+        if tenant_list is None:
+            sys.exit("--rollout-adapters needs --tenants: an adapter "
+                     "rollout hot-swaps PER-TENANT logit deltas, and a "
+                     "tenant-less server has no adapter bank to swap")
+        if ns.rollout_adapters < 1:
+            sys.exit(f"--rollout-adapters {ns.rollout_adapters} must "
+                     f"be >= 1 (it is the adapter rank r in the "
+                     f"[V, r] x [r, V] factors)")
     fault_plan = None
     if ns.serve_faults:
         try:
@@ -1983,6 +2019,29 @@ def _run_serve(ns):
             clamp_tokens=ns.brownout_clamp_tokens,
             escalate_dwell_s=ns.brownout_dwell_ms / 1e3,
             clear_after_s=ns.brownout_clear_ms / 1e3, logger=logger)
+    # tenancy: the tenant set with its quotas and TTFT SLOs, built
+    # against the serve knobs' windows and dwells. The synthetic model
+    # has no trained adapters to load: --rollout-adapters arms synthetic
+    # rank-r ones (the rank is the bank's shape), which the post-trace
+    # hot-swap replaces live
+    tenancy = None
+    if tenant_list:
+        from idc_models_tpu_torch.serve import TenantRegistry
+
+        reg = TenantRegistry()
+        adapters = (_synth_adapters(tenant_list, ns.vocab,
+                                    ns.rollout_adapters, ns.seed)
+                    if ns.rollout_adapters else {})
+        for name in tenant_list:
+            reg.register(name, adapter=adapters.get(name),
+                         quota=tenant_quotas.get(name),
+                         slo_ttft_p95_ms=tenant_slos.get(name))
+        tenancy = reg.build(
+            vocab=ns.vocab, logger=logger,
+            slo_short_window_s=ns.slo_window_s,
+            brownout_dwell_s=ns.brownout_dwell_ms / 1e3,
+            brownout_clear_s=ns.brownout_clear_ms / 1e3,
+            brownout_clamp_tokens=ns.brownout_clamp_tokens)
     # the journal's in-flight leftovers, counted before the server opens
     # it for appending: what a previous crashed run accepted and never
     # finished
@@ -2045,7 +2104,8 @@ def _run_serve(ns):
             slo=slo, retry=retry, fault_plan=fault_plan,
             journal=ns.journal, brownout=brownout,
             spec_decode=ns.spec_decode, draft_k=ns.draft_k,
-            draft_order=ns.ngram_order, drafter=drafter, device=device)
+            draft_order=ns.ngram_order, drafter=drafter, tenancy=tenancy,
+            device=device)
         if n_pending:
             readmitted = server.resubmit_pending(ns.journal)
             line = (f"journal: re-admitted {len(readmitted)} in-flight "
@@ -2077,7 +2137,7 @@ def _run_serve(ns):
                 t_max=ns.t_max, eos_id=ns.eos,
                 prompt_lens=(2, max(ns.t_max // 4, 2)),
                 budgets=(2, max(ns.t_max // 4, 2)), seed=ns.seed,
-                sampled=ns.temperature > 0.0)
+                sampled=ns.temperature > 0.0, tenants=tenant_list)
         print(f"serving {len(trace)} requests on {ns.slots} slots "
               f"(window {ns.window}, t_max {ns.t_max}, ring "
               f"{ns.seq_parallel})")
@@ -2144,6 +2204,34 @@ def _run_serve(ns):
             names = sorted({a["slo"] for a in slo.alerts})
             print(f"slo: {len(slo.alerts)} alert(s)"
                   + (f" ({', '.join(names)})" if names else ""))
+        if ns.rollout_adapters and crashed is None:
+            # the cheap first rung, live: a re-seeded bank of the same
+            # shapes, copied over the armed one
+            fresh = _synth_adapters(tenant_list, ns.vocab,
+                                    ns.rollout_adapters, ns.seed + 1)
+            server.swap_adapters(
+                np.stack([fresh[n][0] for n in tenant_list]),
+                np.stack([fresh[n][1] for n in tenant_list]))
+            print(f"adapter rollout: hot-swapped rank-"
+                  f"{ns.rollout_adapters} adapters for "
+                  f"{len(tenant_list)} tenant(s), zero recompile")
+        if tenancy is not None:
+            # what isolation did, one line a tenant: volume, tail
+            # latency, sheds and quota refusals, the tenant's own
+            # brownout high-water stage and its TTFT alerts
+            for name, ts in summary["serve_tenants"].items():
+                bc = tenancy.brownouts.get(name)
+                alerts = (len([a for a in tenancy.slo.alerts
+                               if a["slo"] == f"ttft:{name}"])
+                          if tenancy.slo is not None else 0)
+                print(f"tenant {name}: requests={ts['requests']} "
+                      f"tokens={ts['tokens']} "
+                      f"ttft_p95={ts['ttft_ms_p95']}ms "
+                      f"shed={ts['shed']} "
+                      f"quota_rejected={ts['quota_rejections']} "
+                      f"brownout_max_stage="
+                      f"{bc.max_stage_seen if bc is not None else 0} "
+                      f"slo_alerts={alerts}")
         # what the armed machinery did: faults fired, quarantines,
         # retries, brownout sheds and clamps
         if (fault_plan is not None or retry is not None
@@ -2168,6 +2256,101 @@ def _run_serve(ns):
             exporter.close()
         if logger is not None:
             logger.close()
+
+
+def _parse_tenant_flags(ns):
+    """The serve verb's tenancy flags as (names, {name: TenantQuota},
+    {name: ttft_ms}); every bad spelling exits with the grammar."""
+    quota_grammar = ("--tenant-quota grammar: NAME=SLOTS[:QUEUED"
+                     "[:PAGES]], each an int >= 1 or '-' (unlimited), "
+                     "e.g. acme=2:8:- ; NAME must be in --tenants")
+    slo_grammar = ("--tenant-slo-ttft-ms grammar: NAME=MS for one "
+                   "tenant or a bare MS > 0 for every tenant, e.g. "
+                   "acme=250 ; NAME must be in --tenants")
+    if ns.tenants is None:
+        if ns.tenant_quota:
+            sys.exit("--tenant-quota needs --tenants: quotas bound "
+                     "REGISTERED tenants")
+        if ns.tenant_slo_ttft_ms:
+            sys.exit("--tenant-slo-ttft-ms needs --tenants: SLOs "
+                     "attach to REGISTERED tenants")
+        return None, {}, {}
+    names = [t.strip() for t in ns.tenants.split(",")]
+    if any(not t for t in names):
+        sys.exit(f"--tenants {ns.tenants!r}: empty tenant name "
+                 f"(comma-separated non-empty names, first = default)")
+    if len(set(names)) != len(names):
+        sys.exit(f"--tenants {ns.tenants!r}: duplicate tenant name — "
+                 f"tenant names are identities")
+    from idc_models_tpu_torch.serve import TenantQuota
+
+    def bound(tok, spec):
+        if tok == "-":
+            return None
+        try:
+            v = int(tok)
+        except ValueError:
+            sys.exit(f"--tenant-quota {spec!r}: {tok!r} is not an int "
+                     f"or '-'. {quota_grammar}")
+        if v < 1:
+            sys.exit(f"--tenant-quota {spec!r}: bounds must be >= 1 "
+                     f"(a 0 quota would admit nothing ever). "
+                     f"{quota_grammar}")
+        return v
+
+    quotas = {}
+    for spec in ns.tenant_quota or ():
+        name, eq, rest = spec.partition("=")
+        parts = rest.split(":") if rest else []
+        if not eq or not name or not 1 <= len(parts) <= 3:
+            sys.exit(f"--tenant-quota {spec!r}: malformed. "
+                     f"{quota_grammar}")
+        if name not in names:
+            sys.exit(f"--tenant-quota {spec!r}: unknown tenant "
+                     f"{name!r} (registered: {names}). {quota_grammar}")
+        if name in quotas:
+            sys.exit(f"--tenant-quota {spec!r}: tenant {name!r} "
+                     f"already has a quota")
+        parts += ["-"] * (3 - len(parts))
+        quotas[name] = TenantQuota(
+            max_resident_slots=bound(parts[0], spec),
+            max_queued=bound(parts[1], spec),
+            kv_page_budget=bound(parts[2], spec))
+    slos = {}
+    for spec in ns.tenant_slo_ttft_ms or ():
+        name, eq, rest = spec.partition("=")
+        if not eq:
+            name, rest = None, spec
+        try:
+            ms = float(rest)
+        except ValueError:
+            sys.exit(f"--tenant-slo-ttft-ms {spec!r}: {rest!r} is not "
+                     f"a number. {slo_grammar}")
+        if ms <= 0:
+            sys.exit(f"--tenant-slo-ttft-ms {spec!r}: must be > 0. "
+                     f"{slo_grammar}")
+        for t in [name] if name is not None else names:
+            if t not in names:
+                sys.exit(f"--tenant-slo-ttft-ms {spec!r}: unknown "
+                         f"tenant {t!r} (registered: {names}). "
+                         f"{slo_grammar}")
+            if t in slos:
+                sys.exit(f"--tenant-slo-ttft-ms {spec!r}: tenant "
+                         f"{t!r} already has a TTFT SLO")
+            slos[t] = ms
+    return names, quotas, slos
+
+
+def _synth_adapters(names, vocab, rank, seed):
+    """Deterministic rank-r logit-adapter factors per tenant ([V, r] /
+    [r, V] float32, the JAX verb's draws) for the --rollout-adapters
+    drill: small, so the hot-swap mechanics are what is exercised."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return {name: (rng.normal(0.0, 0.01, (vocab, rank)).astype(np.float32),
+                   rng.normal(0.0, 0.01, (rank, vocab)).astype(np.float32))
+            for name in names}
 
 
 def _run_stats(ns):

@@ -254,8 +254,13 @@ class DraftLM:
     rollout (`propose`, on `device`: CUDA unless "cpu"), and flags
     ``uses_engine = True``, so the serving scheduler instead batches
     proposals for every running slot through ``SlotEngine.propose_all``
-    over the drafter's own per-slot caches. Per-tenant drafter heads
-    (`adapters`) wait for ROADMAP A9.4."""
+    over the drafter's own per-slot caches.
+
+    ``adapters=(u [T, V, r], v [T, r, V])`` optionally stacks per-tenant
+    low-rank drafter heads; the engine applies them to its drafter's
+    picks with the same tenant-id gather as the target's bank
+    (``models/lm.make_adapter_head_hook``), so a mix of tenants stays
+    one call."""
 
     uses_engine = True
 
@@ -263,8 +268,6 @@ class DraftLM:
                  device=None):
         if k < 1:
             raise ValueError(f"need k >= 1 draft tokens, got {k}")
-        if adapters is not None:
-            raise _later("A9.4", "drafter adapters")
         self.k = int(k)
         self.params = _param_tree(params)
         self.config = _normalized(config)
@@ -274,7 +277,16 @@ class DraftLM:
                 f"draft params embed a {vocab}-token vocab but the "
                 f"config says {self.config['vocab_size']}; the sidecar "
                 f"and the tree disagree — re-save with save_draft_lm")
-        self.adapters = None
+        if adapters is not None:
+            u, v = (np.asarray(a) for a in adapters)
+            if (u.ndim != 3 or v.ndim != 3 or u.shape[0] != v.shape[0]
+                    or u.shape[1] != vocab or v.shape[2] != vocab
+                    or u.shape[2] != v.shape[1]):
+                raise ValueError(
+                    f"drafter adapters must be u [T, V, r] / v [T, r, V] "
+                    f"with V={vocab}, got u {u.shape} v {v.shape}")
+            adapters = (u, v)
+        self.adapters = adapters
         self._device = device
         self._model = None
 

@@ -48,8 +48,10 @@ not JAX's. Its prefill and decode record ``lm.prefill`` / ``lm.decode``
 spans while a tracer is armed, and `Generator.program_costs` accounts
 both programs (``observe/profile.py``). The serving engine
 (``serve/engine.py``) runs the same prefill, per-token forward and pick.
-Left out so far: serving under partition rules (the Generator holds the
-whole tree; ROADMAP A9-dist) and the adapter hook (A9.4).
+`make_adapter_head_hook` is the per-tenant logit adapter the serving
+engine's window, verify and propose apply at pick time
+(``serve/tenancy.py``). Left out so far: serving under partition rules
+(the Generator holds the whole tree; ROADMAP A9-dist).
 """
 
 from __future__ import annotations
@@ -479,6 +481,37 @@ def _final_logits(model: AttentionLM, h):
     """Final LN + vocab head."""
     h = layer_norm(h, model.ln_f.scale, model.ln_f.bias)
     return h @ model.head.kernel + model.head.bias
+
+
+def make_adapter_head_hook(u, v, tslot):
+    """The per-tenant adapter hook (``serve/tenancy.py``), the one
+    definition the serving window, verify and propose apply at pick
+    time.
+
+    `u` [T, V, r] and `v` [T, r, V] stack every tenant's low-rank
+    logit-space adapter factors; `tslot` [S] (int64 on the logits'
+    device) names each slot's tenant. The rows are gathered once, here;
+    the returned hook maps base logits to the effective pick logits
+
+        eff[s] = logits[s] + (logits[s] @ u[tslot[s]]) @ v[tslot[s]]
+
+    -- an effective head ``W (I + U_t V_t)`` per tenant -- for logits of
+    shape [S, V] (a window step) or [S, K+1, V] (a verify's candidate
+    distributions). The products run in `u`'s dtype and the delta is
+    cast back to the logits' dtype. The delta is a function of the BASE
+    logits, so stored state (prefill outputs, the engine's per-slot
+    logits, prefix-cache snapshots) stays tenant-agnostic, and a tenant's
+    zero rows give back its base logits bit for bit. Tenant mixes are
+    values of `tslot`, not shapes."""
+    ug = u.index_select(0, tslot)            # [S, V, r]
+    vg = v.index_select(0, tslot)            # [S, r, V]
+
+    def hook(logits):
+        z = torch.einsum("s...v,svr->s...r", logits.to(u.dtype), ug)
+        d = torch.einsum("s...r,srv->s...v", z, vg)
+        return logits + d.to(logits.dtype)
+
+    return hook
 
 
 def _token_forward(cfg: _ServeConfig, model: AttentionLM, caches, tok, pos,

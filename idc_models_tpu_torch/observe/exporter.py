@@ -10,13 +10,14 @@ the counterpart of ``idc_models_tpu/observe/exporter.py``.
   metrics stamp), the `queue_depth` and `slot_occupancy` gauges, the
   paged engine's `kv_pages_used` / `kv_pages_total`, the brownout
   `brownout_stage`, and ``"status": "ok"``; a field whose gauge was never
-  set is null.
+  set is null. A multi-tenant server's document adds a `tenants` block:
+  each tenant's queue depth, slots, KV pages and own brownout stage
+  (absent on a server without tenancy).
 
 The server is a daemon `ThreadingHTTPServer` on its own thread, so a
 scrape never blocks the serve loop; `close()` (or leaving the context)
 takes it down with its owner. Port 0 binds an ephemeral port (`.port`).
-The per-tenant block of /healthz comes with tenancy (ROADMAP A9.4), the
-fleet surfaces with the cluster (A10).
+The fleet surfaces come with the cluster (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -134,6 +135,15 @@ class MetricsExporter:
                 return None
             return inst.value(default=None)
 
+        def tenant_series(name):
+            # the tenant gauges are labeled by contract: {tenant: value}
+            inst = self.registry.get(name)
+            if (inst is None or inst.kind != "gauge"
+                    or inst.label_names != ("tenant",)):
+                return {}
+            return {labels["tenant"]: val
+                    for labels, val in inst._series()}
+
         last_tick = gauge_value(LAST_TICK_GAUGE)
         stage = gauge_value("serve_brownout_stage")
         doc = {
@@ -147,4 +157,20 @@ class MetricsExporter:
             "kv_pages_total": gauge_value("serve_kv_pages_total"),
             "brownout_stage": None if stage is None else int(stage),
         }
+        # multi-tenant servers: which tenant is degraded, while the
+        # server-wide document stays healthy (no key without tenancy)
+        depths = tenant_series("serve_tenant_queue_depth")
+        slots = tenant_series("serve_tenant_slots_used")
+        pages = tenant_series("serve_tenant_kv_pages_used")
+        stages = tenant_series("serve_tenant_brownout_stage")
+        names = set(depths) | set(slots) | set(pages) | set(stages)
+        if names:
+            doc["tenants"] = {
+                t: {
+                    "queue_depth": depths.get(t),
+                    "slots_used": slots.get(t),
+                    "kv_pages_used": pages.get(t),
+                    "brownout_stage": (None if t not in stages
+                                       else int(stages[t])),
+                } for t in sorted(names)}
         return doc

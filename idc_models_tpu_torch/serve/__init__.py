@@ -1,8 +1,9 @@
 """Continuous-batching LM serving, the counterpart of
 ``idc_models_tpu/serve`` (the contiguous and paged engines, the page
 allocator, both prefix-cache flavours, the scheduler, server, metrics,
-and the resilience layer: the serve fault plan, the request journal and
-the brownout controller; ROADMAP A9.0-A9.4a)."""
+the resilience layer: the serve fault plan, the request journal and
+the brownout controller, and multi-tenant serving: the tenant registry,
+quotas and adapter bank; ROADMAP A9.0-A9.4b)."""
 
 from idc_models_tpu_torch.serve.api import (  # noqa: F401
     LMServer, Request, Result, load_trace, poisson_trace, save_trace,
@@ -31,4 +32,7 @@ from idc_models_tpu_torch.serve.prefix_cache import (  # noqa: F401
 )
 from idc_models_tpu_torch.serve.scheduler import (  # noqa: F401
     AdmissionQueue, Entry, RetryPolicy, Scheduler,
+)
+from idc_models_tpu_torch.serve.tenancy import (  # noqa: F401
+    AdapterBank, Tenancy, Tenant, TenantQuota, TenantRegistry,
 )

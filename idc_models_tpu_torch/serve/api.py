@@ -6,9 +6,10 @@ counterpart of ``idc_models_tpu/serve/api.py``.
 or paged), `Scheduler` (admission queue, deadlines, interleave,
 recycling, page-aware admission, speculative verify), an optional prefix
 cache, `ServingMetrics` (TTFT, throughput, occupancy, pages, the
-speculative ledger) and the resilience knobs: a retry policy, a fault
+speculative ledger), the resilience knobs -- a retry policy, a fault
 plan, a request journal (with `resubmit_pending` for crash recovery) and
-a brownout controller:
+a brownout controller -- and tenancy (``serve/tenancy.py``: per-tenant
+adapters, quotas, SLOs and brownouts on one engine):
 
     server = LMServer(params, embed_dim=..., num_heads=...,
                       num_blocks=..., t_max=..., n_slots=4, window=8)
@@ -43,8 +44,9 @@ class Request:
     `deadline_s` is seconds from submit after which the request is
     dropped (queued) or cancelled (running); `eos_id` overrides the
     server's stop token (-1: never stop early); `trace_id` labels the
-    request's spans (None: assigned at submit); `tenant` is for
-    multi-tenant servers (ROADMAP A9.4)."""
+    request's spans (None: assigned at submit); `tenant` names the
+    registered tenant a multi-tenant server bills it to (None: the
+    default tenant)."""
     id: str
     prompt: tuple
     max_new_tokens: int
@@ -95,7 +97,11 @@ class LMServer:
     `journal` is a `RequestJournal` or a path; `brownout` a
     `BrownoutController`, handed the server's prefix cache unless it
     holds one; `fault_plan` a `ServeFaultPlan`, whose bursts `step`
-    submits."""
+    submits. `tenancy` is a `TenantRegistry`, built here against this
+    model's vocab with the server's logger, registry and clock (an
+    adapter of the wrong vocab fails the build, not the first request),
+    or a `Tenancy` already built; its adapter bank arms the engine's
+    pick-time hook."""
 
     def __init__(self, params, *, embed_dim: int, num_heads: int,
                  num_blocks: int, t_max: int, n_slots: int = 4,
@@ -162,6 +168,20 @@ class LMServer:
                 "one), or drop the rules")
         if compile_cache is not None:
             raise later("A10", "the compile cache")
+        if tenancy is not None and hasattr(tenancy, "build"):
+            tenancy = tenancy.build(
+                vocab=int(np.shape(_head_kernel(params))[1]),
+                logger=logger, registry=registry, clock=clock)
+        dad = getattr(draft_model, "adapters", None)
+        if (tenancy is not None and dad is not None
+                and np.shape(dad[0])[0] != len(tenancy.names())):
+            raise ValueError(
+                f"drafter adapter bank has {np.shape(dad[0])[0]} tenant "
+                f"rows but the tenancy registers {len(tenancy.names())} "
+                f"tenants — the drafter's heads are gathered by the same "
+                f"tenant ids, so give it one row per registered tenant "
+                f"(zeros for tenants without a drafter head)")
+        self.tenancy = tenancy
         self.engine = SlotEngine(
             params, embed_dim=embed_dim, num_heads=num_heads,
             num_blocks=num_blocks, t_max=t_max, n_slots=n_slots,
@@ -174,10 +194,12 @@ class LMServer:
             draft_k=draft_k if spec_decode else None,
             kv_page_size=kv_page_size, kv_pages=kv_pages,
             kv_decode_reserve=kv_decode_reserve,
+            adapter_bank=tenancy.bank if tenancy is not None else None,
             partition_rules=partition_rules, draft_model=draft_model,
             draft_partition_rules=draft_partition_rules, device=device)
         self.metrics = ServingMetrics(logger, prefix_cache=prefix_cache,
-                                      registry=registry, slo=slo)
+                                      registry=registry, slo=slo,
+                                      tenancy=tenancy)
         # the WAL of accepted work a rebuilt server recovers from
         if journal is not None and not hasattr(journal, "record_submit"):
             from idc_models_tpu_torch.serve.journal import RequestJournal
@@ -210,11 +232,8 @@ class LMServer:
         """Enqueue a request. False = backpressure (queue at max depth)
         or a brownout shed (then `poll` answers a "shed" Result); raises
         ValueError for requests that could never be served."""
-        from idc_models_tpu_torch.serve.engine import later
         from idc_models_tpu_torch.serve.scheduler import Entry
 
-        if request.tenant is not None:
-            raise later("A9.4", "tenant-tagged requests")
         prior = self._results.get(request.id)
         if ((prior is not None and prior.status != "shed")
                 or request.id in self._inflight):
@@ -226,7 +245,8 @@ class LMServer:
             prompt=np.asarray(request.prompt, np.int64),
             budget=int(request.max_new_tokens),
             eos_id=request.eos_id, rng=request.seed,
-            deadline=request.deadline_s, trace_id=request.trace_id)
+            deadline=request.deadline_s, trace_id=request.trace_id,
+            tenant=request.tenant)
         if not self.scheduler.submit(entry):
             if entry.status == "shed":
                 # a shed is terminal, not transient backpressure
@@ -252,10 +272,12 @@ class LMServer:
         accepted but unfinished, in submit order, through the normal
         admission path (chunked prefill and prefix-cache hits included);
         returns the re-admitted ids. Each keeps its journaled id, seed,
-        deadline and trace id, and its greedy or seeded tokens are the
-        uncrashed run's (the engine's serial-parity contract). A request
-        this server can never serve (a prompt past a smaller t_max) is
-        skipped with a warning and stays in the WAL."""
+        deadline, trace id and tenant (billed to that tenant again), and
+        its greedy or seeded tokens are the uncrashed run's (the engine's
+        serial-parity contract). A request this server can never serve
+        (a tenant since decommissioned, a prompt past a smaller t_max) is
+        skipped with a warning and stays in the WAL, so one stale entry
+        does not stop the others coming back."""
         import warnings
 
         from idc_models_tpu_torch.serve.journal import pending_requests
@@ -383,6 +405,20 @@ class LMServer:
 
     def summary(self) -> dict:
         return self.metrics.summary()
+
+    def swap_adapters(self, u, v) -> None:
+        """Hot-swap the per-tenant adapter bank (the base weights stay):
+        see `SlotEngine.swap_adapters` for the shapes and the error on a
+        server without tenancy."""
+        self.engine.swap_adapters(u, v)
+
+
+def _head_kernel(params):
+    """The vocab head's kernel [E, V] of a JAX-shaped tree or an
+    `AttentionLM`."""
+    if isinstance(params, dict):
+        return params["head"]["kernel"]
+    return params.head.kernel
 
 
 def _to_result(e) -> Result:

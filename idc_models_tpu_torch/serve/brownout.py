@@ -18,8 +18,13 @@ clear for `clear_after_s`:
 Every transition is a `serve.brownout` trace point, a jsonl
 ``serve_brownout`` record and the ``serve_brownout_stage`` gauge. The
 scheduler reads `shedding` at submit and `token_clamp` at admission, and
-calls `evaluate()` once a cycle. Per-tenant controllers come with
-tenancy (ROADMAP A9.4).
+calls `evaluate()` once a cycle.
+
+A per-tenant controller (``tenant=``, built by ``serve/tenancy.py``)
+degrades one tenant's admissions only: its gauge is the tenant-labelled
+``serve_tenant_brownout_stage``, its record the ``serve_tenant_brownout``
+event (the untenanted ``serve_brownout`` record is unchanged), and it
+holds no prefix cache, which every tenant shares.
 """
 
 from __future__ import annotations
@@ -28,7 +33,6 @@ import time
 
 from idc_models_tpu_torch.observe import metrics_registry as mreg
 from idc_models_tpu_torch.observe import trace
-from idc_models_tpu_torch.serve.engine import later
 
 STAGES = ("normal", "pause_cache_writes", "clamp_tokens", "shed")
 
@@ -51,8 +55,6 @@ class BrownoutController:
                  clear_after_s: float = 1.0, prefix_cache=None,
                  logger=None, registry=None, clock=time.monotonic,
                  tenant: str | None = None):
-        if tenant is not None:
-            raise later("A9.4", "a per-tenant brownout")
         if slo is None and queue_high is None:
             raise ValueError(
                 "brownout needs at least one signal: an SLOEngine "
@@ -81,13 +83,29 @@ class BrownoutController:
         self.prefix_cache = prefix_cache
         self.logger = logger
         self.clock = clock
+        self.tenant = tenant
+        if tenant is not None and prefix_cache is not None:
+            raise ValueError(
+                "a per-tenant brownout cannot pause the SHARED prefix "
+                "cache (that would degrade every tenant for one "
+                "tenant's burn) — leave prefix_cache on the server-"
+                "wide controller")
         reg = registry if registry is not None else mreg.REGISTRY
-        self._g_stage = reg.gauge(
-            "serve_brownout_stage",
-            "current brownout degradation stage (0 normal, 1 "
-            "prefix-cache writes paused, 2 max_new_tokens clamped,"
-            " 3 shedding new submits)")
-        self._g_stage.set(0)
+        if tenant is None:
+            self._g_stage = reg.gauge(
+                "serve_brownout_stage",
+                "current brownout degradation stage (0 normal, 1 "
+                "prefix-cache writes paused, 2 max_new_tokens clamped,"
+                " 3 shedding new submits)")
+            self._g_stage.set(0)
+        else:
+            self._g_stage = reg.gauge(
+                "serve_tenant_brownout_stage",
+                "current per-tenant brownout degradation stage (0 "
+                "normal .. 3 shedding that tenant's submits) — one "
+                "tenant's flood degrades only its own admissions",
+                labels=("tenant",))
+            self._g_stage.set(0, tenant=tenant)
         self.stage = 0
         self.max_stage_seen = 0
         self.transitions: list[dict] = []
@@ -147,13 +165,20 @@ class BrownoutController:
         self._last_change = now
         rec = {"stage": stage, "stage_name": STAGES[stage],
                "direction": direction, "reason": reason}
-        self._g_stage.set(stage)
-        trace.point("serve.brownout", **rec)
+        if self.tenant is None:
+            self._g_stage.set(stage)
+            trace.point("serve.brownout", **rec)
+            event = "serve_brownout"
+        else:
+            self._g_stage.set(stage, tenant=self.tenant)
+            rec["tenant"] = self.tenant
+            trace.point("serve.tenant_brownout", **rec)
+            event = "serve_tenant_brownout"
         if self.prefix_cache is not None:
             self.prefix_cache.pause_writes(stage >= 1)
         self.transitions.append(rec)
         if self.logger is not None:
-            self.logger.log(event="serve_brownout", **rec)
+            self.logger.log(event=event, **rec)
 
     def force_stage(self, stage: int, *, reason: str = "drain") -> int:
         """Jump straight to `stage`, past the dwell timer (the drain

@@ -83,8 +83,16 @@ the serial run's top-2 margin falls inside that tolerance (ROADMAP,
 "Differences by design"). A paged engine gives the contiguous engine's
 result bit for bit (float caches): only the cache indirection differs.
 
+**Tenancy** (``serve/tenancy.py``): with an `adapter_bank` the engine
+keeps a device row ``_tslot [S]`` of each slot's tenant id (written at
+admission, ``tid=``) and applies ``models/lm.make_adapter_head_hook`` to
+the logits each pick reads -- every window step, the verify's candidate
+distributions and, with per-tenant drafter heads, the learned drafter's
+picks. The stored per-slot logits stay BASE logits, so prefill and the
+prefix-cache snapshots are shared by every tenant, and a mix of tenants
+is a value of ``_tslot``: no new program, no host sync.
+
 Left for later items, each raising NotImplementedError with its label:
-the adapter bank (A9.4; drafter adapters are refused by `DraftLM`),
 slot export/import (with the drafter's state) and the compile cache
 (A10), partition rules of the target and of the drafter, and meshes of
 several ranks (A9-dist).
@@ -98,7 +106,8 @@ import torch
 from idc_models_tpu_torch import convert
 from idc_models_tpu_torch.models.lm import (
     Generator, _chunk_batch_forward, _chunk_forward, _lm_from_tree,
-    _pad_prompt, _prefill, _serve_config, _token_forward, prefill_bucket,
+    _pad_prompt, _prefill, _serve_config, _token_forward,
+    make_adapter_head_hook, prefill_bucket,
 )
 from idc_models_tpu_torch.observe import trace
 from idc_models_tpu_torch.ring_attention import make_ring_attention
@@ -146,10 +155,10 @@ class _PendingPrefill:
     the request only references."""
 
     __slots__ = ("prompt", "budget", "rng", "eos_id", "caches", "logits",
-                 "next_start", "tag", "pages", "shared")
+                 "next_start", "tag", "pages", "shared", "tid")
 
     def __init__(self, *, prompt, budget, rng, eos_id, caches, tag,
-                 logits=None, next_start=0, pages=None, shared=0):
+                 logits=None, next_start=0, pages=None, shared=0, tid=0):
         self.prompt = prompt
         self.budget = budget
         self.rng = rng
@@ -160,6 +169,7 @@ class _PendingPrefill:
         self.tag = tag
         self.pages = pages
         self.shared = shared
+        self.tid = tid
 
 
 class SlotEngine:
@@ -194,7 +204,6 @@ class SlotEngine:
                 "shard the learned drafter's params — pass draft_model "
                 "(models/draft_lm.DraftLM.learned) or drop the rules")
         for label, what, value in (
-                ("A9.4", "the tenant adapter bank", adapter_bank),
                 ("A9-dist", "serving under partition rules",
                  partition_rules),
                 ("A9-dist", "the drafter under partition rules",
@@ -340,6 +349,16 @@ class SlotEngine:
         self._pos = torch.zeros(n_slots, dtype=torch.long, device=dev)
         self._rem = torch.zeros(n_slots, dtype=torch.long, device=dev)
         self._eos = torch.full((n_slots,), -1, dtype=torch.long, device=dev)
+        # each slot's tenant id (0: the default tenant); it steers the
+        # adapter gather only when a bank is armed
+        self._tslot = torch.zeros(n_slots, dtype=torch.long, device=dev)
+        self._adapters = ()
+        self._dadapters = ()         # the learned drafter's heads, if any
+        self.n_tenants = 0
+        if adapter_bank is not None:
+            self._adapters = self._place_bank(adapter_bank.u,
+                                              adapter_bank.v)
+            self.n_tenants = self._adapters[0].shape[0]
         self._gens: list = [None] * n_slots
         # host shadows (never fetched back from the device)
         self._pos_h = np.zeros(n_slots, np.int64)
@@ -417,11 +436,58 @@ class SlotEngine:
 
         self._dcaches = tuple((cache(), cache())
                               for _ in range(dconfig["num_blocks"]))
+        # per-tenant drafter heads, gathered by the same _tslot
+        dad = getattr(draft_model, "adapters", None)
+        if dad is not None:
+            du = torch.as_tensor(np.asarray(dad[0], np.float32))
+            dv = torch.as_tensor(np.asarray(dad[1], np.float32))
+            if self.n_tenants and du.shape[0] != self.n_tenants:
+                raise ValueError(
+                    f"drafter adapter bank has {du.shape[0]} tenant "
+                    f"rows but the engine serves {self.n_tenants} "
+                    f"tenants — the tenant-id gather indexes both banks "
+                    f"by the same slot tenant ids")
+            self._dadapters = (du.to(self.device), dv.to(self.device))
         # host stream bookkeeping: _dfront[s] tokens of slot s's stream
         # are in the drafter's caches, _dpend[s] are emitted but not yet
         # ingested (_dfront + len(_dpend) == the slot's position)
         self._dpend: list[list[int]] = [[] for _ in range(self.n_slots)]
         self._dfront = np.zeros(self.n_slots, np.int64)
+
+    def _place_bank(self, u, v) -> tuple:
+        """An adapter bank's factors on the engine's device, after the
+        shape check: u [T, V, r] and v [T, r, V], V the model's vocab."""
+        u = np.asarray(u, np.float32)
+        v = np.asarray(v, np.float32)
+        if (u.ndim != 3 or v.ndim != 3 or u.shape[1] != self.vocab
+                or v.shape != (u.shape[0], u.shape[2], self.vocab)):
+            raise ValueError(
+                f"adapter bank shapes must be u [T, V, r] / v [T, r, V] "
+                f"with V = the model vocab {self.vocab}, got {u.shape} "
+                f"/ {v.shape} — a tenant adapter trained against a "
+                f"different head cannot serve this model")
+        return (torch.from_numpy(u).to(self.device),
+                torch.from_numpy(v).to(self.device))
+
+    def _head_hook(self):
+        """The window's and verify's pick-time adapter hook, its tenant
+        rows gathered once from the device `_tslot` (None: no bank)."""
+        if not self._adapters:
+            return None
+        return make_adapter_head_hook(*self._adapters, self._tslot)
+
+    def _check_tid(self, tid: int) -> None:
+        """With a bank armed (the target's or the learned drafter's), an
+        out-of-range tenant id would gather another tenant's adapter (or
+        fault on the card): refused at admission. Without a bank the id
+        steers nothing."""
+        for what, bank in (("adapter", self._adapters),
+                           ("drafter adapter", self._dadapters)):
+            rows = bank[0].shape[0] if bank else None
+            if rows is not None and not 0 <= tid < rows:
+                raise ValueError(
+                    f"tenant id {tid} out of range [0, {rows}): the "
+                    f"{what} bank was built with {rows} tenants")
 
     def _upload(self, arr) -> torch.Tensor:
         """A small host array on the engine's device without a host
@@ -538,9 +604,10 @@ class SlotEngine:
 
     @torch.no_grad()
     def _insert(self, slot, caches1, logits1, p_len, max_new_tokens,
-                eos_id, rng, prompt=None) -> None:
+                eos_id, rng, tid: int = 0, prompt=None) -> None:
         """Write a fully prefilled request into its batch row -- the
-        shared tail of both admission paths. `prompt` (the [P] token
+        shared tail of both admission paths. `tid` (the request's tenant
+        id) goes into the slot's `_tslot` entry; `prompt` (the [P] token
         row) seeds the learned drafter's row when one is armed."""
         eos = self.eos_id if eos_id is None else eos_id
         eos = -1 if eos is None else int(eos)
@@ -560,6 +627,7 @@ class SlotEngine:
         self._pos[slot] = p_len
         self._rem[slot] = max_new_tokens
         self._eos[slot] = eos
+        self._tslot[slot] = int(tid)
         self._gens[slot] = gen
         self._pos_h[slot] = p_len
         self._rem_h[slot] = max_new_tokens
@@ -600,7 +668,7 @@ class SlotEngine:
 
     @torch.no_grad()
     def admit(self, slot: int, prompt, max_new_tokens: int, *, rng=None,
-              eos_id: int | None = None, tag=None) -> None:
+              eos_id: int | None = None, tag=None, tid: int = 0) -> None:
         """Prefill `prompt` ([P] or [1, P]) and write it into `slot`,
         every other slot's state untouched. `rng` seeds this request's
         sampling stream: an integer seed or a ``torch.Generator`` on the
@@ -609,14 +677,15 @@ class SlotEngine:
         flying window) decodes from the next one. With `prefill_chunk`
         the whole prompt still lands in this one call, chunk by chunk.
         `tag` (the scheduler passes the request id) labels the prefill
-        spans."""
+        spans; `tid` is the request's tenant id (0: the default)."""
         if self.prefill_chunk is not None:
             self.start_prefill(slot, prompt, max_new_tokens, rng=rng,
-                               eos_id=eos_id, tag=tag)
+                               eos_id=eos_id, tag=tag, tid=tid)
             while not self.prefill_step(slot):
                 pass
             return
         prompt = self._validate_admit(slot, prompt, max_new_tokens, rng)
+        self._check_tid(tid)
         p_len = prompt.shape[1]
         bucket = prefill_bucket(p_len, self.t_max, 1)
         with trace.span("serve.prefill", slot=slot, p_len=p_len,
@@ -626,13 +695,13 @@ class SlotEngine:
                                         self._gen._ring,
                                         padded.to(self.device), p_len)
             self._insert(slot, caches1, logits1, p_len, max_new_tokens,
-                         eos_id, rng, prompt=prompt[0])
+                         eos_id, rng, tid, prompt=prompt[0])
 
     # -- chunked prefill --------------------------------------------------
 
     def start_prefill(self, slot: int, prompt, max_new_tokens: int, *,
                       rng=None, eos_id: int | None = None,
-                      tag=None) -> None:
+                      tag=None, tid: int = 0) -> None:
         """Reserve `slot` for a chunked prefill of `prompt` without
         running anything: each later `prefill_step(slot)` runs one
         chunk, so a long prompt no longer stalls the in-flight decodes
@@ -644,9 +713,10 @@ class SlotEngine:
         if self.prefill_chunk is None:
             raise RuntimeError("engine built without prefill_chunk")
         prompt = self._validate_admit(slot, prompt, max_new_tokens, rng)
+        self._check_tid(tid)
         if self.paged:
             self._start_prefill_paged(slot, prompt, max_new_tokens, rng,
-                                      eos_id, tag)
+                                      eos_id, tag, tid)
             return
         start, caches, logits = 0, None, None
         if self.prefix_cache is not None:
@@ -657,7 +727,7 @@ class SlotEngine:
         self._prefills[slot] = _PendingPrefill(
             prompt=prompt, budget=int(max_new_tokens), rng=rng,
             eos_id=eos_id, caches=caches, logits=logits, next_start=start,
-            tag=tag)
+            tag=tag, tid=tid)
 
     def _pages_for(self, p_len: int, budget: int) -> int:
         """Pages an admission reserves: the prompt plus the decode
@@ -731,7 +801,7 @@ class SlotEngine:
                 sc[dst] = sc[src].clone()
 
     def _start_prefill_paged(self, slot, prompt, max_new_tokens, rng,
-                             eos_id, tag) -> None:
+                             eos_id, tag, tid=0) -> None:
         """Paged admission: grant pages for prompt + reservation (a
         prefix hit's pages SHARED -- retained, not copied), write the
         slot's page-table row and register the pending prefill; chunks
@@ -760,7 +830,7 @@ class SlotEngine:
         self._prefills[slot] = _PendingPrefill(
             prompt=prompt, budget=int(max_new_tokens), rng=rng,
             eos_id=eos_id, caches=None, logits=logits, next_start=start,
-            tag=tag, pages=pages, shared=len(shared))
+            tag=tag, pages=pages, shared=len(shared), tid=tid)
 
     def _paged_chunk(self, slot: int, tokens, start: int, p_end: int):
         """One chunk through every block, written straight into the
@@ -821,7 +891,7 @@ class SlotEngine:
             self._stamp_decode_scales(pend.pages[n_prompt:],
                                       pend.pages[n_prompt - 1])
         self._insert(slot, pend.caches, pend.logits, p_len, pend.budget,
-                     pend.eos_id, pend.rng, prompt=pend.prompt[0])
+                     pend.eos_id, pend.rng, pend.tid, prompt=pend.prompt[0])
         return True
 
     def cancel_prefill(self, slot: int) -> None:
@@ -850,17 +920,21 @@ class SlotEngine:
         only which rows may be live at step j (occupied, with budget
         left at the window's start) -- those draw from their generators,
         one draw a step, as the serial decode does; a row that hit EOS
-        mid-window draws on into a stream its request no longer uses."""
+        mid-window draws on into a stream its request no longer uses.
+        With an adapter bank each step picks from the tenant-effective
+        logits, while the stored logits stay base."""
         cfg, model, fold = self._cfg, self._model, self._fold
         scales = self._scales
+        eff = self._head_hook()
         toks_out = []
         for j in range(n_steps):
             live = self._rem > 0
+            pl = self._logits if eff is None else eff(self._logits)
             if self.temperature == 0.0:
-                toks = self._pick(self._logits)
+                toks = self._pick(pl)
             else:
                 toks = torch.cat([
-                    self._pick(self._logits[s:s + 1], self._gens[s])
+                    self._pick(pl[s:s + 1], self._gens[s])
                     if occupied[s] and j < rem_before[s]
                     else torch.zeros(1, dtype=torch.long,
                                      device=self.device)
@@ -950,9 +1024,13 @@ class SlotEngine:
         # cand[:, 0] is the stored logits, cand[:, j] those after
         # drafts[:, :j]
         cand = torch.cat([self._logits.to(lg.dtype)[:, None], lg], 1)
+        # the picks read the tenant-effective candidates; the stored
+        # state below (`after`, the bonus logits) stays base
+        eff = self._head_hook()
+        cand_p = cand if eff is None else eff(cand)
         states = None
         if self.temperature == 0.0:
-            g = self._pick(cand.reshape(s_rows * (k + 1), -1)).reshape(
+            g = self._pick(cand_p.reshape(s_rows * (k + 1), -1)).reshape(
                 s_rows, k + 1)
         else:
             # each row's draws in candidate order, on the window's [1, V]
@@ -968,7 +1046,7 @@ class SlotEngine:
                 states[s].append(gen.get_state())
                 draws = []
                 for j in range(k + 1):
-                    draws.append(self._pick(cand[s:s + 1, j], gen))
+                    draws.append(self._pick(cand_p[s:s + 1, j], gen))
                     states[s].append(gen.get_state())
                 rows.append(torch.cat(draws))
             g = torch.stack(rows)
@@ -1177,10 +1255,17 @@ class SlotEngine:
         toks, n_new, pos0 = (self._upload(np.asarray(a, np.int64))
                              for a in (toks, n_new, pos0))
         live = self._upload(np.asarray(live, bool))
+        # per-tenant drafter heads: the picks read the effective logits
+        eff = (make_adapter_head_hook(*self._dadapters, self._tslot)
+               if self._dadapters else None)
+
+        def pick(row):
+            return (row if eff is None else eff(row)).argmax(-1)
+
         lg = self._draft_chunk(toks, pos0, live)
         idx = (n_new - 1).clamp(0, c - 1)
-        cur = lg.gather(1, idx[:, None, None].expand(
-            -1, 1, lg.shape[-1]))[:, 0].argmax(-1)
+        cur = pick(lg.gather(1, idx[:, None, None].expand(
+            -1, 1, lg.shape[-1]))[:, 0])
         front = pos0 + n_new
         drafts = [cur]
         for j in range(k - 1):
@@ -1189,7 +1274,7 @@ class SlotEngine:
                 self._dcfg, self._dmodel, self._dcaches, cur, p,
                 lambda i, kc, vc, q, kt, vt, p=p: self._dfold(
                     kc, vc, q, kt, vt, p, live))
-            cur = lg2.argmax(-1)
+            cur = pick(lg2)
             drafts.append(cur)
         return torch.stack(drafts, 1)
 
@@ -1328,6 +1413,32 @@ class SlotEngine:
                 f"for a different model")
         with torch.no_grad():
             convert.load_jax(self._model, params)
+
+    def swap_adapters(self, u, v) -> None:
+        """Hot-swap the per-tenant adapter bank: u [T, V, r] and v
+        [T, r, V] of the armed bank's shapes (T the registered tenants,
+        gathered by tenant id). The new factors are copied in place on
+        the stream, so a window in flight reads the old bank and the
+        next the new."""
+        if self.n_tenants == 0:
+            raise ValueError(
+                "adapter hot-swap needs a multi-tenant server: this "
+                "engine was built without an adapter bank (tenancy), "
+                "so there are no adapter rows to replace — roll out "
+                "full params instead (swap_params)")
+        u = np.asarray(u, np.float32)
+        v = np.asarray(v, np.float32)
+        old_u, old_v = self._adapters
+        if u.shape != tuple(old_u.shape) or v.shape != tuple(old_v.shape):
+            raise ValueError(
+                f"adapter swap shapes {u.shape} / {v.shape} must equal "
+                f"the armed bank's {tuple(old_u.shape)} / "
+                f"{tuple(old_v.shape)} (T = registered tenants, V = "
+                f"model vocab, r = adapter rank) — retrain/re-export at "
+                f"the serving shapes, or rebuild the server to change "
+                f"them")
+        old_u.copy_(torch.from_numpy(u))
+        old_v.copy_(torch.from_numpy(v))
 
     # -- the rest -----------------------------------------------------------
 

@@ -8,7 +8,8 @@ Records go through `observe.JsonlLogger`, in a file of their own:
 
 - ``journal_submit``   at acceptance: id, prompt tokens, budget, eos,
   the integer seed (a `torch.Generator` is not journalable), the
-  original relative deadline and the trace id;
+  original relative deadline, the trace id and, when the request is
+  tagged, its tenant;
 - ``journal_progress`` one batched record of every emitting request's
   cumulative token count, written every `progress_every` calls (a cost
   knob: recovery reruns a request from its prompt, and the engine's
@@ -55,11 +56,17 @@ class RequestJournal:
         means nothing to a recovering process)."""
         seed = (int(entry.rng)
                 if isinstance(entry.rng, (int, np.integer)) else None)
+        # the tenant tag travels the WAL, so a recovered request bills
+        # the same tenant; written only when tagged, so untenanted
+        # journals keep their bytes
+        tkw = ({"tenant": entry.tenant}
+               if getattr(entry, "tenant", None) is not None else {})
         self._logger.log(
             event="journal_submit", id=entry.rid,
             prompt=[int(t) for t in np.asarray(entry.prompt).reshape(-1)],
             max_new_tokens=int(entry.budget), eos_id=entry.eos_id,
-            seed=seed, deadline_s=deadline_s, trace_id=entry.trace_id)
+            seed=seed, deadline_s=deadline_s, trace_id=entry.trace_id,
+            **tkw)
 
     def record_progress(self, tokens_by_rid: dict) -> None:
         """One batched record of every request that emitted this cycle

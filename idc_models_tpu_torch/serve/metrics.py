@@ -9,9 +9,14 @@ and with a prefix cache attached its `serve_prefix_*` fields merged in.
 The hooks are the ones the scheduler calls (submit, reject, admit,
 first token, finish, slot fault, retry, brownout shed and clamp, injected
 fault, dispatch, speculative verify and propose, cycle, pages, page
-exhaustion); the tenant, rollout and compile-cache hooks come with their
-items (ROADMAP A9.4, A10, A11), and until then their summary keys hold
-the values a server without them reports. Eager PyTorch compiles no serving program, so
+exhaustion, tenant quota and tenant cycle). With a `Tenancy` armed the
+hooks take ``tenant=`` and also keep tenant-labelled series, the
+``serve_tenant_finish`` / ``serve_tenant_shed`` /
+``serve_tenant_quota_reject`` events and ``summary()["serve_tenants"]``;
+without one the registry and every record keep their untenanted shape.
+The rollout and compile-cache hooks come with their items (ROADMAP A10,
+A11), and until then their summary keys hold the values a server without
+them reports. Eager PyTorch compiles no serving program, so
 `serve_compiles_observed` is 0.
 """
 
@@ -41,12 +46,14 @@ class ServingMetrics:
     `slo` is an optional `observe.slo.SLOEngine` fed the declared subset
     of ``ttft`` / ``queue_wait`` (latency samples) and ``error_rate``
     (bad = rejected, or a finish of error/timeout/deadline), evaluated
-    once per cycle."""
+    once per cycle. `tenancy` is a built ``serve/tenancy.Tenancy``: TTFT
+    samples then also feed each tenant's own ``ttft:<name>`` objective."""
 
     def __init__(self, logger=None, prefix_cache=None, registry=None,
-                 slo=None):
+                 slo=None, tenancy=None):
         self.logger = logger
         self.slo = slo
+        self.tenancy = tenancy
         # an attached prefix cache's serve_prefix_* counters roll into
         # summary() next to the serving fields
         self.prefix_cache = prefix_cache
@@ -125,6 +132,45 @@ class ServingMetrics:
             "serve_page_exhaustions_total",
             "cycles the paged engine refused work for lack of free "
             "pages (admission gate or mid-decode growth)")
+        # tenant-labelled instruments, registered only with tenancy so
+        # an untenanted server's /metrics stays as it was
+        if tenancy is not None:
+            self._m_t_requests = reg.counter(
+                "serve_tenant_requests_total",
+                "requests by tenant and terminal outcome",
+                labels=("tenant", "status"))
+            self._m_t_tokens = reg.counter(
+                "serve_tenant_tokens_emitted_total",
+                "decode tokens emitted per tenant", labels=("tenant",))
+            self._m_t_ttft = reg.histogram(
+                "serve_tenant_ttft_seconds",
+                "submit -> first token per tenant", labels=("tenant",))
+            self._m_t_queue = reg.gauge(
+                "serve_tenant_queue_depth",
+                "admission-queue entries each tenant holds (last "
+                "cycle)", labels=("tenant",))
+            self._m_t_slots = reg.gauge(
+                "serve_tenant_slots_used",
+                "decode slots (running + prefilling) each tenant "
+                "holds (last cycle)", labels=("tenant",))
+            self._m_t_pages = reg.gauge(
+                "serve_tenant_kv_pages_used",
+                "KV pool pages each tenant's admissions have reserved "
+                "(last cycle; paged engines)", labels=("tenant",))
+            self._m_t_shed = reg.counter(
+                "serve_tenant_shed_total",
+                "submits refused by the tenant's own brownout shed "
+                "stage", labels=("tenant",))
+            self._m_t_quota = reg.counter(
+                "serve_tenant_quota_rejections_total",
+                "submits refused by a per-tenant quota, by quota kind",
+                labels=("tenant", "kind"))
+        # the per-tenant rollup, keyed by tenant name
+        self.tenant_ttft_s: dict[str, list] = {}
+        self.tenant_finished: dict[str, int] = {}
+        self.tenant_tokens: dict[str, int] = {}
+        self.tenant_shed: dict[str, int] = {}
+        self.tenant_quota_rejections: dict[str, int] = {}
         self.kv_pages_total: int | None = None
         self.kv_pages_used_peak = 0
         self.kv_resident_tokens_peak = 0
@@ -164,7 +210,7 @@ class ServingMetrics:
 
     # -- request lifecycle ----------------------------------------------
 
-    def on_submit(self, rid, t: float) -> None:
+    def on_submit(self, rid, t: float, *, tenant=None) -> None:
         self.submitted += 1
         if self._t_first is None:
             self._t_first = t
@@ -188,10 +234,16 @@ class ServingMetrics:
             self.slo.observe("queue_wait", wait_s)
         self._log(event="serve_admit", id=rid, queue_wait_ms=wait_s * 1e3)
 
-    def on_first_token(self, rid, ttft_s: float) -> None:
+    def on_first_token(self, rid, ttft_s: float, *, tenant=None) -> None:
         self._m_ttft.observe(ttft_s)
         if self.slo is not None and self.slo.has("ttft"):
             self.slo.observe("ttft", ttft_s)
+        if tenant is not None and self.tenancy is not None:
+            # the tenant's own ttft:<name> objective: its admission and
+            # brownout signal
+            self.tenancy.observe_ttft(tenant, ttft_s)
+            self._m_t_ttft.observe(ttft_s, tenant=tenant)
+            self.tenant_ttft_s.setdefault(tenant, []).append(ttft_s)
         self.ttft_s.append(ttft_s)
         wait = self._wait_by_rid.pop(rid, None)
         prefill = None if wait is None else max(ttft_s - wait, 0.0)
@@ -202,7 +254,8 @@ class ServingMetrics:
                   prefill_ms=None if prefill is None else prefill * 1e3)
 
     def on_finish(self, rid, *, n_tokens: int, ttft_s: float | None,
-                  decode_s: float, reason: str, t: float) -> None:
+                  decode_s: float, reason: str, t: float,
+                  tenant=None) -> None:
         # a request cancelled before its first token never reaches
         # on_first_token: drop its queue-wait entry here too
         self._wait_by_rid.pop(rid, None)
@@ -224,6 +277,18 @@ class ServingMetrics:
         self._log(event="serve_finish", id=rid, tokens=n_tokens,
                   reason=reason,
                   ttft_ms=None if ttft_s is None else ttft_s * 1e3)
+        if tenant is not None and self.tenancy is not None:
+            # a record of its own: serve_finish keeps its shape
+            self.tenant_finished[tenant] = (
+                self.tenant_finished.get(tenant, 0) + 1)
+            self.tenant_tokens[tenant] = (
+                self.tenant_tokens.get(tenant, 0) + n_tokens)
+            self._m_t_requests.inc(tenant=tenant, status=str(reason))
+            if n_tokens:
+                self._m_t_tokens.inc(n_tokens, tenant=tenant)
+            self._log(event="serve_tenant_finish", id=rid,
+                      tenant=tenant, tokens=n_tokens, reason=reason,
+                      ttft_ms=None if ttft_s is None else ttft_s * 1e3)
 
     # -- resilience ------------------------------------------------------
 
@@ -243,15 +308,44 @@ class ServingMetrics:
         self._log(event="serve_retry", id=rid, attempt=attempt,
                   delay_ms=delay_s * 1e3)
 
-    def on_shed(self, rid) -> None:
-        """The brownout shed stage refused a submit: a terminal outcome
-        of its own, not fed to the error-rate SLO (shedding is the
-        controller's intended action; scoring it as an error would make
-        shedding beget more shedding)."""
+    def on_shed(self, rid, *, tenant=None) -> None:
+        """A brownout shed stage refused a submit (the server-wide
+        controller's or, with `tenant` set, that tenant's own): a
+        terminal outcome of its own, not fed to the error-rate SLO
+        (shedding is the controller's intended action; scoring it as an
+        error would make shedding beget more shedding)."""
         self.shed += 1
         self._m_shed.inc()
         self._m_requests.inc(status="shed")
         self._log(event="serve_shed", id=rid)
+        if tenant is not None and self.tenancy is not None:
+            self.tenant_shed[tenant] = self.tenant_shed.get(tenant, 0) + 1
+            self._m_t_shed.inc(tenant=tenant)
+            self._m_t_requests.inc(tenant=tenant, status="shed")
+            self._log(event="serve_tenant_shed", id=rid, tenant=tenant)
+
+    def on_tenant_quota(self, rid, *, tenant: str, kind: str) -> None:
+        """A per-tenant quota refused a submit (`kind` "queued"; the slot
+        and page quotas hold entries in the queue instead). A rejection
+        in the aggregate figures, but not fed to the error-rate SLO: the
+        refusal is the isolation working, not the service failing."""
+        self.rejected += 1
+        self._m_requests.inc(status="rejected")
+        self.tenant_quota_rejections[tenant] = (
+            self.tenant_quota_rejections.get(tenant, 0) + 1)
+        self._m_t_quota.inc(tenant=tenant, kind=kind)
+        self._m_t_requests.inc(tenant=tenant, status="rejected")
+        self._log(event="serve_tenant_quota_reject", id=rid,
+                  tenant=tenant, kind=kind)
+
+    def on_tenant_cycle(self, names, *, depths: dict, slots: dict,
+                        pages: dict) -> None:
+        """The per-cycle tenant gauges: every registered tenant gets a
+        point, zero included, so a tenant that drained reads 0."""
+        for name in names:
+            self._m_t_queue.set(depths.get(name, 0), tenant=name)
+            self._m_t_slots.set(slots.get(name, 0), tenant=name)
+            self._m_t_pages.set(pages.get(name, 0), tenant=name)
 
     def on_clamp(self, rid, *, asked: int, clamp: int) -> None:
         """The brownout clamp shortened an admission's budget."""
@@ -438,6 +532,22 @@ class ServingMetrics:
             "serve_rollout_outcome": None,
             "serve_rollout_stage": None,
         }
+        if self.tenancy is not None:
+            # one record per REGISTERED tenant, zeros included
+            out["serve_tenants"] = {
+                name: {
+                    "requests": self.tenant_finished.get(name, 0),
+                    "tokens": self.tenant_tokens.get(name, 0),
+                    "ttft_ms_p50": _r(
+                        _pct(self.tenant_ttft_s.get(name, []), 50), 1e3),
+                    "ttft_ms_p95": _r(
+                        _pct(self.tenant_ttft_s.get(name, []), 95), 1e3),
+                    "shed": self.tenant_shed.get(name, 0),
+                    "quota_rejections":
+                        self.tenant_quota_rejections.get(name, 0),
+                    "slo_breached": self.tenancy.breached(name),
+                }
+                for name in self.tenancy.names()}
         if self.prefix_cache is not None:
             out.update(self.prefix_cache.summary())
         return out

@@ -51,9 +51,19 @@ opinion on which request runs where or when; this module is the policy:
   shed stage a submit is refused with a terminal ``shed`` status before
   the queue is consulted, and at its clamp stage an admission's budget
   is cut to the clamp (the page gate reads the clamped budget).
+- **Tenancy** -- with a `Tenancy` (``serve/tenancy.py``) a submit
+  resolves its tenant tag (an unknown tag raises); the tenant's own
+  brownout sheds before the server-wide backpressure, and its
+  `max_queued` quota refuses without touching the shared queue. The
+  admission scan looks past entries whose tenant's slot or page quota
+  blocks them (FIFO within each tenant, no tenant blocking the head of
+  the line for another), while a global page exhaustion still stops it.
+  The server-wide and the tenant's clamp compose by `min`. Every cycle
+  evaluates each tenant's brownout on its own queue depth and its
+  ``ttft:<name>`` SLO. The per-tenant counts are derived from the live
+  queue and slot dicts each time, never kept incrementally.
 
-Tenancy (ROADMAP A9.4) and drain-and-migrate (A10) come with their
-items; their knobs raise NotImplementedError naming the label.
+Drain-and-migrate (A10) comes with its item.
 """
 
 from __future__ import annotations
@@ -68,7 +78,7 @@ import numpy as np
 
 from idc_models_tpu_torch.observe import profile as prof
 from idc_models_tpu_torch.observe import trace
-from idc_models_tpu_torch.serve.engine import HEALTH_KINDS, later
+from idc_models_tpu_torch.serve.engine import HEALTH_KINDS
 from idc_models_tpu_torch.serve.faults import (
     InjectedEngineCrash, InjectedPrefillError,
 )
@@ -115,6 +125,12 @@ class Entry:
     retried: bool = False
     not_before: float = 0.0
     clamped: bool = False            # brownout shortened the budget
+    # tenancy: the resolved tenant (None without tenancy), its engine
+    # gather index, and the admission's page reservation its KV budget
+    # is charged
+    tenant: str | None = None
+    tid: int = 0
+    pages_reserved: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,15 +183,19 @@ class AdmissionQueue:
     def pop(self) -> Entry:
         return self._q.popleft()
 
-    def peek(self) -> Entry:
-        """The head entry without popping it: the page-aware admission
-        gate inspects its demand before taking it."""
-        return self._q[0]
-
     def push_front(self, entry: Entry) -> None:
         """Head-of-line insertion for RETRIED entries only: they were
         admitted once already, so they do not cheat the bound."""
         self._q.appendleft(entry)
+
+    def entries(self):
+        """A lazy FIFO-order view (the admission scan usually stops at
+        the head); do not hold it across a push, pop or take."""
+        return iter(self._q)
+
+    def take(self, entry: Entry) -> None:
+        """Remove the entry the admission scan picked (identity match)."""
+        self._q.remove(entry)
 
     def expire(self, now: float) -> list[Entry]:
         """Drop queued entries past their deadline; returns them."""
@@ -200,8 +220,6 @@ class Scheduler:
                  brownout=None, drafter=None, tenancy=None):
         if window < 1:
             raise ValueError(f"need window >= 1, got {window}")
-        if tenancy is not None:
-            raise later("A9.4", "tenancy")
         self.engine = engine
         self.window = window
         # speculative mode: with a drafter AND an engine built with
@@ -228,6 +246,7 @@ class Scheduler:
         self.fault_plan = fault_plan
         self.journal = journal
         self.brownout = brownout
+        self.tenancy = tenancy
         if health_checks is None:
             health_checks = retry is not None or fault_plan is not None
         self.health_checks = bool(health_checks)
@@ -287,19 +306,46 @@ class Scheduler:
             entry.eos_id = self.engine.eos_id
         if entry.eos_id is not None and entry.eos_id < 0:
             entry.eos_id = None
+        tenant_bc = None
+        if self.tenancy is not None:
+            # an unknown tag raises: billing it to the default tenant
+            # would charge one tenant's quota for another's traffic
+            t = self.tenancy.resolve(entry.tenant)
+            entry.tenant, entry.tid = t.name, t.tid
+            tenant_bc = self.tenancy.brownouts.get(t.name)
         entry.t_submit = self.clock()
         # a brownout shed is an honest terminal refusal, decided before
-        # the queue is consulted so that shedding relieves the queue
-        if self.brownout is not None and self.brownout.shedding:
+        # the queue is consulted so that shedding relieves the queue; the
+        # tenant's own controller sheds that tenant alone
+        tenant_shed = tenant_bc is not None and tenant_bc.shedding
+        if (self.brownout is not None and self.brownout.shedding
+                or tenant_shed):
             entry.status, entry.finish_reason = "shed", "shed"
             entry.t_done = entry.t_submit
             if entry.trace_id is None:
                 entry.trace_id = _next_trace_id()
+            tkw = ({"tenant": entry.tenant}
+                   if entry.tenant is not None else {})
             trace.point("serve.shed", rid=entry.rid,
-                        trace_id=entry.trace_id)
+                        trace_id=entry.trace_id, **tkw)
             if self.metrics:
-                self.metrics.on_shed(entry.rid)
+                # billed to the tenant only when its OWN controller shed
+                # it: a server-wide shed is not the tenant's flood
+                self.metrics.on_shed(
+                    entry.rid,
+                    tenant=entry.tenant if tenant_shed else None)
             return False
+        if self.tenancy is not None:
+            # the tenant's queue quota refuses without touching the
+            # shared queue; not fed to the error-rate SLO (the refusal
+            # is the isolation working)
+            q = self.tenancy.quota(entry.tenant).max_queued
+            if q is not None and self._tenant_queued(entry.tenant) >= q:
+                entry.status = "rejected"
+                if self.metrics:
+                    self.metrics.on_tenant_quota(
+                        entry.rid, tenant=entry.tenant, kind="queued")
+                return False
         deadline_rel = entry.deadline
         if entry.deadline is not None:
             entry.deadline = entry.t_submit + entry.deadline
@@ -315,14 +361,68 @@ class Scheduler:
         # the request-lifecycle chain: a detached serve.request span
         # (submit -> finish) with the queued segment as its child; every
         # span carries rid
+        tkw = ({"tenant": entry.tenant}
+               if entry.tenant is not None else {})
         entry.span = trace.start_span("serve.request", rid=entry.rid,
-                                      trace_id=entry.trace_id)
+                                      trace_id=entry.trace_id, **tkw)
         entry.queue_span = trace.start_span(
             "serve.queued", parent=entry.span.span_id, rid=entry.rid,
             trace_id=entry.trace_id)
         if self.metrics:
-            self.metrics.on_submit(entry.rid, entry.t_submit)
+            self.metrics.on_submit(entry.rid, entry.t_submit,
+                                   tenant=entry.tenant)
         return True
+
+    def _tenant_queued(self, tenant: str) -> int:
+        """Queued entries `tenant` holds now, counted from the queue."""
+        return sum(1 for e in self.queue.entries() if e.tenant == tenant)
+
+    def _tenant_residency(self) -> tuple[dict, dict]:
+        """(slots, pages) each tenant holds over the running and
+        prefilling entries, counted from the live dicts: the ledger the
+        per-tenant admission quotas read."""
+        slots: dict[str, int] = {}
+        pages: dict[str, int] = {}
+        for e in (*self._running.values(), *self._prefilling.values()):
+            if e.tenant is None:
+                continue
+            slots[e.tenant] = slots.get(e.tenant, 0) + 1
+            pages[e.tenant] = pages.get(e.tenant, 0) + e.pages_reserved
+        return slots, pages
+
+    def _next_admission(self, clamp, slots_used, pages_used):
+        """The entry the next admission takes and the clamp it gets, or
+        (None, None): the earliest queued entry that its own tenant's
+        slot and page quotas admit, FIFO within each tenant, once the
+        page gate passes on the budget the clamp leaves. A GLOBAL page
+        exhaustion stops the scan (skipping ahead of it would starve long
+        requests forever; gating on the unclamped ask would wedge
+        admission at the very stage meant to unwedge it). Without tenancy
+        no quota applies, so this is the queue head or nothing."""
+        for cand in self.queue.entries():
+            quota = (self.tenancy.quota(cand.tenant)
+                     if self.tenancy is not None else None)
+            if (quota is not None and quota.max_resident_slots is not None
+                    and slots_used.get(cand.tenant, 0)
+                    >= quota.max_resident_slots):
+                continue             # tenant-local: no head-of-line block
+            bc = (self.tenancy.brownouts.get(cand.tenant)
+                  if self.tenancy is not None else None)
+            c = min((x for x in (clamp, bc and bc.token_clamp)
+                     if x is not None), default=None)
+            eff = cand.budget if c is None else min(cand.budget, c)
+            if (quota is not None and quota.kv_page_budget is not None
+                    and pages_used.get(cand.tenant, 0)
+                    + self.engine.pages_for_admission(len(cand.prompt), eff)
+                    > quota.kv_page_budget):
+                continue             # waits for its own tenant's releases
+            if not self._page_gate(cand, eff):
+                return None, None    # global exhaustion: no skipping
+            break
+        else:
+            return None, None
+        self.queue.take(cand)
+        return cand, c
 
     def _admit_free_slots(self) -> int:
         """Pop queued entries into free slots, at most
@@ -332,26 +432,25 @@ class Scheduler:
         free = self.engine.free_slots()
         clamp = (self.brownout.token_clamp if self.brownout is not None
                  else None)
+        slots_used, pages_used = self._tenant_residency()
         while (admitted < self.max_prefills_per_cycle and free
                and len(self.queue)):
-            # paged engines: the HEAD must fit before it leaves the
-            # queue; no skipping ahead of it (that would starve long
-            # requests forever). The gate reads the budget the clamp
-            # below leaves: the clamp is the smaller reservation page
-            # pressure escalates to, and gating on the unclamped ask
-            # would wedge admission at the stage meant to unwedge it
-            head = self.queue.peek()
-            eff = head.budget if clamp is None else min(head.budget, clamp)
-            if not self._page_gate(head, eff):
+            e, clamp_e = self._next_admission(clamp, slots_used, pages_used)
+            if e is None:
                 break
-            e = self.queue.pop()
             slot = free.pop(0)
-            if clamp is not None and e.budget > clamp:
-                # brownout stage 2: shorter answers for everyone
+            if clamp_e is not None and e.budget > clamp_e:
+                # brownout stage 2 (the server's, the tenant's, or the
+                # smaller of both): shorter answers beat no answers
                 if self.metrics:
                     self.metrics.on_clamp(e.rid, asked=e.budget,
-                                          clamp=clamp)
-                e.budget, e.clamped = clamp, True
+                                          clamp=clamp_e)
+                e.budget, e.clamped = clamp_e, True
+            e.pages_reserved = self.engine.pages_for_admission(
+                len(e.prompt), e.budget)
+            slots_used[e.tenant] = slots_used.get(e.tenant, 0) + 1
+            pages_used[e.tenant] = (pages_used.get(e.tenant, 0)
+                                    + e.pages_reserved)
             eos = e.eos_id if e.eos_id is not None else -1
             e.slot, e.status, e.t_admit = slot, "running", self.clock()
             # registered BEFORE the engine call: an engine that raises
@@ -361,11 +460,11 @@ class Scheduler:
                 self._prefilling[slot] = e
                 self.engine.start_prefill(slot, e.prompt, e.budget,
                                           rng=e.rng, eos_id=eos,
-                                          tag=e.rid)
+                                          tag=e.rid, tid=e.tid)
             else:
                 self._running[slot] = e
                 self.engine.admit(slot, e.prompt, e.budget, rng=e.rng,
-                                  eos_id=eos, tag=e.rid)
+                                  eos_id=eos, tag=e.rid, tid=e.tid)
             if e.queue_span is not None:
                 e.queue_span.close(
                     queue_wait_ms=round((e.t_admit - e.t_submit) * 1e3,
@@ -698,6 +797,21 @@ class Scheduler:
         if self.brownout is not None:
             self.brownout.evaluate(queue_depth=len(self.queue),
                                    pressure=page_pressure)
+        # each tenant's brownout, every cycle too, on ITS queue depth and
+        # ttft:<name> SLO: one tenant escalating leaves the others normal
+        if self.tenancy is not None:
+            depths: dict[str, int] = {}
+            for e in self.queue.entries():
+                if e.tenant is not None:
+                    depths[e.tenant] = depths.get(e.tenant, 0) + 1
+            for name, bc in self.tenancy.brownouts.items():
+                bc.evaluate(queue_depth=depths.get(name, 0))
+            self.tenancy.evaluate()
+            if self.metrics:
+                slots_used, pages_used = self._tenant_residency()
+                self.metrics.on_tenant_cycle(
+                    self.tenancy.names(), depths=depths,
+                    slots=slots_used, pages=pages_used)
         if (self._running or admitted or chunk_steps) and self.metrics:
             self.metrics.on_cycle(queue_depth=len(self.queue),
                                   occupancy=occupancy, tokens=emitted,
@@ -826,7 +940,8 @@ class Scheduler:
                     rid=e.rid,
                     ttft_ms=round((t_now - e.t_submit) * 1e3, 3))
                 if self.metrics:
-                    self.metrics.on_first_token(e.rid, t_now - e.t_submit)
+                    self.metrics.on_first_token(e.rid, t_now - e.t_submit,
+                                                tenant=e.tenant)
             e.tokens.extend(toks)
             emitted += len(toks)
             if progress is not None and toks:
@@ -898,4 +1013,5 @@ class Scheduler:
             self.metrics.on_finish(
                 e.rid, n_tokens=len(e.tokens), ttft_s=ttft,
                 decode_s=decode_s,
-                reason=(e.finish_reason or e.status), t=e.t_done)
+                reason=(e.finish_reason or e.status), t=e.t_done,
+                tenant=e.tenant)

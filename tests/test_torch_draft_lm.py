@@ -29,7 +29,9 @@ from idc_models_tpu_torch.models import lm as tlm
 from idc_models_tpu_torch.models.core import init_params
 from idc_models_tpu_torch.models.draft import ChainedDrafter, NGramDrafter
 from idc_models_tpu_torch.observe import MetricsRegistry
-from idc_models_tpu_torch.serve import LMServer, Request, SlotEngine
+from idc_models_tpu_torch.serve import (
+    AdapterBank, LMServer, Request, SlotEngine,
+)
 
 VOCAB, SEQ, E, HEADS, MLP, BLOCKS = 11, 32, 32, 2, 64, 2
 K = 3
@@ -270,9 +272,19 @@ def test_engine_and_drafter_construction_errors():
         SlotEngine(params, draft_k=K, draft_partition_rules=object(), **KW)
     with pytest.raises(NotImplementedError, match="A9-dist"):
         _engine(drafter(), draft_partition_rules=object())
-    with pytest.raises(NotImplementedError, match="A9.4"):
+    # drafter heads: u [T, V, r] / v [T, r, V], and one T with the
+    # engine's own tenant bank (both are gathered by the same ids)
+    with pytest.raises(ValueError, match="drafter adapters must be"):
         tdlm.DraftLM(K, drafter().params, drafter().config,
                      adapters=(np.zeros((1, VOCAB, 2)),) * 2)
+    heads = tdlm.DraftLM(K, drafter().params, drafter().config,
+                         adapters=(np.zeros((1, VOCAB, 2)),
+                                   np.zeros((1, 2, VOCAB))))
+    bank = AdapterBank(u=np.zeros((2, VOCAB, 2), np.float32),
+                       v=np.zeros((2, 2, VOCAB), np.float32), rank=2,
+                       vocab=VOCAB)
+    with pytest.raises(ValueError, match="2 tenants"):
+        _engine(heads, adapter_bank=bank)
     with pytest.raises(RuntimeError, match="requires a learned drafter"):
         SlotEngine(params, draft_k=K, **KW).propose_all()
     with pytest.raises(ValueError, match="engine-backed"):

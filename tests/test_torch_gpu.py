@@ -1675,3 +1675,102 @@ def test_armed_clean_tick_makes_no_host_sync_on_the_card(cuda, tmp_path):
         torch.cuda.set_sync_debug_mode("default")
     server.drain()
     assert server.summary()["serve_requests"] == 2
+
+
+def _card_tenancy(adapter_scale=0.5, *, n=3, rank=4, vocab=64, seed=0):
+    """A registry of `n` tenants (t0, t1, ...), each with a rank-`rank`
+    logit adapter over the card LM's vocab, drawn from `seed`."""
+    import numpy as np
+
+    from idc_models_tpu_torch.serve import TenantRegistry
+
+    rng = np.random.default_rng(seed)
+    reg = TenantRegistry()
+    for i in range(n):
+        reg.register(f"t{i}", adapter=(
+            rng.normal(0, adapter_scale, (vocab, rank)).astype(np.float32),
+            rng.normal(0, adapter_scale, (rank, vocab)).astype(np.float32)))
+    return reg
+
+
+def test_adapter_hook_on_the_card_matches_the_cpu(cuda):
+    """The pick-time adapter hook on [S, V] and [S, K+1, V] card logits
+    against the same hook on the CPU within 1e-6 of the largest |logit|
+    (the two devices sum the products in different orders), and a zero
+    row bit for bit."""
+    from idc_models_tpu_torch.models.lm import make_adapter_head_hook
+
+    u = torch.randn(3, 1024, 8, generator=cuda, device="cuda") * 0.05
+    v = torch.randn(3, 8, 1024, generator=cuda, device="cuda") * 0.05
+    u[0], v[0] = 0.0, 0.0
+    tslot = torch.tensor([1, 0, 2, 1, 2, 0, 1, 2], device="cuda")
+    for shape in ((8, 1024), (8, 5, 1024)):
+        logits = torch.randn(*shape, generator=cuda, device="cuda") * 4.0
+        got = make_adapter_head_hook(u, v, tslot)(logits)
+        want = make_adapter_head_hook(u.cpu(), v.cpu(), tslot.cpu())(
+            logits.cpu())
+        err = float((got.cpu() - want).abs().max())
+        assert err <= 1e-6 * float(want.abs().max()), err
+        assert torch.equal(got[1], logits[1]) and torch.equal(
+            got[5], logits[5])
+
+
+def test_tenanted_pallas_server_launches_b3_twice_an_admission(cuda):
+    """A three-tenant pallas bf16 server with adapters: the flash update
+    kernel prefills every admission, whatever its tenant (two launches,
+    one a block), and each tenant's tokens equal a one-tenant server's."""
+    from idc_models_tpu_torch.observe import MetricsRegistry
+    from idc_models_tpu_torch.serve import LMServer, Request, TenantRegistry
+
+    model, kw = _card_lm()
+    kw = dict(kw, cache_dtype=torch.bfloat16, block_impl="pallas")
+    reqs = [Request(id=r.id, prompt=r.prompt, max_new_tokens=6,
+                    tenant=f"t{i % 3}")
+            for i, r in enumerate(_res_requests(6, 100, 140, 6, 8))]
+    reg = _card_tenancy()
+    server = LMServer(model, n_slots=4, window=4,
+                      registry=MetricsRegistry(), tenancy=reg, **kw)
+    torch.cuda.synchronize()
+    before = fbk.KERNELS[0].launches
+    server.run([(0.0, r) for r in reqs])
+    torch.cuda.synchronize()
+    assert fbk.KERNELS[0].launches - before == 2 * len(reqs)
+    bank = server.tenancy.bank
+    for i in range(3):
+        solo = TenantRegistry()
+        solo.register(f"t{i}", adapter=(bank.u[i], bank.v[i]))
+        alone = LMServer(model, n_slots=4, window=4,
+                         registry=MetricsRegistry(), tenancy=solo, **kw)
+        mine = [r for r in reqs if r.tenant == f"t{i}"]
+        alone.run([(0.0, r) for r in mine])
+        for r in mine:
+            assert server.poll(r.id).status == "ok"
+            assert server.poll(r.id).tokens == alone.poll(r.id).tokens
+
+
+def test_tenanted_window_makes_no_host_sync_on_the_card(cuda):
+    """With an adapter bank armed, the window's hook (one gather a
+    window, two small products a step) adds no host sync: steady ticks
+    run under CUDA's sync debug mode "error"."""
+    from idc_models_tpu_torch.observe import MetricsRegistry
+    from idc_models_tpu_torch.serve import LMServer
+
+    model, kw = _card_lm()
+    server = LMServer(model, n_slots=2, window=4, registry=MetricsRegistry(),
+                      tenancy=_card_tenancy(), health_checks=False, **kw)
+    for i, r in enumerate(_res_requests(2, 3, 10, 64, 9)):
+        server.submit(type(r)(id=r.id, prompt=r.prompt,
+                              max_new_tokens=r.max_new_tokens,
+                              tenant=f"t{i + 1}"))
+    while len(server.scheduler._running) < 2:
+        server.step()
+    server.step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            assert server.step() == []
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    server.drain()
+    assert server.summary()["serve_tenants"]["t1"]["requests"] == 1

@@ -34,8 +34,8 @@ from idc_models_tpu_torch import cli
 from idc_models_tpu_torch.models import lm as tlm
 from idc_models_tpu_torch.observe import JsonlLogger, MetricsRegistry
 from idc_models_tpu_torch.serve import (
-    HEALTH_KINDS, LMServer, PagedPrefixCache, Request, RetryPolicy,
-    SlotEngine, poisson_trace, save_trace,
+    HEALTH_KINDS, AdapterBank, LMServer, PagedPrefixCache, Request,
+    RetryPolicy, SlotEngine, TenantRegistry, poisson_trace, save_trace,
 )
 
 VOCAB, E, HEADS, MLP, BLOCKS, T_MAX = 16, 32, 2, 64, 2, 64
@@ -252,17 +252,23 @@ def test_admit_rejections_and_later_items():
     with pytest.raises(ValueError, match="flavor must match"):
         _engine(prefill_chunk=8, prefix_cache=PagedPrefixCache(
             8, max_pages=4))
-    for kw, label in ((dict(adapter_bank=object()), "A9.4"),
-                      (dict(partition_rules=object()), "A9-dist")):
-        with pytest.raises(NotImplementedError, match=label):
-            _engine(**kw)
+    # an adapter bank or a tenant adapter of another vocab is refused
+    # against this model's head, at build
+    wrong = np.zeros((2, VOCAB + 1, 3), np.float32)
+    with pytest.raises(ValueError, match="model vocab"):
+        _engine(adapter_bank=AdapterBank(
+            u=wrong, v=wrong.transpose(0, 2, 1), rank=3, vocab=VOCAB + 1))
+    with pytest.raises(NotImplementedError, match="A9-dist"):
+        _engine(partition_rules=object())
     with pytest.raises(NotImplementedError, match="A10"):
         eng.export_slot(0)
     with pytest.raises(ValueError, match="without a learned drafter"):
         _server(spec_decode=True, draft_partition_rules=object(),
                 warmup=False)
-    with pytest.raises(NotImplementedError, match="A9.4"):
-        _server(tenancy=object(), warmup=False)
+    reg = TenantRegistry()
+    reg.register("acme", adapter=(wrong[0], wrong[0].T))
+    with pytest.raises(ValueError, match="model vocab"):
+        _server(tenancy=reg, warmup=False)
 
 
 def test_slot_health_codes_and_quarantine_with_retry():

@@ -596,8 +596,27 @@ def test_brownout_gauge_records_and_refusals(tmp_path):
         "reason": "queue:3"}
     with pytest.raises(ValueError, match="stage must be in"):
         b.force_stage(4)
-    with pytest.raises(NotImplementedError, match="A9.4"):
+    # a tenant's controller: its own labelled gauge and event, the
+    # untenanted ones untouched, and no hold on the shared prefix cache
+    treg = MetricsRegistry()
+    tlog = JsonlLogger(tmp_path / "t.jsonl")
+    tb = BrownoutController(queue_high=2, tenant="acme", registry=treg,
+                            logger=tlog, escalate_dwell_s=0.0)
+    tb.evaluate(queue_depth=2)
+    tlog.close()
+    text = treg.prometheus_text()
+    assert 'serve_tenant_brownout_stage{tenant="acme"} 1' in text
+    assert "serve_brownout_stage" not in text.replace(
+        "serve_tenant_brownout_stage", "")
+    rec = json.loads((tmp_path / "t.jsonl").read_text())
+    assert {k: v for k, v in rec.items() if k != "ts"} == {
+        "event": "serve_tenant_brownout", "stage": 1,
+        "stage_name": "pause_cache_writes", "direction": "escalate",
+        "reason": "queue:2", "tenant": "acme"}
+    with pytest.raises(ValueError, match="SHARED prefix"):
         BrownoutController(queue_high=2, tenant="acme",
+                           prefix_cache=PrefixCache(4, 1 << 20,
+                                                    registry=MetricsRegistry()),
                            registry=MetricsRegistry())
 
 
@@ -817,10 +836,16 @@ def test_the_serve_package_exports_the_jax_resilience_names():
     names = ("BrownoutController", "InjectedEngineCrash",
              "InjectedPrefillError", "ServeFault", "ServeFaultPlan",
              "parse_serve_fault_spec", "RequestJournal", "load_journal",
-             "pending_requests")
+             "pending_requests", "AdapterBank", "Tenancy", "TenantQuota",
+             "TenantRegistry")
     assert all(hasattr(jserve, n) and hasattr(tserve, n) for n in names)
-    with pytest.raises(NotImplementedError, match="A9.4"):
-        _server(tenancy=object(), warmup=False)
+    reg = tserve.TenantRegistry()
+    reg.register("acme")
+    server = _server(tenancy=reg, warmup=False)
+    assert server.summary()["serve_tenants"] == {"acme": {
+        "requests": 0, "tokens": 0, "ttft_ms_p50": None,
+        "ttft_ms_p95": None, "shed": 0, "quota_rejections": 0,
+        "slo_breached": False}}
 
 
 # ---------------------------------------------------------------------------
