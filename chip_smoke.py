@@ -290,9 +290,36 @@ non-zero before the result line:
    bank beside (t2); (t5) the `serve` verb with the tenant flags; (t6)
    the hook's cost, window and verify at 8 live slots;
 
+17. rollout -- right after tenancy, the weight rollout and the one-server
+   drain at phase 12's width (seed-0 weights live, seed-1 the
+   candidate), each run with the launch counts set to 0 just before and
+   read just after, B3 held to two launches a prefill (an admission on
+   either side, a pallas spot-check, a canary's warmup): (o1)
+   `run_with_rollout` over phase 12's burst on (k1)'s server, canary
+   fraction 0.5, 3 canary finishes, a TTFT slack no run reaches: one
+   Result an id, promoted, the live requests finished before the
+   promotion equal to (k1)'s, the canary's held under the contract to the
+   serial candidate Generator, both TTFT p95s printed, and a probe of 8
+   through the promoted server equal to a fresh candidate server's; (o2)
+   a NaN candidate rolled back at staging with no canary, all 24 equal
+   to (k1)'s, B3 48 + 2; (o3) fraction 0.01 with 50 finishes asked:
+   rolled back for want of evidence; (o4) phase 13's paged server
+   quiesced mid-burst and spot-checked: a sha256 of the pools' grantable
+   pages and the page table unchanged, the free pages unchanged, tokens
+   equal to (m1)'s, no B3; (o5) 4 greedy and 4 sampled requests moved
+   after one window between two contiguous engines, each equal to its
+   unmigrated run, the snapshot's bytes and the export and import ms;
+   (o6) `serve --save-ckpt`, then `serve --rollout` with the canary flags
+   and its rollout line, then SIGTERM to `serve --realtime --journal` in
+   a subprocess once its journal holds progress: rc 0, the drain line, a
+   finish record for every submit; (o7) `swap_params` on the host clock
+   and between CUDA events, a spot-check, `canary_clone`, and the window
+   step at 8 live slots before and after a promotion;
+
 then one JSON line of per-kernel numbers (B3's row carries its launches
 of each phase-14 run in `launches_spec`, of each phase-15 run in
-`launches_resilience` and of each phase-16 run in `launches_tenancy`),
+`launches_resilience`, of each phase-16 run in `launches_tenancy` and of
+each phase-17 run in `launches_rollout`),
 and the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}`.
 """
@@ -1651,14 +1678,14 @@ SERVE_TEMPERATURE, SERVE_TOP_K = 0.8, 50
 SERVE_CLI_T_MAX = 1024                        # (k5): budgets up to 256
 
 
-def serve_model(torch):
+def serve_model(torch, seed: int = 0):
     from idc_models_tpu_torch.models import core
     from idc_models_tpu_torch.models.lm import AttentionLM
 
     return core.init_params(AttentionLM(
         LM["vocab"], SERVE_T_MAX, embed_dim=LM["embed_dim"],
         num_heads=LM["num_heads"], mlp_dim=LM["mlp_dim"],
-        num_blocks=LM["num_blocks"]), 0)
+        num_blocks=LM["num_blocks"]), seed)
 
 
 def serve_kw(**kw) -> dict:
@@ -2239,6 +2266,7 @@ def paged_path(torch, fc, smk, fbk, card: str, memo: dict) -> None:
     m1, s1, _ = serve_case(torch, fc, smk, fbk, model, "(m1) paged", trace,
                            (0, 0, 0), lambda req: refs[req.id], card,
                            n_slots=PAGED_SLOTS, **pool)
+    memo["m1"] = {r.id: m1.poll(r.id).tokens for _, r in trace}
     eng = m1.engine
     live_peak = round(max(m1.metrics.occupancies) * PAGED_SLOTS)
     if (eng._alloc.used_count() != 0
@@ -3642,6 +3670,504 @@ def tenancy_path(torch, fc, smk, fbk, card: str, memo: dict) -> dict:
         raise SystemExit(f"tenancy (t6): flash launches {launches}")
     out["t6"] = launches
     log(f"phase 16 (tenancy) took {time.perf_counter() - t_start!r} s; "
+        f"{card}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 17: weight rollout and the one-server drain (checkpoint/rollout.py)
+# ---------------------------------------------------------------------------
+
+# (o1): half the burst's ids hash onto the canary once it opens a quarter
+# into the trace; three canary finishes decide, and a TTFT slack no run
+# reaches keeps the verdict off the clock (the canary's p95 is printed
+# beside the live one's)
+ROLL_FRACTION, ROLL_REQUESTS, ROLL_SLACK = 0.5, 3, 1e9
+# (o4): ticks of phase 13's paged server before it quiesces mid-burst
+ROLL_PAGED_TICKS = 4
+# (o5): requests a pair of engines moves, prompts of this many tokens
+# and budgets; each exported after one window of SERVE_WINDOW
+MIGRATE_N, MIGRATE_PROMPT, MIGRATE_BUDGET = 4, 1024, 64
+# (o6): the SIGTERM drill's trace, long enough to be mid-run when the
+# signal lands
+DRAIN_REQUESTS, DRAIN_RATE = 200, 20.0
+# (o7): spot-checks timed, and the caching host allocator's counters
+# read around each
+SPOT_CALLS = 5
+HOST_STATS = ("num_host_alloc", "num_host_free", "host_alloc_time",
+              "allocations", "allocated_bytes", "reserved_bytes",
+              "active_bytes", "segment")
+
+
+class Records:
+    """A serving logger keeping its records in memory (the canary shares
+    the live server's)."""
+
+    def __init__(self):
+        self.records = []
+
+    def log(self, **rec):
+        self.records.append(rec)
+
+    def close(self):
+        pass
+
+    def count(self, event: str) -> int:
+        return sum(r.get("event") == event for r in self.records)
+
+
+def pool_digest(torch, eng) -> str:
+    """sha256 over every grantable page of every pool tensor (the sink
+    page, which dead rows and padding write by design, left out) and
+    the page table."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for pair in eng._caches:
+        for t in pair:
+            h.update(t[:-1].contiguous().view(-1).view(
+                torch.uint8).cpu().numpy().tobytes())
+    h.update(eng._pt.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def rollout_path(torch, fc, smk, fbk, card: str, memo: dict) -> dict:
+    """Phase 17 at phase 12's width (seed-0 weights live, seed-1 the
+    candidate), each run with the launch counts set to 0 just before and
+    read just after, B3 held to two launches a prefill: one a
+    `serve_admit` record on either side, one a pallas spot-check, one a
+    canary's warmup. (o1) `run_with_rollout` over phase 12's burst on
+    (k1)'s server: one Result an id, all ok, promoted; the live
+    requests that finished before the promotion equal (k1)'s tokens bit
+    for bit; the canary's held under the contract to the serial
+    candidate Generator and counted bit-equal to a server built on the
+    candidate; then a probe of 8 requests through the promoted server
+    equal to a fresh candidate server's bit for bit. (o2) a NaN candidate
+    rolled back at staging, no canary, all 24 equal to (k1)'s. (o3) too
+    small a fraction: rolled back for want of evidence. (o4) phase 13's
+    paged server quiesced mid-burst and spot-checked: pools, page table
+    and free pages unchanged, tokens equal to (m1)'s, no B3. (o5) 4
+    greedy and 4 sampled requests moved between two contiguous engines
+    after one window, each equal to its unmigrated run. (o6) the verb:
+    `--save-ckpt`, then `--rollout` with the canary flags, then SIGTERM
+    to a `--realtime --journal` run in a subprocess. (o7) the costs:
+    `swap_params`, a spot-check, `canary_clone`, and the window step at
+    8 live slots before and after a promotion. Returns B3's launches by
+    run."""
+    import dataclasses
+    import os
+    import signal
+
+    from idc_models_tpu_torch import convert
+    from idc_models_tpu_torch.checkpoint import run_with_rollout
+    from idc_models_tpu_torch.models.lm import Generator
+    from idc_models_tpu_torch.observe import MetricsRegistry
+    from idc_models_tpu_torch.serve import (
+        LMServer, Request, SlotEngine, poisson_trace,
+    )
+
+    t_start = time.perf_counter()
+    tf32_off(torch)
+    model = serve_model(torch)
+    cand = convert.to_jax(serve_model(torch, 1))[0]
+    trace = poisson_trace(SERVE_N, **SERVE_TRACE)
+    bf16 = dict(block_impl="pallas", cache_dtype=torch.bfloat16)
+    k1 = memo["k1"][0]
+    out = {}
+
+    def server(params, logger=None, **kw):
+        kw = {**bf16, **kw}
+        return LMServer(params, n_slots=kw.pop("n_slots", SERVE_SLOTS),
+                        window=SERVE_WINDOW, registry=MetricsRegistry(),
+                        logger=logger, **serve_kw(**kw))
+
+    def counted(name, fn, want_prefills=None):
+        """`fn()` between a synchronize with the counts at 0 and one
+        after; B3 held to two launches each of `want_prefills()`."""
+        torch.cuda.synchronize()
+        zero_counts(fc, smk, fbk)
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = flash_counts(fbk)
+        if fc.KERNEL.launches or smk.KERNEL.launches:
+            raise SystemExit(f"rollout {name} launched a classifier kernel")
+        prefills = 0 if want_prefills is None else want_prefills()
+        if launches != (2 * prefills, 0, 0):
+            raise SystemExit(f"rollout {name}: flash launches "
+                             f"update/dq/dkv {launches}, expected "
+                             f"{(2 * prefills, 0, 0)} for {prefills} "
+                             f"prefills")
+        out[name] = launches
+        return got, sec, prefills
+
+    def one_each(name, results, statuses=("ok",)):
+        ids = [r.id for r in results]
+        if (sorted(ids) != sorted(r.id for _, r in trace)
+                or len(set(ids)) != len(ids)
+                or any(r.status not in statuses for r in results)):
+            raise SystemExit(f"rollout {name}: ids {sorted(ids)}, statuses "
+                             f"{[r.status for r in results]}")
+
+    # (o1) promote
+    rec = Records()
+    live = server(model, logger=rec)
+    before = []
+    swap = live.swap_params
+
+    def recorded_swap(params):
+        before.extend(r.id for r in live.results())
+        swap(params)
+
+    live.swap_params = recorded_swap
+    (res, ctl), sec, prefills = counted(
+        "o1", lambda: run_with_rollout(
+            live, trace, cand, canary_fraction=ROLL_FRACTION,
+            canary_requests=ROLL_REQUESTS, start_after=0.25,
+            ttft_slack=ROLL_SLACK),
+        lambda: rec.count("serve_admit") + 2)
+    one_each("(o1)", res)
+    canary = {r.id: r.tokens for r in ctl.canary.results()}
+    if ctl.stage != "promoted" or not 0 < len(canary) < SERVE_N:
+        raise SystemExit(f"rollout (o1): stage {ctl.stage} ({ctl.reason}),"
+                         f" {len(canary)} canary requests")
+    got = {r.id: r.tokens for r in res}
+    early = [rid for rid in before if rid not in canary]
+    if any(got[rid] != k1[rid] for rid in early):
+        raise SystemExit(f"rollout (o1): live requests finished before the "
+                         f"promotion {early}, not all equal to (k1)'s")
+    lp95 = live.summary()["serve_ttft_ms_p95"]
+    cp95 = ctl.canary.summary()["serve_ttft_ms_p95"]
+    cgen = Generator(cand, **serve_kw(**bf16))
+    held = total = released = 0
+    for rid, toks in canary.items():
+        req = next(r for _, r in trace if r.id == rid)
+        want, seen, states = serial_steps(cgen, req.prompt,
+                                          req.max_new_tokens)
+        n, near = held_steps(torch, toks, want, seen, states)
+        held, total, released = held + n, total + len(want), released + near
+    del cgen
+    fresh = server(cand)
+    cres = fresh.run([(0.0, r) for _, r in trace if r.id in canary])
+    bit_equal = sum(r.tokens == canary[r.id] for r in cres)
+    del fresh
+    probe = [(t, dataclasses.replace(r, id=f"probe{i}")) for i, (t, r)
+             in enumerate(poisson_trace(8, **{**SERVE_TRACE, "seed": 5,
+                                             "prompt_lens": (128, 2048)}))]
+    zero_counts(fc, smk, fbk)
+    got_probe = {r.id: r.tokens for r in live.run(probe)}
+    fresh = server(cand)
+    want_probe = {r.id: r.tokens for r in fresh.run(probe)}
+    if got_probe != want_probe:
+        raise SystemExit("rollout (o1): the promoted server's probe differs "
+                         "from a server built on the candidate")
+    log(f"rollout (o1) promote: {len(res)} results, one an id, all ok in "
+        f"{sec!r} s; stage {ctl.stage} after {ctl.canary_finishes} canary "
+        f"finishes ({len(canary)} requests on the canary); B3 {out['o1']} "
+        f"for {prefills} prefills ({prefills - 2} admissions on both "
+        f"sides, a spot-check, the canary's warmup); TTFT p95 live "
+        f"{lp95!r} ms, canary {cp95!r} ms (slack {ROLL_SLACK}); "
+        f"{len(early)} live requests finished before the promotion equal "
+        f"(k1)'s bit for bit; canary tokens held to the serial candidate "
+        f"Generator for {held} of {total} steps, {released} released at a "
+        f"near tie, {bit_equal} of {len(canary)} bit-equal to a server "
+        f"built on the candidate; the 8-request probe after the promotion "
+        f"equal to a fresh candidate server's bit for bit; {card}")
+    del live, fresh, ctl
+    torch.cuda.empty_cache()
+
+    # (o2) a NaN candidate rolls back at staging
+    nan = {k: np.full_like(v, np.nan) for k, v in convert.flatten(
+        cand).items()}
+    rec = Records()
+    live = server(model, logger=rec)
+    (res, ctl), sec, prefills = counted(
+        "o2", lambda: run_with_rollout(
+            live, trace, convert.unflatten(nan),
+            canary_fraction=ROLL_FRACTION, canary_requests=ROLL_REQUESTS),
+        lambda: rec.count("serve_admit") + 1)
+    one_each("(o2)", res)
+    same = sum(r.tokens == k1[r.id] for r in res)
+    if (ctl.stage != "rolled_back" or "non-finite" not in ctl.reason
+            or ctl.canary is not None or same != SERVE_N
+            or out["o2"] != (2 * SERVE_N + 2, 0, 0)):
+        raise SystemExit(f"rollout (o2): stage {ctl.stage} ({ctl.reason}), "
+                         f"canary {ctl.canary}, {same} equal to (k1)'s, B3 "
+                         f"{out['o2']}")
+    log(f"rollout (o2) NaN candidate: {ctl.stage} — {ctl.reason}; no canary;"
+        f" {len(res)} ok, {same} of {SERVE_N} equal to (k1)'s bit for bit, "
+        f"in {sec!r} s; B3 {out['o2']} (48 + the spot-check's 2); {card}")
+    del ctl
+
+    # (o3) not enough evidence
+    rec = Records()
+    live3 = server(model, logger=rec)
+    (res, ctl), sec, prefills = counted(
+        "o3", lambda: run_with_rollout(
+            live3, trace, cand, canary_fraction=0.01, canary_requests=50),
+        lambda: rec.count("serve_admit") + 2)
+    one_each("(o3)", res)
+    if ctl.stage != "rolled_back" or "not enough evidence" not in ctl.reason:
+        raise SystemExit(f"rollout (o3): {ctl.stage} ({ctl.reason})")
+    log(f"rollout (o3) fraction 0.01, 50 canary finishes asked: "
+        f"{ctl.stage} — {ctl.reason}; {len(res)} ok in {sec!r} s; B3 "
+        f"{out['o3']}; {card}")
+    del live3, ctl
+    torch.cuda.empty_cache()
+
+    # (o4) the paged spot-check after quiesce()
+    paged = server(model, n_slots=PAGED_SLOTS,
+                   **paged_kw(torch, kv_pages=PAGED_POOL))
+
+    def paged_run():
+        for _, r in trace:
+            if not paged.submit(r):
+                raise SystemExit("rollout (o4): a submit was refused")
+        for _ in range(ROLL_PAGED_TICKS):
+            paged.step()
+        paged.quiesce()
+        eng = paged.engine
+        if eng._pending is not None or not eng._slot_pages:
+            raise SystemExit("rollout (o4): not quiesced mid-burst")
+        digest, free = pool_digest(torch, eng), eng._alloc.free_count()
+        holding = len(eng._slot_pages)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        check = eng.spot_check_params(cand)
+        ms = (time.perf_counter() - t0) * 1e3
+        after = pool_digest(torch, eng)
+        if (not check["ok"] or after != digest
+                or eng._alloc.free_count() != free):
+            raise SystemExit(f"rollout (o4): check {check}, pools "
+                             f"{digest[:12]} -> {after[:12]}, free {free} -> "
+                             f"{eng._alloc.free_count()}")
+        paged.drain()
+        return digest, free, ms, check, holding
+
+    (digest, free, ms, check, holding), sec, _ = counted("o4", paged_run)
+    res = paged.results()
+    one_each("(o4)", res)
+    same = sum(r.tokens == memo["m1"][r.id] for r in res)
+    if same != SERVE_N:
+        raise SystemExit(f"rollout (o4): {same} of {SERVE_N} equal (m1)'s")
+    log(f"rollout (o4) paged: quiesced after {ROLL_PAGED_TICKS} ticks with "
+        f"{holding} slots holding pages, spot-check {check} in {ms!r} ms; sha256 of "
+        f"the pools' grantable pages and the page table {digest[:16]} "
+        f"before and after, {free} free pages before and after; {same} of "
+        f"{SERVE_N} equal to (m1)'s bit for bit; no B3; {sec!r} s; {card}")
+    del paged
+    torch.cuda.empty_cache()
+
+    # (o5) slot migration between two contiguous engines
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, LM["vocab"], MIGRATE_PROMPT)
+               for _ in range(MIGRATE_N)]
+    sampled = dict(temperature=SERVE_TEMPERATURE, top_k=SERVE_TOP_K)
+
+    def migrate():
+        stats = []
+        for kind, kw in (("greedy", {}), ("sampled", sampled)):
+            src, dst, ref = (SlotEngine(model, n_slots=SERVE_SLOTS,
+                                        **serve_kw(**bf16, **kw))
+                             for _ in range(3))
+            for i, p in enumerate(prompts):
+                for eng in (src, ref):
+                    eng.admit(i, p, MIGRATE_BUDGET,
+                              rng=(100 + i) if kw else None)
+            mid = src.step_window(SERVE_WINDOW)
+            ref_toks = ref.step_window(SERVE_WINDOW)
+            nbytes = export_ms = import_ms = 0.0
+            for i in range(MIGRATE_N):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                snap = src.export_slot(i)
+                t1 = time.perf_counter()
+                src.release(i)
+                dst.import_slot(MIGRATE_N - 1 - i, snap)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                export_ms += (t1 - t0) * 1e3
+                import_ms += (t2 - t1) * 1e3
+                nbytes += sum(t.nbytes for pair in snap["caches"]
+                              for t in pair) + snap["logits"].nbytes
+            moved = {i: list(mid[i]) for i in range(MIGRATE_N)}
+            stay = {i: list(ref_toks[i]) for i in range(MIGRATE_N)}
+            while any(dst._occupied) or any(ref._occupied):
+                for s, toks in dst.step_window(SERVE_WINDOW).items():
+                    moved[MIGRATE_N - 1 - s] += toks
+                for s, toks in ref.step_window(SERVE_WINDOW).items():
+                    stay[s] += toks
+                for eng in (dst, ref):
+                    for s in range(SERVE_SLOTS):
+                        if eng.finished(s):
+                            eng.release(s)
+            if moved != stay or any(len(t) != MIGRATE_BUDGET
+                                    for t in moved.values()):
+                raise SystemExit(f"rollout (o5) {kind}: migrated tokens "
+                                 f"differ from the unmigrated run's")
+            stats.append((kind, nbytes / MIGRATE_N, export_ms / MIGRATE_N,
+                          import_ms / MIGRATE_N))
+            del src, dst, ref
+            torch.cuda.empty_cache()
+        return stats
+
+    stats, sec, _ = counted("o5", migrate, lambda: 4 * MIGRATE_N)
+    for kind, nbytes, e_ms, i_ms in stats:
+        log(f"rollout (o5) {kind}: {MIGRATE_N} requests ({MIGRATE_PROMPT}-"
+            f"token prompts, budget {MIGRATE_BUDGET}) exported after one "
+            f"window of {SERVE_WINDOW} and imported into another engine, "
+            f"each equal to its unmigrated run bit for bit; a snapshot "
+            f"{nbytes!r} bytes, export {e_ms!r} ms, import {i_ms!r} ms "
+            f"(host clock, each ending in a synchronize); {card}")
+    log(f"rollout (o5): B3 {out['o5']} (the source's and the reference's "
+        f"{4 * MIGRATE_N} prefills) in {sec!r} s")
+
+    # (o6) the verb: a candidate, a rollout, then SIGTERM
+    tmp = Path(tempfile.mkdtemp(prefix="rollout"))
+    ckpt = tmp / "candidate"
+    lines = res_verb(torch, fc, smk, fbk, ["--seed", "1", "--requests", "4",
+                                           "--save-ckpt", str(ckpt)],
+                     "rollout (o6) --save-ckpt")
+    if not any(ln.startswith("checkpoint: wrote") for ln in lines):
+        raise SystemExit("rollout (o6): no checkpoint line")
+    lines = res_verb(torch, fc, smk, fbk, [
+        "--requests", str(SERVE_N), "--rollout", str(ckpt),
+        "--canary-fraction", "0.5", "--canary-requests", "3",
+        "--rollout-at", "0.0"], "rollout (o6) --rollout")
+    verdict = [ln for ln in lines if ln.startswith("rollout: ")]
+    if (len(verdict) != 1 or not any(
+            ln.startswith(f"served: ok={SERVE_N} ") for ln in lines)
+            or verdict[0].split()[1] not in ("promoted", "rolled_back")):
+        raise SystemExit(f"rollout (o6): lines {verdict}")
+    out["o6"] = flash_counts(fbk)
+    wal = tmp / "wal.jsonl"
+    argv = [sys.executable, "-m", "idc_models_tpu_torch", "serve",
+            "--vocab", str(LM["vocab"]), "--embed-dim", str(LM["embed_dim"]),
+            "--num-heads", str(LM["num_heads"]), "--mlp-dim",
+            str(LM["mlp_dim"]), "--num-blocks", str(LM["num_blocks"]),
+            "--t-max", str(SERVE_CLI_T_MAX), "--slots", str(SERVE_SLOTS),
+            "--window", str(SERVE_WINDOW), "--requests",
+            str(DRAIN_REQUESTS), "--rate", str(DRAIN_RATE), "--realtime",
+            "--journal", str(wal)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            env={**os.environ, "PYTHONUNBUFFERED": "1"})
+    try:
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline and proc.poll() is None:
+            if wal.exists() and '"journal_progress"' in wal.read_text():
+                break
+            time.sleep(0.05)
+        signalled = time.perf_counter() - t0
+        proc.send_signal(signal.SIGTERM)
+        stdout, stderr = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    events = [json.loads(ln) for ln in wal.read_text().splitlines()]
+    submits = [r["id"] for r in events if r["event"] == "journal_submit"]
+    finishes = {r["id"]: r["status"] for r in events
+                if r["event"] == "journal_finish"}
+    drain = [ln for ln in stdout.splitlines()
+             if ln.startswith("SIGTERM: drained gracefully")]
+    served = [ln for ln in stdout.splitlines() if ln.startswith("served: ")]
+    n_ok = int(served[0].split()[1].removeprefix("ok=")) if served else -1
+    for ln in stdout.splitlines():
+        if not ln.startswith("serve summary:"):
+            log(f"  serve | {ln}")
+    # drained: every journaled submit finished ok (none aborted as an
+    # error on its way out), and the verb counts each as served ok
+    if (proc.returncode != 0 or not drain or not submits
+            or finishes != {rid: "ok" for rid in submits}
+            or n_ok != len(submits) or len(submits) >= DRAIN_REQUESTS):
+        raise SystemExit(f"rollout (o6) SIGTERM: rc {proc.returncode}, "
+                         f"{drain}, {served}, {len(submits)} submits, "
+                         f"finishes {sorted(finishes.items())}; "
+                         f"{stderr[-2000:]}")
+    log(f"rollout (o6): {verdict[0]}; SIGTERM {signalled!r} s after the "
+        f"start, once the journal held progress: rc 0 in "
+        f"{time.perf_counter() - t0!r} s, '{drain[0]}', '{served[0]}', "
+        f"{len(submits)} submits of {DRAIN_REQUESTS} each finished ok in "
+        f"the journal; {card}")
+
+    # (o7) the costs, on (o2)'s server (the live weights)
+    eng = live.engine
+
+    def costs():
+        before = window_times(torch, eng, SERVE_SLOTS, card,
+                              "rollout (o7) window before the promotion")
+        # each spot-check's host ms inside the candidate's pinned upload
+        # (`_upload`, wrapped for these calls), and what the caching host
+        # allocator counted meanwhile, where this torch reports it
+        ms, up_ms, host = [], [], []
+        upload, spent = eng._upload, [0.0]
+        stats = getattr(torch.cuda, "host_memory_stats", None)
+
+        def timed_upload(arr):
+            t = time.perf_counter()
+            try:
+                return upload(arr)
+            finally:
+                spent[0] += time.perf_counter() - t
+
+        eng._upload = timed_upload
+        try:
+            for _ in range(SPOT_CALLS):
+                spent[0] = 0.0
+                s0 = stats() if stats is not None else {}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if not eng.spot_check_params(cand)["ok"]:
+                    raise SystemExit("rollout (o7): the candidate failed")
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                up_ms.append(spent[0] * 1e3)
+                s1 = stats() if stats is not None else {}
+                host.append({k: v - s0.get(k, 0) for k, v in s1.items()
+                             if isinstance(v, (int, float))
+                             and v != s0.get(k, 0)
+                             and k.split(".")[0] in HOST_STATS})
+        finally:
+            del eng._upload
+        log(f"rollout (o7) spot-checks in order: {ms!r} ms, of which "
+            f"{up_ms!r} ms on the host in the pinned upload; the caching "
+            f"host allocator's deltas a call "
+            f"{host if stats is not None else 'not reported by this torch'}"
+            f"; {card}")
+        t0 = time.perf_counter()
+        clone = live.canary_clone(cand)
+        torch.cuda.synchronize()
+        clone_s = time.perf_counter() - t0
+        del clone
+        torch.cuda.empty_cache()
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        live.swap_params(cand)
+        end.record()
+        torch.cuda.synchronize()
+        swap_ms = (time.perf_counter() - t0) * 1e3
+        after = window_times(torch, eng, SERVE_SLOTS, card,
+                             "rollout (o7) window after the promotion")
+        return before, ms, clone_s, swap_ms, start.elapsed_time(end), after
+
+    (before, ms, clone_s, swap_ms, swap_dev, after), sec, _ = counted(
+        "o7", costs, lambda: 2 * SERVE_SLOTS + SPOT_CALLS + 1)
+    nbytes = sum(p.nbytes for p in eng._model.parameters())
+    log(f"rollout (o7): swap_params of {nbytes} bytes {swap_ms!r} ms on the "
+        f"host clock, {swap_dev!r} ms between CUDA events around it; a "
+        f"spot-check {sorted(ms)!r} ms; canary_clone {clone_s!r} s (a "
+        f"server and its warmup); a window step at {SERVE_SLOTS} live "
+        f"slots {before!r} ms before the promotion, {after!r} ms after "
+        f"(ratio {after / before!r}); B3 {out['o7']}; {card}")
+    del live, eng
+    torch.cuda.empty_cache()
+    log(f"phase 17 (rollout) took {time.perf_counter() - t_start!r} s; "
         f"{card}")
     return out
 
@@ -5903,6 +6429,7 @@ def main() -> int:
     spec = spec_path(torch, fc, smk, fbk, card, memo)
     res = resilience_path(torch, fc, smk, fbk, card, memo)
     ten = tenancy_path(torch, fc, smk, fbk, card, memo)
+    rol = rollout_path(torch, fc, smk, fbk, card, memo)
     del memo
     att = attention_path(torch, fc, smk, fbk, tring, card)
 
@@ -6000,6 +6527,8 @@ def main() -> int:
                                 for run, counts in res.items()},
         # phase 16: the tenancy runs (t1)-(t6)
         "launches_tenancy": {run: counts[i] for run, counts in ten.items()},
+        # phase 17: the rollout and drain runs (o1)-(o7)
+        "launches_rollout": {run: counts[i] for run, counts in rol.items()},
         "max_abs_err_zigzag_grid_256": att["grid"][key],
         **{f"quarter_{field}": {what: quarters[(what, key)][field]
                                 for what in QUARTERS}

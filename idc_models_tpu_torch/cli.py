@@ -161,12 +161,48 @@ SERVE_DRAFTERS = {
 # the serve verb's flags of later ROADMAP items: (flag, argparse
 # keywords, label); `_run_serve` refuses any that differs from its default
 _LATER = [
-    ("--rollout", dict(default=None), "A11"),
-    ("--canary-fraction", dict(type=float, default=None), "A11"),
-    ("--canary-requests", dict(type=int, default=None), "A11"),
-    ("--rollout-at", dict(type=float, default=None), "A11"),
     ("--compile-cache", dict(default=None), "A10"),
 ]
+
+
+class _DrainRequested:
+    """The serve verb's drain request: set by the SIGTERM handler, read
+    by the replay loop between ticks (``serve.api.replay``'s `stop`), so
+    the signal never lands inside a tick. Once set, admission stops and
+    every accepted request finishes before the verb reports."""
+
+    def __init__(self):
+        self.requested = False
+
+    def __call__(self) -> bool:
+        return self.requested
+
+
+def _arm_sigterm(drain: _DrainRequested):
+    """Install a SIGTERM handler that sets `drain`. Returns the previous
+    handler for `_disarm_sigterm`, or None when no handler can be
+    installed (off the main thread, as when a test drives the verb from
+    a worker thread)."""
+    import signal
+
+    def _handler(signum, frame):
+        drain.requested = True
+
+    try:
+        return signal.signal(signal.SIGTERM, _handler)
+    except ValueError:
+        return None
+
+
+def _disarm_sigterm(prev) -> None:
+    import signal
+
+    if prev is None:
+        return
+    try:
+        signal.signal(signal.SIGTERM, prev)
+    except ValueError:
+        pass
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -680,7 +716,32 @@ def _parse(argv):
                     help="export the serving params as a sharded "
                          "checkpoint (checkpoint/sharded.py) before the "
                          "trace replays; MANIFEST.json commits the save "
-                         "atomically")
+                         "atomically. Pair with --train-steps to mint "
+                         "a --rollout candidate")
+    sp.add_argument("--rollout", default=None, metavar="CKPT_DIR",
+                    help="zero-downtime weight rollout "
+                         "(checkpoint/rollout.py): mid-trace, restore "
+                         "this sharded checkpoint, spot-check it on the "
+                         "live engine, canary --canary-fraction of the "
+                         "traffic onto it, compare error rate and TTFT "
+                         "p95 against the live server, then promote "
+                         "(copy the weights into the live engine) or "
+                         "roll back — no request is dropped or "
+                         "duplicated either way")
+    sp.add_argument("--canary-fraction", type=float, default=None,
+                    help="traffic share routed to the --rollout canary "
+                         "while it is open, in (0, 1] (tenant-affine: "
+                         "whole tenants land on one side; default "
+                         "0.25)")
+    sp.add_argument("--canary-requests", type=int, default=None,
+                    help="canary finishes required before the "
+                         "promote/rollback verdict (default 4); a "
+                         "trace that drains short of this ROLLS BACK "
+                         "— insufficient evidence is not health")
+    sp.add_argument("--rollout-at", type=float, default=None,
+                    help="fraction of the trace submitted before the "
+                         "rollout opens, in [0, 1) (default 0.25: the "
+                         "live side banks baseline latency first)")
     sp.add_argument("--tenants", default=None,
                     help="multi-tenant serving (serve/tenancy.py): "
                          "comma-separated tenant names, first = the "
@@ -914,10 +975,6 @@ def _run_dist(ns):
             sys.exit("--central-storage broadcasts a host-resident "
                      "replica each step and cannot keep a model-sharded "
                      "layout; drop one of the two flags")
-        if ns.resumable:
-            sys.exit("--resumable checkpoints of a model-sharded state "
-                     "wait for the sharded checkpoints (ROADMAP A11); "
-                     "drop one of the two flags")
         from idc_models_tpu_torch import tp
 
         try:
@@ -1960,6 +2017,45 @@ def _run_serve(ns):
                  f">= 0, got {ns.brownout_dwell_ms}/"
                  f"{ns.brownout_clear_ms}")
     tenant_list, tenant_quotas, tenant_slos = _parse_tenant_flags(ns)
+    # the rollout flags fail fast too: a bad fraction found after
+    # --train-steps would waste the pre-training
+    if ns.rollout is None:
+        for flag, val in (("--canary-fraction", ns.canary_fraction),
+                          ("--canary-requests", ns.canary_requests),
+                          ("--rollout-at", ns.rollout_at)):
+            if val is not None:
+                sys.exit(f"{flag} needs --rollout: it tunes the canary "
+                         f"stage of a weight rollout, and without a "
+                         f"candidate checkpoint there is no rollout to "
+                         f"tune")
+    else:
+        if ns.canary_fraction is None:
+            ns.canary_fraction = 0.25
+        if ns.canary_requests is None:
+            ns.canary_requests = 4
+        if ns.rollout_at is None:
+            ns.rollout_at = 0.25
+        if not 0.0 < ns.canary_fraction <= 1.0:
+            sys.exit(f"--canary-fraction {ns.canary_fraction} must be "
+                     f"in (0, 1]: a zero (or negative) fraction "
+                     f"starves the canary of evidence forever, and "
+                     f"promoting without evidence is not a rollout")
+        if ns.canary_requests < 1:
+            sys.exit(f"--canary-requests {ns.canary_requests} must be "
+                     f">= 1: the verdict needs at least one canary "
+                     f"finish to compare")
+        if not 0.0 <= ns.rollout_at < 1.0:
+            sys.exit(f"--rollout-at {ns.rollout_at} must be in [0, 1): "
+                     f"at 1.0 or past it the trace drains before the "
+                     f"rollout ever opens")
+        from idc_models_tpu_torch.checkpoint import (
+            CheckpointError, checkpoint_info,
+        )
+
+        try:
+            checkpoint_info(ns.rollout)
+        except CheckpointError as e:
+            sys.exit(f"--rollout: {e}")
     if ns.rollout_adapters is not None:
         if tenant_list is None:
             sys.exit("--rollout-adapters needs --tenants: an adapter "
@@ -2142,15 +2238,41 @@ def _run_serve(ns):
               f"(window {ns.window}, t_max {ns.t_max}, ring "
               f"{ns.seq_parallel})")
         crashed = None
-        with Timer("Serving trace", logger=logger), \
-                profile_trace(ns.profile_dir):
-            try:
-                results = server.run(trace, realtime=ns.realtime)
-            except InjectedEngineCrash as e:
-                # the failure cleanup already recorded every in-flight
-                # request as an error Result
-                crashed = e
-                results = server.results()
+        rollout_ctl = None
+        drain = _DrainRequested()
+        prev_sigterm = _arm_sigterm(drain)
+        try:
+            with Timer("Serving trace", logger=logger), \
+                    profile_trace(ns.profile_dir):
+                try:
+                    if ns.rollout:
+                        from idc_models_tpu_torch.checkpoint import (
+                            run_with_rollout,
+                        )
+
+                        results, rollout_ctl = run_with_rollout(
+                            server, trace, ns.rollout,
+                            start_after=ns.rollout_at,
+                            realtime=ns.realtime, stop=drain,
+                            canary_fraction=ns.canary_fraction,
+                            canary_requests=ns.canary_requests,
+                            logger=logger)
+                    else:
+                        results = server.run(trace, realtime=ns.realtime,
+                                             stop=drain)
+                except InjectedEngineCrash as e:
+                    # the failure cleanup already recorded every
+                    # in-flight request as an error Result
+                    crashed = e
+                    results = server.results()
+        finally:
+            _disarm_sigterm(prev_sigterm)
+        if drain.requested:
+            # the replay stopped offering at SIGTERM and ticked on until
+            # every accepted request (the canary's too) had finished
+            print("SIGTERM: drained gracefully — admissions stopped, "
+                  "in-flight requests finished, journal flushed"
+                  + (f" ({ns.journal})" if ns.journal else ""))
         if crashed is not None:
             hint = (f"; rerun with --journal {ns.journal} to recover the "
                     f"in-flight requests" if ns.journal else
@@ -2204,6 +2326,14 @@ def _run_serve(ns):
             names = sorted({a["slo"] for a in slo.alerts})
             print(f"slo: {len(slo.alerts)} alert(s)"
                   + (f" ({', '.join(names)})" if names else ""))
+        if rollout_ctl is not None:
+            # the verdict: the terminal stage, the canary evidence behind
+            # it, and a rollback's reason
+            line = (f"rollout: {rollout_ctl.stage} after "
+                    f"{rollout_ctl.canary_finishes} canary finish(es)")
+            if rollout_ctl.reason:
+                line += f" — {rollout_ctl.reason}"
+            print(line)
         if ns.rollout_adapters and crashed is None:
             # the cheap first rung, live: a re-seeded bank of the same
             # shapes, copied over the armed one

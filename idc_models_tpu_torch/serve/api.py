@@ -8,8 +8,10 @@ recycling, page-aware admission, speculative verify), an optional prefix
 cache, `ServingMetrics` (TTFT, throughput, occupancy, pages, the
 speculative ledger), the resilience knobs -- a retry policy, a fault
 plan, a request journal (with `resubmit_pending` for crash recovery) and
-a brownout controller -- and tenancy (``serve/tenancy.py``: per-tenant
-adapters, quotas, SLOs and brownouts on one engine):
+a brownout controller -- tenancy (``serve/tenancy.py``: per-tenant
+adapters, quotas, SLOs and brownouts on one engine), and the hooks of a
+weight rollout (``checkpoint/rollout.py``): `quiesce`, `swap_params` and
+`canary_clone`:
 
     server = LMServer(params, embed_dim=..., num_heads=...,
                       num_blocks=..., t_max=..., n_slots=4, window=8)
@@ -132,6 +134,25 @@ class LMServer:
         )
         from idc_models_tpu_torch.serve.scheduler import Scheduler
 
+        # every setting canary_clone needs to build a config-identical
+        # server over candidate weights
+        self._clone_cfg = dict(
+            embed_dim=embed_dim, num_heads=num_heads,
+            num_blocks=num_blocks, t_max=t_max, n_slots=n_slots,
+            window=window, mesh=mesh, cache_dtype=cache_dtype,
+            block_impl=block_impl, temperature=temperature, top_k=top_k,
+            pad_id=pad_id, eos_id=eos_id, max_queue_depth=max_queue_depth,
+            max_prefills_per_cycle=max_prefills_per_cycle,
+            admit_after_collect=admit_after_collect, warmup=warmup,
+            clock=clock, prefill_chunk=prefill_chunk, kv_dtype=kv_dtype,
+            spec_decode=spec_decode, draft_k=draft_k,
+            draft_order=draft_order, drafter=drafter,
+            kv_page_size=kv_page_size, kv_pages=kv_pages,
+            kv_decode_reserve=kv_decode_reserve,
+            partition_rules=partition_rules,
+            draft_partition_rules=draft_partition_rules,
+            compile_cache=compile_cache, device=device)
+        self._clone_logger = logger
         # prefix reuse rides the chunk grid, so the budget needs chunked
         # admission. An existing cache may be passed instead of a budget
         # (a server rebuilt around the old one's snapshots). With paged
@@ -316,9 +337,19 @@ class LMServer:
         intact), so poll() answers for them and a caller can go on."""
         if self._fault_plan is not None:
             self._fire_bursts()
+        return self._cycle(self.scheduler.tick)
+
+    def quiesce(self) -> list[Result]:
+        """One cycle that collects the in-flight window without issuing
+        another (`Scheduler.quiesce`): the dispatch-idle point a paged
+        engine's spot-check and a slot export need. The same result and
+        failure bookkeeping as `step`."""
+        return self._cycle(self.scheduler.quiesce)
+
+    def _cycle(self, tick_fn) -> list[Result]:
         finished = []
         try:
-            ticked = self.scheduler.tick()
+            ticked = tick_fn()
         except Exception:
             for e in self.scheduler.pop_failed():
                 r = _to_result(e)
@@ -351,57 +382,32 @@ class LMServer:
 
     # -- trace replay ----------------------------------------------------
 
+    def idle(self) -> bool:
+        """Nothing queued, prefilling, retrying, running or in flight."""
+        return self.scheduler.idle()
+
+    def begin_drain(self) -> None:
+        """Stop admitting for good (`Scheduler.begin_drain`): later
+        submits are shed, what was accepted ticks to its end."""
+        self.scheduler.begin_drain()
+
+    def target(self, request: Request) -> "LMServer":
+        """The server whose queue `request` enters: this one (a rollout's
+        controller splits the traffic over two)."""
+        return self
+
     def run(self, trace, *, realtime: bool = False,
-            on_full: str = "block") -> list[Result]:
-        """Replay ``[(arrival_s, Request), ...]`` and drain. With
-        ``realtime=True`` requests are held until their arrival offset
-        on the wall clock (the honest open-loop TTFT); with False the
-        trace replays as fast as the engine drains it, arrival order
+            on_full: str = "block", stop=None) -> list[Result]:
+        """Replay ``[(arrival_s, Request), ...]`` and drain (`replay`).
+        With ``realtime=True`` requests are held until their arrival
+        offset on the wall clock (the honest open-loop TTFT); with False
+        the trace replays as fast as the engine drains it, arrival order
         kept. `on_full` is the client's backpressure policy: "block"
         re-offers the head request every tick until the queue takes it;
-        "reject" records a rejected Result and moves on."""
-        if on_full not in ("block", "reject"):
-            raise ValueError(f"on_full must be 'block' or 'reject', "
-                             f"got {on_full!r}")
-        trace = sorted(trace, key=lambda tr: tr[0])
-        clock = self.scheduler.clock
-        t0 = clock()
-        out, i = [], 0
-        while i < len(trace) or not self.scheduler.idle():
-            now = clock() - t0
-            while i < len(trace) and (not realtime
-                                      or trace[i][0] <= now):
-                # in block mode, do not OFFER a request the queue cannot
-                # take: each refused submit counts as a rejection (a
-                # shedding server answers at once, so it is offered)
-                shedding = (self.brownout is not None
-                            and self.brownout.shedding)
-                if (on_full == "block" and not shedding
-                        and len(self.scheduler.queue)
-                        >= self.scheduler.queue.max_depth):
-                    break
-                if self.submit(trace[i][1]):
-                    i += 1
-                    continue
-                shed = self._results.get(trace[i][1].id)
-                if shed is not None and shed.status == "shed":
-                    out.append(shed)
-                    i += 1
-                elif on_full == "reject":
-                    r = Result(id=trace[i][1].id, tokens=[],
-                               status="rejected")
-                    self._results[r.id] = r
-                    out.append(r)
-                    i += 1
-                else:
-                    break
-            if realtime and self.scheduler.idle() and i < len(trace):
-                # nothing running and the next arrival is in the future
-                time.sleep(min(max(trace[i][0] - (clock() - t0), 0.0),
-                               0.005))
-                continue
-            out.extend(self.step())
-        return out
+        "reject" records a rejected Result and moves on. `stop()`, polled
+        between cycles, ends the offers and drains what was accepted."""
+        return replay(self, trace, clock=self.scheduler.clock,
+                      realtime=realtime, on_full=on_full, stop=stop)
 
     def summary(self) -> dict:
         return self.metrics.summary()
@@ -411,6 +417,99 @@ class LMServer:
         see `SlotEngine.swap_adapters` for the shapes and the error on a
         server without tenancy."""
         self.engine.swap_adapters(u, v)
+
+    # -- weight rollout ----------------------------------------------------
+
+    def swap_params(self, params) -> None:
+        """Promote candidate weights onto this server's engine in place
+        (`SlotEngine.swap_params`). The rollout's metrics are its
+        controller's (``checkpoint/rollout.py``)."""
+        self.engine.swap_params(params)
+
+    def canary_clone(self, params, *, registry=None,
+                     logger=None) -> "LMServer":
+        """A second server over CANDIDATE weights, built with every
+        setting of this one: the canary a rollout routes a fraction of
+        traffic onto. It shares the tenancy (quotas and per-tenant SLOs
+        bill across both sides of the split) and nothing else: no prefix
+        cache (its snapshots were computed under the live weights), no
+        journal, no fault plan, no brownout, and a fresh metrics
+        registry unless `registry` is given."""
+        if registry is None:
+            from idc_models_tpu_torch.observe import MetricsRegistry
+
+            registry = MetricsRegistry()
+        return LMServer(
+            params, tenancy=self.tenancy, registry=registry,
+            logger=self._clone_logger if logger is None else logger,
+            **self._clone_cfg)
+
+
+def replay(front, trace, *, clock, realtime: bool = False,
+           on_full: str = "block", on_offer=None, stop=None) -> list[Result]:
+    """The one trace-replay loop, of `LMServer.run` and
+    ``checkpoint.run_with_rollout``: offer ``[(arrival_s, Request), ...]``
+    to `front` in arrival order and tick it until every accepted request
+    has finished. `front` submits, polls, steps, reports `idle` and
+    begins a drain as `LMServer` does, and ``front.target(request)`` is
+    the server whose queue the request enters. `on_offer(i)` runs before
+    the i-th request is offered. `stop()` is polled before every cycle,
+    between ticks: once it returns true the front stops admitting
+    (`begin_drain`), nothing more of the trace is offered, and the loop
+    ticks on until what was accepted has finished (the serve verb's
+    SIGTERM drain). Returns the Results of the accepted requests, and of
+    those refused for good (shed, or rejected with ``on_full="reject"``)."""
+    if on_full not in ("block", "reject"):
+        raise ValueError(f"on_full must be 'block' or 'reject', "
+                         f"got {on_full!r}")
+    trace = sorted(trace, key=lambda tr: tr[0])
+    t0 = clock()
+    out, i, draining = [], 0, False
+    while i < len(trace) or not front.idle():
+        if not draining and stop is not None and stop():
+            draining = True
+            front.begin_drain()
+        if draining:
+            if front.idle():
+                break
+            out.extend(front.step())
+            continue
+        now = clock() - t0
+        while i < len(trace) and (not realtime or trace[i][0] <= now):
+            if on_offer is not None:
+                on_offer(i)
+            req = trace[i][1]
+            target = front.target(req)
+            # in block mode, do not OFFER a request the queue cannot
+            # take: each refused submit counts as a rejection (a
+            # shedding server answers at once, so it is offered)
+            shedding = (target.brownout is not None
+                        and target.brownout.shedding)
+            if (on_full == "block" and not shedding
+                    and len(target.scheduler.queue)
+                    >= target.scheduler.queue.max_depth):
+                break
+            if front.submit(req):
+                i += 1
+                continue
+            shed = front.poll(req.id)
+            if shed is not None and shed.status == "shed":
+                out.append(shed)
+                i += 1
+            elif on_full == "reject":
+                r = Result(id=req.id, tokens=[], status="rejected")
+                target._results[r.id] = r
+                out.append(r)
+                i += 1
+            else:
+                break
+        if realtime and front.idle() and i < len(trace):
+            # nothing running and the next arrival is in the future
+            time.sleep(min(max(trace[i][0] - (clock() - t0), 0.0),
+                           0.005))
+            continue
+        out.extend(front.step())
+    return out
 
 
 def _head_kernel(params):

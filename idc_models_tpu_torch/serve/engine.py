@@ -92,22 +92,29 @@ picks. The stored per-slot logits stay BASE logits, so prefill and the
 prefix-cache snapshots are shared by every tenant, and a mix of tenants
 is a value of ``_tslot``: no new program, no host sync.
 
+**Rollout and migration**: `spot_check_params` runs candidate weights
+through the live module's own prefill (``torch.func.functional_call``)
+on scratch state, `swap_params` copies them in place, and `export_slot`
+/ `import_slot` move a decoding slot (its caches up to its position, its
+logits, its generator's state and the learned drafter's row) to another
+engine through the normal insert, bit for bit.
+
 Left for later items, each raising NotImplementedError with its label:
-slot export/import (with the drafter's state) and the compile cache
-(A10), partition rules of the target and of the drafter, and meshes of
-several ranks (A9-dist).
+the compile cache (A10), partition rules of the target and of the
+drafter, and meshes of several ranks (A9-dist).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from idc_models_tpu_torch import convert
 from idc_models_tpu_torch.models.lm import (
     Generator, _chunk_batch_forward, _chunk_forward, _lm_from_tree,
     _pad_prompt, _prefill, _serve_config, _token_forward,
-    make_adapter_head_hook, prefill_bucket,
+    make_adapter_head_hook, prefill_bucket, prefill_buckets,
 )
 from idc_models_tpu_torch.observe import trace
 from idc_models_tpu_torch.ring_attention import make_ring_attention
@@ -137,6 +144,12 @@ def _quantize_row(x):
     s = torch.clamp(xf.abs().amax(dim=(0, 1, 3)), min=1e-8) / 127.0
     q = torch.clamp(torch.round(xf / s[None, None, :, None]), -127, 127)
     return q.to(torch.int8), s
+
+
+def _host_tensor(a) -> torch.Tensor:
+    """A snapshot's array as a tensor: a tensor as it is, a numpy array
+    copied (the JAX package's may be read-only)."""
+    return a if torch.is_tensor(a) else torch.from_numpy(np.array(a))
 
 
 def _cut_to_prefix(caches, n_tokens: int):
@@ -170,6 +183,19 @@ class _PendingPrefill:
         self.pages = pages
         self.shared = shared
         self.tid = tid
+
+
+class _Probe(nn.Module):
+    """The live model as the one submodule of a wrapper whose forward
+    runs a given function over it, so ``torch.func.functional_call`` can
+    put candidate tensors in place of its parameters for one call."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, fn):
+        return fn(self.model)
 
 
 class SlotEngine:
@@ -490,9 +516,10 @@ class SlotEngine:
                     f"{what} bank was built with {rows} tenants")
 
     def _upload(self, arr) -> torch.Tensor:
-        """A small host array on the engine's device without a host
-        sync: pinned, and copied non-blocking on the card."""
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+        """A host array (or host tensor) on the engine's device without a
+        host sync: pinned, and copied non-blocking on the card."""
+        t = (arr.contiguous() if torch.is_tensor(arr)
+             else torch.from_numpy(np.ascontiguousarray(arr)))
         if self.device.type != "cuda":
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
@@ -552,11 +579,185 @@ class SlotEngine:
             self._alloc.release(self._slot_pages.pop(slot, []))
             self._alloc_tokens[slot] = 0
 
-    def export_slot(self, slot: int) -> dict:
-        raise later("A10", "slot export for migration")
+    # -- mid-decode slot migration -----------------------------------------
 
-    def import_slot(self, slot: int, snap: dict) -> None:
-        raise later("A10", "slot import for migration")
+    @property
+    def supports_slot_migration(self) -> bool:
+        """True when a running slot can move to a peer engine bit for
+        bit: contiguous float caches only. A paged slot's K/V lives in
+        pages of a shared pool, and int8 rows would quantize again on
+        import."""
+        return not self.paged and not self.kv_int8
+
+    def export_slot(self, slot: int) -> dict:
+        """Snapshot a running slot on the host: its caches' rows cut to
+        its position (`caches`, per block), the last-token logits, its
+        position, budget and stop id, the geometry, the sampling
+        generator's state (`rng_state`, None when greedy) and, with a
+        learned drafter, the drafter's rows cut to its frontier with its
+        pending tokens (`draft`). A peer's `import_slot` resumes the
+        request; the caller releases this slot. Needs the engine
+        dispatch-idle (the scheduler's `quiesce`): with a window in
+        flight the host shadows lag the device by one window."""
+        if not self.supports_slot_migration:
+            raise RuntimeError(
+                "slot export needs a contiguous float-KV engine: paged "
+                "pools have no slot-granular export program and int8 "
+                "rows would re-quantize on import, breaking the "
+                "bit-identity contract — drain this replica to "
+                "completion instead of migrating")
+        if self._pending is not None:
+            raise RuntimeError(
+                "export_slot with a window in flight would snapshot "
+                "post-window caches against pre-window host shadows — "
+                "quiesce() the scheduler first")
+        if not 0 <= slot < self.n_slots:
+            raise ValueError(f"slot {slot} out of range "
+                             f"[0, {self.n_slots})")
+        if not self._occupied[slot]:
+            raise ValueError(f"slot {slot} is not occupied — only a "
+                             f"running request has state to export")
+        p = int(self._pos_h[slot])
+        gen = self._gens[slot]
+
+        def host(t):                 # a copy, also on a CPU engine
+            return t.to("cpu", copy=True)
+
+        snap = {
+            "pos": p,
+            "rem": int(self._rem_h[slot]),
+            "eos": int(self._eos_h[slot]),
+            "num_heads": self._cfg.num_heads,
+            "head_dim": self._cfg.embed_dim // self._cfg.num_heads,
+            "logits": host(self._logits[slot]),
+            # cut to the written positions: the rest of the row is
+            # masked out, and the import's pad writes zeros there
+            "caches": tuple((host(kc[slot:slot + 1, :p]),
+                             host(vc[slot:slot + 1, :p]))
+                            for kc, vc in self._caches),
+            "rng_state": None if gen is None else gen.get_state(),
+        }
+        if self._dmodel is not None:
+            df = int(self._dfront[slot])
+            snap["draft"] = {
+                "front": df,
+                "pend": [int(t) for t in self._dpend[slot]],
+                "num_heads": self._dcfg.num_heads,
+                "head_dim": self._dcfg.embed_dim // self._dcfg.num_heads,
+                "caches": tuple((host(kc[slot:slot + 1, :df]),
+                                 host(vc[slot:slot + 1, :df]))
+                                for kc, vc in self._dcaches),
+            }
+        return snap
+
+    @torch.no_grad()
+    def import_slot(self, slot: int, snap: dict, *, tid: int = 0) -> None:
+        """Adopt an exported snapshot into free `slot` through the normal
+        admission insert: the rows padded back to t_max (zeros past the
+        position, as the source row held), the snapshot's position in
+        place of a prompt length and its remaining budget in place of
+        max_new_tokens, its generator state resuming the sampling stream
+        where the source left it. The resumed decode equals the
+        unmigrated one bit for bit on an engine of the same `n_slots`.
+        `tid` is the request's tenant id here. A snapshot without
+        `rng_state` (the JAX package's, once its key data is dropped)
+        imports into a greedy engine."""
+        if not self.supports_slot_migration:
+            raise RuntimeError(
+                "slot import needs a contiguous float-KV engine (same "
+                "restriction as export_slot) — this replica cannot "
+                "adopt migrated slots")
+        if self._pending is not None:
+            raise RuntimeError(
+                "import_slot with a window in flight — the window "
+                "writes every row it was issued over; quiesce()/collect "
+                "first")
+        if self._occupied[slot] or slot in self._prefills:
+            raise ValueError(f"slot {slot} is not free")
+        pos, rem, eos = int(snap["pos"]), int(snap["rem"]), int(snap["eos"])
+        if rem < 1:
+            raise ValueError(
+                "snapshot has no remaining budget — the request already "
+                "finished; deliver its Result instead of migrating it")
+        if pos < 1 or pos + rem > self.t_max:
+            raise ValueError(
+                f"snapshot position {pos} + remaining budget {rem} does "
+                f"not fit this engine's t_max {self.t_max} — migrate to "
+                f"a replica with a cache at least as long as the source")
+        head_dim = self._cfg.embed_dim // self._cfg.num_heads
+        if (len(snap["caches"]) != self._cfg.num_blocks
+                or snap["num_heads"] != self._cfg.num_heads
+                or snap["head_dim"] != head_dim):
+            raise ValueError(
+                f"snapshot geometry (blocks={len(snap['caches'])}, "
+                f"heads={snap['num_heads']}, head_dim="
+                f"{snap['head_dim']}) does not match this engine "
+                f"(blocks={self._cfg.num_blocks}, "
+                f"heads={self._cfg.num_heads}, head_dim={head_dim}) — "
+                f"slots only migrate between config-identical replicas")
+        dsnap = snap.get("draft")
+        if dsnap is None and self._dmodel is not None:
+            raise ValueError(
+                "snapshot carries no learned-drafter state but this "
+                "engine has a draft_model armed — resuming here would "
+                "propose from an empty drafter cache and silently "
+                "change acceptance; migrate between replicas with the "
+                "same drafter configuration (or export from an engine "
+                "with the drafter armed)")
+        if dsnap is not None and self._dmodel is None:
+            raise ValueError(
+                "snapshot carries learned-drafter state but this "
+                "engine has no draft_model — its frontier and ring "
+                "rows would be dropped and the resumed request would "
+                "stop speculating; migrate between replicas with the "
+                "same drafter configuration")
+        if dsnap is not None:
+            dhd = self._dcfg.embed_dim // self._dcfg.num_heads
+            if (len(dsnap["caches"]) != self._dcfg.num_blocks
+                    or dsnap["num_heads"] != self._dcfg.num_heads
+                    or dsnap["head_dim"] != dhd):
+                raise ValueError(
+                    f"snapshot drafter geometry (blocks="
+                    f"{len(dsnap['caches'])}, heads="
+                    f"{dsnap['num_heads']}, head_dim="
+                    f"{dsnap['head_dim']}) does not match this "
+                    f"engine's draft model (blocks="
+                    f"{self._dcfg.num_blocks}, "
+                    f"heads={self._dcfg.num_heads}, head_dim={dhd}) — "
+                    f"slots only migrate between config-identical "
+                    f"replicas, drafter included")
+        self._check_tid(tid)
+        state = snap.get("rng_state")
+        if self.temperature > 0.0 and state is None:
+            raise ValueError(
+                "this engine samples (temperature > 0) but the snapshot "
+                "carries no generator state — the resumed stream would "
+                "not be the request's; export from a sampling engine")
+        gen = None
+        if state is not None:
+            gen = torch.Generator(device=self.device)
+            try:
+                gen.set_state(_host_tensor(state))
+            except RuntimeError as e:
+                raise ValueError(
+                    f"snapshot generator state does not fit a "
+                    f"{self.device.type} generator ({e}) — a sampled "
+                    f"slot migrates only between engines on the same "
+                    f"kind of device") from e
+        caches1 = self._pad_to_t_max(
+            (_host_tensor(k), _host_tensor(v)) for k, v in snap["caches"])
+        logits1 = _host_tensor(snap["logits"]).reshape(1, -1).to(
+            self.device)
+        self._insert(slot, caches1, logits1, pos, rem, eos, gen, tid)
+        if dsnap is not None:
+            df = int(dsnap["front"])
+            for (dk, dv), (nk, nv) in zip(self._dcaches, dsnap["caches"]):
+                dk[slot] = 0
+                dv[slot] = 0
+                dk[slot, :df] = _host_tensor(nk)[0].to(dk)
+                dv[slot, :df] = _host_tensor(nv)[0].to(dv)
+            self._dfront[slot] = df
+            self._dpend[slot] = [int(t) for t in dsnap["pend"]]
 
     # -- admission --------------------------------------------------------
 
@@ -832,9 +1033,11 @@ class SlotEngine:
             eos_id=eos_id, caches=None, logits=logits, next_start=start,
             tag=tag, pages=pages, shared=len(shared), tid=tid)
 
-    def _paged_chunk(self, slot: int, tokens, start: int, p_end: int):
+    def _paged_chunk(self, slot: int, tokens, start: int, p_end: int,
+                     model=None):
         """One chunk through every block, written straight into the
-        slot's pages: the logits of position p_end - 1."""
+        slot's pages: the logits of position p_end - 1. `model` defaults
+        to the engine's own."""
         pt_row = self._pt[slot:slot + 1]
 
         def fold(i, kp, vp, q, k, v, start, p_end):
@@ -842,9 +1045,10 @@ class SlotEngine:
                                     *(self._scales[i] if self.kv_int8
                                       else ()))[:3]
 
-        logits, _ = _chunk_forward(self._cfg, self._model, self._caches,
-                                   tokens.to(self.device), start, p_end,
-                                   fold)
+        logits, _ = _chunk_forward(self._cfg,
+                                   self._model if model is None else model,
+                                   self._caches, tokens.to(self.device),
+                                   start, p_end, fold)
         return logits
 
     @torch.no_grad()
@@ -1388,12 +1592,9 @@ class SlotEngine:
                 f"'garbage_logits', got {kind!r}") from None
         self._logits[slot] = val
 
-    def swap_params(self, params) -> None:
-        """Hot-swap the serving weights. The candidate tree must match
-        the live one leaf for leaf in name, shape and dtype. The weights
-        are copied in place on the stream, so an in-flight window reads
-        the old ones and the next the new; running slots keep their
-        caches."""
+    def _check_candidate(self, params) -> None:
+        """Refuse a candidate tree that does not match the live one leaf
+        for leaf in name, shape and dtype."""
         live = {n.replace(".", "/"): (tuple(p.shape),
                                       str(p.dtype).removeprefix("torch."))
                 for n, p in self._model.named_parameters()}
@@ -1411,8 +1612,78 @@ class SlotEngine:
                 f"{[(n, live[n], cand[n]) for n in diff]} — a rollout "
                 f"swaps WEIGHTS, not architectures; rebuild the server "
                 f"for a different model")
+
+    def swap_params(self, params) -> None:
+        """Hot-swap the serving weights. The candidate tree must match
+        the live one leaf for leaf in name, shape and dtype. Each weight
+        is copied in place from pageable host memory on the current
+        stream, so the copy lands after a window already in flight
+        (which reads the old weights) and before the next (which reads
+        the new); the call returns once the copies are done. Running
+        slots keep their caches."""
+        self._check_candidate(params)
         with torch.no_grad():
             convert.load_jax(self._model, params)
+
+    @torch.no_grad()
+    def spot_check_params(self, params) -> dict:
+        """Greedy spot-check of CANDIDATE weights through the live
+        model's own prefill path, its parameters replaced for the one
+        call by ``torch.func.functional_call`` (no second model is
+        built), on scratch state: no live slot, cache row or logit
+        changes. The contiguous engine prefills zeros at the smallest
+        bucket (the flash kernel's, 128, with ``block_impl="pallas"``)
+        or one chunk into a fresh one-row cache; the paged engine runs
+        the warmup's no-op chunk (p_end 0) through slot 0's table row,
+        every write landing in the sink page, so it needs the engine
+        dispatch-idle (the scheduler's `quiesce`). Returns {"ok", "code",
+        "max_abs"}, codes as `slot_health`'s: 0 healthy, 1 non-finite
+        logits, 2 finite past the magnitude bound (1e30). The staging
+        gate of a rollout: bad weights are caught before a request is
+        routed onto them. On the card the candidate goes up through
+        pinned memory and the verdict comes back behind an event, so a
+        check on a dispatch-idle engine makes no other host sync."""
+        if self.paged and self._pending is not None:
+            raise RuntimeError(
+                "spot_check_params on a paged engine needs the "
+                "in-flight dispatch collected first (the pool "
+                "caches were donated to it) — call the "
+                "scheduler's quiesce() and retry")
+        self._check_candidate(params)
+        cand = {f"model.{path.replace('/', '.')}": self._upload(a)
+                for path, a in convert.flatten(params).items()}
+        c = self.prefill_chunk
+        zeros = torch.zeros((1, c or 1), dtype=torch.long,
+                            device=self.device)
+        if self.paged:
+            def run(model):
+                return self._paged_chunk(0, zeros, 0, 0, model)
+        elif c is not None:
+            def run(model):
+                return _chunk_forward(
+                    self._cfg, model, self._gen.init_caches(1), zeros, 0,
+                    c, lambda i, *a: self._gen._chunk_fold(*a))[0]
+        else:
+            b = max(prefill_buckets(self.t_max, 1)[0],
+                    min(self._min_bucket, self.t_max))
+
+            def run(model):
+                return _prefill(self._cfg, model, self._gen._ring,
+                                torch.zeros((1, b), dtype=torch.long,
+                                            device=self.device), b)[0]
+        logits = torch.func.functional_call(_Probe(self._model), cand,
+                                            (run,))
+        host, event = self._fetch_async(logits.double())
+        if event is not None:
+            event.synchronize()
+        row = host.numpy()
+        fin = np.isfinite(row)
+        max_abs = float(np.max(np.abs(row[fin])) if fin.any() else np.inf)
+        if not fin.all():
+            return {"ok": False, "code": 1, "max_abs": max_abs}
+        if max_abs > _HEALTH_LOGIT_LIMIT:
+            return {"ok": False, "code": 2, "max_abs": max_abs}
+        return {"ok": True, "code": 0, "max_abs": max_abs}
 
     def swap_adapters(self, u, v) -> None:
         """Hot-swap the per-tenant adapter bank: u [T, V, r] and v

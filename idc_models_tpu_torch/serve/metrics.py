@@ -14,9 +14,11 @@ hooks take ``tenant=`` and also keep tenant-labelled series, the
 ``serve_tenant_finish`` / ``serve_tenant_shed`` /
 ``serve_tenant_quota_reject`` events and ``summary()["serve_tenants"]``;
 without one the registry and every record keep their untenanted shape.
-The rollout and compile-cache hooks come with their items (ROADMAP A10,
-A11), and until then their summary keys hold the values a server without
-them reports. Eager PyTorch compiles no serving program, so
+`on_rollout` takes the weight rollout's transitions
+(``checkpoint/rollout.py``): the stage gauge, the terminal outcomes and
+the ``serve_rollout`` event. The compile-cache hook comes with its item
+(ROADMAP A10), and until then its summary key holds what a server
+without one reports. Eager PyTorch compiles no serving program, so
 `serve_compiles_observed` is 0.
 """
 
@@ -132,6 +134,18 @@ class ServingMetrics:
             "serve_page_exhaustions_total",
             "cycles the paged engine refused work for lack of free "
             "pages (admission gate or mid-decode growth)")
+        # the weight rollout: terminal outcomes and the stage an operator
+        # watches during a canary
+        self._m_rollouts = reg.counter(
+            "serve_rollouts_total",
+            "weight rollouts by terminal outcome: 'promoted' (canary "
+            "healthy, live weights swapped) or 'rolled_back' (staging "
+            "spot-check or canary SLO comparison failed)",
+            labels=("outcome",))
+        self._m_rollout_stage = reg.gauge(
+            "serve_rollout_stage_code",
+            "current rollout stage: 0 idle, 1 staging, 2 canary, "
+            "3 promoted, 4 rolled_back")
         # tenant-labelled instruments, registered only with tenancy so
         # an untenanted server's /metrics stays as it was
         if tenancy is not None:
@@ -171,6 +185,9 @@ class ServingMetrics:
         self.tenant_tokens: dict[str, int] = {}
         self.tenant_shed: dict[str, int] = {}
         self.tenant_quota_rejections: dict[str, int] = {}
+        # the rollout's last stage and its terminal outcomes
+        self.rollout_stage: str | None = None
+        self.rollout_outcomes: list[str] = []
         self.kv_pages_total: int | None = None
         self.kv_pages_used_peak = 0
         self.kv_resident_tokens_peak = 0
@@ -360,6 +377,28 @@ class ServingMetrics:
         self._m_faults_injected.inc(kind=kind)
         self._log(event="serve_fault_injected", kind=kind, tick=tick)
 
+    # -- weight rollout ---------------------------------------------------
+
+    def on_rollout(self, *, stage: str, outcome: str | None = None,
+                   canary_requests: int = 0,
+                   reason: str | None = None) -> None:
+        """One transition of the rollout's state machine (staging ->
+        canary -> promoted | rolled_back, ``checkpoint/rollout.py``).
+        `outcome` is set on the terminal transitions only; `reason`
+        explains a rollback."""
+        codes = {"idle": 0, "staging": 1, "canary": 2, "promoted": 3,
+                 "rolled_back": 4}
+        if stage not in codes:
+            raise ValueError(f"unknown rollout stage {stage!r} "
+                             f"(one of {sorted(codes)})")
+        self.rollout_stage = stage
+        self._m_rollout_stage.set(codes[stage])
+        if outcome is not None:
+            self.rollout_outcomes.append(outcome)
+            self._m_rollouts.inc(outcome=outcome)
+        self._log(event="serve_rollout", stage=stage, outcome=outcome,
+                  canary_requests=canary_requests, reason=reason)
+
     # -- paged KV ---------------------------------------------------------
 
     def on_pages(self, *, pages_total: int, pages_used: int,
@@ -527,10 +566,12 @@ class ServingMetrics:
                 None if self.kv_tokens_per_byte_peak is None
                 else round(self.kv_tokens_per_byte_peak, 6)),
             "serve_page_exhaustions": self.page_exhaustions,
-            # hot weight rollout (A11)
-            "serve_rollouts": 0,
-            "serve_rollout_outcome": None,
-            "serve_rollout_stage": None,
+            # the weight rollout: terminal outcomes, the last one, and
+            # the stage the machine is in (0 / None without a rollout)
+            "serve_rollouts": len(self.rollout_outcomes),
+            "serve_rollout_outcome": (self.rollout_outcomes[-1]
+                                      if self.rollout_outcomes else None),
+            "serve_rollout_stage": self.rollout_stage,
         }
         if self.tenancy is not None:
             # one record per REGISTERED tenant, zeros included

@@ -63,7 +63,12 @@ opinion on which request runs where or when; this module is the policy:
   ``ttft:<name>`` SLO. The per-tenant counts are derived from the live
   queue and slot dicts each time, never kept incrementally.
 
-Drain-and-migrate (A10) comes with its item.
+- **Drain and migration** -- `quiesce` runs one cycle without the
+  end-of-tick dispatch, leaving the engine dispatch-idle (the point a
+  paged spot-check or a slot export needs). `begin_drain` stops
+  admission for good (a submit then sheds); `export_running` lifts a
+  decoding request's slot for a peer's `import_running`, and
+  `drain_pending` hands back what never reached a slot.
 """
 
 from __future__ import annotations
@@ -254,6 +259,11 @@ class Scheduler:
         self._cycle = 0
         self._prefill_error_pending = 0
         self._closed = False
+        # drain mode: submits shed while accepted work finishes or moves
+        # off (begin_drain)
+        self._draining = False
+        # quiesce(): suppress this cycle's end-of-tick dispatch
+        self._skip_dispatch = False
         self.admit_after_collect = admit_after_collect
         self.clock = clock
         self._running: dict[int, Entry] = {}
@@ -318,8 +328,11 @@ class Scheduler:
         # the queue is consulted so that shedding relieves the queue; the
         # tenant's own controller sheds that tenant alone
         tenant_shed = tenant_bc is not None and tenant_bc.shedding
-        if (self.brownout is not None and self.brownout.shedding
-                or tenant_shed):
+        # drain mode sheds exactly like a brownout: a server that is
+        # leaving refuses honestly instead of queueing
+        shedding = self._draining or (self.brownout is not None
+                                      and self.brownout.shedding)
+        if shedding or tenant_shed:
             entry.status, entry.finish_reason = "shed", "shed"
             entry.t_done = entry.t_submit
             if entry.trace_id is None:
@@ -636,6 +649,19 @@ class Scheduler:
         with trace.span("serve.tick"):
             return self._tick()
 
+    def quiesce(self) -> list[Entry]:
+        """One normal cycle with the end-of-tick dispatch suppressed: the
+        in-flight window is collected and finalized as `tick` would, and
+        nothing new is issued, so the engine is left dispatch-idle (the
+        point a paged engine's `spot_check_params` and `export_slot`
+        need). The next `tick` dispatches again."""
+        self._skip_dispatch = True
+        try:
+            with trace.span("serve.tick", quiesce=True):
+                return self._tick()
+        finally:
+            self._skip_dispatch = False
+
     def _tick(self) -> list[Entry]:
         now = self.clock()
         done: list[Entry] = []
@@ -760,7 +786,7 @@ class Scheduler:
         #    window, or (speculative mode, when the drafter proposed and
         #    every running slot has verify room) one verify
         occupancy = len(self._running) / self.engine.n_slots
-        if self._running:
+        if self._running and not self._skip_dispatch:
             try:
                 proposal = (self._propose_drafts(got) if self._spec
                             else None)
@@ -915,6 +941,97 @@ class Scheduler:
         while not self.idle():
             done.extend(self.tick())
         return done
+
+    # -- drain and migration ----------------------------------------------
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    def begin_drain(self) -> None:
+        """Stop admitting for good: every later submit is refused with
+        the terminal ``shed`` status, while what was accepted ticks to
+        its end unless moved off first (`drain_pending`,
+        `export_running`)."""
+        self._draining = True
+
+    def running_ids(self) -> list:
+        """Ids of the requests decoding in a slot (not queued, not
+        prefilling): what `export_running` can move."""
+        return [e.rid for e in self._running.values()]
+
+    def export_running(self, rid):
+        """Detach one decoding request for migration: ``(entry,
+        snapshot)``, the Entry itself (tokens, timestamps, spans and
+        identity travel with it) and its slot's `SlotEngine.export_slot`.
+        The slot is released without finishing the entry: no Result, and
+        nothing journaled -- this journal's open submit covers the gap
+        until the caller records the ``migrated`` finish once a peer's
+        import has landed. Needs the engine dispatch-idle (`quiesce`)."""
+        for slot, e in self._running.items():
+            if e.rid == rid:
+                break
+        else:
+            raise ValueError(f"request {rid!r} is not running here — "
+                             f"only decoding slots export "
+                             f"(running_ids() lists them)")
+        snap = self.engine.export_slot(slot)
+        del self._running[slot]
+        self.engine.release(slot)
+        e.slot = None
+        return e, snap
+
+    def import_running(self, entry: Entry, snap: dict) -> bool:
+        """The peer half of a migration: claim a free slot, insert the
+        snapshot (`SlotEngine.import_slot`) and adopt the entry as
+        running; it decodes from this scheduler's next window. False,
+        consuming nothing, when this scheduler is closed, draining or has
+        no free slot. On success the request is journaled here as a
+        normal submit (its deadline made relative), so a crash after this
+        point recovers it from this journal."""
+        if self._closed or self._draining:
+            return False
+        free = self.engine.free_slots()
+        if not free:
+            return False
+        slot = free[0]
+        self.engine.import_slot(slot, snap, tid=entry.tid)
+        entry.slot = slot
+        entry.status = "running"
+        self._running[slot] = entry
+        if self.journal is not None:
+            deadline_rel = (None if entry.deadline is None else
+                            max(entry.deadline - self.clock(), 0.0))
+            self.journal.record_submit(entry, deadline_s=deadline_rel)
+        return True
+
+    def drain_pending(self) -> list[Entry]:
+        """Take everything accepted but not yet decoding -- the queue,
+        the retry waiters and the chunked prefills in progress (their
+        partial chunks dropped: a prefill from the prompt elsewhere gives
+        the same stream) -- for placement on another server. Each entry
+        goes back to pending with no slot and its spans closed
+        ``migrated``."""
+        out: list[Entry] = []
+        while len(self.queue):
+            out.append(self.queue.pop())
+        out.extend(self._retrying)
+        self._retrying = []
+        for slot, e in list(self._prefilling.items()):
+            self.engine.cancel_prefill(slot)
+            del self._prefilling[slot]
+            out.append(e)
+        for e in out:
+            e.status, e.slot = "pending", None
+            e.tokens = []
+            e.t_first = None
+            if e.queue_span is not None:
+                e.queue_span.close(migrated=True)
+                e.queue_span = None
+            if e.span is not None:
+                e.span.close(status="migrated", reason="drain")
+                e.span = None
+        return out
 
     def pop_failed(self) -> list[Entry]:
         """Entries finalized by a tick that raised, since the last call:

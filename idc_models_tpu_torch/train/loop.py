@@ -206,7 +206,9 @@ def fit(state: TrainState, loss_fn, train_ds, val_ds: ArrayDataset | None,
     `mesh` makes the loop data-parallel: each rank trains on its rows of
     every batch (``train.step.make_train_step``), under the layout
     `place_state` gave `state` (a ``ShardedOptimizer`` stores the
-    parameters and moments by rule); rank 0 saves the checkpoints."""
+    parameters and moments by rule); rank 0 saves the checkpoints, the
+    moments gathered whole from every rank's blocks, and a resume cuts
+    them into blocks again by the same rules."""
     model = state.model
     device = _model_device(model)
     sharded = isinstance(state.optimizer, ShardedOptimizer)
@@ -215,10 +217,6 @@ def fit(state: TrainState, loss_fn, train_ds, val_ds: ArrayDataset | None,
             "central_storage broadcasts a host-resident replica each "
             "step and cannot keep a model-sharded layout; drop model "
             "parallelism or central_storage")
-    if sharded and checkpoint_dir is not None:
-        raise NotImplementedError(
-            "resumable checkpoints of a rule-sharded optimizer state "
-            "wait for the sharded checkpoints (ROADMAP A11)")
     step = make_train_step(state, loss_fn, mesh=mesh)
     if isinstance(train_ds, ArrayDataset):
         loader = Loader(train_ds, batch_size, shuffle=True, seed=seed,
@@ -315,11 +313,15 @@ def fit(state: TrainState, loss_fn, train_ds, val_ds: ArrayDataset | None,
                 print(f"epoch {epoch + 1}/{epochs} {msg}")
             if logger is not None:
                 logger.log(event="epoch", epoch=epoch, **ep)
-            if checkpoint_dir is not None and collectives.is_writer() and (
+            if checkpoint_dir is not None and (
                     (epoch + 1) % max(checkpoint_every, 1) == 0
                     or epoch + 1 == epochs):
-                _save_fit_checkpoint(checkpoint_dir, state, history,
-                                     epoch + 1, fingerprint)
+                # every rank builds the tree (a sharded optimizer gathers
+                # its blocks); rank 0 writes it
+                tree = _fit_state_tree(state)
+                if collectives.is_writer():
+                    _save_fit_checkpoint(checkpoint_dir, tree, history,
+                                         epoch + 1, fingerprint)
     finally:
         if store is not None:
             store.to_device()      # the caller gets its model back on its card
@@ -342,14 +344,32 @@ def _fit_fingerprint(model: nn.Module, seed: int, batch_size: int,
     return h.hexdigest()
 
 
+def _sharded_moments(opt: ShardedOptimizer):
+    """(parameter, its block, its sharding) for each parameter a
+    `ShardedOptimizer` trains, in its order."""
+    params = [p for g in opt.param_groups for p in g["params"]]
+    return zip(params, opt.blocks, opt._shardings)
+
+
 def _fit_state_tree(state: TrainState) -> dict:
     """The resumable state as one JAX-layout tree: parameters, buffers,
     each trained parameter's optimizer state under its own path, and
-    the step count."""
-    names = {id(p): n for n, p in state.model.named_parameters()}
+    the step count. A `ShardedOptimizer`'s moments are gathered whole
+    from every rank's blocks (a collective: every rank calls this)."""
+    names = {id(p): n.replace(".", "/")
+             for n, p in state.model.named_parameters()}
     params, buffers = convert.to_jax(state.model)
-    opt = {f"{names[id(p)].replace('.', '/')}/{k}": v
-           for p, s in state.optimizer.state.items() for k, v in s.items()}
+    optim = state.optimizer
+    if isinstance(optim, ShardedOptimizer):
+        opt = {}
+        for p, b, sh in _sharded_moments(optim):
+            for k, v in optim.inner.state.get(b, {}).items():
+                if torch.is_tensor(v) and v.shape == b.shape:
+                    v = meshlib.gather_block(v, sh)
+                opt[f"{names[id(p)]}/{k}"] = v
+    else:
+        opt = {f"{names[id(p)]}/{k}": v
+               for p, s in optim.state.items() for k, v in s.items()}
     return {"params": params, "state": buffers,
             "opt": convert.unflatten(opt), "step": np.int64(state.step)}
 
@@ -373,13 +393,28 @@ def _load_fit_state(state: TrainState, tree: dict) -> None:
                              f"train")
         per_param.setdefault(order[id(p)], {})[key] = torch.from_numpy(
             np.array(v))
-    sd = state.optimizer.state_dict()
-    sd["state"] = per_param
-    state.optimizer.load_state_dict(sd)
+    optim = state.optimizer
+    if isinstance(optim, ShardedOptimizer):
+        # each rank takes its blocks of the restored parameters and of
+        # their block-shaped moments, by the rules that cut them
+        blocks = list(_sharded_moments(optim))
+        for i, (p, b, sh) in enumerate(blocks):
+            b.copy_(meshlib.put_with_sharding(p.detach(), sh))
+            for k, v in per_param.get(i, {}).items():
+                if v.shape == p.shape:
+                    per_param[i][k] = meshlib.put_with_sharding(v, sh)
+        sd = optim.inner.state_dict()
+        sd["state"] = per_param
+        optim.inner.load_state_dict(sd)
+        optim.state = optim.inner.state
+    else:
+        sd = optim.state_dict()
+        sd["state"] = per_param
+        optim.load_state_dict(sd)
     state.step = int(tree["step"])
 
 
-def _save_fit_checkpoint(ckpt_dir, state: TrainState, history: History,
+def _save_fit_checkpoint(ckpt_dir, tree: dict, history: History,
                          next_epoch: int, fingerprint: str) -> None:
     """Commit protocol: the epoch-versioned state lands first, then
     meta.json is atomically renamed to point at it, then older states are
@@ -388,7 +423,7 @@ def _save_fit_checkpoint(ckpt_dir, state: TrainState, history: History,
     interrupted epoch."""
     d = Path(ckpt_dir)
     name = f"state_e{next_epoch}"
-    checkpoint.save_checkpoint(d / name, _fit_state_tree(state))
+    checkpoint.save_checkpoint(d / name, tree)
     tmp = d / "meta.json.tmp"
     tmp.write_text(json.dumps({"epoch": next_epoch, "state": name,
                                "fingerprint": fingerprint,

@@ -1774,3 +1774,138 @@ def test_tenanted_window_makes_no_host_sync_on_the_card(cuda):
         torch.cuda.set_sync_debug_mode("default")
     server.drain()
     assert server.summary()["serve_tenants"]["t1"]["requests"] == 1
+
+
+# -- phase 17: weight rollout and the one-server drain ----------------------
+
+
+def _card_candidate():
+    """The card LM's seed-1 weights as a host tree: the rollout's
+    candidate."""
+    from idc_models_tpu_torch import convert
+    from idc_models_tpu_torch.models.lm import AttentionLM
+
+    return convert.to_jax(core.init_params(AttentionLM(
+        64, 256, embed_dim=128, num_heads=4, mlp_dim=256, num_blocks=2),
+        1))[0]
+
+
+def test_swap_params_is_ordered_behind_the_window_in_flight(cuda):
+    """swap_params issued while a 32-step window of 4 slots is still on
+    the card: that window's tokens are the old weights' (an engine that
+    swapped after collecting), and the next window's the new ones'."""
+    import numpy as np
+
+    from idc_models_tpu_torch.serve import SlotEngine
+
+    model, kw = _card_lm()
+    cand = _card_candidate()
+    a, b = (SlotEngine(model, n_slots=4, **kw) for _ in range(2))
+    rng = np.random.default_rng(4)
+    for s in range(4):
+        p = rng.integers(0, 64, 20)
+        a.admit(s, p, 100)
+        b.admit(s, p, 100)
+    torch.cuda.synchronize()
+    a.begin_window(32)
+    a.swap_params(cand)
+    first = a.collect()
+    assert first == b.step_window(32)
+    b.swap_params(cand)
+    second = a.step_window(32)
+    assert second == b.step_window(32)
+    assert first != second
+
+
+def test_pallas_spot_check_launches_b3_twice_and_touches_nothing(cuda):
+    """A pallas bf16 server mid-request: a spot-check launches the flash
+    update kernel twice (its prefill at the 128 bucket, one a block) and
+    leaves every cache row, logit, position and budget bit-equal."""
+    from idc_models_tpu_torch.observe import MetricsRegistry
+    from idc_models_tpu_torch.serve import LMServer, Request
+
+    model, kw = _card_lm()
+    kw = dict(kw, cache_dtype=torch.bfloat16, block_impl="pallas")
+    server = LMServer(model, n_slots=2, window=4,
+                      registry=MetricsRegistry(), **kw)
+    # a pallas prefill takes buckets of at least 128 (the kernel's tile)
+    server.submit(Request(id="a", prompt=tuple(i % 63 + 1
+                                               for i in range(130)),
+                          max_new_tokens=30))
+    server.step()
+    server.quiesce()
+    eng = server.engine
+    state = [t.clone() for pair in eng._caches for t in pair] + [
+        eng._logits.clone(), eng._pos.clone(), eng._rem.clone()]
+    torch.cuda.synchronize()
+    before = fbk.KERNELS[0].launches
+    check = eng.spot_check_params(_card_candidate())
+    torch.cuda.synchronize()
+    assert check["ok"] and fbk.KERNELS[0].launches - before == 2
+    after = [t for pair in eng._caches for t in pair] + [
+        eng._logits, eng._pos, eng._rem]
+    assert all(torch.equal(x, y) for x, y in zip(state, after))
+    server.drain()
+    assert server.poll("a").status == "ok"
+
+
+def test_sampled_slot_migrates_between_card_engines_bit_for_bit(cuda):
+    """A sampled request exported after one window and imported into
+    another card engine's other slot (its CUDA generator's state in the
+    snapshot) equals the same request unmigrated, bit for bit."""
+    import numpy as np
+
+    from idc_models_tpu_torch.serve import SlotEngine
+
+    model, kw = _card_lm()
+    kw = dict(kw, temperature=0.8, top_k=20)
+    src, dst, ref = (SlotEngine(model, n_slots=4, **kw) for _ in range(3))
+    prompt = np.random.default_rng(6).integers(0, 64, 30)
+    for eng in (src, ref):
+        eng.admit(2, prompt, 40, rng=11)
+    moved = src.step_window(8)[2]
+    stay = ref.step_window(8)[2]
+    snap = src.export_slot(2)
+    src.release(2)
+    dst.import_slot(0, snap)
+    while dst._occupied[0] and dst._rem_h[0] > 0:
+        moved += dst.step_window(8)[0]
+    while ref._occupied[2] and ref._rem_h[2] > 0:
+        stay += ref.step_window(8)[2]
+    assert len(moved) == 40 and moved == stay
+
+
+def test_paged_spot_check_after_quiesce_makes_no_host_sync(cuda):
+    """A paged server mid-burst, quiesced: its spot-check runs under
+    CUDA's sync debug mode "error" (the candidate goes up pinned, the
+    verdict comes back behind an event), and leaves the grantable pages
+    and the page table bit-equal."""
+    from idc_models_tpu_torch.observe import MetricsRegistry
+    from idc_models_tpu_torch.serve import LMServer
+
+    model, kw = _card_lm()
+    server = LMServer(model, n_slots=4, window=4, prefill_chunk=32,
+                      kv_page_size=16, kv_pages=40,
+                      registry=MetricsRegistry(), **kw)
+    for r in _res_requests(4, 20, 60, 30, 12):
+        server.submit(r)
+    for _ in range(3):
+        server.step()
+    server.quiesce()
+    eng = server.engine
+    assert eng._pending is None and eng._slot_pages
+    pools = [t[:-1].clone() for pair in eng._caches for t in pair]
+    table = eng._pt.clone()
+    cand = _card_candidate()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        check = eng.spot_check_params(cand)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert check["ok"]
+    assert all(torch.equal(p, t[:-1]) for p, t in zip(
+        pools, (t for pair in eng._caches for t in pair)))
+    assert torch.equal(table, eng._pt)
+    server.drain()
+    assert all(r.status == "ok" for r in server.results())

@@ -260,8 +260,15 @@ def test_admit_rejections_and_later_items():
             u=wrong, v=wrong.transpose(0, 2, 1), rank=3, vocab=VOCAB + 1))
     with pytest.raises(NotImplementedError, match="A9-dist"):
         _engine(partition_rules=object())
-    with pytest.raises(NotImplementedError, match="A10"):
-        eng.export_slot(0)
+    # slot export teaches as JAX's does: only a running slot has state,
+    # and only a contiguous float-KV engine can move it bit for bit
+    with pytest.raises(ValueError, match="not occupied"):
+        _engine(n_slots=1).export_slot(0)
+    with pytest.raises(RuntimeError, match="contiguous float-KV"):
+        _engine(n_slots=1, kv_dtype="int8").export_slot(0)
+    with pytest.raises(RuntimeError, match="contiguous float-KV"):
+        _engine(n_slots=1, prefill_chunk=8, kv_page_size=4,
+                kv_pages=16).export_slot(0)
     with pytest.raises(ValueError, match="without a learned drafter"):
         _server(spec_decode=True, draft_partition_rules=object(),
                 warmup=False)
