@@ -242,12 +242,13 @@ non-zero before the result line:
    through `fit` from the target's greedy streams of that length, saved
    and loaded through the sharded checkpoint bit for bit, its host
    drafts scored on held-out streams, then served alone and behind the
-   n-gram lookup on a burst of held-out stream prefixes at t_max 1,024
-   against the serial reference there (B3 96: its own prefill takes the
-   flash kernel too), the drafting passes read from the `serve.propose`
-   spans (one propose program each, its backlog ingests beside); (s6)
-   the `serve` verb with --spec-decode, then --drafter chained --draft-ckpt
-   --save-ckpt, the saved parameters restored bit for bit; (s7)
+   n-gram lookup on a burst of 12 held-out stream prefixes at t_max
+   1,024 against the serial reference there (B3 48: its own prefill
+   takes the flash kernel too), the drafting passes read from the
+   `serve.propose` spans (one propose program each, its backlog ingests
+   beside); (s6) the `serve` verb with --spec-decode, then, over 8
+   requests, --drafter chained --draft-ckpt --save-ckpt, the saved
+   parameters restored bit for bit; (s7)
    `cli.main(["profile", "--model", "serve"])`, both windows timed and
    `lm.verify` and `serve.propose` filed;
 15. resilience -- right after spec, the fault plan, the request journal
@@ -316,10 +317,34 @@ non-zero before the result line:
    and between CUDA events, a spot-check, `canary_clone`, and the window
    step at 8 live slots before and after a promotion;
 
+18. cluster -- right after rollout, the serving cluster at phase 12's
+   width (seed-0 weights), every replica phase 12's pallas server on the
+   one card, each run with the launch counts set to 0 just before and
+   read just after, B3 held to two launches a pallas prefill (an
+   admission or a replica's warmup): (c1) two mixed replicas behind
+   `Router.run` over phase 12's burst: one ok Result an id, placements
+   over both, tokens held under the contract to phase 12's serial
+   references; (c2) the kill drill over journals, r0 killed after 4
+   router steps: every request ok, each migrated one equal to (c1)'s,
+   one trace id each across both journals, the re-admissions' B3; (c3)
+   (o5)'s 4 greedy and 4 sampled requests moved live off a draining
+   replica, each equal to its unmigrated run, the snapshots' bytes and
+   export and import ms; (c4) one prefill and two decode replicas,
+   chunked, over a prefix registry, 8 requests sharing a 4,096-token
+   system prompt: a handoff a request, registry hits, the system
+   prompt's chunks run once, tokens equal to a chunked single server's,
+   no B3, a published and an adopted snapshot's bytes and ms; (c5) the
+   autoscaler on a manual clock, up then down, the scale-down's moved
+   slot equal to its unmigrated run; (c6) `serve-cluster` with the kill
+   drill, journals, the fleet /metrics and /healthz scraped once each and
+   the watchdog; (c7) the router's own host ms a step beside the
+   replicas';
+
 then one JSON line of per-kernel numbers (B3's row carries its launches
 of each phase-14 run in `launches_spec`, of each phase-15 run in
-`launches_resilience`, of each phase-16 run in `launches_tenancy` and of
-each phase-17 run in `launches_rollout`),
+`launches_resilience`, of each phase-16 run in `launches_tenancy`, of
+each phase-17 run in `launches_rollout` and of each phase-18 run in
+`launches_cluster`),
 and the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}`.
 """
@@ -1887,8 +1912,9 @@ def serve_times(torch, fbk, server, gen, card: str) -> float:
 
 def serve_cli(torch, fc, smk, fbk, card: str, name: str = "(k5)",
               flags=(), ready=lambda health: True, lines_wanted=(),
-              metrics_wanted=(b"serve_requests_submitted_total",)) -> tuple:
-    """`cli.main(["serve", ...])` at the serving width, 16 requests,
+              metrics_wanted=(b"serve_requests_submitted_total",),
+              requests: int = 16) -> tuple:
+    """`cli.main(["serve", ...])` at the serving width, `requests` requests,
     --metrics-port 0, --realtime, plus `flags`: one scrape of /healthz
     once the scheduler has ticked and `ready(health)` holds, then one of
     /metrics, while it serves; every request ok, the output lines
@@ -1907,7 +1933,7 @@ def serve_cli(torch, fc, smk, fbk, card: str, name: str = "(k5)",
             "--mlp-dim", str(LM["mlp_dim"]), "--num-blocks",
             str(LM["num_blocks"]), "--t-max", str(SERVE_CLI_T_MAX),
             "--slots", str(SERVE_SLOTS), "--window", str(SERVE_WINDOW),
-            "--requests", "16", "--realtime", "--metrics-port", "0",
+            "--requests", str(requests), "--realtime", "--metrics-port", "0",
             *flags]
     out, rc = io.StringIO(), []
 
@@ -1947,7 +1973,7 @@ def serve_cli(torch, fc, smk, fbk, card: str, name: str = "(k5)",
     if worker.is_alive() or rc != [0]:
         raise SystemExit(f"serve verb {name}: rc {rc}, still running "
                          f"{worker.is_alive()}")
-    for want in ("served: ok=16 ", *lines_wanted):
+    for want in (f"served: ok={requests} ", *lines_wanted):
         if not any(line.startswith(want) for line in lines):
             raise SystemExit(f"serve verb {name}: no line {want!r}")
     health = json.loads(scraped.get("/healthz", (0, b"{}"))[1] or b"{}")
@@ -2358,13 +2384,16 @@ def paged_path(torch, fc, smk, fbk, card: str, memo: dict) -> None:
 # serves an engine of that t_max, where it has been trained at every
 # position. DISTILL_PROMPTS seed-1 prompts of DISTILL_PROMPT tokens:
 # the first DISTILL_TRAIN streams distil for DISTILL_EPOCHS epochs, the
-# rest are held out; (s5)'s burst is SERVE_N prefixes of the held-out
-# streams, SPEC_PREFIX tokens long, with SPEC_BUDGETS budgets
+# rest are held out; (s5)'s burst is SPEC_LEARNED_N prefixes of the
+# held-out streams, SPEC_PREFIX tokens long, with SPEC_BUDGETS budgets,
+# and (s6) chained's verb serves SPEC_CHAINED_CLI_N requests (both cut
+# from 24 and 16 in PR 19, to keep the script inside its time limit)
 SPEC_K = 8
 SPEC_T_MAX = SERVE_CLI_T_MAX
 DISTILL_PROMPTS, DISTILL_PROMPT, DISTILL_TRAIN = 24, 16, 16
 DISTILL_EPOCHS = 8
 SPEC_PREFIX, SPEC_BUDGETS = (128, 512), (16, 128)
+SPEC_LEARNED_N, SPEC_CHAINED_CLI_N = 12, 8
 
 
 def spec_stats(summary: dict) -> str:
@@ -2443,7 +2472,7 @@ def distill_drafter(torch, model, card: str, out: Path):
     saved with save_draft_lm and loaded back (its tree and its host
     proposals equal before and after), and its host drafts scored
     against the held-out streams at the burst's cut points. Returns (the
-    loaded DraftLM, the burst: SERVE_N held-out prefixes at arrival 0)."""
+    loaded DraftLM, the burst: SPEC_LEARNED_N held-out prefixes at arrival 0)."""
     from idc_models_tpu_torch import convert
     from idc_models_tpu_torch.models import draft_lm as tdlm
     from idc_models_tpu_torch.models.lm import AttentionLM
@@ -2478,8 +2507,9 @@ def distill_drafter(torch, model, card: str, out: Path):
                                       after.propose(held[0, :100])):
         raise SystemExit("spec (s5): the drafter did not come back from "
                          "its checkpoint bit for bit")
-    cuts = rng.integers(SPEC_PREFIX[0], SPEC_PREFIX[1] + 1, SERVE_N)
-    budgets = rng.integers(SPEC_BUDGETS[0], SPEC_BUDGETS[1] + 1, SERVE_N)
+    cuts = rng.integers(SPEC_PREFIX[0], SPEC_PREFIX[1] + 1, SPEC_LEARNED_N)
+    budgets = rng.integers(SPEC_BUDGETS[0], SPEC_BUDGETS[1] + 1,
+                           SPEC_LEARNED_N)
     burst, agree, seen = [], [], []
     for i, (cut, budget) in enumerate(zip(cuts, budgets)):
         row, trained = held[i % len(held)], streams[i % DISTILL_TRAIN]
@@ -2494,7 +2524,8 @@ def distill_drafter(torch, model, card: str, out: Path):
         f"distilled {DISTILL_EPOCHS} epochs (KL {history['loss']!r}) in "
         f"{time.perf_counter() - t0 - t_streams!r} s; saved and loaded bit "
         f"for bit, proposals equal before and after; at the burst's "
-        f"{SERVE_N} cuts of the {len(held)} held-out streams its {SPEC_K} "
+        f"{SPEC_LEARNED_N} cuts of the {len(held)} held-out streams its "
+        f"{SPEC_K} "
         f"host drafts equal the target's continuation in "
         f"{float(agree.mean())!r} (first draft {float(agree[:, 0].mean())!r}, "
         f"a leading run of "
@@ -2604,7 +2635,8 @@ def spec_path(torch, fc, smk, fbk, card: str, memo: dict) -> dict:
             with otrace.tracing(tracer=otrace.Tracer()) as tr:
                 _, summary, launches = spec_case(
                     torch, fc, smk, fbk, model, name, burst,
-                    (4 * SERVE_N, 0, 0), lambda req: lrefs[req.id], card,
+                    (4 * SPEC_LEARNED_N, 0, 0), lambda req: lrefs[req.id],
+                    card,
                     drafter=drafter, t_max=SPEC_T_MAX, **bf16)
             out[name.replace("(", "").replace(")", "").replace(" ", "_")] = \
                 launches
@@ -2619,7 +2651,8 @@ def spec_path(torch, fc, smk, fbk, card: str, memo: dict) -> dict:
             log(f"spec {name}: {len(passes)} drafting passes (serve.propose "
                 f"spans, one propose program each) over "
                 f"{summary['serve_decode_dispatches']} dispatches "
-                f"({SERVE_N} admissions); {rounds.count(1)} of them in the "
+                f"({SPEC_LEARNED_N} admissions); {rounds.count(1)} of them "
+                f"in the "
                 f"steady state (no backlog), {sum(rounds) - len(rounds)} "
                 f"backlog ingest chunks in all; "
                 f"{float(np.mean([sp.dur_s for sp in passes])) * 1e3!r} ms a "
@@ -2638,7 +2671,8 @@ def spec_path(torch, fc, smk, fbk, card: str, memo: dict) -> dict:
                          "--drafter", "chained", "--draft-ckpt",
                          str(tmp / "draft"), "--save-ckpt", str(saved)),
                   lines_wanted=("speculative (chained): drafted=",
-                                "checkpoint: wrote "))
+                                "checkpoint: wrote "),
+                  requests=SPEC_CHAINED_CLI_N)
         want = convert.flatten(convert.to_jax(init_params(AttentionLM(
             LM["vocab"], SERVE_CLI_T_MAX, embed_dim=LM["embed_dim"],
             num_heads=LM["num_heads"], mlp_dim=LM["mlp_dim"],
@@ -4168,6 +4202,554 @@ def rollout_path(torch, fc, smk, fbk, card: str, memo: dict) -> dict:
     del live, eng
     torch.cuda.empty_cache()
     log(f"phase 17 (rollout) took {time.perf_counter() - t_start!r} s; "
+        f"{card}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the serving cluster (serve/cluster/)
+# ---------------------------------------------------------------------------
+
+# every replica is phase 12's server (pallas, bf16, 8 slots, windows of
+# 16, t_max SERVE_T_MAX) on the one card unless a case says otherwise.
+# (c2): router steps before the kill; (c3) moves (o5)'s requests; (c4): a
+# system prompt of CLUSTER_SYS tokens shared by CLUSTER_N requests, each
+# with its own 128-1,024-token tail and a budget of 16-64, over chunks of
+# SERVE_CHUNK and these registry and local-cache budgets; (c5): the short
+# burst that scales the fleet up (prompts of 128 tokens, the smallest
+# pallas bucket), the long requests' budget (still decoding three windows
+# in, when the scale-down fires) and the autoscaler's knobs
+CLUSTER_KILL_STEPS = 4
+CLUSTER_SYS, CLUSTER_N = 4096, 8
+CLUSTER_REGISTRY_MB, CLUSTER_CACHE_MB = 512, 256
+CLUSTER_SHORTS, CLUSTER_SHORT_PROMPT, CLUSTER_SHORT_BUDGET = 16, 128, 16
+CLUSTER_LONG_BUDGET = 128
+CLUSTER_AUTOSCALE = dict(min_replicas=1, max_replicas=2, queue_high=2.0,
+                         queue_low=1.5, dwell_s=0.5, cooldown_s=2.0)
+
+
+def expect_b3(name: str, launches: tuple, prefills: int) -> None:
+    """B3 twice a pallas prefill (one a block), dq and dk/dv never."""
+    if launches != (2 * prefills, 0, 0):
+        raise SystemExit(f"cluster {name}: flash launches update/dq/dkv "
+                         f"{launches}, expected {(2 * prefills, 0, 0)} for "
+                         f"{prefills} pallas prefills")
+
+
+class StepClock:
+    """Host seconds of every `Router.step`, and of the replicas' own
+    steps inside it, while in a `with` block (both classes' `step`
+    wrapped): the router's own cost a tick is the difference."""
+
+    def __init__(self, router_cls, replica_cls):
+        self.classes = router_cls, replica_cls
+        self.router, self.replicas = [], []
+
+    def __enter__(self):
+        router_cls, replica_cls = self.classes
+        r_step, p_step = router_cls.step, replica_cls.step
+        inner = [0.0]
+
+        def replica_step(rep):
+            t = time.perf_counter()
+            try:
+                return p_step(rep)
+            finally:
+                inner[0] += time.perf_counter() - t
+
+        def router_step(router):
+            inner[0] = 0.0
+            t = time.perf_counter()
+            try:
+                return r_step(router)
+            finally:
+                self.router.append(time.perf_counter() - t)
+                self.replicas.append(inner[0])
+
+        self._saved = r_step, p_step
+        router_cls.step, replica_cls.step = router_step, replica_step
+        return self
+
+    def __exit__(self, *exc):
+        router_cls, replica_cls = self.classes
+        router_cls.step, replica_cls.step = self._saved
+
+    def line(self) -> str:
+        own = [(a - b) * 1e3 for a, b in zip(self.router, self.replicas)]
+        if not own:
+            return "no router step"
+        return (f"{len(own)} router steps: the router's own host ms a step "
+                f"median {float(np.median(own))!r}, mean "
+                f"{float(np.mean(own))!r}, max {max(own)!r} (a whole step "
+                f"median {float(np.median(self.router)) * 1e3!r} ms)")
+
+
+def cluster_path(torch, fc, smk, fbk, card: str, memo: dict) -> dict:
+    """Phase 18 at phase 12's width (seed-0 weights), every replica on
+    the one card, each run with the launch counts set to 0 just before
+    and read just after, B3 held to two launches a pallas prefill (an
+    admission, or a replica's warmup). (c1) two mixed pallas replicas
+    behind `Router.run` over phase 12's burst: one ok Result an id,
+    placements over both, tokens held under the contract to the serial
+    Generator (phase 12's references), B3 twice an admission. (c2) the
+    kill drill: journals, r0 killed after CLUSTER_KILL_STEPS router
+    steps, every request ok and each migrated one equal to (c1)'s, one
+    trace id a migrated request across both journals, B3 counting the
+    re-admissions. (c3) (o5)'s 4 greedy and 4 sampled requests drained
+    off r0 mid-decode with live slot migration onto a peer that joins
+    then: each equal to its unmigrated run bit for bit, the snapshots'
+    bytes and the export and import ms. (c4) one prefill and two decode
+    replicas, chunked, over a prefix registry, CLUSTER_N requests sharing
+    a CLUSTER_SYS-token system prompt: a handoff a request, registry
+    hits, the system prompt's chunks run once, tokens equal to a chunked
+    single server's, no B3; a published snapshot's bytes and ms, and an
+    adoption's. (c5) the autoscaler on a manual clock: a short burst
+    scales the fleet up, two long requests land one a replica, the
+    scale-down moves the victim's running slot live, equal to its
+    unmigrated run. (c6) the `serve-cluster` verb with the kill drill,
+    journals, --metrics-port 0 (one scrape each of /metrics and /healthz
+    from inside a router step) and --watchdog: rc 0 and its lines. (c7)
+    the router's own host ms a step beside the replicas', in (c1), (c4)
+    and (c5). Returns B3's launches by run."""
+    import contextlib
+    import io
+    import urllib.request
+
+    from idc_models_tpu_torch import cli
+    from idc_models_tpu_torch.observe import MetricsRegistry
+    from idc_models_tpu_torch.observe import metrics_registry as mreg
+    from idc_models_tpu_torch.serve import (
+        AutoscaleConfig, Autoscaler, LMServer, PrefixRegistry, Replica,
+        Request, RetryPolicy, Router, build_replica, poisson_trace,
+    )
+
+    t_start = time.perf_counter()
+    tf32_off(torch)
+    model = serve_model(torch)
+    trace = poisson_trace(SERVE_N, **SERVE_TRACE)
+    bf16 = dict(block_impl="pallas", cache_dtype=torch.bfloat16)
+    sampled = dict(temperature=SERVE_TEMPERATURE, top_k=SERVE_TOP_K)
+    k1 = memo["k1"][0]
+    tmp = Path(tempfile.mkdtemp(prefix="cluster"))
+    out = {}
+
+    def replica(rid, log, **kw):
+        kw = {**bf16, **kw}
+        return build_replica(model, replica_id=rid, logger=log,
+                             n_slots=kw.pop("n_slots", SERVE_SLOTS),
+                             window=SERVE_WINDOW, **serve_kw(**kw))
+
+    def counted(name, fn, prefills):
+        """`fn()` between a synchronize with the counts at 0 and one
+        after; B3 held to two launches each of `prefills()`."""
+        torch.cuda.synchronize()
+        zero_counts(fc, smk, fbk)
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = flash_counts(fbk)
+        if fc.KERNEL.launches or smk.KERNEL.launches:
+            raise SystemExit(f"cluster {name} launched a classifier kernel")
+        expect_b3(name, launches, prefills())
+        out[name] = launches
+        return got, sec
+
+    def one_each(name, results, ids):
+        got = [r.id for r in results]
+        if (sorted(got) != sorted(ids) or len(set(got)) != len(got)
+                or any(r.status != "ok" for r in results)):
+            raise SystemExit(f"cluster {name}: ids {sorted(got)}, statuses "
+                             f"{[r.status for r in results]}")
+
+    def release(*objs):
+        for o in objs:
+            if isinstance(o, Router):
+                o.close()
+        torch.cuda.empty_cache()
+
+    ids = [r.id for _, r in trace]
+
+    # (c1) two mixed pallas replicas over phase 12's burst
+    rec = Records()
+    router = Router([replica(f"r{i}", rec) for i in range(2)], logger=rec)
+    with StepClock(Router, Replica) as c1_clock:
+        results, sec = counted("c1", lambda: router.run(trace),
+                               lambda: rec.count("serve_admit"))
+    one_each("(c1)", results, ids)
+    placed = [(r["id"], r["replica"]) for r in rec.records
+              if r.get("event") == "cluster_place"]
+    if ({rep for _, rep in placed} != {"r0", "r1"}
+            or len(placed) != SERVE_N):
+        raise SystemExit(f"cluster (c1): placements {placed}")
+    held = total = released = 0
+    for _, req in trace:
+        want, seen, states = memo["serial"][req.id]
+        n, near = held_steps(torch, router.poll(req.id).tokens, want, seen,
+                             states)
+        held, total, released = held + n, total + len(want), released + near
+    c1 = {r: router.poll(r).tokens for r in ids}
+    same = sum(c1[r] == k1[r] for r in ids)
+    log(f"cluster (c1): {SERVE_N} requests ok over r0/r1 "
+        f"{router.summary()['cluster_placements']} in {sec!r} s; tokens "
+        f"held to the serial reference for {held} of {total} steps, "
+        f"{released} request(s) released at a near tie (tolerance "
+        f"{SERVE_TOL} of max |logit|); {same} of {SERVE_N} equal to (k1)'s "
+        f"one-server tokens; {rec.count('serve_admit')} admissions, B3 "
+        f"{out['c1']}; {card}")
+    release(router)
+
+    # (c2) the kill drill over journals
+    rec = Records()
+    router = Router([replica(f"r{i}", rec,
+                             journal_path=str(tmp / f"j{i}.jsonl"))
+                     for i in range(2)],
+                    retry=RetryPolicy(max_retries=2), logger=rec)
+
+    def drill():
+        steps = 0
+        for _, req in trace:
+            while not router.submit(req):
+                router.step()
+                steps += 1
+        for _ in range(max(CLUSTER_KILL_STEPS - steps, 0)):
+            router.step()
+        migrated = router.kill_replica("r0")
+        router.drain()
+        return migrated
+
+    migrated, sec = counted("c2", drill, lambda: rec.count("serve_admit"))
+    one_each("(c2)", router.results(), ids)
+    differ = [r for r in migrated if router.poll(r).tokens != c1[r]]
+    if not migrated or differ:
+        raise SystemExit(f"cluster (c2): migrated {migrated}, differing from "
+                         f"(c1): {differ}")
+    submits = {}
+    for i in range(2):
+        for line in (tmp / f"j{i}.jsonl").read_text().splitlines():
+            r = json.loads(line)
+            if r["event"] == "journal_submit":
+                submits.setdefault(r["id"], set()).add(r["trace_id"])
+    if any(len(submits[r]) != 1 for r in migrated):
+        raise SystemExit(f"cluster (c2): trace ids {submits}")
+    same = sum(router.poll(r).tokens == c1[r] for r in ids)
+    log(f"cluster (c2): r0 killed after {CLUSTER_KILL_STEPS} router steps, "
+        f"{len(migrated)} journaled requests migrated onto r1, every one "
+        f"ok and equal to (c1)'s, one trace id each across both journals; "
+        f"{same} of {SERVE_N} equal to (c1)'s; "
+        f"{rec.count('serve_admit')} admissions (re-admissions included), "
+        f"B3 {out['c2']} in {sec!r} s; {card}")
+    release(router)
+
+    # (c3) drain with live slot migration: r0 holds the requests
+    # mid-decode, a peer joins, r0 drains with migrate=True
+    rng = np.random.default_rng(3)
+    prompts = [tuple(int(x) for x in rng.integers(0, LM["vocab"],
+                                                   MIGRATE_PROMPT))
+               for _ in range(MIGRATE_N)]
+
+    def drained(kind, migrate, log):
+        kw = sampled if kind == "sampled" else {}
+        router = Router([replica("r0", log, **kw)], logger=log)
+        peer = replica("r1", log, **kw) if migrate else None
+        reqs = [Request(id=f"{kind}{i}", prompt=p,
+                        max_new_tokens=MIGRATE_BUDGET,
+                        seed=(100 + i) if kw else None)
+                for i, p in enumerate(prompts)]
+        for q in reqs:
+            if not router.submit(q):
+                raise SystemExit(f"cluster (c3): {q.id} refused")
+        for _ in range(2):
+            router.step()
+        moves = {"bytes": [], "export_ms": [], "import_ms": []}
+        if migrate:
+            router.add_replica(peer)
+            src, dst = router.replicas[0].server.engine, peer.server.engine
+            export, load = src.export_slot, dst.import_slot
+
+            def timed_export(slot):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                snap = export(slot)
+                moves["export_ms"].append((time.perf_counter() - t) * 1e3)
+                moves["bytes"].append(
+                    sum(a.nbytes for pair in snap["caches"] for a in pair)
+                    + snap["logits"].nbytes)
+                return snap
+
+            def timed_import(slot, snap, **kw):
+                t = time.perf_counter()
+                load(slot, snap, **kw)
+                torch.cuda.synchronize()
+                moves["import_ms"].append((time.perf_counter() - t) * 1e3)
+
+            src.export_slot, dst.import_slot = timed_export, timed_import
+            moved = router.drain_replica("r0", migrate=True)
+            if (sorted(moved) != sorted(q.id for q in reqs)
+                    or len(router.slot_migrations) != MIGRATE_N):
+                raise SystemExit(f"cluster (c3) {kind}: moved {moved}, "
+                                 f"slot moves {router.slot_migrations}")
+        router.drain()
+        tokens = {q.id: router.poll(q.id).tokens for q in reqs}
+        if any(router.poll(q.id).status != "ok"
+               or len(tokens[q.id]) != MIGRATE_BUDGET for q in reqs):
+            raise SystemExit(f"cluster (c3) {kind}: {router.results()}")
+        release(router)
+        return tokens, moves
+
+    def slot_moves():
+        stats = []
+        for kind in ("greedy", "sampled"):
+            moved, moves = drained(kind, True, rec)
+            stay, _ = drained(kind, False, rec)
+            if moved != stay:
+                raise SystemExit(f"cluster (c3) {kind}: moved tokens differ "
+                                 f"from the unmigrated run's")
+            stats.append((kind, moves))
+        return stats
+
+    rec = Records()
+    # each kind: three replicas' warmups and 2 x MIGRATE_N admissions
+    stats, sec = counted("c3", slot_moves,
+                         lambda: rec.count("serve_admit") + 6)
+    for kind, m in stats:
+        log(f"cluster (c3) {kind}: {MIGRATE_N} requests ({MIGRATE_PROMPT}-"
+            f"token prompts, budget {MIGRATE_BUDGET}) moved live off the "
+            f"draining r0 after two router steps, each equal to its "
+            f"unmigrated run bit for bit; snapshots {m['bytes']!r} bytes, "
+            f"export {m['export_ms']!r} ms, import {m['import_ms']!r} ms "
+            f"(host clock, each ending in a synchronize); {card}")
+    log(f"cluster (c3): B3 {out['c3']} ({rec.count('serve_admit')} "
+        f"admissions and 6 warmups) in {sec!r} s")
+
+    # (c4) disaggregated prefill over the prefix registry
+    rng = np.random.default_rng(4)
+    system = tuple(int(x) for x in rng.integers(0, LM["vocab"], CLUSTER_SYS))
+    dtrace = [(0.0, Request(
+        id=f"d{i}", prompt=system + tuple(
+            int(x) for x in rng.integers(0, LM["vocab"],
+                                         int(rng.integers(128, 1025)))),
+        max_new_tokens=int(rng.integers(16, 65))))
+        for i in range(CLUSTER_N)]
+    rec = Records()
+    reg = PrefixRegistry(SERVE_CHUNK, CLUSTER_REGISTRY_MB << 20, logger=rec)
+    chunked = dict(prefill_chunk=SERVE_CHUNK,
+                   max_prefills_per_cycle=SERVE_CHUNK_PREFILLS)
+    kw = dict(chunked, prefix_cache_mb=CLUSTER_CACHE_MB, shared_prefix=reg)
+    reps = [replica("pf0", rec, role="prefill", **kw),
+            replica("dc0", rec, role="decode", **kw),
+            replica("dc1", rec, role="decode", **kw)]
+    chunks = []
+    for rep in reps:
+        step = rep.server.engine._gen.prefill_chunk_step
+
+        def count_chunk(caches, padded, start, end, _step=step,
+                        _rid=rep.replica_id):
+            chunks.append((_rid, start))
+            return _step(caches, padded, start, end)
+
+        rep.server.engine._gen.prefill_chunk_step = count_chunk
+    publish, published = reg.publish, []
+
+    def timed_publish(tokens, caches, logits):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        stored = publish(tokens, caches, logits)
+        if stored:
+            published.append((
+                len(tokens), sum(a.nbytes for pair in caches for a in pair)
+                + logits.nbytes, (time.perf_counter() - t) * 1e3))
+        return stored
+
+    reg.publish = timed_publish
+    adopted = []
+    for rep in reps[1:]:
+        cache = rep.server.engine.prefix_cache
+        lookup = cache.lookup
+
+        def timed_lookup(tokens, _cache=cache, _lookup=lookup):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            hits = _cache.shared_hits
+            got = _lookup(tokens)
+            torch.cuda.synchronize()
+            if _cache.shared_hits > hits:
+                adopted.append((got[0], sum(
+                    a.nbytes for pair in got[1] for a in pair),
+                    (time.perf_counter() - t) * 1e3))
+            return got
+
+        cache.lookup = timed_lookup
+    router = Router(reps, prefix_registry=reg, logger=rec)
+    with StepClock(Router, Replica) as c4_clock:
+        results, sec = counted("c4", lambda: router.run(dtrace), lambda: 0)
+    one_each("(c4)", results, [r.id for _, r in dtrace])
+    single = LMServer(model, n_slots=SERVE_SLOTS, window=SERVE_WINDOW,
+                      registry=MetricsRegistry(), **chunked,
+                      **serve_kw(**bf16))
+    single.run(dtrace)
+    differ = [r.id for _, r in dtrace
+              if router.poll(r.id).tokens != single.poll(r.id).tokens]
+    summary = router.summary()
+    sys_chunks = [c for c in chunks if c[1] < CLUSTER_SYS]
+    want_sys = [("pf0", s) for s in range(0, CLUSTER_SYS, SERVE_CHUNK)]
+    if (differ or summary["cluster_handoffs"] != CLUSTER_N
+            or summary["cluster_prefix_hits"] < 1
+            or summary["cluster_placements"]["pf0"] != 0
+            or sys_chunks != want_sys):
+        raise SystemExit(f"cluster (c4): tokens differ {differ}, handoffs "
+                         f"{router.handoffs}, summary {summary}, system "
+                         f"prompt chunks {sys_chunks}")
+    log(f"cluster (c4): {CLUSTER_N} requests sharing a {CLUSTER_SYS}-token "
+        f"system prompt through pf0 -> dc0/dc1 in {sec!r} s: "
+        f"{summary['cluster_handoffs']} handoffs "
+        f"({sum(h['cached'] for h in router.handoffs)} already covered by "
+        f"the registry), registry hits {summary['cluster_prefix_hits']}, "
+        f"{summary['cluster_prefix_published']} published "
+        f"({summary['cluster_prefix_bytes']} host bytes), the system "
+        f"prompt's {len(want_sys)} chunks run once (on pf0) of "
+        f"{len(chunks)} chunks fleet-wide, placements "
+        f"{summary['cluster_placements']}; tokens equal to a chunked single "
+        f"server's in {CLUSTER_N} of {CLUSTER_N}; B3 {out['c4']}; {card}")
+    big = max(published)
+    log(f"cluster (c7) handoff: {len(published)} snapshots published "
+        f"({sum(p[1] for p in published)} bytes device -> host), ms "
+        f"median {float(np.median([p[2] for p in published]))!r}, max "
+        f"{max(p[2] for p in published)!r}; the largest ({big[0]} prefix "
+        f"tokens) {big[1]} bytes in {big[2]!r} ms; adoptions (prefix "
+        f"tokens, device bytes, ms host -> device) {adopted!r}; host "
+        f"clock, each ending in a synchronize; {card}")
+    del single
+    release(router)
+
+    # (c5) the autoscaler on a manual clock, up then down
+    rec = Records()
+    t = [0.0]
+    auto = Autoscaler(AutoscaleConfig(**CLUSTER_AUTOSCALE), logger=rec)
+    router = Router([replica("r0", rec)], clock=lambda: t[0], logger=rec,
+                    autoscaler=auto,
+                    replica_factory=lambda rid: replica(rid, rec))
+    rng = np.random.default_rng(5)
+    shorts = [Request(id=f"s{i}", prompt=tuple(
+        int(x) for x in rng.integers(0, LM["vocab"], CLUSTER_SHORT_PROMPT)),
+        max_new_tokens=CLUSTER_SHORT_BUDGET) for i in range(CLUSTER_SHORTS)]
+    longs = [Request(id=f"l{i}", prompt=p,
+                     max_new_tokens=CLUSTER_LONG_BUDGET)
+             for i, p in enumerate(prompts[:2])]
+
+    def elastic():
+        for q in shorts:
+            if not router.submit(q):
+                raise SystemExit(f"cluster (c5): {q.id} refused")
+        router.step()
+        t[0] = 1.0
+        router.step()                   # the up signal has dwelt: +1
+        while not all(router.poll(q.id) for q in shorts):
+            router.step()               # time frozen: no down decision
+        for q in longs:
+            if not router.submit(q):
+                raise SystemExit(f"cluster (c5): {q.id} refused")
+        for _ in range(2):
+            router.step()
+        t[0] = 11.0
+        router.step()                   # down: r0 drains, its slot moves
+        while not all(router.poll(q.id) for q in longs):
+            router.step()
+
+    with StepClock(Router, Replica) as c5_clock:
+        _, sec = counted("c5", elastic,
+                         lambda: rec.count("serve_admit") + 1)
+    actions = [d["action"] for d in auto.decisions]
+    ref = LMServer(model, n_slots=SERVE_SLOTS, window=SERVE_WINDOW,
+                   registry=MetricsRegistry(), **serve_kw(**bf16))
+    ref.run([(0.0, q) for q in longs])
+    moved = [m["rid"] for m in router.slot_migrations]
+    if (actions != ["up", "down"] or len(router.replicas) != 2
+            or not moved or any(router.poll(q.id).status != "ok"
+                                for q in shorts + longs)
+            or any(router.poll(r).tokens != ref.poll(r).tokens
+                   for r in moved)):
+        raise SystemExit(f"cluster (c5): decisions {auto.decisions}, slot "
+                         f"moves {router.slot_migrations}, results "
+                         f"{router.results()}")
+    log(f"cluster (c5): decisions {[(d['action'], d['t']) for d in auto.decisions]} "
+        f"(manual clock), fleet {[r.replica_id for r in router.replicas]}; "
+        f"the scale-down moved {moved} live off r0 onto "
+        f"{router.slot_migrations[0]['to']}, equal to its unmigrated run "
+        f"bit for bit; {len(shorts) + len(longs)} requests ok in {sec!r} s; "
+        f"B3 {out['c5']} ({rec.count('serve_admit')} admissions and the "
+        f"spun-up replica's warmup); {card}")
+    del ref
+    release(router)
+
+    # (c6) the verb: kill drill, journals, fleet scrape, watchdog
+    argv = ["serve-cluster", "--vocab", str(LM["vocab"]), "--embed-dim",
+            str(LM["embed_dim"]), "--num-heads", str(LM["num_heads"]),
+            "--mlp-dim", str(LM["mlp_dim"]), "--num-blocks",
+            str(LM["num_blocks"]), "--t-max", str(SERVE_CLI_T_MAX),
+            "--slots", str(SERVE_SLOTS), "--window", str(SERVE_WINDOW),
+            "--replicas", "2", "--requests", "16", "--journal-dir",
+            str(tmp / "verb"), "--kill-replica", "1", "--kill-after-steps",
+            str(CLUSTER_KILL_STEPS), "--metrics-port", "0", "--watchdog"]
+    text, scraped, calls = io.StringIO(), {}, [0]
+    r_step = Router.step
+
+    def scraping_step(router):
+        # one scrape of each fleet surface from inside the second router
+        # step, while the whole fleet is live
+        calls[0] += 1
+        if calls[0] == 2:
+            url = text.getvalue().split("fleet metrics: ", 1)[1]
+            url = url.split("/metrics", 1)[0]
+            for path in ("/metrics", "/healthz"):
+                with urllib.request.urlopen(url + path, timeout=30) as resp:
+                    scraped[path] = (resp.status, resp.read())
+        return r_step(router)
+
+    def verb():
+        # the verb's router keeps its cluster_* series in the process
+        # registry, as in a process of its own; the earlier phases' serve
+        # series there (unlabelled) would shadow the replicas' labelled
+        # ones in the merged exposition, so the verb gets a fresh one
+        process_registry = mreg.REGISTRY
+        mreg.REGISTRY = MetricsRegistry()
+        Router.step = scraping_step
+        try:
+            with contextlib.redirect_stdout(text):
+                return cli.main(argv)
+        finally:
+            Router.step = r_step
+            mreg.REGISTRY = process_registry
+
+    rc, sec = counted("c6", verb, lambda: 0)
+    lines = text.getvalue().splitlines()
+    for line in lines:
+        if not line.startswith("cluster summary:"):
+            log(f"  serve-cluster | {line}")
+    health = json.loads(scraped.get("/healthz", (0, b"{}"))[1] or b"{}")
+    metrics = scraped.get("/metrics", (0, b""))
+    rollup = b"cluster_fleet_queue_depth" in metrics[1]
+    labelled = b'replica="r0"' in metrics[1]
+    wanted = ("served: ok=16 ", "killed replica r1: ", "placements: ",
+              "watchdog: ", "cluster summary: ")
+    if (rc != 0 or not all(any(ln.startswith(w) for ln in lines)
+                           for w in wanted)
+            or metrics[0] != 200 or not rollup or not labelled
+            or set(health.get("replicas", {})) != {"r0", "r1"}):
+        raise SystemExit(
+            f"cluster (c6): rc {rc}, /metrics {metrics[0]} "
+            f"{len(metrics[1])} bytes (the fleet rollup {rollup}, r0's "
+            f"series {labelled}), /healthz {health}")
+    log(f"cluster (c6): cli.main({' '.join(argv[1:])}) rc 0 in {sec!r} s; "
+        f"/metrics {len(metrics[1])} bytes, /healthz status "
+        f"{health['status']} fleet {health['fleet']}; no kernel launched; "
+        f"{card}")
+
+    # (c7) the router's own host cost a tick
+    for name, clock in (("c1", c1_clock), ("c4", c4_clock),
+                        ("c5", c5_clock)):
+        log(f"cluster (c7) {name}: {clock.line()} (host clock); {card}")
+    log(f"phase 18 (cluster) took {time.perf_counter() - t_start!r} s; "
         f"{card}")
     return out
 
@@ -6430,6 +7012,7 @@ def main() -> int:
     res = resilience_path(torch, fc, smk, fbk, card, memo)
     ten = tenancy_path(torch, fc, smk, fbk, card, memo)
     rol = rollout_path(torch, fc, smk, fbk, card, memo)
+    clu = cluster_path(torch, fc, smk, fbk, card, memo)
     del memo
     att = attention_path(torch, fc, smk, fbk, tring, card)
 
@@ -6529,6 +7112,8 @@ def main() -> int:
         "launches_tenancy": {run: counts[i] for run, counts in ten.items()},
         # phase 17: the rollout and drain runs (o1)-(o7)
         "launches_rollout": {run: counts[i] for run, counts in rol.items()},
+        # phase 18: the cluster runs (c1)-(c6)
+        "launches_cluster": {run: counts[i] for run, counts in clu.items()},
         "max_abs_err_zigzag_grid_256": att["grid"][key],
         **{f"quarter_{field}": {what: quarters[(what, key)][field]
                                 for what in QUARTERS}

@@ -1,6 +1,6 @@
 """Command-line entry point: the ``vgg``, ``mobile``, ``dense``, ``fed``,
-``secure-fed``, ``lm``, ``attention``, ``serve``, ``profile`` and
-``stats`` verbs of ``idc_models_tpu``.
+``secure-fed``, ``lm``, ``attention``, ``serve``, ``serve-cluster``,
+``profile`` and ``stats`` verbs of ``idc_models_tpu``.
 
     python -m idc_models_tpu_torch vgg --path runs/vgg \\
         --data-dir .../balanced_IDC_30k --cache-features
@@ -105,6 +105,22 @@ summary: {...}``; ``--metrics-port`` serves ``/metrics`` and
         --window 8 --t-max 64 --metrics-port 0
     python -m idc_models_tpu_torch serve --device cpu --prefill-chunk 8 \
         --kv-page-size 4 --kv-pages 16 --prefix-cache-mb 4
+
+``serve-cluster`` serves the same trace through a router over
+--replicas `LMServer` replicas (``serve/cluster/``), one a card (modulo
+the cards present; all on the CPU with ``--device cpu``): placement by
+load and health, ``--prefill-replicas`` handing chunk-boundary KV
+snapshots to the decode replicas through the cluster prefix registry
+(``--registry-mb``), ``--kill-replica`` / ``--drain-replica`` drills over
+``--journal-dir`` journals, ``--autoscale-max``, ``--hedge-after-ms``,
+the fleet's ``/metrics`` and ``/healthz`` (``--metrics-port``) and
+``--watchdog``. It prints ``served: ok=...``, ``ttft p95``,
+``placements: ...`` and ``cluster summary: {...}``.
+
+    python -m idc_models_tpu_torch serve-cluster --device cpu \
+        --replicas 2 --prefill-replicas 1 --prefill-chunk 8 \
+        --prefix-cache-mb 2 --registry-mb 8 --journal-dir /tmp/j \
+        --kill-replica 1
 
 ``profile --model vgg|mobile|dense|small|lm`` runs a train step at the
 bench batch (``configs.BENCH_TRAIN_CONFIGS``, bf16 for the classifiers)
@@ -214,7 +230,10 @@ def main(argv: list[str] | None = None) -> int:
     if getattr(ns, "host_devices", 0) < 0:
         sys.exit(f"--host-devices {ns.host_devices} must be >= 0 (0: this "
                  f"process alone)")
-    if getattr(ns, "host_devices", 0):
+    if getattr(ns, "host_devices", 0) and ns.preset_key == "serve_cluster":
+        # the fleet is one process: --host-devices puts it on the CPU
+        ns.device = "cpu"
+    elif getattr(ns, "host_devices", 0):
         if ns.host_devices > 1 and ns.preset_key in ("fed", "secure_fed"):
             _one_rank_fed(ns.host_devices)
         if ns.preset_key == "serve" or (ns.preset_key == "profile"
@@ -230,6 +249,7 @@ def main(argv: list[str] | None = None) -> int:
     runner = {"vgg": _run_dist, "mobile": _run_dist, "dense": _run_dist,
               "fed": _run_fed, "secure_fed": _run_secure, "lm": _run_lm,
               "attention": _run_attention, "serve": _run_serve,
+              "serve_cluster": _run_serve_cluster,
               "stats": _run_stats, "profile": _run_profile}[ns.preset_key]
     # --trace-out: one wiring point arms the tracer for every verb; the
     # spans export as Chrome trace-event JSON when the run ends
@@ -774,6 +794,135 @@ def _parse(argv):
                          "--tenants")
     # the JAX verb's flags of later items: accepted, and refused by
     # `_run_serve` with the item's label when set
+    for flag, kw, label in _LATER:
+        sp.add_argument(flag, help=f"not ported yet (ROADMAP {label})",
+                        **kw)
+
+    sp = sub.add_parser(
+        "serve-cluster", aliases=["serve_cluster"],
+        help="disaggregated multi-replica serving (serve/cluster/): a "
+             "router places requests on N engine replicas by health/"
+             "load/page headroom/SLO burn, dedicated prefill replicas "
+             "hand completed KV snapshots to decode replicas through "
+             "the cluster prefix registry, and a killed replica's "
+             "journaled requests migrate onto survivors")
+    sp.add_argument("--path", default=None,
+                    help="artifact root (cluster events stream to "
+                         "<path>/logs/cluster.jsonl)")
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="replica i runs on card i modulo the cards "
+                         "present, or every replica on the CPU")
+    sp.add_argument("--host-devices", type=int, default=0,
+                    help="run the fleet on the CPU in this process (the "
+                         "CPU is one torch device: every replica shares "
+                         "it)")
+    sp.add_argument("--trace-out", default=None,
+                    help="write a Chrome trace-event JSON of the "
+                         "cluster's spans (placements, handoffs, "
+                         "migrations, every replica's serve loop) "
+                         "here")
+    sp.add_argument("--vocab", type=int, default=16)
+    sp.add_argument("--t-max", type=int, default=64)
+    sp.add_argument("--embed-dim", type=int, default=32)
+    sp.add_argument("--num-heads", type=int, default=2)
+    sp.add_argument("--mlp-dim", type=int, default=64)
+    sp.add_argument("--num-blocks", type=int, default=2)
+    sp.add_argument("--replicas", type=int, default=2,
+                    help="decode-capable replicas (each its own "
+                         "engine on its own device)")
+    sp.add_argument("--prefill-replicas", type=int, default=0,
+                    help="dedicated prefill replicas: they never "
+                         "decode — they drive chunked prefill and "
+                         "publish boundary KV snapshots into the "
+                         "cluster prefix registry for decode replicas "
+                         "to adopt (needs --prefill-chunk and "
+                         "--prefix-cache-mb)")
+    sp.add_argument("--slots", type=int, default=4,
+                    help="decode slots per replica")
+    sp.add_argument("--window", type=int, default=8)
+    sp.add_argument("--max-queue-depth", type=int, default=64,
+                    help="per-replica admission-queue bound")
+    sp.add_argument("--prefill-chunk", type=int, default=0,
+                    help="chunked prefill (0 = off; must divide "
+                         "--t-max) — required for prefill replicas "
+                         "and the prefix registry")
+    sp.add_argument("--prefix-cache-mb", type=float, default=0.0,
+                    help="per-replica radix prefix cache budget in MB")
+    sp.add_argument("--registry-mb", type=float, default=0.0,
+                    help="cluster prefix-registry budget in MB (0 = "
+                         "off): chunk-boundary snapshots published by "
+                         "any replica, adopted by every other — a hot "
+                         "system prompt is prefilled ONCE cluster-wide")
+    sp.add_argument("--requests", type=int, default=16,
+                    help="synthetic trace length (ignored with "
+                         "--trace)")
+    sp.add_argument("--rate", type=float, default=50.0,
+                    help="synthetic Poisson arrival rate, requests/s")
+    sp.add_argument("--trace", default=None,
+                    help="JSONL request trace to replay "
+                         "(serve.load_trace format)")
+    sp.add_argument("--realtime", action="store_true",
+                    help="honor trace arrival times on the wall clock")
+    sp.add_argument("--eos", type=int, default=None)
+    sp.add_argument("--temperature", type=float, default=0.0)
+    sp.add_argument("--top-k", type=int, default=0)
+    sp.add_argument("--journal-dir", default=None,
+                    help="directory for per-replica journal WALs "
+                         "(<dir>/journal-<replica>.jsonl) — required "
+                         "for the kill drill's migration")
+    sp.add_argument("--autoscale-max", type=int, default=None,
+                    metavar="N",
+                    help="arm the autoscaler "
+                         "(serve/cluster/autoscaler.py): scale the "
+                         "decode fleet between --replicas and N from "
+                         "the replicas' own health documents (queue "
+                         "depth, shedding, page headroom) with dwell "
+                         "+ cooldown hysteresis; scale-down drains "
+                         "the least-loaded replica and live-migrates "
+                         "its in-flight slots onto survivors")
+    sp.add_argument("--max-retries", type=int, default=2,
+                    help="router-level re-placement bound per request "
+                         "(migrations + hedges)")
+    sp.add_argument("--hedge-after-ms", type=float, default=None,
+                    help="duplicate a still-unfinished request onto a "
+                         "second replica this long after placement "
+                         "(first result wins; off by default)")
+    sp.add_argument("--brownout-queue-high", type=int, default=None,
+                    help="arm a per-replica brownout controller at "
+                         "this queue-depth watermark (also the drain "
+                         "mechanism: a draining replica jumps to its "
+                         "shed stage)")
+    sp.add_argument("--kill-replica", type=int, default=None,
+                    help="failover drill: hard-kill replica INDEX "
+                         "after --kill-after-steps router steps and "
+                         "migrate its journaled requests onto the "
+                         "survivors (needs --journal-dir)")
+    sp.add_argument("--kill-after-steps", type=int, default=4,
+                    help="router steps before the --kill-replica "
+                         "drill fires")
+    sp.add_argument("--drain-replica", type=int, default=None,
+                    help="drain drill: gracefully drain replica INDEX "
+                         "after --kill-after-steps router steps "
+                         "(placement stops, in-flight work completes)")
+    sp.add_argument("--metrics-port", type=int, default=None,
+                    help="serve the FLEET observability surfaces on "
+                         "127.0.0.1:PORT for the run's duration: GET "
+                         "/metrics merges every replica's registry "
+                         "into one replica-labeled exposition plus "
+                         "fleet rollups, GET /healthz embeds every "
+                         "replica's health document with the "
+                         "autoscaler's state (0 = OS-assigned port, "
+                         "printed; serve/cluster/telemetry.py)")
+    sp.add_argument("--watchdog", action="store_true",
+                    help="arm the cluster anomaly watchdogs "
+                         "(speculative accept-rate collapse, per-"
+                         "replica compile churn, migration-rate "
+                         "spikes, canary-vs-baseline SLO divergence): "
+                         "one detector pass per router step, each "
+                         "firing emits a frozen cluster_anomaly jsonl "
+                         "record and bumps cluster_anomalies_total")
+    # the JAX verb's flags of later items, refused as `serve` refuses them
     for flag, kw, label in _LATER:
         sp.add_argument(flag, help=f"not ported yet (ROADMAP {label})",
                         **kw)
@@ -2380,6 +2529,274 @@ def _run_serve(ns):
         if logger is not None:
             logger.log(event="serve_summary", **summary)
         server.close()
+        _log_snapshot(logger)
+    finally:
+        if exporter is not None:
+            exporter.close()
+        if logger is not None:
+            logger.close()
+
+
+def _run_serve_cluster(ns):
+    """Disaggregated multi-replica serving (``serve/cluster/``), as the
+    JAX package's ``serve-cluster`` verb: a router over N `LMServer`
+    replicas (health- and load-aware placement, prefill/decode
+    separation over the cluster prefix registry, hedging, the kill and
+    drain drills, the autoscaler), one replica a card (modulo the cards
+    present), the fleet's /metrics and /healthz, and the watchdogs."""
+    import json
+
+    import torch
+
+    from idc_models_tpu_torch import convert, resolve_device
+    from idc_models_tpu_torch.models.core import init_params
+    from idc_models_tpu_torch.models.lm import AttentionLM
+    from idc_models_tpu_torch.observe import JsonlLogger, Timer
+    from idc_models_tpu_torch.serve import (
+        PrefixRegistry, RetryPolicy, Router, build_replica, load_trace,
+        poisson_trace,
+    )
+
+    for flag, kw, label in _LATER:
+        dest = flag.lstrip("-").replace("-", "_")
+        if getattr(ns, dest) != kw.get("default", False):
+            sys.exit(f"serve-cluster {flag}: not ported yet (ROADMAP "
+                     f"{label})")
+    if ns.replicas < 1:
+        sys.exit(f"--replicas {ns.replicas} must be >= 1")
+    if ns.prefill_replicas < 0:
+        sys.exit(f"--prefill-replicas {ns.prefill_replicas} must be "
+                 f">= 0")
+    if ns.prefill_chunk and (ns.prefill_chunk < 1
+                             or ns.t_max % ns.prefill_chunk):
+        sys.exit(f"--prefill-chunk {ns.prefill_chunk} must be >= 1 "
+                 f"and divide --t-max {ns.t_max}")
+    if ns.prefix_cache_mb > 0 and not ns.prefill_chunk:
+        sys.exit("--prefix-cache-mb needs --prefill-chunk")
+    if ns.registry_mb > 0 and not ns.prefix_cache_mb:
+        sys.exit("--registry-mb needs --prefix-cache-mb (replicas "
+                 "adopt registry snapshots through their local cache)")
+    if ns.prefill_replicas and not ns.registry_mb:
+        sys.exit("--prefill-replicas needs --registry-mb: the handoff "
+                 "artifact travels through the cluster prefix registry")
+    if ns.max_retries < 0:
+        sys.exit(f"--max-retries {ns.max_retries} must be >= 0")
+    if ns.hedge_after_ms is not None and ns.hedge_after_ms <= 0:
+        sys.exit(f"--hedge-after-ms {ns.hedge_after_ms} must be > 0")
+    n_fleet = ns.replicas + ns.prefill_replicas
+    for flag, idx in (("--kill-replica", ns.kill_replica),
+                      ("--drain-replica", ns.drain_replica)):
+        if idx is not None and not 0 <= idx < n_fleet:
+            sys.exit(f"{flag} {idx} outside the fleet [0, {n_fleet})")
+    if ns.kill_replica is not None and not ns.journal_dir:
+        sys.exit("--kill-replica needs --journal-dir: migration "
+                 "replays the dead replica's journal WAL")
+    if ns.kill_after_steps < 0:
+        sys.exit(f"--kill-after-steps {ns.kill_after_steps} must be "
+                 f">= 0")
+    if ns.autoscale_max is not None and ns.autoscale_max < ns.replicas:
+        sys.exit(f"--autoscale-max {ns.autoscale_max} must be >= "
+                 f"--replicas {ns.replicas} (it is the fleet ceiling)")
+    if ns.metrics_port is not None and not 0 <= ns.metrics_port <= 65535:
+        sys.exit(f"--metrics-port {ns.metrics_port} must be in "
+                 f"[0, 65535] (0 = OS-assigned)")
+
+    # every replica builds its own model from one host tree: a rollout
+    # swaps weights on one replica only
+    params = convert.to_jax(init_params(AttentionLM(
+        ns.vocab, ns.t_max, embed_dim=ns.embed_dim,
+        num_heads=ns.num_heads, mlp_dim=ns.mlp_dim,
+        num_blocks=ns.num_blocks), ns.seed))[0]
+    device = resolve_device(ns.device)
+    n_cards = torch.cuda.device_count() if device.type == "cuda" else 0
+
+    def replica_device(i):
+        return (torch.device("cuda", i % n_cards) if n_cards
+                else device)
+
+    logger = (JsonlLogger(Path(ns.path) / "logs" / "cluster.jsonl")
+              if ns.path else None)
+    registry = (PrefixRegistry(ns.prefill_chunk,
+                               int(ns.registry_mb * 1024 * 1024),
+                               logger=logger)
+                if ns.registry_mb > 0 else None)
+    # always a policy: --max-retries 0 means ZERO re-placements (a
+    # valid, strict budget), never "unbounded"
+    retry = RetryPolicy(max_retries=ns.max_retries)
+
+    def _build(i, rid, role):
+        return build_replica(
+            params, replica_id=rid, role=role, device=replica_device(i),
+            embed_dim=ns.embed_dim, num_heads=ns.num_heads,
+            num_blocks=ns.num_blocks, t_max=ns.t_max,
+            n_slots=ns.slots, window=ns.window,
+            prefill_chunk=ns.prefill_chunk or None,
+            prefix_cache_mb=ns.prefix_cache_mb,
+            shared_prefix=registry,
+            journal_path=(
+                str(Path(ns.journal_dir) / f"journal-{rid}.jsonl")
+                if ns.journal_dir else None),
+            retry=retry,
+            brownout_queue_high=ns.brownout_queue_high,
+            max_queue_depth=ns.max_queue_depth,
+            temperature=ns.temperature, top_k=ns.top_k or None,
+            eos_id=ns.eos, cache_dtype=torch.float32, logger=logger)
+
+    exporter = None
+    try:
+        replicas = []
+        with Timer("Cluster build", logger=logger):
+            for i in range(n_fleet):
+                role = "prefill" if i >= ns.replicas else "mixed"
+                replicas.append(_build(i, f"r{i}", role))
+        autoscaler = None
+        replica_factory = None
+        if ns.autoscale_max is not None:
+            from idc_models_tpu_torch.serve import (
+                AutoscaleConfig, Autoscaler,
+            )
+
+            autoscaler = Autoscaler(
+                AutoscaleConfig(min_replicas=ns.replicas,
+                                max_replicas=ns.autoscale_max),
+                logger=logger)
+            # a spun-up replica inherits the fleet's build settings and
+            # takes the next card in turn
+            auto_ordinal = [n_fleet]
+
+            def replica_factory(rid):
+                i = auto_ordinal[0]
+                auto_ordinal[0] += 1
+                return _build(i, rid, "mixed")
+
+        router = Router(
+            replicas, retry=retry,
+            hedge_after_s=(None if ns.hedge_after_ms is None
+                           else ns.hedge_after_ms / 1e3),
+            prefix_registry=registry, logger=logger,
+            autoscaler=autoscaler, replica_factory=replica_factory)
+        # the fleet's merged /metrics and /healthz, armed before the
+        # trace so a scraper sees the fleet from its first placement
+        if ns.metrics_port is not None:
+            from idc_models_tpu_torch.observe import MetricsExporter
+            from idc_models_tpu_torch.serve import ClusterTelemetry
+
+            try:
+                exporter = MetricsExporter(
+                    router.registry, port=ns.metrics_port,
+                    cluster=ClusterTelemetry(router)).start()
+            except OSError as e:
+                sys.exit(f"serve-cluster: cannot bind --metrics-port "
+                         f"{ns.metrics_port}: {e}")
+            print(f"fleet metrics: {exporter.url}/metrics  healthz: "
+                  f"{exporter.url}/healthz")
+        if ns.watchdog:
+            from idc_models_tpu_torch.serve import ClusterWatchdog
+
+            router.watchdog = ClusterWatchdog(router, logger=logger)
+        if ns.trace:
+            trace = load_trace(ns.trace)
+        else:
+            trace = poisson_trace(
+                ns.requests, rate_per_s=ns.rate, vocab=ns.vocab,
+                t_max=ns.t_max, eos_id=ns.eos,
+                prompt_lens=(2, max(ns.t_max // 4, 2)),
+                budgets=(2, max(ns.t_max // 4, 2)), seed=ns.seed,
+                sampled=ns.temperature > 0.0)
+        print(f"cluster: {ns.replicas} decode replica(s) + "
+              f"{ns.prefill_replicas} prefill replica(s), {ns.slots} "
+              f"slots each (window {ns.window}, t_max {ns.t_max}); "
+              f"serving {len(trace)} requests")
+        drill_at = (ns.kill_after_steps
+                    if (ns.kill_replica is not None
+                        or ns.drain_replica is not None) else None)
+        # SIGTERM sets a flag the loops below read between router steps,
+        # never inside one: admission stops, every live replica drains,
+        # and the fleet steps until what was accepted has finished
+        drain = _DrainRequested()
+        prev_sigterm = _arm_sigterm(drain)
+        try:
+            with Timer("Serving trace (cluster)", logger=logger):
+                if drill_at is None:
+                    router.run(trace, realtime=ns.realtime, stop=drain)
+                else:
+                    # drill mode: burst-submit (re-offering on
+                    # backpressure: a refused submit leaves no Result and
+                    # must not be dropped), step to the drill point, fire
+                    # it, then drain -- deterministic and journal-backed
+                    steps = 0
+                    for _, req in sorted(trace, key=lambda tr: tr[0]):
+                        if drain():
+                            break
+                        while not router.submit(req):
+                            shed = router.poll(req.id)
+                            if shed is not None and shed.status == "shed":
+                                break   # a terminal answer, not a race
+                            router.step()
+                            steps += 1
+                    for _ in range(max(drill_at - steps, 0)):
+                        if drain():
+                            break
+                        router.step()
+                    if not drain():
+                        if ns.drain_replica is not None:
+                            router.drain_replica(f"r{ns.drain_replica}")
+                            print(f"drained replica r{ns.drain_replica}")
+                        if ns.kill_replica is not None:
+                            migrated = router.kill_replica(
+                                f"r{ns.kill_replica}")
+                            print(f"killed replica r{ns.kill_replica}: "
+                                  f"{len(migrated)} journaled request(s) "
+                                  f"migrated onto the survivors")
+                    router.drain(stop=drain)
+                results = router.results()
+        finally:
+            _disarm_sigterm(prev_sigterm)
+        if drain.requested:
+            print("SIGTERM: cluster drained gracefully — admissions "
+                  "stopped, in-flight requests finished on every live "
+                  "replica, journals flushed")
+        n_ok = sum(r.status == "ok" for r in results)
+        summary = router.summary()
+        print(f"served: ok={n_ok} "
+              f"timed_out={summary['cluster_timed_out']} "
+              f"rejected={summary['cluster_rejected']} "
+              f"shed={summary['cluster_shed']} "
+              f"tokens={summary['cluster_tokens']}")
+        if summary.get("cluster_ttft_ms_p95") is not None:
+            print(f"ttft p95 {summary['cluster_ttft_ms_p95']} ms "
+                  f"(pooled across replicas)")
+        print(f"placements: {summary['cluster_placements']}  "
+              f"migrations={summary['cluster_migrations']} "
+              f"slot_migrations={summary['cluster_slot_migrations']} "
+              f"handoffs={summary['cluster_handoffs']} "
+              f"hedges={summary['cluster_hedges']}  replicas "
+              f"live={summary['cluster_replicas_live']} "
+              f"draining={summary['cluster_replicas_draining']} "
+              f"dead={summary['cluster_replicas_dead']}")
+        if autoscaler is not None:
+            ups = sum(1 for d in autoscaler.decisions
+                      if d["action"] == "up")
+            downs = sum(1 for d in autoscaler.decisions
+                        if d["action"] == "down")
+            print(f"autoscaler: {ups} scale-up(s), {downs} "
+                  f"scale-down(s), fleet "
+                  f"{summary['cluster_replicas_live']} live at exit "
+                  f"(bounds [{ns.replicas}, {ns.autoscale_max}])")
+        if registry is not None:
+            print(f"prefix registry: {summary['cluster_prefix_hits']} "
+                  f"hit(s), {summary['cluster_prefix_published']} "
+                  f"published, {summary['cluster_prefix_bytes']} bytes")
+        if router.watchdog is not None:
+            kinds = sorted({a["kind"]
+                            for a in router.watchdog.anomalies})
+            print(f"watchdog: {len(router.watchdog.anomalies)} "
+                  f"anomaly(ies)"
+                  + (f" ({', '.join(kinds)})" if kinds else ""))
+        print("cluster summary:", json.dumps(summary))
+        if logger is not None:
+            logger.log(event="cluster_summary", **summary)
+        router.close()
         _log_snapshot(logger)
     finally:
         if exporter is not None:

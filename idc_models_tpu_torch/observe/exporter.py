@@ -17,7 +17,12 @@ the counterpart of ``idc_models_tpu/observe/exporter.py``.
 The server is a daemon `ThreadingHTTPServer` on its own thread, so a
 scrape never blocks the serve loop; `close()` (or leaving the context)
 takes it down with its owner. Port 0 binds an ephemeral port (`.port`).
-The fleet surfaces come with the cluster (ROADMAP A10).
+
+Armed with ``cluster=`` (a ``serve/cluster`` `ClusterTelemetry`), the
+same two paths serve the FLEET: ``/metrics`` the merged replica-labelled
+registry with its rollups, ``/healthz`` the fleet document (every
+replica's health document, fleet aggregates, the cluster SLO and the
+autoscaler's clocks). Without it both keep their one-server shape.
 """
 
 from __future__ import annotations
@@ -43,8 +48,11 @@ class MetricsExporter:
     """
 
     def __init__(self, registry: mreg.MetricsRegistry | None = None, *,
-                 port: int = 0, host: str = "127.0.0.1"):
+                 port: int = 0, host: str = "127.0.0.1", cluster=None):
         self.registry = registry if registry is not None else mreg.REGISTRY
+        # a ClusterTelemetry arms the fleet surfaces; None keeps the
+        # one-server documents as they were
+        self.cluster = cluster
         self._host = host
         self._requested_port = int(port)
         self._server: ThreadingHTTPServer | None = None
@@ -65,7 +73,10 @@ class MetricsExporter:
             def do_GET(self):
                 try:
                     if self.path in ("/metrics", "/metrics/"):
-                        body = exporter.registry.prometheus_text().encode()
+                        text = (exporter.cluster.prometheus_text()
+                                if exporter.cluster is not None
+                                else exporter.registry.prometheus_text())
+                        body = text.encode()
                         ctype = "text/plain; version=0.0.4; charset=utf-8"
                     elif self.path in ("/healthz", "/healthz/"):
                         body = (json.dumps(exporter.health())
@@ -126,7 +137,10 @@ class MetricsExporter:
 
     def health(self) -> dict:
         """The /healthz document, from the registry's gauges alone: any
-        process that keeps the gauges gets an honest health surface."""
+        process that keeps the gauges gets an honest health surface. A
+        cluster-armed exporter serves the fleet document instead."""
+        if self.cluster is not None:
+            return self.cluster.health()
 
         def gauge_value(name):
             # the health gauges are unlabeled by contract

@@ -2,8 +2,10 @@
 ``idc_models_tpu/serve`` (the contiguous and paged engines, the page
 allocator, both prefix-cache flavours, the scheduler, server, metrics,
 the resilience layer: the serve fault plan, the request journal and
-the brownout controller, and multi-tenant serving: the tenant registry,
-quotas and adapter bank; ROADMAP A9.0-A9.4b)."""
+the brownout controller, multi-tenant serving: the tenant registry,
+quotas and adapter bank; ROADMAP A9.0-A9.4b) and the serving cluster
+(``serve/cluster``: the prefix registry, replicas, router, autoscaler and
+fleet telemetry; ROADMAP A10)."""
 
 from idc_models_tpu_torch.serve.api import (  # noqa: F401
     LMServer, Request, Result, load_trace, poisson_trace, save_trace,
@@ -35,4 +37,8 @@ from idc_models_tpu_torch.serve.scheduler import (  # noqa: F401
 )
 from idc_models_tpu_torch.serve.tenancy import (  # noqa: F401
     AdapterBank, Tenancy, Tenant, TenantQuota, TenantRegistry,
+)
+from idc_models_tpu_torch.serve.cluster import (  # noqa: F401
+    AutoscaleConfig, Autoscaler, ClusterTelemetry, ClusterWatchdog,
+    PrefixRegistry, Replica, Router, WatchdogConfig, build_replica,
 )

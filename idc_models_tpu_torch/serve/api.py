@@ -249,10 +249,12 @@ class LMServer:
 
     # -- synchronous API -------------------------------------------------
 
-    def submit(self, request: Request) -> bool:
+    def submit(self, request: Request, *, parent_span=None) -> bool:
         """Enqueue a request. False = backpressure (queue at max depth)
         or a brownout shed (then `poll` answers a "shed" Result); raises
-        ValueError for requests that could never be served."""
+        ValueError for requests that could never be served. `parent_span`
+        (a span id) parents the request's serve.request span: the cluster
+        router passes its cluster.request root."""
         from idc_models_tpu_torch.serve.scheduler import Entry
 
         prior = self._results.get(request.id)
@@ -267,7 +269,7 @@ class LMServer:
             budget=int(request.max_new_tokens),
             eos_id=request.eos_id, rng=request.seed,
             deadline=request.deadline_s, trace_id=request.trace_id,
-            tenant=request.tenant)
+            parent_span=parent_span, tenant=request.tenant)
         if not self.scheduler.submit(entry):
             if entry.status == "shed":
                 # a shed is terminal, not transient backpressure

@@ -80,6 +80,13 @@ class ServingMetrics:
         self._m_occ = reg.gauge(
             "serve_slot_occupancy",
             "fraction of decode slots running (last cycle)")
+        # the JAX family of jit compiles seen after the first cycle: the
+        # eager port compiles no serving program, so it stays at 0 (the
+        # fleet exposition keeps JAX's family names)
+        reg.counter(
+            "serve_compiles_total",
+            "serving-program compiles observed after the first cycle "
+            "(none in the eager port)")
         # the /healthz freshness anchor (observe/exporter.py)
         self._m_last_tick = reg.gauge(
             "serve_last_tick_monotonic_seconds",
@@ -199,6 +206,9 @@ class ServingMetrics:
         self.spec_drafted = 0
         self.spec_accepted = 0
         self.spec_emitted = 0
+        # eager PyTorch compiles no serving program: the count the
+        # cluster's compile-churn watchdog reads stays 0
+        self.compiles_observed = 0
         self.spec_slot_verifies = 0
         self.propose_s = 0.0
         self.propose_calls = 0
@@ -527,7 +537,7 @@ class ServingMetrics:
             "serve_prefill_stall_ms_max": (
                 _r(float(np.max(self.cycle_prefill_s)), 1e3)
                 if self.cycle_prefill_s else None),
-            "serve_compiles_observed": 0,
+            "serve_compiles_observed": self.compiles_observed,
             "serve_slot_faults": self.slot_faults,
             "serve_retries": self.retries,
             "serve_shed": self.shed,

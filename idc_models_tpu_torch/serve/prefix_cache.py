@@ -20,7 +20,11 @@ pruning, counters, the serve_prefix_* instruments and summary):
   chunk program's own output for those tokens. Snapshots stay on the
   device by default; ``host=True`` stores host copies (numpy, or a CPU
   tensor for bf16, which numpy cannot hold) -- no server or verb passes
-  it yet, as in the JAX package.
+  it yet, as in the JAX package. With ``shared=`` (a cluster
+  `PrefixRegistry`, ``serve/cluster/registry.py``) every insert also
+  publishes a host copy there, and a lookup the registry knows a longer
+  prefix for adopts it: a hot prompt prefilled on one replica is reused
+  on every other.
 - `PagedPrefixCache` (paged engines) stores refcounted page lists under
   a page budget -- no copies; see its docstring.
 
@@ -286,16 +290,18 @@ class PrefixCache(_RadixPrefixBase):
 
     `chunk` fixes the snapshot grid: node depth d holds the state after
     tokens[:d*chunk]. `max_bytes` bounds the summed bytes of stored
-    snapshots (0 disables storage: lookups always miss). A cluster-wide
-    registry (`shared`) comes with ROADMAP A10."""
+    snapshots (0 disables storage: lookups always miss).
+
+    `shared` is a cluster-wide `PrefixRegistry` on the same chunk grid:
+    inserts publish each boundary snapshot there (it keeps host copies,
+    which any replica's engine pads and moves onto its own device), and
+    a lookup whose local walk falls short adopts the registry's longer
+    prefix. Tensor snapshots only: a paged snapshot's page ids name
+    pages of one engine's pool."""
 
     def __init__(self, chunk: int, max_bytes: int, *,
                  host: bool = False, logger=None, registry=None,
                  shared=None):
-        if shared is not None:
-            from idc_models_tpu_torch.serve.engine import later
-
-            raise later("A10", "the cluster prefix registry (shared)")
         if max_bytes < 0:
             raise ValueError(f"need max_bytes >= 0, got {max_bytes}")
         super().__init__(chunk, logger=logger, registry=registry)
@@ -304,6 +310,13 @@ class PrefixCache(_RadixPrefixBase):
         self._pack = None             # (caches, n_tokens) -> stored tree
         self._unpack = None           # stored tree -> caller tree
         self.nbytes = 0
+        if shared is not None and shared.chunk != self.chunk:
+            raise ValueError(
+                f"shared registry chunk {shared.chunk} != cache chunk "
+                f"{self.chunk} — snapshots live on one chunk grid")
+        self.shared = shared
+        self.shared_hits = 0
+        self.shared_hit_tokens = 0
 
     def set_packer(self, pack, unpack) -> None:
         """Install a storage transform: ``pack(caches, n_tokens)`` maps
@@ -322,8 +335,26 @@ class PrefixCache(_RadixPrefixBase):
         ``(start, caches, logits)`` with `start` tokens already in the
         returned caches ((0, None, None) on a miss). Both halves are
         fresh copies, safe for the in-place chunk fold; the stored
-        master is untouched."""
+        master is untouched. A longer prefix in the shared registry is
+        adopted: unpacked, stored locally (so the next lookup needs no
+        registry hop; a no-op while writes are paused) and handed out.
+        The pure-read `covered` gates the registry's copy, so a prefix
+        the local cache already holds costs nothing there."""
         best, start = self._lookup_node(tokens)
+        if (self.shared is not None
+                and self.shared.covered(tokens) > start):
+            s2, packed, logits2 = self.shared.lookup(tokens)
+            if s2 > start:
+                self.shared_hits += 1
+                self.shared_hit_tokens += s2 - start
+                self._log(event="serve_prefix_shared_hit",
+                          prefix_tokens=s2,
+                          prompt_tokens=int(np.asarray(tokens).size))
+                caches = (self._unpack(packed) if self._unpack is not None
+                          else _copy_tree(packed, self.host))
+                self.insert(np.asarray(tokens).reshape(-1)[:s2], caches,
+                            logits2)
+                return s2, caches, _copy_tree(logits2, self.host)
         if best is None:
             return 0, None, None
         caches, logits = best.snapshot
@@ -357,11 +388,26 @@ class PrefixCache(_RadixPrefixBase):
         while self.nbytes > self.max_bytes and self.n_snapshots > 1:
             self._evict_lru(protect=node)
         self._m_bytes.set(self.nbytes)
+        # publish to the cluster registry, which copies to the host and
+        # dedupes by key (republishing an adopted prefix is a no-op);
+        # local eviction never unpublishes: the registry has its own
+        # budget and LRU
+        if self.shared is not None:
+            self.shared.publish(toks, snap[0], snap[1])
         return True
 
     def _release_snapshot(self, node) -> int:
         self.nbytes -= node.nbytes
         return 0
+
+    def summary(self) -> dict:
+        out = super().summary()
+        if self.shared is not None:
+            # only with a registry attached: a one-replica summary keeps
+            # its keys
+            out["serve_prefix_shared_hits"] = self.shared_hits
+            out["serve_prefix_shared_hit_tokens"] = self.shared_hit_tokens
+        return out
 
 
 class PagedPrefixCache(_RadixPrefixBase):

@@ -108,6 +108,10 @@ class Entry:
     eos_id: int | None = None
     rng: object = None               # per-request seed or generator
     trace_id: str | None = None      # assigned at submit if not given
+    # the cluster router's cluster.request root span id: this request's
+    # serve.request span opens as its child, so a fleet's span export is
+    # one tree (None: no router above)
+    parent_span: object = None
     # request-lifecycle span handles (detached spans: they outlive any
     # one tick): submit -> finish, and the queued segment inside it
     span: object = None
@@ -376,7 +380,9 @@ class Scheduler:
         # span carries rid
         tkw = ({"tenant": entry.tenant}
                if entry.tenant is not None else {})
-        entry.span = trace.start_span("serve.request", rid=entry.rid,
+        entry.span = trace.start_span("serve.request",
+                                      parent=entry.parent_span,
+                                      rid=entry.rid,
                                       trace_id=entry.trace_id, **tkw)
         entry.queue_span = trace.start_span(
             "serve.queued", parent=entry.span.span_id, rid=entry.rid,
@@ -581,6 +587,13 @@ class Scheduler:
         return (not self._running and not self._prefilling
                 and not len(self.queue) and not self._retrying
                 and self.engine._pending is None)
+
+    def load(self) -> int:
+        """Requests this scheduler holds now: queued, prefilling,
+        running and waiting to retry. The cluster router's least-loaded
+        placement signal: one integer, no device traffic."""
+        return (len(self.queue) + len(self._running)
+                + len(self._prefilling) + len(self._retrying))
 
     def _apply_faults(self, cycle: int) -> None:
         """Fire the plan's non-burst faults for this cycle, a pure

@@ -1909,3 +1909,73 @@ def test_paged_spot_check_after_quiesce_makes_no_host_sync(cuda):
     assert torch.equal(table, eng._pt)
     server.drain()
     assert all(r.status == "ok" for r in server.results())
+
+
+class _Places:
+    """A logger keeping the router's placements and the replicas'
+    admissions."""
+
+    def __init__(self):
+        self.places, self.admits = [], 0
+
+    def log(self, **rec):
+        if rec.get("event") == "cluster_place":
+            self.places.append((rec["id"], rec["replica"]))
+        self.admits += rec.get("event") == "serve_admit"
+
+    def close(self):
+        pass
+
+
+def _pallas_fleet(model, kw, device, log):
+    from idc_models_tpu_torch.serve import Router, build_replica
+
+    kw = dict(kw, device=device)
+    return Router([build_replica(model, replica_id=f"r{i}", n_slots=2,
+                                 window=4, block_impl="pallas", logger=log,
+                                 **kw)
+                   for i in range(2)], logger=log)
+
+
+def test_pallas_router_on_the_card_places_like_the_cpu(cuda):
+    """Two pallas replicas on the card behind the router: the same
+    placements as the same fleet on the CPU (placement reads only host
+    state), every request's tokens held to the serial card Generator
+    under the 1e-5 contract, and the flash update kernel launched twice
+    an admission (one a block) on the card and never on the CPU."""
+    from idc_models_tpu_torch.models.lm import Generator
+
+    model, kw = _card_lm()
+    reqs = _res_requests(6, 100, 140, 10, 21)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        log = _Places()
+        router = _pallas_fleet(model, kw, device, log)
+        torch.cuda.synchronize()
+        before = fbk.KERNELS[0].launches
+        out = router.run([(0.0, r) for r in reqs])
+        torch.cuda.synchronize()
+        assert sorted(r.id for r in out) == sorted(r.id for r in reqs)
+        assert {r.status for r in out} == {"ok"}
+        runs[device] = (log.places, log.admits,
+                        fbk.KERNELS[0].launches - before,
+                        {r.id: r.tokens for r in out})
+    assert runs["cuda"][0] == runs["cpu"][0]
+    assert {rep for _, rep in runs["cuda"][0]} == {"r0", "r1"}
+    assert runs["cuda"][1] == len(reqs)
+    assert runs["cuda"][2] == 2 * runs["cuda"][1]
+    assert runs["cpu"][2] == 0
+    gen = Generator(model, **dict(kw, device="cuda"))
+    held = 0
+    for r in reqs:
+        logits, caches = gen.prefill([list(r.prompt)])
+        for j, tok in enumerate(runs["cuda"][3][r.id]):
+            top2 = logits[0].topk(2).values
+            if float(top2[0] - top2[1]) < 1e-5 * float(logits.abs().max()):
+                break
+            want, logits, caches = gen.decode(caches, logits,
+                                              len(r.prompt) + j, 1)
+            assert tok == int(want[0, 0]), (r.id, j)
+            held += 1
+    print(f"pallas router on the card: tokens held {held} of "
+          f"{sum(len(t) for t in runs['cuda'][3].values())} steps")

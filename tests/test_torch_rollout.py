@@ -90,17 +90,18 @@ class _Records:
 
 def _server(params=None, **kw):
     kw.setdefault("registry", MetricsRegistry())
+    kw.setdefault("clock", _still)
     return LMServer(_params(0) if params is None else params, n_slots=2,
                     window=4, device="cpu", cache_dtype=torch.float32,
-                    clock=_still, **KW, **kw)
+                    **KW, **kw)
 
 
 def _jserver(params=None, **kw):
     kw.setdefault("registry", jreg.MetricsRegistry())
+    kw.setdefault("clock", _still)
     return jserve.LMServer(_params(0) if params is None else params,
                            n_slots=2, window=4, mesh=None,
-                           cache_dtype=jnp.float32, clock=_still, **KW,
-                           **kw)
+                           cache_dtype=jnp.float32, **KW, **kw)
 
 
 def _trace(n, *, start=0, tenant=None, seed=7, cls=Request):
@@ -313,6 +314,55 @@ def test_insufficient_evidence_and_error_burn_roll_back_like_jax():
     assert reasons[0].startswith("canary error burn: 1/2 finishes errored")
 
 
+class _Clock:
+    """A clock that moves only when the test sets `t`."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+@pytest.mark.parametrize("canary_ttft_s,verdict", [
+    (0.1, "rolled_back"), (0.015, "promoted")])
+def test_ttft_gate_judges_the_canary_on_an_injected_clock(canary_ttft_s,
+                                                          verdict):
+    """The TTFT gate on a clock the test moves: the live server's two
+    requests reach their first token 10 ms after submit, the canary's
+    two `canary_ttft_s` after. 100 ms is past `ttft_slack` (2.0) x 10 ms
+    and rolls back with the canary-SLO reason; 15 ms is within it and
+    promotes. Both packages' controllers give the same verdict and
+    reason."""
+    got = []
+    for make, cls, mod in ((_server, Request, None),
+                           (_jserver, jserve.Request, jrollout)):
+        clock = _Clock()
+        server = make(clock=clock)
+        for _, r in _trace(2, cls=cls):
+            assert server.submit(r)
+        clock.t = 0.01
+        server.drain()
+        ctl = (RolloutController if mod is None else
+               mod.RolloutController)(server, _params(1),
+                                      canary_fraction=1.0,
+                                      canary_requests=2)
+        assert ctl.start()
+        clock.t = 1.0
+        for _, r in _trace(2, start=2, cls=cls):
+            assert ctl.submit(r)
+        clock.t = 1.0 + canary_ttft_s
+        while ctl.stage == "canary":
+            ctl.step()
+        got.append((ctl.stage, ctl.reason))
+    assert got[0] == got[1]
+    assert got[0][0] == verdict
+    if verdict == "rolled_back":
+        assert got[0][1] == ("canary SLO burn: TTFT p95 "
+                             f"{canary_ttft_s * 1e3:.1f} ms > 2.0x live "
+                             f"10.0 ms")
+
+
 def test_rollout_from_a_sharded_checkpoint_path(tmp_path):
     """The candidate arrives as a directory the port's `save_sharded`
     wrote; the controller restores it whole and promotes, and the
@@ -514,13 +564,23 @@ _VERB = ["--slots", "2", "--window", "4", "--t-max", "32", "--vocab", "11",
          "--num-blocks", "1"]
 
 
-def test_serve_rollout_verb_prints_the_jax_verdict(tmp_path, capsys):
+def test_serve_rollout_verb_prints_the_jax_verdict(tmp_path, capsys,
+                                                  monkeypatch):
     """`serve --save-ckpt` mints a candidate; `serve --rollout` over it
     with --canary-fraction 0.5 --canary-requests 3 --rollout-at 0.0
     serves every request and prints the JAX verb's stage line, on both
-    packages' verbs over the same checkpoint."""
+    packages' verbs over the same checkpoint. The verbs time TTFT on the
+    wall clock, where a loaded host can make either canary's p95 pass
+    twice the live one's; so both controllers' TTFT slack is lifted here,
+    and the gate itself is held on an injected clock
+    (`test_ttft_gate_judges_the_canary_on_an_injected_clock`)."""
     from idc_models_tpu import cli as jcli
+    from idc_models_tpu_torch.checkpoint import rollout as trollout
 
+    for mod in (trollout, jrollout):
+        monkeypatch.setattr(
+            mod.RolloutController, "__init__", functools.partialmethod(
+                mod.RolloutController.__init__, ttft_slack=float("inf")))
     ckpt = tmp_path / "candidate"
     assert cli.main(["serve", "--device", "cpu", "--requests", "4",
                      "--seed", "1", "--save-ckpt", str(ckpt),
