@@ -339,12 +339,23 @@ non-zero before the result line:
    drill, journals, the fleet /metrics and /healthz scraped once each and
    the watchdog; (c7) the router's own host ms a step beside the
    replicas';
+19. serving over ranks and the compile cache (ring_decode.py's merge,
+   serve/engine.py on a mesh, serve/compile_cache.py), on a 1-rank NCCL
+   "seq" group: (d1) phase 12's pallas `LMServer` through the meshed
+   code path over phase 12's burst, tokens bit-equal to (k1)'s and B3
+   48 times; (d2) the same under the "lm" rules at tp 1; (d3) two
+   replicas against one `CompileCache`, each with the kernels' build
+   directory pointed at a fresh one: the first misses, runs nvcc and
+   stores, the second hits with no new store (the library placed from
+   the blob), both serving (k1)'s tokens; then a truncated blob evicted
+   as a miss and rebuilt by nvcc, that replica serving (k1)'s first
+   requests; the cold spin-up's build seconds beside the warm load's ms;
 
 then one JSON line of per-kernel numbers (B3's row carries its launches
 of each phase-14 run in `launches_spec`, of each phase-15 run in
 `launches_resilience`, of each phase-16 run in `launches_tenancy`, of
-each phase-17 run in `launches_rollout` and of each phase-18 run in
-`launches_cluster`),
+each phase-17 run in `launches_rollout`, of each phase-18 run in
+`launches_cluster` and of each phase-19 run in `launches_dist`),
 and the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}`.
 """
@@ -4754,6 +4765,165 @@ def cluster_path(torch, fc, smk, fbk, card: str, memo: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: serving over ranks and the compile cache
+# ---------------------------------------------------------------------------
+
+# (d3): the requests of phase 12's burst the replica rebuilt after an
+# eviction serves
+DIST_EVICTED_N = 4
+
+
+def dist_serve_path(torch, fc, smk, fbk, card: str, memo: dict) -> dict:
+    """Phase 19 at phase 12's width on a 1-rank NCCL group (a file://
+    rendezvous, taken down at the end): (d1) the pallas LMServer on
+    seq_mesh(1) -- the ring's folds and prefill over the group -- over
+    phase 12's burst, every request held to the serial references and
+    its tokens bit-equal to (k1)'s, B3 48 times; (d2) the same on
+    fsdp_tp_mesh(1, 1, 1) under the "lm" rules; (d3) the compile cache:
+    replica 1 with the build directory pointed at a fresh one misses
+    each program, builds B3 with nvcc and stores; replica 2, its build
+    directory fresh again, hits each with no new store, B3's library
+    placed from the blob; both serve the burst with (k1)'s tokens; then
+    the prefill program's blob cut in half, and replica 3, on a third
+    fresh directory, evicts it as a miss, rebuilds B3 with nvcc, stores
+    it again and serves the burst's first DIST_EVICTED_N requests with
+    (k1)'s tokens; then one byte of B3's library flipped in the stored
+    blob, and replica 4, on the third directory (which holds the good
+    library), evicts it with that library untouched, stores again and
+    serves those requests. The build directory is set back after.
+    Returns B3's launches by run."""
+    import torch.distributed as dist
+
+    from idc_models_tpu_torch import mesh as meshlib
+    from idc_models_tpu_torch.models import registry
+    from idc_models_tpu_torch.ops import build
+    from idc_models_tpu_torch.serve import CompileCache, poisson_trace
+
+    t_start = time.perf_counter()
+    tf32_off(torch)
+    model = serve_model(torch)
+    trace = poisson_trace(SERVE_N, **SERVE_TRACE)
+    bf16 = dict(block_impl="pallas", cache_dtype=torch.bfloat16)
+    k1_tokens = memo["k1"][0]
+    refs = memo["serial"]
+
+    def same_as_k1(server, name, ids):
+        diff = [i for i in ids if server.poll(i).tokens != k1_tokens[i]]
+        if diff:
+            raise SystemExit(f"dist serve {name}: tokens of {diff[:3]} "
+                             f"differ from (k1)'s")
+        log(f"dist serve {name}: {len(ids)} of {len(ids)} requests' "
+            f"tokens bit-equal to (k1)'s; {card}")
+
+    out = {}
+    orig_build = build.BUILD_DIR
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        meshlib.initialize_multihost(f"file://{tmp}/store", 1, 0)
+        try:
+            if dist.get_backend() != "nccl":
+                raise SystemExit(f"dist serve: backend "
+                                 f"{dist.get_backend()}, not nccl")
+            ids = [r.id for _, r in trace]
+            for name, mesh, rules in (
+                    ("(d1) seq 1", meshlib.seq_mesh(1), None),
+                    ("(d2) lm rules tp 1", meshlib.fsdp_tp_mesh(1, 1, 1),
+                     registry.get_partition_rules("lm"))):
+                server, _, out[name[:4]] = serve_case(
+                    torch, fc, smk, fbk, model, name, trace,
+                    (2 * SERVE_N, 0, 0), lambda req: refs[req.id], card,
+                    mesh=mesh, partition_rules=rules, **bf16)
+                same_as_k1(server, name, ids)
+                del server
+                torch.cuda.empty_cache()
+            cache = CompileCache(tmp / "cc")
+            stats = []
+            for i, name in enumerate(("(d3) cold", "(d3) warm")):
+                build.set_build_dir(tmp / f"build{i}")
+                server, _, out[name] = serve_case(
+                    torch, fc, smk, fbk, model, name, trace,
+                    (2 * SERVE_N, 0, 0), lambda req: refs[req.id], card,
+                    compile_cache=cache, **bf16)
+                same_as_k1(server, name, ids)
+                stats.append(dict(cache.summary()))
+                del server
+                torch.cuda.empty_cache()
+            cold, warm = stats
+            if not (cold["misses"] == cold["stores"] == 2
+                    and cold["hits"] == 0 and cold["compile_s"] > 0):
+                raise SystemExit(f"dist serve (d3): the cold replica's "
+                                 f"cache {cold}")
+            if not (warm["hits"] == 2 and warm["stores"] == 2):
+                raise SystemExit(f"dist serve (d3): the warm replica hit "
+                                 f"{warm['hits'] - cold['hits']} and "
+                                 f"stored {warm['stores'] - cold['stores']}")
+            warm_ms = (warm["deserialize_s"] - cold["deserialize_s"]) * 1e3
+            log(f"dist serve (d3): cold spin-up built B3 with nvcc in "
+                f"{cold['compile_s']!r} s (2 programs missed and stored); "
+                f"the warm one loaded both from the cache in {warm_ms!r} "
+                f"ms, no new store; {card}")
+            blobs = sorted(cache.path.glob("*.torchexe"),
+                           key=lambda f: f.stat().st_size)
+            cut = blobs[-1]                     # the one holding B3
+            data = cut.read_bytes()
+            cut.write_bytes(data[:len(data) // 2])
+            build.set_build_dir(tmp / "build2")
+            server, _, out["(d3) evicted"] = serve_case(
+                torch, fc, smk, fbk, model, "(d3) evicted",
+                trace[:DIST_EVICTED_N], (2 * DIST_EVICTED_N, 0, 0),
+                lambda req: refs[req.id], card, compile_cache=cache,
+                **bf16)
+            same_as_k1(server, "(d3) evicted", ids[:DIST_EVICTED_N])
+            del server
+            after = cache.summary()
+            if not (after["evicted_corrupt"] == 1
+                    and after["stores"] == warm["stores"] + 1
+                    and after["compile_s"] > warm["compile_s"]):
+                raise SystemExit(f"dist serve (d3): after the cut blob "
+                                 f"the cache reads {after}")
+            log(f"dist serve (d3): the cut blob ({len(data)} bytes, "
+                f"{len(data) // 2} kept) evicted as a miss and B3 rebuilt "
+                f"by nvcc in {after['compile_s'] - warm['compile_s']!r} s "
+                f"and stored again; cache {after}; {card}")
+            # a blob of the right size with one byte of B3's library
+            # flipped, against a build directory that holds the good
+            # library: evicted before anything is placed, the good file
+            # left as it was, and the replica serves
+            good = build.BUILD_DIR / fbk.FWD_KERNEL.library_path().name
+            good_bytes = good.read_bytes()
+            data = cut.read_bytes()
+            at = len(data) - len(good_bytes) // 2
+            cut.write_bytes(data[:at] + bytes([data[at] ^ 0xFF])
+                            + data[at + 1:])
+            server, _, out["(d3) flipped"] = serve_case(
+                torch, fc, smk, fbk, model, "(d3) flipped",
+                trace[:DIST_EVICTED_N], (2 * DIST_EVICTED_N, 0, 0),
+                lambda req: refs[req.id], card, compile_cache=cache,
+                **bf16)
+            same_as_k1(server, "(d3) flipped", ids[:DIST_EVICTED_N])
+            del server
+            flipped = cache.summary()
+            if not (flipped["evicted_corrupt"] == 2
+                    and flipped["stores"] == after["stores"] + 1
+                    and good.read_bytes() == good_bytes):
+                raise SystemExit(f"dist serve (d3): after the flipped "
+                                 f"byte the cache reads {flipped}, the "
+                                 f"build directory's library "
+                                 f"{'kept' if good.read_bytes() == good_bytes else 'overwritten'}")
+            log(f"dist serve (d3): a blob with one byte of B3's library "
+                f"flipped evicted as a miss, the build directory's "
+                f"library left as it was and stored again; cache "
+                f"{flipped}; {card}")
+        finally:
+            build.set_build_dir(orig_build)
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    log(f"phase 19 (dist serve) took {time.perf_counter() - t_start!r} s; "
+        f"{card}")
+    return out
+
+
 def flash_bytes_flops(t: int, d: int, h: int, itemsize: int,
                       causal: bool = True):
     """Bytes each kernel must move (inputs read once, outputs written
@@ -7013,6 +7183,7 @@ def main() -> int:
     ten = tenancy_path(torch, fc, smk, fbk, card, memo)
     rol = rollout_path(torch, fc, smk, fbk, card, memo)
     clu = cluster_path(torch, fc, smk, fbk, card, memo)
+    dsv = dist_serve_path(torch, fc, smk, fbk, card, memo)
     del memo
     att = attention_path(torch, fc, smk, fbk, tring, card)
 
@@ -7098,9 +7269,11 @@ def main() -> int:
         "launches_attention": {name: run["launches"][i] for name, run
                                in att["runs"].items()},
         # phase (j): `lm --fsdp 1 --tp 1 --seq-parallel 1` and
-        # `attention --seq-parallel 1` on a 1-rank group
+        # `attention --seq-parallel 1` on a 1-rank group; phase 19: the
+        # serving runs (d1)-(d3) on a 1-rank "seq" group
         "launches_dist": {"lm": dist["lm"][i],
-                          "attention": dist["attention"][i]},
+                          "attention": dist["attention"][i],
+                          **{run: counts[i] for run, counts in dsv.items()}},
         # phase 12: the serve runs (k1)-(k5)
         "launches_serve": {run: counts[i] for run, counts in served.items()},
         # phase 14: the speculative runs (s1)-(s7)

@@ -143,6 +143,16 @@ not split: each step gathers them whole).
     torchrun --nproc-per-node 4 -m idc_models_tpu_torch lm --fsdp 2 --tp 2
     python -m idc_models_tpu_torch attention --host-devices 4 \
         --seq-parallel 4 --device cpu
+
+``serve`` over ranks runs one server a rank, in lockstep: the KV caches
+on a "seq" ring of --seq-parallel ranks, the params over a "model" axis
+of --tp ranks under the "lm" rules (--tp x --seq-parallel must use every
+rank); ``profile --model serve`` profiles one server over a ring of all
+of them. ``--compile-cache DIR`` (``serve``, ``serve-cluster``) keeps the
+serve programs' kernel libraries for the next run.
+
+    python -m idc_models_tpu_torch serve --host-devices 4 --tp 2 \
+        --seq-parallel 2 --device cpu --compile-cache /tmp/cc
 """
 
 from __future__ import annotations
@@ -173,13 +183,6 @@ SERVE_DRAFTERS = {
                 "scan's free hits where streams repeat, the draft LM "
                 "(--draft-ckpt) everywhere else"),
 }
-
-# the serve verb's flags of later ROADMAP items: (flag, argparse
-# keywords, label); `_run_serve` refuses any that differs from its default
-_LATER = [
-    ("--compile-cache", dict(default=None), "A10"),
-]
-
 
 class _DrainRequested:
     """The serve verb's drain request: set by the SIGTERM handler, read
@@ -236,16 +239,11 @@ def main(argv: list[str] | None = None) -> int:
     elif getattr(ns, "host_devices", 0):
         if ns.host_devices > 1 and ns.preset_key in ("fed", "secure_fed"):
             _one_rank_fed(ns.host_devices)
-        if ns.preset_key == "serve" or (ns.preset_key == "profile"
-                                        and ns.model == "serve"):
-            sys.exit(f"serve --host-devices {ns.host_devices}: serving "
-                     f"over several ranks is not ported yet (ROADMAP "
-                     f"A9-dist)")
         if ns.host_devices > 1 and not mesh.in_cpu_pod():
             return mesh.launch_cpu_pod(ns.host_devices, argv)
         # the ranks of a CPU pod run on the CPU
         ns.device = "cpu"
-    mesh.join_world()
+    joined = mesh.join_world()
     runner = {"vgg": _run_dist, "mobile": _run_dist, "dense": _run_dist,
               "fed": _run_fed, "secure_fed": _run_secure, "lm": _run_lm,
               "attention": _run_attention, "serve": _run_serve,
@@ -254,10 +252,27 @@ def main(argv: list[str] | None = None) -> int:
     # --trace-out: one wiring point arms the tracer for every verb; the
     # spans export as Chrome trace-event JSON when the run ends
     writer = collectives.is_writer()
+    # a serving world's ranks run the same server: rank 0 prints
+    quiet = ns.preset_key in ("serve", "profile") and not writer
     with tracing(chrome_path=getattr(ns, "trace_out", None) if writer
-                 else None):
+                 else None), _silenced(quiet):
         runner(ns)
+    if joined:
+        mesh.leave_world()
     return 0
+
+
+def _silenced(quiet: bool):
+    """A context sending standard output nowhere when `quiet`."""
+    import contextlib
+    import os
+
+    if not quiet:
+        return contextlib.nullcontext()
+    stack = contextlib.ExitStack()
+    sink = stack.enter_context(open(os.devnull, "w"))
+    stack.enter_context(contextlib.redirect_stdout(sink))
+    return stack
 
 
 def _ranks_line(mesh) -> str:
@@ -576,8 +591,8 @@ def _parse(argv):
     sp.add_argument("--seed", type=int, default=0)
     sp.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     sp.add_argument("--host-devices", type=int, default=0,
-                    help="refused: serving over several ranks waits for "
-                         "ROADMAP A9-dist")
+                    help="serve over N gloo ranks on the CPU (a pod of "
+                         "processes; rank 0 prints)")
     sp.add_argument("--profile-dir", default=None,
                     help="write a torch.profiler trace of the serve loop "
                          "to <dir>/trace.json")
@@ -593,11 +608,12 @@ def _parse(argv):
     sp.add_argument("--mlp-dim", type=int, default=64)
     sp.add_argument("--num-blocks", type=int, default=2)
     sp.add_argument("--seq-parallel", type=int, default=1,
-                    help="ring size of the serving mesh; above 1 waits "
-                         "for ROADMAP A9-dist")
+                    help="ring size of the serving mesh: the KV caches "
+                         "shard over this many ranks")
     sp.add_argument("--tp", type=int, default=0,
-                    help="tensor-parallel serving; above 1 waits for "
-                         "ROADMAP A9-dist")
+                    help="tensor-parallel serving: the params shard over "
+                         "a 'model' axis of this many ranks under the "
+                         "'lm' rules (0 = off)")
     sp.add_argument("--fsdp", type=int, default=0,
                     help="must stay 0 or 1: a serving engine holds no "
                          "optimizer state")
@@ -792,11 +808,13 @@ def _parse(argv):
                          "trace, then swap a re-seeded bank in live — "
                          "no new program, no dropped request. Needs "
                          "--tenants")
-    # the JAX verb's flags of later items: accepted, and refused by
-    # `_run_serve` with the item's label when set
-    for flag, kw, label in _LATER:
-        sp.add_argument(flag, help=f"not ported yet (ROADMAP {label})",
-                        **kw)
+    sp.add_argument("--compile-cache", default=None, metavar="DIR",
+                    help="persistent compile cache "
+                         "(serve/compile_cache.py): the kernel libraries "
+                         "the serve programs launch, keyed on model "
+                         "config + mesh + torch/CUDA versions. The first "
+                         "run builds and stores; later runs (and warm "
+                         "replica spin-ups) load instead of rebuilding")
 
     sp = sub.add_parser(
         "serve-cluster", aliases=["serve_cluster"],
@@ -922,10 +940,11 @@ def _parse(argv):
                          "one detector pass per router step, each "
                          "firing emits a frozen cluster_anomaly jsonl "
                          "record and bumps cluster_anomalies_total")
-    # the JAX verb's flags of later items, refused as `serve` refuses them
-    for flag, kw, label in _LATER:
-        sp.add_argument(flag, help=f"not ported yet (ROADMAP {label})",
-                        **kw)
+    sp.add_argument("--compile-cache", default=None, metavar="DIR",
+                    help="persistent compile cache shared by every "
+                         "replica (serve/compile_cache.py): the first "
+                         "replica builds and stores, the rest -- and "
+                         "any autoscaled spin-up -- load warm")
 
     sp = sub.add_parser(
         "profile",
@@ -2053,28 +2072,26 @@ def _run_serve(ns):
     import numpy as np
     import torch
 
-    from idc_models_tpu_torch import resolve_device
+    from idc_models_tpu_torch import collectives, resolve_device
+    from idc_models_tpu_torch import mesh as meshlib
     from idc_models_tpu_torch.models.core import init_params
     from idc_models_tpu_torch.models.lm import AttentionLM, next_token_loss
     from idc_models_tpu_torch.observe import (
         SLO, JsonlLogger, MetricsExporter, SLOEngine, Timer, profile_trace,
     )
     from idc_models_tpu_torch.serve import (
-        BrownoutController, InjectedEngineCrash, LMServer, RetryPolicy,
-        load_trace, parse_serve_fault_spec, pending_requests,
+        BrownoutController, CompileCache, InjectedEngineCrash, LMServer,
+        RetryPolicy, load_trace, parse_serve_fault_spec, pending_requests,
         poisson_trace,
     )
 
-    for flag, kw, label in _LATER:
-        dest = flag.lstrip("-").replace("-", "_")
-        if getattr(ns, dest) != kw.get("default", False):
-            sys.exit(f"serve {flag}: not ported yet (ROADMAP {label})")
-    if ns.seq_parallel < 1:
-        sys.exit(f"--seq-parallel {ns.seq_parallel} must be >= 1")
-    if ns.seq_parallel > 1 or ns.tp > 1:
-        sys.exit(f"serve --seq-parallel {ns.seq_parallel} --tp {ns.tp}: "
-                 f"serving over several ranks is not ported yet "
-                 f"(ROADMAP A9-dist)")
+    n_dev = collectives.axis_size()
+    if ns.seq_parallel < 1 or n_dev < ns.seq_parallel:
+        sys.exit(f"--seq-parallel {ns.seq_parallel} needs at least that "
+                 f"many devices ({n_dev} available)")
+    if ns.t_max % ns.seq_parallel:
+        sys.exit(f"--t-max {ns.t_max} must divide by --seq-parallel "
+                 f"{ns.seq_parallel}")
     if ns.fsdp not in (0, 1):
         sys.exit(f"--fsdp {ns.fsdp}: FSDP shards the optimizer+param "
                  f"state over the batch axis at TRAIN time; a serving "
@@ -2082,6 +2099,11 @@ def _run_serve(ns):
                  f"batches — use --tp for serving-side param sharding")
     if ns.tp < 0:
         sys.exit(f"--tp {ns.tp} must be >= 0 (0 = off)")
+    if ns.tp > 1 and ns.tp * ns.seq_parallel > n_dev:
+        sys.exit(f"--tp {ns.tp} x --seq-parallel {ns.seq_parallel} "
+                 f"needs {ns.tp * ns.seq_parallel} devices, have "
+                 f"{n_dev} (use --host-devices to grow the virtual "
+                 f"pod)")
     if ns.temperature < 0.0:
         sys.exit(f"--temperature {ns.temperature} must be >= 0")
     if ns.prefill_chunk and (ns.prefill_chunk < 1
@@ -2221,6 +2243,24 @@ def _run_serve(ns):
                                                 seed=ns.seed)
         except ValueError as e:
             sys.exit(f"--serve-faults: {e}")
+    # the serving mesh: weights over "model" under the "lm" rules with
+    # --tp, the caches on the "seq" ring; one process serves alone
+    ranks = max(ns.tp, 1) * ns.seq_parallel
+    if n_dev > 1 and ranks != n_dev:
+        sys.exit(f"serve over {n_dev} ranks needs --tp x --seq-parallel "
+                 f"to use every one of them, got {ranks}: each rank "
+                 f"runs the same server")
+    serve_rules, mesh = None, None
+    if ns.tp > 1:
+        from idc_models_tpu_torch.models import registry as model_registry
+
+        serve_rules = model_registry.get_partition_rules("lm")
+        mesh = meshlib.fsdp_tp_mesh(1, ns.tp, ns.seq_parallel)
+        print(f"serving mesh: tp={ns.tp} x seq={ns.seq_parallel} "
+              f"(params sharded by rule set 'lm'; KV on the seq ring)")
+    elif n_dev > 1:
+        mesh = meshlib.seq_mesh(ns.seq_parallel)
+    writer = collectives.is_writer()
     device = resolve_device(ns.device)
     model = init_params(AttentionLM(
         ns.vocab, ns.t_max, embed_dim=ns.embed_dim, num_heads=ns.num_heads,
@@ -2241,7 +2281,7 @@ def _run_serve(ns):
             print(f"pre-trained {ns.train_steps} steps, "
                   f"loss={float(m['loss']):.4f}")
     logger = (JsonlLogger(Path(ns.path) / "logs" / "serve.jsonl")
-              if ns.path else None)
+              if ns.path and writer else None)
     slos = []
     if ns.slo_ttft_p95_ms is not None:
         slos.append(SLO.latency("ttft",
@@ -2293,6 +2333,8 @@ def _run_serve(ns):
     n_pending = 0
     if ns.journal and Path(ns.journal).exists():
         n_pending = len(pending_requests(ns.journal))
+    compile_cache = (CompileCache(ns.compile_cache, logger=logger)
+                     if ns.compile_cache else None)
     # --drafter learned/chained: the distilled draft LM restored through
     # the sharded checkpoint; 'ngram' stays None, so the server builds
     # its default prompt-lookup drafter from --ngram-order. The vocab is
@@ -2324,7 +2366,7 @@ def _run_serve(ns):
     # armed before the server's warmup, so a scraper sees the process
     # from the start; taken down with the run
     exporter = None
-    if ns.metrics_port is not None:
+    if ns.metrics_port is not None and writer:
         try:
             exporter = MetricsExporter(port=ns.metrics_port).start()
         except OSError as e:
@@ -2350,7 +2392,8 @@ def _run_serve(ns):
             journal=ns.journal, brownout=brownout,
             spec_decode=ns.spec_decode, draft_k=ns.draft_k,
             draft_order=ns.ngram_order, drafter=drafter, tenancy=tenancy,
-            device=device)
+            mesh=mesh, partition_rules=serve_rules,
+            compile_cache=compile_cache, device=device)
         if n_pending:
             readmitted = server.resubmit_pending(ns.journal)
             line = (f"journal: re-admitted {len(readmitted)} in-flight "
@@ -2369,11 +2412,16 @@ def _run_serve(ns):
             from idc_models_tpu_torch import convert
             from idc_models_tpu_torch.checkpoint import save_sharded
 
-            manifest = save_sharded(
-                ns.save_ckpt, convert.to_jax(server.engine._model)[0],
-                step=ns.train_steps, logger=logger).wait()
-            print(f"checkpoint: wrote {manifest['n_shards']} shard(s) / "
-                  f"{len(manifest['leaves'])} leaves to {ns.save_ckpt}")
+            served = server.engine._model
+            tree = (served.gathered_params() if served.mesh is not None
+                    else convert.to_jax(served)[0])
+            if writer:
+                manifest = save_sharded(ns.save_ckpt, tree,
+                                        step=ns.train_steps,
+                                        logger=logger).wait()
+                print(f"checkpoint: wrote {manifest['n_shards']} "
+                      f"shard(s) / {len(manifest['leaves'])} leaves to "
+                      f"{ns.save_ckpt}")
         if ns.trace:
             trace = load_trace(ns.trace)
         else:
@@ -2392,7 +2440,7 @@ def _run_serve(ns):
         prev_sigterm = _arm_sigterm(drain)
         try:
             with Timer("Serving trace", logger=logger), \
-                    profile_trace(ns.profile_dir):
+                    profile_trace(ns.profile_dir if writer else None):
                 try:
                     if ns.rollout:
                         from idc_models_tpu_torch.checkpoint import (
@@ -2444,6 +2492,13 @@ def _run_serve(ns):
                   f"({summary['serve_prefix_hits']} hits, "
                   f"{summary['serve_prefix_evictions']} evictions, "
                   f"{summary['serve_prefix_bytes']} bytes)")
+        if summary.get("serve_compile_cache") is not None:
+            cc = summary["serve_compile_cache"]
+            print(f"compile cache: {cc['hits']} hit(s) "
+                  f"({cc['deserialize_s']:.3f}s deserializing), "
+                  f"{cc['misses']} miss(es) -> {cc['stores']} store(s) "
+                  f"({cc['compile_s']:.3f}s compiling), "
+                  f"{cc['evicted_corrupt']} corrupt eviction(s)")
         if ns.kv_page_size:
             # what paging bought: peak pool occupancy, and the tokens
             # per device byte the capacity claim is stated in
@@ -2553,15 +2608,10 @@ def _run_serve_cluster(ns):
     from idc_models_tpu_torch.models.lm import AttentionLM
     from idc_models_tpu_torch.observe import JsonlLogger, Timer
     from idc_models_tpu_torch.serve import (
-        PrefixRegistry, RetryPolicy, Router, build_replica, load_trace,
-        poisson_trace,
+        CompileCache, PrefixRegistry, RetryPolicy, Router, build_replica,
+        load_trace, poisson_trace,
     )
 
-    for flag, kw, label in _LATER:
-        dest = flag.lstrip("-").replace("-", "_")
-        if getattr(ns, dest) != kw.get("default", False):
-            sys.exit(f"serve-cluster {flag}: not ported yet (ROADMAP "
-                     f"{label})")
     if ns.replicas < 1:
         sys.exit(f"--replicas {ns.replicas} must be >= 1")
     if ns.prefill_replicas < 0:
@@ -2623,6 +2673,8 @@ def _run_serve_cluster(ns):
     # always a policy: --max-retries 0 means ZERO re-placements (a
     # valid, strict budget), never "unbounded"
     retry = RetryPolicy(max_retries=ns.max_retries)
+    compile_cache = (CompileCache(ns.compile_cache, logger=logger)
+                     if ns.compile_cache else None)
 
     def _build(i, rid, role):
         return build_replica(
@@ -2640,7 +2692,8 @@ def _run_serve_cluster(ns):
             brownout_queue_high=ns.brownout_queue_high,
             max_queue_depth=ns.max_queue_depth,
             temperature=ns.temperature, top_k=ns.top_k or None,
-            eos_id=ns.eos, cache_dtype=torch.float32, logger=logger)
+            eos_id=ns.eos, cache_dtype=torch.float32,
+            compile_cache=compile_cache, logger=logger)
 
     exporter = None
     try:
@@ -2684,7 +2737,8 @@ def _run_serve_cluster(ns):
             try:
                 exporter = MetricsExporter(
                     router.registry, port=ns.metrics_port,
-                    cluster=ClusterTelemetry(router)).start()
+                    cluster=ClusterTelemetry(
+                        router, compile_cache=compile_cache)).start()
             except OSError as e:
                 sys.exit(f"serve-cluster: cannot bind --metrics-port "
                          f"{ns.metrics_port}: {e}")
@@ -2783,6 +2837,12 @@ def _run_serve_cluster(ns):
                   f"scale-down(s), fleet "
                   f"{summary['cluster_replicas_live']} live at exit "
                   f"(bounds [{ns.replicas}, {ns.autoscale_max}])")
+        if compile_cache is not None:
+            cs = compile_cache.summary()
+            print(f"compile cache: {cs['hits']} hit(s) "
+                  f"({cs['deserialize_s']:.3f}s deserializing), "
+                  f"{cs['misses']} miss(es) -> {cs['stores']} store(s) "
+                  f"({cs['compile_s']:.3f}s compiling)")
         if registry is not None:
             print(f"prefix registry: {summary['cluster_prefix_hits']} "
                   f"hit(s), {summary['cluster_prefix_published']} "
@@ -3234,7 +3294,8 @@ def _profile_serve(ns, device, kind: str):
 
     import torch
 
-    from idc_models_tpu_torch import convert
+    from idc_models_tpu_torch import collectives, convert
+    from idc_models_tpu_torch import mesh as meshlib
     from idc_models_tpu_torch.models.core import init_params
     from idc_models_tpu_torch.models.draft_lm import (
         DraftLM, draft_config, draft_lm,
@@ -3266,8 +3327,11 @@ def _profile_serve(ns, device, kind: str):
         def propose(self, history):
             return None
 
+    # the ranks of a pod profile one server over a "seq" ring of them all
+    world = collectives.axis_size()
     kw = dict(embed_dim=e, num_heads=heads, num_blocks=blocks, t_max=t_max,
               n_slots=n_slots, window=window, cache_dtype=torch.bfloat16,
+              mesh=meshlib.seq_mesh(world) if world > 1 else None,
               device=device)
     budget = t_max - 8
 

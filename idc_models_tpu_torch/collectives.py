@@ -47,6 +47,16 @@ def is_writer() -> bool:
     return axis_index() == 0
 
 
+def broadcast_host(values, group, src: int = 0) -> list[float]:
+    """Group rank `src`'s float64 `values` on every rank of `group`, a
+    gloo group of host values (``mesh.Mesh.host_group``); a group of one
+    rank returns them as they are."""
+    t = torch.tensor(values, dtype=torch.float64)
+    if axis_size(group) > 1:
+        dist.broadcast(t, src=_global_rank(group, src), group=group)
+    return t.tolist()
+
+
 def _global_rank(group, rank: int) -> int:
     """A group rank as the default group numbers it, which is what
     point-to-point operations take."""

@@ -72,6 +72,7 @@ class Mesh:
         self.axis_names = tuple(shape)
         self.coords = coords
         self._groups = groups
+        self._host = None
 
     @property
     def size(self) -> int:
@@ -84,6 +85,17 @@ class Mesh:
             raise ValueError(f"rank {collectives.axis_index()} is not in "
                              f"this mesh of {self.size} ranks")
         return self._groups[axis]
+
+    def host_group(self):
+        """A gloo group of the mesh's ranks for host values (clock
+        readings, decisions), whatever the world's backend; None outside
+        an initialized world. Built on first use, and like `make_mesh`
+        every rank of the world must make that first call, in the same
+        order."""
+        if self._host is None and collectives.initialized():
+            self._host = dist.new_group(list(range(self.size)),
+                                        backend="gloo")
+        return self._host
 
     def axis_size(self, axis: str) -> int:
         """The axis's size, 1 for an axis the mesh does not have."""
@@ -383,14 +395,27 @@ def in_cpu_pod() -> bool:
     return POD_ENV in os.environ
 
 
-def join_world() -> None:
+def join_world() -> bool:
     """Join the world this process was started into: a rank of
     `launch_cpu_pod` through its rendezvous, a ``torchrun`` rank through
-    torchrun's environment; nothing for a process started alone."""
+    torchrun's environment; nothing for a process started alone, or
+    already in a world. True when this call joined one."""
+    if collectives.initialized():
+        return False
     if in_cpu_pod():
         initialize_multihost(os.environ[POD_ENV])
     else:
         initialize_multihost()
+    return collectives.initialized()
+
+
+def leave_world() -> None:
+    """Take down the world `join_world` joined, once every rank is done
+    (a barrier first): no process group is left to the interpreter's
+    exit, where gloo's threads can abort it."""
+    if collectives.initialized():
+        dist.barrier()
+        dist.destroy_process_group()
 
 
 def launch_cpu_pod(n: int, argv: list[str]) -> int:

@@ -54,10 +54,6 @@ _ARCH_DEFAULTS = {
 }
 
 
-def _later(label: str, what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {label})")
-
-
 def draft_config(vocab_size: int, seq_len: int, **overrides) -> dict:
     """The normalized draft-model architecture dict (the sidecar's
     schema). `seq_len` sizes the position table: it must cover the
@@ -161,7 +157,10 @@ def distill_draft_lm(target_model: AttentionLM, streams, *, config: dict,
     `distill_kl_loss` and the Keras RMSprop -- the epoch loop,
     checkpoint-resume and history every model here trains through. The
     student starts from ``init_params(draft_lm(config), seed)`` on the
-    target's device; `mesh` makes the loop data-parallel.
+    target's device; `mesh` makes the loop data-parallel, and `rules`
+    (``partition.PartitionRules``, e.g. the registry's "draft_lm" set)
+    store the student's parameters and RMSprop moments by rule over it
+    (``train.step.ShardedOptimizer``).
 
     Returns `(student, TrainState, history)`; persist with
     ``save_draft_lm(path, student, config=config)``."""
@@ -169,10 +168,11 @@ def distill_draft_lm(target_model: AttentionLM, streams, *, config: dict,
     from idc_models_tpu_torch.models.core import init_params
     from idc_models_tpu_torch.train.loop import fit
     from idc_models_tpu_torch.train.state import TrainState, rmsprop
+    from idc_models_tpu_torch.train.step import ShardedOptimizer
 
-    if rules is not None:
-        raise _later("A9-dist", "distilling the drafter under partition "
-                                "rules")
+    if rules is not None and mesh is None:
+        raise ValueError("distilling under partition rules needs the "
+                         "mesh they resolve on (mesh=...)")
     streams = np.asarray(streams, np.int32)
     if streams.ndim != 2:
         raise ValueError(f"streams must be [N, T] int tokens, got "
@@ -185,7 +185,10 @@ def distill_draft_lm(target_model: AttentionLM, streams, *, config: dict,
             f"engine's t_max)")
     labels = teacher_logits(target_model, streams, batch_size=batch_size)
     model = init_params(draft_lm(config), seed).to(_device_of(target_model))
-    state = TrainState(model, rmsprop(model, lr))
+    optimizer = rmsprop(model, lr)
+    if rules is not None:
+        optimizer = ShardedOptimizer(optimizer, model, mesh, rules)
+    state = TrainState(model, optimizer)
     history = fit(state, distill_kl_loss, ArrayDataset(streams, labels),
                   None, epochs=epochs, batch_size=batch_size, seed=seed,
                   logger=logger, verbose=verbose,

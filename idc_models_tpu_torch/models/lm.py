@@ -50,8 +50,19 @@ both programs (``observe/profile.py``). The serving engine
 (``serve/engine.py``) runs the same prefill, per-token forward and pick.
 `make_adapter_head_hook` is the per-tenant logit adapter the serving
 engine's window, verify and propose apply at pick time
-(``serve/tenancy.py``). Left out so far: serving under partition rules
-(the Generator holds the whole tree; ROADMAP A9-dist).
+(``serve/tenancy.py``).
+
+Serving over ranks (``Generator(mesh=, partition_rules=)``): the KV
+caches shard over the mesh's "seq" ring (``ring_decode``), the prefill
+runs the ring over that group, each rank on its block of the bucket,
+and the decode goes through the folds' merge over ranks. Under
+partition rules (``registry.LM_RULES``) each rank keeps its block of the
+parameters and the serving forwards follow `AttentionLM.shard_`'s plan:
+q/k/v projected for this rank's heads and gathered whole over "model"
+(the cache never takes the "model" axis), the out-projection and fc2
+row-parallel with their partial sums reduced over "model", fc1
+column-parallel, and the vocab-split head's logits gathered whole, so
+every rank picks from the same logits.
 """
 
 from __future__ import annotations
@@ -182,8 +193,10 @@ class AttentionLM(nn.Module):
     def _weight(self, name: str, keep_model: bool = False) -> torch.Tensor:
         """A parameter as the compute uses it: gathered over "data"
         (FSDP: the gradient reduce-scattered), and over "model" unless
-        `keep_model` (the compute is split there)."""
-        p = self.get_parameter(name)
+        `keep_model` (the compute is split there). Read by attribute, so
+        ``torch.func.functional_call``'s stand-in tensors are used too."""
+        owner, _, leaf = name.rpartition(".")
+        p = getattr(self.get_submodule(owner), leaf)
         for dim, axis in enumerate(self.specs[name]):
             if axis == meshlib.DATA_AXIS:
                 p = collectives.gather_on_use(
@@ -349,10 +362,21 @@ class _ServeConfig:
     cache_dtype: torch.dtype
     temperature: float
     top_k: int | None
+    # the "seq" ring the caches shard over: its group (None: this card
+    # alone), size and this rank's index
+    group: object = dataclasses.field(default=None, compare=False)
+    n_ring: int = 1
+    ring_rank: int = 0
+
+
+def _seq_group(mesh):
+    """The "seq" group of a serving mesh (None without one)."""
+    return None if mesh is None else mesh.group(meshlib.SEQ_AXIS)
 
 
 def _serve_config(params, *, embed_dim, num_heads, num_blocks, t_max,
-                  cache_dtype, temperature=0.0, top_k=None) -> _ServeConfig:
+                  cache_dtype, temperature=0.0, top_k=None,
+                  mesh=None) -> _ServeConfig:
     if embed_dim % num_heads:
         raise ValueError(f"embed_dim {embed_dim} not divisible by "
                          f"num_heads {num_heads}")
@@ -365,8 +389,14 @@ def _serve_config(params, *, embed_dim, num_heads, num_blocks, t_max,
         raise ValueError(f"temperature must be >= 0, got {temperature}")
     if top_k is not None and top_k < 1:
         raise ValueError(f"top_k must be >= 1, got {top_k}")
+    group = _seq_group(mesh)
+    n = collectives.axis_size(group) if group is not None else 1
+    if t_max % n:
+        raise ValueError(f"t_max {t_max} not divisible by the ring size "
+                         f"{n} over mesh axis {meshlib.SEQ_AXIS!r}")
     return _ServeConfig(embed_dim, num_heads, num_blocks, t_max,
-                        cache_dtype, float(temperature), top_k)
+                        cache_dtype, float(temperature), top_k, group, n,
+                        collectives.axis_index(group) if n > 1 else 0)
 
 
 def _as_tokens(tokens) -> torch.Tensor:
@@ -449,38 +479,88 @@ def _make_pick(cfg: _ServeConfig):
     return pick
 
 
+def _weights(model: AttentionLM, blk: TransformerBlock):
+    """Block `blk`'s parameters as the serving compute uses them
+    (``AttentionLM._weight``: whole, or this rank's block where
+    `split`; an unmeshed model's parameters as they are)."""
+    return lambda n, split=False: model._weight(f"{blk.name}.{n}", split)
+
+
+def _model_group(model: AttentionLM, part: str):
+    """The "model" group where `shard_` split `part` ("<block>.attn",
+    "<block>.mlp" or "head"), else None."""
+    if not model._split.get(part):
+        return None
+    return model.mesh.group(meshlib.MODEL_AXIS)
+
+
+def _embed(model: AttentionLM, tokens, positions):
+    """Token embeddings plus the learned positions (an int, a slice or
+    an index tensor into the table)."""
+    return model._weight("embed")[tokens] + model._weight("pos")[positions]
+
+
 def _project_qkv(cfg: _ServeConfig, blk: TransformerBlock, h,
-                 seq_shape: tuple):
+                 seq_shape: tuple, model: AttentionLM):
     """Pre-LN q/k/v projection of one block, the one definition shared by
-    the one-token decode forward and the ring prefill."""
+    the one-token decode forward and the ring prefill. Where `model`'s
+    heads split over "model", each rank projects its heads and the heads
+    are gathered whole (the cache holds every head)."""
     b = h.shape[0]
     head_dim = cfg.embed_dim // cfg.num_heads
-    a = layer_norm(h, blk.ln1.scale, blk.ln1.bias)
+    w, g = _weights(model, blk), _model_group(model, f"{blk.name}.attn")
+    a = layer_norm(h, w("ln1.scale"), w("ln1.bias"))
 
-    def split(y):
-        return y.reshape(b, *seq_shape, cfg.num_heads, head_dim)
+    def project(name):
+        y = (a @ w(f"mha.{name}", g is not None).to(a.dtype)).reshape(
+            b, *seq_shape, -1, head_dim)
+        if g is None:
+            return y
+        return collectives.all_gather(y, g, axis=y.dim() - 2, tiled=True)
 
-    mha = blk.mha
-    return (split(a @ mha.wq.to(a.dtype)), split(a @ mha.wk.to(a.dtype)),
-            split(a @ mha.wv.to(a.dtype)))
-
-
-def _attn_residual(blk: TransformerBlock, h, o):
-    """Out-projection + residual."""
-    return h + (o @ blk.mha.wo.to(o.dtype) + blk.mha.bo.to(o.dtype))
+    return project("wq"), project("wk"), project("wv")
 
 
-def _mlp_residual(blk: TransformerBlock, h):
-    """Pre-LN MLP + residual."""
-    a = layer_norm(h, blk.ln2.scale, blk.ln2.bias)
-    m = gelu(a @ blk.fc1.kernel + blk.fc1.bias)
-    return h + (m @ blk.fc2.kernel + blk.fc2.bias)
+def _attn_residual(blk: TransformerBlock, h, o, model: AttentionLM):
+    """Out-projection + residual (row-parallel over "model" where
+    `model`'s heads split: this rank's heads of `o`, the partial sums
+    reduced, ``bo`` added once after)."""
+    w, g = _weights(model, blk), _model_group(model, f"{blk.name}.attn")
+    if g is not None:
+        tp, r = collectives.axis_size(g), collectives.axis_index(g)
+        heads = o.reshape(*o.shape[:-1], blk.mha.num_heads, -1)
+        per = blk.mha.num_heads // tp
+        o = heads[..., r * per:(r + 1) * per, :].reshape(
+            *o.shape[:-1], -1)
+    y = o @ w("mha.wo", g is not None).to(o.dtype)
+    if g is not None:
+        y = collectives.psum(y, g)
+    return h + (y + w("mha.bo").to(o.dtype))
+
+
+def _mlp_residual(blk: TransformerBlock, h, model: AttentionLM):
+    """Pre-LN MLP + residual (fc1 column-parallel and fc2 row-parallel
+    over "model" where `model` split it)."""
+    w, g = _weights(model, blk), _model_group(model, f"{blk.name}.mlp")
+    split = g is not None
+    a = layer_norm(h, w("ln2.scale"), w("ln2.bias"))
+    y = gelu(a @ w("fc1.kernel", split) + w("fc1.bias", split)) @ w(
+        "fc2.kernel", split)
+    if split:
+        y = collectives.psum(y, g)
+    return h + (y + w("fc2.bias"))
 
 
 def _final_logits(model: AttentionLM, h):
-    """Final LN + vocab head."""
-    h = layer_norm(h, model.ln_f.scale, model.ln_f.bias)
-    return h @ model.head.kernel + model.head.bias
+    """Final LN + vocab head (the vocab-split head's blocks gathered
+    whole where `shard_` split it)."""
+    g = _model_group(model, "head")
+    h = layer_norm(h, model._weight("ln_f.scale"), model._weight("ln_f.bias"))
+    z = (h @ model._weight("head.kernel", g is not None)
+         + model._weight("head.bias", g is not None))
+    if g is None:
+        return z
+    return collectives.all_gather(z, g, axis=z.dim() - 1, tiled=True)
 
 
 def make_adapter_head_hook(u, v, tslot):
@@ -522,13 +602,13 @@ def _token_forward(cfg: _ServeConfig, model: AttentionLM, caches, tok, pos,
     head. `pos` is an int or one position per row [B];
     ``fold(i, kc, vc, q, k, v) -> (o, kc, vc)`` is block i's cache fold."""
     b = tok.shape[0]
-    h = model.embed[tok] + model.pos[pos]                   # [B, E]
+    h = _embed(model, tok, pos)                             # [B, E]
     new_caches = []
     for i, (blk, (kc, vc)) in enumerate(zip(model.blocks, caches)):
-        q, k, v = _project_qkv(cfg, blk, h, (1,))
+        q, k, v = _project_qkv(cfg, blk, h, (1,), model)
         o, kc, vc = fold(i, kc, vc, q, k, v)
-        h = _attn_residual(blk, h, o.reshape(b, cfg.embed_dim))
-        h = _mlp_residual(blk, h)
+        h = _attn_residual(blk, h, o.reshape(b, cfg.embed_dim), model)
+        h = _mlp_residual(blk, h, model)
         new_caches.append((kc, vc))
     return _final_logits(model, h), tuple(new_caches)
 
@@ -542,13 +622,13 @@ def _chunk_forward(cfg: _ServeConfig, model: AttentionLM, caches, tokens,
     logits of the last REAL position (p_end - 1) and the extended
     caches."""
     b, c = tokens.shape
-    h = model.embed[tokens] + model.pos[start:start + c]    # [B, C, E]
+    h = _embed(model, tokens, slice(start, start + c))      # [B, C, E]
     new_caches = []
     for i, (blk, (kc, vc)) in enumerate(zip(model.blocks, caches)):
-        q, k, v = _project_qkv(cfg, blk, h, (c,))
+        q, k, v = _project_qkv(cfg, blk, h, (c,), model)
         o, kc, vc = fold(i, kc, vc, q, k, v, start, p_end)
-        h = _attn_residual(blk, h, o.reshape(b, c, cfg.embed_dim))
-        h = _mlp_residual(blk, h)
+        h = _attn_residual(blk, h, o.reshape(b, c, cfg.embed_dim), model)
+        h = _mlp_residual(blk, h, model)
         new_caches.append((kc, vc))
     return _final_logits(model, h[:, p_end - start - 1]), tuple(new_caches)
 
@@ -568,13 +648,13 @@ def _chunk_batch_forward(cfg: _ServeConfig, model: AttentionLM, caches,
     b, c = toks.shape
     idx = (pos[:, None] + torch.arange(c, device=toks.device)).clamp(
         0, model.pos.shape[0] - 1)
-    h = model.embed[toks] + model.pos[idx]                  # [B, C, E]
+    h = _embed(model, toks, idx)                            # [B, C, E]
     new_caches = []
     for i, (blk, (kc, vc)) in enumerate(zip(model.blocks, caches)):
-        q, k, v = _project_qkv(cfg, blk, h, (c,))
+        q, k, v = _project_qkv(cfg, blk, h, (c,), model)
         o, kc, vc = fold(i, kc, vc, q, k, v)
-        h = _attn_residual(blk, h, o.reshape(b, c, cfg.embed_dim))
-        h = _mlp_residual(blk, h)
+        h = _attn_residual(blk, h, o.reshape(b, c, cfg.embed_dim), model)
+        h = _mlp_residual(blk, h, model)
         new_caches.append((kc, vc))
     return _final_logits(model, h), tuple(new_caches)
 
@@ -584,35 +664,55 @@ def _prefill(cfg: _ServeConfig, model: AttentionLM, ring, tokens, p_len):
     the last REAL position's logits, and per block the prompt's K/V with
     the pad positions zeroed (decode's visibility mask relies on slots
     past the prompt staying zero), cast to the cache dtype and padded to
-    t_max."""
+    t_max. Over a "seq" ring of n ranks (`ring` built on that group) each
+    rank runs its block of P'/n positions, the last real position's
+    activations come from the rank that holds it, and each block's K/V
+    are gathered and cut to this rank's cache shard."""
     b, p_pad = tokens.shape
-    h = model.embed[tokens] + model.pos[:p_pad]             # [B, P', E]
+    n, r = cfg.n_ring, cfg.ring_rank
+    tl = p_pad // n
+    h = _embed(model, tokens[:, r * tl:(r + 1) * tl],
+               slice(r * tl, (r + 1) * tl))                 # [B, P'/n, E]
     kvs = []
     for blk in model.blocks:
-        q, k, v = _project_qkv(cfg, blk, h, (p_pad,))
-        o = ring(q, k, v).reshape(b, p_pad, cfg.embed_dim)
-        h = _attn_residual(blk, h, o)
-        h = _mlp_residual(blk, h)
+        q, k, v = _project_qkv(cfg, blk, h, (tl,), model)
+        o = ring(q, k, v).reshape(b, tl, cfg.embed_dim)
+        h = _attn_residual(blk, h, o, model)
+        h = _mlp_residual(blk, h, model)
         kvs.append((k, v))
-    logits = _final_logits(model, h[:, p_len - 1])
+    owner, at = divmod(p_len - 1, tl)
+    h_last = h[:, at]
+    if cfg.group is not None:
+        h_last = collectives.all_gather(h_last, cfg.group)[owner]
+    logits = _final_logits(model, h_last)
     keep = (torch.arange(p_pad, device=h.device) < p_len)[None, :, None, None]
+    ts = cfg.t_max // n
 
     def to_cache(x):
+        if cfg.group is not None:
+            x = collectives.all_gather(x, cfg.group, axis=1, tiled=True)
         x = torch.where(keep, x, 0).to(cfg.cache_dtype)
-        return F.pad(x, (0, 0, 0, 0, 0, cfg.t_max - p_pad))
+        x = F.pad(x, (0, 0, 0, 0, 0, cfg.t_max - p_pad))
+        return x[:, r * ts:(r + 1) * ts] if n > 1 else x
 
     return logits, tuple((to_cache(k), to_cache(v)) for k, v in kvs)
 
 
-def _lm_from_tree(params, *, num_heads: int, num_blocks: int) -> AttentionLM:
-    """An `AttentionLM` holding a JAX-shaped parameter tree of host
-    arrays, its sizes read off the tree."""
-    vocab, embed_dim = params["embed"].shape
-    model = AttentionLM(vocab, params["pos"].shape[0], embed_dim=embed_dim,
+def serving_model(tree, *, num_heads: int, num_blocks: int, device,
+                  mesh=None, rules=None) -> AttentionLM:
+    """The eval-mode `AttentionLM` a serving path computes on, its sizes
+    read off a JAX-shaped tree of host arrays: the whole tree on
+    `device`, or on a `mesh` this rank's blocks of it under `rules`
+    (``partition.PartitionRules``; None keeps it whole)."""
+    vocab, embed_dim = tree["embed"].shape
+    model = AttentionLM(vocab, tree["pos"].shape[0], embed_dim=embed_dim,
                         num_heads=num_heads,
-                        mlp_dim=params["block0"]["fc1"]["kernel"].shape[1],
-                        num_blocks=num_blocks)
-    return convert.load_jax(model, params)
+                        mlp_dim=tree["block0"]["fc1"]["kernel"].shape[1],
+                        num_blocks=num_blocks, mesh=mesh)
+    model = convert.load_jax(model, tree).to(device).eval()
+    if mesh is not None and rules is not None:
+        model.shard_(rules)
+    return model
 
 
 class Generator:
@@ -630,28 +730,42 @@ class Generator:
 
     ``prefill_chunk=C`` prefills through the chunk program, C tokens at a
     time (`chunked_prefill`), the path a chunked serving engine admits
-    through; None keeps the one bucketed ring prefill."""
+    through; None keeps the one bucketed ring prefill.
+
+    `mesh` (``mesh.seq_mesh(n)`` or ``mesh.fsdp_tp_mesh(1, tp, n)``,
+    built by every rank) puts the caches on its "seq" ring and runs the
+    prefill and the folds over that group; `partition_rules` shard the
+    parameters over its "model" axis (``registry.get_partition_rules(
+    "lm")``) while the caches keep the ring's layout. Every rank of the
+    mesh calls the same methods in the same order; each returns the same
+    logits and tokens on every rank."""
 
     def __init__(self, params_or_module, *, embed_dim: int, num_heads: int,
-                 num_blocks: int, t_max: int,
+                 num_blocks: int, t_max: int, mesh=None,
                  cache_dtype: torch.dtype = torch.bfloat16,
                  block_impl: str = "jnp", temperature: float = 0.0,
                  top_k: int | None = None,
-                 prefill_chunk: int | None = None, device=None):
+                 prefill_chunk: int | None = None, partition_rules=None,
+                 device=None):
         tree = (convert.to_jax(params_or_module)[0]
                 if isinstance(params_or_module, nn.Module)
                 else params_or_module)
+        if partition_rules is not None and mesh is None:
+            mesh = meshlib.seq_mesh(1)
         self._cfg = _serve_config(
             tree, embed_dim=embed_dim, num_heads=num_heads,
             num_blocks=num_blocks, t_max=t_max, cache_dtype=cache_dtype,
-            temperature=temperature, top_k=top_k)
+            temperature=temperature, top_k=top_k, mesh=mesh)
+        self.mesh = mesh
         self.device = resolve_device(device)
-        self._model = _lm_from_tree(
-            tree, num_heads=num_heads, num_blocks=num_blocks).to(
-                self.device).eval()
-        self._ring = make_ring_attention(causal=True, block_impl=block_impl)
-        self._fold = make_ring_decode()
-        self._chunk_fold = make_chunk_ring_decode()
+        self._model = serving_model(
+            tree, num_heads=num_heads, num_blocks=num_blocks,
+            device=self.device, mesh=mesh, rules=partition_rules)
+        group = self._cfg.group
+        self._ring = make_ring_attention(causal=True, block_impl=block_impl,
+                                         group=group)
+        self._fold = make_ring_decode(group=group)
+        self._chunk_fold = make_chunk_ring_decode(group=group)
         self._pick = _make_pick(self._cfg)
         self.t_max = t_max
         self.temperature = float(temperature)
@@ -663,23 +777,25 @@ class Generator:
         cfg = self._cfg
         return tuple(init_cache(batch, cfg.t_max, cfg.num_heads,
                                 cfg.embed_dim // cfg.num_heads,
-                                dtype=cfg.cache_dtype, device=self.device)
+                                dtype=cfg.cache_dtype, device=self.device,
+                                group=cfg.group)
                      for _ in range(cfg.num_blocks))
 
     @torch.no_grad()
     def prefill(self, prompt):
         """Prompt [B, P] -> (last-position logits [B, vocab], caches). The
-        prompt is padded to its prefill bucket (`prefill_bucket`); with
-        ``block_impl="pallas"`` a bucket under 128 raises, as the kernel
-        needs T a multiple of 128. With `prefill_chunk` the prompt runs
-        through the chunk program instead, ceil(P / C) chunks extending
-        fresh caches (no flash kernel)."""
+        prompt is padded to its prefill bucket (`prefill_bucket` over the
+        ring's size); with ``block_impl="pallas"`` a bucket under 128 a
+        rank raises, as the kernel needs T a multiple of 128. With
+        `prefill_chunk` the prompt runs through the chunk program
+        instead, ceil(P / C) chunks extending fresh caches (no flash
+        kernel)."""
         tokens = _check_prompt(prompt, self.t_max)
         if self.prefill_chunk is not None:
             with trace.span("lm.prefill", p_len=tokens.shape[1],
                             chunk=self.prefill_chunk):
                 return chunked_prefill(self, tokens, self.prefill_chunk)
-        padded, p_len = _pad_prompt(tokens, self.t_max, 1)
+        padded, p_len = _pad_prompt(tokens, self.t_max, self._cfg.n_ring)
         with trace.span("lm.prefill", p_len=p_len, bucket=padded.shape[1]):
             return _prefill(self._cfg, self._model, self._ring,
                             padded.to(self.device), p_len)
@@ -796,12 +912,13 @@ def chunked_prefill(gen: Generator, tokens, chunk: int, caches=None,
 
 
 def generate(params, prompt, steps: int, *, embed_dim: int, num_heads: int,
-             num_blocks: int, t_max: int, cache_dtype=torch.bfloat16,
-             temperature: float = 0.0, top_k: int | None = None, rng=None,
-             block_impl: str = "jnp", device=None) -> torch.Tensor:
+             num_blocks: int, t_max: int, mesh=None,
+             cache_dtype=torch.bfloat16, temperature: float = 0.0,
+             top_k: int | None = None, rng=None, block_impl: str = "jnp",
+             device=None) -> torch.Tensor:
     """One-shot convenience around `Generator`: [B, P + steps] tokens."""
     gen = Generator(params, embed_dim=embed_dim, num_heads=num_heads,
-                    num_blocks=num_blocks, t_max=t_max,
+                    num_blocks=num_blocks, t_max=t_max, mesh=mesh,
                     cache_dtype=cache_dtype, block_impl=block_impl,
                     temperature=temperature, top_k=top_k, device=device)
     return gen(prompt, steps, rng=rng)

@@ -11,6 +11,8 @@ module on a machine with no ``nvcc`` and no card.
 
 ``build_all`` starts one ``nvcc`` per kernel, all together, and waits
 for them; ``CudaKernel.lib()`` builds a single kernel on demand.
+``set_build_dir`` points every kernel of the process at another
+directory (a shared one, as ``serve/compile_cache.py`` arms it).
 """
 
 from __future__ import annotations
@@ -29,6 +31,16 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def set_build_dir(path) -> Path:
+    """Build and load every kernel of this process from `path` from now
+    on (created if need be). A kernel already loaded keeps its library
+    until it is loaded again. Returns the directory."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return BUILD_DIR
 
 
 def find_nvcc() -> str:
@@ -98,10 +110,14 @@ class CudaKernel:
         """The loaded library, built first if need be."""
         if self._lib is None:
             self.finish_build(self.start_build())
-            lib = ctypes.CDLL(str(self.library_path()))
-            self._declare(lib)
-            self._lib = lib
+            self.install(ctypes.CDLL(str(self.library_path())))
         return self._lib
+
+    def install(self, lib: ctypes.CDLL) -> None:
+        """Make `lib` (this kernel's library, loaded) the one its wrapper
+        launches."""
+        self._declare(lib)
+        self._lib = lib
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> None:

@@ -3,15 +3,19 @@
 allocator, both prefix-cache flavours, the scheduler, server, metrics,
 the resilience layer: the serve fault plan, the request journal and
 the brownout controller, multi-tenant serving: the tenant registry,
-quotas and adapter bank; ROADMAP A9.0-A9.4b) and the serving cluster
-(``serve/cluster``: the prefix registry, replicas, router, autoscaler and
-fleet telemetry; ROADMAP A10)."""
+quotas and adapter bank; ROADMAP A9.0-A9.4b, over the ranks of a mesh:
+A9-dist), the serving cluster (``serve/cluster``: the prefix registry,
+replicas, router, autoscaler and fleet telemetry; ROADMAP A10) and the
+persistent compile cache (``serve/compile_cache.py``, A10)."""
 
 from idc_models_tpu_torch.serve.api import (  # noqa: F401
     LMServer, Request, Result, load_trace, poisson_trace, save_trace,
 )
 from idc_models_tpu_torch.serve.brownout import (  # noqa: F401
     STAGES, BrownoutController,
+)
+from idc_models_tpu_torch.serve.compile_cache import (  # noqa: F401
+    CompileCache, enable_persistent_kernel_cache,
 )
 from idc_models_tpu_torch.serve.engine import (  # noqa: F401
     HEALTH_KINDS, SlotEngine,

@@ -25,6 +25,26 @@ weight rollout (``checkpoint/rollout.py``): `quiesce`, `swap_params` and
 through a JSONL file (byte for byte the JAX package's format).
 `run(trace)` replays either, by the wall clock (``realtime=True``) or
 as a burst.
+
+**Over ranks** (`mesh` across a world of several processes, one a
+rank): JAX drives every device from one process, the port runs one
+process a rank, so every rank runs this same server -- the same
+submits, the same scheduler -- and must make the same host decisions in
+the same order (admissions, slot choice, windows, releases, retries,
+sheds, tenancy picks), or a collective deadlocks. The only host input
+that can differ between ranks is time, so `Lockstep` hands every clock
+the server's decisions read (the scheduler's, the brownout's, the
+SLOs', the tenancy's and the replay's, and the drain flag) rank 0's
+reading, broadcast over a host group; and after every tick it compares
+a digest of what the tick decided across the ranks and raises if any
+rank differs. The merged logits are the same on every rank, and each
+slot's sampling generator is seeded alike, so the tokens are too.
+Rank 0 alone writes the journal (`collectives.is_writer`); the `serve`
+verb gives it alone the logger, the exporter and standard output.
+
+`compile_cache` (``serve/compile_cache.py``): the engine's warmup loads
+or builds and stores its programs' kernel libraries, and the counters
+reach `ServingMetrics.on_compile_cache`.
 """
 
 from __future__ import annotations
@@ -32,10 +52,13 @@ from __future__ import annotations
 import dataclasses
 import json
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
 import torch
+
+from idc_models_tpu_torch import collectives
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,7 +150,7 @@ class LMServer:
                  tenancy=None, partition_rules=None,
                  draft_partition_rules=None, compile_cache=None,
                  device=None):
-        from idc_models_tpu_torch.serve.engine import SlotEngine, later
+        from idc_models_tpu_torch.serve.engine import SlotEngine
         from idc_models_tpu_torch.serve.metrics import ServingMetrics
         from idc_models_tpu_torch.serve.prefix_cache import (
             PagedPrefixCache, PrefixCache,
@@ -187,8 +210,14 @@ class LMServer:
                 "rules place models/draft_lm.DraftLM params — pass "
                 "drafter=DraftLM(...) (or a ChainedDrafter containing "
                 "one), or drop the rules")
-        if compile_cache is not None:
-            raise later("A10", "the compile cache")
+        # ranks that serve together read one clock: rank 0's
+        self._lockstep = (Lockstep(mesh.host_group()) if mesh is not None
+                          and mesh.size > 1 else None)
+        if self._lockstep is not None:
+            clock = self._lockstep.wrap(clock)
+            if not collectives.is_writer():
+                journal = None
+        self.compile_cache = compile_cache
         if tenancy is not None and hasattr(tenancy, "build"):
             tenancy = tenancy.build(
                 vocab=int(np.shape(_head_kernel(params))[1]),
@@ -242,10 +271,17 @@ class LMServer:
             fault_plan=fault_plan, health_checks=health_checks,
             journal=journal, brownout=brownout, drafter=drafter,
             tenancy=tenancy)
+        if self._lockstep is not None:
+            self._lockstep.wrap_clocks(
+                brownout, getattr(brownout, "slo", None), slo,
+                getattr(tenancy, "slo", None),
+                *getattr(tenancy, "brownouts", {}).values())
         self._results: dict[str, Result] = {}
         self._inflight: set[str] = set()
         if warmup:
-            self.engine.warmup(window)
+            self.engine.warmup(window, compile_cache=compile_cache)
+        if compile_cache is not None:
+            self.metrics.on_compile_cache(compile_cache)
 
     # -- synchronous API -------------------------------------------------
 
@@ -363,6 +399,13 @@ class LMServer:
             self._results[r.id] = r
             self._inflight.discard(r.id)
             finished.append(r)
+        if self._lockstep is not None:
+            sched = self.scheduler
+            self._lockstep.check(
+                f"tick {sched._cycle}",
+                (sched._cycle, len(sched.queue), sorted(self._inflight),
+                 [(r.id, r.status, r.tokens) for r in finished],
+                 self.engine.free_slots()))
         return finished
 
     def poll(self, rid: str) -> Result | None:
@@ -408,6 +451,8 @@ class LMServer:
         re-offers the head request every tick until the queue takes it;
         "reject" records a rejected Result and moves on. `stop()`, polled
         between cycles, ends the offers and drains what was accepted."""
+        if self._lockstep is not None and stop is not None:
+            stop = self._lockstep.agree(stop)
         return replay(self, trace, clock=self.scheduler.clock,
                       realtime=realtime, on_full=on_full, stop=stop)
 
@@ -445,6 +490,58 @@ class LMServer:
             params, tenancy=self.tenancy, registry=registry,
             logger=self._clone_logger if logger is None else logger,
             **self._clone_cfg)
+
+
+class Lockstep:
+    """The host half of a server whose ranks serve together (module
+    docstring, "Over ranks"), over `group` (``Mesh.host_group``): rank
+    0's clock readings and flags on every rank, and a per-tick check that
+    every rank decided alike. Every rank must make the same calls in the
+    same order."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def wrap(self, clock):
+        """`clock` as rank 0 reads it, on every rank."""
+        if getattr(clock, "lockstep", False):
+            return clock
+
+        def read():
+            return collectives.broadcast_host(
+                [clock() if collectives.is_writer() else 0.0],
+                self.group)[0]
+
+        read.lockstep = True
+        return read
+
+    def wrap_clocks(self, *owners) -> None:
+        """Give each of `owners` that has a ``clock`` (a brownout, an
+        SLO engine; None is skipped) rank 0's reading of it."""
+        for o in owners:
+            if o is not None and hasattr(o, "clock"):
+                o.clock = self.wrap(o.clock)
+
+    def agree(self, flag):
+        """`flag()` as rank 0 answers it, on every rank (the drain's
+        stop flag: a signal reaches ranks at different moments)."""
+        return lambda: bool(collectives.broadcast_host(
+            [float(bool(flag())) if collectives.is_writer() else 0.0],
+            self.group)[0])
+
+    def check(self, where: str, decided) -> None:
+        """Raise unless every rank's `decided` (a repr-able record of a
+        tick's decisions) equals rank 0's."""
+        digest = zlib.crc32(repr(decided).encode())
+        digests = collectives.all_gather(
+            torch.tensor([digest], dtype=torch.int64),
+            self.group)[:, 0].tolist()
+        bad = [r for r, d in enumerate(digests) if d != digests[0]]
+        if bad:
+            raise RuntimeError(
+                f"serving ranks {bad} decided otherwise than rank 0 at "
+                f"{where}: every rank must run the same calls in the "
+                f"same order")
 
 
 def replay(front, trace, *, clock, realtime: bool = False,

@@ -2,7 +2,8 @@
 ``idc_models_tpu/serve/cluster``: the cross-replica prefix registry,
 replicas, the router (placement, prefill -> decode handoff, hedging,
 drain with live slot migration, failover, fleet rollout), the autoscaler
-and the fleet telemetry and watchdogs (ROADMAP A10)."""
+and the fleet telemetry and watchdogs, with the shared compile cache's
+counters on the fleet /healthz (ROADMAP A10)."""
 
 from idc_models_tpu_torch.serve.cluster.autoscaler import (  # noqa: F401
     AutoscaleConfig, Autoscaler,

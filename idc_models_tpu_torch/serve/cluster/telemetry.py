@@ -20,8 +20,8 @@ operator's single pane:
   health document embedded verbatim, plus fleet aggregates, the
   cluster SLO engine's state, the autoscaler's live hysteresis clocks
   (`Autoscaler.state_doc`), and a shared compile cache's hit/miss
-  counters when one is given (none is yet: ROADMAP A10's compile
-  cache). The NON-cluster /healthz document is untouched —
+  counters when one is given (``serve/compile_cache.py``). The
+  NON-cluster /healthz document is untouched —
   `observe.MetricsExporter` only serves this shape when armed with a
   ClusterTelemetry.
 - `ClusterWatchdog` runs four windowed detectors over the live fleet

@@ -99,9 +99,23 @@ on scratch state, `swap_params` copies them in place, and `export_slot`
 logits, its generator's state and the learned drafter's row) to another
 engine through the normal insert, bit for bit.
 
-Left for later items, each raising NotImplementedError with its label:
-the compile cache (A10), partition rules of the target and of the
-drafter, and meshes of several ranks (A9-dist).
+**Over ranks** (`mesh`, built by every rank): the caches, pools and the
+learned drafter's caches shard over the mesh's "seq" ring -- each rank
+holds t_max/n positions of every row, or its kv_pages/n pages plus a
+sink of its own -- while page tables, positions, budgets, logits and the
+int8 scales replicate. Prefills run the ring over the group (each rank
+its block of the bucket), and every fold merges over it
+(``ring_decode``). `partition_rules` (and `draft_partition_rules`) shard
+the parameters over a "model" axis (``models/lm.py``'s plan); the caches
+never take that axis. A "data" axis is refused: requests prefill one at
+a time. Every rank runs the same calls in the same order
+(``serve/api.py`` makes the host decisions alike), and the merged logits
+-- so the tokens -- are the same on every rank.
+
+**Compile cache** (``serve/compile_cache.py``): `warmup(compile_cache=)`
+loads each serving program's kernel libraries from the store, or builds
+and stores them, before the warmup calls launch them (keyed by the
+kernels' digests and the toolchain).
 """
 
 from __future__ import annotations
@@ -110,11 +124,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from idc_models_tpu_torch import convert
+from idc_models_tpu_torch import collectives, convert
+from idc_models_tpu_torch import mesh as meshlib
 from idc_models_tpu_torch.models.lm import (
-    Generator, _chunk_batch_forward, _chunk_forward, _lm_from_tree,
-    _pad_prompt, _prefill, _serve_config, _token_forward,
-    make_adapter_head_hook, prefill_bucket, prefill_buckets,
+    Generator, _chunk_batch_forward, _chunk_forward, _pad_prompt, _prefill,
+    _serve_config, _token_forward, make_adapter_head_hook, prefill_bucket,
+    prefill_buckets, serving_model,
 )
 from idc_models_tpu_torch.observe import trace
 from idc_models_tpu_torch.ring_attention import make_ring_attention
@@ -131,17 +146,16 @@ _HEALTH_LOGIT_LIMIT = 1e30
 HEALTH_KINDS = {1: "nonfinite_logits", 2: "logit_magnitude"}
 
 
-def later(label: str, what: str) -> NotImplementedError:
-    """The error of a knob or method a later ROADMAP item ports."""
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {label})")
-
-
-def _quantize_row(x):
-    """[1, t_max, H, D] float -> (int8 values, [H] per-head scale):
-    absmax / 127 over every (position, dim) of the row, floored so an
-    all-zero row divides safely."""
+def _quantize_row(x, group=None):
+    """[1, t_max, H, D] float (this rank's shard over the "seq" `group`)
+    -> (int8 values, [H] per-head scale): absmax / 127 over every
+    (position, dim) of the whole row -- one scale across the shards --
+    floored so an all-zero row divides safely."""
     xf = x.float()
-    s = torch.clamp(xf.abs().amax(dim=(0, 1, 3)), min=1e-8) / 127.0
+    m = xf.abs().amax(dim=(0, 1, 3))
+    if group is not None:
+        m = collectives.pmax(m, group)
+    s = torch.clamp(m, min=1e-8) / 127.0
     q = torch.clamp(torch.round(xf / s[None, None, :, None]), -127, 127)
     return q.to(torch.int8), s
 
@@ -155,7 +169,9 @@ def _host_tensor(a) -> torch.Tensor:
 def _cut_to_prefix(caches, n_tokens: int):
     """A contiguous engine's [1, t_max] caches cut to their first
     `n_tokens` positions (the rest are zeros by construction): what a
-    `PrefixCache` snapshot stores."""
+    `PrefixCache` snapshot stores. A cache shard over a ring keeps its
+    first min(n_tokens, t_max/n) positions: what rank 0 needs, so every
+    rank stores (and budgets) a snapshot of one size."""
     return tuple((k[:, :n_tokens], v[:, :n_tokens]) for k, v in caches)
 
 
@@ -207,7 +223,9 @@ class SlotEngine:
     a row (or `start_prefill` / `prefill_step` chunk by chunk);
     `begin_window` / `collect` run the pipelined masked windows
     (`step_window` is the pair); `finished` / `release` recycle rows.
-    Scheduling policy lives in ``serve/scheduler.py``."""
+    Scheduling policy lives in ``serve/scheduler.py``. On a `mesh`
+    every rank builds the engine and makes the same calls in the same
+    order (module docstring, "Over ranks")."""
 
     def __init__(self, params, *, embed_dim: int, num_heads: int,
                  num_blocks: int, t_max: int, n_slots: int = 4,
@@ -229,16 +247,41 @@ class SlotEngine:
                 "draft_partition_rules without draft_model: the rules "
                 "shard the learned drafter's params — pass draft_model "
                 "(models/draft_lm.DraftLM.learned) or drop the rules")
-        for label, what, value in (
-                ("A9-dist", "serving under partition rules",
-                 partition_rules),
-                ("A9-dist", "the drafter under partition rules",
-                 draft_partition_rules)):
-            if value is not None:
-                raise later(label, what)
-        if mesh is not None and mesh.size > 1:
-            raise later("A9-dist", f"serving over a mesh of {mesh.size} "
-                                   f"ranks")
+        if partition_rules is not None and mesh is None:
+            mesh = meshlib.seq_mesh(1)
+        if mesh is not None:
+            # the "model" axis is legal WITH partition rules: weights
+            # shard over it while the caches keep the ring's layout.
+            # Batch-bearing axes stay banned: requests prefill one at a
+            # time and [1, P] batches cannot shard
+            non_seq = [a for a in mesh.axis_names
+                       if a not in (meshlib.SEQ_AXIS, meshlib.MODEL_AXIS)
+                       and mesh.shape[a] > 1]
+            if non_seq:
+                raise ValueError(
+                    f"serving mesh must be seq-only (plus an optional "
+                    f"'model' weight axis): requests prefill one at a "
+                    f"time ([1, P] batches cannot shard over axes "
+                    f"{non_seq}); build the engine on mesh.seq_mesh(n) "
+                    f"or mesh.fsdp_tp_mesh(1, tp, seq)")
+            if (mesh.axis_size(meshlib.MODEL_AXIS) > 1
+                    and partition_rules is None):
+                raise ValueError(
+                    "a 'model' mesh axis without partition_rules would "
+                    "idle every device past the first ring: pass the "
+                    "model's rule set (models/registry.py "
+                    "get_partition_rules) so the params actually shard "
+                    "over it")
+        self.mesh = mesh
+        self._partition_rules = partition_rules
+        self._draft_partition_rules = draft_partition_rules
+        self._block_impl = block_impl
+        n_ring = mesh.axis_size(meshlib.SEQ_AXIS) if mesh is not None else 1
+        if (kv_page_size is not None and kv_pages is not None
+                and int(kv_pages) % n_ring):
+            raise ValueError(
+                f"kv_pages {kv_pages} must divide by the ring size "
+                f"{n_ring}: the pool shards over the page dim")
         # paged KV: a pool of kv_pages fixed-size pages and per-slot page
         # tables replace the per-slot [t_max] rows, so device memory
         # holds the tokens resident, not every slot's worst case.
@@ -307,10 +350,13 @@ class SlotEngine:
         # the serial Generator is the engine's prefill, pick and model
         self._gen = Generator(
             params, embed_dim=embed_dim, num_heads=num_heads,
-            num_blocks=num_blocks, t_max=t_max, cache_dtype=cache_dtype,
-            block_impl=block_impl, temperature=temperature, top_k=top_k,
-            prefill_chunk=prefill_chunk, device=device)
+            num_blocks=num_blocks, t_max=t_max, mesh=mesh,
+            cache_dtype=cache_dtype, block_impl=block_impl,
+            temperature=temperature, top_k=top_k,
+            prefill_chunk=prefill_chunk, partition_rules=partition_rules,
+            device=device)
         self._cfg, self._model = self._gen._cfg, self._gen._model
+        self._group, self._n_ring = self._cfg.group, self._cfg.n_ring
         self._pick = self._gen._pick
         self.device = self._gen.device
         self.prefill_chunk = self._gen.prefill_chunk
@@ -328,35 +374,41 @@ class SlotEngine:
                 "snapshots; a contiguous engine stores array snapshots "
                 "in PrefixCache")
         if prefix_cache is not None and not cache_is_paged:
-            prefix_cache.set_packer(_cut_to_prefix,
-                                    self._pad_to_t_max)
+            shard = t_max // self._n_ring
+            prefix_cache.set_packer(
+                lambda caches, n: _cut_to_prefix(caches, min(n, shard)),
+                self._pad_to_t_max)
+        group = self._group
         if self.paged:
             self._fold = make_paged_batched_ring_decode(
-                page_size=kv_page_size, quantized=self.kv_int8)
+                page_size=kv_page_size, quantized=self.kv_int8, group=group)
             self._chunk_fold = make_paged_chunk_ring_decode(
-                page_size=kv_page_size, quantized=self.kv_int8)
+                page_size=kv_page_size, quantized=self.kv_int8, group=group)
             self._vfold = make_paged_batched_chunk_ring_decode(
-                page_size=kv_page_size, quantized=self.kv_int8)
+                page_size=kv_page_size, quantized=self.kv_int8, group=group)
         else:
-            self._fold = make_batched_ring_decode(quantized=self.kv_int8)
+            self._fold = make_batched_ring_decode(quantized=self.kv_int8,
+                                                  group=group)
             self._vfold = make_batched_chunk_ring_decode(
-                quantized=self.kv_int8)
+                quantized=self.kv_int8, group=group)
         self.t_max = t_max
         self.n_slots = n_slots
         self.pad_id = int(pad_id)
         self.eos_id = eos_id
         self.temperature = float(temperature)
         self.vocab = int(self._model.embed.shape[0])
-        # a pallas prefill needs a bucket of at least 128 (the flash
-        # kernel's tile); warmup prefills at the smallest legal one
-        self._min_bucket = 128 if block_impl == "pallas" else 1
+        # a pallas prefill needs a bucket of at least 128 a rank (the
+        # flash kernel's tile); warmup prefills at the smallest legal one
+        self._min_bucket = ((128 if block_impl == "pallas" else 1)
+                            * self._n_ring)
         dev = self.device
         head_dim = embed_dim // num_heads
-        # per block: each slot's [t_max] rows, or the pool of pages (the
-        # page count, not the slot count, is what a memory budget buys)
+        # per block: each slot's [t_max] rows (this rank's t_max/n of
+        # them), or the pool of pages (the page count, not the slot
+        # count, is what a memory budget buys: this rank's kv_pages/n)
         # and the folds' sink page
-        rows, width = ((kv_pages + 1, kv_page_size) if self.paged
-                       else (n_slots, t_max))
+        rows, width = ((kv_pages // self._n_ring + 1, kv_page_size)
+                       if self.paged else (n_slots, t_max // self._n_ring))
 
         def cache(dtype):
             return torch.zeros((rows, width, num_heads, head_dim),
@@ -365,8 +417,11 @@ class SlotEngine:
         cdt = torch.int8 if self.kv_int8 else cache_dtype
         self._caches = tuple((cache(cdt), cache(cdt))
                              for _ in range(num_blocks))
+        # int8 scales replicate: per (slot, head), or per (page, head)
+        # of the global pool and its sink
+        scale_rows = kv_pages + 1 if self.paged else n_slots
         self._scales = tuple(
-            tuple(torch.zeros((rows, num_heads), device=dev)
+            tuple(torch.zeros((scale_rows, num_heads), device=dev)
                   for _ in range(2))
             for _ in range(num_blocks)) if self.kv_int8 else ()
         self._logits = torch.zeros((n_slots, self.vocab),
@@ -445,18 +500,21 @@ class SlotEngine:
             dparams, embed_dim=dconfig["embed_dim"],
             num_heads=dconfig["num_heads"],
             num_blocks=dconfig["num_blocks"], t_max=self.t_max,
-            cache_dtype=cache_dtype)
-        self._dmodel = _lm_from_tree(
+            cache_dtype=cache_dtype, mesh=self.mesh)
+        self._dmodel = serving_model(
             dparams, num_heads=dconfig["num_heads"],
-            num_blocks=dconfig["num_blocks"]).to(self.device).eval()
+            num_blocks=dconfig["num_blocks"], device=self.device,
+            mesh=self.mesh, rules=self._draft_partition_rules)
+        group = self._group
         self._dring = make_ring_attention(causal=True,
-                                          block_impl=block_impl)
-        self._dfold = make_batched_ring_decode()
-        self._dchunk = make_batched_chunk_ring_decode()
+                                          block_impl=block_impl,
+                                          group=group)
+        self._dfold = make_batched_ring_decode(group=group)
+        self._dchunk = make_batched_chunk_ring_decode(group=group)
         head_dim = dconfig["embed_dim"] // dconfig["num_heads"]
 
         def cache():
-            return torch.zeros((self.n_slots, self.t_max,
+            return torch.zeros((self.n_slots, self.t_max // self._n_ring,
                                 dconfig["num_heads"], head_dim),
                                dtype=cache_dtype, device=self.device)
 
@@ -530,8 +588,9 @@ class SlotEngine:
         prefix, as a cold prefill leaves them)."""
         def grow(a):
             a = torch.as_tensor(a)
-            out = torch.zeros((a.shape[0], self.t_max) + a.shape[2:],
-                              dtype=a.dtype, device=self.device)
+            out = torch.zeros((a.shape[0], self.t_max // self._n_ring)
+                              + a.shape[2:], dtype=a.dtype,
+                              device=self.device)
             out[:, :a.shape[1]] = a
             return out
 
@@ -817,8 +876,8 @@ class SlotEngine:
         for i, ((kc, vc), (nk, nv)) in enumerate(zip(
                 self._caches, () if self.paged else caches1)):
             if self.kv_int8:
-                nk, k_s = _quantize_row(nk)
-                nv, v_s = _quantize_row(nv)
+                nk, k_s = _quantize_row(nk, self._group)
+                nv, v_s = _quantize_row(nv, self._group)
                 self._scales[i][0][slot] = k_s
                 self._scales[i][1][slot] = v_s
             kc[slot] = nk[0].to(kc.dtype)
@@ -850,7 +909,8 @@ class SlotEngine:
             row = None
             front = 0
         else:
-            bucket = max(prefill_bucket(p_len - 1, self.t_max, 1),
+            bucket = max(prefill_bucket(p_len - 1, self.t_max,
+                                        self._n_ring),
                          min(self._min_bucket, self.t_max))
             padded = torch.zeros((1, bucket), dtype=torch.long)
             padded[0, :p_len - 1] = torch.from_numpy(prompt[:p_len - 1])
@@ -888,10 +948,11 @@ class SlotEngine:
         prompt = self._validate_admit(slot, prompt, max_new_tokens, rng)
         self._check_tid(tid)
         p_len = prompt.shape[1]
-        bucket = prefill_bucket(p_len, self.t_max, 1)
+        bucket = prefill_bucket(p_len, self.t_max, self._n_ring)
         with trace.span("serve.prefill", slot=slot, p_len=p_len,
                         bucket=bucket, rid=tag):
-            padded, _ = _pad_prompt(torch.from_numpy(prompt), self.t_max, 1)
+            padded, _ = _pad_prompt(torch.from_numpy(prompt), self.t_max,
+                                    self._n_ring)
             logits1, caches1 = _prefill(self._cfg, self._model,
                                         self._gen._ring,
                                         padded.to(self.device), p_len)
@@ -1592,10 +1653,30 @@ class SlotEngine:
                 f"'garbage_logits', got {kind!r}") from None
         self._logits[slot] = val
 
+    def _whole_shape(self, name: str, p) -> tuple:
+        """A live parameter's whole shape (this rank may hold a block of
+        it, split as its spec says)."""
+        shape = list(p.shape)
+        for dim, entry in enumerate(self._model.specs.get(name, ())):
+            for a in meshlib.axes_of(entry):
+                shape[dim] *= self.mesh.axis_size(a)
+        return tuple(shape)
+
+    def _local_leaves(self, params) -> dict:
+        """A whole candidate tree's leaves by module name, each cut to
+        this rank's block under the live parameter's spec."""
+        out = {}
+        for path, a in convert.flatten(params).items():
+            name = path.replace("/", ".")
+            spec = self._model.specs.get(name, meshlib.P())
+            out[name] = (meshlib.put_with_sharding(
+                a, meshlib.Sharding(self.mesh, spec)) if len(spec) else a)
+        return out
+
     def _check_candidate(self, params) -> None:
         """Refuse a candidate tree that does not match the live one leaf
         for leaf in name, shape and dtype."""
-        live = {n.replace(".", "/"): (tuple(p.shape),
+        live = {n.replace(".", "/"): (self._whole_shape(n, p),
                                       str(p.dtype).removeprefix("torch."))
                 for n, p in self._model.named_parameters()}
         cand = {n: (tuple(np.shape(a)), str(np.asarray(a).dtype))
@@ -1623,7 +1704,9 @@ class SlotEngine:
         slots keep their caches."""
         self._check_candidate(params)
         with torch.no_grad():
-            convert.load_jax(self._model, params)
+            for name, a in self._local_leaves(params).items():
+                p = self._model.get_parameter(name)
+                p.copy_(torch.as_tensor(np.asarray(a)).to(p.dtype))
 
     @torch.no_grad()
     def spot_check_params(self, params) -> dict:
@@ -1650,8 +1733,8 @@ class SlotEngine:
                 "caches were donated to it) — call the "
                 "scheduler's quiesce() and retry")
         self._check_candidate(params)
-        cand = {f"model.{path.replace('/', '.')}": self._upload(a)
-                for path, a in convert.flatten(params).items()}
+        cand = {f"model.{name}": self._upload(np.asarray(a))
+                for name, a in self._local_leaves(params).items()}
         c = self.prefill_chunk
         zeros = torch.zeros((1, c or 1), dtype=torch.long,
                             device=self.device)
@@ -1664,7 +1747,7 @@ class SlotEngine:
                     self._cfg, model, self._gen.init_caches(1), zeros, 0,
                     c, lambda i, *a: self._gen._chunk_fold(*a))[0]
         else:
-            b = max(prefill_buckets(self.t_max, 1)[0],
+            b = max(prefill_buckets(self.t_max, self._n_ring)[0],
                     min(self._min_bucket, self.t_max))
 
             def run(model):
@@ -1745,6 +1828,102 @@ class SlotEngine:
             self._alloc_tokens[slot] = len(pages) * ps
         return failed
 
+    def cache_fingerprint(self) -> dict:
+        """The engine's identity (the JAX engine's keys): every
+        serving-config field, the engine knobs, the partition rules of
+        the target and the drafter, the mesh axes, and the devices --
+        this rank's card (``cuda:N``, or ``cpu``) with its rank in the
+        world, the card's name and its compute capability. Two engines
+        with equal fingerprints run the same programs. The compile cache
+        keys a program by less: its kernels' libraries depend on none of
+        this (``serve/compile_cache.py``)."""
+        dev = self.device
+        if dev.type == "cuda":
+            index = (dev.index if dev.index is not None
+                     else torch.cuda.current_device())
+            label = f"cuda:{index}"
+            name = torch.cuda.get_device_name(index)
+            cap = "%d.%d" % torch.cuda.get_device_capability(index)
+        else:
+            label, name, cap = "cpu", "cpu", None
+        dcfg = self._dcfg if self._dmodel is not None else None
+        return {
+            "embed_dim": self._cfg.embed_dim,
+            "num_heads": self._cfg.num_heads,
+            "num_blocks": self._cfg.num_blocks,
+            "t_max": self.t_max,
+            "n_slots": self.n_slots,
+            "vocab": self.vocab,
+            "cache_dtype": str(self._cfg.cache_dtype).removeprefix("torch."),
+            "logits_dtype": str(self._logits.dtype).removeprefix("torch."),
+            "block_impl": self._block_impl,
+            "temperature": self._cfg.temperature,
+            "top_k": self._cfg.top_k,
+            "pad_id": self.pad_id,
+            "kv_int8": self.kv_int8,
+            "draft_k": self.draft_k,
+            "prefill_chunk": self.prefill_chunk,
+            "kv_page_size": self.kv_page_size,
+            "kv_pages": self.kv_pages,
+            "n_tenants": self.n_tenants,
+            "adapter_rank": (int(self._adapters[0].shape[2])
+                             if self._adapters else 0),
+            "partition_rules": repr(self._partition_rules),
+            "draft_model": (None if dcfg is None else {
+                "embed_dim": dcfg.embed_dim,
+                "num_heads": dcfg.num_heads,
+                "num_blocks": dcfg.num_blocks,
+                "cache_dtype": str(dcfg.cache_dtype).removeprefix("torch."),
+                "partition_rules": repr(self._draft_partition_rules),
+            }),
+            "mesh_axes": ({str(k): int(v) for k, v in self.mesh.shape.items()}
+                          if self.mesh is not None
+                          else {meshlib.SEQ_AXIS: 1}),
+            "devices": [f"{label}@{collectives.axis_index()}"],
+            "device_name": name,
+            "capability": cap,
+        }
+
+    def _cache_plan(self) -> list:
+        """(program, hand kernels it launches) for each serving program
+        the compile cache covers: JAX's plan -- the window; the insert
+        and the prefill chunk when chunked or paged; the learned
+        drafter's propose and ingest -- plus, where a card runs the
+        flash kernel (``block_impl="pallas"``), the bucketed prefill
+        that launches it (the target's unchunked admission, or the
+        drafter's)."""
+        plan = [("window", ())]
+        if self.paged or self.prefill_chunk is not None:
+            plan += [("prefill_chunk", ()), ("insert", ())]
+        if self._dmodel is not None:
+            plan += [("propose", ()), ("draft_ingest", ())]
+        if (self._block_impl == "pallas" and self.device.type == "cuda"
+                and (self.prefill_chunk is None
+                     or self._dmodel is not None)):
+            from idc_models_tpu_torch.ops import flash_block_kernel as fbk
+
+            plan.append(("prefill", (fbk.FWD_KERNEL,)))
+        return plan
+
+    def _warm_cache(self, cache) -> None:
+        """Load each program of `_cache_plan` from `cache` (its kernels'
+        libraries placed and installed), or build and store it on a
+        miss; the warmup calls then launch what was loaded. A program is
+        keyed by its kernels' digests alone (with the toolchain the
+        cache adds): the libraries depend on nothing of the engine."""
+        from idc_models_tpu_torch.serve.compile_cache import kernel_library
+
+        for name, kernels in self._cache_plan():
+            key = cache.key(program=name, fingerprint={
+                "kernels": [k.library_path().name for k in kernels]})
+            program = cache.load(key)
+            if program is None:
+                cache.compile_and_store(
+                    key, [kernel_library(k) for k in kernels], program=name)
+                continue
+            for k in kernels:
+                k.install(program.handles[k.name])
+
     def warmup(self, n_steps: int, compile_cache=None) -> None:
         """Run every program the serve loop touches once on the empty
         state: a prefill (one chunk when chunked -- on a paged engine
@@ -1756,9 +1935,11 @@ class SlotEngine:
         health reduction and the learned drafter's chain (a prefill, an
         ingest and a propose with every row dead). Eager PyTorch
         compiles nothing; this pays the first calls' one-time costs
-        (library handles, the allocator) before traffic."""
+        (library handles, the allocator) before traffic. With
+        `compile_cache` (``serve/compile_cache.py``) the programs' kernel
+        libraries load from the store first, or are built and stored."""
         if compile_cache is not None:
-            raise later("A10", "the compile cache")
+            self._warm_cache(compile_cache)
         zeros = torch.zeros((1, self.prefill_chunk or 1), dtype=torch.long)
         with torch.no_grad():
             caches1 = None
@@ -1864,8 +2045,9 @@ class SlotEngine:
         return len(pend.pages) - pend.shared, pend.shared
 
     def cache_sizes(self) -> dict:
-        """The JAX engine's per-program compile-cache counts. Eager
-        PyTorch compiles no serving program: every count is 0."""
+        """The JAX engine's per-program jit-cache counts. Eager PyTorch
+        compiles no serving program: every count is 0 (the kernels'
+        libraries are `warmup`'s compile cache's business)."""
         out = {"window": 0, "insert": 0, "health": 0}
         if self.paged:
             out.update(prefill_chunk=0, page_row=0)

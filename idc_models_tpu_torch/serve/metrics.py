@@ -16,10 +16,11 @@ hooks take ``tenant=`` and also keep tenant-labelled series, the
 without one the registry and every record keep their untenanted shape.
 `on_rollout` takes the weight rollout's transitions
 (``checkpoint/rollout.py``): the stage gauge, the terminal outcomes and
-the ``serve_rollout`` event. The compile-cache hook comes with its item
-(ROADMAP A10), and until then its summary key holds what a server
-without one reports. Eager PyTorch compiles no serving program, so
-`serve_compiles_observed` is 0.
+the ``serve_rollout`` event. `on_compile_cache` takes a
+``serve/compile_cache.CompileCache``'s counters after warmup: the
+``serve_compile_cache_*`` gauges, registered on first call, and the
+``serve_compile_cache`` summary key (absent without a cache). Eager
+PyTorch compiles no serving program, so `serve_compiles_observed` is 0.
 """
 
 from __future__ import annotations
@@ -60,6 +61,12 @@ class ServingMetrics:
         # summary() next to the serving fields
         self.prefix_cache = prefix_cache
         reg = registry if registry is not None else mreg.REGISTRY
+        # compile-cache rollup: its gauges are registered by the first
+        # on_compile_cache, so a cache-less server's exposition keeps
+        # its shape
+        self._reg = reg
+        self.compile_cache_summary: dict | None = None
+        self._g_cc: dict | None = None
         # submissions and terminal outcomes are separate counters: one
         # status-labeled counter would count each request twice
         self._m_submitted = reg.counter(
@@ -387,6 +394,34 @@ class ServingMetrics:
         self._m_faults_injected.inc(kind=kind)
         self._log(event="serve_fault_injected", kind=kind, tick=tick)
 
+    def on_compile_cache(self, cache) -> None:
+        """Snapshot a `CompileCache`'s counters after warmup: the first
+        call registers the serve_compile_cache_* gauges, every call
+        re-reads ``cache.summary()`` into them and the rollup."""
+        if self._g_cc is None:
+            reg = self._reg
+            self._g_cc = {
+                "hits": reg.gauge(
+                    "serve_compile_cache_hits",
+                    "persistent compile-cache hits (kernel libraries "
+                    "loaded from the store instead of built)"),
+                "misses": reg.gauge(
+                    "serve_compile_cache_misses",
+                    "persistent compile-cache misses (programs whose "
+                    "kernels were built and stored; includes corrupt "
+                    "evictions)"),
+                "deserialize_s": reg.gauge(
+                    "serve_compile_cache_deserialize_seconds",
+                    "cumulative seconds spent loading cached kernel "
+                    "libraries (the warm spin-up cost)"),
+            }
+        s = cache.summary()
+        self.compile_cache_summary = s
+        self._g_cc["hits"].set(s["hits"])
+        self._g_cc["misses"].set(s["misses"])
+        self._g_cc["deserialize_s"].set(s["deserialize_s"])
+        self._log(event="serve_compile_cache", **s)
+
     # -- weight rollout ---------------------------------------------------
 
     def on_rollout(self, *, stage: str, outcome: str | None = None,
@@ -599,6 +634,8 @@ class ServingMetrics:
                     "slo_breached": self.tenancy.breached(name),
                 }
                 for name in self.tenancy.names()}
+        if self.compile_cache_summary is not None:
+            out["serve_compile_cache"] = dict(self.compile_cache_summary)
         if self.prefix_cache is not None:
             out.update(self.prefix_cache.summary())
         return out

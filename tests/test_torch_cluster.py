@@ -929,14 +929,6 @@ def test_serve_cluster_usage_errors_carry_the_jax_messages(argv, match):
     assert msgs[0] == msgs[1]
 
 
-def test_serve_cluster_refuses_the_compile_cache_with_its_label(tmp_path):
-    """`--compile-cache` is parsed, as in JAX, and refused with ROADMAP
-    A10's label: the eager port has no executables to cache yet."""
-    with pytest.raises(SystemExit, match="ROADMAP A10"):
-        cli.main(["serve-cluster", "--device", "cpu", "--compile-cache",
-                  str(tmp_path / "cc")])
-
-
 def test_replicas_and_the_verb_run_on_the_card_unless_told_otherwise(
         monkeypatch):
     """The port's rule holds for the cluster: with no card, a replica

@@ -252,9 +252,9 @@ def test_learned_and_chained_drafters_serve_under_the_contract(chained):
 def test_engine_and_drafter_construction_errors():
     """The teaching errors: a drafter of another vocab, a position table
     shorter than t_max, a draft model without draft_k, drafter partition
-    rules without a drafter (and with one: a later item), drafter
-    adapters (a later item), propose_all without a drafter, and a chain
-    of two engine-backed drafters."""
+    rules without a drafter, drafter adapters (a later item),
+    propose_all without a drafter, and a chain of two engine-backed
+    drafters."""
     params = _target()[1]
 
     def drafter(vocab=VOCAB, seq=SEQ):
@@ -270,8 +270,6 @@ def test_engine_and_drafter_construction_errors():
         SlotEngine(params, draft_model=drafter(), **KW)
     with pytest.raises(ValueError, match="without draft_model"):
         SlotEngine(params, draft_k=K, draft_partition_rules=object(), **KW)
-    with pytest.raises(NotImplementedError, match="A9-dist"):
-        _engine(drafter(), draft_partition_rules=object())
     # drafter heads: u [T, V, r] / v [T, r, V], and one T with the
     # engine's own tenant bank (both are gathered by the same ids)
     with pytest.raises(ValueError, match="drafter adapters must be"):

@@ -1979,3 +1979,145 @@ def test_pallas_router_on_the_card_places_like_the_cpu(cuda):
             held += 1
     print(f"pallas router on the card: tokens held {held} of "
           f"{sum(len(t) for t in runs['cuda'][3].values())} steps")
+
+
+# -- serving over ranks (ring_decode.py's merge) and the compile cache -----
+
+
+@pytest.fixture
+def nccl_one_rank(cuda, tmp_path):
+    """A 1-rank NCCL world through a file:// rendezvous, taken down
+    after the test."""
+    import torch.distributed as dist
+
+    from idc_models_tpu_torch import mesh as meshlib
+
+    meshlib.initialize_multihost(f"file://{tmp_path}/store", 1, 0)
+    try:
+        assert dist.get_backend() == "nccl"
+        yield meshlib.seq_mesh(1).group(meshlib.SEQ_AXIS)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_folds_on_a_one_rank_nccl_ring_equal_the_unmeshed_folds(
+        nccl_one_rank):
+    """Every fold (one-token, batched f32 and int8, chunk, batched
+    chunk, and the three paged ones) on the card over a ring of one NCCL
+    rank against the same fold without a ring: outputs and caches bit
+    for bit."""
+    from idc_models_tpu_torch import ring_decode as tdecode
+
+    g = nccl_one_rank
+    b, t, h, d, ps = 3, 256, 8, 64, 16
+    kc, vc, q, k, v = (x.cuda() for x in _fold_inputs(b, t, h, d, 3))
+    pos = torch.tensor([0, 200, 255], device="cuda")
+    live = torch.tensor([True, False, True], device="cuda")
+    kc8, vc8 = (torch.clamp(torch.round(x * 40), -127, 127).to(torch.int8)
+                for x in (kc, vc))
+    sc = (torch.rand(b, h, device="cuda") * 0.02 + 0.005,
+          torch.rand(b, h, device="cuda") * 0.02 + 0.005)
+    n_pages = t // ps
+    kp = torch.randn(n_pages + 1, ps, h, d, device="cuda")
+    vp = torch.randn(n_pages + 1, ps, h, d, device="cuda")
+    pt = torch.arange(n_pages, device="cuda", dtype=torch.int32).reshape(
+        1, -1).repeat(b, 1)
+    pt[1, 8:] = -1
+    qc, kk, vv = (torch.randn(b, 4, h, d, device="cuda") for _ in range(3))
+    q1, k1, v1 = (torch.randn(1, 32, h, d, device="cuda")
+                  for _ in range(3))
+    cases = {
+        "one": lambda gr: tdecode.make_ring_decode(group=gr)(
+            kc.clone(), vc.clone(), q, k, v, 100),
+        "batched": lambda gr: tdecode.make_batched_ring_decode(group=gr)(
+            kc.clone(), vc.clone(), q, k, v, pos, live),
+        "batched_int8": lambda gr: tdecode.make_batched_ring_decode(
+            quantized=True, group=gr)(kc8.clone(), vc8.clone(), q, k, v,
+                                      pos, live, *sc),
+        "chunk": lambda gr: tdecode.make_chunk_ring_decode(group=gr)(
+            kc[:1].clone(), vc[:1].clone(), q1, k1, v1, 64, 80),
+        "batched_chunk": lambda gr: tdecode.make_batched_chunk_ring_decode(
+            group=gr)(kc.clone(), vc.clone(), qc, kk, vv,
+                      torch.tensor([0, 100, 250], device="cuda"), live),
+        "paged": lambda gr: tdecode.make_paged_batched_ring_decode(
+            page_size=ps, group=gr)(kp.clone(), vp.clone(), pt, q, k, v,
+                                    pos, live),
+        "paged_chunk": lambda gr: tdecode.make_paged_chunk_ring_decode(
+            page_size=ps, group=gr)(kp.clone(), vp.clone(), pt[:1], q1,
+                                    k1, v1, 32, 60),
+        "paged_batched_chunk": lambda gr:
+            tdecode.make_paged_batched_chunk_ring_decode(
+                page_size=ps, group=gr)(kp.clone(), vp.clone(), pt, qc, kk,
+                                        vv, pos.clamp(max=t - 4), live),
+    }
+    for name, run in cases.items():
+        for a, w in zip(run(g), run(None)):
+            assert torch.equal(a, w), name
+
+
+def test_compile_cache_round_trips_an_nvcc_blob_and_evicts_a_cut_one(
+        cuda, tmp_path, monkeypatch):
+    """B3's library through the store: a miss builds it with nvcc in a
+    fresh build directory and stores it; a fresh handle on another fresh
+    directory places it from the blob, and the installed library runs
+    the kernel equal to the plain version; a blob cut in half is evicted
+    as a miss, and the rebuild stores it again; a blob with one byte of
+    the library flipped is evicted without touching the build
+    directory."""
+    from idc_models_tpu_torch.ops import build
+    from idc_models_tpu_torch.serve import compile_cache as ccm
+
+    monkeypatch.setattr(build, "BUILD_DIR", build.BUILD_DIR)
+    kern = fbk.FWD_KERNEL
+    cache = ccm.CompileCache(tmp_path / "cc")
+    key = cache.key(program="prefill",
+                    fingerprint={"kernels": [kern.library_path().name]})
+    build.set_build_dir(tmp_path / "cold")
+    assert cache.load(key) is None
+    cache.compile_and_store(key, [ccm.kernel_library(kern)],
+                            program="prefill")
+    assert cache.compile_s > 0 and cache.stores == 1
+    build.set_build_dir(tmp_path / "warm")
+    fresh = ccm.CompileCache(tmp_path / "cc")
+    prog = fresh.load(key)
+    assert prog is not None and fresh.hits == 1
+    assert (tmp_path / "warm" / kern.library_path().name).exists()
+    kern.install(prog.handles[kern.name])
+    q, k, v, m, l, acc, *_ = _flash_inputs(cuda, 128, 128, 64,
+                                           torch.float32, fresh=True)
+    offs = torch.tensor([0, 0], dtype=torch.int32, device="cuda")
+    kw = dict(scale=64 ** -0.5, causal=True)
+    before = kern.launches
+    got = fbk.flash_block_update(q, k, v, m, l, acc, offs, **kw)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    want = fbk.reference_impl(q, k, v, m, l, acc, offs, **kw)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=1e-3, atol=1e-3)
+    blob = fresh._file(key)
+    data = blob.read_bytes()
+    blob.write_bytes(data[:len(data) // 2])
+    build.set_build_dir(tmp_path / "again")
+    assert fresh.load(key) is None and fresh.evicted_corrupt == 1
+    fresh.compile_and_store(key, [ccm.kernel_library(kern)],
+                            program="prefill")
+    assert fresh.stores == 1 and fresh.load(key) is not None
+    # one byte of the library flipped in a blob of the right size: the
+    # good library in the build directory is left as it was, and on an
+    # empty directory nothing is placed, so the miss runs nvcc
+    good = tmp_path / "again" / kern.library_path().name
+    good_bytes = good.read_bytes()
+    data = blob.read_bytes()
+    at = len(data) - len(good_bytes) // 2
+    flipped = data[:at] + bytes([data[at] ^ 0xFF]) + data[at + 1:]
+    blob.write_bytes(flipped)
+    assert fresh.load(key) is None and fresh.evicted_corrupt == 2
+    assert good.read_bytes() == good_bytes
+    blob.write_bytes(flipped)
+    build.set_build_dir(tmp_path / "empty")
+    assert fresh.load(key) is None and fresh.evicted_corrupt == 3
+    assert not kern.library_path().exists()
+    compiled = fresh.compile_s
+    fresh.compile_and_store(key, [ccm.kernel_library(kern)],
+                            program="prefill")
+    assert fresh.compile_s > compiled and kern.library_path().exists()

@@ -170,7 +170,6 @@ def test_profile_churn_drill_flags_the_drill(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--model", "serve", "--host-devices", "2"], "A9"),
     # the JAX verb's own refusals: more ranks than the world holds, and
     # sharding a model whose rules replicate
     (["--model", "lm", "--fsdp", "2"],

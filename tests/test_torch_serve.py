@@ -258,8 +258,6 @@ def test_admit_rejections_and_later_items():
     with pytest.raises(ValueError, match="model vocab"):
         _engine(adapter_bank=AdapterBank(
             u=wrong, v=wrong.transpose(0, 2, 1), rank=3, vocab=VOCAB + 1))
-    with pytest.raises(NotImplementedError, match="A9-dist"):
-        _engine(partition_rules=object())
     # slot export teaches as JAX's does: only a running slot has state,
     # and only a contiguous float-KV engine can move it bit for bit
     with pytest.raises(ValueError, match="not occupied"):
@@ -512,22 +510,6 @@ def test_serve_verb_prints_the_jax_lines_on_the_cpu(tmp_path):
                (tmp_path / "logs" / "serve.jsonl").read_text().splitlines()]
     assert records[-1]["event"] == "metrics_snapshot"
     assert any(r["event"] == "serve_summary" for r in records)
-
-
-@pytest.mark.parametrize("flag,label", [
-    (flag, label) for flag, _, label in cli._LATER] + [
-    ("--seq-parallel 2", "A9-dist"), ("--tp 2", "A9-dist"),
-    ("--host-devices 2", "A9-dist")],
-    ids=lambda v: v if isinstance(v, str) else None)
-def test_serve_verb_refuses_later_flags_naming_their_item(flag, label):
-    kw = dict(next((kw for f, kw, _ in cli._LATER if f == flag), {}))
-    argv = flag.split()
-    if kw.get("action") == "append":
-        argv.append("x=1")
-    elif kw.get("action") != "store_true" and len(argv) == 1:
-        argv.append("7" if kw.get("type") in (int, float) else "x")
-    with pytest.raises(SystemExit, match=label.replace(".", "\\.")):
-        _verb(argv)
 
 
 @pytest.mark.parametrize("argv,match", [
