@@ -249,8 +249,9 @@ non-zero before the result line:
    beside); (s6) the `serve` verb with --spec-decode, then, over 8
    requests, --drafter chained --draft-ckpt --save-ckpt, the saved
    parameters restored bit for bit; (s7)
-   `cli.main(["profile", "--model", "serve"])`, both windows timed and
-   `lm.verify` and `serve.propose` filed;
+   `cli.main(["profile", "--model", "serve", "--steps", "8"])`, both
+   windows timed over 8 windows each and `lm.verify` and
+   `serve.propose` filed;
 15. resilience -- right after spec, the fault plan, the request journal
    and the brownout at phase 12's width, each run with the launch counts
    set to 0 just before and read just after, B3 held to two launches an
@@ -350,6 +351,15 @@ non-zero before the result line:
    the blob), both serving (k1)'s tokens; then a truncated blob evicted
    as a miss and rebuilt by nvcc, that replica serving (k1)'s first
    requests; the cold spin-up's build seconds beside the warm load's ms;
+20. the federated rounds over a "client" group (mesh.client_mesh, the
+   rounds' sums over the group), on a 1-rank NCCL group: `secure-fed
+   --mask-impl pallas` as (b) runs it, its masking launches equal to
+   (b)'s 24 and its server weights bit-equal to (b)'s ungrouped run
+   (cuDNN deterministic in both); the masking kernel as each rank of a
+   4-rank group launches it (global client ids offset by the rank, at
+   the preset's protected buffer), each launch bit-equal to the plain
+   version and the blocks' sum to the plain versions'; then a `fed
+   --population` round of 2 waves on the group against its ungrouped run;
 
 then one JSON line of per-kernel numbers (B3's row carries its launches
 of each phase-14 run in `launches_spec`, of each phase-15 run in
@@ -1058,18 +1068,26 @@ def secure_path(torch, fc, smk, card: str) -> dict:
 
     preset = get_preset("secure_fed")
     rounds = 3
+    deterministic = torch.backends.cudnn.deterministic
     with tempfile.TemporaryDirectory() as tmp:
         argv = ["secure-fed", "--mask-impl", "pallas", "--synthetic-examples",
                 "2048", "--rounds", str(rounds), "--seed", "0", "--path", tmp]
         fc.KERNEL.launches = smk.KERNEL.launches = 0
         fc.PATH_LAUNCHES.update(dict.fromkeys(fc.PATHS, 0))
+        # deterministic cuDNN: phase 20 reruns the verb on a group and
+        # holds its weights to these bit for bit
+        torch.backends.cudnn.deterministic = True
         t0 = time.perf_counter()
-        rc = cli.main(argv)
-        torch.cuda.synchronize()
+        try:
+            rc = cli.main(argv)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
         seconds = time.perf_counter() - t0
         launches = {"fused": fc.KERNEL.launches, "masking": smk.KERNEL.launches}
         records = [json.loads(line) for line in
                    (Path(tmp) / "logs" / "run.jsonl").read_text().splitlines()]
+        weights = dict(np.load(Path(tmp) / "model.npz"))
     if rc != 0:
         raise SystemExit(f"cli.main returned {rc}")
     rounds_rec = [r for r in records if r["event"] == "round"]
@@ -1092,7 +1110,181 @@ def secure_path(torch, fc, smk, card: str) -> dict:
         f"launches {launches['fused']}; {card}")
     if launches["masking"] != expected or launches["fused"] != 0:
         raise SystemExit(f"kernel launches {launches} != masking {expected}")
-    return {"launches": launches["masking"], "seconds": seconds}
+    return {"launches": launches["masking"], "seconds": seconds,
+            "argv": argv[:-1], "weights": weights}
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the federated rounds over a "client" group
+# ---------------------------------------------------------------------------
+
+# the `fed --population` run of phase 20: the small CNN (dropout), two
+# waves of 8 from 10,000 virtual clients, one round
+CLIENT_POP_ARGV = ["fed", "--population", "10000", "--cohort", "16",
+                   "--cohort-wave", "8", "--client-examples", "16",
+                   "--model", "small_cnn", "--rounds", "1", "--seed", "0"]
+# the rank-offset masking launches: a 4-rank group's layout of the
+# secure_fed preset's 8 clients
+CLIENT_RANKS = 4
+
+
+def client_offset_launches(torch, smk, size: int, n_total: int,
+                           card: str) -> int:
+    """B2 as each rank of a CLIENT_RANKS-rank client group launches it:
+    rank r's clients r*k .. r*k+k-1 of n_total under their global ids, on
+    [size] buffers (the preset's packed protected part). Each launch is
+    held to the plain version bit for bit, the blocks' int64 partials
+    summed and wrapped once to the plain versions' sum, and that to the
+    bare quantized sum (the masks cancel). Returns the launches made
+    (comparison launches: not counted on the main path)."""
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    k = n_total // CLIENT_RANKS
+    xs = [torch.randn(size, device="cuda", generator=gen) * 0.05
+          for _ in range(n_total)]
+    seed = 0x5EC0DE20
+    partials = []
+    plain = torch.zeros(size, dtype=torch.int64, device="cuda")
+    before = smk.KERNEL.launches
+    for rank in range(CLIENT_RANKS):
+        part = torch.zeros(size, dtype=torch.int64, device="cuda")
+        for cid in range(rank * k, rank * k + k):
+            seeds, signs = smk.pair_seeds_and_signs(seed, cid, n_total,
+                                                    device="cuda")
+            got = smk.fused_masked_quantize(xs[cid], seeds, signs,
+                                            scale_bits=SB, clip_abs=CLIP)
+            want = smk.masked_quantize_reference(xs[cid], seeds, signs,
+                                                 scale_bits=SB,
+                                                 clip_abs=CLIP)
+            if not torch.equal(got, want):
+                raise SystemExit(f"client-group masking: rank {rank} "
+                                 f"client {cid} differs from the plain "
+                                 f"version")
+            part += got.long()
+            plain += want.long()
+        partials.append(part)
+    launches = smk.KERNEL.launches - before
+    summed = smk.wrap_int32(torch.stack(partials).sum(0))
+    bare = smk.wrap_int32(sum(smk.quantize_f32(x, SB, CLIP).long()
+                              for x in xs))
+    if not (torch.equal(summed, smk.wrap_int32(plain))
+            and torch.equal(summed, bare)):
+        raise SystemExit("client-group masking: the blocks' sum is not "
+                         "the plain versions' or the masks do not cancel")
+    log(f"client: the masking kernel as a {CLIENT_RANKS}-rank client group "
+        f"launches it, {k} clients a rank under global ids of "
+        f"n_total {n_total}, at {size} elements: {launches} launches, each "
+        f"bit-equal to the plain version; the blocks' int64 partials "
+        f"summed and wrapped once equal the plain versions' sum and the "
+        f"bare quantized sum (masks cancel); {card}")
+    return launches
+
+
+def fed_server_state(path: Path) -> dict:
+    return dict(np.load(path / "fed_server" / "state.npz"))
+
+
+def client_path(torch, fc, smk, fbk, secure: dict, card: str) -> dict:
+    """(20) a 1-rank NCCL group through a file:// rendezvous, checked to
+    be NCCL; on it `secure-fed` with phase (b)'s argv (its masking
+    launches set to 0 just before it and read just after, held to (b)'s;
+    its model.npz bit-equal to (b)'s, cuDNN deterministic in both); the
+    rank-offset masking launches; then `fed --population` for one round
+    of two waves, ungrouped and on the group (no hand kernel), the
+    group's server held to the ungrouped one's. The group is taken down
+    at the end. Returns the grouped run's masking launches."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from idc_models_tpu_torch import cli, collectives
+    from idc_models_tpu_torch import mesh as meshlib
+    from idc_models_tpu_torch.configs import get_preset
+    from idc_models_tpu_torch.models import registry
+    from idc_models_tpu_torch.secure import masking
+
+    t_start = time.perf_counter()
+    tf32_off(torch)
+    preset = get_preset("secure_fed")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            # the population round alone first: the reference
+            alone = tmp / "pop_alone"
+            fed_run(torch, fc, smk, fbk, CLIENT_POP_ARGV
+                    + ["--path", str(alone)])
+            meshlib.initialize_multihost(f"file://{tmp}/store", 1, 0)
+            try:
+                backend = dist.get_backend()
+                if backend != "nccl" or not collectives.initialized():
+                    raise SystemExit(f"the 1-rank group is {backend}")
+                run = tmp / "secure"
+                buf = io.StringIO()
+                zero_counts(fc, smk, fbk)
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    rc = cli.main(secure["argv"] + [str(run)])
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                launches = smk.KERNEL.launches
+                out = buf.getvalue()
+                for line in out.splitlines():
+                    log(f"client| {line}")
+                if rc != 0:
+                    raise SystemExit(f"secure-fed on the group returned {rc}")
+                got = dict(np.load(run / "model.npz"))
+                want = secure["weights"]
+                same = sorted(k for k in want if np.array_equal(got[k],
+                                                                want[k]))
+                log(f"client: secure-fed --mask-impl pallas on a 1-rank "
+                    f"NCCL client group in {seconds!r} s (ungrouped "
+                    f"{secure['seconds']!r} s): masking launches "
+                    f"{launches} (ungrouped {secure['launches']}), fused "
+                    f"{fc.KERNEL.launches}; model.npz bit-equal to the "
+                    f"ungrouped run's in {len(same)} of {len(want)} "
+                    f"leaves; {card}")
+                if (launches != secure["launches"] or fc.KERNEL.launches
+                        or set(got) != set(want) or len(same) != len(want)):
+                    raise SystemExit("secure-fed on the client group left "
+                                     "the ungrouped run")
+                # the preset's protected buffer: the small CNN's first
+                # `percent` of its get_weights() enumeration
+                model = registry.get_model(preset.model).build(
+                    preset.num_outputs, 3)
+                params = dict(model.named_parameters())
+                state = dict(model.named_buffers())
+                pf, sf = masking.first_fraction_selection_weights(
+                    params, state, preset.percent, model.layer_names)
+                size = (sum(params[n].numel() for n, f in pf.items() if f)
+                        + sum(state[n].numel() for n, f in sf.items() if f))
+                offset = client_offset_launches(
+                    torch, smk, size, preset.num_clients, card)
+                grouped = tmp / "pop_group"
+                _, pop_s = fed_run(torch, fc, smk, fbk, CLIENT_POP_ARGV
+                                   + ["--path", str(grouped)])
+            finally:
+                dist.destroy_process_group()
+            a, b = fed_server_state(alone), fed_server_state(grouped)
+            worst = max(float(np.abs(b[k].astype(np.float64) - a[k]).max()
+                              / (1.0 + float(np.abs(a[k]).max())))
+                        for k in a)
+            equal = all(np.array_equal(a[k], b[k]) for k in a)
+            log(f"client: fed --population (small CNN, 2 waves of 8, one "
+                f"round) on the group in {pop_s!r} s: server "
+                f"{'bit-equal to' if equal else 'within ' + repr(worst) + ' of'} "
+                f"the ungrouped run's (bar {DIST_RERUN_RTOL}); no hand "
+                f"kernel; {card}")
+            if set(a) != set(b) or not worst <= DIST_RERUN_RTOL:
+                raise SystemExit("fed --population on the client group left "
+                                 "the ungrouped run")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    log(f"phase 20 (client group) took {time.perf_counter() - t_start!r} s; "
+        f"masking launches on the group {launches}, rank-offset comparison "
+        f"launches {offset} (not counted)")
+    return {"launches": launches, "offset_launches": offset}
 
 
 def mobilenet_updates(torch, n: int, seed: int):
@@ -2546,6 +2738,12 @@ def distill_drafter(torch, model, card: str, out: Path):
     return after, burst
 
 
+# (s7)'s timed windows a layout: the profile verb's default (27 at the
+# card's shape) cut to keep the script inside its time limit; the window
+# figures PERF.md keeps come from phase 12
+S7_STEPS = 8
+
+
 def spec_path(torch, fc, smk, fbk, card: str, memo: dict) -> dict:
     """Phase 14: speculative decoding at phase 12's width and trace,
     draft_k 8, each run with the launch counts set to 0 just before and
@@ -2695,12 +2893,13 @@ def spec_path(torch, fc, smk, fbk, card: str, memo: dict) -> dict:
                              "served parameters")
         log(f"spec (s6): restore_sharded(--save-ckpt) gave the {len(want)} "
             f"served leaves bit for bit; {card}")
-    # (s7) profile --model serve on the card
+    # (s7) profile --model serve on the card, S7_STEPS windows a layout
     zero_counts(fc, smk, fbk)
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        rc = cli.main(["profile", "--model", "serve"])
+        rc = cli.main(["profile", "--model", "serve", "--steps",
+                       str(S7_STEPS)])
     text = buf.getvalue()
     for line in text.splitlines():
         log(f"  profile | {line}")
@@ -2712,7 +2911,8 @@ def spec_path(torch, fc, smk, fbk, card: str, memo: dict) -> dict:
                          f"programs {sorted(filed)}")
     no_kernels(fc, smk, fbk, "spec (s7) profile")
     out["s7"] = (0, 0, 0)
-    log(f"spec (s7): cli.main(['profile', '--model', 'serve']) in "
+    log(f"spec (s7): cli.main(['profile', '--model', 'serve', '--steps', "
+        f"'{S7_STEPS}']) in "
         f"{time.perf_counter() - t0!r} s; lm.verify "
         f"{filed['lm.verify'].flops!r} flops / "
         f"{filed['lm.verify'].bytes_accessed!r} bytes, serve.propose "
@@ -7198,6 +7398,7 @@ def main() -> int:
     population_path(torch, fc, smk, fbk, card)
     observe_path(torch, fc, smk, fbk, card)
     secure = secure_path(torch, fc, smk, card)
+    client = client_path(torch, fc, smk, fbk, secure, card)
     aggregate_three_ways(torch, smk)
     mobilenet_round(torch, fc, smk, card)
     t32 = kernel_times(torch, fc, mobilenet, BATCH, card)
@@ -7250,6 +7451,8 @@ def main() -> int:
         "bound_by": m["bound_by"],
         "library_ms": None,
         "threefry_ms": m["threefry_ms"],
+        # phase 20: `secure-fed` on a 1-rank "client" group
+        "launches_dist": client["launches"],
     }] + [{
         "name": FLASH_NAMES[key],
         "route": "cuda",

@@ -45,9 +45,10 @@ class RolloutController:
 
     `candidate` is a parameter tree (JAX-shaped, host arrays) or a
     sharded checkpoint directory (``checkpoint/sharded.py``). A directory
-    is restored whole, with ``mesh=None, rules=None``: the serving engine
-    runs on one device and takes no partition rules yet (ROADMAP
-    A9-dist).
+    is restored against the live engine as the JAX controller restores
+    it: by the engine's mesh and partition rules when it has rules, so
+    each rank reads only its blocks (a ``partition.BlockTree`` the
+    spot-check, the canary and the promotion take as cut), else whole.
 
     `canary_fraction` is the traffic share routed onto the candidate
     while the canary is open; `canary_requests` canary finishes are
@@ -80,12 +81,23 @@ class RolloutController:
         self.reason: str | None = None
         self._canary_done: list = []
         if isinstance(candidate, (str, Path)):
+            from idc_models_tpu_torch import partition
             from idc_models_tpu_torch.checkpoint.sharded import (
-                restore_sharded,
+                checkpoint_info, restore_sharded,
             )
 
-            candidate = restore_sharded(candidate, mesh=None, rules=None,
+            engine = server.engine
+            rules = engine._partition_rules
+            # the model's mesh: a rule set without one serves on a
+            # ring of one (Generator)
+            mesh = engine._model.mesh if rules is not None else None
+            path = candidate
+            candidate = restore_sharded(path, mesh=mesh, rules=rules,
                                         logger=logger)
+            if mesh is not None:
+                candidate = partition.BlockTree(candidate, {
+                    name: rec["shape"] for name, rec in
+                    checkpoint_info(path)["leaves"].items()})
         self.candidate = candidate
 
     @property

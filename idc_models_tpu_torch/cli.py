@@ -129,6 +129,9 @@ device-wait vs host-gap split of the measured steps and the
 compile-churn watchdog's findings, and writes ``profile_program`` /
 ``profile_step`` records (``--out`` or ``<path>/logs/profile.jsonl``).
 ``stats run.jsonl`` summarizes any run log of either package.
+``convert-weights IN.h5 OUT.npz [--model vgg16]`` converts a Keras
+``save_weights`` file into the JAX-layout npz once, offline, checking
+the shapes against the backbone with ``--model``.
 
 Distribution: a verb runs over every rank of the world it was started
 into -- ``torchrun`` ranks (one card each, NCCL), or ``--host-devices
@@ -138,9 +141,16 @@ data-parallel (the batch is split over the "data" ranks, BatchNorm takes
 the global batch's moments; ``dense`` scales its per-replica batch by
 them), and ``--model-parallel N`` stores their parameters and RMSprop
 moments channel-sharded over a "model" axis of N ranks (the compute is
-not split: each step gathers them whole).
+not split: each step gathers them whole). ``fed`` and ``secure-fed``
+split their clients over a "client" mesh of up to every rank (the
+secure round pads a count the ranks do not divide with dummy slots;
+``fed --population`` takes the largest rank count dividing the wave);
+each rank trains its block of clients, and the rounds' sums are the
+group's.
 
     torchrun --nproc-per-node 4 -m idc_models_tpu_torch lm --fsdp 2 --tp 2
+    python -m idc_models_tpu_torch secure-fed --host-devices 4 \
+        --num-clients 6 --device cpu
     python -m idc_models_tpu_torch attention --host-devices 4 \
         --seq-parallel 4 --device cpu
 
@@ -237,8 +247,6 @@ def main(argv: list[str] | None = None) -> int:
         # the fleet is one process: --host-devices puts it on the CPU
         ns.device = "cpu"
     elif getattr(ns, "host_devices", 0):
-        if ns.host_devices > 1 and ns.preset_key in ("fed", "secure_fed"):
-            _one_rank_fed(ns.host_devices)
         if ns.host_devices > 1 and not mesh.in_cpu_pod():
             return mesh.launch_cpu_pod(ns.host_devices, argv)
         # the ranks of a CPU pod run on the CPU
@@ -248,12 +256,15 @@ def main(argv: list[str] | None = None) -> int:
               "fed": _run_fed, "secure_fed": _run_secure, "lm": _run_lm,
               "attention": _run_attention, "serve": _run_serve,
               "serve_cluster": _run_serve_cluster,
-              "stats": _run_stats, "profile": _run_profile}[ns.preset_key]
+              "stats": _run_stats, "profile": _run_profile,
+              "convert_weights": _run_convert}[ns.preset_key]
     # --trace-out: one wiring point arms the tracer for every verb; the
     # spans export as Chrome trace-event JSON when the run ends
     writer = collectives.is_writer()
-    # a serving world's ranks run the same server: rank 0 prints
-    quiet = ns.preset_key in ("serve", "profile") and not writer
+    # a serving or federated world's ranks run the same server or
+    # rounds: rank 0 prints
+    quiet = (ns.preset_key in ("serve", "profile", "fed", "secure_fed")
+             and not writer)
     with tracing(chrome_path=getattr(ns, "trace_out", None) if writer
                  else None), _silenced(quiet):
         runner(ns)
@@ -282,13 +293,6 @@ def _ranks_line(mesh) -> str:
         return ""
     axes = ", ".join(f"{a}={n}" for a, n in mesh.shape.items())
     return f" over {mesh.size} ranks ({axes})"
-
-
-def _one_rank_fed(ranks: int) -> None:
-    """The federated verbs run on one rank: the client-axis meshes of
-    the rounds wait for ROADMAP A4-client."""
-    sys.exit(f"{ranks} ranks: the federated rounds run on one rank so far; "
-             f"their client-axis meshes wait for ROADMAP A4-client")
 
 
 def _run_logger(ns):
@@ -1031,6 +1035,17 @@ def _parse(argv):
                          "whole-run summary")
     sp.add_argument("--top", type=int, default=15,
                     help="rows in the span self-time table")
+
+    sp = sub.add_parser("convert-weights", aliases=["convert_weights"],
+                        help="one-time offline conversion of a Keras "
+                             "save_weights .h5 into the framework's .npz "
+                             "pytree artifact")
+    sp.add_argument("input", help="Keras .h5 weights file")
+    sp.add_argument("output", help="destination .npz")
+    sp.add_argument("--model", default=None,
+                    choices=("vgg16", "mobilenet_v2", "densenet201"),
+                    help="validate converted tensors against this "
+                         "backbone's shapes")
     ns = p.parse_args(argv)
     ns.preset_key = ns.preset_key.replace("-", "_")
     return ns
@@ -1107,6 +1122,59 @@ def _streamed_idc_splits(ns, preset, batch_size: int):
 
     return (train, materialize(pairs[n_tr:n_tr + n_va]),
             materialize(pairs[n_tr + n_va:]))
+
+
+def _run_convert(ns):
+    """Keras .h5 -> the JAX-layout .npz (the JAX package's
+    ``convert-weights``): one offline conversion, no TensorFlow. With
+    ``--model`` each tensor's shape is checked against the backbone's,
+    built on the meta device (shapes only, no weights materialized)."""
+    import numpy as np
+    import torch
+
+    from idc_models_tpu_torch import convert
+    from idc_models_tpu_torch.models.pretrained import (
+        load_pretrained_file, save_npz,
+    )
+
+    params, state = load_pretrained_file(ns.input)
+    if ns.model:
+        from idc_models_tpu_torch.models import registry
+
+        with torch.device("meta"):
+            model = registry.get_model(ns.model).build(1, 3)
+
+        def shapes(named):
+            return convert.unflatten({n.replace(".", "/"): tuple(t.shape)
+                                      for n, t in named})
+
+        target = {"params": shapes(model.named_parameters()),
+                  "state": shapes(model.named_buffers())}
+
+        def check(loaded, tree, what):
+            flat_t = convert.flatten(tree)
+            flat_l = convert.flatten(loaded)
+            mis = [k for k, v in flat_l.items()
+                   if k not in flat_t
+                   or tuple(np.shape(v)) != tuple(flat_t[k])]
+            print(f"validated {what} against {ns.model}: "
+                  f"{len(flat_l) - len(mis)} tensors match, {len(mis)} "
+                  f"mismatches")
+            for m in mis[:10]:
+                print(" ", m)
+            return len(mis)
+
+        bad = check(params, target["params"]["backbone"], "params")
+        if state:
+            bad += check(state, target["state"].get("backbone", {}),
+                         "state")
+        if bad:
+            print(f"[idc_models_tpu_torch] WARNING: {bad} tensors will not "
+                  f"load into {ns.model}", file=sys.stderr)
+    tree = {"params": params, "state": state} if state else {"params": params}
+    save_npz(ns.output, tree)
+    print(f"wrote {ns.output} ({len(params)} layers, "
+          f"{len(convert.flatten(params))} tensors)")
 
 
 def _run_dist(ns):
@@ -1240,19 +1308,20 @@ def _run_fed(ns):
     import numpy as np
     import torch
 
-    from idc_models_tpu_torch import collectives, convert, resolve_device
+    from idc_models_tpu_torch import (
+        collectives, convert, mesh as meshlib, resolve_device,
+    )
     from idc_models_tpu_torch import faults as faults_lib
     from idc_models_tpu_torch.configs import get_preset
     from idc_models_tpu_torch.data.idc import train_val_test_split
     from idc_models_tpu_torch.data.partition import (
-        partition_clients, train_test_client_split,
+        pad_clients, partition_clients, train_test_client_split,
     )
     from idc_models_tpu_torch.federated import (
         ServerState, initialize_server, make_fedavg_round,
         make_federated_eval, seed_server_with,
     )
     from idc_models_tpu_torch.models import registry
-    from idc_models_tpu_torch.observe import JsonlLogger
     from idc_models_tpu_torch.train import losses
     from idc_models_tpu_torch.train.checkpoint import (
         checkpoint_exists, restore_checkpoint, save_checkpoint,
@@ -1260,8 +1329,6 @@ def _run_fed(ns):
     from idc_models_tpu_torch.train.loop import TwoPhaseConfig, two_phase_fit
 
     device = resolve_device(ns.device)
-    if collectives.axis_size() > 1:
-        _one_rank_fed(collectives.axis_size())
     if ns.checkpoint_every < 1:
         sys.exit(f"--checkpoint-every {ns.checkpoint_every} must be "
                  f">= 1: saving every 0 rounds is never, and a crash "
@@ -1280,13 +1347,18 @@ def _run_fed(ns):
         get_preset("fed"), ns,
         ["batch_size", "lr", "rounds", "iid", "num_clients", "local_epochs",
          "pretrain_epochs"])
-    print(f"Device: {device}")
     n_clients = preset.num_clients
+    # the clients split over a "client" mesh of up to every rank (the
+    # JAX verb's client_mesh(min(n_clients, n_dev))); the pretraining
+    # runs data-parallel over the whole world
+    world = collectives.axis_size()
+    mesh = meshlib.client_mesh(min(n_clients, world))
+    mesh_dp = meshlib.data_mesh() if collectives.initialized() else None
+    print(f"Device: {device}" + _ranks_line(mesh))
     ds = _load_idc(ns, preset.image_size, preset.dataset_limit)
     loss_fn = (losses.binary_cross_entropy if preset.num_outputs == 1
                else losses.sparse_categorical_cross_entropy)
-    logger = (JsonlLogger(Path(ns.path) / "logs" / "run.jsonl")
-              if ns.path is not None else None)
+    logger = _run_logger(ns)
     try:
         # Pretrain (C8): checkpoint-gated VGG16 on the pooled data
         spec = registry.get_model(preset.model)
@@ -1314,8 +1386,8 @@ def _run_fed(ns):
                                fine_tune_at=preset.fine_tune_at,
                                seed=ns.seed),
                 loss_fn=loss_fn, pretrained_weights=ns.pretrained_weights,
-                logger=logger, device=device).model
-            if ckpt is not None:
+                logger=logger, device=device, mesh=mesh_dp).model
+            if ckpt is not None and collectives.is_writer():
                 params, state = convert.to_jax(model)
                 save_checkpoint(ckpt, {"params": params, "state": state})
         model.to(device)
@@ -1327,15 +1399,20 @@ def _run_fed(ns):
         n_per_client = imgs.shape[1]
         train_ids, test_ids = train_test_client_split(
             n_clients, preset.test_client_fraction, seed=ns.seed)
-        # train clients carry weight = examples, test clients weight 0
-        # (one card holds every client: no padding to a mesh)
+        # train clients carry weight = examples, test clients weight 0;
+        # the client axis is padded to the mesh with inert weight-0
+        # dummies
         w_train = np.zeros((n_clients,), np.float32)
         w_train[train_ids] = n_per_client
         w_test = np.zeros((n_clients,), np.float32)
         w_test[test_ids] = n_per_client
-        # the stacked client shards go to the card once, not once a round
-        imgs = torch.as_tensor(np.asarray(imgs, np.float32), device=device)
-        labels = torch.as_tensor(labels, device=device)
+        imgs, labels, w_train, w_test = pad_clients(
+            imgs, labels, w_train, w_test, multiple=mesh.size)
+        # this rank's block of the stacked client shards goes to its
+        # card once, not once a round
+        imgs, labels = _client_block(mesh, device, np.asarray(imgs,
+                                                              np.float32),
+                                     labels)
         mask = spec.fine_tune_mask(model, preset.fine_tune_at)
         pretrained = ServerState.of(model)
         server = seed_server_with(initialize_server(model, ns.seed),
@@ -1352,8 +1429,9 @@ def _run_fed(ns):
             model, preset.lr / 10.0, loss_fn,
             local_epochs=preset.local_epochs, batch_size=preset.batch_size,
             trainable_mask=mask, aggregator=_fed_aggregator(ns),
-            faults=plan, device=device)
-        eval_fn = make_federated_eval(model, loss_fn, device=device)
+            faults=plan, mesh=mesh, device=device)
+        eval_fn = make_federated_eval(model, loss_fn, mesh=mesh,
+                                      device=device)
         # A resume from an every-N checkpoint replays the rounds after
         # the last save (same keys). Replayed rounds print again but must
         # not append duplicate records to the append-only run.jsonl; a
@@ -1387,6 +1465,20 @@ def _run_fed(ns):
     finally:
         if logger is not None:
             logger.close()
+
+
+def _client_block(mesh, device, *stacks):
+    """This rank's block of each client-stacked array over the "client"
+    `mesh`, on `device` (None for a rank outside the mesh)."""
+    import torch
+
+    from idc_models_tpu_torch import mesh as meshlib
+
+    if mesh.coords is None:
+        return tuple(None for _ in stacks)
+    sh = meshlib.sharding(mesh, meshlib.CLIENT_AXIS)
+    return tuple(meshlib.put_with_sharding(torch.as_tensor(a), sh, device)
+                 for a in stacks)
 
 
 def _fed_aggregator(ns):
@@ -1425,6 +1517,7 @@ def _drive_fed(ns, round_fn, server, images, labels, weights, *, rounds,
     could not be healed and report the healed attempts. `fault_plan`
     and `participant_ids_fn` label the ``fed.client`` spans. Returns the
     driver's result."""
+    from idc_models_tpu_torch import collectives
     from idc_models_tpu_torch.federated import (
         DriverConfig, RoundFailure, run_rounds,
     )
@@ -1456,13 +1549,15 @@ def _drive_fed(ns, round_fn, server, images, labels, weights, *, rounds,
         checkpoint_every=ns.checkpoint_every)
     try:
         with Timer("Federated training", logger=logger), \
-                profile_trace(ns.profile_dir):
+                profile_trace(ns.profile_dir if collectives.is_writer()
+                              else None):
             result = run_rounds(
                 round_fn, server, images, labels, weights, config=config,
                 seed=ns.seed + 1, eval_fn=eval_round, on_round=print_round,
                 logger=logger, verbose=True, log_from_round=logged_through,
                 log_round_records=False, fault_plan=fault_plan,
-                participant_ids_fn=participant_ids_fn)
+                participant_ids_fn=participant_ids_fn,
+                lockstep=collectives.axis_size() > 1)
     except RoundFailure as e:
         sys.exit(f"[idc_models_tpu_torch] federated training aborted: {e}")
     retried = [e for e in result.events if e["status"] != "ok"]
@@ -1501,6 +1596,7 @@ def _run_fed_population(ns, device):
     import numpy as np
     import torch
 
+    from idc_models_tpu_torch import collectives, mesh as meshlib
     from idc_models_tpu_torch import faults as faults_lib
     from idc_models_tpu_torch.configs import get_preset
     from idc_models_tpu_torch.federated import (
@@ -1508,7 +1604,6 @@ def _run_fed_population(ns, device):
         make_federated_eval, make_population_round,
     )
     from idc_models_tpu_torch.models import registry
-    from idc_models_tpu_torch.observe import JsonlLogger
     from idc_models_tpu_torch.train import losses
 
     preset = _apply_overrides(
@@ -1568,7 +1663,13 @@ def _run_fed_population(ns, device):
                   "async mode without --fault-delay-ms: buffered "
                   "staleness comes from late arrival, and the plan's "
                   "stragglers arrive on time", file=sys.stderr)
-    print(f"Device: {device}")
+    # the sync waves split over a "client" mesh of the largest rank
+    # count dividing the wave (the JAX verb's client_mesh(
+    # largest_dividing_mesh(wave, n_dev))); the async server takes none
+    mesh = (None if use_async else meshlib.client_mesh(
+        meshlib.largest_dividing_mesh(wave, collectives.axis_size())))
+    print(f"Device: {device}"
+          + ("" if mesh is None else _ranks_line(mesh)))
     # every layer trains, from a seeded init: population mode has no
     # pretraining phase (the JAX package's spec.build(num_outputs, 3))
     model = registry.get_model(model_name).build(preset.num_outputs, 3)
@@ -1576,8 +1677,7 @@ def _run_fed_population(ns, device):
                else losses.sparse_categorical_cross_entropy)
     server, server_ckpt, resumed = _restore_fed_server(
         initialize_server(model, ns.seed), ns)
-    logger = (JsonlLogger(Path(ns.path) / "logs" / "run.jsonl")
-              if ns.path is not None else None)
+    logger = _run_logger(ns)
     try:
         logged_through, cohort_through = (
             _resume_marks(logger) if resumed else (-1, -1))
@@ -1596,7 +1696,7 @@ def _run_fed_population(ns, device):
                 round_fn = make_population_round(
                     model, preset.lr / 10.0, loss_fn, population, sampler,
                     wave_size=wave, aggregator=agg,
-                    barrier_sleep=delay_ms > 0, **kw)
+                    barrier_sleep=delay_ms > 0, mesh=mesh, **kw)
         except ValueError as e:
             sys.exit(str(e))
 
@@ -1608,7 +1708,8 @@ def _run_fed_population(ns, device):
         eval_imgs = torch.as_tensor(eval_imgs, dtype=torch.float32,
                                     device=device)
         eval_labels = torch.as_tensor(eval_labels, device=device)
-        eval_fn = make_federated_eval(model, loss_fn, device=device)
+        eval_fn = make_federated_eval(model, loss_fn, mesh=mesh,
+                                      device=device)
 
         def eval_round(sv):
             em = eval_fn(sv, eval_imgs, eval_labels, eval_w)
@@ -1656,20 +1757,19 @@ def _run_secure(ns):
     import numpy as np
     import torch
 
-    from idc_models_tpu_torch import collectives, resolve_device
+    from idc_models_tpu_torch import collectives, mesh as meshlib
+    from idc_models_tpu_torch import resolve_device
     from idc_models_tpu_torch.configs import get_preset
     from idc_models_tpu_torch.federated.fedavg import (
         initialize_server, load_server,
     )
     from idc_models_tpu_torch.models import registry
-    from idc_models_tpu_torch.observe import JsonlLogger, Timer, profile_trace
+    from idc_models_tpu_torch.observe import Timer, profile_trace
     from idc_models_tpu_torch.secure.fedavg import make_secure_fedavg_round
     from idc_models_tpu_torch.train import losses
     from idc_models_tpu_torch.train.loop import evaluate
 
     device = resolve_device(ns.device)
-    if collectives.axis_size() > 1:
-        _one_rank_fed(collectives.axis_size())
     if ns.async_buffer:
         from idc_models_tpu_torch.federated import ensure_async_compatible
 
@@ -1681,8 +1781,14 @@ def _run_secure(ns):
         get_preset("secure_fed"), ns,
         ["batch_size", "lr", "rounds", "percent", "num_clients",
          "local_epochs", "paillier"])
-    print(f"Device: {device}")
     n_clients = preset.num_clients
+    # every rank works for any client count: a count the mesh does not
+    # divide is padded with mask-participating dummy slots inside the
+    # round (the JAX verb's client_mesh(min(n_clients, n_dev)))
+    mesh = meshlib.client_mesh(min(n_clients, collectives.axis_size()))
+    n_total = n_clients + (-n_clients % mesh.size)
+    writer = collectives.is_writer()
+    print(f"Device: {device}" + _ranks_line(mesh))
     ds = _load_idc(ns, preset.image_size, None)
     # take/skip split sized by the preset (24000/6000 in the reference,
     # secure_fed_model.py:219-220), scaled down when the dataset is smaller
@@ -1692,10 +1798,11 @@ def _run_secure(ns):
     loss_fn = (losses.binary_cross_entropy if preset.num_outputs == 1
                else losses.sparse_categorical_cross_entropy)
     model = registry.get_model(preset.model).build(preset.num_outputs, 3)
-    logger = (JsonlLogger(Path(ns.path) / "logs" / "run.jsonl")
-              if ns.path is not None else None)
+    logger = _run_logger(ns)
     try:
         if preset.paillier:
+            if not writer:
+                return      # the host-side protocol runs on rank 0
             if ns.mask_impl != "threefry":
                 print("[idc_models_tpu_torch] --mask-impl has no effect "
                       "with --paillier (host-side Paillier path)",
@@ -1704,24 +1811,33 @@ def _run_secure(ns):
                                  logger, ns, device)
             _log_snapshot(logger)
             return
-        # strided shard per client (secure_fed_model.py:206-210), stacked
-        # and uploaded to the card once
+        # strided shard per client (secure_fed_model.py:206-210), stacked,
+        # padded to the mesh with the dummy slots' zero shards once, and
+        # this rank's block uploaded to its card once
         shards = [client_ds.shard(n_clients, i) for i in range(n_clients)]
         size = min(len(s) for s in shards)
-        imgs = torch.as_tensor(np.stack([s.images[:size] for s in shards]),
-                               dtype=torch.float32, device=device)
-        labels = torch.as_tensor(np.stack([s.labels[:size] for s in shards]),
-                                 device=device)
+        imgs = np.stack([s.images[:size] for s in shards]).astype(np.float32)
+        labels = np.stack([s.labels[:size] for s in shards])
+        pad = n_total - n_clients
+        imgs = np.concatenate([imgs, np.zeros((pad,) + imgs.shape[1:],
+                                              imgs.dtype)])
+        labels = np.concatenate([labels, np.zeros((pad,) + labels.shape[1:],
+                                                  labels.dtype)])
+        imgs, labels = _client_block(mesh, device, imgs, labels)
         server = initialize_server(model, ns.seed)
         round_fn = make_secure_fedavg_round(
             model, preset.lr, loss_fn, percent=preset.percent,
             local_epochs=preset.local_epochs, batch_size=preset.batch_size,
-            mask_impl=ns.mask_impl, device=device)
+            mask_impl=ns.mask_impl, mesh=mesh, device=device)
+        # the same mask key and client seeds on every rank
         generator = torch.Generator().manual_seed(ns.seed + 1)
         with Timer("Secure fed model", logger=logger), \
-                profile_trace(ns.profile_dir):
+                profile_trace(ns.profile_dir if writer else None):
             for r in range(preset.rounds):
-                server, tm = round_fn(server, imgs, labels, generator)
+                server, tm = round_fn(server, imgs, labels, generator,
+                                      n_real=n_clients, n_total=n_total)
+                if not writer:
+                    continue    # rank 0 evaluates, prints and logs
                 em = evaluate(load_server(model, server), test_ds, loss_fn,
                               batch_size=preset.batch_size, with_auroc=True)
                 print(f"round {r}: train_loss={tm['loss']:.4f} "
@@ -1740,7 +1856,7 @@ def _run_secure(ns):
                                clients_recovered=recovered,
                                clip_saturated=tm["clip_saturated"],
                                **{f"test_{k}": v for k, v in em.items()})
-        if ns.path is not None:
+        if ns.path is not None and writer:
             from idc_models_tpu_torch import convert
             from idc_models_tpu_torch.models.pretrained import save_npz
 
@@ -2407,18 +2523,18 @@ def _run_serve(ns):
                          f"--journal to recover them")
             print(line)
         if ns.save_ckpt:
-            # rank 0 writes the whole tree; MANIFEST.json commits the
-            # save atomically (checkpoint/sharded.py)
+            # every rank takes part in the save (its barriers), rank 0
+            # writes the whole tree; MANIFEST.json commits the save
+            # atomically (checkpoint/sharded.py)
             from idc_models_tpu_torch import convert
             from idc_models_tpu_torch.checkpoint import save_sharded
 
             served = server.engine._model
             tree = (served.gathered_params() if served.mesh is not None
                     else convert.to_jax(served)[0])
+            manifest = save_sharded(ns.save_ckpt, tree, step=ns.train_steps,
+                                    logger=logger).wait()
             if writer:
-                manifest = save_sharded(ns.save_ckpt, tree,
-                                        step=ns.train_steps,
-                                        logger=logger).wait()
                 print(f"checkpoint: wrote {manifest['n_shards']} "
                       f"shard(s) / {len(manifest['leaves'])} leaves to "
                       f"{ns.save_ckpt}")

@@ -57,6 +57,21 @@ def broadcast_host(values, group, src: int = 0) -> list[float]:
     return t.tolist()
 
 
+def world_max(values) -> list[float]:
+    """The elementwise maximum of float `values` over every rank of the
+    world (this rank's own in a world of one): how the ranks that run
+    one loop together settle a decision each made from its own clock.
+    The tensor goes where the world's backend reduces (the current card
+    under NCCL)."""
+    if axis_size() == 1:
+        return [float(v) for v in values]
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if dist.get_backend() == "nccl" else torch.device("cpu"))
+    t = torch.tensor(values, dtype=torch.float64, device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return t.tolist()
+
+
 def _global_rank(group, rank: int) -> int:
     """A group rank as the default group numbers it, which is what
     point-to-point operations take."""

@@ -18,8 +18,9 @@ aggregation (`make_fedavg_round(faults=plan)`):
 Population-scale plans (`PopulationFaultPlan`) address VIRTUAL client
 ids and are evaluated per cohort, in O(cohort) (`federated/population.py`,
 `federated/async_fedavg.py`). The data-pipeline hooks ``flaky`` and
-``with_retries`` inject and absorb transient read failures; ``FileStream``,
-which uses them, waits for ROADMAP A1-rest.
+``with_retries`` inject and absorb transient read failures around any
+read callable, such as the loads of ``data/pipeline.py``'s
+``FileStream``.
 """
 
 from __future__ import annotations

@@ -1,8 +1,10 @@
 """Buffered asynchronous FedAvg (FedBuff): stragglers stop gating the
 round.
 
-The counterpart of ``idc_models_tpu/federated/async_fedavg.py`` on one
-card. A synchronous round, one-shot or streamed (`population.py`), is a
+The counterpart of ``idc_models_tpu/federated/async_fedavg.py``. Like
+the JAX package's ``make_async_round`` it takes no mesh: in a world of
+several ranks each rank runs the same host-driven server, and rank 0
+writes the run's records and checkpoints. A synchronous round, one-shot or streamed (`population.py`), is a
 BARRIER: the server cannot update until its slowest cohort member
 reports. The buffered server (Nguyen et al., *FedBuff*) removes it:
 
@@ -110,7 +112,8 @@ def make_async_round(
     log_from_round: int = -1,
     device=None,
 ):
-    """Build the buffered asynchronous round on one card.
+    """Build the buffered asynchronous round (no mesh: see the module
+    docstring).
 
     ``round_fn(server, images, labels, weights, key, *, round_idx=None)``
     processes `cohort_size` client completions: dispatches keep

@@ -32,6 +32,13 @@ package's ``fold_in(fold_in(key(seed), r), a)``) and its subset from
 ``default_rng((seed, r, a))``, so resumed and replayed runs reproduce
 the stream.
 
+Over ranks (``lockstep=True``: every rank of the world runs `run_rounds`
+around a round over a "client" mesh): the metrics the tests read are the
+group's, so the divergence and spike tests agree by construction; each
+attempt's status and seconds are then the world's worst (`world_max`),
+so a timeout one rank's clock saw retries on every rank. Rank 0 writes
+the checkpoints; every rank restores them.
+
 Observability, as the JAX driver: each attempt is a ``fed.round`` span
 (round, attempt, status, participants) holding a ``device.sync`` span
 around the wait for the card and, while a tracer is armed, one
@@ -53,6 +60,7 @@ import time
 import numpy as np
 import torch
 
+from idc_models_tpu_torch import collectives
 from idc_models_tpu_torch.federated.fedavg import ServerState, copy_tree
 from idc_models_tpu_torch.observe import metrics_registry as mreg
 from idc_models_tpu_torch.observe import profile as prof
@@ -61,6 +69,10 @@ from idc_models_tpu_torch.observe import trace
 
 class RoundFailure(RuntimeError):
     """A federated round kept failing after the configured retries."""
+
+
+# attempt statuses, least to most severe: the order `lockstep` settles by
+_STATUSES = ("ok", "diverged", "timeout", "error")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,7 +162,8 @@ def run_rounds(round_fn, server: ServerState, images, labels, weights, *,
                on_round=None, logger=None, clock=time.monotonic,
                verbose: bool = False, log_from_round: int = -1,
                log_round_records: bool = True, fault_plan=None, slo=None,
-               participant_ids_fn=None) -> DriverResult:
+               participant_ids_fn=None, lockstep: bool = False
+               ) -> DriverResult:
     """Run `config.rounds` federated rounds with self-healing.
 
     `round_fn` is a `make_fedavg_round` product (or anything with its
@@ -169,7 +182,8 @@ def run_rounds(round_fn, server: ServerState, images, labels, weights, *,
     whichever it declares, and evaluates after every attempt.
     `participant_ids_fn(round_idx) -> ids` names the markers by virtual
     client id (population and async rounds); a plan with
-    ``codes_for(round, ids)`` is asked per id.
+    ``codes_for(round, ids)`` is asked per id. `lockstep`: every rank of
+    the world calls this driver with the same round (module docstring).
 
     Returns the last good server state, the per-round history and the
     per-attempt health events; raises `RoundFailure` when a round
@@ -253,6 +267,10 @@ def run_rounds(round_fn, server: ServerState, images, labels, weights, *,
                         and not timeout_exempt
                         and elapsed > config.timeout_s):
                     status = "timeout"
+                if lockstep:
+                    code, elapsed = collectives.world_max(
+                        [_STATUSES.index(status), elapsed])
+                    status = _STATUSES[int(code)]
                 w_host = np.asarray(torch.as_tensor(w).cpu())
                 record = {"round": r, "attempt": attempt, "status": status,
                           "seconds": round(elapsed, 4),
@@ -355,6 +373,8 @@ def _client_spans(att_span, weights, round_idx: int, attempt: int,
 
 
 def _save(path, server: ServerState) -> None:
+    """Checkpoint the server on rank 0 (the one writer of a world)."""
     from idc_models_tpu_torch.train.checkpoint import save_checkpoint
 
-    save_checkpoint(path, server.tree())
+    if collectives.is_writer():
+        save_checkpoint(path, server.tree())

@@ -1,12 +1,14 @@
-"""FedAvg on one card: the server state, the per-client local trainer,
-the divergence test, the plain FedAvg round and the federated eval.
+"""FedAvg: the server state, the per-client local trainer, the
+divergence test, the plain FedAvg round and the federated eval.
 
 The counterpart of ``idc_models_tpu/federated/fedavg.py``. The JAX
-package vmaps the k clients of a device inside one program; on one H100
-(world size 1) every client is local, and the port trains them in turn
-on one working module, each from the incoming global weights with its
-own generator. Batching the clients as one workload
-(``torch.func.vmap``) comes with the distribution layer.
+package vmaps the k clients of a device inside one program; the port
+trains a rank's k clients in turn on one working module, each from the
+incoming global weights with its own generator. Over a "client" mesh
+(``mesh.client_mesh``, one card or one gloo rank a rank) the C clients
+split into blocks of k = C/D, rank r training clients ``r*k .. r*k+k-1``
+under their global ids, so a round's math does not depend on the
+layout; the round boundary sums over the group (`ClientLayout`).
 
 Weights cross the round boundary as flat ``{dotted name: tensor}`` dicts
 -- the module's named parameters (``params``) and buffers (``state``, the
@@ -23,8 +25,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from idc_models_tpu_torch import convert, resolve_device
+from idc_models_tpu_torch import collectives, convert, resolve_device
 from idc_models_tpu_torch import faults as faults_lib
+from idc_models_tpu_torch import mesh as meshlib
+from idc_models_tpu_torch import partition
 from idc_models_tpu_torch.federated import robust
 from idc_models_tpu_torch.models import core
 from idc_models_tpu_torch.train import metrics as metrics_lib
@@ -83,6 +87,115 @@ class ServerState:
 
         return cls(int(tree["round"]), flat(tree["params"]),
                    flat(tree["model_state"]))
+
+
+@dataclasses.dataclass(frozen=True)
+class ClientLayout:
+    """This rank's place in a round's "client" mesh: the group (None
+    without a mesh), its size D, this rank's index and whether the rank
+    is outside the mesh. A rank outside it trains nothing and takes the
+    round's result from the mesh's rank 0 (`share`); every rank of the
+    world calls the round."""
+
+    group: object = None
+    size: int = 1
+    index: int = 0
+    outside: bool = False
+    share_world: bool = False
+
+    @classmethod
+    def of(cls, mesh) -> "ClientLayout":
+        if mesh is None:
+            return cls()
+        if meshlib.CLIENT_AXIS not in mesh.shape:
+            raise ValueError(f"a federated round runs on a mesh with a "
+                             f"{meshlib.CLIENT_AXIS!r} axis "
+                             f"(mesh.client_mesh), got {mesh.axis_names}")
+        share = (collectives.initialized()
+                 and collectives.axis_size() > mesh.size)
+        if mesh.coords is None:
+            return cls(None, mesh.axis_size(meshlib.CLIENT_AXIS), 0, True,
+                       share)
+        return cls(mesh.group(meshlib.CLIENT_AXIS),
+                   mesh.axis_size(meshlib.CLIENT_AXIS),
+                   mesh.axis_index(meshlib.CLIENT_AXIS), False, share)
+
+    def block(self, x, n_total: int):
+        """This rank's [k] block of a client-stacked `x`: `x` as it is
+        when it already holds k = n_total/D clients, else its rows
+        ``index*k .. index*k+k-1``. None stays None."""
+        if x is None:
+            return None
+        k = n_total // self.size
+        if x.shape[0] == k:
+            return x
+        if x.shape[0] != n_total:
+            raise ValueError(
+                f"{x.shape[0]} client shards: pass all {n_total} or this "
+                f"rank's block of {k} ({n_total} over a {self.size}-rank "
+                f"client mesh)")
+        return x[self.index * k:(self.index + 1) * k]
+
+    def sum(self, values: dict) -> dict:
+        """`values`' tensors summed over the group, in place."""
+        return robust.group_sum(values, self.group)
+
+    def share_value(self, value):
+        """A host value of the mesh's rank 0 (the world's rank 0) on every
+        rank of the world; as it is where the mesh spans the world."""
+        if not self.share_world:
+            return value
+        box = [value]
+        torch.distributed.broadcast_object_list(
+            box, src=0, group=torch.distributed.group.WORLD)
+        return box[0]
+
+    def share(self, server: ServerState, metrics):
+        """The round's (server, metrics) on every rank of the world: the
+        mesh's rank 0 sends, a rank outside the mesh receives into
+        `server`'s tensors, which hold the incoming server's shapes."""
+        if not self.share_world:
+            return server, metrics
+        for tree in (server.params, server.state):
+            for name in sorted(tree):
+                torch.distributed.broadcast(
+                    tree[name], src=0, group=torch.distributed.group.WORLD)
+        rnd, metrics = self.share_value((server.round, metrics))
+        return server.replace(round=rnd), metrics
+
+
+def place_server(mesh, rules):
+    """The server placement of a round over `mesh` under partition
+    `rules` (``partition.PartitionRules``): resolved once, every leaf of
+    the server tree must come out replicated on the 1-D "client" mesh
+    (the JAX package's rules adapt to replicated there), and the
+    placement keeps the tensors as they are -- bit-identical to no
+    rules. A rule that would split a server leaf over the client axis
+    raises: the round keeps a whole server on every rank."""
+    resolved: dict = {}
+
+    def place(server: ServerState) -> ServerState:
+        if rules is None or mesh is None:
+            return server
+        if "ok" not in resolved:
+            tree = {"params": {k.replace(".", "/"): v
+                               for k, v in server.params.items()},
+                    "model_state": {k.replace(".", "/"): v
+                                    for k, v in server.state.items()}}
+            specs = rules.specs(
+                {g: convert.unflatten(t) for g, t in tree.items()},
+                mesh=mesh)
+            split = {n: spec for n, spec in convert.flatten(specs).items()
+                     if len(spec)}
+            if split:
+                raise partition.PartitionError(
+                    f"partition rules split server leaves over the "
+                    f"client mesh: {split} -- a federated round keeps "
+                    f"the server whole on every rank")
+            resolved["ok"] = True
+        return server
+
+    return place
 
 
 def initialize_server(model: nn.Module, seed: int) -> ServerState:
@@ -263,26 +376,41 @@ def float_metrics(m: dict) -> dict[str, float]:
 def make_fedavg_round(model: nn.Module, lr: float, loss_fn: LossFn, *,
                       local_epochs: int = 1, batch_size: int = 32,
                       trainable_mask: dict[str, bool] | None = None,
-                      aggregator=None, faults=None, device=None):
-    """Build the one-round FedAvg program on one card.
+                      aggregator=None, faults=None, mesh=None, rules=None,
+                      device=None):
+    """Build the one-round FedAvg program.
 
     Returns ``round_fn(server, images [C, S, ...], labels [C, S],
     weights [C], key, *, round_idx=None) -> (server, metrics)``. `model`
     is the working module: it moves to `device` (CUDA unless "cpu" is
     asked for), and each client of weight > 0 trains on it in turn from
     the incoming global weights, with a fresh RMSprop at `lr` over
-    `trainable_mask` and its own generator (`client_generator(key, c)`).
-    A client of weight 0 does not train: nothing of it reaches the
-    aggregate or the metrics. Images enter in the model's dtype; pass the
-    stacked shards as tensors already on the device (and in that dtype)
-    to keep the upload out of the round.
+    `trainable_mask` and its own generator (`client_generator(key, c)`,
+    c the global client id). A client of weight 0 does not train:
+    nothing of it reaches the aggregate or the metrics. Images enter in
+    the model's dtype; pass the stacked shards as tensors already on the
+    device (and in that dtype) to keep the upload out of the round.
 
+    - ``mesh`` (``mesh.client_mesh(D)``): the C clients split over the D
+      ranks of its "client" group, C a multiple of D (pad with weight-0
+      clients, ``data.partition.pad_clients``). Each rank passes all C
+      shards or its own block of k = C/D (rank r: clients r*k .. r*k+k-1)
+      with the global [C] weights, trains its block, and the aggregate,
+      the metrics and the aggregator's counts are the group's; every rank
+      returns the same server. A rank outside the mesh passes its
+      incoming server (images may be None) and receives the result. No
+      mesh: every client is local.
+    - ``rules`` (``partition.PartitionRules``): the server placement
+      resolves through the shared rule layer; on the 1-D client mesh
+      every rule adapts to replicated, so the round is bit-identical to
+      no rules (`place_server`).
     - ``weights`` are the per-client aggregation weights (example counts
       for TFF parity); 0 leaves a client out.
     - ``faults`` (`faults.FaultPlan`): the plan's codes for the round
       (``round_idx``, default ``server.round``) are applied to the client
-      updates after local training; stragglers replay a cloned server
-      from an internal per-round history (depth: the plan's staleness).
+      updates after local training, each rank taking its block's codes;
+      stragglers replay a cloned server from an internal per-round
+      history (depth: the plan's staleness).
     - A client whose update holds a non-finite value gets weight 0 and
       is counted in ``clients_dropped`` (the JAX round's
       ``drop_nonfinite``, always on here).
@@ -298,6 +426,8 @@ def make_fedavg_round(model: nn.Module, lr: float, loss_fn: LossFn, *,
     device = resolve_device(device)
     model.to(device)
     agg_fn = robust.get_aggregator(aggregator)
+    layout = ClientLayout.of(mesh)
+    place = place_server(mesh, rules)
     local_train = make_local_trainer(
         model, lr, loss_fn, local_epochs=local_epochs,
         batch_size=batch_size, trainable_mask=trainable_mask)
@@ -305,50 +435,69 @@ def make_fedavg_round(model: nn.Module, lr: float, loss_fn: LossFn, *,
 
     def round_fn(server: ServerState, images, labels, weights, key: Key, *,
                  round_idx: int | None = None):
-        images = torch.as_tensor(images, device=device,
-                                 dtype=next(model.parameters()).dtype)
-        labels = torch.as_tensor(labels, device=device)
-        w_host = torch.as_tensor(weights, dtype=torch.float32).cpu()
-        n = images.shape[0]
-        if w_host.shape != (n,):
-            raise ValueError(f"{tuple(w_host.shape)} client weights for "
-                             f"{n} client shards")
+        w_all = torch.as_tensor(weights, dtype=torch.float32).cpu()
+        n = w_all.shape[0]
+        if n % layout.size:
+            raise ValueError(
+                f"got {n} client shards for a {layout.size}-rank client "
+                f"mesh; pad with weight-0 clients to a multiple "
+                f"(data.partition.pad_clients)")
         if faults is not None and faults.n_clients > n:
             raise ValueError(
                 f"fault plan covers {faults.n_clients} clients but only "
                 f"{n} client shards were passed")
-        server = server.to(device)
+        server = place(server.to(device))
+        r = server.round if round_idx is None else int(round_idx)
+        stale = (history(server, r, faults.staleness(r))
+                 if faults is not None else None)
+        if layout.outside:
+            return layout.share(copy_tree(server), None)
+        k = n // layout.size
+        first = layout.index * k
+        images = torch.as_tensor(layout.block(images, n), device=device,
+                                 dtype=next(model.parameters()).dtype)
+        labels = torch.as_tensor(layout.block(labels, n), device=device)
+        if images.shape[0] != k:
+            raise ValueError(f"{tuple(w_all.shape)} client weights for "
+                             f"{images.shape[0]} client shards")
+        w_host = w_all[first:first + k]
         glob = {**server.params, **server.state}
         client_p, client_s, losses, accs = train_clients(
             model, local_train, server, images, labels,
-            w_host.numpy() > 0, key)
+            w_host.numpy() > 0, key, first=first)
         faulted = None
         if faults is not None:
-            r = server.round if round_idx is None else int(round_idx)
             codes, scales = faults.codes(r)
             pad = n - faults.n_clients
+            codes = np.concatenate([codes, np.zeros((pad,), np.int32)])
+            scales = np.concatenate([scales, np.ones((pad,), np.float32)])
             faulted = (
-                torch.as_tensor(np.concatenate(
-                    [codes, np.zeros((pad,), np.int32)]), device=device),
-                torch.as_tensor(np.concatenate(
-                    [scales, np.ones((pad,), np.float32)]), device=device),
-                history(server, r, faults.staleness(r)))
+                torch.as_tensor(codes[first:first + k], device=device),
+                torch.as_tensor(scales[first:first + k], device=device),
+                stale)
         client_p, client_s, weight, dropped = screen_clients(
             client_p, client_s, losses, w_host.to(device), server, faulted)
 
-        agg, agg_m = agg_fn({**client_p, **client_s}, weight, glob)
-        m = float_metrics({"loss": robust.weighted_mean(losses, weight),
-                           "accuracy": robust.weighted_mean(accs, weight),
-                           "clients_dropped": dropped, **agg_m})
-        if not float(robust.weight_total(weight)) > 0:
+        agg, agg_m = agg_fn({**client_p, **client_s}, weight, glob,
+                            layout.group)
+        sums = layout.sum({"wloss": robust.weighted_sum(losses, weight),
+                           "wacc": robust.weighted_sum(accs, weight),
+                           "total": robust.weight_total(weight),
+                           "dropped": dropped})
+        floor = torch.clamp(sums["total"], min=1e-30)
+        m = float_metrics({"loss": sums["wloss"] / floor,
+                           "accuracy": sums["wacc"] / floor,
+                           "clients_dropped": sums["dropped"], **agg_m})
+        if not float(sums["total"]) > 0:
             # every client dropped: keep the incoming server and report
             # NaN metrics -- an all-zero-weight mean would read as a
             # perfect 0.0 loss while training silently stalls
             agg = glob
             m["loss"] = m["accuracy"] = float("nan")
-        return ServerState(server.round + 1,
-                           {k: agg[k] for k in server.params},
-                           {k: agg[k] for k in server.state}), m
+        return layout.share(
+            ServerState(server.round + 1,
+                        {k: agg[k] for k in server.params},
+                        {k: agg[k] for k in server.state}), m)
 
     return round_fn
 
@@ -358,23 +507,35 @@ def make_fedavg_round(model: nn.Module, lr: float, loss_fn: LossFn, *,
 _EVAL_CHUNK = 512
 
 
-def make_federated_eval(model: nn.Module, loss_fn: LossFn, *, device=None):
+def make_federated_eval(model: nn.Module, loss_fn: LossFn, *, mesh=None,
+                        device=None):
     """Build the federated evaluation (fed_model.py:210).
 
     Returns ``eval_fn(server, images [C, S, ...], labels [C, S], weights
     [C]) -> {"loss", "accuracy"}``: the global model in eval mode on every
     client shard of weight > 0, each client's loss and accuracy over its
-    whole shard, example-weighted across clients (floats)."""
+    whole shard, example-weighted across clients (floats). Over a
+    `mesh` (``mesh.client_mesh``) each rank evaluates its block of the
+    clients (all C shards or its k, with the global [C] weights) and the
+    weighted sums are the group's; a rank outside the mesh receives the
+    result."""
     device = resolve_device(device)
     model.to(device)
+    layout = ClientLayout.of(mesh)
 
     def eval_fn(server: ServerState, images, labels, weights):
-        images = torch.as_tensor(images, dtype=torch.float32, device=device)
-        labels = torch.as_tensor(labels, device=device)
-        w_host = torch.as_tensor(weights, dtype=torch.float32).cpu()
-        n = images.shape[0]
-        losses = torch.zeros(n, device=device)
-        accs = torch.zeros(n, device=device)
+        w_all = torch.as_tensor(weights, dtype=torch.float32).cpu()
+        n = w_all.shape[0]
+        if layout.outside:
+            return layout.share_value(None)
+        k = n // layout.size
+        first = layout.index * k
+        images = torch.as_tensor(layout.block(images, n),
+                                 dtype=torch.float32, device=device)
+        labels = torch.as_tensor(layout.block(labels, n), device=device)
+        w_host = w_all[first:first + k]
+        losses = torch.zeros(k, device=device)
+        accs = torch.zeros(k, device=device)
         load_server(model, server.to(device)).eval()
         with torch.no_grad():
             for c in np.flatnonzero(w_host.numpy() > 0).tolist():
@@ -384,9 +545,9 @@ def make_federated_eval(model: nn.Module, loss_fn: LossFn, *, device=None):
                 losses[c] = loss_fn(logits, labels[c])
                 accs[c] = metrics_lib.auto_accuracy(logits, labels[c])
         weight = w_host.to(device)
-        m = torch.stack([robust.weighted_mean(losses, weight),
-                         robust.weighted_mean(accs, weight)]).tolist()
-        return {"loss": m[0], "accuracy": m[1]}
+        m = robust.weighted_means({"loss": losses, "accuracy": accs},
+                                  weight, layout.group)
+        m = torch.stack([m["loss"], m["accuracy"]]).tolist()
+        return layout.share_value({"loss": m[0], "accuracy": m[1]})
 
     return eval_fn
-

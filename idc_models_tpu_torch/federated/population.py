@@ -1,8 +1,8 @@
 """Population-scale federated training: virtual clients, cohort
 sampling, and streamed wave aggregation.
 
-The counterpart of ``idc_models_tpu/federated/population.py`` on one
-card. `make_fedavg_round` materializes every client's shard; at a
+The counterpart of ``idc_models_tpu/federated/population.py``.
+`make_fedavg_round` materializes every client's shard; at a
 population of 10k+ clients memory would grow with the population, and a
 synchronous barrier waits on its slowest member. Production FL systems
 (Bonawitz et al., *Towards Federated Learning at Scale*) instead SELECT a
@@ -23,7 +23,10 @@ small cohort each round and aggregate it in a stream:
   (`fedavg.train_clients`), applies faults and the divergence test
   (`fedavg.screen_clients`) and folds the masked weighted sums into a
   running aggregate that is divided once, at the end. Server memory is
-  O(wave) plus one accumulator, constant in population and cohort.
+  O(wave) plus one accumulator, constant in population and cohort. Over
+  a "client" mesh of D ranks (D dividing the wave) each rank trains its
+  wave_size/D of every wave and the wave's sums take one sum over the
+  group before they fold in.
 
 Parity: a wave runs the one-shot round's own code, and client ``i`` of
 a cohort trains with ``client_generator(key, i)``, its COHORT POSITION
@@ -53,8 +56,9 @@ from idc_models_tpu_torch.data import synthetic
 from idc_models_tpu_torch.federated import robust
 from idc_models_tpu_torch.observe import metrics_registry as mreg
 from idc_models_tpu_torch.federated.fedavg import (
-    Key, LossFn, ServerState, StaleHistory, float_metrics,
-    make_local_trainer, screen_clients, train_clients,
+    ClientLayout, Key, LossFn, ServerState, StaleHistory, copy_tree,
+    float_metrics, make_local_trainer, place_server, screen_clients,
+    train_clients,
 )
 
 
@@ -268,9 +272,11 @@ def make_population_round(
     barrier_sleep: bool = False,
     logger=None,
     log_from_round: int = -1,
+    mesh=None,
+    rules=None,
     device=None,
 ):
-    """Build the streamed population round on one card.
+    """Build the streamed population round.
 
     Returns ``round_fn(server, images, labels, weights, key, *,
     round_idx=None) -> (server, metrics)``, driver-compatible
@@ -298,7 +304,16 @@ def make_population_round(
 
     `logger` (`observe.JsonlLogger`) gets one ``fed_cohort`` record per
     round above `log_from_round` (a driver retry does not log twice).
-    The metrics are floats: ``loss``, ``accuracy``, ``clients_dropped``,
+
+    Over a `mesh` (``mesh.client_mesh(D)``, D dividing `wave_size`) rank
+    i trains wave positions ``i*k .. i*k+k-1`` of every wave (k =
+    wave_size/D), materializing only those clients, under their cohort
+    positions; each wave's sums take one sum over the group and fold into
+    the running aggregate on every rank (the JAX package's ``psum``). A
+    rank outside the mesh receives the round's result. `rules` resolve
+    the server placement as `fedavg.make_fedavg_round`'s do
+    (bit-identical to none on the client mesh). The metrics are
+    floats: ``loss``, ``accuracy``, ``clients_dropped``,
     the aggregator's, and ``cohort``, ``participants`` and ``waves``."""
     device = resolve_device(device)
     model.to(device)
@@ -314,6 +329,13 @@ def make_population_round(
             f"wave_size {wave_size} must divide the cohort "
             f"({cohort_size}) — waves are fixed-shape so one compiled "
             f"program serves every wave")
+    layout = ClientLayout.of(mesh)
+    place = place_server(mesh, rules)
+    if wave_size % layout.size:
+        raise ValueError(
+            f"wave_size {wave_size} must be a multiple of the "
+            f"{layout.size}-device client mesh (each device trains "
+            f"wave_size/devices clients per wave)")
     per_wave_mode = isinstance(agg, robust.TrimmedMean)
     if isinstance(agg, robust.Median) or not isinstance(
             agg, (robust.WeightedMean, robust.NormClip,
@@ -354,9 +376,8 @@ def make_population_round(
             raise ValueError(
                 f"weights must be a [{cohort_size}] cohort-position "
                 f"participation mask, got shape {mask.shape}")
-        server = server.to(device)
+        server = place(server.to(device))
         glob = {**server.params, **server.state}
-        dtype = next(model.parameters()).dtype
         codes = scales = stale = None
         if faults is not None:
             codes, scales = faults.codes_for(r, ids)
@@ -369,13 +390,40 @@ def make_population_round(
                 if wait > 0:
                     time.sleep(wait)
 
+        if layout.outside:
+            server, m = layout.share(copy_tree(server), None)
+        else:
+            server, m = layout.share(*waves(server, glob, ids, mask, key,
+                                             codes, scales, stale))
+        participants = int((mask > 0).sum())
+        m_cohort.set(cohort_size)
+        m_sampled.inc(participants)
+        m.update(cohort=cohort_size, participants=participants,
+                 waves=n_waves)
+        if (logger is not None and r > log_from_round
+                and r not in logged_rounds):
+            # one record per ROUND: a driver retry re-runs the round
+            # but must not append a duplicate to the append-only log
+            logged_rounds.add(r)
+            logger.log(event="fed_cohort", round=r, mode="sync",
+                       population=population.size, cohort=cohort_size,
+                       participants=participants, waves=n_waves,
+                       wave_size=wave_size)
+        return server, m
+
+    def waves(server, glob, ids, mask, key, codes, scales, stale):
+        """The round's waves on this rank: (new server, metrics)."""
+        dtype = next(model.parameters()).dtype
         zero = torch.zeros((), device=device)
         acc = None
         acc_w = zero
         sums = {"wloss": zero, "wacc": zero, "wtotal": zero,
                 "dropped": zero}
+        k = wave_size // layout.size
         for wv in range(n_waves):
-            sl = slice(wv * wave_size, (wv + 1) * wave_size)
+            # this rank's positions of the wave
+            start = wv * wave_size + layout.index * k
+            sl = slice(start, start + k)
             imgs_w, labels_w, w_w = population.materialize(ids[sl])
             w_w = w_w * (mask[sl] > 0)
             params, state, losses, accs = train_clients(
@@ -395,31 +443,35 @@ def make_population_round(
                     "wacc": robust.weighted_sum(accs, weight),
                     "wtotal": robust.weight_total(weight),
                     "dropped": dropped}
-            for k, vals in pc_m.items():
-                wave[k] = torch.where(weight > 0, vals, 0.0).sum()
+            for name, vals in pc_m.items():
+                wave[name] = torch.where(weight > 0, vals, 0.0).sum()
             if per_wave_mode:
                 # a wave's trimmed mean, weighted by its live clients; a
                 # degenerate wave (no kept band) weighs 0 instead of
                 # smuggling the incoming server into the average
-                wave_agg, agg_m = agg.combine(updates, weight, glob)
-                vw = (weight > 0).sum().float() * (
-                    1.0 - agg_m["trim_degenerate"])
-                part = {k: vw.to(x.dtype) * x for k, x in wave_agg.items()}
+                wave["live"] = (weight > 0).sum().float()
+                layout.sum(wave)
+                wave_agg, agg_m = agg.combine(updates, weight, glob,
+                                              layout.group)
+                vw = wave.pop("live") * (1.0 - agg_m["trim_degenerate"])
+                part = {n: vw.to(x.dtype) * x for n, x in wave_agg.items()}
                 acc_w = acc_w + vw
                 wave["degenerate_waves"] = agg_m["trim_degenerate"]
                 if "clients_trimmed" in agg_m:
                     wave["clients_trimmed"] = agg_m["clients_trimmed"]
             else:
-                # the one-shot mean's masked weighted sum; the division
-                # comes once, after the last wave
-                part = {k: robust.weighted_sum(x, weight)
-                        for k, x in updates.items()}
-                acc_w = acc_w + robust.weight_total(weight)
+                # the one-shot mean's masked weighted sum, summed over the
+                # group with the wave's metrics; the division comes once,
+                # after the last wave
+                part = {n: robust.weighted_sum(x, weight)
+                        for n, x in updates.items()}
+                layout.sum({**wave, **part})
+                acc_w = acc_w + wave["wtotal"]
             # the first wave's sums are taken as they are, so a single
             # wave divides exactly what the one-shot round divides
-            acc = part if acc is None else {k: acc[k] + part[k]
-                                            for k in acc}
-            sums = {k: sums.get(k, zero) + v for k, v in wave.items()}
+            acc = part if acc is None else {n: acc[n] + part[n]
+                                            for n in acc}
+            sums = {n: sums.get(n, zero) + v for n, v in wave.items()}
             # free this wave's stack before the next one is built
             del params, state, updates, part
 
@@ -427,33 +479,19 @@ def make_population_round(
         floor = torch.clamp(sums["wtotal"], min=1e-30)
         m = {"loss": sums["wloss"] / floor, "accuracy": sums["wacc"] / floor,
              "clients_dropped": sums["dropped"],
-             **{k: v for k, v in sums.items()
-                if k not in ("wloss", "wacc", "wtotal", "dropped")}}
+             **{n: v for n, v in sums.items()
+                if n not in ("wloss", "wacc", "wtotal", "dropped")}}
         if per_wave_mode:
             m["trim_degenerate"] = (sums["degenerate_waves"] > 0).float()
         m = float_metrics(m)
         if float(acc_w) > 0:
-            new = {k: a / total.to(a.dtype) for k, a in acc.items()}
+            new = {n: a / total.to(a.dtype) for n, a in acc.items()}
         else:
             new = glob
             m["loss"] = m["accuracy"] = float("nan")
-        participants = int((mask > 0).sum())
-        m_cohort.set(cohort_size)
-        m_sampled.inc(participants)
-        m.update(cohort=cohort_size, participants=participants,
-                 waves=n_waves)
-        if (logger is not None and r > log_from_round
-                and r not in logged_rounds):
-            # one record per ROUND: a driver retry re-runs the round
-            # but must not append a duplicate to the append-only log
-            logged_rounds.add(r)
-            logger.log(event="fed_cohort", round=r, mode="sync",
-                       population=population.size, cohort=cohort_size,
-                       participants=participants, waves=n_waves,
-                       wave_size=wave_size)
         return ServerState(server.round + 1,
-                           {k: new[k] for k in server.params},
-                           {k: new[k] for k in server.state}), m
+                           {n: new[n] for n in server.params},
+                           {n: new[n] for n in server.state}), m
 
     round_fn.sampler = sampler
     round_fn.population = population

@@ -1,7 +1,9 @@
 """Byzantine-robust aggregation at the FedAvg round boundary.
 
-The counterpart of ``idc_models_tpu/federated/robust.py`` on one card,
-where every client's update is local, so no collective is needed:
+The counterpart of ``idc_models_tpu/federated/robust.py``. Each rank
+holds its own clients' updates on a leading [k] axis; `group` is the
+"client" group the round's clients split over (``mesh.client_mesh``),
+None when every client is local:
 
 - ``WeightedMean`` ("mean", the default): the example-weighted mean;
 - ``NormClip(c)`` ("norm_clip"): each client's update delta is
@@ -12,14 +14,19 @@ where every client's update is local, so no collective is needed:
   rest; tolerates t Byzantine clients and needs more than 2t live ones;
 - ``Median`` ("median"): the coordinate-wise median.
 
-The order-statistic aggregators need every client's plaintext value per
-coordinate, which secure aggregation exists to prevent: the secure round
-refuses them by name (`ORDER_STATISTIC`, `secure_compatible`).
+The mean and the clip reduce over the group with one sum of the
+partials; the order statistics all-gather the live clients' updates, as
+the JAX package's ``_gathered_alive`` does. The order-statistic
+aggregators need every client's plaintext value per coordinate, which
+secure aggregation exists to prevent: the secure round refuses them by
+name (`ORDER_STATISTIC`, `secure_compatible`).
 """
 
 from __future__ import annotations
 
 import torch
+
+from idc_models_tpu_torch import collectives
 
 Tree = dict[str, torch.Tensor]
 
@@ -43,25 +50,54 @@ def weight_total(weight: torch.Tensor) -> torch.Tensor:
     return torch.clamp(weight.float(), min=0.0).sum()
 
 
-def weighted_mean(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """Mean of `x` over its leading [C] client axis weighted by `weight`
-    [C]: `weighted_sum` over `weight_total`, floored at 1e-30 (all-zero
+def weighted_mean(x: torch.Tensor, weight: torch.Tensor,
+                  group=None) -> torch.Tensor:
+    """Mean of `x` over its leading [C] client axis, and over the
+    group's ranks, weighted by `weight` [C]: `weighted_sum` over
+    `weight_total`, each summed over `group`, floored at 1e-30 (all-zero
     weights give 0, not NaN). The JAX package's
-    ``collectives.weighted_pmean_local`` on one device."""
-    total = torch.clamp(weight_total(weight), min=1e-30)
-    return weighted_sum(x, weight) / total.to(x.dtype)
+    ``collectives.weighted_pmean_local``."""
+    return weighted_means({"x": x}, weight, group)["x"]
+
+
+def weighted_means(tree: dict, weight: torch.Tensor, group=None) -> dict:
+    """`weighted_mean` of every leaf of `tree`, the leaves' partial sums
+    and the weight total summed over `group` in one all-reduce a dtype."""
+    sums = {n: weighted_sum(x, weight) for n, x in tree.items()}
+    total = weight_total(weight)
+    group_sum({"total": total, **sums}, group)
+    total = torch.clamp(total, min=1e-30)
+    return {n: s / total.to(s.dtype) for n, s in sums.items()}
+
+
+def group_sum(values: dict, group=None) -> dict:
+    """The tensors of `values` summed over `group` in place (one
+    all-reduce a dtype); returns `values`. None is no group (never the
+    default group of an initialized world)."""
+    if group is not None:
+        collectives.psum_(list(values.values()), group)
+    return values
+
+
+def _gathered(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's [k, ...] block of `x` stacked into [C, ...], in rank
+    order (the clients' global order)."""
+    if group is None or collectives.axis_size(group) == 1:
+        return x
+    return collectives.all_gather(x, group, axis=0, tiled=True)
 
 
 class Aggregator:
     """One aggregation policy.
 
     ``per_client(updates, server)`` is the optional per-client transform:
-    it takes the stacked client updates ({name: [C, ...]}) and the
+    it takes the stacked client updates ({name: [k, ...]}) and the
     incoming global weights ({name: tensor}) and returns the transformed
-    updates and ``{metric: [C] tensor}``. ``combine(updates, weight,
-    server)`` reduces across the client axis to the new global weights
-    and scalar metrics. Calling the aggregator runs both and counts each
-    per-client metric over the clients of weight > 0."""
+    updates and ``{metric: [k] tensor}``. ``combine(updates, weight,
+    server, group)`` reduces across the client axis and the group's
+    ranks to the new global weights and scalar metrics. Calling the
+    aggregator runs both and counts each per-client metric over the
+    clients of weight > 0, on every rank of the group."""
 
     name = "base"
     secure_compatible = False
@@ -69,14 +105,17 @@ class Aggregator:
     def per_client(self, updates: Tree, server: Tree):
         return updates, {}
 
-    def combine(self, updates: Tree, weight: torch.Tensor, server: Tree):
+    def combine(self, updates: Tree, weight: torch.Tensor, server: Tree,
+                group=None):
         raise NotImplementedError
 
-    def __call__(self, updates: Tree, weight: torch.Tensor, server: Tree):
+    def __call__(self, updates: Tree, weight: torch.Tensor, server: Tree,
+                 group=None):
         updates, per_client_m = self.per_client(updates, server)
-        agg, metrics = self.combine(updates, weight, server)
-        for key, vals in per_client_m.items():
-            metrics[key] = torch.where(weight > 0, vals, 0.0).sum()
+        agg, metrics = self.combine(updates, weight, server, group)
+        metrics.update(group_sum(
+            {key: torch.where(weight > 0, vals, 0.0).sum()
+             for key, vals in per_client_m.items()}, group))
         return agg, metrics
 
     def __repr__(self) -> str:
@@ -90,8 +129,8 @@ class WeightedMean(Aggregator):
     name = "mean"
     secure_compatible = True
 
-    def combine(self, updates, weight, server):
-        return {n: weighted_mean(x, weight) for n, x in updates.items()}, {}
+    def combine(self, updates, weight, server, group=None):
+        return weighted_means(updates, weight, group), {}
 
 
 class NormClip(Aggregator):
@@ -125,8 +164,8 @@ class NormClip(Aggregator):
             clipped[n] = old + f * (new - old)
         return clipped, {"clients_clipped": (norm > self.max_norm).float()}
 
-    def combine(self, updates, weight, server):
-        return {n: weighted_mean(x, weight) for n, x in updates.items()}, {}
+    def combine(self, updates, weight, server, group=None):
+        return weighted_means(updates, weight, group), {}
 
     def __repr__(self) -> str:
         return f"NormClip(max_norm={self.max_norm})"
@@ -163,8 +202,8 @@ class TrimmedMean(Aggregator):
         self.trim = int(trim)
         self.track_clients = track_clients
 
-    def combine(self, updates, weight, server):
-        alive = weight > 0
+    def combine(self, updates, weight, server, group=None):
+        alive = _gathered(weight, group) > 0
         n_total = alive.shape[0]
         if n_total <= 2 * self.trim:
             raise ValueError(
@@ -179,11 +218,12 @@ class TrimmedMean(Aggregator):
         trimmed = torch.zeros(n_total, dtype=torch.float32,
                               device=weight.device)
         n_coords = 0
-        agg = {}
+        agg = weighted_means({n: x for n, x in updates.items()
+                              if not x.is_floating_point()}, weight, group)
         for n, x in updates.items():
             if not x.is_floating_point():
-                agg[n] = weighted_mean(x, weight)
                 continue
+            x = _gathered(x, group)
             xm = _dead_to_inf(x, alive)
             # one stable sort gives the values and every client's rank;
             # stable, as JAX's argsort, so tied values (a frozen
@@ -221,17 +261,18 @@ class Median(Aggregator):
     name = "median"
     secure_compatible = False
 
-    def combine(self, updates, weight, server):
-        alive = weight > 0
+    def combine(self, updates, weight, server, group=None):
+        alive = _gathered(weight, group) > 0
         n_alive = alive.sum()
         i_lo = torch.clamp((n_alive - 1) // 2, min=0)
         i_hi = torch.clamp(n_alive // 2, min=0)
-        agg = {}
+        agg = weighted_means({n: x for n, x in updates.items()
+                              if not x.is_floating_point()}, weight, group)
         for n, x in updates.items():
             if not x.is_floating_point():
-                agg[n] = weighted_mean(x, weight)
                 continue
-            srt = torch.sort(_dead_to_inf(x, alive), dim=0).values
+            srt = torch.sort(_dead_to_inf(_gathered(x, group), alive),
+                             dim=0).values
             # where, not a product: inf * 0 at the dead tail is NaN
             med = (srt[i_lo].float() + srt[i_hi].float()) / 2.0
             agg[n] = med.to(x.dtype)

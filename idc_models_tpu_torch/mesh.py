@@ -12,8 +12,8 @@ and group None.
 
 Axis names are the JAX package's: ``"data"`` (the batch axis, and
 FSDP's parameter axis), ``"model"`` (tensor parallelism: weights only,
-never activations), ``"client"`` (federated clients) and ``"seq"`` (the
-ring of ring attention).
+never activations), ``"client"`` (federated clients, `client_mesh`) and
+``"seq"`` (the ring of ring attention).
 
 A sharding is a (mesh, spec) pair (`Sharding`); a spec
 (`PartitionSpec`) names, for each leading dim of a tensor, the mesh
@@ -158,6 +158,16 @@ def make_mesh(axes: dict[str, int]) -> Mesh:
 def data_mesh(n: int | None = None) -> Mesh:
     """1-D data-parallel mesh (axis "data") over n ranks (default: all)."""
     return make_mesh({DATA_AXIS: n or collectives.axis_size()})
+
+
+def client_mesh(n: int | None = None) -> Mesh:
+    """1-D federated mesh (axis "client") over the first n ranks
+    (default: all): the group a round's clients split over, each rank
+    training its k = C/n of them. With fewer ranks than the world it is
+    a sub-group; the ranks past it are outside the mesh (coords None)
+    and take each round's result from its rank 0
+    (`federated.fedavg.ClientLayout.share`)."""
+    return make_mesh({CLIENT_AXIS: n or collectives.axis_size()})
 
 
 def seq_mesh(n: int | None = None) -> Mesh:

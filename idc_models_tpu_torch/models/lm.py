@@ -76,6 +76,7 @@ from torch import nn
 
 from idc_models_tpu_torch import collectives, convert, resolve_device
 from idc_models_tpu_torch import mesh as meshlib
+from idc_models_tpu_torch import partition
 from idc_models_tpu_torch.models.attention import (
     TransformerBlock, run_blocks, seq_layout,
 )
@@ -380,7 +381,7 @@ def _serve_config(params, *, embed_dim, num_heads, num_blocks, t_max,
     if embed_dim % num_heads:
         raise ValueError(f"embed_dim {embed_dim} not divisible by "
                          f"num_heads {num_heads}")
-    if params["pos"].shape[0] < t_max:
+    if partition.whole_shape(params, "pos")[0] < t_max:
         raise ValueError(
             f"cache t_max {t_max} exceeds the trained position table "
             f"({params['pos'].shape[0]}) — positions past it have no "
@@ -703,15 +704,39 @@ def serving_model(tree, *, num_heads: int, num_blocks: int, device,
     """The eval-mode `AttentionLM` a serving path computes on, its sizes
     read off a JAX-shaped tree of host arrays: the whole tree on
     `device`, or on a `mesh` this rank's blocks of it under `rules`
-    (``partition.PartitionRules``; None keeps it whole)."""
-    vocab, embed_dim = tree["embed"].shape
-    model = AttentionLM(vocab, tree["pos"].shape[0], embed_dim=embed_dim,
-                        num_heads=num_heads,
-                        mlp_dim=tree["block0"]["fc1"]["kernel"].shape[1],
-                        num_blocks=num_blocks, mesh=mesh)
-    model = convert.load_jax(model, tree).to(device).eval()
-    if mesh is not None and rules is not None:
-        model.shard_(rules)
+    (``partition.PartitionRules``; None keeps it whole). A
+    ``partition.BlockTree`` already holds this rank's blocks under those
+    rules: the model is laid out on the meta device, cut, and only the
+    blocks are placed on `device`, so no rank holds the whole tree."""
+    def shape(path):
+        return partition.whole_shape(tree, path)
+
+    vocab, embed_dim = shape("embed")
+    blocks = isinstance(tree, partition.BlockTree)
+    with torch.device("meta" if blocks else "cpu"):
+        model = AttentionLM(vocab, shape("pos")[0], embed_dim=embed_dim,
+                            num_heads=num_heads,
+                            mlp_dim=shape("block0/fc1/kernel")[1],
+                            num_blocks=num_blocks, mesh=mesh)
+    if not blocks:
+        model = convert.load_jax(model, tree).to(device).eval()
+        if mesh is not None and rules is not None:
+            model.shard_(rules)
+        return model
+    if mesh is None or rules is None:
+        raise ValueError("a tree of blocks (partition.BlockTree) needs the "
+                         "mesh and the partition rules it was cut by")
+    model.shard_(rules).to_empty(device=device).eval()
+    flat = convert.flatten(tree)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            block = torch.as_tensor(np.asarray(flat[name.replace(".", "/")]))
+            if tuple(block.shape) != tuple(p.shape):
+                raise ValueError(
+                    f"block of {name} is {tuple(block.shape)}, but the "
+                    f"rules cut it to {tuple(p.shape)} on this mesh — the "
+                    f"blocks were cut by other rules or another mesh")
+            p.copy_(block)
     return model
 
 

@@ -230,6 +230,29 @@ class PartitionRules:
                         self.specs(tree, mesh=mesh, check_dead=check_dead))
 
 
+class BlockTree(dict):
+    """A nested tree of this rank's blocks of a sharded tree (what
+    ``checkpoint.restore_sharded`` gives on a mesh), carrying each
+    leaf's whole shape in `whole` ("a/b/c" path -> shape). A consumer
+    of whole trees (a serving engine's build, spot-check and swap) takes
+    its leaves as already cut, with no gather."""
+
+    def __init__(self, tree: dict, whole: dict):
+        super().__init__(tree)
+        self.whole = {k: tuple(v) for k, v in whole.items()}
+
+
+def whole_shape(tree, path: str) -> tuple:
+    """The whole shape of `tree`'s leaf at "a/b/c" `path`: its own
+    shape, or the recorded one in a `BlockTree`."""
+    if isinstance(tree, BlockTree):
+        return tree.whole[path]
+    node = tree
+    for part in path.split("/"):
+        node = node[part]
+    return _leaf_shape(node)
+
+
 def shard_tree(mesh: Mesh, rules: PartitionRules, tree, *,
                check_dead: bool = True, device=None):
     """This rank's block of every leaf of `tree` under `rules` (tensors,

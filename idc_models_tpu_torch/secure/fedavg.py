@@ -1,10 +1,9 @@
 """Secure-aggregation FedAvg: the pairwise-mask round and the host-side
 Paillier parity classes.
 
-The counterpart of ``idc_models_tpu/secure/fedavg.py`` on one card
-(world size 1). Each round every client trains E local epochs on its
-private shard from the incoming global weights; then, at the round
-boundary (`secure_aggregate`):
+The counterpart of ``idc_models_tpu/secure/fedavg.py``. Each round every
+client trains E local epochs on its private shard from the incoming
+global weights; then, at the round boundary (`secure_aggregate`):
 
 - the first `percent` fraction of the full get_weights() enumeration
   (params and BN moving statistics interleaved in model layer order,
@@ -14,6 +13,15 @@ boundary (`secure_aggregate`):
   is the sum of the plain quantized values, bit for bit, because the
   masks cancel; it is dequantized to the unweighted mean (quirk Q7);
 - everything else rides a plain f32 mean.
+
+Over a "client" mesh (``mesh.client_mesh(D)``) each rank trains its
+block of k = n_total/D clients under their global ids; a client count D
+does not divide is padded with DUMMY slots (ids >= n_real) that join
+mask generation, so every pairwise stream still appears at both its
+endpoints, and contribute a forced-zero update. A rank's masked int32
+words are summed over its clients in int64, that partial over the group,
+and the total wrapped once mod 2^32: bit for bit the JAX package's
+wrapping ``psum``, and the same aggregate whatever the layout.
 
 ``mask_impl`` picks the mask: ``"threefry"`` (default; the JAX package's
 threefry streams, bit-identical per client), ``"pallas"`` (the fused
@@ -48,7 +56,8 @@ from idc_models_tpu_torch import resolve_device
 from idc_models_tpu_torch.data.idc import ArrayDataset
 from idc_models_tpu_torch.federated import robust
 from idc_models_tpu_torch.federated.fedavg import (
-    ServerState, Tree, finite_clients, load_server, make_local_trainer,
+    ClientLayout, ServerState, Tree, copy_tree, finite_clients, load_server,
+    make_local_trainer,
 )
 from idc_models_tpu_torch.models import core
 from idc_models_tpu_torch.ops import secure_masking_kernel as smk
@@ -104,24 +113,31 @@ def _secure_aggregator(spec) -> robust.Aggregator:
 
 
 def _masked_sum(flat: torch.Tensor, sb: int, clip_abs: float,
-                mask_impl: str, mask_key: masking.Key) -> torch.Tensor:
-    """Σ_i (quantize(flat[i]) + mask_i) mod 2^32 over the C client rows
-    of `flat` [C, P], as int32: the server's view of the protected sum."""
-    n = flat.shape[0]
+                mask_impl: str, mask_key: masking.Key, *, first: int = 0,
+                n_total: int | None = None, group=None) -> torch.Tensor:
+    """Σ_i (quantize(flat[i]) + mask_i) mod 2^32 over the client rows of
+    `flat` [k, P] (global ids first .. first+k-1 of `n_total`) and over
+    the ranks of `group`, as int32: the server's view of the protected
+    sum. The int32 words are summed in int64 and wrapped once, after the
+    group's sum (a signed int32 all-reduce may overflow)."""
+    k = flat.shape[0]
+    n_total = k if n_total is None else n_total
     total = torch.zeros(flat.shape[1], dtype=torch.int64, device=flat.device)
     if mask_impl == "pallas":
         seed = masking.random_bits_scalar(mask_key)
-        for i in range(n):
-            seeds, signs = smk.pair_seeds_and_signs(seed, i, n,
+        for i in range(k):
+            seeds, signs = smk.pair_seeds_and_signs(seed, first + i, n_total,
                                                     device=flat.device)
             total += smk.fused_masked_quantize(
                 flat[i], seeds, signs, scale_bits=sb, clip_abs=clip_abs)
     else:
         q = masking.quantize(flat, sb, clip_abs=clip_abs)
-        for i in range(n):
+        for i in range(k):
             total += q[i]
-            total += masking.pairwise_mask(mask_key, i, n, (flat.shape[1],),
+            total += masking.pairwise_mask(mask_key, first + i, n_total,
+                                           (flat.shape[1],),
                                            device=flat.device)
+    robust.group_sum({"total": total}, group)
     return smk.wrap_int32(total)
 
 
@@ -132,21 +148,27 @@ def secure_aggregate(client_params: Tree, client_state: Tree,
                      clip_abs: float = masking.DEFAULT_CLIP_ABS,
                      mask_impl: str = "threefry",
                      mask_key: masking.Key = (0, 0),
-                     live: torch.Tensor | None = None, aggregator=None
+                     live: torch.Tensor | None = None, aggregator=None,
+                     first: int = 0, n_total: int | None = None,
+                     n_real: int | None = None, group=None
                      ) -> tuple[Tree, Tree, dict[str, torch.Tensor]]:
-    """The secure round boundary over C clients' updates.
+    """The secure round boundary over the clients' updates.
 
-    `client_params` / `client_state` hold each client's weights stacked on
-    a leading [C] axis; `global_*` are the incoming global weights (the
-    aggregator's reference and the selection's shapes). `mask_key` is a
-    threefry key as two 32-bit words (``jax.random.key_data``); `live`
-    ([C] bool) marks the clients whose aggregator metrics count.
+    `client_params` / `client_state` hold each of this rank's k clients'
+    weights stacked on a leading [k] axis, global client ids `first` ..
+    first+k-1 of `n_total` slots (default k) over the ranks of `group`
+    (None: every client is here); ids >= `n_real` (default n_total) are
+    dummy slots whose update counts as zero. `global_*` are the incoming
+    global weights (the aggregator's reference and the selection's
+    shapes). `mask_key` is a threefry key as two 32-bit words
+    (``jax.random.key_data``); `live` ([k] bool) marks the clients whose
+    aggregator metrics count.
 
-    Returns ``(params, state, metrics)``: the unweighted mean, whose
-    protected part is exactly ``dequantize(Σ quantize(x_i))``, and the
-    metrics ``clip_saturated`` (protected elements at or beyond
-    ±clip_abs over all clients) plus the aggregator's counts, as device
-    scalars."""
+    Returns ``(params, state, metrics)``, the same on every rank: the
+    unweighted mean over the n_real clients, whose protected part is
+    exactly ``dequantize(Σ quantize(x_i))``, and the metrics
+    ``clip_saturated`` (protected elements at or beyond ±clip_abs over
+    all real clients) plus the aggregator's counts, as device scalars."""
     if mask_impl not in ("threefry", "pallas"):
         raise ValueError(f"unknown mask_impl {mask_impl!r}")
     agg = _secure_aggregator(aggregator)
@@ -154,17 +176,19 @@ def secure_aggregate(client_params: Tree, client_state: Tree,
     s_names = masking.leaf_names(global_state)
     updates = {n: client_params[n] for n in p_names}
     updates.update({n: client_state[n] for n in s_names})
-    n_clients = updates[p_names[0]].shape[0]
+    k = updates[p_names[0]].shape[0]
+    n_total = k if n_total is None else n_total
+    n_real = n_total if n_real is None else n_real
     device = updates[p_names[0]].device
-    live = (torch.ones(n_clients, dtype=torch.bool, device=device)
-            if live is None else live)
+    real = torch.arange(first, first + k, device=device) < n_real
+    live = real if live is None else live & real
     sb = (scale_bits if scale_bits is not None
-          else masking.choose_scale_bits(n_clients, clip_abs))
+          else masking.choose_scale_bits(n_real, clip_abs))
 
     updates, per_client_m = agg.per_client(
         updates, {**global_params, **global_state})
-    metrics = {k: torch.where(live, v, 0.0).sum()
-               for k, v in per_client_m.items()}
+    metrics = {key: torch.where(live, v, 0.0).sum()
+               for key, v in per_client_m.items()}
 
     p_flags, s_flags = masking.first_fraction_selection_weights(
         global_params, global_state, percent, layer_order)
@@ -175,26 +199,39 @@ def secure_aggregate(client_params: Tree, client_state: Tree,
     plain = [n for n in names if not flags[n]]
     out: Tree = {}
 
+    def packed(leaves):
+        flat, meta = masking.pack_leaves(leaves, lead_axes=1)
+        # a dummy slot contributes exactly zero (quantize(0) == 0), so
+        # only its masks enter the sum, and those cancel
+        return torch.where(real[:, None], flat, 0.0), meta
+
     metrics["clip_saturated"] = torch.zeros((), device=device)
     if prot:
-        flat, meta = masking.pack_leaves(
+        prot_flat, prot_meta = packed(
             [updates[n] / _STATE_PRESCALE if n in is_state else updates[n]
-             for n in prot], lead_axes=1)
-        metrics["clip_saturated"] = (flat.abs() >= clip_abs).sum().float()
-        summed = _masked_sum(flat.contiguous(), sb, clip_abs, mask_impl,
-                             mask_key)
-        deq = masking.dequantize(summed, sb, count=n_clients)
-        for n, x in zip(prot, masking.unpack_leaves(deq, meta)):
+             for n in prot])
+        metrics["clip_saturated"] = (prot_flat.abs()
+                                     >= clip_abs).sum().float()
+    if plain:
+        plain_flat, plain_meta = packed([updates[n] for n in plain])
+        acc = plain_flat[0]
+        for i in range(1, k):   # in client order, on every device
+            acc = acc + plain_flat[i]
+        metrics["plain_sum"] = acc
+    robust.group_sum(metrics, group)
+
+    if prot:
+        summed = _masked_sum(prot_flat.contiguous(), sb, clip_abs,
+                             mask_impl, mask_key, first=first,
+                             n_total=n_total, group=group)
+        deq = masking.dequantize(summed, sb, count=n_real)
+        for n, x in zip(prot, masking.unpack_leaves(deq, prot_meta)):
             out[n] = x * _STATE_PRESCALE if n in is_state else x
 
     if plain:
-        flat, meta = masking.pack_leaves([updates[n] for n in plain],
-                                         lead_axes=1)
-        acc = flat[0]
-        for i in range(1, n_clients):   # in client order, on every device
-            acc = acc + flat[i]
-        mean = acc / torch.tensor(float(n_clients), device=device)
-        out.update(zip(plain, masking.unpack_leaves(mean, meta)))
+        mean = metrics.pop("plain_sum") / torch.tensor(float(n_real),
+                                                       device=device)
+        out.update(zip(plain, masking.unpack_leaves(mean, plain_meta)))
 
     return ({n: out[n] for n in p_names}, {n: out[n] for n in s_names},
             metrics)
@@ -207,19 +244,31 @@ def make_secure_fedavg_round(model: nn.Module, lr: float, loss_fn: LossFn,
                              clip_abs: float = masking.DEFAULT_CLIP_ABS,
                              mask_impl: str = "threefry",
                              recover_nonfinite: bool = True,
-                             aggregator=None, device=None):
-    """Build the one-round secure-FedAvg program on one card.
+                             aggregator=None, mesh=None, device=None):
+    """Build the one-round secure-FedAvg program.
 
     Returns ``round_fn(server, images [C, S, ...], labels [C, S],
-    generator) -> (server, metrics)``. `model` is the working module: it
-    moves to `device` (CUDA unless "cpu" is asked for), and each client
-    trains on it in turn from the server's weights. `generator` draws the
-    round's threefry mask key and each client's seed; client c trains
-    with its own device generator, so a run replays from (seed, round,
-    client id). The metrics are the JAX package's: ``loss`` and
-    ``accuracy`` (means over the live clients' local steps, NaN if none
-    survived), ``clients_recovered``, ``clip_saturated`` and the
-    aggregator's counts, as floats.
+    generator, *, n_real=None, n_total=None) -> (server, metrics)``.
+    `model` is the working module: it moves to `device` (CUDA unless
+    "cpu" is asked for), and each client trains on it in turn from the
+    server's weights. `generator` draws the round's threefry mask key and
+    each real client's seed, the same words on every rank (seed it alike
+    everywhere); client c trains with its own device generator, so a run
+    replays from (seed, round, client id). The metrics are the JAX
+    package's: ``loss`` and ``accuracy`` (means over the live clients'
+    local steps, NaN if none survived), ``clients_recovered``,
+    ``clip_saturated`` and the aggregator's counts, as floats.
+
+    `mesh` (``mesh.client_mesh(D)``) splits the clients over the D ranks
+    of its "client" group, as the JAX round does: `n_real` clients
+    (default: all C passed) padded with dummy slots to `n_total`, a
+    multiple of D (default: the least). Each rank passes all C shards or,
+    with `n_total`, its own block of n_total/D (rank r: slots r*k ..
+    r*k+k-1); a rank outside the mesh passes its incoming server (images
+    may be None, with `n_real`) and receives the result. A dummy slot
+    trains nothing, joins mask generation under its global id and
+    contributes zero; the divisor stays n_real, so the protected
+    aggregate equals an unpadded run's bit for bit.
 
     ``recover_nonfinite`` (default on): a client whose update goes
     non-finite contributes the incoming global weights instead -- a no-op
@@ -227,7 +276,7 @@ def make_secure_fedavg_round(model: nn.Module, lr: float, loss_fn: LossFn,
     and is left out of the training metrics.
 
     `scale_bits` defaults to the largest fixed-point precision whose sum
-    over the clients of clipped values cannot overflow int32
+    over the n_real clients of clipped values cannot overflow int32
     (`masking.choose_scale_bits`)."""
     _secure_aggregator(aggregator)
     if mask_impl not in MASK_IMPLS:
@@ -236,61 +285,104 @@ def make_secure_fedavg_round(model: nn.Module, lr: float, loss_fn: LossFn,
     model.to(device)
     if mask_impl == "auto":
         mask_impl = resolve_mask_impl(model, percent, device=device)
+    layout = ClientLayout.of(mesh)
     local_train = make_local_trainer(model, lr, loss_fn,
                                      local_epochs=local_epochs,
                                      batch_size=batch_size)
 
     def round_fn(server: ServerState, images, labels,
-                 generator: torch.Generator):
-        images = torch.as_tensor(images, dtype=torch.float32, device=device)
-        labels = torch.as_tensor(labels, device=device)
-        server = server.replace(
-            params={k: v.to(device) for k, v in server.params.items()},
-            state={k: v.to(device) for k, v in server.state.items()})
-        n = images.shape[0]
-        words = torch.randint(0, 2 ** 32, (2 + n,), generator=generator,
+                 generator: torch.Generator, *, n_real: int | None = None,
+                 n_total: int | None = None):
+        if n_real is None:
+            if images is None or n_total is not None:
+                raise ValueError("pass n_real with a rank's block of the "
+                                 "clients (or none of them)")
+            n_real = images.shape[0]
+        if n_total is None:
+            n_total = n_real + (-n_real % layout.size)
+        if n_total % layout.size or n_total < n_real:
+            raise ValueError(
+                f"n_total {n_total} slots must be a multiple of the "
+                f"{layout.size}-rank client mesh and hold the {n_real} "
+                f"real clients")
+        words = torch.randint(0, 2 ** 32, (2 + n_real,), generator=generator,
                               dtype=torch.int64,
                               device=generator.device).tolist()
         mask_key, client_seeds = (words[0], words[1]), words[2:]
-        stacked = {k: torch.empty((n,) + v.shape, dtype=v.dtype,
-                                  device=device)
-                   for k, v in {**server.params, **server.state}.items()}
-        losses, accs = [], []
-        for c in range(n):
+        server = server.replace(
+            params={k: v.to(device) for k, v in server.params.items()},
+            state={k: v.to(device) for k, v in server.state.items()})
+        if layout.outside:
+            return layout.share(copy_tree(server), None)
+        k = n_total // layout.size
+        first = layout.index * k
+        images = _padded_block(layout, images, n_total, device,
+                               torch.float32)
+        labels = _padded_block(layout, labels, n_total, device)
+        stacked = {name: v.unsqueeze(0).repeat((k,) + (1,) * v.dim())
+                   for name, v in {**server.params,
+                                   **server.state}.items()}
+        losses = torch.zeros(k, device=device)
+        accs = torch.zeros(k, device=device)
+        for c in range(k):
+            if first + c >= n_real:
+                continue            # a dummy slot trains nothing
             load_server(model, server)
-            gen = torch.Generator(device=device).manual_seed(client_seeds[c])
+            gen = torch.Generator(device=device).manual_seed(
+                client_seeds[first + c])
             loss, acc = local_train(images[c], labels[c], gen)
-            losses.append(loss.mean())
-            accs.append(acc.mean())
+            losses[c], accs[c] = loss.mean(), acc.mean()
             with torch.no_grad():
-                for k, v in model.state_dict().items():
-                    stacked[k][c].copy_(v)
-        losses, accs = torch.stack(losses), torch.stack(accs)
-        client_p = {k: stacked[k] for k in server.params}
-        client_s = {k: stacked[k] for k in server.state}
+                for name, v in model.state_dict().items():
+                    stacked[name][c].copy_(v)
+        client_p = {name: stacked[name] for name in server.params}
+        client_s = {name: stacked[name] for name in server.state}
 
-        ok = torch.ones(n, dtype=torch.bool, device=device)
+        real = torch.arange(first, first + k, device=device) < n_real
+        ok = torch.ones(k, dtype=torch.bool, device=device)
         if recover_nonfinite:
             ok = finite_clients(losses, client_p, client_s)
-            for k, v in {**server.params, **server.state}.items():
-                stacked[k][~ok] = v
+            for name, v in {**server.params, **server.state}.items():
+                stacked[name][~ok] = v
         params, state, m = secure_aggregate(
             client_p, client_s, server.params, server.state,
             percent=percent, layer_order=_layer_order(model),
             scale_bits=scale_bits, clip_abs=clip_abs, mask_impl=mask_impl,
-            mask_key=mask_key, live=ok, aggregator=aggregator)
+            mask_key=mask_key, live=ok, aggregator=aggregator, first=first,
+            n_total=n_total, n_real=n_real, group=layout.group)
 
-        alive = ok.sum()
+        live = ok & real
+        sums = robust.group_sum(
+            {"alive": live.sum().float(),
+             "recovered": (~ok & real).sum().float(),
+             "loss": torch.where(live, losses, 0.0).sum(),
+             "accuracy": torch.where(live, accs, 0.0).sum()}, layout.group)
+        alive = sums["alive"]
         nan = torch.tensor(float("nan"), device=device)
-        for k, v in (("loss", losses), ("accuracy", accs)):
-            m[k] = torch.where(ok, v, 0.0).sum() / alive
-        m["clients_recovered"] = (~ok).sum().float()
+        for name in ("loss", "accuracy"):
+            m[name] = sums[name] / alive
+        m["clients_recovered"] = sums["recovered"]
         m["clip_saturated"] = torch.where(alive > 0, m["clip_saturated"],
                                           nan)
         m = dict(zip(m, torch.stack(list(m.values())).tolist()))
-        return ServerState(server.round + 1, params, state), m
+        return layout.share(ServerState(server.round + 1, params, state), m)
 
     return round_fn
+
+
+def _padded_block(layout: ClientLayout, x, n_total: int, device,
+                  dtype=None) -> torch.Tensor:
+    """This rank's block of n_total/D client shards: `x` as it is when it
+    holds that many, else its rows of `x` padded with zero shards (the
+    dummy slots) to n_total."""
+    k = n_total // layout.size
+    x = torch.as_tensor(x, device=device, dtype=dtype)
+    if x.shape[0] == k and (layout.size > 1 or k == n_total):
+        return x
+    if x.shape[0] < n_total:
+        x = torch.cat([x, x.new_zeros((n_total - x.shape[0],)
+                                      + tuple(x.shape[1:]))])
+    return layout.block(x, n_total)
 
 
 # ---------------------------------------------------------------------------

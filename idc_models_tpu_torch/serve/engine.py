@@ -126,6 +126,7 @@ from torch import nn
 
 from idc_models_tpu_torch import collectives, convert
 from idc_models_tpu_torch import mesh as meshlib
+from idc_models_tpu_torch import partition
 from idc_models_tpu_torch.models.lm import (
     Generator, _chunk_batch_forward, _chunk_forward, _pad_prompt, _prefill,
     _serve_config, _token_forward, make_adapter_head_hook, prefill_bucket,
@@ -648,9 +649,35 @@ class SlotEngine:
         import."""
         return not self.paged and not self.kv_int8
 
+    def _whole_row(self, cache, slot: int, n: int) -> torch.Tensor:
+        """Row `slot` of a [S, t_max/n_ring] cache shard as the whole
+        [1, n] row on the host: gathered over the "seq" ring (every rank
+        of it calls this, as the JAX package's sharded row is read
+        whole), then cut to its first n positions."""
+        row = cache[slot:slot + 1]
+        if self._n_ring > 1:
+            row = collectives.all_gather(row.contiguous(), self._group,
+                                         axis=1, tiled=True)
+        return row[:, :n].to("cpu", copy=True)
+
+    def _ring_block(self, row) -> torch.Tensor:
+        """A snapshot's [1, n] row (n <= t_max) as this rank's
+        [1, t_max/n_ring] block of the whole [1, t_max] row, zeros past
+        n: the block the engine's prefill insert places on this rank."""
+        row = _host_tensor(row)
+        shard = self.t_max // self._n_ring
+        lo = self._cfg.ring_rank * shard
+        out = torch.zeros((row.shape[0], shard) + tuple(row.shape[2:]),
+                          dtype=row.dtype)
+        part = row[:, lo:lo + shard]
+        out[:, :part.shape[1]] = part
+        return out
+
     def export_slot(self, slot: int) -> dict:
         """Snapshot a running slot on the host: its caches' rows cut to
-        its position (`caches`, per block), the last-token logits, its
+        its position (`caches`, per block; the whole row, gathered over
+        the engine's "seq" ring, so every rank of the ring calls this
+        and gets the same snapshot), the last-token logits, its
         position, budget and stop id, the geometry, the sampling
         generator's state (`rng_state`, None when greedy) and, with a
         learned drafter, the drafter's rows cut to its frontier with its
@@ -691,8 +718,8 @@ class SlotEngine:
             "logits": host(self._logits[slot]),
             # cut to the written positions: the rest of the row is
             # masked out, and the import's pad writes zeros there
-            "caches": tuple((host(kc[slot:slot + 1, :p]),
-                             host(vc[slot:slot + 1, :p]))
+            "caches": tuple((self._whole_row(kc, slot, p),
+                             self._whole_row(vc, slot, p))
                             for kc, vc in self._caches),
             "rng_state": None if gen is None else gen.get_state(),
         }
@@ -703,8 +730,8 @@ class SlotEngine:
                 "pend": [int(t) for t in self._dpend[slot]],
                 "num_heads": self._dcfg.num_heads,
                 "head_dim": self._dcfg.embed_dim // self._dcfg.num_heads,
-                "caches": tuple((host(kc[slot:slot + 1, :df]),
-                                 host(vc[slot:slot + 1, :df]))
+                "caches": tuple((self._whole_row(kc, slot, df),
+                                 self._whole_row(vc, slot, df))
                                 for kc, vc in self._dcaches),
             }
         return snap
@@ -713,7 +740,10 @@ class SlotEngine:
     def import_slot(self, slot: int, snap: dict, *, tid: int = 0) -> None:
         """Adopt an exported snapshot into free `slot` through the normal
         admission insert: the rows padded back to t_max (zeros past the
-        position, as the source row held), the snapshot's position in
+        position, as the source row held) and cut to this rank's block of
+        the engine's "seq" ring, whatever ring exported them (every rank
+        of the ring calls this with the same snapshot), the snapshot's
+        position in
         place of a prompt length and its remaining budget in place of
         max_new_tokens, its generator state resuming the sampling stream
         where the source left it. The resumed decode equals the
@@ -803,18 +833,24 @@ class SlotEngine:
                     f"{self.device.type} generator ({e}) — a sampled "
                     f"slot migrates only between engines on the same "
                     f"kind of device") from e
-        caches1 = self._pad_to_t_max(
-            (_host_tensor(k), _host_tensor(v)) for k, v in snap["caches"])
+        rows = int(np.shape(snap["caches"][0][0])[1])
+        if rows != pos:
+            raise ValueError(
+                f"snapshot caches hold {rows} positions but its position "
+                f"is {pos} — a snapshot carries the whole row up to its "
+                f"position (export_slot gathers it over the source's "
+                f"ring); this one is a fragment")
+        caches1 = tuple((self._ring_block(k).to(self.device),
+                         self._ring_block(v).to(self.device))
+                        for k, v in snap["caches"])
         logits1 = _host_tensor(snap["logits"]).reshape(1, -1).to(
             self.device)
         self._insert(slot, caches1, logits1, pos, rem, eos, gen, tid)
         if dsnap is not None:
             df = int(dsnap["front"])
             for (dk, dv), (nk, nv) in zip(self._dcaches, dsnap["caches"]):
-                dk[slot] = 0
-                dv[slot] = 0
-                dk[slot, :df] = _host_tensor(nk)[0].to(dk)
-                dv[slot, :df] = _host_tensor(nv)[0].to(dv)
+                dk[slot] = self._ring_block(nk)[0].to(dk)
+                dv[slot] = self._ring_block(nv)[0].to(dv)
             self._dfront[slot] = df
             self._dpend[slot] = [int(t) for t in dsnap["pend"]]
 
@@ -1664,13 +1700,27 @@ class SlotEngine:
 
     def _local_leaves(self, params) -> dict:
         """A whole candidate tree's leaves by module name, each cut to
-        this rank's block under the live parameter's spec."""
+        this rank's block under the live parameter's spec; a
+        ``partition.BlockTree``'s leaves are this rank's blocks already,
+        each at the live parameter's shape."""
+        blocks = isinstance(params, partition.BlockTree)
         out = {}
         for path, a in convert.flatten(params).items():
             name = path.replace("/", ".")
             spec = self._model.specs.get(name, meshlib.P())
-            out[name] = (meshlib.put_with_sharding(
-                a, meshlib.Sharding(self.mesh, spec)) if len(spec) else a)
+            if blocks:
+                live = tuple(self._model.get_parameter(name).shape)
+                if tuple(np.shape(a)) != live:
+                    raise ValueError(
+                        f"candidate block of {name} is "
+                        f"{tuple(np.shape(a))}, this rank serves "
+                        f"{live} — restore the candidate by this "
+                        f"engine's mesh and rules")
+                out[name] = a
+            else:
+                out[name] = (meshlib.put_with_sharding(
+                    a, meshlib.Sharding(self.mesh, spec))
+                    if len(spec) else a)
         return out
 
     def _check_candidate(self, params) -> None:
@@ -1679,7 +1729,8 @@ class SlotEngine:
         live = {n.replace(".", "/"): (self._whole_shape(n, p),
                                       str(p.dtype).removeprefix("torch."))
                 for n, p in self._model.named_parameters()}
-        cand = {n: (tuple(np.shape(a)), str(np.asarray(a).dtype))
+        cand = {n: (partition.whole_shape(params, n),
+                    str(np.asarray(a).dtype))
                 for n, a in convert.flatten(params).items()}
         if live != cand:
             only_live = sorted(set(live) - set(cand))

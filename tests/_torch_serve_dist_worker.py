@@ -22,7 +22,13 @@ the LM's weights from OUT/inputs.npz (written by
   under the "draft_lm" rules), and a run whose clock on rank 1 is
   skewed by an hour, with deadlines and a brownout. Each rank writes
   its tokens, statuses and the engine calls it made to
-  OUT/rank{RANK}.json, and the layout figures of the sharded engines.
+  OUT/rank{RANK}.json, and the layout figures of the sharded engines;
+- a slot moved mid-decode between engines of ring widths 1 -> 2,
+  2 -> 1 and 2 -> 4 (the snapshot holds the whole row, gathered over
+  the source's ring), its greedy tokens against the unmoved runs';
+- a weight rollout from a sharded checkpoint directory on the
+  tp 2 x seq 2 server under the "lm" rules: each rank restores only
+  its blocks, and the promoted weights equal the candidate's.
 
 Where the ranks see cards, each takes one (NCCL, TF32 off) and the same
 program runs there; `--compare` holds such a run's results.npz against
@@ -62,6 +68,8 @@ from idc_models_tpu_torch.serve import (  # noqa: E402
 
 WORLD = 4
 DEVICE = torch.device("cpu")
+# the run's directory (`main`)
+OUT = Path(".")
 COMPARE_TOL = 1e-4
 # the LM every server case serves (its weights: OUT/inputs.npz)
 VOCAB, E, HEADS, MLP, BLOCKS, T_MAX = 16, 32, 2, 64, 2, 64
@@ -496,6 +504,137 @@ def distill_case(inputs) -> dict:
     return out
 
 
+# the moved slot: a prompt past a ring-of-4 shard (T_MAX/4), a budget
+MOVE_PROMPT_LEN, MOVE_BUDGET = 36, 14
+
+
+def _finish(eng, slot, logits=None) -> list:
+    """Decode `slot` to its end by windows of 4; its tokens. `logits`
+    (a list) gets the slot's last-token logits after each window."""
+    out = []
+    while eng._occupied[slot] and eng._rem_h[slot] > 0:
+        out += eng.step_window(4).get(slot, [])
+        if logits is not None:
+            logits.append(eng._logits[slot].float().cpu())
+    eng.release(slot)
+    return out
+
+
+def migration_case(params) -> dict:
+    """A greedy request on engines over rings of 1, 2 and 4 ranks:
+    unmoved, and moved after one window of 4 from ring 1 to 2, 2 to 1
+    and 2 to 4 (the snapshot sent from rank 0 to every rank). Every rank
+    reports the tokens it saw; ranks outside a ring see none of its, and
+    the largest difference of a moved run's logits after each window
+    from the unmoved run's on its source ring, over that run's largest
+    |logit| (zeros in place of positions a snapshot lacked would move
+    them far)."""
+    me = collectives.axis_index()
+    prompt = np.random.default_rng(10).integers(0, VOCAB, MOVE_PROMPT_LEN)
+    meshes = {n: mesh.seq_mesh(n) for n in (1, 2, 4)}
+
+    def engine(n):
+        if meshes[n].coords is None:
+            return None
+        return SlotEngine(params, mesh=meshes[n], n_slots=2, device=DEVICE,
+                          cache_dtype=torch.float32, **KW)
+
+    def exported(n):
+        """(tokens of the first window, snapshot on every rank)."""
+        eng, mid, snap = engine(n), None, None
+        if eng is not None:
+            eng.admit(1, prompt, MOVE_BUDGET)
+            mid = eng.step_window(4)[1]
+            snap = eng.export_slot(1)
+            eng.release(1)
+        box = [(mid, snap)]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
+
+    def moved(snap, n, logits):
+        eng = engine(n)
+        if eng is None:
+            return None
+        eng.import_slot(0, snap)
+        return _finish(eng, 0, logits)
+
+    out, unmoved = {}, {}
+    for n in (1, 2, 4):
+        eng = engine(n)
+        if eng is not None:
+            eng.admit(1, prompt, MOVE_BUDGET)
+            unmoved[n] = []
+            out[f"unmoved{n}"] = _finish(eng, 1, unmoved[n])
+    snaps = {}
+    for src, dsts in ((1, (2,)), (2, (1, 4))):
+        mid, snap = exported(src)
+        snaps[src] = snap
+        out[f"snap{src}_pos"] = snap["pos"]
+        out[f"snap{src}_rows"] = [list(k.shape) for k, _ in snap["caches"]]
+        for dst in dsts:
+            logits = []
+            rest = moved(snap, dst, logits)
+            if rest is not None:
+                out[f"moved{src}to{dst}"] = mid + rest
+                if src in unmoved:
+                    want = torch.stack(unmoved[src][1:])
+                    out[f"moved{src}to{dst}_logit_err"] = float(
+                        (torch.stack(logits) - want).abs().max()
+                        / want.abs().max())
+    # the same positions from rings of one and two ranks
+    out["snap_rows_max_diff"] = max(
+        float((a - b).abs().max()) for (ka, va), (kb, vb) in zip(
+            snaps[1]["caches"], snaps[2]["caches"])
+        for a, b in ((ka, kb), (va, vb)))
+    out["rank"] = me
+    return out
+
+
+def rollout_case(params, out_dir: Path) -> dict:
+    """A rollout from a sharded checkpoint directory onto the tp 2 x
+    seq 2 server under the "lm" rules (the candidate: every weight
+    x 0.5, saved whole): the stage, the bytes of this rank's
+    restored candidate against its live parameters' and the whole
+    tree's, and, on rank 0, the largest difference between the promoted
+    weights (gathered) and the candidate's."""
+    from idc_models_tpu_torch import partition
+    from idc_models_tpu_torch.checkpoint import save_sharded
+    from idc_models_tpu_torch.checkpoint.rollout import run_with_rollout
+
+    cand = {k: np.asarray(v) * np.float32(0.5)
+            for k, v in convert.flatten(params).items()}
+    path = out_dir / "rollout_candidate"
+    # every rank takes part in the save; rank 0 writes the whole leaves
+    save_sharded(path, convert.unflatten(cand)).wait()
+    m = mesh.fsdp_tp_mesh(1, 2, 2)
+    m.host_group()
+    server = LMServer(params, mesh=m, registry=MetricsRegistry(),
+                      cache_dtype=torch.float32, device=DEVICE, n_slots=3,
+                      window=4,
+                      partition_rules=registry.get_partition_rules("lm"),
+                      **KW)
+    results, ctl = run_with_rollout(
+        server, list(trace()), path, start_after=0.0, canary_fraction=0.5,
+        canary_requests=1, ttft_slack=float("inf"))
+    held = ctl.candidate
+    promoted = server.engine._model.gathered_params()
+    diff = max(float(np.abs(np.asarray(v) - cand[k]).max())
+               for k, v in convert.flatten(promoted).items())
+    live_bytes = sum(p.numel() * p.element_size()
+                     for p in server.engine._model.parameters())
+    out = {"stage": ctl.stage, "reason": ctl.reason,
+           "statuses": sorted({r.status for r in results}),
+           "n_results": len(results),
+           "block_tree": isinstance(held, partition.BlockTree),
+           "candidate_bytes": sum(int(np.asarray(v).nbytes) for v in
+                                  convert.flatten(held).values()),
+           "live_bytes": live_bytes,
+           "whole_bytes": sum(v.nbytes for v in cand.values()),
+           "promoted_max_diff": diff}
+    server.close()
+    return out
+
+
 def run_servers(inputs) -> dict:
     params = _tree(inputs, "params")
     out = {}
@@ -505,6 +644,8 @@ def run_servers(inputs) -> dict:
             out[name] = got
     out["skew"] = skew_case(params)
     out["teaching"] = teaching_case(params)
+    out["migration"] = migration_case(params)
+    out["rollout"] = rollout_case(params, OUT)
     if not WIDE:
         # its corpus is the target's greedy streams of t_max tokens
         out["distill"] = distill_case(inputs)
@@ -586,6 +727,8 @@ def main(store: str, world: int, rank: int, out: Path) -> None:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     try:
+        global OUT
+        OUT = out
         inputs = dict(np.load(out / "inputs.npz"))
         results = run_folds(fold_inputs())
         servers = run_servers(inputs)

@@ -337,6 +337,39 @@ def test_masking_kernel_bit_exact_at_main_path_sizes(cuda, size, n_clients):
         assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("size", [1920, 192_576])
+def test_masking_kernel_on_each_ranks_block_of_clients(cuda, size):
+    """B2 as a rank of a 4-rank client group launches it: rank r's
+    clients r*k .. r*k+k-1 (k = 2) of n_total = 8, each under its global
+    id. Each launch equals the plain version bit for bit; the four
+    blocks' int64 partials, summed and wrapped once (the group's sum),
+    equal the plain versions' sum, and the masks cancel: that sum is the
+    sum of the bare quantized values mod 2^32."""
+    n_total, world = 8, 4
+    k = n_total // world
+    xs = [_masking_input(cuda, size) * (1 + c) for c in range(n_total)]
+    partials, plain = [], torch.zeros(size, dtype=torch.int64, device="cuda")
+    for rank in range(world):
+        part = torch.zeros(size, dtype=torch.int64, device="cuda")
+        for cid in range(rank * k, rank * k + k):
+            seeds, signs = smk.pair_seeds_and_signs(0x9E3779B9, cid,
+                                                    n_total, device="cuda")
+            before = smk.KERNEL.launches
+            got = smk.fused_masked_quantize(xs[cid], seeds, signs,
+                                            scale_bits=20, clip_abs=64.0)
+            assert smk.KERNEL.launches == before + 1
+            want = smk.masked_quantize_reference(
+                xs[cid], seeds, signs, scale_bits=20, clip_abs=64.0)
+            assert torch.equal(got, want), (rank, cid)
+            part += got.long()
+            plain += want.long()
+        partials.append(part)
+    summed = smk.wrap_int32(torch.stack(partials).sum(0))
+    assert torch.equal(summed, smk.wrap_int32(plain))
+    bare = sum(smk.quantize_f32(x, 20, 64.0).long() for x in xs)
+    assert torch.equal(summed, smk.wrap_int32(bare))
+
+
 def test_masking_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     x = torch.randn(8, 6, device="cuda", generator=cuda)
     seeds, signs = smk.pair_seeds_and_signs(1, 0, 3, device="cuda")

@@ -17,6 +17,7 @@ whose serial top-2 margin is below 1e-5 of the largest |logit|."""
 from __future__ import annotations
 
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -598,6 +599,60 @@ def test_serve_rollout_verb_prints_the_jax_verdict(tmp_path, capsys,
         lines[name] = [ln.split(" after ")[0] for ln in out.splitlines()
                        if ln.startswith("rollout: ")]
     assert lines["port"] == lines["jax"] == ["rollout: promoted"]
+
+
+# lifts the TTFT slack of every RolloutController a pod's rank builds, as
+# the monkeypatch above lifts it in this process: python imports a
+# `sitecustomize` module from its path at startup
+_SLACK_SITE = """
+import functools
+
+from idc_models_tpu_torch.checkpoint import rollout
+
+rollout.RolloutController.__init__ = functools.partialmethod(
+    rollout.RolloutController.__init__, ttft_slack=float("inf"))
+"""
+
+
+def test_serve_rollout_under_tp2_on_a_pod_prints_the_jax_verdict(
+        tmp_path, capsys, monkeypatch):
+    """`serve --rollout` under `--tp 2` on a 2-rank `--host-devices` pod
+    (each rank restores only its blocks of the candidate, by the
+    engine's "lm" rules) prints the JAX verb's stage line, canary count
+    included, over the same checkpoint. The promoted weights are the
+    candidate's bit for bit on every rank (held on the 4-rank pod of
+    tests/test_torch_serve_dist.py, as JAX's promotion copies the
+    candidate)."""
+    from idc_models_tpu import cli as jcli
+
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(_SLACK_SITE)
+    monkeypatch.setenv("PYTHONPATH", os.pathsep.join(
+        [str(site)] + [p for p in os.environ.get("PYTHONPATH", "")
+                       .split(os.pathsep) if p]))
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    monkeypatch.setattr(
+        jrollout.RolloutController, "__init__", functools.partialmethod(
+            jrollout.RolloutController.__init__, ttft_slack=float("inf")))
+    ckpt = tmp_path / "candidate"
+    assert cli.main(["serve", "--device", "cpu", "--requests", "4",
+                     "--seed", "1", "--save-ckpt", str(ckpt),
+                     *_VERB]) == 0
+    capsys.readouterr()
+    argv = ["--host-devices", "2", "--tp", "2", "--requests", "24",
+            "--rollout", str(ckpt), "--canary-fraction", "0.5",
+            "--canary-requests", "3", "--rollout-at", "0.0", *_VERB]
+    lines = {}
+    for name, main, extra in (("port", cli.main, ["--device", "cpu"]),
+                              ("jax", jcli.main, [])):
+        assert main(["serve", *extra, *argv]) == 0
+        out = capsys.readouterr().out
+        assert "served: ok=24 timeout=0 rejected=0" in out, name
+        lines[name] = [ln for ln in out.splitlines()
+                       if ln.startswith(("rollout: ", "serving mesh: "))]
+    assert lines["port"] == lines["jax"]
+    assert lines["port"][-1].startswith("rollout: promoted after ")
 
 
 @pytest.mark.parametrize("argv,match", [

@@ -523,6 +523,58 @@ def test_skewed_clock_run_decides_deadlines_and_sheds_on_rank_zeros_clock(
 # ---------------------------------------------------------------------------
 # the verbs
 # ---------------------------------------------------------------------------
+# a slot moved across ring widths; a rollout restored by the engine's rules
+# ---------------------------------------------------------------------------
+
+
+def test_a_slot_moves_between_rings_of_different_widths(ranks):
+    """A greedy request exported mid-decode from a ring of 2 holds all
+    `pos` positions (the row gathered over the ring), and resumes on a
+    ring of 1 and of 4 with the unmoved run's tokens; a ring-of-1
+    snapshot resumes on a ring of 2. The rows the two rings exported for
+    the same positions agree to rounding (their prefills sum over
+    different rings)."""
+    _, per_rank = ranks
+    mig = per_rank[0]["migration"]
+    pos = worker.MOVE_PROMPT_LEN + 4
+    for src in (1, 2):
+        assert mig[f"snap{src}_pos"] == pos
+        assert mig[f"snap{src}_rows"] == [[1, pos, worker.HEADS,
+                                           worker.E // worker.HEADS]] * \
+            worker.BLOCKS
+    want = mig["unmoved1"]
+    assert len(want) == worker.MOVE_BUDGET
+    assert mig["unmoved2"] == mig["unmoved4"] == want
+    assert len(set(want)) > 3         # a stream that moves around
+    for key in ("moved1to2", "moved2to1", "moved2to4"):
+        assert mig[key] == want, key
+        # the resumed logits, window by window, within the f32 serving
+        # contract of the source ring's unmoved run
+        assert mig[f"{key}_logit_err"] < F32_TOL, key
+    assert mig["snap_rows_max_diff"] < 1e-5
+    for r, rank in enumerate(per_rank):
+        assert rank["migration"]["moved2to4"] == want, r
+        assert ("moved2to1" in rank["migration"]) == (r == 0)
+
+
+def test_a_rollout_restores_its_candidate_by_the_engines_rules(ranks):
+    """The tp 2 x seq 2 server under the "lm" rules rolls a sharded
+    checkpoint directory out: every rank restores a BlockTree holding
+    exactly its live parameters' bytes (less than the whole tree), the
+    rollout promotes with every request served, and the promoted
+    weights gathered from the blocks equal the candidate's bit for
+    bit."""
+    _, per_rank = ranks
+    for r, rank in enumerate(per_rank):
+        ro = rank["rollout"]
+        assert ro["stage"] == "promoted", r
+        assert ro["statuses"] == ["ok"] and ro["n_results"] == 6
+        assert ro["block_tree"]
+        assert ro["candidate_bytes"] == ro["live_bytes"] < ro["whole_bytes"]
+        assert ro["promoted_max_diff"] == 0.0
+
+
+# ---------------------------------------------------------------------------
 
 
 def _lines(main, argv):
