@@ -360,6 +360,14 @@ non-zero before the result line:
    the preset's protected buffer), each launch bit-equal to the plain
    version and the blocks' sum to the plain versions'; then a `fed
    --population` round of 2 waves on the group against its ungrouped run;
+21. the library examples (examples/torch_port/): the eleven scripts on
+   the card in this process, at a world of one and their own sizes, each
+   script's asserts holding (ring attention within 1e-5 of full
+   attention, ring decode within 1e-4, the classifier above 0.8, the
+   counting pattern generated, every served stream equal to its serial
+   Generator call, the trimmed mean's loss below the mean's, an SLO
+   alert only under the stragglers), each one's seconds and figures
+   logged, no hand kernel launched;
 
 then one JSON line of per-kernel numbers (B3's row carries its launches
 of each phase-14 run in `launches_spec`, of each phase-15 run in
@@ -406,6 +414,17 @@ SB, CLIP = 20, 64.0
 MASK_SIZES = [1, 127, 1_920, 192_576, 2**20 + 3, 14_714_688]
 MASK_TIME_SIZES = [1_920, 192_576, 262_144, 4_194_304, 14_714_688,
                    33_554_432]
+
+# host time inside a torch.profiler window on each side of the work it
+# reads: the profiler keeps a kernel only where its device timestamps,
+# mapped onto the host clock, land inside the window, and that mapping
+# is off by milliseconds to over a second late in the script -- a
+# window just around a few ms of launches kept none of B1's there
+# (kernel_times printed NaN), and so did one padded by 0.25 s. A reading
+# that needs every launch (`profile_kernels`) widens its window through
+# PROFILE_PADS_S until it keeps them all
+PROFILE_PAD_S = 0.25
+PROFILE_PADS_S = (0.25, 1.0, 4.0)
 
 F32_TOL = dict(rtol=1e-5, atol=1e-6)   # same f32 arithmetic, same order
 BF16_TOL = dict(rtol=1e-2, atol=1e-2)  # one bf16 rounding of equal f32 sums
@@ -757,8 +776,21 @@ def kernel_times(torch, fc, mobilenet, batch: int, card: str,
                      ("library_ms", lib), ("bound_ms", bound),
                      ("bytes", nbytes), ("flops", flops), ("host_us", host)):
             tot[k] += v
-    us = profile_kernels(torch, lambda: [fn() for fn in calls],
-                         ["fused_depthwise"], n=2)["fused_depthwise"]
+    forward = lambda: [fn() for fn in calls]  # noqa: E731
+    if batch == BATCH and dtype == torch.float32:
+        got, offsets = profile_window(
+            torch, forward, {"fused_depthwise": fc.KERNEL}, pad_s=0.0)
+        count, _, launched = got["fused_depthwise"]
+        spread = (f"{offsets[0]!r} to {offsets[-1]!r} ms" if offsets
+                  else "none to read")
+        log(f"profile b{batch}: a window holding just the {launched} "
+            f"launches (no host time around them) kept {count} of them, "
+            f"their device starts minus their launch calls' starts "
+            f"{spread} (the profiler keeps a kernel only where its device "
+            f"timestamps, mapped onto the host clock, land inside the "
+            f"window); {card}")
+    us = profile_kernels(torch, forward, {"fused_depthwise": fc.KERNEL},
+                         card)["fused_depthwise"]
     tot["device_us_per_launch"] = us
     tot["host_us"] /= len(calls)
     del calls
@@ -882,11 +914,13 @@ def profiled(torch, fn, n: int = 10,
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)      # see PROFILE_PAD_S
         t0 = time.perf_counter()
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / n * 1e3
+        time.sleep(PROFILE_PAD_S)
     # device kernels only: a user annotation on the device timeline (the
     # optimizer's "Optimizer.step#RMSprop.step") spans kernels already
     # counted. A kernel's name has an argument list, an annotation's
@@ -1285,6 +1319,46 @@ def client_path(torch, fc, smk, fbk, secure: dict, card: str) -> dict:
         f"masking launches on the group {launches}, rank-offset comparison "
         f"launches {offset} (not counted)")
     return {"launches": launches, "offset_launches": offset}
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the library examples (examples/torch_port/)
+# ---------------------------------------------------------------------------
+
+EXAMPLES = REPO / "examples" / "torch_port"
+
+
+def examples_path(torch, fc, smk, fbk, card: str) -> dict:
+    """Phase 21: the eleven example scripts on the card at a world of one
+    and at their own sizes, in this process (one CUDA start for all):
+    each loaded from its file and its ``main(["--device", "cuda"])``
+    called, as ``python examples/torch_port/<script>`` runs it. Each
+    script's own asserts hold (an AssertionError fails the run). Logs
+    each one's seconds and the figures it returns (losses, accuracies,
+    the ring and decode errors, tokens/s, TTFT, the SLO alerts). The
+    scripts keep the JAX examples' jnp block engines: no hand kernel
+    launches between the counts set to 0 and read."""
+    import importlib
+
+    t_start = time.perf_counter()
+    # the scripts import each other (08 takes 07's model) and `_world`
+    # from their directory; a name that starts with a digit can only be
+    # imported through importlib
+    sys.path.insert(0, str(EXAMPLES))
+    zero_counts(fc, smk, fbk)
+    seconds = {}
+    for path in sorted(EXAMPLES.glob("[0-9]*.py")):
+        t0 = time.perf_counter()
+        figures = importlib.import_module(path.stem).main(["--device",
+                                                           "cuda"])
+        torch.cuda.synchronize()
+        seconds[path.stem] = time.perf_counter() - t0
+        log(f"example {path.stem}: {seconds[path.stem]!r} s on the card; "
+            f"{json.dumps(figures, default=float)}; {card}")
+    no_kernels(fc, smk, fbk, "phase 21 (the examples)")
+    log(f"phase 21 (examples) took {time.perf_counter() - t_start!r} s; "
+        f"no hand kernel launched; {card}")
+    return seconds
 
 
 def mobilenet_updates(torch, n: int, seed: int):
@@ -5160,29 +5234,78 @@ def device_ms(torch, fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
-def profile_kernels(torch, fn, names, n: int = 2) -> dict:
-    """Device us per launch of each kernel whose name holds one of
-    `names`, from torch.profiler over `n` calls of `fn`; NaN for a
-    kernel the profiler did not see."""
+def launch_offsets_ms(prof, names) -> list[float]:
+    """For each kernel event of `prof` whose name holds one of `names`:
+    its start minus the start of the runtime call that launched it (ms,
+    sorted), from the profiler's Chrome trace. On one clock this is the
+    launch latency, microseconds; the rest is the error of the mapping
+    of device timestamps onto the host clock."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    launches = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    return sorted((e["ts"] - launches[e["args"]["correlation"]]) / 1e3
+                  for e in events if e.get("cat") == "kernel"
+                  and any(name in e.get("name", "") for name in names)
+                  and e.get("args", {}).get("correlation") in launches)
+
+
+def profile_window(torch, fn, kernels: dict, n: int = 2,
+                   pad_s: float = PROFILE_PAD_S) -> tuple[dict, list]:
+    """torch.profiler over `n` calls of `fn`, `pad_s` of host time inside
+    the window on each side of them. For each name of `kernels` (a
+    substring of the kernel's symbol -> its wrapper's `CudaKernel`):
+    (events the profiler kept whose name holds it, their device us, the
+    launches the wrapper counted in the window); and the kept events'
+    `launch_offsets_ms`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    before = {name: k.launches for name, k in kernels.items()}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad_s)
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
+        time.sleep(pad_s)
     seen = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     out = {}
-    for name in names:
+    for name, k in kernels.items():
         evs = [e for e in seen if name in e.key]
-        count = sum(e.count for e in evs)
-        out[name] = (sum(e.self_device_time_total for e in evs) / count
-                     if count else float("nan"))
-    return out
+        out[name] = (sum(e.count for e in evs),
+                     sum(e.self_device_time_total for e in evs),
+                     k.launches - before[name])
+    return out, launch_offsets_ms(prof, kernels)
+
+
+def profile_kernels(torch, fn, kernels: dict, card: str,
+                    n: int = 2) -> dict:
+    """Device us per launch of each kernel of `kernels` (as
+    `profile_window`) over `n` calls of `fn`, in the first window of
+    PROFILE_PADS_S that kept every launch of each. Fails when none did:
+    a launch missing from the profile would skew the figure (and a
+    kernel missing altogether used to print NaN)."""
+    tried = []
+    for pad in PROFILE_PADS_S:
+        got, offsets = profile_window(torch, fn, kernels, n, pad)
+        tried.append((pad, {name: c[:1] + c[2:] for name, c in got.items()}))
+        if all(count == launched and count
+               for count, _, launched in got.values()):
+            log(f"profile: {', '.join(kernels)} kept every launch in a "
+                f"window padded by {pad} s a side (kept, launched by pad: "
+                f"{tried}); their device starts minus their launch calls' "
+                f"starts {offsets[0]!r} to {offsets[-1]!r} ms; {card}")
+            return {name: us / count for name, (count, us, _) in got.items()}
+    raise SystemExit(f"the profiler kept another count of a kernel than "
+                     f"was launched in every window (pad s, {{kernel: "
+                     f"(kept, launched)}}): {tried}")
 
 
 def log_flash_tiles(fbk, t: int) -> None:
@@ -5309,6 +5432,7 @@ def lm_step_times(torch, card: str) -> None:
     profiler."""
     from idc_models_tpu_torch.models import core
     from idc_models_tpu_torch.models.lm import AttentionLM, next_token_loss
+    from idc_models_tpu_torch.ops import flash_block_kernel as fbk
     from idc_models_tpu_torch.train.state import TrainState, rmsprop
     from idc_models_tpu_torch.train.step import make_train_step
 
@@ -5354,7 +5478,9 @@ def lm_step_times(torch, card: str) -> None:
             f"{profiled(torch, calls[impl], n=2, kernel='flash_block')}; "
             f"{card}")
     torch.cuda.empty_cache()
-    us = profile_kernels(torch, calls["pallas"], KERNEL_SYMBOLS.values())
+    us = profile_kernels(torch, calls["pallas"], {
+        KERNEL_SYMBOLS[key]: kern
+        for key, kern in zip(("fwd", "dq", "dkv"), fbk.KERNELS)}, card)
     log(f"profile lm train step pallas: device us per launch (profiler) "
         + ", ".join(f"{FLASH_NAMES[key]} {us[sym]!r}"
                     for key, sym in KERNEL_SYMBOLS.items())
@@ -7399,6 +7525,7 @@ def main() -> int:
     observe_path(torch, fc, smk, fbk, card)
     secure = secure_path(torch, fc, smk, card)
     client = client_path(torch, fc, smk, fbk, secure, card)
+    examples_path(torch, fc, smk, fbk, card)
     aggregate_three_ways(torch, smk)
     mobilenet_round(torch, fc, smk, card)
     t32 = kernel_times(torch, fc, mobilenet, BATCH, card)

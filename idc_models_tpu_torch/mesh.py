@@ -24,7 +24,8 @@ the blocks back together.
 `launch_cpu_pod` is the counterpart of ``force_cpu_pod``: where the JAX
 package fakes N devices in one process, the port starts N processes,
 gloo ranks on the CPU joined through a ``file://`` rendezvous (the
-verbs' ``--host-devices N``).
+verbs' ``--host-devices N``, and the example scripts' through
+``script=``).
 """
 
 from __future__ import annotations
@@ -428,8 +429,10 @@ def leave_world() -> None:
         dist.destroy_process_group()
 
 
-def launch_cpu_pod(n: int, argv: list[str]) -> int:
-    """Run ``python -m idc_models_tpu_torch <argv>`` as n gloo ranks on
+def launch_cpu_pod(n: int, argv: list[str], *,
+                   script: str | os.PathLike | None = None) -> int:
+    """Run ``python -m idc_models_tpu_torch <argv>`` (or, with `script`,
+    ``python <script> <argv>``) as n gloo ranks on
     the CPU (no card is visible to them), joined through a ``file://``
     rendezvous in a temporary directory, and wait for them at most
     `POD_TIMEOUT_S`. The ranks share the host's cores: each takes its
@@ -447,6 +450,9 @@ def launch_cpu_pod(n: int, argv: list[str]) -> int:
         [str(Path(__file__).resolve().parent.parent)]
         + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
            if p])
+    command = ([sys.executable, str(Path(script).resolve())]
+               if script is not None
+               else [sys.executable, "-m", "idc_models_tpu_torch"])
     with tempfile.TemporaryDirectory(prefix="idc_cpu_pod_") as tmp:
         tmp = Path(tmp)
         base = dict(os.environ, CUDA_VISIBLE_DEVICES="", WORLD_SIZE=str(n),
@@ -459,7 +465,7 @@ def launch_cpu_pod(n: int, argv: list[str]) -> int:
                 err = open(tmp / f"err.{r}", "w")
                 files += [out, err]
                 procs.append(subprocess.Popen(
-                    [sys.executable, "-m", "idc_models_tpu_torch", *argv],
+                    [*command, *argv],
                     stdout=out, stderr=err, stdin=subprocess.DEVNULL,
                     env=dict(base, RANK=str(r), LOCAL_RANK=str(r))))
             while any(p.poll() is None for p in procs):

@@ -34,10 +34,12 @@ def load_npz(path: str | Path):
         return convert.unflatten({k: z[k] for k in z.files})
 
 
-def merge_pretrained(params, loaded):
+def merge_pretrained(params, loaded, *, strict: bool = False):
     """Graft `loaded` leaves onto `params` where paths+shapes match.
 
-    Returns (merged, n_loaded, mismatches)."""
+    Returns (merged, n_loaded, mismatches). With strict=True any shape
+    mismatch, unexpected path or leaf of `params` left unloaded raises
+    ``ValueError``."""
     flat_p = convert.flatten(params)
     flat_l = convert.flatten(loaded)
     merged = dict(flat_p)
@@ -53,6 +55,9 @@ def merge_pretrained(params, loaded):
             continue
         merged[k] = np.asarray(v, dtype=np.asarray(flat_p[k]).dtype)
         n += 1
+    if strict and (mismatches or n < len(flat_p)):
+        raise ValueError(f"pretrained merge failed: {mismatches[:10]}, "
+                         f"loaded {n}/{len(flat_p)}")
     return convert.unflatten(merged), n, mismatches
 
 

@@ -5,6 +5,7 @@ carry on on the CPU by themselves."""
 from __future__ import annotations
 
 import ast
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -23,13 +24,14 @@ from idc_models_tpu_torch.train import loop as tloop
 
 REPO = Path(__file__).resolve().parent.parent
 # every module of the port (collectives.py, mesh.py, data/sequences.py
-# and serve/ among them), the card's smoke script, and the rank processes
-# of the multi-rank ring and distribution tests, which must start
-# without JAX
+# and serve/ among them), the card's smoke script, the rank processes
+# of the multi-rank tests (tests/_torch_*_worker.py), which must start
+# without JAX, and the port's example scripts
 PORT_FILES = sorted((REPO / "idc_models_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "tests" / "_torch_ring_worker.py",
-    REPO / "tests" / "_torch_dist_worker.py",
-    REPO / "tests" / "_torch_ckpt_worker.py"]
+    REPO / "chip_smoke.py",
+    *sorted((REPO / "tests").glob("_torch_*_worker.py")),
+    *sorted((REPO / "examples" / "torch_port").glob("*.py"))]
+EXAMPLE_SCRIPTS = sorted((REPO / "examples" / "torch_port").glob("[0-9]*.py"))
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -99,6 +101,43 @@ def test_entry_points_raise_without_cuda_unless_given_cpu(no_cuda):
                                None, None)
     tsecure.make_secure_fedavg_round(model, 1e-3, bce, percent=0.5,
                                      device="cpu")
+
+
+def test_the_guard_covers_every_worker_and_example():
+    names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
+    for worker in ("ring", "dist", "ckpt", "fed", "serve_dist"):
+        assert f"tests/_torch_{worker}_worker.py" in names
+    assert len(EXAMPLE_SCRIPTS) == 11
+    assert "examples/torch_port/_world.py" in names
+
+
+def _example(path: Path):
+    """A port example script as a module (its name starts with a digit,
+    which an import statement cannot name)."""
+    import importlib
+
+    if str(path.parent) not in sys.path:
+        sys.path.insert(0, str(path.parent))
+    return importlib.import_module(path.stem)
+
+
+@pytest.mark.parametrize("path", EXAMPLE_SCRIPTS, ids=lambda p: p.stem)
+def test_examples_raise_without_cuda_unless_given_cpu(path, no_cuda):
+    """Each example defaults to --device cuda and raises without a card,
+    before any work, as the verbs do."""
+    main = _example(path).main
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main([])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--device", "cuda"])
+
+
+def test_an_example_runs_when_given_cpu(no_cuda, capsys):
+    """The same script with the CPU asked for runs to its own check."""
+    out = _example(REPO / "examples" / "torch_port"
+                   / "04_ring_attention.py").main(["--device", "cpu"])
+    assert out["ring_err"] < 1e-5
+    assert "max |ring - full|" in capsys.readouterr().out
 
 
 def test_population_entry_points_raise_without_cuda_unless_given_cpu(

@@ -89,3 +89,46 @@ def test_vgg16_from_keras_h5_gives_the_jax_logits(tmp_path):
     with torch.no_grad():
         got = model.eval()(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, np.asarray(want), rtol=1e-4, atol=1e-5)
+
+
+def _merge_trees(case):
+    """(params, loaded) for one of the strict= cases: every leaf with a
+    match, an extra path, a leaf of another shape, a missing leaf."""
+    rng = np.random.default_rng(11)
+    params = {"conv": {"kernel": _r(rng, 3, 3, 3, 4), "bias": _r(rng, 4)},
+              "head": {"kernel": _r(rng, 4, 1)}}
+    loaded = {"conv": {"kernel": _r(rng, 3, 3, 3, 4), "bias": _r(rng, 4)},
+              "head": {"kernel": _r(rng, 4, 1)}}
+    if case == "unexpected":
+        loaded["extra"] = {"kernel": _r(rng, 2)}
+    elif case == "shape":
+        loaded["conv"]["kernel"] = _r(rng, 3, 3, 3, 5)
+    elif case == "missing":
+        del loaded["head"]
+    return params, loaded
+
+
+@pytest.mark.parametrize("strict", [False, True])
+@pytest.mark.parametrize("case", ["exact", "unexpected", "shape", "missing"])
+def test_merge_pretrained_strict_matches_jax(case, strict):
+    """`strict=` as JAX's merge_pretrained: the same (n_loaded,
+    mismatches) and merged leaves where it returns, the same ValueError
+    text where it raises (any mismatch, or fewer leaves loaded than the
+    params hold)."""
+    params, loaded = _merge_trees(case)
+
+    def call(merge):
+        try:
+            merged, n, mismatches = merge(params, loaded, strict=strict)
+        except ValueError as e:
+            return "raised", str(e)
+        return n, mismatches, convert.flatten(merged)
+
+    got = call(tpretrained.merge_pretrained)
+    want = call(jpretrained.merge_pretrained)
+    assert (got[0] == "raised") == (strict and case != "exact")
+    assert got[:2] == want[:2]
+    if got[0] != "raised":
+        assert got[2].keys() == want[2].keys()
+        for k, w in want[2].items():
+            assert np.array_equal(got[2][k], np.asarray(w)), k
